@@ -1,0 +1,167 @@
+"""The port's boundaries: it imports neither JAX nor the JAX package,
+its entry points refuse to fall back to the CPU silently, its kernel
+wrappers never hand a non-CPU tensor to a plain version, and its C
+bindings match the CUDA sources."""
+
+import ast
+import json
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import frankenpaxos_tpu_torch
+from frankenpaxos_tpu_torch.bench import pipeline as tp
+from frankenpaxos_tpu_torch.ops import _build, quorum as tq
+from frankenpaxos_tpu_torch.quorums import SimpleMajority
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.dirname(frankenpaxos_tpu_torch.__file__)
+
+
+def _port_sources():
+    for dirpath, _, filenames in os.walk(PACKAGE):
+        for fn in sorted(filenames):
+            if fn.endswith(".py"):
+                yield os.path.join(dirpath, fn)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_imports_with_jax_and_reference_blocked():
+    """In a fresh interpreter (this one has JAX loaded already), every
+    module of the port imports with ``jax`` and ``frankenpaxos_tpu``
+    blocked on ``sys.meta_path``."""
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+
+        BLOCKED = ("jax", "jaxlib", "frankenpaxos_tpu")
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import frankenpaxos_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            frankenpaxos_tpu_torch.__path__, "frankenpaxos_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not leaked, leaked
+        print(len(names))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 10
+
+
+def test_no_reference_imports_in_the_port():
+    offenders = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                if root in ("jax", "jaxlib", "frankenpaxos_tpu"):
+                    offenders.append(f"{path}:{node.lineno} {name}")
+    assert not offenders, offenders
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = SimpleMajority(range(3)).write_spec()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.make_state(1024, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.make_vote_board(1024, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.TpuQuorumChecker(spec, window=1024)
+    # Naming the CPU explicitly is the only way to the plain versions.
+    assert tp.make_state(1024, 3, device="cpu").votes.device.type == "cpu"
+
+
+def test_headline_refuses_off_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "frankenpaxos_tpu_torch.bench.headline"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["degraded"] is True
+    assert "value" not in out and "vs_baseline" not in out
+
+
+def test_wrappers_never_take_the_plain_version_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel or raises: a
+    ``meta`` tensor (neither CPU nor CUDA) must raise, never reach the
+    plain version."""
+    spec = SimpleMajority(range(3)).write_spec()
+    pred = tq.make_predicate(*spec.as_arrays(), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        tq.quorum_hit(torch.zeros((3, 64), dtype=torch.uint8,
+                                  device="meta"), pred)
+    board = tq.make_vote_board(256, 3, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        tq.record_block(board, 0, 0, torch.zeros(
+            (3, 64), dtype=torch.uint8, device="meta"), 0, pred)
+    with pytest.raises(ValueError, match="meta"):
+        tp.steady_state_step(tp.make_state(512, 3, device="meta"), 0,
+                             block_size=256, predicate=pred)
+    # Mixed devices are refused too.
+    cpu_pred = tq.make_predicate(*spec.as_arrays(), device="cpu")
+    with pytest.raises(ValueError):
+        tq.quorum_hit(torch.zeros((3, 64), dtype=torch.uint8,
+                                  device="meta"), cpu_pred)
+    assert tq.quorum_hit.launches == 0 and tq.record_block.launches == 0
+    assert tp.steady_state_step.launches == 0
+
+
+def test_c_bindings_match_the_cuda_sources():
+    """Every entry point in ``_build.SIGNATURES`` is defined in its
+    source with as many parameters as its ctypes argtypes, so a binding
+    cannot drift from the kernel while no compiler is at hand."""
+    for name, entries in _build.SIGNATURES.items():
+        with open(os.path.join(_build.CSRC, f"{name}.cu"),
+                  encoding="utf-8") as f:
+            source = f.read()
+        for entry, argtypes in entries.items():
+            m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)",
+                          source)
+            assert m, (name, entry)
+            params = [p for p in m.group(1).split(",") if p.strip()]
+            assert len(params) == len(argtypes), (entry, params)
+            pointer = [("*" in p) for p in params]
+            assert pointer == [t is _build._P for t in argtypes], entry
+    # Nothing is built at import time.
+    assert not _build.library.cache_info().currsize
+
+
+def test_build_target_tracks_the_sources():
+    a = _build._target("quorum")
+    assert a == _build._target("quorum")
+    assert a != _build._target("pipeline")
+    assert os.path.dirname(a) == _build.BUILD_DIR
+
+
+def test_int32_arguments_are_range_checked():
+    assert tq.int32(2**31 - 1) == 2**31 - 1
+    with pytest.raises(OverflowError):
+        tq.int32(2**31)
+    checker = tq.TpuQuorumChecker(SimpleMajority(range(3)).write_spec(),
+                                  window=64, device="cpu")
+    with pytest.raises(OverflowError):
+        checker.record_block(2**31, np.ones((3, 1), dtype=np.uint8))
