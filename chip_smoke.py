@@ -19,16 +19,30 @@ Phases, in order (any failure exits nonzero and prints no result):
   5. K3 ``steady_state_step`` against its plain version: 64 drains at
      window 2^20, block 2^15, majority-3 and 2x3 grid; every field of
      the state equal after every drain;
-  6. the main path, with every kernel's launch count set to 0 first:
+  6. K4 ``record_and_check`` against its plain version: 64 calls of
+     64-4096 lanes at window 2^20 per spec (majority-3, 2x3 grid) on a
+     mid-flight board, with duplicate slots, stale owners, ring wrap,
+     round preemption and padding lanes; newly masks and boards equal
+     after every call;
+  7. K5 ``release`` against its plain version at window 2^20;
+  8. K6 ``check_batch_multi`` alone and ``record_and_check_epochs``
+     against their plain versions: three epochs over a 5-node union,
+     window 2^14 (the epoch tracker's);
+  9. K7 ``reshape_columns`` against its plain version: a [3, 2^20]
+     board to [4, 2^20] and to [2, 2^20];
+  10. the main path, with every kernel's launch count set to 0 first:
      the headline (``frankenpaxos_tpu_torch.bench.headline``) at full
-     size for both arms (2^30 commits each, commit count checked), then
-     a ``TpuQuorumChecker`` drain loop at window 2^20 (check_block,
-     check_batch, record_block) checked against the host oracle;
-  7. per-kernel figures at the main path's shapes: CUDA-event time per
+     size for both arms (2^30 commits each, commit count checked), a
+     ``TpuQuorumChecker`` drain loop at window 2^20 (check_block,
+     check_batch, record_block) checked against the host oracle, and
+     ``bench/tracker_lt.py`` at full width (window 2^20, 2^20 slots per
+     arm: sync, pipelined, 2x3 grid, epoch handover), every arm checked
+     against its dict oracle; K1-K7 must each have launched;
+  11. per-kernel figures at the main path's shapes: CUDA-event time per
      call over many calls, the plain version's time, the bound
      (bytes / 3.35 TB/s vs integer operations / 67 T/s, the larger) and
-     the launches of phase 6, printed as one ``{"kernels": [...]}`` line;
-     before it, each headline arm's drain split into device time
+     the launches of phase 10, printed as one ``{"kernels": [...]}``
+     line; before it, each headline arm's drain split into device time
      (profiler) and the share of the drain the device sits idle.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -42,10 +56,11 @@ import time
 import warnings
 
 import frankenpaxos_tpu_torch
-from frankenpaxos_tpu_torch.bench import headline, pipeline as tp
+from frankenpaxos_tpu_torch.bench import headline, pipeline as tp, tracker_lt
 from frankenpaxos_tpu_torch.device import nvidia_smi_line
 from frankenpaxos_tpu_torch.ops import _build, quorum as tq
 from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority
+from frankenpaxos_tpu_torch.quorums.spec import pad_specs
 import numpy as np
 import torch
 
@@ -178,13 +193,199 @@ def phase_k3(dev) -> int:
     return worst
 
 
+def _random_board(rng, n: int, window: int, dev) -> tuple:
+    """Two equal mid-flight boards (kernel's, plain version's) with
+    arbitrary vote bytes, rounds, chosen bits and owners."""
+    arrays = (rng.integers(0, 3, size=(n, window), dtype=np.uint8),
+              rng.integers(-1, 4, size=window).astype(np.int32),
+              rng.random(window) < 0.2,
+              rng.integers(-1, 2 * window, size=window).astype(np.int32))
+    return tuple(tq.VoteBoard(*(torch.from_numpy(a.copy()).to(dev)
+                                for a in arrays)) for _ in range(2))
+
+
+def _sparse_lanes(rng, window: int, n: int, frontier: int, b: int,
+                  kinds: dict) -> np.ndarray:
+    """One batch of ``b`` lanes: duplicate slots, stragglers a window or
+    more behind the frontier (stale owners), newer slots a window ahead
+    (ring wrap, reclaim), rounds 0-3 (preemption), a few nodes outside
+    ``[0, n)``, a few slots outside ``[0, window)`` (JAX's index rules)
+    and padding lanes (slot 0, not valid) at the end."""
+    true = frontier - rng.integers(0, 4 * b, size=b)
+    jump = rng.choice([0, 0, 0, 0, window, -window], size=b)
+    true = np.maximum(true + jump, 0)
+    true[rng.integers(0, b, size=b // 4)] = true[0]
+    nodes = rng.integers(0, n, size=b)
+    odd = rng.random(b) < 0.02
+    nodes[odd] = rng.integers(-n - 1, n + 1, size=int(odd.sum()))
+    rounds = rng.integers(0, 4, size=b)
+    valid = np.ones(b, dtype=bool)
+    pad = int(rng.integers(0, b // 8 + 1))
+    if pad:
+        valid[-pad:] = False
+        true[-pad:] = 0
+    slots = true % window
+    far = (rng.random(b) < 0.01) & valid
+    slots[far] += rng.choice([-2, -1, 1], size=int(far.sum())) * window
+    kinds["dup"] += int(len(np.unique(true[valid])) < int(valid.sum()))
+    kinds["stale"] += int((jump < 0).any())
+    kinds["wrap"] += int((true >= window).any())
+    kinds["pad"] += int(pad > 0)
+    kinds["preempt"] += int((rounds > 0).any())
+    kinds["range"] += int(far.any())
+    return tq.pack_lanes(slots, true, nodes, rounds, valid)
+
+
+def phase_k4(dev, rng) -> int:
+    """K4 against its plain version: window 2^20, 64 calls of 64-4096
+    lanes per spec; newly masks and boards equal after every call."""
+    worst = 0
+    for name in ("majority3", "grid2x3_write"):
+        spec = specs()[name]
+        n = spec.num_nodes
+        pred = predicate(spec, dev)
+        board_k, board_p = _random_board(rng, n, WINDOW, dev)
+        kinds = dict.fromkeys(("dup", "stale", "wrap", "pad", "preempt",
+                               "range"), 0)
+        frontier = WINDOW // 2
+        for step in range(64):
+            b = int(rng.integers(64, 4097))
+            frontier += int(rng.integers(0, 2 * b))
+            lanes = torch.from_numpy(_sparse_lanes(
+                rng, WINDOW, n, frontier, b, kinds)).to(dev)
+            got = tq.record_and_check(board_k, lanes, pred)
+            want = tq.record_and_check_plain(board_p, lanes, pred)
+            err = max(max_abs_err(got, want), _boards_equal(board_k, board_p))
+            worst = max(worst, err)
+            require(err == 0, f"K4 differs from plain on {name} at call "
+                              f"{step}")
+        require(all(kinds.values()), f"K4 sequence lacks a case: {kinds}")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+def phase_k5(dev, rng) -> int:
+    """K5 against its plain version: window 2^20, all-valid batches with
+    duplicate, negative and out-of-range slots, and mixed valid flags on
+    distinct slots."""
+    worst = 0
+    board_k, board_p = _random_board(rng, 3, WINDOW, dev)
+    for step in range(16):
+        b = 4096
+        if step % 2:
+            slots = rng.permutation(WINDOW)[:b].astype(np.int32)
+            valid = rng.random(b) < 0.5
+        else:
+            slots = rng.integers(-WINDOW - 8, WINDOW + 8,
+                                 size=b).astype(np.int32)
+            slots[: b // 4] = slots[0]
+            valid = np.ones(b, dtype=bool)
+        s, v = (torch.from_numpy(x).to(dev) for x in (slots, valid))
+        tq.release(board_k, s, v)
+        tq.release_plain(board_p, s, v)
+        err = _boards_equal(board_k, board_p)
+        worst = max(worst, err)
+        require(err == 0, f"K5 differs from plain at call {step}")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+EPOCH_WINDOW = 1 << 14   # the ProxyLeader's epoch tracker window
+
+
+def epoch_planes(dev):
+    """Three epochs over a 5-node union (majorities of (0,1,2), (0,1,3),
+    (1,3,4)) starting at slots 0, 3000 and 9000."""
+    universe = tuple(range(5))
+    epoch_specs = [SimpleMajority(m).write_spec().reindexed(universe)
+                   for m in ((0, 1, 2), (0, 1, 3), (1, 3, 4))]
+    planes = tq.make_multi_predicate(*pad_specs(epoch_specs), device=dev)
+    boundaries = torch.tensor([3000, 9000], dtype=torch.int32, device=dev)
+    return planes, boundaries
+
+
+def phase_k6(dev, rng) -> dict:
+    """K6 against its plain version: ``check_batch_multi`` alone (0/1 and
+    arbitrary int32 rows, config indices in and out of range), then 64
+    epoch-segmented scatters at window 2^14 across both boundaries."""
+    planes, boundaries = epoch_planes(dev)
+    k = planes.masks.shape[0]
+    worst_multi = 0
+    for b in (1, 256, 4096, 65536):
+        present = (rng.random((b, 5)) < 0.5).astype(np.int32)
+        present[: b // 8] = rng.integers(-2**31, 2**31 - 1,
+                                         size=(b // 8, 5))
+        idx = rng.integers(-k - 1, k + 2, size=b).astype(np.int32)
+        p, i = (torch.from_numpy(x).to(dev) for x in (present, idx))
+        for view in (p, p.t().contiguous().t()):
+            err = max_abs_err(tq.check_batch_multi(view, i, planes),
+                              tq.check_batch_multi_plain(view, i, planes))
+            worst_multi = max(worst_multi, err)
+            require(err == 0, f"K6 check_batch_multi differs at B={b}")
+    worst = 0
+    board_k, board_p = _random_board(rng, 5, EPOCH_WINDOW, dev)
+    kinds = dict.fromkeys(("dup", "stale", "wrap", "pad", "preempt",
+                           "range"), 0)
+    frontier = 2000
+    for step in range(64):
+        b = int(rng.integers(64, 1025))
+        frontier += int(rng.integers(0, 800))
+        lanes = torch.from_numpy(_sparse_lanes(
+            rng, EPOCH_WINDOW, 5, frontier, b, kinds)).to(dev)
+        got = tq.record_and_check_epochs(board_k, lanes, boundaries, planes)
+        want = tq.record_and_check_epochs_plain(board_p, lanes, boundaries,
+                                                planes)
+        err = max(max_abs_err(got, want), _boards_equal(board_k, board_p))
+        worst = max(worst, err)
+        require(err == 0, f"K6 differs from plain at call {step}")
+    require(frontier > 9000 and all(kinds.values()),
+            f"K6 sequence lacks a case: frontier {frontier}, {kinds}")
+    torch.cuda.synchronize(dev)
+    return {"record_and_check_epochs": worst,
+            "check_batch_multi": worst_multi}
+
+
+def phase_k7(dev, rng) -> int:
+    """K7 against its plain version on a [3, 2^20] board, to [4, 2^20]
+    (a member added, rows permuted) and to [2, 2^20] (one dropped)."""
+    worst = 0
+    block = torch.from_numpy(rng.integers(0, 256, size=(3, WINDOW),
+                                          dtype=np.uint8)).to(dev)
+    for old, new in (((0, 1, 2), (2, 0, 3, 1)), ((0, 1, 2), (1, 2)),
+                     ((5, 9, 2), (2, 9, 7, 5))):
+        cmap = torch.from_numpy(tq.epoch_column_map(old, new)).to(dev)
+        err = max_abs_err(tq.reshape_columns(block, cmap),
+                          tq.reshape_columns_plain(block, cmap))
+        worst = max(worst, err)
+        require(err == 0, f"K7 differs from plain for {old} -> {new}")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+#: Every kernel wrapper, by the name of its row in the kernels line.
+WRAPPERS = {
+    "quorum_hit": tq.quorum_hit,
+    "record_block": tq.record_block,
+    "steady_state_step": tp.steady_state_step,
+    "record_and_check": tq.record_and_check,
+    "release": tq.release,
+    "record_and_check_epochs": tq.record_and_check_epochs,
+    "check_batch_multi": tq.check_batch_multi,
+    "reshape_columns": tq.reshape_columns,
+}
+#: The kernels of the main path, K1-K7 (check_batch_multi, K6's
+#: stateless predicate, is not on it).
+MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
+             "record_and_check", "release", "record_and_check_epochs",
+             "reshape_columns")
+
+
 def reset_launches() -> None:
-    tq.quorum_hit.launches = 0
-    tq.record_block.launches = 0
-    tp.steady_state_step.launches = 0
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
 
 
-def phase_main_path(dev, rng) -> tuple[dict, dict]:
+def phase_main_path(dev, rng) -> tuple[dict, dict, dict]:
     reset_launches()
     result = headline.measure(dev, latency_budget_s=10.0)
     spec = specs()["majority3"]
@@ -201,13 +402,14 @@ def phase_main_path(dev, rng) -> tuple[dict, dict]:
         require(np.array_equal(newly, hits),
                 f"record_block disagrees with the host oracle at drain {d}")
         chosen += int(newly.sum())
-    launches = {"quorum_hit": tq.quorum_hit.launches,
-                "record_block": tq.record_block.launches,
-                "steady_state_step": tp.steady_state_step.launches}
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
     result["checker_chosen"] = chosen
-    return result, launches
+    # The ProxyLeader's vote path at full width: every arm is checked
+    # against its dict oracle inside run() (a mismatch raises).
+    votes = tracker_lt.run(dev)
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    require(all(launches[name] > 0 for name in MAIN_PATH),
+            f"a kernel of the main path never launched: {launches}")
+    return result, votes, launches
 
 
 def time_ms(fn, iters: int) -> float:
@@ -269,7 +471,22 @@ def phase_breakdown(dev, result: dict) -> dict:
     return out
 
 
+def _sparse_case(dev, rng, n: int, window: int, b: int):
+    """Two fresh boards and one chunk of ``b`` straggler lanes (distinct
+    slots behind a frontier, valid, round 0), as the tracker sends K4
+    and K6; also the count of distinct columns the chunk touches."""
+    true = rng.choice(window, size=b, replace=False).astype(np.int64)
+    lanes = torch.from_numpy(tq.pack_lanes(
+        true % window, true, rng.integers(0, n, size=b),
+        np.zeros(b, np.int32), np.ones(b, bool))).to(dev)
+    boards = [tq.make_vote_board(window, n, device=dev) for _ in range(2)]
+    return boards, lanes, len(np.unique(true % window))
+
+
 def phase_figures(dev, rng, launches: dict, errors: dict) -> list:
+    """Per kernel at the main path's shapes: wrapper call time (CUDA
+    events), device time (profiler), the plain version's time, and the
+    bound from the bytes and integer operations the call needs."""
     spec = specs()["majority3"]
     n = spec.num_nodes
     pred = predicate(spec, dev)
@@ -291,28 +508,92 @@ def phase_figures(dev, rng, launches: dict, errors: dict) -> list:
         tp.steady_state_step_plain(state_p, drains["p"], BLOCK, pred)
         drains["p"] += 1
 
+    # K4: one scatter chunk of the pipelined tracker (max_chunk lanes).
+    chunk = 256
+    (k4_k, k4_p), k4_lanes, k4_cols = _sparse_case(dev, rng, n, WINDOW,
+                                                  chunk)
+    # K5: the pipelined prewarm's release of max_dense columns.
+    rel = 4096
+    k5_k, k5_p = (tq.make_vote_board(WINDOW, n, device=dev)
+                  for _ in range(2))
+    k5_slots = torch.arange(rel, dtype=torch.int32, device=dev)
+    k5_valid = torch.ones(rel, dtype=torch.bool, device=dev)
+    # K6: the epoch tracker after the handover: N = 4, K = 2, window 2^14.
+    universe = tuple(range(4))
+    planes = tq.make_multi_predicate(*pad_specs(
+        [SimpleMajority(m).write_spec().reindexed(universe)
+         for m in ((0, 1, 2), (0, 1, 3))]), device=dev)
+    kk, kg, kn = planes.masks.shape
+    plane_bytes = 4 * kk * kg * kn + 4 * kk * kg + kk + 4 * (kk - 1)
+    bounds = torch.tensor([EPOCH_WINDOW // 2], dtype=torch.int32,
+                          device=dev)
+    (k6_k, k6_p), k6_lanes, k6_cols = _sparse_case(dev, rng, kn,
+                                                  EPOCH_WINDOW, chunk)
+    present = torch.from_numpy(
+        (rng.random((chunk, kn)) < 0.6).astype(np.int32)).to(dev)
+    cfg = torch.from_numpy(rng.integers(0, kk, size=chunk).astype(
+        np.int32)).to(dev)
+    # K7: the epoch board's reshape at the handover, [3, W] -> [4, W].
+    k7_block = torch.from_numpy((rng.random((3, EPOCH_WINDOW)) < 0.5)
+                                .astype(np.uint8)).to(dev)
+    k7_cmap = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=dev)
+
+    quorum, sparse, epoch = (f"frankenpaxos_tpu_torch/ops/csrc/{f}.cu"
+                             for f in ("quorum", "sparse", "epoch"))
+    ref = "frankenpaxos_tpu/ops/quorum.py"
     cases = [
         # name, kernel fn, plain fn, device kernel name, bytes, int ops,
-        # source, replaces
+        # source, replaces, shape
         ("quorum_hit", lambda: tq.quorum_hit(votes, pred),
          lambda: tq.quorum_hit_plain(votes, pred), "quorum_hit_kernel",
-         (n + 1) * BLOCK, (2 * g * n + 2 * g) * BLOCK,
-         "frankenpaxos_tpu_torch/ops/csrc/quorum.cu",
-         "frankenpaxos_tpu/ops/quorum.py:77"),
+         (n + 1) * BLOCK, (2 * g * n + 2 * g) * BLOCK, quorum, f"{ref}:77",
+         f"N={n} B={BLOCK}"),
         ("record_block",
          lambda: tq.record_block(board_k, 0, 0, votes, 0, pred),
          lambda: tq.record_block_plain(board_p, 0, 0, votes, 0, pred),
          "record_block_kernel", (3 * n + 19) * BLOCK,
-         (6 * n + 2 * g * n + 30) * BLOCK,
-         "frankenpaxos_tpu_torch/ops/csrc/quorum.cu",
-         "frankenpaxos_tpu/ops/quorum.py:267"),
+         (6 * n + 2 * g * n + 30) * BLOCK, quorum, f"{ref}:267",
+         f"N={n} B={BLOCK} W={WINDOW}"),
         ("steady_state_step", k3, k3_plain, "steady_state_step_kernel",
          (5 * n + 17) * BLOCK, (2 * (10 * n + 2 * g * n + 8) + 30) * BLOCK,
          "frankenpaxos_tpu_torch/ops/csrc/pipeline.cu",
-         "frankenpaxos_tpu/bench/pipeline.py:145"),
+         "frankenpaxos_tpu/bench/pipeline.py:145",
+         f"N={n} B={BLOCK} W={WINDOW}"),
+        # Lanes (20 B each) and newly (1 B) plus, per distinct column,
+        # owner, round, chosen and N vote bytes read and written.
+        ("record_and_check",
+         lambda: tq.record_and_check(k4_k, k4_lanes, pred),
+         lambda: tq.record_and_check_plain(k4_p, k4_lanes, pred),
+         "record_and_check_kernel", 21 * chunk + 2 * (9 + n) * k4_cols,
+         (40 + 2 * g * n) * chunk, sparse, f"{ref}:214",
+         f"N={n} B={chunk} W={WINDOW}"),
+        ("release", lambda: tq.release(k5_k, k5_slots, k5_valid),
+         lambda: tq.release_plain(k5_p, k5_slots, k5_valid),
+         "release_kernel", 5 * rel + (9 + n) * rel, (8 + n) * rel, sparse,
+         f"{ref}:327", f"N={n} B={rel} W={WINDOW}"),
+        ("record_and_check_epochs",
+         lambda: tq.record_and_check_epochs(k6_k, k6_lanes, bounds, planes),
+         lambda: tq.record_and_check_epochs_plain(k6_p, k6_lanes, bounds,
+                                                  planes),
+         "record_and_check_epochs_kernel",
+         21 * chunk + 2 * (9 + kn) * k6_cols + plane_bytes,
+         (42 + 2 * kg * kn) * chunk, epoch, f"{ref}:237",
+         f"N={kn} K={kk} B={chunk} W={EPOCH_WINDOW}"),
+        ("check_batch_multi",
+         lambda: tq.check_batch_multi(present, cfg, planes),
+         lambda: tq.check_batch_multi_plain(present, cfg, planes),
+         "check_batch_multi_kernel", (4 * kn + 5) * chunk + plane_bytes,
+         (2 * kg * kn + kg) * chunk, epoch, f"{ref}:359",
+         f"N={kn} K={kk} B={chunk}"),
+        ("reshape_columns", lambda: tq.reshape_columns(k7_block, k7_cmap),
+         lambda: tq.reshape_columns_plain(k7_block, k7_cmap),
+         "reshape_columns_kernel", (3 + 4) * EPOCH_WINDOW + 16,
+         4 * EPOCH_WINDOW, epoch, f"{ref}:441",
+         f"[3, {EPOCH_WINDOW}] -> [4, {EPOCH_WINDOW}]"),
     ]
     out = []
-    for name, fn, plain, kname, nbytes, ops, source, replaces in cases:
+    for (name, fn, plain, kname, nbytes, ops, source, replaces,
+         shape) in cases:
         ms = time_ms(fn, 2000)
         plain_ms = time_ms(plain, 200)
         dev_ms = device_ms(fn, kname)
@@ -325,7 +606,7 @@ def phase_figures(dev, rng, launches: dict, errors: dict) -> list:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "device_ms": dev_ms, "bytes": nbytes,
-            "shape": f"N={n} B={BLOCK} W={WINDOW}",
+            "shape": shape,
         })
     return out
 
@@ -347,37 +628,54 @@ def main() -> int:
     try:
         name = torch.cuda.get_device_name(dev)
         smi = nvidia_smi_line()
-        log(f"[1/7] device: {name} ({torch.cuda.device_count()} visible), "
-            f"torch {torch.__version__}, cuda {torch.version.cuda}")
+        log(f"[1/11] device: {name} ({torch.cuda.device_count()} "
+            f"visible), torch {torch.__version__}, cuda {torch.version.cuda}")
         require(smi is not None, "nvidia-smi gave no name and power limit")
         log(smi)
 
         seconds = _build.build()
-        log(f"[2/7] build: {seconds:.1f} s")
+        log(f"[2/11] build: {seconds:.1f} s")
         for lib in _build.SIGNATURES:
             for line in _build.build_log(lib).splitlines():
                 if re.search(r"registers|spill", line):
                     log(f"      {lib}: {line.strip()}")
 
         errors = {"quorum_hit": phase_k1(dev, rng)}
-        log(f"[3/7] K1 quorum_hit == plain (5 specs, B={BLOCK})")
+        log(f"[3/11] K1 quorum_hit == plain (5 specs, B={BLOCK})")
         errors["record_block"] = phase_k2(dev, rng)
-        log(f"[4/7] K2 record_block == plain (64 calls, W={WINDOW})")
+        log(f"[4/11] K2 record_block == plain (64 calls, W={WINDOW})")
         errors["steady_state_step"] = phase_k3(dev)
-        log(f"[5/7] K3 steady_state_step == plain (64 drains x 2 specs)")
+        log("[5/11] K3 steady_state_step == plain (64 drains x 2 specs)")
+        errors["record_and_check"] = phase_k4(dev, rng)
+        log(f"[6/11] K4 record_and_check == plain (64 calls of 64-4096 "
+            f"lanes x 2 specs, W={WINDOW})")
+        errors["release"] = phase_k5(dev, rng)
+        log(f"[7/11] K5 release == plain (16 calls of 4096 lanes, "
+            f"W={WINDOW})")
+        errors.update(phase_k6(dev, rng))
+        log(f"[8/11] K6 check_batch_multi and record_and_check_epochs == "
+            f"plain (3 epochs, 5-node union, W={EPOCH_WINDOW})")
+        errors["reshape_columns"] = phase_k7(dev, rng)
+        log(f"[9/11] K7 reshape_columns == plain ([3, {WINDOW}] -> "
+            f"[4, {WINDOW}] and [2, {WINDOW}])")
 
-        result, launches = phase_main_path(dev, rng)
-        log(f"[6/7] headline on {name} ({smi}): "
+        result, votes, launches = phase_main_path(dev, rng)
+        log(f"[10/11] main path on {name} ({smi}): headline "
             f"{result['value']} cmds/s majority-3, "
             f"{result['grid_cmds_per_sec']} cmds/s grid 2x3; mean drain "
             f"{result['mean_quorum_batch_latency_us']} us, p50 "
             f"{result['p50_drain_latency_us']} us, p99 "
-            f"{result['p99_drain_latency_us']} us; launches {launches}")
+            f"{result['p99_drain_latency_us']} us; tracker_lt votes/s "
+            + ", ".join(f"{arm} {fig['votes_per_sec']:.0f}"
+                        for arm, fig in votes["arms"].items())
+            + f"; measured min_device_slots "
+            f"{votes['measured_min_device_slots']}; launches {launches}")
         log(json.dumps({"headline": result}))
+        log(json.dumps({"tracker_lt": votes}))
 
         log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
         kernels = phase_figures(dev, rng, launches, errors)
-        log(f"[7/7] per-kernel figures on {name} ({smi}); "
+        log(f"[11/11] per-kernel figures on {name} ({smi}); "
             f"{time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

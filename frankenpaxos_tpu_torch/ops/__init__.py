@@ -1,13 +1,17 @@
-"""Device kernels of the port: the dense vote board and quorum checker.
+"""Device kernels of the port: the vote board, the quorum checkers and
+the epoch / multi-config checkers.
 
 CUDA sources live in ``csrc/`` and are built at first use by
 ``_build``; nothing is compiled when this package is imported.
 """
 
 from frankenpaxos_tpu_torch.ops.quorum import (
+    EpochSegmentedChecker,
     make_vote_board,
+    MultiConfigQuorumChecker,
     TpuQuorumChecker,
     VoteBoard,
 )
 
-__all__ = ["TpuQuorumChecker", "VoteBoard", "make_vote_board"]
+__all__ = ["EpochSegmentedChecker", "MultiConfigQuorumChecker",
+           "TpuQuorumChecker", "VoteBoard", "make_vote_board"]

@@ -48,6 +48,27 @@ SIGNATURES = {
         "fpx_record_block": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _P,
                              *_PRED, _I, _P],
     },
+    "sparse": {
+        # votes, rounds, chosen, owner, window, lanes [5, b], b, newly,
+        # scratch [2, b], *pred
+        "fpx_record_and_check": [_P, _P, _P, _P, _L, _P, _I, _P, _P,
+                                 *_PRED, _I, _P],
+        # votes, rounds, chosen, owner, window, n, slots, valid, b
+        "fpx_release": [_P, _P, _P, _P, _L, _I, _P, _P, _I, _I, _P],
+    },
+    "epoch": {
+        # present, row_stride, col_stride, b, config_idx, out, masks,
+        # thresholds, combine_any, k, g, n
+        "fpx_check_batch_multi": [_P, _L, _L, _I, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _P],
+        # votes, rounds, chosen, owner, window, lanes, b, boundaries, nb,
+        # newly, scratch, masks, thresholds, combine_any, k, g, n
+        "fpx_record_and_check_epochs": [_P, _P, _P, _P, _L, _P, _I, _P, _I,
+                                        _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _P],
+        # block, n_old, b, cmap, n_new, out
+        "fpx_reshape_columns": [_P, _I, _L, _P, _I, _P, _I, _P],
+    },
     "pipeline": {
         # votes, chosen, commands, results, sm_state, committed,
         # exec_wm, window, block_size, i, *pred

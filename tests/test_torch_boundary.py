@@ -1,4 +1,5 @@
-"""The port's boundaries: it imports neither JAX nor the JAX package,
+"""The port's boundaries: it imports neither JAX nor the JAX package
+(the package as a whole and each module of the vote path alone),
 its entry points refuse to fall back to the CPU silently, its kernel
 wrappers never hand a non-CPU tensor to a plain version, and its C
 bindings match the CUDA sources."""
@@ -12,9 +13,13 @@ import sys
 import textwrap
 
 import frankenpaxos_tpu_torch
-from frankenpaxos_tpu_torch.bench import pipeline as tp
+from frankenpaxos_tpu_torch.bench import pipeline as tp, tracker_lt
 from frankenpaxos_tpu_torch.ops import _build, quorum as tq
+from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
+    TpuQuorumTracker,
+)
 from frankenpaxos_tpu_torch.quorums import SimpleMajority
+from frankenpaxos_tpu_torch.reconfig import EpochQuorumTracker, EpochStore
 import numpy as np
 import pytest
 import torch
@@ -54,12 +59,51 @@ def test_imports_with_jax_and_reference_blocked():
             importlib.import_module(name)
         leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not leaked, leaked
-        print(len(names))
+        print(" ".join(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 10
+    imported = set(proc.stdout.split())
+    assert {f"frankenpaxos_tpu_torch.{m}" for m in PATH_MODULES} <= imported
+
+
+#: The modules of the ProxyLeader's vote path; each must import with
+#: JAX and the JAX package blocked (test above) and name neither.
+PATH_MODULES = (
+    "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
+    "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
+    "reconfig.tracker", "bench.tracker_lt", "convert",
+)
+
+
+def test_vote_path_modules_import_alone():
+    """Each module of the vote path, imported ALONE (every module of the
+    port dropped from ``sys.modules`` before it) with ``jax`` and
+    ``frankenpaxos_tpu`` blocked, loads neither."""
+    script = textwrap.dedent(f"""
+        import importlib, sys
+
+        BLOCKED = ("jax", "jaxlib", "frankenpaxos_tpu")
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked import of {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        for module in {PATH_MODULES!r}:
+            for loaded in [m for m in sys.modules
+                           if m.startswith("frankenpaxos_tpu_torch")]:
+                del sys.modules[loaded]
+            importlib.import_module("frankenpaxos_tpu_torch." + module)
+            leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+            assert not leaked, (module, leaked)
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_no_reference_imports_in_the_port():
@@ -90,6 +134,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tq.make_vote_board(1024, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tq.TpuQuorumChecker(spec, window=1024)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.EpochSegmentedChecker([spec], [0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.MultiConfigQuorumChecker([spec])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.reshape_block(np.zeros((3, 4), np.uint8), (0, 1, 2), (0, 1))
+    config = tracker_lt.make_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TpuQuorumTracker(config)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EpochQuorumTracker(EpochStore.from_members(("a", "b", "c"), f=1),
+                           backend="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tracker_lt.run()
     # Naming the CPU explicitly is the only way to the plain versions.
     assert tp.make_state(1024, 3, device="cpu").votes.device.type == "cpu"
 
@@ -126,8 +184,35 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError):
         tq.quorum_hit(torch.zeros((3, 64), dtype=torch.uint8,
                                   device="meta"), cpu_pred)
-    assert tq.quorum_hit.launches == 0 and tq.record_block.launches == 0
-    assert tp.steady_state_step.launches == 0
+    # The sparse, release, epoch and reshape wrappers too.
+    lanes = torch.zeros((5, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        tq.record_and_check(board, lanes, pred)
+    with pytest.raises(ValueError, match="meta"):
+        tq.release(board, torch.zeros(4, dtype=torch.int32, device="meta"),
+                   torch.ones(4, dtype=torch.bool, device="meta"))
+    planes = tq.make_multi_predicate(np.ones((2, 1, 3)), np.ones((2, 1)),
+                                     np.ones(2, bool), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        tq.check_batch_multi(
+            torch.zeros((8, 3), dtype=torch.int32, device="meta"),
+            torch.zeros(8, dtype=torch.int32, device="meta"), planes)
+    with pytest.raises(ValueError, match="meta"):
+        tq.record_and_check_epochs(
+            board, lanes, torch.zeros(1, dtype=torch.int32, device="meta"),
+            planes)
+    with pytest.raises(ValueError, match="meta"):
+        tq.reshape_columns(torch.zeros((3, 8), dtype=torch.uint8,
+                                       device="meta"),
+                           torch.zeros(4, dtype=torch.int32, device="meta"))
+    # A CPU board with a CUDA-less mix is refused as well.
+    with pytest.raises(ValueError):
+        tq.record_and_check(tq.make_vote_board(256, 3, device="cpu"), lanes,
+                            cpu_pred)
+    launches = [tq.quorum_hit, tq.record_block, tp.steady_state_step,
+                tq.record_and_check, tq.release, tq.check_batch_multi,
+                tq.record_and_check_epochs, tq.reshape_columns]
+    assert [f.launches for f in launches] == [0] * len(launches)
 
 
 def test_c_bindings_match_the_cuda_sources():
