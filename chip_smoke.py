@@ -30,7 +30,10 @@ Phases, in order (any failure exits nonzero and prints no result):
      window 2^14 (the epoch tracker's);
   9. K7 ``reshape_columns`` against its plain version: a [3, 2^20]
      board to [4, 2^20] and to [2, 2^20];
-  10. the main path, with every kernel's launch count set to 0 first:
+  10. K8 ``safe_values`` against its plain version: [2^16, 3] and
+     [2^16, 6] rounds with forced ties, all-NO_VOTE rows and the
+     Leader's pow2 padding rows: exact;
+  11. the main path, with every kernel's launch count set to 0 first:
      the headline (``frankenpaxos_tpu_torch.bench.headline``) at full
      size for both arms (2^30 commits each, commit count checked), a
      ``TpuQuorumChecker`` drain loop at window 2^20 (check_block,
@@ -38,12 +41,23 @@ Phases, in order (any failure exits nonzero and prints no result):
      ``bench/tracker_lt.py`` at full width (window 2^20, 2^20 slots per
      arm: sync, pipelined, 2x3 grid, epoch handover), every arm checked
      against its dict oracle; K1-K7 must each have launched;
-  11. per-kernel figures at the main path's shapes: CUDA-event time per
+  12. the MultiPaxos cluster path, with every count set to 0 again
+     first: ``bench/multipaxos_sim.py`` at full width (2^16 steady
+     writes on the synchronous tracker, a failover whose recovery runs
+     K8 on [2^16, 3], 2^14 writes on the pipelined tracker whose last
+     wave has one acceptor's votes straggle across a failover), every
+     write answered with its state machine result, both replicas'
+     logs equal, K8's recovery equal to the host path's; K1, K2, K4
+     and K8 must each have launched on the arms' traffic (K4 on the
+     pipelined arm's straggling votes; K5 runs only in the pipelined
+     trackers' construction prewarm, as no role releases the board);
+  13. per-kernel figures at the main path's shapes: CUDA-event time per
      call over many calls, the plain version's time, the bound
      (bytes / 3.35 TB/s vs integer operations / 67 T/s, the larger) and
-     the launches of phase 10, printed as one ``{"kernels": [...]}``
-     line; before it, each headline arm's drain split into device time
-     (profiler) and the share of the drain the device sits idle.
+     the launches of phases 11 and 12, printed as one
+     ``{"kernels": [...]}`` line; before it, each headline arm's drain
+     split into device time (profiler) and the share of the drain the
+     device sits idle.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -56,9 +70,14 @@ import time
 import warnings
 
 import frankenpaxos_tpu_torch
-from frankenpaxos_tpu_torch.bench import headline, pipeline as tp, tracker_lt
+from frankenpaxos_tpu_torch.bench import (
+    headline,
+    multipaxos_sim,
+    pipeline as tp,
+    tracker_lt,
+)
 from frankenpaxos_tpu_torch.device import nvidia_smi_line
-from frankenpaxos_tpu_torch.ops import _build, quorum as tq
+from frankenpaxos_tpu_torch.ops import _build, quorum as tq, value as tv
 from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority
 from frankenpaxos_tpu_torch.quorums.spec import pad_specs
 import numpy as np
@@ -362,6 +381,40 @@ def phase_k7(dev, rng) -> int:
     return worst
 
 
+RECOVERY_ROWS = 1 << 16  # the cluster bench's recovery window
+
+
+def _k8_inputs(rng, n: int, dev, pad: int = 4096):
+    """[2^16, n] rounds in [-1, 3] (ties everywhere, 1/8 all-NO_VOTE
+    rows, 1/8 rows at one round) and ids, with the last ``pad`` rows
+    the Leader's padding (NO_VOTE, id 0)."""
+    s = RECOVERY_ROWS
+    rounds = rng.integers(-1, 4, size=(s, n)).astype(np.int32)
+    ids = rng.integers(0, 1 << 20, size=(s, n)).astype(np.int32)
+    rounds[rng.random(s) < 0.125] = tv.NO_VOTE
+    same = rng.random(s) < 0.125
+    rounds[same] = rng.integers(0, 4, size=(int(same.sum()), 1))
+    rounds[-pad:] = tv.NO_VOTE
+    ids[-pad:] = 0
+    return (torch.from_numpy(rounds).to(dev),
+            torch.from_numpy(ids).to(dev))
+
+
+def phase_k8(dev, rng) -> int:
+    """K8 against its plain version on [2^16, 3] and [2^16, 6]."""
+    worst = 0
+    for n in (3, 6):
+        rounds, ids = _k8_inputs(rng, n, dev)
+        got = tv.safe_values(rounds, ids)
+        want = tv.safe_values_plain(rounds, ids)
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        worst = max(worst, err)
+        require(err == 0, f"K8 differs from plain at N={n}")
+        require(not got[0][-4096:].any(), "K8 voted on a padding row")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
 #: Every kernel wrapper, by the name of its row in the kernels line.
 WRAPPERS = {
     "quorum_hit": tq.quorum_hit,
@@ -372,6 +425,7 @@ WRAPPERS = {
     "record_and_check_epochs": tq.record_and_check_epochs,
     "check_batch_multi": tq.check_batch_multi,
     "reshape_columns": tq.reshape_columns,
+    "safe_values": tv.safe_values,
 }
 #: The kernels of the main path, K1-K7 (check_batch_multi, K6's
 #: stateless predicate, is not on it).
@@ -383,6 +437,25 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
 def reset_launches() -> None:
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+
+
+def phase_cluster(dev) -> tuple[dict, dict]:
+    """The MultiPaxos cluster path at full width; its gates raise inside
+    ``multipaxos_sim.run``. The counts read after it include the
+    pipelined trackers' construction prewarm; the launch gate reads the
+    arms' traffic alone."""
+    reset_launches()
+    try:
+        result = multipaxos_sim.run(dev)
+    except multipaxos_sim.GateFailure as exc:
+        raise SmokeFailure(f"cluster: {exc}") from exc
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    traffic = result["launches"]
+    require(all(traffic[name] > 0
+                for name in multipaxos_sim.CLUSTER_KERNELS),
+            f"a kernel of the cluster path never launched on its "
+            f"traffic: {traffic}")
+    return result, launches
 
 
 def phase_main_path(dev, rng) -> tuple[dict, dict, dict]:
@@ -483,7 +556,8 @@ def _sparse_case(dev, rng, n: int, window: int, b: int):
     return boards, lanes, len(np.unique(true % window))
 
 
-def phase_figures(dev, rng, launches: dict, errors: dict) -> list:
+def phase_figures(dev, rng, launches: dict, cluster_launches: dict,
+                  cluster_traffic: dict, errors: dict) -> list:
     """Per kernel at the main path's shapes: wrapper call time (CUDA
     events), device time (profiler), the plain version's time, and the
     bound from the bytes and integer operations the call needs."""
@@ -538,6 +612,9 @@ def phase_figures(dev, rng, launches: dict, errors: dict) -> list:
                                 .astype(np.uint8)).to(dev)
     k7_cmap = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=dev)
 
+    # K8: the recovery window of the cluster's failover, [2^16, 3].
+    k8_rounds, k8_ids = _k8_inputs(rng, n, dev)
+
     quorum, sparse, epoch = (f"frankenpaxos_tpu_torch/ops/csrc/{f}.cu"
                              for f in ("quorum", "sparse", "epoch"))
     ref = "frankenpaxos_tpu/ops/quorum.py"
@@ -590,6 +667,13 @@ def phase_figures(dev, rng, launches: dict, errors: dict) -> list:
          "reshape_columns_kernel", (3 + 4) * EPOCH_WINDOW + 16,
          4 * EPOCH_WINDOW, epoch, f"{ref}:441",
          f"[3, {EPOCH_WINDOW}] -> [4, {EPOCH_WINDOW}]"),
+        # Both matrices read once, a bool and an int32 written per row;
+        # N - 1 compares and a select per row.
+        ("safe_values", lambda: tv.safe_values(k8_rounds, k8_ids),
+         lambda: tv.safe_values_plain(k8_rounds, k8_ids),
+         "safe_values_kernel", (8 * n + 5) * RECOVERY_ROWS,
+         2 * n * RECOVERY_ROWS, "frankenpaxos_tpu_torch/ops/csrc/value.cu",
+         "frankenpaxos_tpu/ops/value.py:19", f"S={RECOVERY_ROWS} N={n}"),
     ]
     out = []
     for (name, fn, plain, kname, nbytes, ops, source, replaces,
@@ -601,7 +685,12 @@ def phase_figures(dev, rng, launches: dict, errors: dict) -> list:
         ops_ms = ops / INT_OPS_PER_S * 1e3
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + cluster_launches[name],
+            "launches_by_path": {"headline_and_tracker": launches[name],
+                                 "cluster": cluster_launches[name],
+                                 "cluster_traffic":
+                                     cluster_traffic.get(name, 0)},
             "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -628,39 +717,42 @@ def main() -> int:
     try:
         name = torch.cuda.get_device_name(dev)
         smi = nvidia_smi_line()
-        log(f"[1/11] device: {name} ({torch.cuda.device_count()} "
+        log(f"[1/13] device: {name} ({torch.cuda.device_count()} "
             f"visible), torch {torch.__version__}, cuda {torch.version.cuda}")
         require(smi is not None, "nvidia-smi gave no name and power limit")
         log(smi)
 
         seconds = _build.build()
-        log(f"[2/11] build: {seconds:.1f} s")
+        log(f"[2/13] build: {seconds:.1f} s")
         for lib in _build.SIGNATURES:
             for line in _build.build_log(lib).splitlines():
                 if re.search(r"registers|spill", line):
                     log(f"      {lib}: {line.strip()}")
 
         errors = {"quorum_hit": phase_k1(dev, rng)}
-        log(f"[3/11] K1 quorum_hit == plain (5 specs, B={BLOCK})")
+        log(f"[3/13] K1 quorum_hit == plain (5 specs, B={BLOCK})")
         errors["record_block"] = phase_k2(dev, rng)
-        log(f"[4/11] K2 record_block == plain (64 calls, W={WINDOW})")
+        log(f"[4/13] K2 record_block == plain (64 calls, W={WINDOW})")
         errors["steady_state_step"] = phase_k3(dev)
-        log("[5/11] K3 steady_state_step == plain (64 drains x 2 specs)")
+        log("[5/13] K3 steady_state_step == plain (64 drains x 2 specs)")
         errors["record_and_check"] = phase_k4(dev, rng)
-        log(f"[6/11] K4 record_and_check == plain (64 calls of 64-4096 "
+        log(f"[6/13] K4 record_and_check == plain (64 calls of 64-4096 "
             f"lanes x 2 specs, W={WINDOW})")
         errors["release"] = phase_k5(dev, rng)
-        log(f"[7/11] K5 release == plain (16 calls of 4096 lanes, "
+        log(f"[7/13] K5 release == plain (16 calls of 4096 lanes, "
             f"W={WINDOW})")
         errors.update(phase_k6(dev, rng))
-        log(f"[8/11] K6 check_batch_multi and record_and_check_epochs == "
+        log(f"[8/13] K6 check_batch_multi and record_and_check_epochs == "
             f"plain (3 epochs, 5-node union, W={EPOCH_WINDOW})")
         errors["reshape_columns"] = phase_k7(dev, rng)
-        log(f"[9/11] K7 reshape_columns == plain ([3, {WINDOW}] -> "
+        log(f"[9/13] K7 reshape_columns == plain ([3, {WINDOW}] -> "
             f"[4, {WINDOW}] and [2, {WINDOW}])")
+        errors["safe_values"] = phase_k8(dev, rng)
+        log(f"[10/13] K8 safe_values == plain ([{RECOVERY_ROWS}, 3] and "
+            f"[{RECOVERY_ROWS}, 6])")
 
         result, votes, launches = phase_main_path(dev, rng)
-        log(f"[10/11] main path on {name} ({smi}): headline "
+        log(f"[11/13] main path on {name} ({smi}): headline "
             f"{result['value']} cmds/s majority-3, "
             f"{result['grid_cmds_per_sec']} cmds/s grid 2x3; mean drain "
             f"{result['mean_quorum_batch_latency_us']} us, p50 "
@@ -673,9 +765,20 @@ def main() -> int:
         log(json.dumps({"headline": result}))
         log(json.dumps({"tracker_lt": votes}))
 
+        cluster, cluster_launches = phase_cluster(dev)
+        arms = cluster["arms"]
+        log(f"[12/13] cluster on {name} ({smi}): committed writes/s "
+            + ", ".join(f"{arm} {fig['writes_per_sec']:.0f}"
+                        for arm, fig in arms.items())
+            + f"; K8 recovery {arms['failover']['recovery']['shape']}; "
+            f"launches {cluster_launches}, of them by the arms' traffic "
+            f"{cluster['launches']}")
+        log(json.dumps({"cluster": cluster}))
+
         log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
-        kernels = phase_figures(dev, rng, launches, errors)
-        log(f"[11/11] per-kernel figures on {name} ({smi}); "
+        kernels = phase_figures(dev, rng, launches, cluster_launches,
+                                cluster["launches"], errors)
+        log(f"[13/13] per-kernel figures on {name} ({smi}); "
             f"{time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

@@ -11,6 +11,10 @@ reimplements its device hot path for one NVIDIA Hopper GPU (H100):
   * ``bench/pipeline.py`` -- the device-resident MultiPaxos
     steady-state drain (K3), looped by ``run_steps``;
   * ``bench/headline.py`` -- the single-GPU headline benchmark;
+  * ``protocols/multipaxos/`` with ``runtime/`` -- the MultiPaxos
+    cluster of actors over ``SimTransport``: the ProxyLeaders' vote
+    tracking on the vote board, the Leader's Phase-1 recovery on K8
+    (``ops/value.py``); ``bench/multipaxos_sim.py`` drives it;
   * ``convert.py`` -- state carried across from the JAX package.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,

@@ -69,6 +69,10 @@ SIGNATURES = {
         # block, n_old, b, cmap, n_new, out
         "fpx_reshape_columns": [_P, _I, _L, _P, _I, _P, _I, _P],
     },
+    "value": {
+        # vote_rounds, value_ids, s, n, has_vote, value_id
+        "fpx_safe_values": [_P, _P, _L, _I, _P, _P, _I, _P],
+    },
     "pipeline": {
         # votes, chosen, commands, results, sm_state, committed,
         # exec_wm, window, block_size, i, *pred

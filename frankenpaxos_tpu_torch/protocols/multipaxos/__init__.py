@@ -1,3 +1,63 @@
-"""MultiPaxos in the port: the cluster configuration (``config``) and
-the ProxyLeader's Phase2b vote tracking (``quorum_tracker``). The roles
-themselves wait for the port of the host runtime."""
+"""Compartmentalized MultiPaxos in the port (the counterpart of
+``frankenpaxos_tpu/protocols/multipaxos/``).
+
+Roles: Batcher -> Leader -> ProxyLeader -> Acceptor (groups or grid) ->
+ProxyLeader -> Replica -> ProxyReplica -> Client, over the port's
+``SimTransport``. The ProxyLeader's Phase2b vote collection runs on a
+pluggable quorum tracker (``quorum_tracker``; backend ``"cuda"`` batches
+votes onto the GPU vote board once per event-loop drain), and the
+Leader's Phase-1 recovery on K8 (``phase1_backend="cuda"``).
+``harness.make_multipaxos`` wires a whole deployment.
+"""
+
+from frankenpaxos_tpu_torch.protocols.multipaxos.acceptor import (
+    Acceptor,
+    AcceptorOptions,
+)
+from frankenpaxos_tpu_torch.protocols.multipaxos.batcher import (
+    Batcher,
+    BatcherOptions,
+)
+from frankenpaxos_tpu_torch.protocols.multipaxos.client import (
+    Client,
+    ClientOptions,
+)
+from frankenpaxos_tpu_torch.protocols.multipaxos.config import (
+    DistributionScheme,
+    MultiPaxosConfig,
+)
+from frankenpaxos_tpu_torch.protocols.multipaxos.leader import (
+    Leader,
+    LeaderOptions,
+)
+from frankenpaxos_tpu_torch.protocols.multipaxos.proxy_leader import (
+    ProxyLeader,
+    ProxyLeaderOptions,
+)
+from frankenpaxos_tpu_torch.protocols.multipaxos.proxy_replica import (
+    ProxyReplica,
+    ProxyReplicaOptions,
+)
+from frankenpaxos_tpu_torch.protocols.multipaxos.replica import (
+    Replica,
+    ReplicaOptions,
+)
+
+__all__ = [
+    "Acceptor",
+    "AcceptorOptions",
+    "Batcher",
+    "BatcherOptions",
+    "Client",
+    "ClientOptions",
+    "DistributionScheme",
+    "Leader",
+    "LeaderOptions",
+    "MultiPaxosConfig",
+    "ProxyLeader",
+    "ProxyLeaderOptions",
+    "ProxyReplica",
+    "ProxyReplicaOptions",
+    "Replica",
+    "ReplicaOptions",
+]

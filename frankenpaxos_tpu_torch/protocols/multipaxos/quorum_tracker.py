@@ -38,11 +38,14 @@ import numpy as np
 #: whose single-round slot span is at least this wide goes to the device
 #: predicate, a narrower one to the host tally. The crossover of
 #: ``bench/tracker_lt.py`` on an NVIDIA H100 80GB HBM3 at 700 W, in the
-#: ranged-ack shape the acceptors send (PERF.md): the device path wins
-#: from 256 slots on. In the per-slot shape it won only from 512-2048
-#: slots, depending on the run, so a drain of mostly per-slot votes in
-#: between goes to the slower path; how common such drains are is not
-#: measured yet.
+#: ranged-ack shape (PERF.md): the device path wins from 256 slots on.
+#: In ``bench/multipaxos_sim.py``'s traffic (one client, waves of 4096)
+#: every vote reaches a ProxyLeader as a Phase2bRange or a packed
+#: Phase2bVotes, none as a lone Phase2b, but every drain is 4096 slots
+#: or wider, so the threshold itself is not exercised there: how wide a
+#: deployed ProxyLeader's drains are is still open (PERF.md). Acceptors
+#: that sent lone Phase2bs (``range_phase2bs=False``) would meet the
+#: per-slot crossover instead, 512-2048 slots depending on the run.
 CUDA_MIN_DEVICE_SLOTS = 256
 
 #: The same threshold for the plain versions on the CPU: the reference's
@@ -229,6 +232,11 @@ class TpuQuorumTracker(QuorumTracker):
                                 if self.checker.device.type == "cuda"
                                 else CPU_MIN_DEVICE_SLOTS)
         self.min_device_slots = min_device_slots
+        # The synchronous mode's drains by routing: "trickle" and
+        # "mixed" (rounds) go to the host tally whatever their width;
+        # single-round drains count under their slot span rounded up
+        # to a power of two, against ``min_device_slots``.
+        self.drain_widths: collections.Counter = collections.Counter()
         # Host spill tally for the synchronous mode (narrow drains +
         # below-quorum residue of stateless checks): the dict oracle
         # itself, so cross-drain accumulation has one authority with
@@ -318,6 +326,7 @@ class TpuQuorumTracker(QuorumTracker):
         nvotes = (len(sl) + sum(e - s for s, e, _, _ in ranges)
                   + sum(s.size for s, _, _ in av))
         if nvotes < min(48, self.min_device_slots):
+            self.drain_widths["trickle"] += 1
             row = self._row_size
             frontier = max(sl) if sl else -1
             for k in range(len(sl)):
@@ -378,6 +387,7 @@ class TpuQuorumTracker(QuorumTracker):
             # thin. Spill everything to the host tally in arrival
             # order (preserving the oracle's old-round-before-new
             # reporting liveness).
+            self.drain_widths["mixed"] += 1
             frontier = int(slots.max()) if slots.size else -1
             if ranges:
                 frontier = max(frontier, int(ra[:, 1].max()) - 1)
@@ -392,6 +402,7 @@ class TpuQuorumTracker(QuorumTracker):
             return self._host_results()
 
         width = hi - lo + 1
+        self.drain_widths[1 << (width - 1).bit_length()] += 1
         if width < self.min_device_slots:
             # Narrow drain: the fixed device round-trip loses to
             # per-vote Python here -- host tally.

@@ -1,9 +1,20 @@
-"""Live reconfiguration in the port: the epoch store (``epoch``) and
-epoch-segmented vote counting (``tracker``), the counterparts of
-``frankenpaxos_tpu/reconfig/epoch.py`` and ``tracker.py``. The wire
-codecs and messages wait for the port of the host runtime."""
+"""Live reconfiguration in the port: the epoch store (``epoch``),
+epoch-segmented vote counting (``tracker``) and the messages
+(``messages``), the counterparts of ``frankenpaxos_tpu/reconfig/``. The
+wire codecs wait for the TCP slice."""
 
 from frankenpaxos_tpu_torch.reconfig.epoch import EpochConfig, EpochStore
+from frankenpaxos_tpu_torch.reconfig.messages import (
+    EpochAck,
+    EpochCommit,
+    EpochPhase2aRun,
+    Reconfigure,
+)
 from frankenpaxos_tpu_torch.reconfig.tracker import EpochQuorumTracker
 
-__all__ = ["EpochConfig", "EpochQuorumTracker", "EpochStore"]
+#: The reconfiguration messages the port's MultiPaxos roles refuse.
+RECONFIG_MESSAGES = (Reconfigure, EpochCommit, EpochAck, EpochPhase2aRun)
+
+__all__ = ["EpochAck", "EpochCommit", "EpochConfig", "EpochPhase2aRun",
+           "EpochQuorumTracker", "EpochStore", "RECONFIG_MESSAGES",
+           "Reconfigure"]

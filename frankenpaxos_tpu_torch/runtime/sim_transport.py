@@ -1,0 +1,409 @@
+"""SimTransport: the deterministic in-memory transport, the port's copy
+of ``frankenpaxos_tpu/runtime/sim_transport.py``.
+
+Reference behavior: FakeTransport.scala:64-230. Messages accumulate in a
+buffer instead of being delivered; tests explicitly deliver any buffered
+message or trigger any running timer, in any order. That explores
+reordering, duplication (via protocol resends), and loss (never
+delivering). Everything executes inline on the caller's thread
+(FakeTransport.scala:127-140), keeping runs perfectly deterministic for
+a given command sequence.
+
+Also supports actor partitioning (JsTransport.scala:77): messages to or
+from a partitioned actor are dropped at delivery time.
+
+The NON-adversarial delivery paths (``deliver_all`` and
+``deliver_all_coalesced``) share one wave engine, ``_run_wave``: the
+batch of frames consumed in one step is spliced out of the buffer as a
+unit, drop decisions evaluate as a vectorized mask over the wave
+(ops/simwave.py) above ``WAVE_VECTOR_MIN``, and consecutive
+same-destination frames deliver through ``Actor.receive_batch`` when
+the actor overrides it. The adversarial API (``deliver_message`` of ANY
+buffered frame, ``generate_command``, partition/crash controls) is
+unchanged.
+
+Not ported yet (ROADMAP.md, the next slice): the bounded client-lane
+inboxes of admission control (``serve/lanes.py``,
+``serve/admission.py``) and tracing spans. An actor carrying an
+admission controller, or a transport with a tracer, is refused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Callable, Optional, Union
+
+import numpy as np
+
+from frankenpaxos_tpu_torch.ops import simwave
+from frankenpaxos_tpu_torch.runtime.actor import Actor
+from frankenpaxos_tpu_torch.runtime.logger import Logger, PrintLogger
+from frankenpaxos_tpu_torch.runtime.transport import Address, Timer, Transport
+
+
+@dataclasses.dataclass(frozen=True)
+class SimMessage:
+    id: int
+    src: Address
+    dst: Address
+    data: bytes
+
+
+class SimTimer(Timer):
+    """A timer that only fires when the test triggers it
+    (FakeTransport.scala:9-62)."""
+
+    def __init__(self, transport: "SimTransport", timer_id: int,
+                 address: Address, name: str, delay_s: float,
+                 f: Callable[[], None]):
+        self._transport = transport
+        self._id = timer_id
+        self.address = address
+        self._name = name
+        self.delay_s = delay_s
+        self._f = f
+        self.running = False
+
+    @property
+    def name(self) -> str:
+        return self._name
+
+    @property
+    def id(self) -> int:
+        return self._id
+
+    def start(self) -> None:
+        self.running = True
+        # The transport's registry holds RUNNING timers only: clients
+        # create a fresh timer per resend/backoff, so registering for
+        # the timer object's lifetime would leak the dict (and the
+        # per-tick running_timers() scan) without bound under
+        # sustained load (serve/loadgen.py pumps millions).
+        self._transport.timers[self._id] = self
+
+    def stop(self) -> None:
+        self.running = False
+        self._transport.timers.pop(self._id, None)
+
+    def set_delay(self, delay_s: float) -> None:
+        self.delay_s = delay_s
+
+    def run(self) -> None:
+        """Fire the timer (one-shot: stops first, like
+        FakeTransport.scala:40-46)."""
+        if self.running:
+            self.stop()
+            self._f()
+
+
+# Commands the simulator replays against a SimTransport (the bridge to
+# property-based testing, FakeTransport.scala:196-230).
+@dataclasses.dataclass(frozen=True)
+class DeliverMessage:
+    message: SimMessage
+
+
+@dataclasses.dataclass(frozen=True)
+class TriggerTimer:
+    address: Address
+    name: str
+    timer_id: int
+
+
+SimCommand = Union[DeliverMessage, TriggerTimer]
+
+
+class SimTransport(Transport):
+    """Addresses are arbitrary hashables (conventionally strings)."""
+
+    def __init__(self, logger: Optional[Logger] = None):
+        self.logger = logger or PrintLogger()
+        self.actors: dict[Address, Actor] = {}
+        self.messages: list[SimMessage] = []
+        self.timers: dict[int, SimTimer] = {}
+        self.partitioned: set[Address] = set()
+        self.history: list[SimCommand] = []
+        self._ids = itertools.count()
+        # Addresses interned to ints for the vectorized drop masks
+        # (ops/simwave.py).
+        self._addr_ids: dict[Address, int] = {}
+        #: Record delivered/triggered events into ``history``. The
+        #: default matches the reference; long runs (the cluster bench)
+        #: disable it -- history is an append-only list of per-event
+        #: dataclasses that no oracle there reads.
+        self.record_history: bool = True
+
+    # --- Transport API ----------------------------------------------------
+    def register(self, address: Address, actor: Actor) -> None:
+        if address in self.actors:
+            raise ValueError(f"an actor is already registered at {address}")
+        if getattr(actor, "admission", None) is not None:
+            raise NotImplementedError(
+                "admission control is not ported yet (ROADMAP.md, the "
+                "next slice: admission)")
+        self.actors[address] = actor
+
+    def send(self, src: Address, dst: Address, data: bytes) -> None:
+        self.messages.append(SimMessage(next(self._ids), src, dst, data))
+
+    def send_no_flush(self, src: Address, dst: Address, data: bytes) -> None:
+        self.send(src, dst, data)
+
+    def flush(self, src: Address, dst: Address) -> None:
+        pass
+
+    def timer(self, address: Address, name: str, delay_s: float,
+              f: Callable[[], None]) -> SimTimer:
+        # Registration happens in SimTimer.start(): self.timers holds
+        # running timers only (see SimTimer.start).
+        return SimTimer(self, next(self._ids), address, name, delay_s, f)
+
+    # --- test / simulator API (FakeTransport.scala:142-230) ---------------
+    def running_timers(self) -> list[SimTimer]:
+        return [t for t in self.timers.values() if t.running]
+
+    def deliver_message(self, message: SimMessage) -> None:
+        """Remove ``message`` from the buffer and run the destination's
+        ``receive`` inline. Unknown/partitioned destinations drop."""
+        actor = self._deliver(message)
+        if actor is not None:
+            self._drain(actor)
+
+    def _drain(self, actor: Actor) -> None:
+        self._check_untraced()
+        actor.on_drain()
+
+    def _check_untraced(self) -> None:
+        if self.tracer is not None:
+            raise NotImplementedError(
+                "tracing spans are not ported yet (ROADMAP.md queue 1, "
+                "obs/trace.py Tracer)")
+
+    # --- the buffer bookkeeping ------------------------------------------
+    def _remove_buffered(self, message: SimMessage) -> bool:
+        """Consume ``message`` from the buffer: scan by id (an integer
+        compare per probe), then verify FULL equality on the hit, so a
+        message recorded from a different execution with the same id
+        reads as "no longer applies", as a remove-by-equality would.
+        Ids are unique in the buffer, so one probe decides."""
+        mid = message.id
+        messages = self.messages
+        for i, m in enumerate(messages):
+            if m.id == mid:
+                if m == message:
+                    del messages[i]
+                    return True
+                return False
+        return False
+
+    def _deliver(self, message: SimMessage) -> Optional[Actor]:
+        """Deliver without draining; returns the receiving actor (None if
+        the message was dropped) so callers control drain granularity."""
+        if not self._remove_buffered(message):
+            self.logger.warn(f"delivering unbuffered message {message}")
+            return None
+        if (message.dst in self.partitioned
+                or message.src in self.partitioned):
+            # Dropped at the partition: not part of the delivered
+            # history.
+            return None
+        if self.record_history:
+            self.history.append(DeliverMessage(message))
+        actor = self.actors.get(message.dst)
+        if actor is None:
+            self.logger.warn(f"no actor registered at {message.dst}")
+            return None
+        self._check_untraced()
+        actor.receive(message.src, actor.serializer.from_bytes(message.data))
+        return actor
+
+    def trigger_timer(self, timer_id: int) -> None:
+        timer = self.timers.get(timer_id)
+        if timer is None or not timer.running:
+            return
+        if timer.address in self.partitioned:
+            timer.stop()
+            return
+        if self.record_history:
+            self.history.append(
+                TriggerTimer(timer.address, timer.name, timer_id))
+        self._check_untraced()
+        timer.run()
+
+    def run_command(self, command: SimCommand) -> None:
+        if isinstance(command, DeliverMessage):
+            self.deliver_message(command.message)
+        else:
+            self.trigger_timer(command.timer_id)
+
+    def possible_commands(self) -> list[SimCommand]:
+        """Everything that could happen next (FakeTransport.scala:196-220)."""
+        commands: list[SimCommand] = [DeliverMessage(m)
+                                      for m in self.messages]
+        commands.extend(TriggerTimer(t.address, t.name, t.id)
+                        for t in self.running_timers())
+        return commands
+
+    def generate_command(self, rng) -> Optional[SimCommand]:
+        """Pick a random next step, weighting deliveries vs. timers by
+        availability (the spirit of FakeTransport.generateCommand)."""
+        n_msgs = len(self.messages)
+        running = self.running_timers()
+        total = n_msgs + len(running)
+        if total == 0:
+            return None
+        i = rng.randrange(total)
+        if i < n_msgs:
+            return DeliverMessage(self.messages[i])
+        return TriggerTimer(running[i - n_msgs].address,
+                            running[i - n_msgs].name,
+                            running[i - n_msgs].id)
+
+    def deliver_all(self, max_steps: int = 100000) -> int:
+        """FIFO-deliver until no messages remain (no timers), draining
+        after EVERY message. Convenience for non-adversarial
+        integration tests."""
+        return self._deliver_fifo(max_steps, coalesce=False)
+
+    def deliver_all_coalesced(self, max_steps: int = 100000) -> int:
+        """FIFO-deliver in WAVES, draining each touched actor once per
+        wave -- the delivery semantics of the real event loop
+        (TcpTransport defers ``on_drain`` to the end of a loop pass, so
+        a burst of frames lands in one drain). A wave is the set of
+        messages buffered when it starts; sends made during the wave
+        join the next one. This is the right mode for benchmarking
+        batch-amortized actors over SimTransport; adversarial sims keep
+        per-message drains (``deliver_message``)."""
+        return self._deliver_fifo(max_steps, coalesce=True)
+
+    # --- the wave engine ----------------------------------------------------
+    def _deliver_fifo(self, max_steps: int, coalesce: bool) -> int:
+        """The ONE parameterized FIFO drain loop (both public modes
+        differ only in drain granularity). Waves are buffer-prefix
+        snapshots: sends made by handlers append behind the snapshot
+        and join the next wave, which reproduces the legacy loops'
+        strict send-order delivery exactly."""
+        steps = 0
+        messages = self.messages
+        while messages and steps < max_steps:
+            wave = messages[:max_steps - steps]
+            del messages[:len(wave)]
+            steps += len(wave)
+            self._run_wave(wave, coalesce)
+        return steps
+
+    def _wave_keep_mask(self, wave) -> Optional[np.ndarray]:
+        """Vectorized drop mask over a wave (True = deliver), or None
+        to decide per message via ``_per_message_check`` -- small waves
+        skip array staging entirely (ops/simwave.WAVE_VECTOR_MIN)."""
+        if not self.partitioned or len(wave) < simwave.WAVE_VECTOR_MIN:
+            return None
+        n = len(wave)
+        intern = self._intern
+        src = np.fromiter((intern(m.src) for m in wave), np.int64, n)
+        dst = np.fromiter((intern(m.dst) for m in wave), np.int64, n)
+        blocked = np.fromiter((intern(a) for a in self.partitioned),
+                              np.int64, len(self.partitioned))
+        return simwave.keep_mask(src, dst, blocked)
+
+    def _per_message_check(self) -> Optional[Callable]:
+        """Scalar drop check used when ``_wave_keep_mask`` returned
+        None; None means nothing can drop (no partitions)."""
+        part = self.partitioned
+        if not part:
+            return None
+        return lambda m: m.src not in part and m.dst not in part
+
+    def _intern(self, address) -> int:
+        ids = self._addr_ids
+        aid = ids.get(address)
+        if aid is None:
+            aid = ids[address] = len(ids)
+        return aid
+
+    def _run_wave(self, wave, coalesce: bool) -> int:
+        """Deliver one wave. PRECONDITION: the wave's frames are
+        already spliced out of the buffer.
+        Returns the number of frames that reached an actor.
+
+        Delivery order is exactly per-message FIFO; the only batching
+        is that consecutive frames to one destination hand off through
+        ``Actor.receive_batch`` when (a) drains are coalesced and (b)
+        the actor OVERRIDES it -- the default body replays decode +
+        ``receive`` in order, so grouping is order-equivalent by
+        construction."""
+        keep = self._wave_keep_mask(wave)
+        check = self._per_message_check() if keep is None else None
+        self._check_untraced()
+        actors = self.actors
+        record = self.record_history
+        history = self.history
+        touched: dict[int, Actor] = {}
+        delivered = 0
+        n = len(wave)
+        i = 0
+        while i < n:
+            message = wave[i]
+            if (keep is not None and not keep[i]) or \
+                    (check is not None and not check(message)):
+                # Dropped at a partition: consumed, no history entry,
+                # no drain.
+                i += 1
+                continue
+            dst = message.dst
+            actor = actors.get(dst)
+            if record:
+                history.append(DeliverMessage(message))
+            if actor is None:
+                self.logger.warn(f"no actor registered at {dst}")
+                i += 1
+                continue
+            if (coalesce and type(actor).receive_batch
+                    is not Actor.receive_batch):
+                j = i + 1
+                while (j < n and wave[j].dst == dst
+                       and (keep[j] if keep is not None
+                            else check is None or check(wave[j]))):
+                    j += 1
+                run = wave[i:j]
+                if record:
+                    history.extend(DeliverMessage(m) for m in run[1:])
+                actor.receive_batch([(m.src, m.data) for m in run])
+                delivered += j - i
+                i = j
+            else:
+                actor.receive(message.src,
+                              actor.serializer.from_bytes(message.data))
+                delivered += 1
+                i += 1
+            if coalesce:
+                if id(actor) not in touched:
+                    touched[id(actor)] = actor
+            else:
+                self._drain(actor)
+        if coalesce:
+            for actor in touched.values():
+                self._drain(actor)
+        return delivered
+
+    def partition(self, address: Address) -> None:
+        self.partitioned.add(address)
+
+    def heal(self, address: Address) -> None:
+        self.partitioned.discard(address)
+
+    def crash(self, address: Address) -> None:
+        """Process crash (``kill -9``) for the actor at ``address``:
+        deregister it and destroy its timers -- every piece of volatile
+        state dies with the object, including anything it staged for a
+        group commit that never happened. In-flight messages to the
+        address stay buffered (the network does not know about the
+        crash): they deliver to whatever re-registers there -- the
+        restarted actor, whose durable state must make that safe -- or
+        drop as 'no actor registered' if nothing does. The restart is
+        the harness's job."""
+        self.actors.pop(address, None)
+        for timer_id in [tid for tid, t in self.timers.items()
+                         if t.address == address]:
+            del self.timers[timer_id]

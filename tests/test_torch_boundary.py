@@ -13,8 +13,13 @@ import sys
 import textwrap
 
 import frankenpaxos_tpu_torch
-from frankenpaxos_tpu_torch.bench import pipeline as tp, tracker_lt
-from frankenpaxos_tpu_torch.ops import _build, quorum as tq
+from frankenpaxos_tpu_torch.bench import (
+    multipaxos_sim,
+    pipeline as tp,
+    tracker_lt,
+)
+from frankenpaxos_tpu_torch.ops import _build, quorum as tq, value as tv
+from frankenpaxos_tpu_torch.protocols.multipaxos.harness import make_multipaxos
 from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
     TpuQuorumTracker,
 )
@@ -68,12 +73,18 @@ def test_imports_with_jax_and_reference_blocked():
     assert {f"frankenpaxos_tpu_torch.{m}" for m in PATH_MODULES} <= imported
 
 
-#: The modules of the ProxyLeader's vote path; each must import with
-#: JAX and the JAX package blocked (test above) and name neither.
+#: The modules of the ProxyLeader's vote path and of the MultiPaxos
+#: cluster; each must import with JAX and the JAX package blocked (test
+#: above) and name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
     "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
     "reconfig.tracker", "bench.tracker_lt", "convert",
+    "runtime.actor", "runtime.sim_transport", "ops.value",
+    "protocols.multipaxos.acceptor", "protocols.multipaxos.proxy_leader",
+    "protocols.multipaxos.leader", "protocols.multipaxos.replica",
+    "protocols.multipaxos.client", "protocols.multipaxos.harness",
+    "bench.multipaxos_sim",
 )
 
 
@@ -148,6 +159,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                            backend="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tracker_lt.run()
+    for backends in ({"quorum_backend": "cuda"}, {"phase1_backend": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_multipaxos(f=1, **backends)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multipaxos_sim.run()
     # Naming the CPU explicitly is the only way to the plain versions.
     assert tp.make_state(1024, 3, device="cpu").votes.device.type == "cpu"
 
@@ -209,9 +225,13 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError):
         tq.record_and_check(tq.make_vote_board(256, 3, device="cpu"), lanes,
                             cpu_pred)
+    meta = torch.zeros((8, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        tv.safe_values(meta, meta)
     launches = [tq.quorum_hit, tq.record_block, tp.steady_state_step,
                 tq.record_and_check, tq.release, tq.check_batch_multi,
-                tq.record_and_check_epochs, tq.reshape_columns]
+                tq.record_and_check_epochs, tq.reshape_columns,
+                tv.safe_values]
     assert [f.launches for f in launches] == [0] * len(launches)
 
 
