@@ -42,19 +42,37 @@ Phases, in order (any failure exits nonzero and prints no result):
      arm: sync, pipelined, 2x3 grid, epoch handover), every arm checked
      against its dict oracle; K1-K7 must each have launched;
   12. the MultiPaxos cluster path, with every count set to 0 again
-     first: ``bench/multipaxos_sim.py`` at full width (2^16 steady
-     writes on the synchronous tracker, a failover whose recovery runs
-     K8 on [2^16, 3], 2^14 writes on the pipelined tracker whose last
+     first: ``bench/multipaxos_sim.py`` at full width and cut depth
+     (2^13 steady writes on the synchronous tracker, a failover of 2^13
+     writes whose recovery runs K8 on [2^13, 3], both cut from the
+     bench's 2^16 to hold the smoke's time; 2^14 writes on the
+     pipelined tracker whose last
      wave has one acceptor's votes straggle across a failover), every
      write answered with its state machine result, both replicas'
      logs equal, K8's recovery equal to the host path's; K1, K2, K4
      and K8 must each have launched on the arms' traffic (K4 on the
      pipelined arm's straggling votes; K5 runs only in the pipelined
      trackers' construction prewarm, as no role releases the board);
-  13. per-kernel figures at the main path's shapes: CUDA-event time per
+  13. K9 ``normalized``, K10 ``union_reduce`` / ``conflict_max`` and
+     K11 ``all_equal`` against their plain versions: exact, at
+     [4096, 5, 2048] (arbitrary bytes), [4096, 3, 32] (depset_lt's),
+     [3, 5, 8], [5, 5, 2048] and [1, 1, 37], with window bases near
+     2^31 - 1 and negative watermarks, and ``all_equal`` cases that are
+     equal only after normalization;
+  14. the EPaxos path, with every count set to 0 again first:
+     ``bench/epaxos_sim.py`` (f = 2, five replicas, 64 closed-loop
+     pairs, arms conflict2 and conflict25, each on the host and the
+     cuda backend; every command answered once with its KeyValueStore
+     result, the replicas' logs and states equal, the cuda run's log
+     and replies equal the host run's) and ``bench/depset_lt.py``
+     (widths 256, 1024, 4096, aggregates equal on every drain; the
+     host runs go to two worker processes beside the cuda runs); K10
+     ``conflict_max`` and K11 ``all_equal`` must each have launched on
+     the cluster's traffic;
+  15. per-kernel figures at the main paths' shapes: CUDA-event time per
      call over many calls, the plain version's time, the bound
      (bytes / 3.35 TB/s vs integer operations / 67 T/s, the larger) and
-     the launches of phases 11 and 12, printed as one
+     the launches of phases 11, 12 and 14, printed as one
      ``{"kernels": [...]}`` line; before it, each headline arm's drain
      split into device time (profiler) and the share of the drain the
      device sits idle.
@@ -71,13 +89,20 @@ import warnings
 
 import frankenpaxos_tpu_torch
 from frankenpaxos_tpu_torch.bench import (
+    depset_lt,
+    epaxos_sim,
     headline,
     multipaxos_sim,
     pipeline as tp,
     tracker_lt,
 )
 from frankenpaxos_tpu_torch.device import nvidia_smi_line
-from frankenpaxos_tpu_torch.ops import _build, quorum as tq, value as tv
+from frankenpaxos_tpu_torch.ops import (
+    _build,
+    depset as td,
+    quorum as tq,
+    value as tv,
+)
 from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority
 from frankenpaxos_tpu_torch.quorums.spec import pad_specs
 import numpy as np
@@ -88,6 +113,12 @@ BLOCK = 1 << 15
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12       # H100 non-tensor float32 peak, used for int ops
 SEED = 20261017
+#: Slice 3's steady and failover arms, cut from the bench's 2^16 writes
+#: so that the whole smoke stays near its earlier time with the EPaxos
+#: path added (depth only: the cluster's width is the bench's).
+CLUSTER_WRITES = 1 << 13
+#: When the smoke started (``phase``'s clock).
+T0 = time.perf_counter()
 
 
 class SmokeFailure(Exception):
@@ -96,6 +127,11 @@ class SmokeFailure(Exception):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(n: int, msg: str) -> None:
+    """Phase ``n``'s line, with the seconds since the smoke started."""
+    log(f"[{n}/15] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -415,6 +451,96 @@ def phase_k8(dev, rng) -> int:
     return worst
 
 
+#: [B, L, W] shapes of K9-K11's comparison: the cluster's fast and slow
+#: path ([3, 5, 8], [5, 5, 2048] at the span limit), depset_lt's
+#: [4096, 3, 32], a wide arbitrary batch and an odd width.
+DEPSET_SHAPES = ((4096, 5, 2048), (4096, 3, 32), (3, 5, 8), (5, 5, 2048),
+                 (1, 1, 37))
+
+
+def _depset_batch(rng, shape, base: int, kind: str, dev) -> td.DepSetBatch:
+    """Watermarks around the window at ``base``; tail bytes 0/1 at 90%
+    (long runs), or arbitrary."""
+    b, l, w = shape
+    wm = np.clip(base + rng.integers(-16, w + 16, size=(b, l)),
+                 -2**31, 2**31 - 1).astype(np.int32)
+    if kind == "bits":
+        tails = (rng.random((b, l, w)) < 0.9).astype(np.uint8)
+    else:
+        tails = rng.integers(0, 256, size=(b, l, w), dtype=np.uint8)
+    return td.DepSetBatch(torch.from_numpy(wm).to(dev),
+                          torch.from_numpy(tails).to(dev),
+                          torch.tensor(base, dtype=torch.int32).to(dev))
+
+
+def _aliased(batch: td.DepSetBatch, rng) -> td.DepSetBatch:
+    """Every row written as row 0's normalized set: rows b >= 1 move up
+    to 8 ids below the watermark into tail bytes, so the rows are equal
+    only after normalization (exactly so for 0/1 bytes)."""
+    n = td.normalized_plain(td.DepSetBatch(*(t.cpu() for t in batch)))
+    b, l, w = n.tails.shape
+    base = int(n.tail_base)
+    top = np.repeat(n.watermarks[:1].numpy().astype(np.int64), b, axis=0)
+    tails = np.repeat(n.tails[:1].numpy(), b, axis=0)
+    low = np.maximum(top - rng.integers(0, 9, size=(b, l)), base)
+    move = (low < top) & (top - base <= w)
+    move[0] = False
+    pos = np.arange(w)[None, None, :]
+    tails[move[:, :, None] & (pos >= (low - base)[:, :, None])
+          & (pos < (top - base)[:, :, None])] = 1
+    wm = np.where(move, low, top).astype(np.int32)
+    dev = batch.tails.device
+    return td.DepSetBatch(torch.from_numpy(wm).to(dev),
+                          torch.from_numpy(tails).to(dev),
+                          n.tail_base.to(dev))
+
+
+def phase_depset(dev, rng) -> dict:
+    """K9, K10 (both modes) and K11 against their plain versions, exact,
+    at every shape of ``DEPSET_SHAPES`` for window bases in the middle,
+    near 2^31 - 1 and below 0 (negative watermarks), bits and arbitrary
+    bytes; K11 also on batches equal only after normalization, and with
+    one byte changed."""
+    worst = dict.fromkeys(("normalized", "union_reduce", "conflict_max",
+                           "all_equal"), 0)
+    seen = {"equal": 0, "unequal": 0}
+
+    def check(name, got, want):
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        worst[name] = max(worst[name], err)
+        require(err == 0, f"{name} differs from plain at {shape} base "
+                          f"{base} ({kind})")
+
+    for shape in DEPSET_SHAPES:
+        w = shape[2]
+        for base in (1000, 2**31 - 1 - w // 2, -w // 2 - 5):
+            for kind in ("bits", "bytes"):
+                batch = _depset_batch(rng, shape, base, kind, dev)
+                check("normalized", td.normalized(batch),
+                      td.normalized_plain(batch))
+                check("union_reduce", td.union_reduce(batch),
+                      td.union_reduce_plain(batch))
+                seqs = torch.from_numpy(rng.integers(
+                    -2**31, 2**31, size=shape[0], dtype=np.int64)
+                    .astype(np.int32)).to(dev)
+                got_seq, got = td.conflict_max(seqs, batch)
+                want_seq, want = td.conflict_max_plain(seqs, batch)
+                check("conflict_max", (got_seq, *got),
+                      (want_seq, *want))
+                cases = [batch, _aliased(batch, rng)]
+                changed = _aliased(batch, rng)
+                if shape[0] > 1:
+                    changed.tails[-1, -1, -1] ^= 1
+                    cases.append(changed)
+                for case in cases:
+                    got, want = td.all_equal(case), td.all_equal_plain(case)
+                    check("all_equal", (got,), (want,))
+                    seen["equal" if bool(want) else "unequal"] += 1
+    require(all(seen.values()), f"K11 cases lack an outcome: {seen}")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
 #: Every kernel wrapper, by the name of its row in the kernels line.
 WRAPPERS = {
     "quorum_hit": tq.quorum_hit,
@@ -426,12 +552,30 @@ WRAPPERS = {
     "check_batch_multi": tq.check_batch_multi,
     "reshape_columns": tq.reshape_columns,
     "safe_values": tv.safe_values,
+    "normalized": td.normalized,
+    "union_reduce": td.union_reduce,
+    "conflict_max": td.conflict_max,
+    "all_equal": td.all_equal,
 }
 #: The kernels of the main path, K1-K7 (check_batch_multi, K6's
 #: stateless predicate, is not on it).
 MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
              "record_and_check", "release", "record_and_check_epochs",
              "reshape_columns")
+
+
+#: The runs whose launches the kernels line counts: phases 11, 12 and 14
+#: (``*_traffic`` entries of ``launches_by_path`` are subsets of these).
+MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos")
+
+
+def _rows(batch: td.DepSetBatch) -> int:
+    """Bytes of a batch's watermarks and tails."""
+    return 4 * batch.watermarks.numel() + batch.tails.numel()
+
+
+def _shape(batch: td.DepSetBatch) -> str:
+    return "[B, L, W] = " + str(list(batch.tails.shape))
 
 
 def reset_launches() -> None:
@@ -446,7 +590,8 @@ def phase_cluster(dev) -> tuple[dict, dict]:
     arms' traffic alone."""
     reset_launches()
     try:
-        result = multipaxos_sim.run(dev)
+        result = multipaxos_sim.run(dev, writes=CLUSTER_WRITES,
+                                    burst=CLUSTER_WRITES)
     except multipaxos_sim.GateFailure as exc:
         raise SmokeFailure(f"cluster: {exc}") from exc
     launches = {name: w.launches for name, w in WRAPPERS.items()}
@@ -456,6 +601,24 @@ def phase_cluster(dev) -> tuple[dict, dict]:
             f"a kernel of the cluster path never launched on its "
             f"traffic: {traffic}")
     return result, launches
+
+
+def phase_epaxos(dev) -> tuple[dict, dict, dict]:
+    """The EPaxos path: the cluster bench and the depset_lt twin; their
+    gates raise inside ``run``. K10 and K11 must have launched on the
+    cluster's traffic."""
+    reset_launches()
+    try:
+        cluster = epaxos_sim.run(dev)
+        pairs = depset_lt.run(dev)
+    except (epaxos_sim.GateFailure, depset_lt.GateFailure) as exc:
+        raise SmokeFailure(f"epaxos: {exc}") from exc
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    traffic = cluster["launches"]
+    require(all(traffic[name] > 0 for name in epaxos_sim.CLUSTER_KERNELS),
+            f"a kernel of the EPaxos path never launched on its traffic: "
+            f"{traffic}")
+    return cluster, pairs, launches
 
 
 def phase_main_path(dev, rng) -> tuple[dict, dict, dict]:
@@ -556,11 +719,11 @@ def _sparse_case(dev, rng, n: int, window: int, b: int):
     return boards, lanes, len(np.unique(true % window))
 
 
-def phase_figures(dev, rng, launches: dict, cluster_launches: dict,
-                  cluster_traffic: dict, errors: dict) -> list:
-    """Per kernel at the main path's shapes: wrapper call time (CUDA
+def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
+    """Per kernel at the main paths' shapes: wrapper call time (CUDA
     events), device time (profiler), the plain version's time, and the
-    bound from the bytes and integer operations the call needs."""
+    bound from the bytes and integer operations the call needs.
+    ``paths`` maps each path's name to its launch counts."""
     spec = specs()["majority3"]
     n = spec.num_nodes
     pred = predicate(spec, dev)
@@ -614,6 +777,18 @@ def phase_figures(dev, rng, launches: dict, cluster_launches: dict,
 
     # K8: the recovery window of the cluster's failover, [2^16, 3].
     k8_rounds, k8_ids = _k8_inputs(rng, n, dev)
+
+    # K9/K10: depset_lt's drain batch, [4096, 3, 32]; K10 in seq mode:
+    # the cluster's slow-path quorum, [4, 5, 8]; K11: the fast path's
+    # three identical replies, [3, 5, 8] (every byte compared).
+    lt_batch = _depset_batch(rng, (4096, 3, 32), 1000, "bits", dev)
+    slow = _depset_batch(rng, (4, 5, 8), 1000, "bits", dev)
+    slow_seqs = torch.zeros(4, dtype=torch.int32, device=dev)
+    one = _depset_batch(rng, (1, 5, 8), 1000, "bits", dev)
+    fast = td.DepSetBatch(one.watermarks.repeat(3, 1),
+                          one.tails.repeat(3, 1, 1), one.tail_base)
+    depset_cu = "frankenpaxos_tpu_torch/ops/csrc/depset.cu"
+    depset_ref = "frankenpaxos_tpu/ops/depset.py"
 
     quorum, sparse, epoch = (f"frankenpaxos_tpu_torch/ops/csrc/{f}.cu"
                              for f in ("quorum", "sparse", "epoch"))
@@ -674,6 +849,29 @@ def phase_figures(dev, rng, launches: dict, cluster_launches: dict,
          "safe_values_kernel", (8 * n + 5) * RECOVERY_ROWS,
          2 * n * RECOVERY_ROWS, "frankenpaxos_tpu_torch/ops/csrc/value.cu",
          "frankenpaxos_tpu/ops/value.py:19", f"S={RECOVERY_ROWS} N={n}"),
+        # K9-K11: the batch read once (B*L*(4+W) bytes), the output
+        # written once; a few integer operations per tail byte.
+        ("normalized", lambda: td.normalized(lt_batch),
+         lambda: td.normalized_plain(lt_batch), "depset_normalized_kernel",
+         2 * _rows(lt_batch) + 4, 4 * lt_batch.tails.numel(), depset_cu,
+         f"{depset_ref}:74", _shape(lt_batch)),
+        ("union_reduce", lambda: td.union_reduce(lt_batch),
+         lambda: td.union_reduce_plain(lt_batch),
+         "depset_union_reduce_kernel",
+         _rows(lt_batch) + 4 + _rows(lt_batch) // lt_batch.tails.shape[0],
+         2 * lt_batch.tails.numel(), depset_cu, f"{depset_ref}:97",
+         _shape(lt_batch)),
+        ("conflict_max", lambda: td.conflict_max(slow_seqs, slow),
+         lambda: td.conflict_max_plain(slow_seqs, slow),
+         "depset_union_reduce_kernel",
+         _rows(slow) + 8 + 4 * slow.tails.shape[0]
+         + _rows(slow) // slow.tails.shape[0],
+         2 * slow.tails.numel() + slow.tails.shape[0], depset_cu,
+         f"{depset_ref}:168", _shape(slow)),
+        ("all_equal", lambda: td.all_equal(fast),
+         lambda: td.all_equal_plain(fast), "depset_all_equal_kernel",
+         _rows(fast) + 5, 8 * fast.tails.numel(), depset_cu,
+         f"{depset_ref}:114", _shape(fast)),
     ]
     out = []
     for (name, fn, plain, kname, nbytes, ops, source, replaces,
@@ -683,14 +881,13 @@ def phase_figures(dev, rng, launches: dict, cluster_launches: dict,
         dev_ms = device_ms(fn, kname)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / INT_OPS_PER_S * 1e3
+        by_path = {path: counts.get(name, 0)
+                   for path, counts in paths.items()}
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[name] + cluster_launches[name],
-            "launches_by_path": {"headline_and_tracker": launches[name],
-                                 "cluster": cluster_launches[name],
-                                 "cluster_traffic":
-                                     cluster_traffic.get(name, 0)},
+            "launches": sum(by_path[path] for path in MAIN_PATHS),
+            "launches_by_path": by_path,
             "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -713,46 +910,45 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    t_start = time.perf_counter()
     try:
         name = torch.cuda.get_device_name(dev)
         smi = nvidia_smi_line()
-        log(f"[1/13] device: {name} ({torch.cuda.device_count()} "
+        phase(1, f"device: {name} ({torch.cuda.device_count()} "
             f"visible), torch {torch.__version__}, cuda {torch.version.cuda}")
         require(smi is not None, "nvidia-smi gave no name and power limit")
         log(smi)
 
         seconds = _build.build()
-        log(f"[2/13] build: {seconds:.1f} s")
+        phase(2, f"build: {seconds:.1f} s")
         for lib in _build.SIGNATURES:
             for line in _build.build_log(lib).splitlines():
                 if re.search(r"registers|spill", line):
                     log(f"      {lib}: {line.strip()}")
 
         errors = {"quorum_hit": phase_k1(dev, rng)}
-        log(f"[3/13] K1 quorum_hit == plain (5 specs, B={BLOCK})")
+        phase(3, f"K1 quorum_hit == plain (5 specs, B={BLOCK})")
         errors["record_block"] = phase_k2(dev, rng)
-        log(f"[4/13] K2 record_block == plain (64 calls, W={WINDOW})")
+        phase(4, f"K2 record_block == plain (64 calls, W={WINDOW})")
         errors["steady_state_step"] = phase_k3(dev)
-        log("[5/13] K3 steady_state_step == plain (64 drains x 2 specs)")
+        phase(5, "K3 steady_state_step == plain (64 drains x 2 specs)")
         errors["record_and_check"] = phase_k4(dev, rng)
-        log(f"[6/13] K4 record_and_check == plain (64 calls of 64-4096 "
+        phase(6, f"K4 record_and_check == plain (64 calls of 64-4096 "
             f"lanes x 2 specs, W={WINDOW})")
         errors["release"] = phase_k5(dev, rng)
-        log(f"[7/13] K5 release == plain (16 calls of 4096 lanes, "
+        phase(7, f"K5 release == plain (16 calls of 4096 lanes, "
             f"W={WINDOW})")
         errors.update(phase_k6(dev, rng))
-        log(f"[8/13] K6 check_batch_multi and record_and_check_epochs == "
+        phase(8, f"K6 check_batch_multi and record_and_check_epochs == "
             f"plain (3 epochs, 5-node union, W={EPOCH_WINDOW})")
         errors["reshape_columns"] = phase_k7(dev, rng)
-        log(f"[9/13] K7 reshape_columns == plain ([3, {WINDOW}] -> "
+        phase(9, f"K7 reshape_columns == plain ([3, {WINDOW}] -> "
             f"[4, {WINDOW}] and [2, {WINDOW}])")
         errors["safe_values"] = phase_k8(dev, rng)
-        log(f"[10/13] K8 safe_values == plain ([{RECOVERY_ROWS}, 3] and "
+        phase(10, f"K8 safe_values == plain ([{RECOVERY_ROWS}, 3] and "
             f"[{RECOVERY_ROWS}, 6])")
 
         result, votes, launches = phase_main_path(dev, rng)
-        log(f"[11/13] main path on {name} ({smi}): headline "
+        phase(11, f"main path on {name} ({smi}): headline "
             f"{result['value']} cmds/s majority-3, "
             f"{result['grid_cmds_per_sec']} cmds/s grid 2x3; mean drain "
             f"{result['mean_quorum_batch_latency_us']} us, p50 "
@@ -767,7 +963,7 @@ def main() -> int:
 
         cluster, cluster_launches = phase_cluster(dev)
         arms = cluster["arms"]
-        log(f"[12/13] cluster on {name} ({smi}): committed writes/s "
+        phase(12, f"cluster on {name} ({smi}): committed writes/s "
             + ", ".join(f"{arm} {fig['writes_per_sec']:.0f}"
                         for arm, fig in arms.items())
             + f"; K8 recovery {arms['failover']['recovery']['shape']}; "
@@ -775,11 +971,32 @@ def main() -> int:
             f"{cluster['launches']}")
         log(json.dumps({"cluster": cluster}))
 
+        errors.update(phase_depset(dev, rng))
+        phase(13, f"K9 normalized, K10 union_reduce / conflict_max, K11 "
+            f"all_equal == plain at {list(DEPSET_SHAPES)}, bases near "
+            f"2^31 - 1 and below 0")
+
+        epaxos, pairs, epaxos_launches = phase_epaxos(dev)
+        phase(14, f"EPaxos on {name} ({smi}): committed commands/s "
+            + ", ".join(f"{arm} {b} {fig[b]['commands_per_sec']:.0f}"
+                        for arm, fig in epaxos["arms"].items()
+                        for b in ("host", "cuda"))
+            + "; depset_lt coalesced/per_message "
+            + ", ".join(f"{w}: {p['throughput_ratio']:.2f}x"
+                        for w, p in pairs["pairs"].items())
+            + f"; launches {epaxos_launches}, of them by the cluster's "
+            f"traffic {epaxos['launches']}")
+        log(json.dumps({"epaxos": epaxos}))
+        log(json.dumps({"depset_lt": pairs}))
+
         log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
-        kernels = phase_figures(dev, rng, launches, cluster_launches,
-                                cluster["launches"], errors)
-        log(f"[13/13] per-kernel figures on {name} ({smi}); "
-            f"{time.perf_counter() - t_start:.1f} s in all")
+        kernels = phase_figures(dev, rng, {
+            "headline_and_tracker": launches, "cluster": cluster_launches,
+            "cluster_traffic": cluster["launches"],
+            "epaxos": epaxos_launches,
+            "epaxos_traffic": epaxos["launches"]}, errors)
+        phase(15, f"per-kernel figures on {name} ({smi}); "
+            f"{time.perf_counter() - T0:.1f} s in all")
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -15,6 +15,11 @@ reimplements its device hot path for one NVIDIA Hopper GPU (H100):
     cluster of actors over ``SimTransport``: the ProxyLeaders' vote
     tracking on the vote board, the Leader's Phase-1 recovery on K8
     (``ops/value.py``); ``bench/multipaxos_sim.py`` drives it;
+  * ``protocols/epaxos/`` with ``ops/depset.py`` -- EPaxos over
+    ``SimTransport``, its replicas' dependency decisions on K10
+    ``conflict_max`` and K11 ``all_equal`` (K9 ``normalized`` is the
+    row normalization both share); ``bench/epaxos_sim.py`` and
+    ``bench/depset_lt.py`` drive it;
   * ``convert.py`` -- state carried across from the JAX package.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,

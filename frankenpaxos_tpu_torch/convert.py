@@ -8,13 +8,15 @@ on a device and back, with every dtype kept: ``votes`` uint8, ``chosen``
 bool, everything else int32. A dtype or a field that does not match
 raises rather than being converted. An ``EpochSegmentedChecker`` is
 carried as its epochs' specs and boundaries plus its board, so a test
-can start the JAX checker and the port's from one mid-flight state.
+can start the JAX checker and the port's from one mid-flight state. A
+JAX ``DepSetBatch`` crosses as its three numpy arrays.
 """
 
 from __future__ import annotations
 
 from frankenpaxos_tpu_torch.bench.pipeline import PipelineState
 from frankenpaxos_tpu_torch.device import resolve_device
+from frankenpaxos_tpu_torch.ops.depset import DepSetBatch
 from frankenpaxos_tpu_torch.ops.quorum import (
     EpochSegmentedChecker,
     VoteBoard,
@@ -112,3 +114,29 @@ def epoch_planes_to_numpy(checker: EpochSegmentedChecker) -> dict:
               for name, value in checker.planes._asdict().items()}
     planes["boundaries"] = checker._boundaries.cpu().numpy()
     return planes
+
+
+def depset_from_jax(watermarks, tails, tail_base, device=None) -> DepSetBatch:
+    """A port ``DepSetBatch`` on ``device`` (``cuda`` when None) from a
+    JAX batch's arrays fetched to the host: ``[B, L]`` int32 watermarks,
+    ``[B, L, W]`` uint8 tails and the int32 tail base. A dtype or shape
+    that does not match raises rather than being converted."""
+    device = resolve_device(device)
+    watermarks, tails = np.asarray(watermarks), np.asarray(tails)
+    base = np.asarray(tail_base)
+    for name, value, dtype, ndim in (("watermarks", watermarks, np.int32, 2),
+                                     ("tails", tails, np.uint8, 3),
+                                     ("tail_base", base, np.int32, 0)):
+        if value.dtype != dtype or value.ndim != ndim:
+            raise ValueError(f"{name} is {value.dtype} {value.shape}, "
+                             f"expected {np.dtype(dtype)} with {ndim} dims")
+    if tails.shape[:2] != watermarks.shape:
+        raise ValueError(f"tails {tails.shape} do not match watermarks "
+                         f"{watermarks.shape}")
+    return DepSetBatch(*(torch.from_numpy(np.array(v, copy=True)).to(device)
+                         for v in (watermarks, tails, base)))
+
+
+def depset_to_numpy(batch: DepSetBatch) -> DepSetBatch:
+    """The batch as a ``DepSetBatch`` of numpy arrays on the host."""
+    return DepSetBatch(*(v.detach().cpu().numpy() for v in batch))

@@ -1,5 +1,6 @@
 """Device kernels of the port: the vote board, the quorum checkers and
-the epoch / multi-config checkers.
+the epoch / multi-config checkers (``quorum.py``), the Phase-1 recovery
+reduction (``value.py``) and the dependency-set algebra (``depset.py``).
 
 CUDA sources live in ``csrc/`` and are built at first use by
 ``_build``; nothing is compiled when this package is imported.

@@ -73,6 +73,17 @@ SIGNATURES = {
         # vote_rounds, value_ids, s, n, has_vote, value_id
         "fpx_safe_values": [_P, _P, _L, _I, _P, _P, _I, _P],
     },
+    "depset": {
+        # watermarks, tails, tail_base, rows (B * L), width, out_wm,
+        # out_tails
+        "fpx_depset_normalized": [_P, _P, _P, _L, _I, _P, _P, _I, _P],
+        # watermarks, tails, tail_base, b, l, width, seqs (or NULL), s,
+        # out_wm, out_tails, out_seq (or NULL)
+        "fpx_depset_union_reduce": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
+                                    _P, _I, _P],
+        # watermarks, tails, tail_base, b, l, width, out (one bool byte)
+        "fpx_depset_all_equal": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    },
     "pipeline": {
         # votes, chosen, commands, results, sm_state, committed,
         # exec_wm, window, block_size, i, *pred

@@ -5,6 +5,15 @@ return index; everything conflicts), KeyValueStore.scala:38+ (get/set
 batches; conflicts iff key sets intersect and at least one writes;
 inverted-index conflict index), Noop.scala:10+, Register.scala:10+,
 ReadableAppendLog.scala.
+
+One difference from the JAX package's copy: the port's KeyValueStore
+answers top-k conflicts (EPaxos's dependency sets) from its inverted
+index, as KeyValueStore.scala's typed top-k index does, where the JAX
+package scans every stored command (``NaiveTopKConflictIndex``, O(n)
+decodes per query); each key's posting lists keep their maxima between
+queries, so a hot key's query does not grow with its history. The
+conflicting keys, and so the TopOne/TopK, are the same;
+``tests/test_torch_epaxos.py`` holds the two equal.
 """
 
 from __future__ import annotations
@@ -211,6 +220,11 @@ class KeyValueStore(TypedStateMachine[KeyValueStoreInput, object]):
     def typed_conflict_index(self) -> ConflictIndex:
         return _KvConflictIndex(None)
 
+    def top_k_conflict_index(self, k: int, num_leaders: int,
+                             like: VertexIdLike) -> ConflictIndex:
+        return _KvTopKConflictIndex(self.input_serializer, k, num_leaders,
+                                    like)
+
 
 class _KvConflictIndex(ConflictIndex):
     """Inverted indexes: per key, who gets it and who sets it
@@ -229,7 +243,7 @@ class _KvConflictIndex(ConflictIndex):
         return self._serializer.from_bytes(command)
 
     def put(self, key, command) -> None:
-        self.remove(key)
+        self._unindex(key)
         input = self._decode(command)
         self.commands[key] = input
         index = self.gets if isinstance(input, GetRequest) else self.sets
@@ -241,6 +255,9 @@ class _KvConflictIndex(ConflictIndex):
         self.snapshots.add(key)
 
     def remove(self, key) -> None:
+        self._unindex(key)
+
+    def _unindex(self, key) -> None:
         input = self.commands.pop(key, None)
         self.snapshots.discard(key)
         if input is None:
@@ -260,6 +277,100 @@ class _KvConflictIndex(ConflictIndex):
                 conflicts |= self.sets.get(k, set())
                 conflicts |= self.gets.get(k, set())
         return conflicts
+
+
+class _KvTopKConflictIndex(_KvConflictIndex):
+    """The inverted index, folding each query's conflicts into per-leader
+    TopOne/TopK maxima (the shape EPaxos and BPaxos dependencies take).
+
+    Each posting list (the gets or the sets of one key) keeps its own
+    TopOne and TopK, built at its first query and kept up to date by
+    ``put``; a query merges the lists it would union. The maximum (or the
+    top k) of a union is that of the lists' maxima, so the answer equals
+    folding every conflicting key, at a cost per query that does not grow
+    with a hot key's history. Removing a member drops the list's tops.
+    """
+
+    def __init__(self, serializer, k: int, num_leaders: int,
+                 like: VertexIdLike):
+        super().__init__(serializer)
+        self.k = k
+        self.num_leaders = num_leaders
+        self.like = like
+        # (is_get, key) -> that posting list's TopOne / TopK.
+        self._top_ones: dict = {}
+        self._top_ks: dict = {}
+        # key -> the command as put, to skip re-putting the same one.
+        self._raw: dict = {}
+
+    def _lists_of(self, key) -> set:
+        input = self.commands.get(key)
+        if input is None:
+            return set()
+        is_get = isinstance(input, GetRequest)
+        return {(is_get, k) for k in _keys_of(input)}
+
+    def put(self, key, command) -> None:
+        if self._raw.get(key) == command:
+            return  # the same command again: nothing to re-index
+        old = self._lists_of(key)
+        super().put(key, command)
+        self._raw[key] = command
+        new = self._lists_of(key)
+        self._drop(old - new)
+        for posting in new - old:
+            for tops in (self._top_ones, self._top_ks):
+                if posting in tops:
+                    tops[posting].put(key)
+
+    def remove(self, key) -> None:
+        lists = self._lists_of(key)
+        super().remove(key)
+        self._raw.pop(key, None)
+        self._drop(lists)
+
+    def _drop(self, lists) -> None:
+        for posting in lists:
+            self._top_ones.pop(posting, None)
+            self._top_ks.pop(posting, None)
+
+    def _query_lists(self, command) -> list:
+        input = self._decode(command)
+        if isinstance(input, GetRequest):
+            return [(False, k) for k in input.keys]
+        return [(is_get, k) for k, _ in input.key_values
+                for is_get in (False, True)]
+
+    def _top(self, tops: dict, posting, make):
+        top = tops.get(posting)
+        if top is None:
+            is_get, k = posting
+            top = tops[posting] = make()
+            for key in (self.gets if is_get else self.sets).get(k, ()):
+                top.put(key)
+        return top
+
+    def get_top_one_conflicts(self, command) -> TopOne:
+        def make():
+            return TopOne(self.num_leaders, self.like)
+
+        top = make()
+        for key in self.snapshots:
+            top.put(key)
+        for posting in self._query_lists(command):
+            top.merge_equals(self._top(self._top_ones, posting, make))
+        return top
+
+    def get_top_k_conflicts(self, command) -> TopK:
+        def make():
+            return TopK(self.k, self.num_leaders, self.like)
+
+        top = make()
+        for key in self.snapshots:
+            top.put(key)
+        for posting in self._query_lists(command):
+            top.merge_equals(self._top(self._top_ks, posting, make))
+        return top
 
 
 class ReadableAppendLog(AppendLog):

@@ -14,11 +14,20 @@ import textwrap
 
 import frankenpaxos_tpu_torch
 from frankenpaxos_tpu_torch.bench import (
+    depset_lt,
+    epaxos_sim,
     multipaxos_sim,
     pipeline as tp,
     tracker_lt,
 )
-from frankenpaxos_tpu_torch.ops import _build, quorum as tq, value as tv
+from frankenpaxos_tpu_torch.ops import (
+    _build,
+    depset as td,
+    quorum as tq,
+    value as tv,
+)
+from frankenpaxos_tpu_torch.protocols.epaxos import device_deps
+from frankenpaxos_tpu_torch.protocols.epaxos.harness import make_epaxos
 from frankenpaxos_tpu_torch.protocols.multipaxos.harness import make_multipaxos
 from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
     TpuQuorumTracker,
@@ -73,9 +82,9 @@ def test_imports_with_jax_and_reference_blocked():
     assert {f"frankenpaxos_tpu_torch.{m}" for m in PATH_MODULES} <= imported
 
 
-#: The modules of the ProxyLeader's vote path and of the MultiPaxos
-#: cluster; each must import with JAX and the JAX package blocked (test
-#: above) and name neither.
+#: The modules of the ProxyLeader's vote path, of the MultiPaxos cluster
+#: and of the EPaxos dependency-set plane; each must import with JAX and
+#: the JAX package blocked (test above) and name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
     "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
@@ -84,7 +93,12 @@ PATH_MODULES = (
     "protocols.multipaxos.acceptor", "protocols.multipaxos.proxy_leader",
     "protocols.multipaxos.leader", "protocols.multipaxos.replica",
     "protocols.multipaxos.client", "protocols.multipaxos.harness",
-    "bench.multipaxos_sim",
+    "bench.multipaxos_sim", "compact", "clienttable", "depgraph",
+    "depgraph.zigzag", "ops.depset", "runs.depruns",
+    "protocols.epaxos.instance_prefix_set", "protocols.epaxos.messages",
+    "protocols.epaxos.device_deps", "protocols.epaxos.replica",
+    "protocols.epaxos.client", "protocols.epaxos.harness",
+    "bench.epaxos_sim", "bench.depset_lt",
 )
 
 
@@ -164,6 +178,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             make_multipaxos(f=1, **backends)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         multipaxos_sim.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_epaxos(f=2, dep_backend="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_deps.to_batch([], 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        epaxos_sim.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        depset_lt.run()
     # Naming the CPU explicitly is the only way to the plain versions.
     assert tp.make_state(1024, 3, device="cpu").votes.device.type == "cpu"
 
@@ -228,10 +250,20 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     meta = torch.zeros((8, 3), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="meta"):
         tv.safe_values(meta, meta)
+    batch = td.DepSetBatch(
+        torch.zeros((2, 3), dtype=torch.int32, device="meta"),
+        torch.zeros((2, 3, 8), dtype=torch.uint8, device="meta"),
+        torch.zeros((), dtype=torch.int32, device="meta"))
+    for wrapper in (td.normalized, td.union_reduce, td.all_equal):
+        with pytest.raises(ValueError, match="meta"):
+            wrapper(batch)
+    with pytest.raises(ValueError, match="meta"):
+        td.conflict_max(meta[:, 0], batch)
     launches = [tq.quorum_hit, tq.record_block, tp.steady_state_step,
                 tq.record_and_check, tq.release, tq.check_batch_multi,
                 tq.record_and_check_epochs, tq.reshape_columns,
-                tv.safe_values]
+                tv.safe_values, td.normalized, td.union_reduce,
+                td.conflict_max, td.all_equal]
     assert [f.launches for f in launches] == [0] * len(launches)
 
 
