@@ -69,13 +69,31 @@ Phases, in order (any failure exits nonzero and prints no result):
      host runs go to two worker processes beside the cuda runs); K10
      ``conflict_max`` and K11 ``all_equal`` must each have launched on
      the cluster's traffic;
-  15. per-kernel figures at the main paths' shapes: CUDA-event time per
-     call over many calls, the plain version's time, the bound
-     (bytes / 3.35 TB/s vs integer operations / 67 T/s, the larger) and
-     the launches of phases 11, 12 and 14, printed as one
-     ``{"kernels": [...]}`` line; before it, each headline arm's drain
-     split into device time (profiler) and the share of the drain the
-     device sits idle.
+  15. K12 ``quorum_watermark`` and K13 ``contiguous_prefix_length``
+     against their plain versions: exact. K12 at n in {1, 2, 3, 5, 7,
+     9, 33, 64} and B in {1, 4096, 2^16}, every quorum size in [1, n],
+     per-row sizes and the out-of-range 0, -1 and n + 1, values near
+     +-2^31; its vector form on int64 matrices that wrap to int32. K13
+     on libbench's [4096] (one False in the middle), [4096, 3] rows,
+     arbitrary bytes and signed types, all-true rows long enough for
+     many passes, and an empty last axis;
+  16. the BPaxos path, with every count set to 0 again first:
+     ``bench/bpaxos_sim.py`` at full width (f = 1, 64 pairs; arms
+     simple-conflict2, simple-conflict25 and gc, each on the host and
+     the cuda backends, 2^13 commands each, cut from the bench's 2^14 to
+     hold the smoke's time; the gc arm's replica 2 partitioned for the
+     first half and caught up through a peer's CommitSnapshot); every
+     gate of the bench passes, and K10 ``union_reduce`` and K12
+     ``quorum_watermark`` must each have launched on the cluster's
+     traffic;
+  17. per-kernel figures at the main paths' shapes: CUDA-event time per
+     call over many calls, the plain version's time, the time of one
+     PyTorch call that computes the same function where there is one
+     (``torch.kthvalue`` for K12), the bound (bytes / 3.35 TB/s vs
+     integer operations / 67 T/s, the larger) and the launches of
+     phases 11, 12, 14 and 16, printed as one ``{"kernels": [...]}``
+     line; before it, each headline arm's drain split into device time
+     (profiler) and the share of the drain the device sits idle.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -89,6 +107,7 @@ import warnings
 
 import frankenpaxos_tpu_torch
 from frankenpaxos_tpu_torch.bench import (
+    bpaxos_sim,
     depset_lt,
     epaxos_sim,
     headline,
@@ -102,6 +121,7 @@ from frankenpaxos_tpu_torch.ops import (
     depset as td,
     quorum as tq,
     value as tv,
+    watermark as tw,
 )
 from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority
 from frankenpaxos_tpu_torch.quorums.spec import pad_specs
@@ -117,6 +137,8 @@ SEED = 20261017
 #: so that the whole smoke stays near its earlier time with the EPaxos
 #: path added (depth only: the cluster's width is the bench's).
 CLUSTER_WRITES = 1 << 13
+#: The BPaxos arms' commands, cut from the bench's 2^14 (depth only).
+BPAXOS_COMMANDS = 1 << 13
 #: When the smoke started (``phase``'s clock).
 T0 = time.perf_counter()
 
@@ -131,7 +153,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/15] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/17] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -541,6 +563,84 @@ def phase_depset(dev, rng) -> dict:
     return worst
 
 
+#: K12's row widths and batch sizes (n 3 and B 1..2^16 cover the GC
+#: roles' [leaders, replicas] = [2, 3] and wider deployments).
+WATERMARK_WIDTHS = (1, 2, 3, 5, 7, 9, 33, 64)
+WATERMARK_ROWS = (1, 4096, 1 << 16)
+INT32_EXTREMES = np.array([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2,
+                           2**31 - 1], dtype=np.int32)
+
+
+def phase_watermark(dev, rng) -> dict:
+    """K12 and K13 against their plain versions, exact: K12 at every
+    width of ``WATERMARK_WIDTHS`` and batch of ``WATERMARK_ROWS`` for
+    every quorum size in [1, n], per-row sizes, and 0, -1, n + 1, with a
+    quarter of the rows near +-2^31; its vector form on int64 matrices
+    that wrap; K13 on bool, byte and signed rows of every kind the
+    reference's tests and libbench use."""
+    worst = {"quorum_watermark": 0, "contiguous_prefix_length": 0}
+
+    def check(name, got, want, what):
+        err = max_abs_err(got, want)
+        worst[name] = max(worst[name], err)
+        require(got.shape == want.shape and err == 0,
+                f"{name} differs from plain at {what}")
+
+    for n in WATERMARK_WIDTHS:
+        for b in WATERMARK_ROWS:
+            w = rng.integers(-1000, 1000, size=(b, n)).astype(np.int32)
+            w[: b // 4] = rng.choice(INT32_EXTREMES, size=(b // 4, n))
+            w[b // 4: b // 2] = rng.integers(0, 3, size=(b // 2 - b // 4, n))
+            wt = torch.from_numpy(w).to(dev)
+            for q in (*range(1, n + 1), 0, -1, n + 1):
+                check("quorum_watermark", tw.quorum_watermark(wt, q),
+                      tw.quorum_watermark_plain(wt, q), f"n={n} B={b} q={q}")
+            per_row = torch.from_numpy(rng.integers(
+                -1, n + 2, size=b).astype(np.int32)).to(dev)
+            check("quorum_watermark", tw.quorum_watermark(wt, per_row),
+                  tw.quorum_watermark_plain(wt, per_row),
+                  f"n={n} B={b} per-row q")
+            # The vector form's strided read: columns of a [n, B] matrix.
+            cols = wt.t().contiguous()
+            check("quorum_watermark", tw.quorum_watermark(cols.t(), 1),
+                  tw.quorum_watermark_plain(wt, 1), f"n={n} B={b} strided")
+    for shape in ((3, 2), (5, 3), (64, 7)):
+        m = rng.integers(0, 1 << 34, size=shape, dtype=np.int64)
+        for q in range(1, shape[0] + 1):
+            got = tw.quorum_watermark_vector(m, q, device=dev)
+            want = tw.quorum_watermark_vector(m, q, device="cpu")
+            require(np.array_equal(got, want),
+                    f"quorum_watermark_vector differs from plain at "
+                    f"{shape} q={q}")
+    w = np.array([[2**31 + 5, 1], [3, 2**32 + 7], [2**33, 4]], np.int64)
+    require(tw.quorum_watermark_vector(w, 2, device=dev).tolist() == [0, 4],
+            "quorum_watermark_vector does not wrap int64 as the reference")
+
+    present = np.ones(4096, dtype=bool)
+    present[2048] = False
+    rows = np.ones((4096, 3), dtype=bool)
+    rows[rng.integers(0, 4096, size=600), rng.integers(0, 3, size=600)] = 0
+    cases = [present, rows,
+             np.array([2, 3, 1, 0], np.uint8),
+             rng.integers(0, 4, size=(4096, 64)).astype(np.uint8),
+             rng.integers(-3, 4, size=(1024, 40)).astype(np.int8),
+             rng.integers(-3, 4, size=(1024, 40)).astype(np.int16),
+             rng.integers(1, 70000, size=(1024, 40)).astype(np.int32),
+             rng.integers(-2**40, 2**40, size=(1024, 5)),
+             np.ones((64, 100003), dtype=bool),
+             np.ones((3, 0), dtype=bool), np.zeros((0, 5), dtype=bool)]
+    for x in cases:
+        xt = torch.from_numpy(x).to(dev)
+        check("contiguous_prefix_length", tw.contiguous_prefix_length(xt),
+              tw.contiguous_prefix_length_plain(xt),
+              f"{x.dtype} {tuple(x.shape)}")
+    require(int(tw.contiguous_prefix_length(
+        torch.from_numpy(present).to(dev))) == 2048,
+        "K13 misses libbench's prefix of 2048")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
 #: Every kernel wrapper, by the name of its row in the kernels line.
 WRAPPERS = {
     "quorum_hit": tq.quorum_hit,
@@ -556,6 +656,8 @@ WRAPPERS = {
     "union_reduce": td.union_reduce,
     "conflict_max": td.conflict_max,
     "all_equal": td.all_equal,
+    "quorum_watermark": tw.quorum_watermark,
+    "contiguous_prefix_length": tw.contiguous_prefix_length,
 }
 #: The kernels of the main path, K1-K7 (check_batch_multi, K6's
 #: stateless predicate, is not on it).
@@ -564,9 +666,9 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
              "reshape_columns")
 
 
-#: The runs whose launches the kernels line counts: phases 11, 12 and 14
+#: The runs whose launches the kernels line counts: phases 11, 12, 14, 16
 #: (``*_traffic`` entries of ``launches_by_path`` are subsets of these).
-MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos")
+MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos")
 
 
 def _rows(batch: td.DepSetBatch) -> int:
@@ -619,6 +721,23 @@ def phase_epaxos(dev) -> tuple[dict, dict, dict]:
             f"a kernel of the EPaxos path never launched on its traffic: "
             f"{traffic}")
     return cluster, pairs, launches
+
+
+def phase_bpaxos(dev) -> tuple[dict, dict]:
+    """The BPaxos path: the cluster bench's three arms; its gates raise
+    inside ``run``. K10 and K12 must have launched on the cluster's
+    traffic."""
+    reset_launches()
+    try:
+        result = bpaxos_sim.run(dev, commands=BPAXOS_COMMANDS)
+    except bpaxos_sim.GateFailure as exc:
+        raise SmokeFailure(f"bpaxos: {exc}") from exc
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    traffic = result["launches"]
+    require(all(traffic[name] > 0 for name in bpaxos_sim.CLUSTER_KERNELS),
+            f"a kernel of the BPaxos path never launched on its traffic: "
+            f"{traffic}")
+    return result, launches
 
 
 def phase_main_path(dev, rng) -> tuple[dict, dict, dict]:
@@ -790,6 +909,25 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     depset_cu = "frankenpaxos_tpu_torch/ops/csrc/depset.cu"
     depset_ref = "frankenpaxos_tpu/ops/depset.py"
 
+    # K12: a GC role's fold, the f + 1 = 2 quorum watermark of the
+    # [replicas, leaders] = [3, 2] frontier matrix, read by columns.
+    frontiers = torch.from_numpy(rng.integers(
+        0, 1 << 14, size=(3, 2)).astype(np.int32)).to(dev)
+    k12_rows, k12_q = frontiers.t(), 2
+    k12_b, k12_n = k12_rows.shape
+    require(torch.equal(torch.kthvalue(k12_rows, k12_n - k12_q + 1,
+                                       dim=-1).values,
+                        tw.quorum_watermark(k12_rows, k12_q)),
+            "torch.kthvalue does not compute K12's function")
+    # K13: libbench's [4096] present vector, one False in the middle;
+    # the prefix (2048 + the zero) is read, one int32 written.
+    k13 = torch.ones(4096, dtype=torch.bool, device=dev)
+    k13[2048] = False
+    watermark_cu = "frankenpaxos_tpu_torch/ops/csrc/watermark.cu"
+    watermark_ref = "frankenpaxos_tpu/ops/watermark.py"
+    library = {"quorum_watermark": lambda: torch.kthvalue(
+        k12_rows, k12_n - k12_q + 1, dim=-1)}
+
     quorum, sparse, epoch = (f"frankenpaxos_tpu_torch/ops/csrc/{f}.cu"
                              for f in ("quorum", "sparse", "epoch"))
     ref = "frankenpaxos_tpu/ops/quorum.py"
@@ -872,12 +1010,28 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          lambda: td.all_equal_plain(fast), "depset_all_equal_kernel",
          _rows(fast) + 5, 8 * fast.tails.numel(), depset_cu,
          f"{depset_ref}:114", _shape(fast)),
+        # K12: every watermark read once, one int32 written per row; two
+        # compares and two adds per pair of a row's elements.
+        ("quorum_watermark", lambda: tw.quorum_watermark(k12_rows, k12_q),
+         lambda: tw.quorum_watermark_plain(k12_rows, k12_q),
+         "quorum_watermark_kernel", 4 * k12_b * k12_n + 4 * k12_b,
+         4 * k12_b * k12_n * k12_n, watermark_cu, f"{watermark_ref}:17",
+         f"[B, n] = [{k12_b}, {k12_n}] (strided), q = {k12_q}"),
+        # K13: the prefix up to its first zero read, an int32 written; a
+        # multiply and an add per element read.
+        ("contiguous_prefix_length",
+         lambda: tw.contiguous_prefix_length(k13),
+         lambda: tw.contiguous_prefix_length_plain(k13),
+         "contiguous_prefix_kernel", 2049 + 4, 2 * 2049, watermark_cu,
+         f"{watermark_ref}:38", "[4096] bool, first False at 2048"),
     ]
     out = []
     for (name, fn, plain, kname, nbytes, ops, source, replaces,
          shape) in cases:
         ms = time_ms(fn, 2000)
         plain_ms = time_ms(plain, 200)
+        library_ms = (time_ms(library[name], 2000) if name in library
+                      else None)
         dev_ms = device_ms(fn, kname)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / INT_OPS_PER_S * 1e3
@@ -891,7 +1045,7 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
             "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "device_ms": dev_ms, "bytes": nbytes,
+            "library_ms": library_ms, "device_ms": dev_ms, "bytes": nbytes,
             "shape": shape,
         })
     return out
@@ -989,13 +1143,31 @@ def main() -> int:
         log(json.dumps({"epaxos": epaxos}))
         log(json.dumps({"depset_lt": pairs}))
 
+        errors.update(phase_watermark(dev, rng))
+        phase(15, f"K12 quorum_watermark == plain at n in "
+            f"{list(WATERMARK_WIDTHS)}, B in {list(WATERMARK_ROWS)}, every "
+            f"quorum size, per-row and out-of-range sizes, int64 that "
+            f"wraps; K13 contiguous_prefix_length == plain on bool, byte "
+            f"and signed rows")
+
+        bpaxos, bpaxos_launches = phase_bpaxos(dev)
+        phase(16, f"BPaxos on {name} ({smi}): committed commands/s "
+            + ", ".join(f"{arm} {b} {fig[b]['commands_per_sec']:.0f}"
+                        for arm, fig in bpaxos["arms"].items()
+                        for b in ("host", "cuda"))
+            + f"; launches {bpaxos_launches}, of them by the cluster's "
+            f"traffic {bpaxos['launches']}")
+        log(json.dumps({"bpaxos": bpaxos}))
+
         log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
         kernels = phase_figures(dev, rng, {
             "headline_and_tracker": launches, "cluster": cluster_launches,
             "cluster_traffic": cluster["launches"],
             "epaxos": epaxos_launches,
-            "epaxos_traffic": epaxos["launches"]}, errors)
-        phase(15, f"per-kernel figures on {name} ({smi}); "
+            "epaxos_traffic": epaxos["launches"],
+            "bpaxos": bpaxos_launches,
+            "bpaxos_traffic": bpaxos["launches"]}, errors)
+        phase(17, f"per-kernel figures on {name} ({smi}); "
             f"{time.perf_counter() - T0:.1f} s in all")
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

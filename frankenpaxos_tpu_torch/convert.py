@@ -9,7 +9,8 @@ bool, everything else int32. A dtype or a field that does not match
 raises rather than being converted. An ``EpochSegmentedChecker`` is
 carried as its epochs' specs and boundaries plus its board, so a test
 can start the JAX checker and the port's from one mid-flight state. A
-JAX ``DepSetBatch`` crosses as its three numpy arrays.
+JAX ``DepSetBatch`` crosses as its three numpy arrays, and a GC role's
+``QuorumWatermarkVector`` as its ``[replicas, leaders]`` int64 matrix.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from frankenpaxos_tpu_torch.ops.quorum import (
     VoteBoard,
 )
 from frankenpaxos_tpu_torch.quorums.spec import QuorumSpec
+from frankenpaxos_tpu_torch.utils.watermark import QuorumWatermarkVector
 import numpy as np
 import torch
 
@@ -140,3 +142,23 @@ def depset_from_jax(watermarks, tails, tail_base, device=None) -> DepSetBatch:
 def depset_to_numpy(batch: DepSetBatch) -> DepSetBatch:
     """The batch as a ``DepSetBatch`` of numpy arrays on the host."""
     return DepSetBatch(*(v.detach().cpu().numpy() for v in batch))
+
+
+def watermark_vector_from_numpy(watermarks) -> QuorumWatermarkVector:
+    """A port ``QuorumWatermarkVector`` holding ``watermarks``, the
+    ``[replicas, leaders]`` int64 matrix of a JAX role's vector (its
+    ``_watermarks``), so that a GC role can continue from a mid-run
+    state. A dtype or shape that does not match raises."""
+    watermarks = np.asarray(watermarks)
+    if watermarks.dtype != np.int64 or watermarks.ndim != 2:
+        raise ValueError(f"watermarks are {watermarks.dtype} "
+                         f"{watermarks.shape}, expected a [replicas, "
+                         f"leaders] int64 matrix")
+    vector = QuorumWatermarkVector(*watermarks.shape)
+    vector._watermarks[...] = watermarks
+    return vector
+
+
+def watermark_vector_to_numpy(vector: QuorumWatermarkVector) -> np.ndarray:
+    """The vector's ``[replicas, leaders]`` int64 matrix, a copy."""
+    return vector._watermarks.copy()

@@ -84,6 +84,14 @@ SIGNATURES = {
         # watermarks, tails, tail_base, b, l, width, out (one bool byte)
         "fpx_depset_all_equal": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     },
+    "watermark": {
+        # watermarks, rows, n, row_stride, elem_stride, quorum sizes (or
+        # NULL), quorum size, out
+        "fpx_quorum_watermark": [_P, _L, _I, _L, _L, _P, _I, _P, _I, _P],
+        # present, elem_kind, rows, length, row_stride, elem_stride, out
+        "fpx_contiguous_prefix_length": [_P, _I, _L, _L, _L, _L, _P, _I,
+                                         _P],
+    },
     "pipeline": {
         # votes, chosen, commands, results, sm_state, committed,
         # exec_wm, window, block_size, i, *pred

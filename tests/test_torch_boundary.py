@@ -14,6 +14,7 @@ import textwrap
 
 import frankenpaxos_tpu_torch
 from frankenpaxos_tpu_torch.bench import (
+    bpaxos_sim,
     depset_lt,
     epaxos_sim,
     multipaxos_sim,
@@ -25,12 +26,17 @@ from frankenpaxos_tpu_torch.ops import (
     depset as td,
     quorum as tq,
     value as tv,
+    watermark as tw,
 )
 from frankenpaxos_tpu_torch.protocols.epaxos import device_deps
 from frankenpaxos_tpu_torch.protocols.epaxos.harness import make_epaxos
 from frankenpaxos_tpu_torch.protocols.multipaxos.harness import make_multipaxos
 from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
     TpuQuorumTracker,
+)
+from frankenpaxos_tpu_torch.protocols.simplebpaxos.harness import (
+    make_bpaxos,
+    make_gc_bpaxos,
 )
 from frankenpaxos_tpu_torch.quorums import SimpleMajority
 from frankenpaxos_tpu_torch.reconfig import EpochQuorumTracker, EpochStore
@@ -82,9 +88,10 @@ def test_imports_with_jax_and_reference_blocked():
     assert {f"frankenpaxos_tpu_torch.{m}" for m in PATH_MODULES} <= imported
 
 
-#: The modules of the ProxyLeader's vote path, of the MultiPaxos cluster
-#: and of the EPaxos dependency-set plane; each must import with JAX and
-#: the JAX package blocked (test above) and name neither.
+#: The modules of the ProxyLeader's vote path, of the MultiPaxos cluster,
+#: of the EPaxos dependency-set plane and of the BPaxos watermark plane;
+#: each must import with JAX and the JAX package blocked (test above) and
+#: name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
     "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
@@ -98,7 +105,11 @@ PATH_MODULES = (
     "protocols.epaxos.instance_prefix_set", "protocols.epaxos.messages",
     "protocols.epaxos.device_deps", "protocols.epaxos.replica",
     "protocols.epaxos.client", "protocols.epaxos.harness",
-    "bench.epaxos_sim", "bench.depset_lt",
+    "bench.epaxos_sim", "bench.depset_lt", "ops.watermark",
+    "utils.watermark", "sim", "sim.simulator",
+    "protocols.simplebpaxos.messages", "protocols.simplebpaxos.roles",
+    "protocols.simplebpaxos.replica", "protocols.simplebpaxos.harness",
+    "protocols.simplegcbpaxos", "bench.bpaxos_sim",
 )
 
 
@@ -186,6 +197,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         epaxos_sim.run()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         depset_lt.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_bpaxos(dep_backend="cuda")
+    for backends in ({"dep_backend": "cuda"}, {"gc_backend": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_gc_bpaxos(**backends)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tw.quorum_watermark_vector(np.zeros((3, 2), np.int64), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bpaxos_sim.run()
     # Naming the CPU explicitly is the only way to the plain versions.
     assert tp.make_state(1024, 3, device="cpu").votes.device.type == "cpu"
 
@@ -259,11 +279,16 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
             wrapper(batch)
     with pytest.raises(ValueError, match="meta"):
         td.conflict_max(meta[:, 0], batch)
+    with pytest.raises(ValueError, match="meta"):
+        tw.quorum_watermark(meta, 2)
+    with pytest.raises(ValueError, match="meta"):
+        tw.contiguous_prefix_length(meta)
     launches = [tq.quorum_hit, tq.record_block, tp.steady_state_step,
                 tq.record_and_check, tq.release, tq.check_batch_multi,
                 tq.record_and_check_epochs, tq.reshape_columns,
                 tv.safe_values, td.normalized, td.union_reduce,
-                td.conflict_max, td.all_equal]
+                td.conflict_max, td.all_equal, tw.quorum_watermark,
+                tw.contiguous_prefix_length]
     assert [f.launches for f in launches] == [0] * len(launches)
 
 
