@@ -86,18 +86,50 @@ Phases, in order (any failure exits nonzero and prints no result):
      gate of the bench passes, and K10 ``union_reduce`` and K12
      ``quorum_watermark`` must each have launched on the cluster's
      traffic;
-  17. per-kernel figures at the main paths' shapes: CUDA-event time per
+  17. K14 (the telemetry-on drain) against its plain version, and the
+     telemetry-off drain K3 against the pinned pre-telemetry copy: 64
+     drains x {majority-3, 2x3 grid} at window 2^20, block 2^15, and 8
+     drains at windows 2^15 and 2^16 (window/block 1 and 2, where the
+     new, old and GC blocks alias), each from drain 0 and from
+     2^31 - 70; every field and counter of K14's state
+     equal to the plain version's, its drain equal to K3's, K3 equal to
+     the pinned copy bit for bit, the counters re-adding to the
+     committed count; then 64 telemetry-on drains under
+     ``torch.cuda.set_sync_debug_mode("error")`` (any hidden sync
+     raises) and one ``collect``;
+  18. the telemetry path, with every count set to 0 first: the
+     telemetry-overhead twin (``bench/telemetry_overhead.py``) at the
+     reference's widths 2^12/2^8 and 2^13/2^9 and the headline width
+     2^20/2^15, the reference's ``--smoke`` knobs, through
+     ``measure_width``; the arms must agree (the 3% gate is printed as
+     measured, not enforced); K3, K14 and the pinned copy must each have
+     launched;
+  19. K15 ``count_matching_replies`` against its plain version: exact, S
+     in {1, 4096, 2^16} x N in {1, 2, 3, 5, 7, 16}, with ties, rows with
+     no valid reply, ids near +-2^31, and an empty S;
+  20. K16 (``union``, ``intersect``, ``compact``) and K17 (``equal``,
+     ``size``, ``contains``) against their plain versions: exact, on
+     libbench's [4096, 3, 64] and the shapes of phase 13, window bases
+     near 2^31 - 1 and below 0, 0/1 and arbitrary bytes, aliased
+     inputs, every broadcast shape of ``executed``, leaders -1 and >= L
+     and ids on both sides of the window;
+  21. the libbench path, with every count set to 0 first: the libbench
+     twin (``bench/libbench.py``) at the reference's sizes; K10, K12,
+     K13 and K16's ``union`` must each have launched;
+  22. per-kernel figures at the main paths' shapes: CUDA-event time per
      call over many calls, the plain version's time, the time of one
      PyTorch call that computes the same function where there is one
      (``torch.kthvalue`` for K12), the bound (bytes / 3.35 TB/s vs
      integer operations / 67 T/s, the larger) and the launches of
-     phases 11, 12, 14 and 16, printed as one ``{"kernels": [...]}``
-     line; before it, each headline arm's drain split into device time
-     (profiler) and the share of the drain the device sits idle.
+     phases 11, 12, 14, 16, 18 and 21, printed as one
+     ``{"kernels": [...]}`` line; before it, each headline arm's drain
+     split into device time (profiler) and the share of the drain the
+     device sits idle.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import itertools
 import json
 import os
 import re
@@ -111,11 +143,15 @@ from frankenpaxos_tpu_torch.bench import (
     depset_lt,
     epaxos_sim,
     headline,
+    libbench,
     multipaxos_sim,
     pipeline as tp,
+    pipeline_baseline as tpin,
+    telemetry_overhead,
     tracker_lt,
 )
 from frankenpaxos_tpu_torch.device import nvidia_smi_line
+from frankenpaxos_tpu_torch.obs import telemetry as tobs
 from frankenpaxos_tpu_torch.ops import (
     _build,
     depset as td,
@@ -153,7 +189,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/17] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/22] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -658,6 +694,15 @@ WRAPPERS = {
     "all_equal": td.all_equal,
     "quorum_watermark": tw.quorum_watermark,
     "contiguous_prefix_length": tw.contiguous_prefix_length,
+    "steady_state_step_telemetry": tp.telemetry_drain,
+    "steady_state_step_baseline": tpin.steady_state_step,
+    "count_matching_replies": tv.count_matching_replies,
+    "union": td.union,
+    "intersect": td.intersect,
+    "compact": td.compact,
+    "equal": td.equal,
+    "size": td.size,
+    "contains": td.contains,
 }
 #: The kernels of the main path, K1-K7 (check_batch_multi, K6's
 #: stateless predicate, is not on it).
@@ -666,9 +711,17 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
              "reshape_columns")
 
 
-#: The runs whose launches the kernels line counts: phases 11, 12, 14, 16
-#: (``*_traffic`` entries of ``launches_by_path`` are subsets of these).
-MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos")
+#: The runs whose launches the kernels line counts: phases 11, 12, 14,
+#: 16, 18 and 21 (``*_traffic`` entries of ``launches_by_path`` are
+#: subsets of these).
+MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
+              "telemetry", "libbench")
+#: The kernels of the telemetry path (phase 18) and of the libbench path
+#: (phase 21).
+TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
+                  "steady_state_step_baseline")
+LIBBENCH_PATH = ("quorum_watermark", "contiguous_prefix_length", "union",
+                 "union_reduce")
 
 
 def _rows(batch: td.DepSetBatch) -> int:
@@ -765,6 +818,213 @@ def phase_main_path(dev, rng) -> tuple[dict, dict, dict]:
     require(all(launches[name] > 0 for name in MAIN_PATH),
             f"a kernel of the main path never launched: {launches}")
     return result, votes, launches
+
+#: Starts of phase 17's runs: drain 0, and near 2^31 (the index, the
+#: proposals and the lag wrap as int32).
+TELEMETRY_STARTS = (0, 2**31 - 70)
+#: Phase 17's boards and drains per run: the full width, then
+#: window/block 1 and 2, where the new, old and GC blocks alias (the
+#: occupancy is read after pass 1 and again after pass 2 on one column).
+TELEMETRY_RUNS = ((WINDOW, 64), (BLOCK, 8), (2 * BLOCK, 8))
+
+
+def _fields_err(a, b) -> int:
+    """Largest difference over the seven drain fields of two states."""
+    return max(max_abs_err(x, y) for x, y in zip(a[:7], b[:7]))
+
+
+def _nonzero_proposals(first: int, drains: int) -> int:
+    """Host count of the proposals ``lane * 7 + i * 13 + 1`` that are not
+    0 as int32 (they wrap)."""
+    lanes = np.arange(BLOCK, dtype=np.int64)
+    return int(sum(((lanes * 7 + i * 13 + 1) % 2**32 != 0).sum()
+                   for i in range(first, first + drains)))
+
+
+def phase_telemetry(dev) -> dict:
+    """K14 against its plain version, K14's drain against K3's, and K3
+    against the pinned copy, at full width and where the blocks alias;
+    the counters re-add; the telemetry-on drain makes no hidden sync."""
+    worst = {"steady_state_step_telemetry": 0,
+             "steady_state_step_baseline": 0}
+    for (name, n), (window, drains), first in itertools.product(
+            (("majority3", 3), ("grid2x3_write", 6)), TELEMETRY_RUNS,
+            TELEMETRY_STARTS):
+        pred = predicate(specs()[name], dev)
+        on = tp.make_state(window, n, telemetry=True, device=dev)
+        plain = tp.make_state(window, n, telemetry=True, device=dev)
+        off = tp.make_state(window, n, device=dev)
+        pinned = tpin.make_state(window, n, device=dev)
+        at = f"{name}, window {window}, drain"
+        for i in range(first, first + drains):
+            tp.steady_state_step(on, i, block_size=BLOCK, predicate=pred)
+            tp.steady_state_step_plain(plain, i, BLOCK, pred)
+            tp.steady_state_step(off, i, block_size=BLOCK, predicate=pred)
+            tpin.steady_state_step(pinned, i, block_size=BLOCK,
+                                   predicate=pred)
+            err = max(_fields_err(on, plain),
+                      max_abs_err(on.telemetry.buffer,
+                                  plain.telemetry.buffer))
+            worst["steady_state_step_telemetry"] = max(
+                worst["steady_state_step_telemetry"], err)
+            require(err == 0, f"K14 differs from plain on {at} {i}")
+            require(_fields_err(on, off) == 0,
+                    f"K14's drain differs from K3's on {at} {i}")
+            err = _fields_err(off, pinned)
+            worst["steady_state_step_baseline"] = max(
+                worst["steady_state_step_baseline"], err)
+            require(err == 0, f"K3 differs from the pinned copy on {at} {i}")
+        snap = tobs.collect(on)
+        committed = int(on.committed)
+        require(snap.drains == drains and sum(snap.lag_hist) == drains
+                and sum(snap.occupancy) == committed
+                and snap.shard_committed == (committed,)
+                and snap.proposed == _nonzero_proposals(first, drains)
+                and snap.pad_lanes == 0
+                and committed > (drains - 4) * BLOCK,
+                f"K14's counters do not re-add on {at}s from {first}: "
+                f"{snap}, committed {committed}")
+    # No hidden sync on the telemetry-on drain: under the sync debug
+    # mode any synchronising CUDA call raises. Then one collect.
+    pred = predicate(specs()["majority3"], dev)
+    state = tp.make_state(WINDOW, 3, telemetry=True, device=dev)
+    tp.steady_state_step(state, 0, block_size=BLOCK, predicate=pred)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(1, 65):
+            tp.steady_state_step(state, i, block_size=BLOCK, predicate=pred)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    snap = tobs.collect(state)
+    require(snap.drains == 65 and snap.committed == int(state.committed),
+            f"collect after the guarded drains: {snap}")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+def phase_overhead(dev) -> tuple[dict, dict]:
+    """The telemetry path: the overhead twin at the reference's widths
+    and the headline width, with the reference's ``--smoke`` knobs."""
+    reset_launches()
+    result = telemetry_overhead.run(
+        dev, smoke=True,
+        widths=(*telemetry_overhead.WIDTHS, (WINDOW, BLOCK)))
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    require(all(row["arms_agree"] for row in result["pairs"].values()),
+            f"the overhead arms disagree: {result['pairs']}")
+    require(all(launches[name] > 0 for name in TELEMETRY_PATH),
+            f"a kernel of the telemetry path never launched: {launches}")
+    return result, launches
+
+
+REPLY_ROWS = (1, 4096, 1 << 16)
+REPLY_WIDTHS = (1, 2, 3, 5, 7, 16)
+
+
+def phase_k15(dev, rng) -> int:
+    """K15 against its plain version, exact: ids from a few values (ties
+    everywhere) with an eighth near +-2^31, 30% of the replies invalid,
+    an eighth of the rows with none valid; and an empty S."""
+    worst = 0
+    seen = {"tie": 0, "none_valid": 0}
+    for s in REPLY_ROWS:
+        for n in REPLY_WIDTHS:
+            ids = rng.integers(0, 4, size=(s, n)).astype(np.int32)
+            far = rng.random((s, n)) < 0.125
+            ids[far] = rng.choice(INT32_EXTREMES, size=int(far.sum()))
+            valid = rng.random((s, n)) < 0.7
+            valid[rng.random(s) < 0.125] = False
+            it, vt = (torch.from_numpy(x).to(dev) for x in (ids, valid))
+            got = tv.count_matching_replies(it, vt)
+            want = tv.count_matching_replies_plain(it, vt)
+            err = max(max_abs_err(a, b) for a, b in zip(got, want))
+            worst = max(worst, err)
+            require(err == 0, f"K15 differs from plain at S={s} N={n}")
+            counts = got[1].cpu().numpy()
+            seen["none_valid"] += int((counts == 0).any())
+            seen["tie"] += int(n >= 2 and (counts * 2 <= n).any())
+    empty = torch.zeros((0, 3), dtype=torch.int32, device=dev)
+    modal, count = tv.count_matching_replies(empty, empty.bool())
+    require(modal.shape == (0,) and count.shape == (0,),
+            "K15 on an empty batch")
+    require(all(seen.values()), f"K15 cases lack an outcome: {seen}")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+#: libbench's dependency batch, then phase 13's shapes.
+PAIR_SHAPES = ((4096, 3, 64),) + DEPSET_SHAPES
+
+
+def phase_depset_rest(dev, rng) -> dict:
+    """K16 and K17 in every mode against their plain versions, exact."""
+    names = ("union", "intersect", "compact", "equal", "size", "contains")
+    worst = dict.fromkeys(names, 0)
+    seen = {"equal": 0, "unequal": 0}
+
+    def check(name, got, want, what):
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        worst[name] = max(worst[name], err)
+        require(err == 0, f"{name} differs from plain at {what}")
+
+    for shape in PAIR_SHAPES:
+        b, l, w = shape
+        for base in (1 << 16, 2**31 - 1 - w // 2, -w // 2 - 5):
+            for kind in ("bits", "bytes"):
+                what = f"{shape} base {base} ({kind})"
+                x = _depset_batch(rng, shape, base, kind, dev)
+                y = _depset_batch(rng, shape, base, kind, dev)
+                nx = td.normalized(x)
+                for p, q in ((x, y), (x, x), (nx, nx)):
+                    check("union", td.union(p, q), td.union_plain(p, q),
+                          what)
+                    check("intersect", td.intersect(p, q),
+                          td.intersect_plain(p, q), what)
+                    eq = td.equal(p, q)
+                    check("equal", eq, td.equal_plain(p, q), what)
+                    seen["equal"] += int(eq.any())
+                    seen["unequal"] += int((~eq).any())
+                check("size", td.size(x), td.size_plain(x), what)
+                for executed in (
+                        np.int32(base + w // 2),
+                        rng.integers(base - 8, base + w + 8, size=l),
+                        rng.integers(base - 8, base + w + 8, size=(1, l)),
+                        rng.integers(base - 8, base + w + 8, size=(b, l))):
+                    ex = torch.from_numpy(np.array(np.clip(
+                        np.asarray(executed, np.int64), -2**31,
+                        2**31 - 1), dtype=np.int32)).to(dev)
+                    check("compact", td.compact(x, ex),
+                          td.compact_plain(x, ex), f"{what} executed "
+                          f"{tuple(ex.shape)}")
+                leader = torch.from_numpy(rng.integers(
+                    -1, l + 1, size=b).astype(np.int32)).to(dev)
+                vid = torch.from_numpy(np.clip(
+                    base + rng.integers(-w, 2 * w, size=b), -2**31,
+                    2**31 - 1).astype(np.int32)).to(dev)
+                check("contains", td.contains(x, leader, vid),
+                      td.contains_plain(x, leader, vid), what)
+                for lead, v in ((-1, base - 1), (l, base + w - 1),
+                                (l + 3, base + w)):
+                    v = min(max(v, -2**31), 2**31 - 1)
+                    check("contains", td.contains(x, lead, v),
+                          td.contains_plain(x, lead, v), f"{what} scalar")
+    require(all(seen.values()), f"K17 equal lacks an outcome: {seen}")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+def phase_libbench(dev) -> tuple[dict, dict]:
+    """The libbench path: the twin at the reference's sizes."""
+    reset_launches()
+    result = libbench.run(dev)
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    require(all(launches[name] > 0 for name in LIBBENCH_PATH),
+            f"a kernel of the libbench path never launched: {launches}")
+    return result, launches
+
 
 
 def time_ms(fn, iters: int) -> float:
@@ -928,6 +1188,50 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     library = {"quorum_watermark": lambda: torch.kthvalue(
         k12_rows, k12_n - k12_q + 1, dim=-1)}
 
+    # K14 and the pinned K3 copy: the headline's drain, telemetry on, and
+    # the overhead bench's baseline arm; the counters are n + 22 words.
+    tel_k = tp.make_state(WINDOW, n, telemetry=True, device=dev)
+    tel_p = tp.make_state(WINDOW, n, telemetry=True, device=dev)
+    pin_k = tpin.make_state(WINDOW, n, device=dev)
+    pin_p = tpin.make_state(WINDOW, n, device=dev)
+    at = dict.fromkeys(("tk", "tp", "pk", "pp"), 0)
+
+    def drain(key, step):
+        def run():
+            step(at[key])
+            at[key] += 1
+        return run
+
+    k14 = drain("tk", lambda i: tp.steady_state_step(
+        tel_k, i, block_size=BLOCK, predicate=pred))
+    k14_plain = drain("tp", lambda i: tp.steady_state_step_plain(
+        tel_p, i, BLOCK, pred))
+    pinned = drain("pk", lambda i: tpin.steady_state_step(
+        pin_k, i, block_size=BLOCK, predicate=pred))
+    pinned_plain = drain("pp", lambda i: tpin.steady_state_step_plain(
+        pin_p, i, BLOCK, pred))
+    tel_words = 4 * tel_k.telemetry.buffer.numel()
+    k3_ops = (2 * (10 * n + 2 * g * n + 8) + 30) * BLOCK
+    # K15 at S = 2^16, N = 5: ids from a few values, 70% valid.
+    k15_s, k15_n = 1 << 16, 5
+    k15_ids = torch.from_numpy(rng.integers(
+        0, 4, size=(k15_s, k15_n)).astype(np.int32)).to(dev)
+    k15_valid = torch.from_numpy(rng.random((k15_s, k15_n)) < 0.7).to(dev)
+    # K16 / K17: libbench's [4096, 3, 64] batch at tail base 2^16 (K16's
+    # union is libbench's call); executed per column, [L]; a leader and
+    # a vid per row.
+    lib_a = _depset_batch(rng, (4096, 3, 64), 1 << 16, "bits", dev)
+    lib_b = _depset_batch(rng, (4096, 3, 64), 1 << 16, "bits", dev)
+    lib_rows = lib_a.watermarks.shape[0]
+    lib_exec = torch.from_numpy(rng.integers(
+        (1 << 16) - 8, (1 << 16) + 72, size=3).astype(np.int32)).to(dev)
+    lib_leader = torch.from_numpy(rng.integers(
+        0, 3, size=lib_rows).astype(np.int32)).to(dev)
+    lib_vid = torch.from_numpy(rng.integers(
+        (1 << 16) - 64, (1 << 16) + 128, size=lib_rows).astype(
+        np.int32)).to(dev)
+    lib_cells = lib_a.tails.numel() + lib_a.watermarks.numel()
+
     quorum, sparse, epoch = (f"frankenpaxos_tpu_torch/ops/csrc/{f}.cu"
                              for f in ("quorum", "sparse", "epoch"))
     ref = "frankenpaxos_tpu/ops/quorum.py"
@@ -1024,6 +1328,57 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          lambda: tw.contiguous_prefix_length_plain(k13),
          "contiguous_prefix_kernel", 2049 + 4, 2 * 2049, watermark_cu,
          f"{watermark_ref}:38", "[4096] bool, first False at 2048"),
+        # K14: K3's bytes and operations, the counters read and written
+        # once, a vote sum and a bin add per newly-chosen lane.
+        ("steady_state_step_telemetry", k14, k14_plain,
+         "steady_state_step_kernel", (5 * n + 17) * BLOCK + 2 * tel_words,
+         k3_ops + 2 * (n + 2) * BLOCK,
+         "frankenpaxos_tpu_torch/ops/csrc/pipeline.cu",
+         "frankenpaxos_tpu/bench/pipeline.py:145 (ops/telemetry.py:99, "
+         ":108, :136)", f"N={n} B={BLOCK} W={WINDOW}, telemetry on"),
+        ("steady_state_step_baseline", pinned, pinned_plain,
+         "steady_state_step_kernel", (5 * n + 17) * BLOCK, k3_ops,
+         "frankenpaxos_tpu_torch/ops/csrc/pipeline_baseline.cu",
+         "frankenpaxos_tpu/bench/pipeline_baseline.py:76",
+         f"N={n} B={BLOCK} W={WINDOW}"),
+        # K15: ids (4 B) and valid (1 B) read, two int32 written per row;
+        # N^2 compares, ANDs and adds per row.
+        ("count_matching_replies",
+         lambda: tv.count_matching_replies(k15_ids, k15_valid),
+         lambda: tv.count_matching_replies_plain(k15_ids, k15_valid),
+         "count_matching_replies_kernel", (5 * k15_n + 8) * k15_s,
+         3 * k15_n * k15_n * k15_s,
+         "frankenpaxos_tpu_torch/ops/csrc/value.cu",
+         "frankenpaxos_tpu/ops/value.py:40", f"S={k15_s} N={k15_n}"),
+        # K16: two batches read, one written (compact: one batch and
+        # `executed`; union, timed on libbench's aliased call, one batch
+        # read); K17: one batch read (two for equal), 1 or 4 bytes
+        # written per row; contains reads a watermark, a byte, a leader
+        # and a vid per row.
+        ("union", lambda: td.union(lib_a, lib_a),
+         lambda: td.union_plain(lib_a, lib_a), "depset_pair_kernel",
+         2 * _rows(lib_a) + 4, 2 * lib_cells, depset_cu,
+         f"{depset_ref}:49", _shape(lib_a) + " (libbench's, aliased)"),
+        ("intersect", lambda: td.intersect(lib_a, lib_b),
+         lambda: td.intersect_plain(lib_a, lib_b), "depset_pair_kernel",
+         3 * _rows(lib_a) + 4, 12 * lib_cells, depset_cu,
+         f"{depset_ref}:181", _shape(lib_a)),
+        ("compact", lambda: td.compact(lib_a, lib_exec),
+         lambda: td.compact_plain(lib_a, lib_exec), "depset_pair_kernel",
+         2 * _rows(lib_a) + 4 * 3 + 4, 6 * lib_cells, depset_cu,
+         f"{depset_ref}:213", _shape(lib_a) + ", executed [L]"),
+        ("equal", lambda: td.equal(lib_a, lib_b),
+         lambda: td.equal_plain(lib_a, lib_b), "depset_query_kernel",
+         2 * _rows(lib_a) + lib_rows, 2 * lib_cells, depset_cu,
+         f"{depset_ref}:129", _shape(lib_a)),
+        ("size", lambda: td.size(lib_a), lambda: td.size_plain(lib_a),
+         "depset_query_kernel", _rows(lib_a) + 4 * lib_rows, lib_cells,
+         depset_cu, f"{depset_ref}:161", _shape(lib_a)),
+        ("contains", lambda: td.contains(lib_a, lib_leader, lib_vid),
+         lambda: td.contains_plain(lib_a, lib_leader, lib_vid),
+         "depset_query_kernel", (4 + 1 + 8 + 1) * lib_rows + 4,
+         12 * lib_rows, depset_cu, f"{depset_ref}:137 (contains L148)",
+         _shape(lib_a) + ", a leader and a vid per row"),
     ]
     out = []
     for (name, fn, plain, kname, nbytes, ops, source, replaces,
@@ -1159,6 +1514,36 @@ def main() -> int:
             f"traffic {bpaxos['launches']}")
         log(json.dumps({"bpaxos": bpaxos}))
 
+        errors.update(phase_telemetry(dev))
+        phase(17, f"K14 steady_state_step_telemetry == plain, K3 == the "
+            f"pinned copy ((W, drains) {list(TELEMETRY_RUNS)} x 2 specs x "
+            f"starts {list(TELEMETRY_STARTS)}); no sync under "
+            f"set_sync_debug_mode('error'); one collect")
+
+        overhead, overhead_launches = phase_overhead(dev)
+        phase(18, f"telemetry overhead on {name} ({smi}): "
+            + ", ".join(f"{row['window']}/{row['block']}: off/baseline "
+                        f"{row['off_over_baseline_ratio']} "
+                        f"{row['off_over_baseline_ratio_range']}, on/off "
+                        f"{row['on_over_off_ratio']} "
+                        f"{row['on_over_off_ratio_range']}"
+                        for row in overhead["pairs"].values())
+            + f"; gate_passed {overhead['gate_passed']} (measured, not "
+            f"enforced); launches {overhead_launches}")
+        log(json.dumps({"telemetry_overhead": overhead}))
+
+        errors["count_matching_replies"] = phase_k15(dev, rng)
+        phase(19, f"K15 count_matching_replies == plain at S in "
+            f"{list(REPLY_ROWS)}, N in {list(REPLY_WIDTHS)}, and S = 0")
+
+        errors.update(phase_depset_rest(dev, rng))
+        phase(20, f"K16 union / intersect / compact, K17 equal / size / "
+            f"contains == plain at {list(PAIR_SHAPES)}")
+
+        lib, lib_launches = phase_libbench(dev)
+        phase(21, f"libbench on {name} ({smi}): launches {lib_launches}")
+        log(json.dumps({"libbench": lib}))
+
         log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
         kernels = phase_figures(dev, rng, {
             "headline_and_tracker": launches, "cluster": cluster_launches,
@@ -1166,8 +1551,10 @@ def main() -> int:
             "epaxos": epaxos_launches,
             "epaxos_traffic": epaxos["launches"],
             "bpaxos": bpaxos_launches,
-            "bpaxos_traffic": bpaxos["launches"]}, errors)
-        phase(17, f"per-kernel figures on {name} ({smi}); "
+            "bpaxos_traffic": bpaxos["launches"],
+            "telemetry": overhead_launches,
+            "libbench": lib_launches}, errors)
+        phase(22, f"per-kernel figures on {name} ({smi}); "
             f"{time.perf_counter() - T0:.1f} s in all")
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

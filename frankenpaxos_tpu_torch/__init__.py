@@ -20,6 +20,12 @@ reimplements its device hot path for one NVIDIA Hopper GPU (H100):
     ``conflict_max`` and K11 ``all_equal`` (K9 ``normalized`` is the
     row normalization both share); ``bench/epaxos_sim.py`` and
     ``bench/depset_lt.py`` drive it;
+  * ``ops/telemetry.py`` with ``obs/telemetry.py`` -- the telemetry
+    plane: counters the drain accumulates (K14, the telemetry-on twin of
+    K3) and their one-copy collection; ``bench/telemetry_overhead.py``
+    holds the drain against a pinned pre-telemetry copy
+    (``bench/pipeline_baseline.py``), and ``bench/libbench.py`` times the
+    host data structures and the depset / watermark kernels;
   * ``convert.py`` -- state carried across from the JAX package.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,

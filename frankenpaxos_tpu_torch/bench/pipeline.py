@@ -4,7 +4,9 @@ Counterpart of ``frankenpaxos_tpu/bench/pipeline.py`` (unsharded): the
 steady-state Phase-2 write path of compartmentalized MultiPaxos --
 propose -> acceptor votes -> quorum check -> chosen -> replica execute
 -> GC -- over a ``[acceptors, window]`` vote board, one drain per
-launch of the hand-written kernel K3 (``ops/csrc/pipeline.cu``).
+launch of the hand-written kernel K3 (``ops/csrc/pipeline.cu``), or of
+its telemetry-on twin K14 when the state carries the telemetry plane
+(``ops/telemetry.py``: ``make_state(telemetry=True)``).
 
 Where the reference iterates a jitted step under ``lax.fori_loop`` with
 donated state, :func:`run_steps` is a Python loop of one launch per
@@ -14,13 +16,14 @@ acceptor), so both packages produce the same votes for the same slot:
 ~87.5% of votes arrive in the drain after the proposal, the rest one
 drain later.
 
-The telemetry plane and the sharded (multi-GPU) functions are not
-ported yet.
+The sharded (multi-GPU) functions are not ported yet (ROADMAP.md
+queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import time
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 from frankenpaxos_tpu_torch.device import resolve_device
@@ -31,6 +34,13 @@ from frankenpaxos_tpu_torch.ops.quorum import (
     quorum_hit_plain,
     QuorumPredicate,
     use_kernel,
+)
+from frankenpaxos_tpu_torch.ops.telemetry import (
+    buffer_words,
+    drain_update,
+    make_telemetry,
+    quorum_pass_update,
+    TelemetryState,
 )
 import numpy as np
 import torch
@@ -44,21 +54,25 @@ class PipelineState(NamedTuple):
     sm_state: torch.Tensor   # [] int32: the replica's running register
     committed: torch.Tensor  # [] int32 committed commands
     exec_wm: torch.Tensor    # [] int32 executed watermark (global slots)
-    # The telemetry plane is not ported: always None.
-    telemetry: Optional[object] = None
+    # The telemetry counters (ops/telemetry.py); None means the plane is
+    # OFF and the drain launches K3, which carries none.
+    telemetry: Optional[TelemetryState] = None
 
 
 _STATE_DTYPES = (torch.uint8, torch.bool) + (torch.int32,) * 5
 
 
 def make_state(window: int, num_acceptors: int, *, telemetry: bool = False,
-               device=None) -> PipelineState:
+               slot_shards: int = 1, device=None) -> PipelineState:
     """A fresh pipeline state on ``device`` (``cuda`` when None; raises
-    without a GPU)."""
+    without a GPU), with zeroed telemetry counters when ``telemetry``.
+    One GPU holds one slot shard: ``slot_shards`` other than 1 is the
+    multi-GPU drain (ROADMAP.md queue 1 item 10) and raises."""
     device = resolve_device(device)
-    if telemetry:
+    if slot_shards != 1:
         raise NotImplementedError(
-            "the telemetry plane is not ported to the torch pipeline yet")
+            f"slot_shards={slot_shards}: the sharded (multi-GPU) drain is "
+            f"not ported (ROADMAP.md queue 1 item 10)")
 
     def scalar():
         return torch.zeros((), dtype=torch.int32, device=device)
@@ -69,7 +83,9 @@ def make_state(window: int, num_acceptors: int, *, telemetry: bool = False,
         chosen=torch.zeros((window,), dtype=torch.bool, device=device),
         commands=torch.zeros((window,), dtype=torch.int32, device=device),
         results=torch.zeros((window,), dtype=torch.int32, device=device),
-        sm_state=scalar(), committed=scalar(), exec_wm=scalar())
+        sm_state=scalar(), committed=scalar(), exec_wm=scalar(),
+        telemetry=(make_telemetry(num_acceptors, 1, device=device)
+                   if telemetry else None))
 
 
 def _wrap32(x: int) -> int:
@@ -91,9 +107,11 @@ def _arrivals(i: int, lanes: torch.Tensor, accs: torch.Tensor,
 
 def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
                             pred: QuorumPredicate) -> PipelineState:
-    """Plain PyTorch version of K3: one drain, in the reference's order
-    (propose, pass 1 on the new block, pass 2 on the old block, execute,
-    GC), updating ``state`` in place."""
+    """Plain PyTorch version of K3 and K14: one drain, in the reference's
+    order (propose, pass 1 on the new block, pass 2 on the old block,
+    execute, GC), updating ``state`` in place; with telemetry on, each
+    pass's :func:`quorum_pass_update` and the end-of-drain
+    :func:`drain_update` woven in where the reference weaves them."""
     votes, chosen, commands, results = state[:4]
     n, w = votes.shape
     b = block_size
@@ -106,8 +124,11 @@ def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
     start_old = (_wrap32(i - 1) % num_blocks) * b
     start_gc = (_wrap32(i - 2) % num_blocks) * b
 
+    tel = state.telemetry
+
     # Leader: assign slots, propose command ids.
-    commands[start_new:start_new + b] = lanes * 7 + i_t * 13 + 1
+    proposed = lanes * 7 + i_t * 13 + 1
+    commands[start_new:start_new + b] = proposed
 
     def quorum_pass(start, arrivals):
         cols = slice(start, start + b)
@@ -116,7 +137,11 @@ def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
         hit = quorum_hit_plain(block, pred)
         old = chosen[cols].clone()
         chosen[cols] = hit | old
-        state.committed.add_((hit & ~old).sum(dtype=torch.int32))
+        newly = hit & ~old
+        state.committed.add_(newly.sum(dtype=torch.int32))
+        if tel is not None:
+            quorum_pass_update(tel, newly=newly, slot_axis=None,
+                               votes_count=block.sum(0, dtype=torch.int32))
 
     # Acceptors + ProxyLeader: pass 1 on the new block, pass 2 (the
     # stragglers of drain i-1) on the previous one.
@@ -131,23 +156,25 @@ def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
     # GC: release block i-2 so the ring can wrap.
     votes[:, start_gc:start_gc + b] = 0
     chosen[start_gc:start_gc + b] = False
+    # Telemetry: proposals, and the end-of-drain watermark lag.
+    if tel is not None:
+        lag = (i_t + 1) * b - state.committed
+        drain_update(tel, proposed_block=proposed, lane_valid=None,
+                     lag=lag, slot_axis=None)
     return state
 
 
-def steady_state_step(state: PipelineState, i: int, *, block_size: int,
-                      predicate: QuorumPredicate) -> PipelineState:
-    """K3: one event-loop drain -- new proposals + straggler completion
-    -- applied to ``state`` IN PLACE (the reference donates it); returns
-    ``state``.
-
-    ``i`` is the drain index (an int32 value). ``predicate`` comes from
-    :func:`~frankenpaxos_tpu_torch.ops.quorum.make_predicate` on the
-    state's device. CUDA state launches
-    ``csrc/pipeline.cu::steady_state_step_kernel``; CPU state takes
-    :func:`steady_state_step_plain`."""
+def _kernel_args(state: PipelineState, block_size: int,
+                 predicate: QuorumPredicate) -> tuple:
+    """The tensors the drain kernel takes -- K3's seven, then the flat
+    telemetry buffer when the state carries one -- and the board's
+    ``(n, window)``, after the checks K3 and K14 share. Per drain the
+    buffer needs only what K14's writes need (contiguous int32 of
+    ``n + 22`` words: one slot shard, ``n + 1`` occupancy bins), read
+    from its attributes; ``collect`` checks the counter views in full
+    (:func:`~frankenpaxos_tpu_torch.ops.telemetry.flat_buffer`)."""
     tensors = state[:7]
-    votes = state.votes
-    n, window = votes.shape
+    n, window = state.votes.shape
     if block_size <= 0 or window % block_size:
         raise ValueError(f"window {window} must hold whole "
                          f"{block_size}-slot blocks")
@@ -158,21 +185,62 @@ def steady_state_step(state: PipelineState, i: int, *, block_size: int,
             or tuple(t.shape for t in tensors[1:]) != (
                 (window,),) * 3 + ((),) * 3:
         raise ValueError("state tensors do not match make_state's")
+    tel = state.telemetry
+    if tel is None:
+        return tensors, n, window
+    buffer = tel.buffer
+    if buffer is None or buffer.dtype != torch.int32 \
+            or not buffer.is_contiguous() or buffer.numel() != buffer_words(n):
+        if tel.shard_committed.numel() != 1:
+            raise NotImplementedError(
+                "telemetry over several slot shards is the sharded drain "
+                "(ROADMAP.md queue 1 item 10)")
+        raise ValueError(f"the telemetry state does not hold the flat "
+                         f"int32 buffer make_telemetry builds for {n} "
+                         f"acceptors")
+    return tensors + (buffer,), n, window
+
+
+def steady_state_step(state: PipelineState, i: int, *, block_size: int,
+                      predicate: QuorumPredicate) -> PipelineState:
+    """One event-loop drain -- new proposals + straggler completion --
+    applied to ``state`` IN PLACE (the reference donates it); returns
+    ``state``.
+
+    ``i`` is the drain index (an int32 value). ``predicate`` comes from
+    :func:`~frankenpaxos_tpu_torch.ops.quorum.make_predicate` on the
+    state's device. CUDA state launches
+    ``csrc/pipeline.cu::steady_state_step_kernel<false>`` (K3, counted
+    in ``steady_state_step.launches``), or ``<true>`` (K14, the same
+    drain plus the counters in one launch, counted in
+    ``telemetry_drain.launches``) when the state carries telemetry; CPU
+    state takes :func:`steady_state_step_plain`. Never synchronises."""
+    tensors, n, window = _kernel_args(state, block_size, predicate)
     i = int32(i)
     if not use_kernel(*tensors, predicate.masks):
         return steady_state_step_plain(state, i, block_size, predicate)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("steady_state_step needs contiguous tensors")
     lib = _build.library("pipeline")
-    rc = lib.fpx_steady_state_step(
-        *(t.data_ptr() for t in tensors), window, block_size, i,
-        *predicate.c_args(), *_build.stream_args(votes.device))
-    _build.check("pipeline", "fpx_steady_state_step", rc)
-    steady_state_step.launches += 1
+    args = (*(t.data_ptr() for t in tensors[:7]), window, block_size, i,
+            *predicate.c_args())
+    stream = _build.stream_args(state.votes.device)
+    if state.telemetry is None:
+        rc = lib.fpx_steady_state_step(*args, *stream)
+        _build.check("pipeline", "fpx_steady_state_step", rc)
+        steady_state_step.launches += 1
+    else:
+        rc = lib.fpx_steady_state_step_telemetry(
+            *args, tensors[7].data_ptr(), *stream)
+        _build.check("pipeline", "fpx_steady_state_step_telemetry", rc)
+        telemetry_drain.launches += 1
     return state
 
 
 steady_state_step.launches = 0
+#: K14's launch count: :func:`steady_state_step` launches K14 on a state
+#: that carries telemetry and counts it here.
+telemetry_drain = SimpleNamespace(launches=0)
 
 
 def run_steps(state: PipelineState, iters: int, block_size: int,

@@ -5,12 +5,14 @@ run carries. A JAX ``PipelineState`` or ``VoteBoard`` fetched to the host
 (``jax.device_get``) is a named tuple of numpy arrays; these functions
 move such a tuple (or a dict of the same fields) into the port's tensors
 on a device and back, with every dtype kept: ``votes`` uint8, ``chosen``
-bool, everything else int32. A dtype or a field that does not match
-raises rather than being converted. An ``EpochSegmentedChecker`` is
-carried as its epochs' specs and boundaries plus its board, so a test
-can start the JAX checker and the port's from one mid-flight state. A
-JAX ``DepSetBatch`` crosses as its three numpy arrays, and a GC role's
-``QuorumWatermarkVector`` as its ``[replicas, leaders]`` int64 matrix.
+bool, everything else int32. A pipeline's telemetry counters cross as a
+``TelemetryState`` both ways (into the port's one flat buffer). A dtype
+or a field that does not match raises rather than being converted. An
+``EpochSegmentedChecker`` is carried as its epochs' specs and boundaries
+plus its board, so a test can start the JAX checker and the port's from
+one mid-flight state. A JAX ``DepSetBatch`` crosses as its three numpy
+arrays, and a GC role's ``QuorumWatermarkVector`` as its
+``[replicas, leaders]`` int64 matrix.
 """
 
 from __future__ import annotations
@@ -18,9 +20,11 @@ from __future__ import annotations
 from frankenpaxos_tpu_torch.bench.pipeline import PipelineState
 from frankenpaxos_tpu_torch.device import resolve_device
 from frankenpaxos_tpu_torch.ops.depset import DepSetBatch
-from frankenpaxos_tpu_torch.ops.quorum import (
-    EpochSegmentedChecker,
-    VoteBoard,
+from frankenpaxos_tpu_torch.ops.quorum import EpochSegmentedChecker, VoteBoard
+from frankenpaxos_tpu_torch.ops.telemetry import (
+    FIELDS as TELEMETRY_FIELDS,
+    make_telemetry,
+    TelemetryState,
 )
 from frankenpaxos_tpu_torch.quorums.spec import QuorumSpec
 from frankenpaxos_tpu_torch.utils.watermark import QuorumWatermarkVector
@@ -35,12 +39,31 @@ def _fields(arrays) -> dict:
         else dict(arrays)
 
 
+def _telemetry_from_numpy(arrays, device) -> TelemetryState:
+    fields = {name: np.asarray(value) for name, value in
+              _fields(arrays).items() if name != "buffer"}
+    if set(fields) != set(TELEMETRY_FIELDS):
+        raise ValueError(f"telemetry fields {sorted(fields)} do not match "
+                         f"TelemetryState")
+    for name, value in fields.items():
+        if value.dtype != np.int32:
+            raise ValueError(f"telemetry {name} is {value.dtype}, "
+                             f"expected int32")
+    tel = make_telemetry(fields["occupancy"].shape[0] - 1,
+                         fields["shard_committed"].shape[0], device=device)
+    for name in TELEMETRY_FIELDS:
+        view = getattr(tel, name)
+        if fields[name].shape != tuple(view.shape):
+            raise ValueError(f"telemetry {name} is {fields[name].shape}, "
+                             f"expected {tuple(view.shape)}")
+        view.copy_(torch.from_numpy(np.array(fields[name], copy=True)))
+    return tel
+
+
 def _from_numpy(cls, arrays, device):
     device = resolve_device(device)
     fields = _fields(arrays)
-    if fields.pop("telemetry", None) is not None:
-        raise ValueError("the telemetry plane is not ported; carry state "
-                         "from a telemetry-off run")
+    telemetry = fields.pop("telemetry", None)
     if set(fields) != set(cls._fields) - {"telemetry"}:
         raise ValueError(f"fields {sorted(fields)} do not match "
                          f"{cls.__name__}")
@@ -51,22 +74,33 @@ def _from_numpy(cls, arrays, device):
         if value.dtype != want:
             raise ValueError(f"{name} is {value.dtype}, expected {want}")
         out[name] = torch.from_numpy(np.array(value, copy=True)).to(device)
+    if telemetry is not None:
+        out["telemetry"] = _telemetry_from_numpy(telemetry, device)
     return cls(**out)
 
 
 def _to_numpy(state) -> dict:
-    return {name: value.detach().cpu().numpy()
-            for name, value in _fields(state).items() if value is not None}
+    out = {}
+    for name, value in _fields(state).items():
+        if isinstance(value, TelemetryState):
+            out[name] = TelemetryState(*(
+                t.detach().cpu().numpy() for t in value[:len(
+                    TELEMETRY_FIELDS)]))
+        elif value is not None:
+            out[name] = value.detach().cpu().numpy()
+    return out
 
 
 def pipeline_state_from_numpy(arrays, device=None) -> PipelineState:
     """A port ``PipelineState`` on ``device`` (``cuda`` when None) from a
-    named tuple or dict of numpy arrays."""
+    named tuple or dict of numpy arrays; its ``telemetry``, when not
+    None, is a named tuple or dict of the six int32 counters."""
     return _from_numpy(PipelineState, arrays, device)
 
 
 def pipeline_state_to_numpy(state: PipelineState) -> PipelineState:
-    """The state as a ``PipelineState`` of numpy arrays on the host."""
+    """The state as a ``PipelineState`` of numpy arrays on the host (its
+    telemetry, when on, a ``TelemetryState`` of the six counters)."""
     return PipelineState(**_to_numpy(state))
 
 

@@ -1,1 +1,2 @@
-"""Observability hooks of the port: only the drain-stage scope so far."""
+"""Observability of the port: the drain-stage scopes (``trace.py``) and
+the telemetry plane's host side (``telemetry.py``)."""

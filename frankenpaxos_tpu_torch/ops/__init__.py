@@ -1,6 +1,8 @@
 """Device kernels of the port: the vote board, the quorum checkers and
 the epoch / multi-config checkers (``quorum.py``), the Phase-1 recovery
-reduction (``value.py``) and the dependency-set algebra (``depset.py``).
+reduction and the modal reply count (``value.py``), the dependency-set
+algebra (``depset.py``), the watermarks (``watermark.py``) and the
+telemetry counters of the drain (``telemetry.py``).
 
 CUDA sources live in ``csrc/`` and are built at first use by
 ``_build``; nothing is compiled when this package is imported.

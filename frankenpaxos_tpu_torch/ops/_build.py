@@ -72,6 +72,8 @@ SIGNATURES = {
     "value": {
         # vote_rounds, value_ids, s, n, has_vote, value_id
         "fpx_safe_values": [_P, _P, _L, _I, _P, _P, _I, _P],
+        # reply ids, valid, s, n, modal id, count
+        "fpx_count_matching_replies": [_P, _P, _L, _I, _P, _P, _I, _P],
     },
     "depset": {
         # watermarks, tails, tail_base, rows (B * L), width, out_wm,
@@ -83,6 +85,16 @@ SIGNATURES = {
                                     _P, _I, _P],
         # watermarks, tails, tail_base, b, l, width, out (one bool byte)
         "fpx_depset_all_equal": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+        # mode (0 union, 1 intersect, 2 compact), a watermarks, a tails,
+        # b watermarks, b tails (or NULL), executed (or NULL), its two
+        # strides, tail_base, b, l, width, out_wm, out_tails
+        "fpx_depset_pair": [_I, _P, _P, _P, _P, _P, _L, _L, _P, _I, _I, _I,
+                            _P, _P, _I, _P],
+        # mode (0 equal, 1 size, 2 contains), a watermarks, a tails,
+        # b watermarks, b tails (or NULL), leader (or NULL), its stride,
+        # vid (or NULL), its stride, tail_base, b, l, width, out
+        "fpx_depset_query": [_I, _P, _P, _P, _P, _P, _L, _P, _L, _P, _I, _I,
+                             _I, _P, _I, _P],
     },
     "watermark": {
         # watermarks, rows, n, row_stride, elem_stride, quorum sizes (or
@@ -97,6 +109,14 @@ SIGNATURES = {
         # exec_wm, window, block_size, i, *pred
         "fpx_steady_state_step": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
                                   *_PRED, _I, _P],
+        # K3's arguments, then the flat telemetry buffer
+        "fpx_steady_state_step_telemetry": [_P, _P, _P, _P, _P, _P, _P, _L,
+                                            _I, _I, *_PRED, _P, _I, _P],
+    },
+    # The pinned pre-telemetry drain: K3's arguments.
+    "pipeline_baseline": {
+        "fpx_steady_state_step_baseline": [_P, _P, _P, _P, _P, _P, _P, _L,
+                                           _I, _I, *_PRED, _I, _P],
     },
 }
 

@@ -1,4 +1,4 @@
-// K9-K11: the dependency-set algebra of EPaxos on the card.
+// K9-K11, K16 and K17: the dependency-set algebra of EPaxos on the card.
 //
 // Replaces frankenpaxos_tpu/ops/depset.py:
 //   K9  normalized    (L74): every (b, l) row of a [B, L, W] batch to its
@@ -23,6 +23,37 @@
 // register, and fold it into a shared int array with shared atomicMax
 // (order-free, so the result is deterministic), 2048 bytes at a time;
 // warp 0 then normalizes the row and all threads clear it in place.
+//
+// K16 depset_pair (union L49, intersect L181, compact L213) and K17
+// depset_query (equal L129, size L161, _contains_kernel L137 under
+// contains L148) are the rest of the algebra, rowwise over [B, L, W]:
+//   K16 union     max of the watermarks, OR of the tail bytes, NOT
+//                 normalized (as the reference);
+//       intersect ids below both watermarks stay prefix (min); an id is
+//                 in a set if below its watermark or its byte is > 0;
+//                 the 0/1 bytes of `in both and >= min` are written, then
+//                 normalized in place (K9's scan over the written row);
+//       compact   max(watermark, executed) -- `executed` broadcast over
+//                 [B, L] through strides (0 for a broadcast axis) --
+//                 then normalized, as K9 with the raised watermark.
+//     One warp per (b, l) row, the lanes striding over the W bytes. The
+//     inputs may alias (union(deps, deps)): nothing is __restrict__.
+//     Bound: bytes, 2 * B * L * (4 + W) read (compact: one batch and
+//     `executed`) and B * L * (4 + W) written.
+//   K17 equal     every watermark and byte of row b equal (bytes, not
+//                 sets: callers pass normalized rows);
+//       size      the int32 (wrapping) sum of row b's watermarks plus the
+//                 sum of its tail byte VALUES (not a count of nonzero
+//                 bytes), a uint32 warp sum;
+//       contains  leader[b] (negative counts from the end, then clamped
+//                 to [0, L-1]) and vid[b], each broadcast by a stride of
+//                 0 or 1: vid < watermark, or the byte at the clamped
+//                 offset vid - base (int32, wrapping) is > 0 and the
+//                 offset lies in [0, W).
+//     One warp per row b for equal and size (the lanes over L * W bytes),
+//     one thread per row for contains. Bound: bytes, B * L * (4 + W)
+//     read (2x for equal; contains reads one watermark and one byte a
+//     row), 1 or 4 bytes written per row.
 
 #include <climits>
 
@@ -165,6 +196,120 @@ unsigned warp_blocks(long long rows) {
   return static_cast<unsigned>((rows * 32 + FPX_THREADS - 1) / FPX_THREADS);
 }
 
+enum PairMode { kUnion = 0, kIntersect = 1, kCompact = 2 };
+
+__global__ void depset_pair_kernel(int mode, const int32_t* a_wm,
+                                   const uint8_t* a_tails,
+                                   const int32_t* b_wm,
+                                   const uint8_t* b_tails,
+                                   const int32_t* executed,
+                                   long long ex_stride_b,
+                                   long long ex_stride_l,
+                                   const int32_t* base_p, long long rows,
+                                   int l_count, int width, int32_t* out_wm,
+                                   uint8_t* out_tails) {
+  const long long row =
+      (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+  if (row >= rows) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int32_t base = *base_p;
+  const uint8_t* ta = a_tails + row * width;
+  uint8_t* o = out_tails + row * width;
+  const int32_t wa = a_wm[row];
+  if (mode == kUnion) {
+    const uint8_t* tb = b_tails + row * width;
+    for (int w = lane; w < width; w += 32) o[w] = ta[w] | tb[w];
+    if (lane == 0) out_wm[row] = max(wa, b_wm[row]);
+    return;
+  }
+  if (mode == kCompact) {
+    const long long b = row / l_count, l = row % l_count;
+    const int32_t raised =
+        max(wa, executed[b * ex_stride_b + l * ex_stride_l]);
+    const int32_t new_wm =
+        fpx_normalized_watermark(raised, base, ta, width);
+    for (int w = lane; w < width; w += 32) {
+      o[w] = fpx_normalized_byte(ta, w, base, new_wm);
+    }
+    if (lane == 0) out_wm[row] = new_wm;
+    return;
+  }
+  // kIntersect: the 0/1 membership bytes, then K9's scan over them.
+  const uint8_t* tb = b_tails + row * width;
+  const int32_t wb = b_wm[row];
+  const int32_t low = min(wa, wb);
+  for (int w = lane; w < width; w += 32) {
+    const int32_t id = fpx_tail_id(base, w);
+    const bool in_a = id < wa || ta[w] > 0;
+    const bool in_b = id < wb || tb[w] > 0;
+    o[w] = in_a && in_b && id >= low;
+  }
+  __syncwarp();  // the lanes' bytes are visible to the whole warp
+  const int32_t new_wm = fpx_normalized_watermark(low, base, o, width);
+  for (int w = lane; w < width; w += 32) {
+    if (fpx_tail_id(base, w) < new_wm) o[w] = 0;
+  }
+  if (lane == 0) out_wm[row] = new_wm;
+}
+
+enum QueryMode { kEqual = 0, kSize = 1, kContains = 2 };
+
+__global__ void depset_query_kernel(int mode, const int32_t* a_wm,
+                                    const uint8_t* a_tails,
+                                    const int32_t* b_wm,
+                                    const uint8_t* b_tails,
+                                    const int32_t* leader,
+                                    long long leader_stride,
+                                    const int32_t* vid, long long vid_stride,
+                                    const int32_t* base_p, int b_count,
+                                    int l_count, int width, void* out) {
+  const long long bytes = static_cast<long long>(l_count) * width;
+  if (mode == kContains) {
+    const long long b =
+        blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+    if (b >= b_count) return;
+    int col = leader[b * leader_stride];
+    if (col < 0) col += l_count;
+    col = min(max(col, 0), l_count - 1);
+    const int32_t v = vid[b * vid_stride];
+    const int32_t off = static_cast<int32_t>(static_cast<uint32_t>(v) -
+                                             static_cast<uint32_t>(*base_p));
+    const int off_c = min(max(off, 0), width - 1);
+    const long long r = b * l_count + col;
+    const bool in_prefix = v < a_wm[r];
+    const bool in_tail =
+        a_tails[r * width + off_c] > 0 && off >= 0 && off < width;
+    static_cast<uint8_t*>(out)[b] = in_prefix || in_tail;
+    return;
+  }
+  const long long b =
+      (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+  if (b >= b_count) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int32_t* wa = a_wm + b * l_count;
+  const uint8_t* ta = a_tails + b * bytes;
+  if (mode == kSize) {
+    uint32_t sum = 0;
+    for (int l = lane; l < l_count; l += 32) sum += static_cast<uint32_t>(wa[l]);
+    for (long long w = lane; w < bytes; w += 32) sum += ta[w];
+    for (int off = 16; off > 0; off >>= 1) {
+      sum += __shfl_xor_sync(FPX_FULL_WARP, sum, off);
+    }
+    if (lane == 0) static_cast<int32_t*>(out)[b] = static_cast<int32_t>(sum);
+    return;
+  }
+  // kEqual
+  const int32_t* wb = b_wm + b * l_count;
+  const uint8_t* tb = b_tails + b * bytes;
+  bool differ = false;
+  for (int l = lane; l < l_count && !differ; l += 32) differ = wa[l] != wb[l];
+  for (long long w = lane; w < bytes && !differ; w += 32) {
+    differ = ta[w] != tb[w];
+  }
+  const bool any = __any_sync(FPX_FULL_WARP, differ);
+  if (lane == 0) static_cast<uint8_t*>(out)[b] = !any;
+}
+
 }  // namespace
 
 extern "C" int fpx_depset_normalized(const void* wm, const void* tails,
@@ -218,5 +363,49 @@ extern "C" int fpx_depset_all_equal(const void* wm, const void* tails,
         static_cast<const int32_t*>(base), l, rows, width,
         static_cast<uint8_t*>(out));
   }
+  return cudaGetLastError();
+}
+
+extern "C" int fpx_depset_pair(int mode, const void* a_wm, const void* a_tails,
+                               const void* b_wm, const void* b_tails,
+                               const void* executed, long long ex_stride_b,
+                               long long ex_stride_l, const void* base,
+                               int b, int l, int width, void* out_wm,
+                               void* out_tails, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const long long rows = static_cast<long long>(b) * l;
+  depset_pair_kernel<<<warp_blocks(rows), FPX_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      mode, static_cast<const int32_t*>(a_wm),
+      static_cast<const uint8_t*>(a_tails), static_cast<const int32_t*>(b_wm),
+      static_cast<const uint8_t*>(b_tails),
+      static_cast<const int32_t*>(executed), ex_stride_b, ex_stride_l,
+      static_cast<const int32_t*>(base), rows, l, width,
+      static_cast<int32_t*>(out_wm), static_cast<uint8_t*>(out_tails));
+  return cudaGetLastError();
+}
+
+extern "C" int fpx_depset_query(int mode, const void* a_wm,
+                                const void* a_tails, const void* b_wm,
+                                const void* b_tails, const void* leader,
+                                long long leader_stride, const void* vid,
+                                long long vid_stride, const void* base,
+                                int b, int l, int width, void* out,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks =
+      mode == kContains
+          ? static_cast<unsigned>((b + FPX_THREADS - 1) / FPX_THREADS)
+          : warp_blocks(b);
+  depset_query_kernel<<<blocks, FPX_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      mode, static_cast<const int32_t*>(a_wm),
+      static_cast<const uint8_t*>(a_tails), static_cast<const int32_t*>(b_wm),
+      static_cast<const uint8_t*>(b_tails),
+      static_cast<const int32_t*>(leader), leader_stride,
+      static_cast<const int32_t*>(vid), vid_stride,
+      static_cast<const int32_t*>(base), b, l, width, out);
   return cudaGetLastError();
 }

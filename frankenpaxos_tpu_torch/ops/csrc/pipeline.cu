@@ -1,5 +1,5 @@
-// K3 steady_state_step: one drain of the device-resident MultiPaxos
-// steady-state pipeline in ONE launch.
+// K3 steady_state_step and K14, its telemetry-on twin: one drain of the
+// device-resident MultiPaxos steady-state pipeline in ONE launch.
 //
 // Replaces frankenpaxos_tpu/bench/pipeline.py::steady_state_step (L145,
 // with _arrivals L87), the body of run_steps (L341) / run_steps_from
@@ -24,6 +24,26 @@
 // 3.35 TB/s, and the 13 MB of pipeline state at W=2^20 stays in the
 // 50 MB L2. So the per-drain launch dominates; a CUDA graph or a
 // persistent kernel over many drains is later work.
+//
+// K14 (kTelemetry = true) also accumulates the telemetry plane, the
+// weave of frankenpaxos_tpu/ops/telemetry.py (lag_bucket L99,
+// quorum_pass_update L108, drain_update L136) into the reference's step
+// at L285-291 and L328-333, into one flat int32 buffer laid out as
+// ops/telemetry.py's make_telemetry lays it out for one slot shard:
+//   [0] shard_committed, [1] proposed, [2, n+2] occupancy,
+//   [n+3, n+18] lag_hist, [n+19] pad_lanes, [n+20] drains,
+//   [n+21] scratch: the done-counter below, 0 between drains.
+// Occupancy: a lane newly chosen by a pass adds one to bin
+// min(sum of its N vote bytes after the OR, n) -- an int32 sum of bytes,
+// not a count of nonzero ones -- pass 1 before pass 2, into a histogram
+// per thread block in shared memory, then one atomicAdd per bin. The
+// lag needs the END-of-drain `committed`, which only exists once every
+// thread block has added its part: each block's thread 0 adds, fences
+// and bumps the done-counter; the block that bumps it last reads
+// `committed`, adds the lag-bucket sample and the drain, and resets the
+// counter. So the telemetry-on drain stays ONE launch. Its extra bytes
+// are under 100 (the counters); pad_lanes never changes on one GPU.
+// The `false` instantiation is K3 as it was before the telemetry plane.
 
 #include "quorum.cuh"
 
@@ -79,15 +99,49 @@ __device__ __forceinline__ uint32_t block_sum(uint32_t v, uint32_t* shared) {
   return v;  // valid in thread 0
 }
 
+// The int32 sum of column c's N vote bytes (K14's occupancy count).
+__device__ __forceinline__ uint32_t column_votes(const uint8_t* votes,
+                                                 long long window,
+                                                 long long c, int n) {
+  uint32_t sum = 0;
+  for (int a = 0; a < n; ++a) sum += votes[a * window + c];
+  return sum;
+}
+
+__device__ __forceinline__ void count_occupancy(uint32_t* s_occ,
+                                                const uint8_t* votes,
+                                                long long window,
+                                                long long c, int n) {
+  const uint32_t v = column_votes(votes, window, c, n);
+  atomicAdd(&s_occ[v < static_cast<uint32_t>(n) ? v : n], 1u);
+}
+
+// lag_bucket: how many of 2^0 .. 2^14 the signed lag reaches.
+__device__ __forceinline__ int lag_bucket(int32_t lag) {
+  int bucket = 0;
+  for (int k = 0; k < 15; ++k) bucket += lag >= (1 << k);
+  return bucket;
+}
+
+__device__ __forceinline__ void bump(int32_t* x, uint32_t by) {
+  *x = static_cast<int32_t>(static_cast<uint32_t>(*x) + by);
+}
+
+template <bool kTelemetry>
 __global__ void steady_state_step_kernel(
     uint8_t* __restrict__ votes, uint8_t* __restrict__ chosen,
     int32_t* __restrict__ commands, int32_t* __restrict__ results,
     int32_t* sm_state, int32_t* committed, int32_t* exec_wm,
-    long long window, int block_size, int i, QuorumPred q) {
+    long long window, int block_size, int i, QuorumPred q, int32_t* tel) {
   __shared__ uint32_t newly_part[FPX_THREADS / 32];
   __shared__ uint32_t cmds_part[FPX_THREADS / 32];
+  extern __shared__ uint32_t s_occ[];  // K14: [n + 1] occupancy bins
+  if constexpr (kTelemetry) {
+    for (int t = threadIdx.x; t <= q.n; t += blockDim.x) s_occ[t] = 0;
+    __syncthreads();
+  }
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t newly = 0, cmd_sum = 0;
+  uint32_t newly = 0, cmd_sum = 0, proposed = 0;
   if (j < block_size) {
     const int num_blocks = static_cast<int>(window / block_size);
     const long long b = block_size;
@@ -96,13 +150,24 @@ __global__ void steady_state_step_kernel(
     const long long start_gc = floor_mod(wrap_add(i, -2), num_blocks) * b;
 
     // Leader: propose lanes*7 + i*13 + 1.
-    commands[start_new + j] = static_cast<int32_t>(
-        static_cast<uint32_t>(j) * 7u + static_cast<uint32_t>(i) * 13u + 1u);
+    const uint32_t prop =
+        static_cast<uint32_t>(j) * 7u + static_cast<uint32_t>(i) * 13u + 1u;
+    commands[start_new + j] = static_cast<int32_t>(prop);
     // Acceptors + ProxyLeader: pass 1 on the new block, pass 2 (the
     // stragglers, the complement of drain i-1's arrivals) on the old one.
-    newly += quorum_pass(votes, chosen, window, start_new + j, j, i, false, q);
-    newly += quorum_pass(votes, chosen, window, start_old + j, j,
-                         wrap_add(i, -1), true, q);
+    const bool new1 =
+        quorum_pass(votes, chosen, window, start_new + j, j, i, false, q);
+    if constexpr (kTelemetry) {
+      if (new1) count_occupancy(s_occ, votes, window, start_new + j, q.n);
+      proposed = prop != 0u;
+    }
+    newly += new1;
+    const bool new2 = quorum_pass(votes, chosen, window, start_old + j, j,
+                                  wrap_add(i, -1), true, q);
+    if constexpr (kTelemetry) {
+      if (new2) count_occupancy(s_occ, votes, window, start_old + j, q.n);
+    }
+    newly += new2;
     // Replica: execute the previous block.
     const int32_t cmd = commands[start_old + j];
     results[start_old + j] =
@@ -114,6 +179,15 @@ __global__ void steady_state_step_kernel(
   }
   newly = block_sum(newly, newly_part);
   cmd_sum = block_sum(cmd_sum, cmds_part);
+  if constexpr (kTelemetry) {
+    __shared__ uint32_t prop_part[FPX_THREADS / 32];
+    proposed = block_sum(proposed, prop_part);
+    __syncthreads();  // every lane's occupancy is in s_occ
+    for (int t = threadIdx.x; t <= q.n; t += blockDim.x) {
+      if (s_occ[t]) atomicAdd(reinterpret_cast<unsigned int*>(&tel[2 + t]),
+                              s_occ[t]);
+    }
+  }
   if (threadIdx.x == 0) {
     if (newly) atomicAdd(reinterpret_cast<unsigned int*>(committed), newly);
     if (cmd_sum) atomicAdd(reinterpret_cast<unsigned int*>(sm_state), cmd_sum);
@@ -121,6 +195,28 @@ __global__ void steady_state_step_kernel(
       *exec_wm = i >= 1 ? static_cast<int32_t>(static_cast<uint32_t>(i) *
                                                static_cast<uint32_t>(block_size))
                         : 0;
+    }
+    if constexpr (kTelemetry) {
+      unsigned int* const shard = reinterpret_cast<unsigned int*>(&tel[0]);
+      if (newly) atomicAdd(shard, newly);
+      if (proposed) atomicAdd(reinterpret_cast<unsigned int*>(&tel[1]),
+                              proposed);
+      // Last block done: this block's `committed` add is ordered before
+      // its done-counter bump, so the block that bumps last sees every
+      // block's part.
+      unsigned int* const done =
+          reinterpret_cast<unsigned int*>(&tel[q.n + 21]);
+      __threadfence();
+      if (atomicAdd(done, 1u) == gridDim.x - 1) {
+        const uint32_t total =
+            atomicAdd(reinterpret_cast<unsigned int*>(committed), 0u);
+        const int32_t lag = static_cast<int32_t>(
+            (static_cast<uint32_t>(i) + 1u) *
+                static_cast<uint32_t>(block_size) - total);
+        bump(&tel[q.n + 3 + lag_bucket(lag)], 1u);
+        bump(&tel[q.n + 20], 1u);
+        *done = 0u;
+      }
     }
   }
 }
@@ -139,13 +235,37 @@ extern "C" int fpx_steady_state_step(void* votes, void* chosen,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int grid = (block_size + FPX_THREADS - 1) / FPX_THREADS;
-  steady_state_step_kernel<<<grid, FPX_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  steady_state_step_kernel<false><<<grid, FPX_THREADS, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(votes), static_cast<uint8_t*>(chosen),
       static_cast<int32_t*>(commands), static_cast<int32_t*>(results),
       static_cast<int32_t*>(sm_state), static_cast<int32_t*>(committed),
       static_cast<int32_t*>(exec_wm), window, block_size, i,
       make_pred(masks, thresholds, perm, n, g, combine_any, grid_kind, rows,
-                cols));
+                cols),
+      nullptr);
+  return cudaGetLastError();
+}
+
+// K14: K3's arguments plus the flat telemetry buffer (n + 22 int32).
+extern "C" int fpx_steady_state_step_telemetry(
+    void* votes, void* chosen, void* commands, void* results,
+    void* sm_state, void* committed, void* exec_wm, long long window,
+    int block_size, int i, const void* masks, const void* thresholds,
+    const void* perm, int n, int g, int combine_any, int grid_kind,
+    int rows, int cols, void* tel, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int grid = (block_size + FPX_THREADS - 1) / FPX_THREADS;
+  const size_t occ_bytes = sizeof(uint32_t) * (static_cast<size_t>(n) + 1);
+  steady_state_step_kernel<true><<<grid, FPX_THREADS, occ_bytes,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(votes), static_cast<uint8_t*>(chosen),
+      static_cast<int32_t*>(commands), static_cast<int32_t*>(results),
+      static_cast<int32_t*>(sm_state), static_cast<int32_t*>(committed),
+      static_cast<int32_t*>(exec_wm), window, block_size, i,
+      make_pred(masks, thresholds, perm, n, g, combine_any, grid_kind, rows,
+                cols),
+      static_cast<int32_t*>(tel));
   return cudaGetLastError();
 }

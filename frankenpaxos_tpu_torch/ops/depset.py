@@ -10,22 +10,27 @@ dependency sets is:
     ``[base, base + W)`` (absolute offsets from a shared GC base),
   * ``tail_base [] int32``: the id of tail column 0.
 
-Three functions are hand-written CUDA kernels (``csrc/depset.cu``, the
-row normalization shared in ``csrc/depset.cuh``), each with its plain
-PyTorch version beside it:
+Every function is a hand-written CUDA kernel (``csrc/depset.cu``, the
+row normalization shared in ``csrc/depset.cuh``) with its plain PyTorch
+version beside it:
 
   * K9 :func:`normalized` (:func:`normalized_plain`);
   * K10 :func:`union_reduce` and :func:`conflict_max`, one kernel with
     two entry modes (:func:`union_reduce_plain`,
     :func:`conflict_max_plain`): the EPaxos slow path;
-  * K11 :func:`all_equal` (:func:`all_equal_plain`): the fast path.
+  * K11 :func:`all_equal` (:func:`all_equal_plain`): the fast path;
+  * K16, a row-pair transform with three modes: :func:`union` (max and
+    OR, NOT normalized), :func:`intersect` and :func:`compact` (both
+    normalized), with :func:`union_plain`, :func:`intersect_plain` and
+    :func:`compact_plain`;
+  * K17, a row query with three modes: :func:`equal`, :func:`size` and
+    :func:`contains`, with :func:`equal_plain`, :func:`size_plain` and
+    :func:`contains_plain`.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; anything else raises, and nothing falls back.
-The other functions (:func:`union`, :func:`equal`, :func:`contains`,
-:func:`size`, :func:`intersect`, :func:`compact` and the ``_checked``
-forms) have no protocol caller and no kernel yet (PERF.md row 12d): they
-take CPU tensors only and raise on any other device.
+The ``_checked`` forms read both tail bases on the host (a sync), as the
+reference does; every other function never syncs.
 
 Arithmetic follows the reference's dtypes exactly: ids are int32
 ``tail_base + arange(W)`` and wrap; the run at a watermark is the uint32
@@ -85,14 +90,6 @@ def _check_seqs(seqs: torch.Tensor) -> None:
     if seqs.dtype != torch.int32 or seqs.dim() != 1 or seqs.shape[0] == 0:
         raise ValueError(f"seqs must be a non-empty [S] int32 tensor, got "
                          f"{seqs.dtype} {tuple(seqs.shape)}")
-
-
-def _plain_only(fn: str, *tensors: torch.Tensor) -> None:
-    kinds = {t.device.type for t in tensors}
-    if kinds != {"cpu"}:
-        raise NotImplementedError(
-            f"depset.{fn} has no CUDA kernel yet (PERF.md row 12d) and "
-            f"takes CPU tensors only, got {sorted(kinds)}")
 
 
 def _contiguous(d: DepSetBatch) -> None:
@@ -283,19 +280,99 @@ def all_equal(d: DepSetBatch) -> torch.Tensor:
 all_equal.launches = 0
 
 
-# --- the rest of the algebra: plain versions only (PERF.md row 12d) ------
+# --- K16: union, intersect and compact ----------------------------------
+
+
+def _check_pair(a: DepSetBatch, b: DepSetBatch, fn: str) -> None:
+    _check(a)
+    _check(b)
+    if a.tails.shape != b.tails.shape:
+        raise ValueError(f"{fn} takes two batches of one [B, L, W] shape, "
+                         f"got {tuple(a.tails.shape)} and "
+                         f"{tuple(b.tails.shape)}")
+
+
+def union_plain(a: DepSetBatch, b: DepSetBatch) -> DepSetBatch:
+    """Plain PyTorch version of K16's union: max of watermarks, OR of
+    tail bytes, not normalized; ``a``'s tail base."""
+    _check_pair(a, b, "union")
+    return DepSetBatch(torch.maximum(a.watermarks, b.watermarks),
+                       a.tails | b.tails, a.tail_base)
+
+
+def intersect_plain(a: DepSetBatch, b: DepSetBatch) -> DepSetBatch:
+    """Plain PyTorch version of K16's intersect: ids below both
+    watermarks stay prefix (``min``); the rest lands as 0/1 tail bytes,
+    then :func:`normalized_plain`."""
+    _check_pair(a, b, "intersect")
+    ids = _ids(a)[None, None, :]
+    in_a = (ids < a.watermarks[:, :, None]) | (a.tails > 0)
+    in_b = (ids < b.watermarks[:, :, None]) | (b.tails > 0)
+    new_wm = torch.minimum(a.watermarks, b.watermarks)
+    tails = (in_a & in_b & (ids >= new_wm[:, :, None])).to(torch.uint8)
+    return normalized_plain(DepSetBatch(new_wm, tails, a.tail_base))
+
+
+def _executed(d: DepSetBatch, executed) -> torch.Tensor:
+    """``executed`` as int32 on the batch's device, broadcast to the
+    ``[B, L]`` watermarks (a view with stride 0 on a broadcast axis)."""
+    executed = torch.as_tensor(executed, dtype=torch.int32,
+                               device=d.tails.device)
+    return torch.broadcast_to(executed, tuple(d.watermarks.shape))
+
+
+def compact_plain(d: DepSetBatch, executed) -> DepSetBatch:
+    """Plain PyTorch version of K16's compact: raise each watermark to at
+    least ``executed`` (``[]``, ``[L]``, ``[1, L]`` or ``[B, L]``, as
+    ``jnp.maximum`` broadcasts), then :func:`normalized_plain`."""
+    _check(d)
+    wm = torch.maximum(d.watermarks, _executed(d, executed))
+    return normalized_plain(DepSetBatch(wm, d.tails, d.tail_base))
+
+
+def _pair_launch(mode: int, a: DepSetBatch, b, executed) -> tuple:
+    """One launch of ``csrc/depset.cu::depset_pair_kernel`` into new
+    tensors; returns ``(launched, out)`` (an empty batch launches
+    nothing)."""
+    _contiguous(a)
+    if b is not None:
+        _contiguous(b)
+    bb, l, w = a.tails.shape
+    wm = torch.empty_like(a.watermarks)
+    tails = torch.empty_like(a.tails)
+    if bb * l == 0:
+        return False, DepSetBatch(wm, tails, a.tail_base)
+    lib = _build.library("depset")
+    rc = lib.fpx_depset_pair(
+        mode, a.watermarks.data_ptr(), a.tails.data_ptr(),
+        None if b is None else b.watermarks.data_ptr(),
+        None if b is None else b.tails.data_ptr(),
+        None if executed is None else executed.data_ptr(),
+        0 if executed is None else executed.stride(0),
+        0 if executed is None else executed.stride(1),
+        a.tail_base.data_ptr(), bb, l, w, wm.data_ptr(), tails.data_ptr(),
+        *_build.stream_args(a.tails.device))
+    _build.check("depset", "fpx_depset_pair", rc)
+    return True, DepSetBatch(wm, tails, a.tail_base)
 
 
 def union(a: DepSetBatch, b: DepSetBatch) -> DepSetBatch:
-    """Rowwise union: max of watermarks, OR of tail bytes.
+    """K16 union: rowwise max of watermarks and OR of tail bytes, NOT
+    normalized (the reference's ``union``), into new tensors.
 
     PRECONDITION: ``a.tail_base == b.tail_base`` (use
-    :func:`union_checked` from host code to enforce it)."""
-    _check(a)
-    _check(b)
-    _plain_only("union", *a, *b)
-    return DepSetBatch(torch.maximum(a.watermarks, b.watermarks),
-                       a.tails | b.tails, a.tail_base)
+    :func:`union_checked` from host code to enforce it). The batches may
+    be the same. CUDA tensors launch the kernel (one warp per row); CPU
+    tensors take :func:`union_plain`."""
+    _check_pair(a, b, "union")
+    if not use_kernel(*a, *b):
+        return union_plain(a, b)
+    launched, out = _pair_launch(0, a, b, None)
+    union.launches += launched
+    return out
+
+
+union.launches = 0
 
 
 def union_checked(a: DepSetBatch, b: DepSetBatch) -> DepSetBatch:
@@ -307,60 +384,24 @@ def union_checked(a: DepSetBatch, b: DepSetBatch) -> DepSetBatch:
     return union(a, b)
 
 
-def equal(a: DepSetBatch, b: DepSetBatch) -> torch.Tensor:
-    """[B] bool rowwise set equality; callers pass normalized batches."""
-    _check(a)
-    _check(b)
-    _plain_only("equal", *a, *b)
-    return ((a.watermarks == b.watermarks).all(dim=-1)
-            & (a.tails == b.tails).flatten(1).all(dim=-1))
-
-
-def contains(d: DepSetBatch, leader, vid) -> torch.Tensor:
-    """[B] bool: does each row contain vertex ``(leader[b], vid[b])``?
-    Leader indices follow the reference's gather: negative ones count
-    from the end, then clamp. The row-index plane is the cached pow2
-    :func:`_index_plane`."""
-    _check(d)
-    dev = d.tails.device
-    leader = torch.as_tensor(leader, dtype=torch.int32, device=dev)
-    vid = torch.as_tensor(vid, dtype=torch.int32, device=dev)
-    _plain_only("contains", *d, leader, vid)
-    b, l, w = d.tails.shape
-    rows = _index_plane(_pow2(b), dev)[:b].long()
-    col = leader.long()
-    col = torch.where(col < 0, col + l, col).clamp(0, l - 1)
-    in_prefix = vid < d.watermarks[rows, col]
-    off = _wrap32(vid.to(torch.int64) - d.tail_base.to(torch.int64))
-    off_c = off.long().clamp(0, w - 1)
-    in_tail = (d.tails[rows, col, off_c] > 0) & (off >= 0) & (off < w)
-    return in_prefix | in_tail
-
-
-def size(d: DepSetBatch) -> torch.Tensor:
-    """[B] int32 cardinality (assumes normalized rows), wrapping as the
-    reference's int32 sums do."""
-    _check(d)
-    _plain_only("size", *d)
-    return _wrap32(d.watermarks.sum(dim=-1, dtype=torch.int64)
-                   + d.tails.flatten(1).sum(dim=-1, dtype=torch.int64))
-
-
 def intersect(a: DepSetBatch, b: DepSetBatch) -> DepSetBatch:
-    """Rowwise set intersection, the interference-closure step.
+    """K16 intersect: rowwise set intersection, the interference-closure
+    step, normalized.
 
     PRECONDITION: shared ``tail_base`` (use :func:`intersect_checked`
     from host code). Ids below both watermarks stay prefix (``min`` of
-    watermarks); everything else lands as tail bytes and renormalizes."""
-    _check(a)
-    _check(b)
-    _plain_only("intersect", *a, *b)
-    ids = _ids(a)[None, None, :]
-    in_a = (ids < a.watermarks[:, :, None]) | (a.tails > 0)
-    in_b = (ids < b.watermarks[:, :, None]) | (b.tails > 0)
-    new_wm = torch.minimum(a.watermarks, b.watermarks)
-    tails = (in_a & in_b & (ids >= new_wm[:, :, None])).to(torch.uint8)
-    return normalized_plain(DepSetBatch(new_wm, tails, a.tail_base))
+    watermarks); everything else lands as tail bytes and renormalizes.
+    CUDA tensors launch the kernel; CPU tensors take
+    :func:`intersect_plain`."""
+    _check_pair(a, b, "intersect")
+    if not use_kernel(*a, *b):
+        return intersect_plain(a, b)
+    launched, out = _pair_launch(1, a, b, None)
+    intersect.launches += launched
+    return out
+
+
+intersect.launches = 0
 
 
 def intersect_checked(a: DepSetBatch, b: DepSetBatch) -> DepSetBatch:
@@ -373,12 +414,144 @@ def intersect_checked(a: DepSetBatch, b: DepSetBatch) -> DepSetBatch:
 
 
 def compact(d: DepSetBatch, executed) -> DepSetBatch:
-    """Prefix-compaction against the executed watermark: ``executed`` is
-    ``[L]`` or ``[B, L]`` int32; raise each column's watermark to at
-    least it and renormalize."""
+    """K16 compact: prefix-compaction against the executed watermark.
+    ``executed`` is ``[]``, ``[L]``, ``[1, L]`` or ``[B, L]`` int32 (any
+    shape that broadcasts to the watermarks); each column's watermark
+    rises to at least it, then the rows renormalize. CUDA tensors launch
+    the kernel; CPU tensors take :func:`compact_plain`."""
     _check(d)
-    executed = torch.as_tensor(executed, dtype=torch.int32,
-                               device=d.tails.device)
-    _plain_only("compact", *d, executed)
-    wm = torch.maximum(d.watermarks, executed)
-    return normalized_plain(DepSetBatch(wm, d.tails, d.tail_base))
+    executed = _executed(d, executed)
+    if not use_kernel(*d, executed):
+        return compact_plain(d, executed)
+    launched, out = _pair_launch(2, d, None, executed)
+    compact.launches += launched
+    return out
+
+
+compact.launches = 0
+
+
+# --- K17: equal, size and contains ----------------------------------------
+
+
+def equal_plain(a: DepSetBatch, b: DepSetBatch) -> torch.Tensor:
+    """Plain PyTorch version of K17's equal: every watermark and every
+    tail byte of the row equal."""
+    _check_pair(a, b, "equal")
+    return ((a.watermarks == b.watermarks).all(dim=-1)
+            & (a.tails == b.tails).flatten(1).all(dim=-1))
+
+
+def size_plain(d: DepSetBatch) -> torch.Tensor:
+    """Plain PyTorch version of K17's size: the sum of the watermarks
+    plus the sum of the tail byte values, wrapping as int32."""
+    _check(d)
+    return _wrap32(d.watermarks.sum(dim=-1, dtype=torch.int64)
+                   + d.tails.flatten(1).sum(dim=-1, dtype=torch.int64))
+
+
+def _contains_args(d: DepSetBatch, leader, vid) -> tuple:
+    """``leader`` and ``vid`` as int32 ``[B]`` broadcast views."""
+    _check(d)
+    b, l, w = d.tails.shape
+    if b and (l == 0 or w == 0):
+        raise ValueError(f"contains needs a leader column and a tail "
+                         f"window, got [B, L, W] = {[b, l, w]}")
+    dev = d.tails.device
+    leader, vid = (torch.broadcast_to(
+        torch.as_tensor(x, dtype=torch.int32, device=dev), (b,))
+        for x in (leader, vid))
+    return leader, vid
+
+
+def contains_plain(d: DepSetBatch, leader, vid) -> torch.Tensor:
+    """Plain PyTorch version of K17's contains, the reference's gather:
+    negative leaders count from the end, then clamp; the row-index plane
+    is the cached pow2 :func:`_index_plane`."""
+    leader, vid = _contains_args(d, leader, vid)
+    b, l, w = d.tails.shape
+    dev = d.tails.device
+    rows = _index_plane(_pow2(b), dev)[:b].long()
+    col = leader.long()
+    col = torch.where(col < 0, col + l, col).clamp(0, l - 1)
+    in_prefix = vid < d.watermarks[rows, col]
+    off = _wrap32(vid.to(torch.int64) - d.tail_base.to(torch.int64))
+    off_c = off.long().clamp(0, w - 1)
+    in_tail = (d.tails[rows, col, off_c] > 0) & (off >= 0) & (off < w)
+    return in_prefix | in_tail
+
+
+def _query_launch(mode: int, a: DepSetBatch, b, leader, vid,
+                  dtype: torch.dtype) -> tuple:
+    """One launch of ``csrc/depset.cu::depset_query_kernel`` into a new
+    ``[B]`` tensor of ``dtype``; returns ``(launched, out)``."""
+    _contiguous(a)
+    if b is not None:
+        _contiguous(b)
+    bb, l, w = a.tails.shape
+    out = torch.empty((bb,), dtype=dtype, device=a.tails.device)
+    if bb == 0:
+        return False, out
+    lib = _build.library("depset")
+    rc = lib.fpx_depset_query(
+        mode, a.watermarks.data_ptr(), a.tails.data_ptr(),
+        None if b is None else b.watermarks.data_ptr(),
+        None if b is None else b.tails.data_ptr(),
+        None if leader is None else leader.data_ptr(),
+        0 if leader is None else leader.stride(0),
+        None if vid is None else vid.data_ptr(),
+        0 if vid is None else vid.stride(0),
+        a.tail_base.data_ptr(), bb, l, w, out.data_ptr(),
+        *_build.stream_args(a.tails.device))
+    _build.check("depset", "fpx_depset_query", rc)
+    return True, out
+
+
+def equal(a: DepSetBatch, b: DepSetBatch) -> torch.Tensor:
+    """K17 equal: ``[B]`` bool rowwise equality of watermarks and tail
+    bytes (set equality when both batches are normalized, as callers
+    pass them). CUDA tensors launch the kernel (one warp per row); CPU
+    tensors take :func:`equal_plain`."""
+    _check_pair(a, b, "equal")
+    if not use_kernel(*a, *b):
+        return equal_plain(a, b)
+    launched, out = _query_launch(0, a, b, None, None, torch.bool)
+    equal.launches += launched
+    return out
+
+
+equal.launches = 0
+
+
+def size(d: DepSetBatch) -> torch.Tensor:
+    """K17 size: ``[B]`` int32 cardinality of normalized rows -- the sum
+    of the watermarks plus the sum of the tail byte values, wrapping as
+    the reference's int32 sums. CUDA tensors launch the kernel (one warp
+    per row); CPU tensors take :func:`size_plain`."""
+    _check(d)
+    if not use_kernel(*d):
+        return size_plain(d)
+    launched, out = _query_launch(1, d, None, None, None, torch.int32)
+    size.launches += launched
+    return out
+
+
+size.launches = 0
+
+
+def contains(d: DepSetBatch, leader, vid) -> torch.Tensor:
+    """K17 contains: ``[B]`` bool, does each row contain vertex
+    ``(leader[b], vid[b])``? ``leader`` and ``vid`` are ``[B]`` or
+    scalars. Leader indices follow the reference's gather: negative ones
+    count from the end, then clamp to ``[0, L-1]``; the tail offset
+    ``vid - tail_base`` wraps as int32. CUDA tensors launch the kernel
+    (one thread per row); CPU tensors take :func:`contains_plain`."""
+    leader, vid = _contains_args(d, leader, vid)
+    if not use_kernel(*d, leader, vid):
+        return contains_plain(d, leader, vid)
+    launched, out = _query_launch(2, d, None, leader, vid, torch.bool)
+    contains.launches += launched
+    return out
+
+
+contains.launches = 0

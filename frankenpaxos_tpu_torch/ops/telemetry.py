@@ -1,0 +1,184 @@
+"""paxpulse device-plane telemetry on one GPU: counters as data.
+
+Counterpart of ``frankenpaxos_tpu/ops/telemetry.py``. A small set of
+int32 counters rides inside the pipeline state and is accumulated by the
+drain itself -- in the CUDA drain K14 (``csrc/pipeline.cu``, the
+``kTelemetry`` instantiation of K3), or by :func:`quorum_pass_update`
+and :func:`drain_update` in the plain version -- with no callbacks, no
+clocks and no device-to-host copy until an explicit
+``frankenpaxos_tpu_torch.obs.telemetry.collect`` at the reporting
+interval.
+
+Disabled means absent: the pipeline carries ``telemetry=None`` by
+default and then launches K3, the drain without counters.
+
+Counter semantics (all cumulative since :func:`make_telemetry`):
+
+  * ``shard_committed`` -- ``[slot_shards]`` newly-chosen commands per
+    slot shard (one shard on one GPU);
+  * ``proposed`` -- nonzero proposed commands;
+  * ``occupancy`` -- ``[n_acceptors + 1]`` histogram: when a slot is
+    first chosen, the int32 sum of its vote bytes, clipped to
+    ``[0, n]``;
+  * ``lag_hist`` -- ``[LAG_BUCKETS]`` histogram of the end-of-drain
+    watermark lag ``(i + 1) * block_size - committed`` (int32, wrapping),
+    bucketed by :func:`lag_bucket`;
+  * ``pad_lanes`` -- pad-lane slots masked per drain under a
+    non-divisible multi-GPU split (always 0 on one GPU);
+  * ``drains`` -- drains accumulated.
+
+The six counters are int32 views into ONE flat int32 buffer
+(``TelemetryState.buffer``), in the order above, followed by one private
+scratch word that K14 uses as its done-counter (always 0 between
+drains). One buffer makes a collect a single device-to-host copy. Every
+update here is an in-place add into those views.
+
+The multi-GPU drain (``slot_axis`` other than None) is not ported:
+ROADMAP.md queue 1 item 10.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+from frankenpaxos_tpu_torch.device import resolve_device
+import numpy as np
+import torch
+
+#: Watermark-lag histogram buckets: 0, 1, 2, [3,4], [5,8], ... (log2).
+LAG_BUCKETS = 16
+
+#: The counters in the flat buffer's order (the scratch word follows).
+FIELDS = ("shard_committed", "proposed", "occupancy", "lag_hist",
+          "pad_lanes", "drains")
+
+
+class TelemetryState(NamedTuple):
+    shard_committed: torch.Tensor  # [slot_shards] int32
+    proposed: torch.Tensor         # [] int32
+    occupancy: torch.Tensor        # [n_acceptors + 1] int32
+    lag_hist: torch.Tensor         # [LAG_BUCKETS] int32
+    pad_lanes: torch.Tensor        # [] int32
+    drains: torch.Tensor           # [] int32
+    # The flat int32 storage the six counters view, plus the scratch
+    # word (K14's done-counter) at its end.
+    buffer: Optional[torch.Tensor] = None
+
+
+def _shapes(num_acceptors: int, slot_shards: int) -> tuple:
+    """The counters' shapes, in ``FIELDS`` order (each 0-d or 1-d)."""
+    return ((slot_shards,), (), (num_acceptors + 1,), (LAG_BUCKETS,), (),
+            ())
+
+
+def buffer_words(num_acceptors: int, slot_shards: int = 1) -> int:
+    """Words of the flat buffer: the six counters and the scratch word."""
+    return slot_shards + num_acceptors + LAG_BUCKETS + 5
+
+
+def _views(buffer: torch.Tensor, num_acceptors: int,
+           slot_shards: int) -> TelemetryState:
+    views, at = [], 0
+    for shape in _shapes(num_acceptors, slot_shards):
+        size = shape[0] if shape else 1
+        views.append(buffer[at:at + size].view(shape))
+        at += size
+    return TelemetryState(*views, buffer=buffer)
+
+
+def make_telemetry(num_acceptors: int, slot_shards: int = 1,
+                   device=None) -> TelemetryState:
+    """A zeroed telemetry state for ``num_acceptors`` acceptors over
+    ``slot_shards`` slot shards, on ``device`` (``cuda`` when None).
+    It only allocates, so any ``slot_shards`` is accepted here; the
+    drain takes one shard."""
+    buffer = torch.zeros(buffer_words(num_acceptors, slot_shards),
+                         dtype=torch.int32, device=resolve_device(device))
+    return _views(buffer, num_acceptors, slot_shards)
+
+
+def flat_buffer(tel: TelemetryState) -> torch.Tensor:
+    """The flat buffer of ``tel``, after checking that the six counters
+    are int32 views of it at :func:`make_telemetry`'s offsets (what K14
+    and a one-copy collect rely on); raises ``ValueError`` otherwise."""
+    buffer = tel.buffer
+    if buffer is None or buffer.dtype != torch.int32 or buffer.dim() != 1 \
+            or not buffer.is_contiguous():
+        raise ValueError("a TelemetryState needs its flat int32 buffer "
+                         "(make_telemetry builds one)")
+    slot_shards = tel.shard_committed.numel()
+    num_acceptors = tel.occupancy.numel() - 1
+    if buffer.numel() != buffer_words(num_acceptors, slot_shards):
+        raise ValueError("the telemetry buffer does not match its counters")
+    base, at = buffer.data_ptr(), 0
+    for name, shape in zip(FIELDS, _shapes(num_acceptors, slot_shards)):
+        got = getattr(tel, name)
+        if got.dtype != torch.int32 or tuple(got.shape) != shape \
+                or got.data_ptr() != base + 4 * at:
+            raise ValueError(f"telemetry counter {name} is not a view of "
+                             f"the flat buffer at its offset")
+        at += shape[0] if shape else 1
+    return buffer
+
+
+def lag_bucket_bounds() -> np.ndarray:
+    """Lower bounds of the lag buckets: bucket b counts lags in
+    ``[bounds[b], bounds[b+1])`` with bucket 0 = exactly 0 and the last
+    bucket open-ended. Host-side, for reporting."""
+    return np.concatenate(
+        ([0], 2 ** np.arange(LAG_BUCKETS - 1, dtype=np.int64)))
+
+
+def lag_bucket(lag: torch.Tensor) -> torch.Tensor:
+    """The bucket index of a scalar int32 lag: how many of the bounds
+    2^0 ... 2^14 it reaches, by signed integer compares (a negative lag
+    gives 0, the largest bucket is 15)."""
+    bounds = torch.from_numpy(2 ** np.arange(LAG_BUCKETS - 1,
+                                             dtype=np.int32)).to(lag.device)
+    return (lag >= bounds).sum(dtype=torch.int32)
+
+
+def _refuse_sharded(slot_axis) -> None:
+    if slot_axis is not None:
+        raise NotImplementedError(
+            "the sharded (multi-GPU) telemetry plane is not ported: "
+            "ROADMAP.md queue 1 item 10")
+
+
+def quorum_pass_update(tel: Optional[TelemetryState], *,
+                       votes_count: torch.Tensor, newly: torch.Tensor,
+                       slot_axis: Optional[str]) -> \
+        Optional[TelemetryState]:
+    """Accumulate one quorum pass, in place: ``votes_count`` is the
+    ``[B]`` int32 per-lane vote count and ``newly`` the ``[B]``
+    newly-chosen mask. Each newly-chosen lane adds one to occupancy bin
+    ``clip(votes_count, 0, n)``; ``shard_committed`` gains the newly
+    count. ``None`` in, ``None`` out."""
+    if tel is None:
+        return None
+    _refuse_sharded(slot_axis)
+    n_bins = tel.occupancy.shape[0]
+    bins = votes_count.clamp(0, n_bins - 1).long()[newly]
+    tel.occupancy.add_(torch.bincount(bins, minlength=n_bins)
+                       .to(torch.int32))
+    tel.shard_committed.add_(newly.sum(dtype=torch.int32))
+    return tel
+
+
+def drain_update(tel: Optional[TelemetryState], *,
+                 proposed_block: torch.Tensor,
+                 lane_valid: Optional[torch.Tensor],
+                 lag: torch.Tensor,
+                 slot_axis: Optional[str]) -> Optional[TelemetryState]:
+    """Accumulate the once-per-drain counters, in place: nonzero
+    proposals, pad lanes (``~lane_valid``; none when it is None), one
+    sample of the end-of-drain lag bucket, and the drain count."""
+    if tel is None:
+        return None
+    _refuse_sharded(slot_axis)
+    tel.proposed.add_((proposed_block != 0).sum(dtype=torch.int32))
+    if lane_valid is not None:
+        tel.pad_lanes.add_((~lane_valid).sum(dtype=torch.int32))
+    tel.lag_hist[lag_bucket(lag).long()] += 1
+    tel.drains.add_(1)
+    return tel

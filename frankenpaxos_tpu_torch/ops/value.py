@@ -1,6 +1,7 @@
-"""Batched Phase-1 safe-value selection on one GPU: K8.
+"""Batched Phase-1 safe-value selection on one GPU: K8, and the modal
+reply count K15.
 
-Counterpart of ``frankenpaxos_tpu/ops/value.py::safe_values``. Reference
+Counterpart of ``frankenpaxos_tpu/ops/value.py``. Reference
 behavior: multipaxos/Leader.scala:318-330 (``safeValue``): given the
 Phase1b votes for a slot, adopt the value with the highest vote round,
 or a Noop if no acceptor voted. The Leader lifts its whole recovery
@@ -8,8 +9,9 @@ window into one ``[S, N]`` reduction (``Leader._recover_values``).
 
 :func:`safe_values` launches ``csrc/value.cu::safe_values_kernel`` for
 CUDA tensors and runs :func:`safe_values_plain` for CPU tensors; it
-never falls back. The reference's ``count_matching_replies`` has no
-protocol caller and is not ported (ROADMAP.md, queue 2).
+never falls back. :func:`count_matching_replies` (K15, the EPaxos
+fast-path / Fast Paxos "k identical replies" reduction) follows the same
+rule; no protocol of the reference calls it yet.
 """
 
 from __future__ import annotations
@@ -74,3 +76,60 @@ def safe_values(vote_rounds: torch.Tensor, value_ids: torch.Tensor
 
 
 safe_values.launches = 0
+
+
+def _check_replies(ids: torch.Tensor, valid: torch.Tensor) -> None:
+    if ids.dtype != torch.int32 or valid.dtype != torch.bool \
+            or ids.dim() != 2 or valid.shape != ids.shape:
+        raise ValueError(
+            f"count_matching_replies takes [S, N] int32 ids and a [S, N] "
+            f"bool mask, got {ids.dtype} {tuple(ids.shape)} and "
+            f"{valid.dtype} {tuple(valid.shape)}")
+    if ids.shape[1] == 0:
+        raise ValueError("count_matching_replies needs at least one reply "
+                         "column (the reference's argmax of an empty axis)")
+
+
+def count_matching_replies_plain(ids: torch.Tensor, valid: torch.Tensor
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K15: the reference's masked pairwise
+    equality matrix, its row sums, ``torch.argmax`` (first maximum) and
+    the gathers."""
+    _check_replies(ids, valid)
+    eq = (ids[:, :, None] == ids[:, None, :]) \
+        & valid[:, :, None] & valid[:, None, :]
+    counts = eq.sum(-1, dtype=torch.int32)
+    best = torch.argmax(counts, dim=-1, keepdim=True)
+    return (torch.gather(ids, 1, best)[:, 0],
+            torch.gather(counts, 1, best)[:, 0])
+
+
+def count_matching_replies(ids: torch.Tensor, valid: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K15: per row of ``[S, N]`` int32 reply ids under a ``[S, N]`` bool
+    mask, the most frequent valid id and its count; returns
+    ``(modal_id [S] int32, count [S] int32)``. Ties go to the first
+    column with the highest count; a row with no valid reply gives
+    ``(ids[s, 0], 0)``. ``N = 0`` raises. CUDA tensors launch
+    ``csrc/value.cu::count_matching_replies_kernel`` (one thread per
+    row); CPU tensors take :func:`count_matching_replies_plain`."""
+    _check_replies(ids, valid)
+    if not use_kernel(ids, valid):
+        return count_matching_replies_plain(ids, valid)
+    if not (ids.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("count_matching_replies needs contiguous tensors")
+    s, n = ids.shape
+    modal = torch.empty((s,), dtype=torch.int32, device=ids.device)
+    count = torch.empty((s,), dtype=torch.int32, device=ids.device)
+    if s == 0:
+        return modal, count
+    lib = _build.library("value")
+    rc = lib.fpx_count_matching_replies(
+        ids.data_ptr(), valid.data_ptr(), s, n, modal.data_ptr(),
+        count.data_ptr(), *_build.stream_args(ids.device))
+    _build.check("value", "fpx_count_matching_replies", rc)
+    count_matching_replies.launches += 1
+    return modal, count
+
+
+count_matching_replies.launches = 0

@@ -17,14 +17,18 @@ from frankenpaxos_tpu_torch.bench import (
     bpaxos_sim,
     depset_lt,
     epaxos_sim,
+    libbench,
     multipaxos_sim,
     pipeline as tp,
+    pipeline_baseline as tpin,
+    telemetry_overhead,
     tracker_lt,
 )
 from frankenpaxos_tpu_torch.ops import (
     _build,
     depset as td,
     quorum as tq,
+    telemetry as ttel,
     value as tv,
     watermark as tw,
 )
@@ -89,9 +93,9 @@ def test_imports_with_jax_and_reference_blocked():
 
 
 #: The modules of the ProxyLeader's vote path, of the MultiPaxos cluster,
-#: of the EPaxos dependency-set plane and of the BPaxos watermark plane;
-#: each must import with JAX and the JAX package blocked (test above) and
-#: name neither.
+#: of the EPaxos dependency-set plane, of the BPaxos watermark plane and
+#: of the telemetry plane and its benches; each must import with JAX and
+#: the JAX package blocked (test above) and name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
     "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
@@ -109,7 +113,9 @@ PATH_MODULES = (
     "utils.watermark", "sim", "sim.simulator",
     "protocols.simplebpaxos.messages", "protocols.simplebpaxos.roles",
     "protocols.simplebpaxos.replica", "protocols.simplebpaxos.harness",
-    "protocols.simplegcbpaxos", "bench.bpaxos_sim",
+    "protocols.simplegcbpaxos", "bench.bpaxos_sim", "ops.telemetry",
+    "obs.telemetry", "bench.pipeline", "bench.pipeline_baseline",
+    "bench.telemetry_overhead", "bench.libbench",
 )
 
 
@@ -206,6 +212,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tw.quorum_watermark_vector(np.zeros((3, 2), np.int64), 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bpaxos_sim.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.make_state(1024, 3, telemetry=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttel.make_telemetry(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpin.make_state(1024, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        telemetry_overhead.run(smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        libbench.run()
     # Naming the CPU explicitly is the only way to the plain versions.
     assert tp.make_state(1024, 3, device="cpu").votes.device.type == "cpu"
 
@@ -283,12 +299,35 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
         tw.quorum_watermark(meta, 2)
     with pytest.raises(ValueError, match="meta"):
         tw.contiguous_prefix_length(meta)
+    # K14, the pinned K3 copy, K15, K16 and K17.
+    with pytest.raises(ValueError, match="meta"):
+        tp.steady_state_step(tp.make_state(512, 3, telemetry=True,
+                                           device="meta"), 0,
+                             block_size=256, predicate=pred)
+    with pytest.raises(ValueError, match="meta"):
+        tpin.steady_state_step(tpin.make_state(512, 3, device="meta"), 0,
+                               block_size=256, predicate=pred)
+    with pytest.raises(ValueError, match="meta"):
+        tv.count_matching_replies(meta, torch.zeros(
+            (8, 3), dtype=torch.bool, device="meta"))
+    for wrapper in (td.union, td.intersect, td.equal):
+        with pytest.raises(ValueError, match="meta"):
+            wrapper(batch, batch)
+    with pytest.raises(ValueError, match="meta"):
+        td.size(batch)
+    with pytest.raises(ValueError, match="meta"):
+        td.compact(batch, np.zeros(3, np.int32))
+    with pytest.raises(ValueError, match="meta"):
+        td.contains(batch, 0, 5)
     launches = [tq.quorum_hit, tq.record_block, tp.steady_state_step,
                 tq.record_and_check, tq.release, tq.check_batch_multi,
                 tq.record_and_check_epochs, tq.reshape_columns,
                 tv.safe_values, td.normalized, td.union_reduce,
                 td.conflict_max, td.all_equal, tw.quorum_watermark,
-                tw.contiguous_prefix_length]
+                tw.contiguous_prefix_length, tp.telemetry_drain,
+                tpin.steady_state_step, tv.count_matching_replies,
+                td.union, td.intersect, td.compact, td.equal, td.size,
+                td.contains]
     assert [f.launches for f in launches] == [0] * len(launches)
 
 

@@ -1,5 +1,5 @@
-"""The port's dependency-set algebra (``ops/depset.py``, K9-K11 and the
-plain-only rest) and ``runs/depruns.py`` against the JAX package.
+"""The port's dependency-set algebra (``ops/depset.py``, K9-K11, K16 and
+K17) and ``runs/depruns.py`` against the JAX package.
 
 (a) Every function of ``frankenpaxos_tpu/ops/depset.py`` against its
 port on the same seeded numpy inputs, bit for bit, including the
@@ -11,7 +11,9 @@ equality after normalization, empty batches and any width.
 (``sets_to_columns``, ``split_columns``, ``columns_to_batch``,
 ``drain_union``) repeated on the port.
 (d) The wrappers' routing: CPU tensors take the plain versions (and
-launch nothing), other devices raise.
+launch nothing), other devices raise; with the kernel path forced on
+CPU tensors and a stand-in library, K16 and K17 pass the arguments of
+their C signatures (modes, broadcast strides) and count their launches.
 
 The CUDA kernels themselves are held against these plain versions on
 the H100 by ``chip_smoke.py``.
@@ -127,6 +129,7 @@ UNARY = {
     "all_equal": (jdepset.all_equal, depset.all_equal),
     "all_equal_plain": (jdepset.all_equal, depset.all_equal_plain),
     "size": (jdepset.size, depset.size),
+    "size_plain": (jdepset.size, depset.size_plain),
 }
 BINARY = {
     "union": (jdepset.union, depset.union),
@@ -135,6 +138,9 @@ BINARY = {
     "intersect": (jdepset.intersect, depset.intersect),
     "intersect_checked": (jdepset.intersect_checked,
                           depset.intersect_checked),
+    "union_plain": (jdepset.union, depset.union_plain),
+    "intersect_plain": (jdepset.intersect, depset.intersect_plain),
+    "equal_plain": (jdepset.equal, depset.equal_plain),
 }
 
 
@@ -629,8 +635,7 @@ def test_cpu_tensors_launch_nothing():
 
 
 def test_other_devices_raise():
-    """A ``meta`` batch reaches no plain version: the kernel wrappers
-    raise, and so do the functions that have no kernel yet."""
+    """A ``meta`` batch reaches no plain version: every wrapper raises."""
     meta = depset.DepSetBatch(
         torch.zeros((2, 3), dtype=torch.int32, device="meta"),
         torch.zeros((2, 3, 8), dtype=torch.uint8, device="meta"),
@@ -644,12 +649,214 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):  # a CPU seqs beside a meta batch
         depset.conflict_max(torch.zeros(2, dtype=torch.int32), meta)
     for fn in (depset.size,):
-        with pytest.raises(NotImplementedError, match="12d"):
+        with pytest.raises(ValueError, match="meta"):
             fn(meta)
     for fn in (depset.union, depset.equal, depset.intersect):
-        with pytest.raises(NotImplementedError, match="12d"):
+        with pytest.raises(ValueError, match="meta"):
             fn(meta, meta)
-    with pytest.raises(NotImplementedError, match="12d"):
+    with pytest.raises(ValueError, match="meta"):
         depset.compact(meta, np.zeros(3, np.int32))
-    with pytest.raises(NotImplementedError, match="12d"):
+    with pytest.raises(ValueError, match="meta"):
         depset.contains(meta, np.zeros(2, np.int32), np.zeros(2, np.int32))
+    _, cpu = both(*random_batch(np.random.default_rng(0), 2, 3, 8))
+    with pytest.raises(ValueError):  # a CPU batch beside a meta one
+        depset.union(cpu, meta)
+
+
+def test_new_wrappers_launch_nothing_on_the_cpu():
+    rng = np.random.default_rng(10)
+    _, t = both(*random_batch(rng, 3, 5, 8))
+    wrappers = (depset.union, depset.intersect, depset.compact,
+                depset.equal, depset.size, depset.contains)
+    before = [w.launches for w in wrappers]
+    depset.union(t, t)
+    depset.intersect(t, t)
+    depset.compact(t, np.zeros(5, np.int32))
+    depset.equal(t, t)
+    depset.size(t)
+    depset.contains(t, 0, 3)
+    assert [w.launches for w in wrappers] == before
+
+
+# --- K16 / K17: plain versions, hazards, and the kernel path ------------------
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_contains_plain_matches_jax(seed):
+    rng = np.random.default_rng(4500 + seed)
+    for _ in range(16):
+        wm, tails, base = random_batch(rng)
+        b, l, w = tails.shape
+        leader = rng.integers(-l - 2, l + 2, size=b).astype(np.int32)
+        vid = np.clip(int(base) + rng.integers(-20, w + 20, size=b),
+                      -2**31, 2**31 - 1).astype(np.int32)
+        j, t = both(wm, tails, base)
+        assert_same(jdepset.contains(j, jnp.asarray(leader),
+                                     jnp.asarray(vid)),
+                    depset.contains_plain(t, leader, vid))
+
+
+#: ``executed`` shapes that broadcast against ``[B, L]`` watermarks.
+EXECUTED_SHAPES = ("scalar", "row", "one_by_l", "full")
+
+
+def _executed_of(rng, kind, b, l, base, w):
+    shape = {"scalar": (), "row": (l,), "one_by_l": (1, l),
+             "full": (b, l)}[kind]
+    return np.clip(int(base) + rng.integers(-8, w + 8, size=shape),
+                   -2**31, 2**31 - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", EXECUTED_SHAPES)
+@pytest.mark.parametrize("plain", [False, True])
+def test_compact_broadcasts_like_jax(plain, kind):
+    fn = depset.compact_plain if plain else depset.compact
+    rng = np.random.default_rng(6000 + len(kind))
+    for _ in range(12):
+        wm, tails, base = random_batch(rng)
+        b, l, w = tails.shape
+        executed = _executed_of(rng, kind, b, l, base, w)
+        j, t = both(wm, tails, base)
+        assert_same(jdepset.compact(j, jnp.asarray(executed)),
+                    fn(t, executed))
+
+
+@pytest.mark.parametrize("base", [2**31 - 1, 2**31 - 5, -2**31])
+def test_pair_and_query_near_int32_wrap(base):
+    """Tail bases at the int32 edges: ids ``base + w`` wrap negative and
+    every compare is signed; bytes other than 0/1."""
+    rng = np.random.default_rng(base % 1000)
+    for kind in range(3):
+        a = random_batch(rng, 4, 3, 37, base, kind)
+        b = random_batch(rng, 4, 3, 37, base, kind)
+        (ja, ta), (jb, tb) = both(*a), both(*b)
+        for name in ("union", "intersect", "equal"):
+            assert_same(getattr(jdepset, name)(ja, jb),
+                        getattr(depset, name)(ta, tb))
+        assert_same(jdepset.size(ja), depset.size(ta))
+        executed = np.full(3, base, np.int32)
+        assert_same(jdepset.compact(ja, jnp.asarray(executed)),
+                    depset.compact(ta, executed))
+        vid = np.int32(base)
+        for leader in (-1, 0, 2, 3, 7):
+            assert_same(jdepset.contains(ja, jnp.int32(leader),
+                                         jnp.asarray(vid)),
+                        depset.contains(ta, leader, vid))
+
+
+def test_aliased_inputs_and_scalar_queries():
+    """``union(deps, deps)`` as libbench calls it, the same batch on both
+    sides of intersect and equal, and scalar leader / vid on both sides
+    of the window, leaders -1 and >= L."""
+    rng = np.random.default_rng(77)
+    wm, tails, base = random_batch(rng, 5, 3, 64, 1 << 16, 0)
+    j, t = both(wm, tails, base)
+    for name in ("union", "intersect", "equal"):
+        assert_same(getattr(jdepset, name)(j, j),
+                    getattr(depset, name)(t, t))
+    assert bool(depset.equal(t, t).all())
+    for leader in (-1, -3, -4, 0, 2, 3, 9):
+        for vid in (int(base) - 1, int(base), int(base) + 63,
+                    int(base) + 64, int(base) + 1000, -2**31, 2**31 - 1):
+            assert_same(jdepset.contains(j, jnp.int32(leader),
+                                         jnp.int32(vid)),
+                        depset.contains(t, leader, vid))
+
+
+def test_pair_and_query_refuse_mismatched_shapes():
+    rng = np.random.default_rng(5)
+    _, a = both(*random_batch(rng, 3, 2, 8))
+    _, b = both(*random_batch(rng, 3, 2, 16))
+    for fn in (depset.union, depset.intersect, depset.equal,
+               depset.union_plain, depset.intersect_plain,
+               depset.equal_plain):
+        with pytest.raises(ValueError, match="shape"):
+            fn(a, b)
+    empty = depset.DepSetBatch(torch.zeros((2, 0), dtype=torch.int32),
+                               torch.zeros((2, 0, 8), dtype=torch.uint8),
+                               torch.tensor(0, dtype=torch.int32))
+    with pytest.raises(ValueError, match="leader column"):
+        depset.contains(empty, 0, 0)
+
+
+def test_empty_batches_give_empty_results():
+    rng = np.random.default_rng(6)
+    wm, tails, base = random_batch(rng, 0, 3, 8)
+    j, t = both(wm, tails, base)
+    for name in ("union", "intersect", "equal"):
+        assert_same(getattr(jdepset, name)(j, j),
+                    getattr(depset, name)(t, t))
+    assert_same(jdepset.size(j), depset.size(t))
+    assert depset.contains(t, 0, 0).shape == (0,)
+
+
+class _Recorder:
+    """Stands in for the kernel library: records each entry point's
+    arguments, launches nothing, returns 0 (no CUDA error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        def call(*args):
+            self.calls.append((entry, args))
+            return 0
+
+        return call
+
+
+def test_pair_and_query_kernel_path_arguments(monkeypatch):
+    """With the kernel path forced on CPU tensors: K16 and K17 pass as
+    many arguments as their C signatures, the mode, the broadcast
+    strides of ``executed`` / ``leader`` / ``vid`` (0 on a broadcast
+    axis), no ``b`` batch for compact, size and contains; one launch
+    counts once; an empty batch launches and counts nothing."""
+    from frankenpaxos_tpu_torch.ops import _build
+
+    recorder = _Recorder()
+    monkeypatch.setattr(depset, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(_build, "library", lambda name: recorder)
+    monkeypatch.setattr(_build, "stream_args", lambda device: (0, None))
+    wrappers = (depset.union, depset.intersect, depset.compact,
+                depset.equal, depset.size, depset.contains)
+    for w in wrappers:
+        monkeypatch.setattr(w, "launches", 0)
+    sig = _build.SIGNATURES["depset"]
+    _, t = both(*random_batch(np.random.default_rng(1), 4, 3, 8))
+
+    def last(entry, mode):
+        got, args = recorder.calls[-1]
+        assert got == entry and len(args) == len(sig[entry])
+        assert args[0] == mode
+        return args
+
+    depset.union(t, t)
+    args = last("fpx_depset_pair", 0)
+    assert args[3] is not None and args[5] is None and args[9:12] == (4, 3, 8)
+    depset.intersect(t, t)
+    last("fpx_depset_pair", 1)
+    for executed, strides in ((np.int32(3), (0, 0)),
+                              (np.zeros(3, np.int32), (0, 1)),
+                              (np.zeros((1, 3), np.int32), (0, 1)),
+                              (np.zeros((4, 3), np.int32), (3, 1))):
+        depset.compact(t, executed)
+        args = last("fpx_depset_pair", 2)
+        assert args[3] is None and args[5] is not None
+        assert args[6:8] == strides
+    depset.equal(t, t)
+    args = last("fpx_depset_query", 0)
+    assert args[3] is not None and args[10:13] == (4, 3, 8)
+    depset.size(t)
+    args = last("fpx_depset_query", 1)
+    assert args[3] is None and args[5] is None
+    depset.contains(t, 1, np.arange(4, dtype=np.int32))
+    args = last("fpx_depset_query", 2)
+    assert args[6] == 0 and args[8] == 1
+    assert [w.launches for w in wrappers] == [1, 1, 4, 1, 1, 1]
+    calls = len(recorder.calls)
+    _, empty = both(*random_batch(np.random.default_rng(2), 0, 3, 8))
+    depset.union(empty, empty)
+    depset.size(empty)
+    depset.contains(empty, 0, 0)
+    assert len(recorder.calls) == calls
+    assert [w.launches for w in wrappers] == [1, 1, 4, 1, 1, 1]

@@ -139,10 +139,16 @@ def test_conversion_rejects_mismatched_state():
     with pytest.raises(ValueError, match="committed"):
         convert.pipeline_state_from_numpy(
             ref._replace(committed=np.int64(0)), device="cpu")
+    # Telemetry crosses too (counters into the port's flat buffer); a
+    # counter of the wrong dtype is refused like any other field.
+    on = jax.device_get(jp.make_state(512, 3, telemetry=True))
+    carried = convert.pipeline_state_from_numpy(on, device="cpu")
+    assert carried.telemetry.buffer.dtype == torch.int32
+    assert carried.telemetry.occupancy.shape == (4,)
     with pytest.raises(ValueError, match="telemetry"):
         convert.pipeline_state_from_numpy(
-            jax.device_get(jp.make_state(512, 3, telemetry=True)),
-            device="cpu")
+            on._replace(telemetry=on.telemetry._replace(
+                lag_hist=np.zeros(16, np.int64))), device="cpu")
     fields = ref._asdict()
     del fields["exec_wm"]
     with pytest.raises(ValueError, match="fields"):
@@ -151,8 +157,13 @@ def test_conversion_rejects_mismatched_state():
 
 def test_step_rejects_bad_shapes_and_telemetry():
     pred = make_predicate(*SPECS["majority3"].as_arrays(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tp.make_state(512, 3, telemetry=True, device="cpu")
+    # Telemetry on is a state with zeroed counters for one slot shard;
+    # more shards are the multi-GPU drain and raise.
+    on = tp.make_state(512, 3, telemetry=True, device="cpu")
+    assert on.telemetry.shard_committed.shape == (1,)
+    assert not on.telemetry.buffer.any()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tp.make_state(512, 3, telemetry=True, slot_shards=4, device="cpu")
     with pytest.raises(ValueError, match="whole"):
         tp.steady_state_step(tp.make_state(500, 3, device="cpu"), 0,
                              block_size=256, predicate=pred)
