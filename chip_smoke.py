@@ -116,15 +116,38 @@ Phases, in order (any failure exits nonzero and prints no result):
   21. the libbench path, with every count set to 0 first: the libbench
      twin (``bench/libbench.py``) at the reference's sizes; K10, K12,
      K13 and K16's ``union`` must each have launched;
-  22. per-kernel figures at the main paths' shapes: CUDA-event time per
+  22. K18 ``link_keep_mask`` against its plain version: exact, at 1000
+     zones (a [1001, 1001] up-matrix with about 20% of its links down)
+     for n in {32, 33, 500, 4096, 65536}, ids at every edge of JAX's
+     index rule (-1, -Z-1, <= -Z-2, Z, > Z); the transport-facing
+     ``link_keep_mask_cuda`` equal to it, its result writable and not
+     aliased by the next call, and a partition between two calls (a new
+     ``up_matrix``) changing exactly the cut link's frames;
+  23. the geo path, with every count set to 0 first: the geo_lt twin
+     (``bench/geo_lt.py``: WPaxos, 3 regions x 3-acceptor rows, 6
+     groups, 3 clients, the arms home_zone, static_single_leader, steal,
+     hot_objects and flat at the reference's sizes) on the dict and the
+     cuda quorum backends, the cuda run's link mask on K18; the
+     reference's gates on the dict run, the virtual-time gates on the
+     cuda run, and the cuda run's acks, virtual latencies and replicas'
+     group sequences EQUAL to the dict run's; K5 and K6 must have
+     launched on its traffic, and K7 never (the grid universe is fixed);
+  24. the storm twin (``bench/sim_core_ab.py``), on the same count: the
+     reference's 1000-zone GeoStorm (bursts of 500, 60 rounds) on the
+     jittered and the jitter-free topology, and a 32,768-frame FIFO
+     backlog over the geo transport, each with the numpy mask and K18 in
+     alternating blocks; delivery projections and sink counts identical
+     across masks; the wave-size histograms; K18 must have launched on
+     the geo path (phases 23-24);
+  25. per-kernel figures at the main paths' shapes: CUDA-event time per
      call over many calls, the plain version's time, the time of one
      PyTorch call that computes the same function where there is one
-     (``torch.kthvalue`` for K12), the bound (bytes / 3.35 TB/s vs
-     integer operations / 67 T/s, the larger) and the launches of
-     phases 11, 12, 14, 16, 18 and 21, printed as one
-     ``{"kernels": [...]}`` line; before it, each headline arm's drain
-     split into device time (profiler) and the share of the drain the
-     device sits idle.
+     (``torch.kthvalue`` for K12, ``up[src, dst]`` for K18), the bound
+     (bytes / 3.35 TB/s vs integer operations / 67 T/s, the larger) and
+     the launches of phases 11, 12, 14, 16, 18, 21 and 23-24, printed
+     as one ``{"kernels": [...]}`` line; before it, each headline arm's
+     drain split into device time (profiler) and the share of the drain
+     the device sits idle.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -142,20 +165,24 @@ from frankenpaxos_tpu_torch.bench import (
     bpaxos_sim,
     depset_lt,
     epaxos_sim,
+    geo_lt,
     headline,
     libbench,
     multipaxos_sim,
     pipeline as tp,
     pipeline_baseline as tpin,
+    sim_core_ab,
     telemetry_overhead,
     tracker_lt,
 )
 from frankenpaxos_tpu_torch.device import nvidia_smi_line
+from frankenpaxos_tpu_torch.geo import GeoTopology
 from frankenpaxos_tpu_torch.obs import telemetry as tobs
 from frankenpaxos_tpu_torch.ops import (
     _build,
     depset as td,
     quorum as tq,
+    simwave as tsw,
     value as tv,
     watermark as tw,
 )
@@ -189,7 +216,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/22] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/25] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -703,6 +730,7 @@ WRAPPERS = {
     "equal": td.equal,
     "size": td.size,
     "contains": td.contains,
+    "link_keep_mask": tsw.link_keep_mask_tensor,
 }
 #: The kernels of the main path, K1-K7 (check_batch_multi, K6's
 #: stateless predicate, is not on it).
@@ -712,16 +740,19 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
 
 
 #: The runs whose launches the kernels line counts: phases 11, 12, 14,
-#: 16, 18 and 21 (``*_traffic`` entries of ``launches_by_path`` are
-#: subsets of these).
+#: 16, 18, 21 and 23-24 (``*_traffic`` entries of ``launches_by_path``
+#: are subsets of these).
 MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
-              "telemetry", "libbench")
+              "telemetry", "libbench", "geo")
 #: The kernels of the telemetry path (phase 18) and of the libbench path
 #: (phase 21).
 TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
                   "steady_state_step_baseline")
 LIBBENCH_PATH = ("quorum_watermark", "contiguous_prefix_length", "union",
                  "union_reduce")
+#: The kernels of the geo path (phases 23-24): K5 and K6 from the WPaxos
+#: leaders' trackers, K18 from the geo transport's waves.
+GEO_PATH = ("release", "record_and_check_epochs", "link_keep_mask")
 
 
 def _rows(batch: td.DepSetBatch) -> int:
@@ -1027,6 +1058,102 @@ def phase_libbench(dev) -> tuple[dict, dict]:
 
 
 
+#: K18's zones (the storm's topology) and wave sizes.
+K18_ZONES = 1000
+K18_WAVES = (32, 33, 500, 4096, 1 << 16)
+
+
+def _k18_ids(rng, n: int, z: int) -> tuple:
+    """A wave's zone ids in [-1, Z-1] with every edge of JAX's index
+    rule placed at both ends of the source and destination columns."""
+    edges = np.array([-1, -z - 1, -z - 2, -5 * z, -2**31, z, z + 1, 7 * z,
+                      2**31 - 1], np.int32)
+    src = rng.integers(-1, z, n).astype(np.int32)
+    dst = rng.integers(-1, z, n).astype(np.int32)
+    src[:len(edges)] = edges
+    dst[-len(edges):] = edges
+    return src, dst
+
+
+def _k18_up(rng, z: int) -> np.ndarray:
+    up = rng.random((z + 1, z + 1)) >= 0.2
+    up[z, :] = True
+    up[:, z] = True
+    return up
+
+
+def phase_k18(dev, rng) -> int:
+    """K18 against its plain version (on the card and on the host), the
+    transport-facing entry against it, a partition between two calls,
+    and the result's ownership."""
+    worst = 0
+    z = K18_ZONES
+    up = _k18_up(rng, z)
+    up_t = torch.from_numpy(up).to(dev)
+    for n in K18_WAVES:
+        src, dst = _k18_ids(rng, n, z)
+        src_t, dst_t = (torch.from_numpy(a).to(dev) for a in (src, dst))
+        got = tsw.link_keep_mask_tensor(src_t, dst_t, up_t)
+        want = tsw.link_keep_mask_plain(src_t, dst_t, up_t)
+        host = tsw.link_keep_mask_plain(torch.from_numpy(src),
+                                        torch.from_numpy(dst),
+                                        torch.from_numpy(up))
+        err = max_abs_err(got, want)
+        worst = max(worst, err, max_abs_err(got.cpu(), host))
+        require(err == 0 and torch.equal(got.cpu(), host),
+                f"link_keep_mask differs from plain at n={n}")
+        entry = tsw.link_keep_mask_cuda(src, dst, up)
+        require(np.array_equal(entry, host.numpy()),
+                f"link_keep_mask_cuda differs from plain at n={n}")
+    # A partition between two calls: the topology hands out a new
+    # up-matrix, and the cut link's frames (both ways) flip to dropped.
+    topo = GeoTopology({f"r{i}": [f"z{i}-{j}" for j in range(10)]
+                        for i in range(z // 10)}, seed=SEED)
+    a, b = topo.zones[3], topo.zones[517]
+    ia, ib = 3, 517
+    src = rng.integers(-1, z, 4096).astype(np.int32)
+    dst = rng.integers(-1, z, 4096).astype(np.int32)
+    src[:64:2], dst[:64:2] = ia, ib
+    src[1:64:2], dst[1:64:2] = ib, ia
+    before = tsw.link_keep_mask_cuda(src, dst, topo.up_matrix())
+    keep = before.copy()
+    require(before.flags.writeable and before.all(),
+            "link_keep_mask_cuda on a healed topology dropped a frame")
+    topo.partition_link(a, b)
+    after = tsw.link_keep_mask_cuda(src, dst, topo.up_matrix())
+    cut = ((src == ia) & (dst == ib)) | ((src == ib) & (dst == ia))
+    require(np.array_equal(after, ~cut),
+            "a partition between two calls did not change exactly the cut "
+            "link's frames")
+    require(np.array_equal(before, keep),
+            "the next call overwrote an earlier result")
+    after &= False  # the transport ANDs its partition mask in place
+    again = tsw.link_keep_mask_cuda(src, dst, topo.up_matrix())
+    require(np.array_equal(again, ~cut),
+            "an in-place edit of a result reached the next call")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+def phase_geo(dev) -> tuple[dict, dict, dict]:
+    """The geo path: the geo_lt twin, then the storm twin, on one count;
+    their gates raise inside ``run``. K5, K6 and K18 must have launched,
+    and K7 never."""
+    reset_launches()
+    try:
+        geo = geo_lt.run(dev)
+        storm = sim_core_ab.run(dev)
+    except (geo_lt.GateFailure, sim_core_ab.GateFailure) as exc:
+        raise SmokeFailure(f"geo: {exc}") from exc
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    require(all(launches[name] > 0 for name in GEO_PATH),
+            f"a kernel of the geo path never launched: {launches}")
+    require(launches["reshape_columns"] == 0,
+            f"K7 ran on the geo path, whose grid universe is fixed: "
+            f"{launches}")
+    return geo, storm, launches
+
+
 def time_ms(fn, iters: int) -> float:
     for _ in range(20):
         fn()
@@ -1232,6 +1359,25 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         np.int32)).to(dev)
     lib_cells = lib_a.tails.numel() + lib_a.watermarks.numel()
 
+    # K18: the FIFO arm's wave, 32768 frames over the storm's [1001, 1001]
+    # up-matrix; the library call takes in-range ids as int64. Bytes:
+    # the ids and the mask (9 per frame) and each distinct matrix entry
+    # the wave gathers (JAX's index rule applied), read once.
+    k18_n = sim_core_ab.FIFO_DEPTH
+    k18_up_np = _k18_up(rng, K18_ZONES)
+    k18_up = torch.from_numpy(k18_up_np).to(dev)
+    k18_src_np, k18_dst_np = (rng.integers(0, K18_ZONES + 1, k18_n)
+                              .astype(np.int32) for _ in range(2))
+    k18_src, k18_dst = (torch.from_numpy(a).to(dev)
+                        for a in (k18_src_np, k18_dst_np))
+    k18_src_l, k18_dst_l = k18_src.long(), k18_dst.long()
+    require(torch.equal(k18_up[k18_src_l, k18_dst_l],
+                        tsw.link_keep_mask_tensor(k18_src, k18_dst, k18_up)),
+            "up[src, dst] does not compute K18's function")
+    k18_pairs = len(np.unique(k18_src_np.astype(np.int64)
+                              * (K18_ZONES + 1) + k18_dst_np))
+    library["link_keep_mask"] = lambda: k18_up[k18_src_l, k18_dst_l]
+
     quorum, sparse, epoch = (f"frankenpaxos_tpu_torch/ops/csrc/{f}.cu"
                              for f in ("quorum", "sparse", "epoch"))
     ref = "frankenpaxos_tpu/ops/quorum.py"
@@ -1379,6 +1525,15 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          "depset_query_kernel", (4 + 1 + 8 + 1) * lib_rows + 4,
          12 * lib_rows, depset_cu, f"{depset_ref}:137 (contains L148)",
          _shape(lib_a) + ", a leader and a vid per row"),
+        # K18: two id loads, a wrap, two clamps, a multiply-add and a
+        # compare per frame.
+        ("link_keep_mask",
+         lambda: tsw.link_keep_mask_tensor(k18_src, k18_dst, k18_up),
+         lambda: tsw.link_keep_mask_plain(k18_src, k18_dst, k18_up),
+         "link_keep_mask_kernel", 9 * k18_n + k18_pairs, 8 * k18_n,
+         "frankenpaxos_tpu_torch/ops/csrc/simwave.cu",
+         "frankenpaxos_tpu/ops/simwave.py:79 (_link_keep_jax L107)",
+         f"n={k18_n} over [{K18_ZONES + 1}, {K18_ZONES + 1}] bool"),
     ]
     out = []
     for (name, fn, plain, kname, nbytes, ops, source, replaces,
@@ -1403,6 +1558,15 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
             "library_ms": library_ms, "device_ms": dev_ms, "bytes": nbytes,
             "shape": shape,
         })
+    # K18's transport-facing call (numpy in, ids through pinned staging,
+    # the mask back with a synchronise): host clock per call.
+    entry = (k18_src_np, k18_dst_np, k18_up_np)
+    tsw.link_keep_mask_cuda(*entry)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        tsw.link_keep_mask_cuda(*entry)
+    row = next(r for r in out if r["name"] == "link_keep_mask")
+    row["entry_ms"] = (time.perf_counter() - t0) / 200 * 1e3
     return out
 
 
@@ -1544,6 +1708,44 @@ def main() -> int:
         phase(21, f"libbench on {name} ({smi}): launches {lib_launches}")
         log(json.dumps({"libbench": lib}))
 
+        errors["link_keep_mask"] = phase_k18(dev, rng)
+        phase(22, f"K18 link_keep_mask == plain at {K18_ZONES} zones, n in "
+            f"{list(K18_WAVES)}, every JAX index edge; the numpy entry "
+            f"equal, writable and unaliased; a partition between two calls "
+            f"flips exactly the cut link")
+
+        geo, storm, geo_launches = phase_geo(dev)
+        phase(23, f"WPaxos over geo on {name} ({smi}): "
+            + ", ".join(
+                f"{b}: home p50/WAN "
+                f"{run['home_zone']['home_p50_over_wan_rtt']:.4f}, steal/WAN "
+                f"{run['steal']['steal_latency_over_wan_rtt']:.4f}, flat "
+                f"geo/multipaxos "
+                f"{run['flat']['geo_over_multipaxos_ratio_median']:.3f}, "
+                f"geo/plain {run['flat']['geo_over_plain_ratio_median']:.3f}"
+                f", {run['seconds']:.1f} s, waves >= 32: "
+                f"{run['latency_arms_waves']['waves_at_least_vector_min']}"
+                f" + {run['flat']['waves_at_least_vector_min']}, launches "
+                f"{run['launches']}"
+                for b, run in geo["backends"].items())
+            + "; cuda == dict exactly")
+        log(json.dumps({"geo_lt": geo}))
+        phase(24, f"storm twin on {name} ({smi}): "
+            + "; ".join(
+                f"{arm}: events/s "
+                + ", ".join(f"{m} {r:.0f}"
+                            for m, r in fig["events_per_s"].items())
+                + f", waves {fig['wave_size_histogram']}, >= 32: "
+                f"{fig['waves_at_least_vector_min']}, K18 launches per "
+                f"block {fig['k18_launches_per_block']}"
+                for arm, fig in storm["arms"].items())
+            + f"; projections identical; geo-path launches K5 "
+            f"{geo_launches['release']}, K6 "
+            f"{geo_launches['record_and_check_epochs']}, K7 "
+            f"{geo_launches['reshape_columns']}, K18 "
+            f"{geo_launches['link_keep_mask']}")
+        log(json.dumps({"sim_core_ab": storm}))
+
         log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
         kernels = phase_figures(dev, rng, {
             "headline_and_tracker": launches, "cluster": cluster_launches,
@@ -1553,8 +1755,8 @@ def main() -> int:
             "bpaxos": bpaxos_launches,
             "bpaxos_traffic": bpaxos["launches"],
             "telemetry": overhead_launches,
-            "libbench": lib_launches}, errors)
-        phase(22, f"per-kernel figures on {name} ({smi}); "
+            "libbench": lib_launches, "geo": geo_launches}, errors)
+        phase(25, f"per-kernel figures on {name} ({smi}); "
             f"{time.perf_counter() - T0:.1f} s in all")
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

@@ -12,13 +12,19 @@ or a field that does not match raises rather than being converted. An
 plus its board, so a test can start the JAX checker and the port's from
 one mid-flight state. A JAX ``DepSetBatch`` crosses as its three numpy
 arrays, and a GC role's ``QuorumWatermarkVector`` as its
-``[replicas, leaders]`` int64 matrix.
+``[replicas, leaders]`` int64 matrix. A WPaxos leader's
+``ObjectEpochStore`` crosses as its epoch chains, and a
+``GeoQuorumTracker`` as its store, its board (through the
+``EpochSegmentedChecker`` conversion, the planes rebuilt from the
+chain) and its buffered votes.
 """
 
 from __future__ import annotations
 
 from frankenpaxos_tpu_torch.bench.pipeline import PipelineState
 from frankenpaxos_tpu_torch.device import resolve_device
+from frankenpaxos_tpu_torch.geo.epochs import GeoEpoch, ObjectEpochStore
+from frankenpaxos_tpu_torch.geo.quorum import GeoQuorumTracker
 from frankenpaxos_tpu_torch.ops.depset import DepSetBatch
 from frankenpaxos_tpu_torch.ops.quorum import EpochSegmentedChecker, VoteBoard
 from frankenpaxos_tpu_torch.ops.telemetry import (
@@ -196,3 +202,54 @@ def watermark_vector_from_numpy(watermarks) -> QuorumWatermarkVector:
 def watermark_vector_to_numpy(vector: QuorumWatermarkVector) -> np.ndarray:
     """The vector's ``[replicas, leaders]`` int64 matrix, a copy."""
     return vector._watermarks.copy()
+
+
+def epoch_store_from_chains(chains, version: int = 0) -> ObjectEpochStore:
+    """A port ``ObjectEpochStore`` holding ``chains``: per object group,
+    its epoch entries in order (objects with ``group``, ``epoch``,
+    ``start_slot``, ``home_zone`` and ``ballot`` fields, e.g. a JAX
+    store's ``known(g)`` for each group), and the store's ``version``.
+    A chain that is empty, names another group or skips an epoch
+    raises."""
+    chains = [list(chain) for chain in chains]
+    if any(not chain for chain in chains):
+        raise ValueError("every group needs at least its epoch 0")
+    store = ObjectEpochStore(len(chains),
+                             [chain[0].home_zone for chain in chains])
+    for group, chain in enumerate(chains):
+        entries = [GeoEpoch(group=int(e.group), epoch=int(e.epoch),
+                            start_slot=int(e.start_slot),
+                            home_zone=int(e.home_zone),
+                            ballot=int(e.ballot)) for e in chain]
+        if any(e.group != group for e in entries) or [
+                e.epoch for e in entries] != list(
+                range(entries[0].epoch, entries[0].epoch + len(entries))):
+            raise ValueError(f"group {group}'s chain is not one group's "
+                             f"contiguous epochs: {entries}")
+        store._chains[group] = entries
+    store.version = int(version)
+    return store
+
+
+def geo_tracker_from_numpy(store: ObjectEpochStore, group: int, grid,
+                           board, window: int, pending=None,
+                           device=None) -> GeoQuorumTracker:
+    """A ``"cuda"`` ``GeoQuorumTracker`` of ``group`` over ``store`` in a
+    mid-flight state: its checker's planes built from the store's chain,
+    its vote ``board`` (a named tuple or dict of numpy arrays, e.g. a
+    JAX tracker's ``jax.device_get(tracker._checker.board)``) carried in,
+    and ``pending`` -- the votes buffered since the last drain, as
+    ``(slots, acceptors, ballots)`` -- restored."""
+    tracker = GeoQuorumTracker(store, group, grid, backend="cuda",
+                               window=window, device=device)
+    specs, starts = tracker._specs_and_starts()
+    tracker._checker = epoch_checker_from_numpy(specs, starts, window,
+                                                board, tracker.device)
+    if pending is not None:
+        slots, cols, ballots = (list(map(int, v)) for v in pending)
+        if not len(slots) == len(cols) == len(ballots):
+            raise ValueError("pending votes need one slot, acceptor and "
+                             "ballot each")
+        tracker._slots, tracker._cols, tracker._ballots = \
+            slots, cols, ballots
+    return tracker

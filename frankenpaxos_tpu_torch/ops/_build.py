@@ -113,6 +113,10 @@ SIGNATURES = {
         "fpx_steady_state_step_telemetry": [_P, _P, _P, _P, _P, _P, _P, _L,
                                             _I, _I, *_PRED, _P, _I, _P],
     },
+    "simwave": {
+        # src zones, dst zones, n, up, rows, cols, out
+        "fpx_link_keep_mask": [_P, _P, _L, _P, _I, _I, _P, _I, _P],
+    },
     # The pinned pre-telemetry drain: K3's arguments.
     "pipeline_baseline": {
         "fpx_steady_state_step_baseline": [_P, _P, _P, _P, _P, _P, _P, _L,

@@ -116,6 +116,14 @@ class Actor(abc.ABC):
         for dst in dsts:
             self.transport.send(self.address, dst, data)
 
+    def send_batch(self, dst: Address, messages,
+                   serializer: Serializer | None = None) -> None:
+        """A drain's messages for ONE destination as one transport
+        batch: encoded per message, flushed once."""
+        ser = serializer or DEFAULT_SERIALIZER
+        self.transport.send_batch(
+            self.address, dst, [ser.to_bytes(m) for m in messages])
+
     def flush(self, dst: Address) -> None:
         self.transport.flush(self.address, dst)
 

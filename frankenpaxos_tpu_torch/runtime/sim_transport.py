@@ -18,14 +18,21 @@ batch of frames consumed in one step is spliced out of the buffer as a
 unit, drop decisions evaluate as a vectorized mask over the wave
 (ops/simwave.py) above ``WAVE_VECTOR_MIN``, and consecutive
 same-destination frames deliver through ``Actor.receive_batch`` when
-the actor overrides it. The adversarial API (``deliver_message`` of ANY
-buffered frame, ``generate_command``, partition/crash controls) is
-unchanged.
+the actor overrides it. The geo transport's virtual-clock loop
+(geo/transport.py) runs the same engine over its own waves: delivered
+frames tombstone out of the public buffer list (``_consume_buffered``)
+instead of paying a scan per message. The adversarial API
+(``deliver_message`` of ANY buffered frame, ``generate_command``,
+partition/crash controls) is unchanged, and the engine steps aside --
+falling back to the per-message compat loop -- whenever delivery is
+intercepted (an instance-wrapped ``deliver_message``, or a subclass
+pinning another ``_deliver``).
 
-Not ported yet (ROADMAP.md, the next slice): the bounded client-lane
-inboxes of admission control (``serve/lanes.py``,
-``serve/admission.py``) and tracing spans. An actor carrying an
-admission controller, or a transport with a tracer, is refused.
+Not ported yet, and refused: the bounded client-lane inboxes of
+admission control (``serve/lanes.py``, ``serve/admission.py``;
+ROADMAP.md queue 1 item 8.1) and tracing spans (item 8.5). An actor
+carrying an admission controller, or a transport with a tracer, is
+refused.
 """
 
 from __future__ import annotations
@@ -125,8 +132,13 @@ class SimTransport(Transport):
         self.partitioned: set[Address] = set()
         self.history: list[SimCommand] = []
         self._ids = itertools.count()
-        # Addresses interned to ints for the vectorized drop masks
-        # (ops/simwave.py).
+        # ``_consumed`` tombstones message ids a wave loop has delivered
+        # but not yet compacted out of ``messages`` (the public buffer
+        # stays a plain list for the adversarial API). Non-empty ONLY
+        # inside a wave loop: every public entry point compacts first.
+        # ``_addr_ids`` interns addresses to ints for the vectorized
+        # drop masks (ops/simwave.py).
+        self._consumed: set[int] = set()
         self._addr_ids: dict[Address, int] = {}
         #: Record delivered/triggered events into ``history``. The
         #: default matches the reference; long runs (the cluster bench)
@@ -140,8 +152,8 @@ class SimTransport(Transport):
             raise ValueError(f"an actor is already registered at {address}")
         if getattr(actor, "admission", None) is not None:
             raise NotImplementedError(
-                "admission control is not ported yet (ROADMAP.md, the "
-                "next slice: admission)")
+                "admission control is not ported yet (ROADMAP.md queue 1 "
+                "item 8.1)")
         self.actors[address] = actor
 
     def send(self, src: Address, dst: Address, data: bytes) -> None:
@@ -177,8 +189,8 @@ class SimTransport(Transport):
     def _check_untraced(self) -> None:
         if self.tracer is not None:
             raise NotImplementedError(
-                "tracing spans are not ported yet (ROADMAP.md queue 1, "
-                "obs/trace.py Tracer)")
+                "tracing spans are not ported yet (ROADMAP.md queue 1 "
+                "item 8.5, obs/trace.py Tracer)")
 
     # --- the buffer bookkeeping ------------------------------------------
     def _remove_buffered(self, message: SimMessage) -> bool:
@@ -187,6 +199,8 @@ class SimTransport(Transport):
         message recorded from a different execution with the same id
         reads as "no longer applies", as a remove-by-equality would.
         Ids are unique in the buffer, so one probe decides."""
+        if self._consumed:
+            self._compact_messages()
         mid = message.id
         messages = self.messages
         for i, m in enumerate(messages):
@@ -196,6 +210,25 @@ class SimTransport(Transport):
                     return True
                 return False
         return False
+
+    def _compact_messages(self) -> None:
+        """Apply pending wave tombstones to the public buffer list."""
+        if self._consumed:
+            consumed = self._consumed
+            self.messages[:] = [m for m in self.messages
+                                if m.id not in consumed]
+            consumed.clear()
+
+    def _consume_buffered(self, wave) -> None:
+        """Tombstone a delivered wave; compact once the dead fraction
+        dominates (amortized O(1) per message -- each compaction
+        removes at least half the list)."""
+        consumed = self._consumed
+        for message in wave:
+            consumed.add(message.id)
+        if (len(consumed) > 1024
+                and 2 * len(consumed) >= len(self.messages)):
+            self._compact_messages()
 
     def _deliver(self, message: SimMessage) -> Optional[Actor]:
         """Deliver without draining; returns the receiving actor (None if
@@ -239,6 +272,8 @@ class SimTransport(Transport):
 
     def possible_commands(self) -> list[SimCommand]:
         """Everything that could happen next (FakeTransport.scala:196-220)."""
+        if self._consumed:
+            self._compact_messages()
         commands: list[SimCommand] = [DeliverMessage(m)
                                       for m in self.messages]
         commands.extend(TriggerTimer(t.address, t.name, t.id)
@@ -248,6 +283,8 @@ class SimTransport(Transport):
     def generate_command(self, rng) -> Optional[SimCommand]:
         """Pick a random next step, weighting deliveries vs. timers by
         availability (the spirit of FakeTransport.generateCommand)."""
+        if self._consumed:
+            self._compact_messages()
         n_msgs = len(self.messages)
         running = self.running_timers()
         total = n_msgs + len(running)
@@ -278,19 +315,62 @@ class SimTransport(Transport):
         return self._deliver_fifo(max_steps, coalesce=True)
 
     # --- the wave engine ----------------------------------------------------
+    def _wave_fast_path_ok(self) -> bool:
+        """Whether the wave engine may splice the buffer and dispatch
+        waves directly. False when delivery is intercepted -- an
+        instance-wrapped ``deliver_message``, or a subclass pinning a
+        ``_deliver`` not in ``WAVE_SAFE_DELIVERS`` -- so every delivered
+        frame still flows through the interceptor via the per-message
+        compat loop."""
+        return ("deliver_message" not in self.__dict__
+                and type(self)._deliver in WAVE_SAFE_DELIVERS)
+
     def _deliver_fifo(self, max_steps: int, coalesce: bool) -> int:
         """The ONE parameterized FIFO drain loop (both public modes
         differ only in drain granularity). Waves are buffer-prefix
         snapshots: sends made by handlers append behind the snapshot
         and join the next wave, which reproduces the legacy loops'
         strict send-order delivery exactly."""
+        if not self._wave_fast_path_ok():
+            return self._deliver_fifo_compat(max_steps, coalesce)
         steps = 0
         messages = self.messages
         while messages and steps < max_steps:
             wave = messages[:max_steps - steps]
             del messages[:len(wave)]
+            self._drop_schedule_stamps(wave)
             steps += len(wave)
             self._run_wave(wave, coalesce)
+        return steps
+
+    def _drop_schedule_stamps(self, wave) -> None:
+        """Scheduler-policy hook: consume any per-frame scheduling
+        state for frames leaving the buffer outside the policy's own
+        loop (the geo transport pops arrival stamps here, so a FIFO
+        drain can never leave a stale stamp for ``run_until`` to
+        double-deliver)."""
+
+    def _deliver_fifo_compat(self, max_steps: int, coalesce: bool) -> int:
+        """Per-message fallback: identical delivery order and drain
+        granularity, routed through ``deliver_message``/``_deliver`` so
+        interceptors observe every step."""
+        steps = 0
+        while self.messages and steps < max_steps:
+            if not coalesce:
+                self.deliver_message(self.messages[0])
+                steps += 1
+                continue
+            wave = list(self.messages[:max_steps - steps])
+            touched: list[Actor] = []
+            seen: set[int] = set()
+            for message in wave:
+                actor = self._deliver(message)
+                steps += 1
+                if actor is not None and id(actor) not in seen:
+                    seen.add(id(actor))
+                    touched.append(actor)
+            for actor in touched:
+                self._drain(actor)
         return steps
 
     def _wave_keep_mask(self, wave) -> Optional[np.ndarray]:
@@ -324,7 +404,7 @@ class SimTransport(Transport):
 
     def _run_wave(self, wave, coalesce: bool) -> int:
         """Deliver one wave. PRECONDITION: the wave's frames are
-        already spliced out of the buffer.
+        already consumed from the buffer (prefix splice or tombstones).
         Returns the number of frames that reached an actor.
 
         Delivery order is exactly per-message FIFO; the only batching
@@ -347,8 +427,8 @@ class SimTransport(Transport):
             message = wave[i]
             if (keep is not None and not keep[i]) or \
                     (check is not None and not check(message)):
-                # Dropped at a partition: consumed, no history entry,
-                # no drain.
+                # Dropped at a partition (or, in the geo subclass, a
+                # downed link): consumed, no history entry, no drain.
                 i += 1
                 continue
             dst = message.dst
@@ -407,3 +487,10 @@ class SimTransport(Transport):
         for timer_id in [tid for tid, t in self.timers.items()
                          if t.address == address]:
             del self.timers[timer_id]
+
+
+#: ``_deliver`` implementations the wave engine is allowed to bypass:
+#: the base transport's, plus wave-aware subclasses that register here
+#: (geo/transport.py). Any OTHER ``_deliver`` on the class disables the
+#: fast path so per-message interception keeps working.
+WAVE_SAFE_DELIVERS: set = {SimTransport._deliver}

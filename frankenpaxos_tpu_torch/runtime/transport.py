@@ -88,6 +88,15 @@ class Transport(abc.ABC):
     def flush(self, src: Address, dst: Address) -> None:
         ...
 
+    def send_batch(self, src: Address, dst: Address, datas) -> None:
+        """Queue a drain's already-encoded messages to one destination
+        and flush ONCE; the default is the portable send_no_flush/flush
+        spelling, so the simulated transports need no batching
+        support."""
+        for data in datas:
+            self.send_no_flush(src, dst, data)
+        self.flush(src, dst)
+
     @abc.abstractmethod
     def timer(self, address: Address, name: str, delay_s: float,
               f: Callable[[], None]) -> Timer:

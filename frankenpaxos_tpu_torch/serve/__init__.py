@@ -1,3 +1,3 @@
 """The client-side retry discipline (``backoff``) and the ``Rejected``
 reply (``messages``), copied from ``frankenpaxos_tpu/serve/``. Admission
-control itself is not ported yet (ROADMAP.md, the next slice)."""
+control itself is not ported yet (ROADMAP.md queue 1 item 8.1)."""

@@ -17,17 +17,21 @@ from frankenpaxos_tpu_torch.bench import (
     bpaxos_sim,
     depset_lt,
     epaxos_sim,
+    geo_lt,
     libbench,
     multipaxos_sim,
     pipeline as tp,
     pipeline_baseline as tpin,
+    sim_core_ab,
     telemetry_overhead,
     tracker_lt,
 )
+from frankenpaxos_tpu_torch.geo import GeoQuorumTracker, ObjectEpochStore
 from frankenpaxos_tpu_torch.ops import (
     _build,
     depset as td,
     quorum as tq,
+    simwave as tsw,
     telemetry as ttel,
     value as tv,
     watermark as tw,
@@ -42,7 +46,8 @@ from frankenpaxos_tpu_torch.protocols.simplebpaxos.harness import (
     make_bpaxos,
     make_gc_bpaxos,
 )
-from frankenpaxos_tpu_torch.quorums import SimpleMajority
+from frankenpaxos_tpu_torch.protocols.wpaxos.harness import make_wpaxos
+from frankenpaxos_tpu_torch.quorums import SimpleMajority, ZoneGrid
 from frankenpaxos_tpu_torch.reconfig import EpochQuorumTracker, EpochStore
 import numpy as np
 import pytest
@@ -93,9 +98,10 @@ def test_imports_with_jax_and_reference_blocked():
 
 
 #: The modules of the ProxyLeader's vote path, of the MultiPaxos cluster,
-#: of the EPaxos dependency-set plane, of the BPaxos watermark plane and
-#: of the telemetry plane and its benches; each must import with JAX and
-#: the JAX package blocked (test above) and name neither.
+#: of the EPaxos dependency-set plane, of the BPaxos watermark plane, of
+#: the telemetry plane and its benches, and of WPaxos over the geo
+#: simulator; each must import with JAX and the JAX package blocked (test
+#: above) and name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
     "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
@@ -115,7 +121,13 @@ PATH_MODULES = (
     "protocols.simplebpaxos.replica", "protocols.simplebpaxos.harness",
     "protocols.simplegcbpaxos", "bench.bpaxos_sim", "ops.telemetry",
     "obs.telemetry", "bench.pipeline", "bench.pipeline_baseline",
-    "bench.telemetry_overhead", "bench.libbench",
+    "bench.telemetry_overhead", "bench.libbench", "ops.simwave", "geo",
+    "geo.topology", "geo.transport", "geo.epochs", "geo.rtt",
+    "geo.quorum", "protocols.wpaxos", "protocols.wpaxos.config",
+    "protocols.wpaxos.messages", "protocols.wpaxos.acceptor",
+    "protocols.wpaxos.leader", "protocols.wpaxos.replica",
+    "protocols.wpaxos.client", "protocols.wpaxos.harness",
+    "bench.geo_lt", "bench.sim_core_ab",
 )
 
 
@@ -222,6 +234,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         telemetry_overhead.run(smoke=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         libbench.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsw.link_keep_mask_cuda(np.zeros(40, np.int32),
+                                np.zeros(40, np.int32), np.ones((3, 3), bool))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GeoQuorumTracker(ObjectEpochStore(1, [0]), 0,
+                         ZoneGrid([[0, 1, 2]]), backend="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_wpaxos(quorum_backend="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        geo_lt.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim_core_ab.run()
     # Naming the CPU explicitly is the only way to the plain versions.
     assert tp.make_state(1024, 3, device="cpu").votes.device.type == "cpu"
 
@@ -319,6 +343,11 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
         td.compact(batch, np.zeros(3, np.int32))
     with pytest.raises(ValueError, match="meta"):
         td.contains(batch, 0, 5)
+    # K18.
+    zone_ids = torch.zeros(40, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        tsw.link_keep_mask_tensor(zone_ids, zone_ids, torch.ones(
+            (3, 3), dtype=torch.bool, device="meta"))
     launches = [tq.quorum_hit, tq.record_block, tp.steady_state_step,
                 tq.record_and_check, tq.release, tq.check_batch_multi,
                 tq.record_and_check_epochs, tq.reshape_columns,
@@ -327,7 +356,7 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
                 tw.contiguous_prefix_length, tp.telemetry_drain,
                 tpin.steady_state_step, tv.count_matching_replies,
                 td.union, td.intersect, td.compact, td.equal, td.size,
-                td.contains]
+                td.contains, tsw.link_keep_mask_tensor]
     assert [f.launches for f in launches] == [0] * len(launches)
 
 
