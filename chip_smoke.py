@@ -139,12 +139,29 @@ Phases, in order (any failure exits nonzero and prints no result):
      alternating blocks; delivery projections and sink counts identical
      across masks; the wave-size histograms; K18 must have launched on
      the geo path (phases 23-24);
-  25. per-kernel figures at the main paths' shapes: CUDA-event time per
+  25. the sharded path, with every count set to 0 in each rank first:
+     four ranks spawned on the card (built first; gloo, as they share
+     one card -- NCCL refuses two ranks on one GPU), at the headline's
+     full width (window 2^20, block 2^15) on the meshes (1, 4)
+     majority-3, (1, 3) majority-3 (b_local 10923, one pad lane per
+     block), (2, 2) 2x3 grid (whole rows per group shard: the fused row
+     path) and (3, 1) 2x3 grid (rows straddle the shards: the psum'd
+     matmul), each telemetry off and on: K19 ``shard_vote_count``, K20
+     ``shard_commit`` and K21 ``shard_fold`` against their plain versions
+     phase by phase for 3 drains and ``sharded_step`` against
+     ``sharded_step_plain`` for 2 more (error 0); then 40 drains through
+     ``make_sharded_step`` (the 32-block ring wraps), the launch counts
+     read, and the gathered state equal bit for bit to the unsharded
+     drain's (K3, K14 with telemetry) after the same 40 drains; then the
+     per-drain split (K19, K20, K21 device time, the two all-reduces'
+     host time); with two or more cards, the same on one rank per card
+     over NCCL;
+  26. per-kernel figures at the main paths' shapes: CUDA-event time per
      call over many calls, the plain version's time, the time of one
      PyTorch call that computes the same function where there is one
      (``torch.kthvalue`` for K12, ``up[src, dst]`` for K18), the bound
      (bytes / 3.35 TB/s vs integer operations / 67 T/s, the larger) and
-     the launches of phases 11, 12, 14, 16, 18, 21 and 23-24, printed
+     the launches of phases 11, 12, 14, 16, 18, 21, 23-24 and 25, printed
      as one ``{"kernels": [...]}`` line; before it, each headline arm's
      drain split into device time (profiler) and the share of the drain
      the device sits idle.
@@ -168,6 +185,7 @@ from frankenpaxos_tpu_torch.bench import (
     geo_lt,
     headline,
     libbench,
+    multichip,
     multipaxos_sim,
     pipeline as tp,
     pipeline_baseline as tpin,
@@ -177,6 +195,7 @@ from frankenpaxos_tpu_torch.bench import (
 )
 from frankenpaxos_tpu_torch.device import nvidia_smi_line
 from frankenpaxos_tpu_torch.geo import GeoTopology
+from frankenpaxos_tpu_torch.mesh import Mesh
 from frankenpaxos_tpu_torch.obs import telemetry as tobs
 from frankenpaxos_tpu_torch.ops import (
     _build,
@@ -216,7 +235,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/25] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/26] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -731,6 +750,9 @@ WRAPPERS = {
     "size": td.size,
     "contains": td.contains,
     "link_keep_mask": tsw.link_keep_mask_tensor,
+    "shard_vote_count": tp.shard_vote_count,
+    "shard_commit": tp.shard_commit,
+    "shard_fold": tp.shard_fold,
 }
 #: The kernels of the main path, K1-K7 (check_batch_multi, K6's
 #: stateless predicate, is not on it).
@@ -743,7 +765,7 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
 #: 16, 18, 21 and 23-24 (``*_traffic`` entries of ``launches_by_path``
 #: are subsets of these).
 MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
-              "telemetry", "libbench", "geo")
+              "telemetry", "libbench", "geo", "sharded")
 #: The kernels of the telemetry path (phase 18) and of the libbench path
 #: (phase 21).
 TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
@@ -753,6 +775,12 @@ LIBBENCH_PATH = ("quorum_watermark", "contiguous_prefix_length", "union",
 #: The kernels of the geo path (phases 23-24): K5 and K6 from the WPaxos
 #: leaders' trackers, K18 from the geo transport's waves.
 GEO_PATH = ("release", "record_and_check_epochs", "link_keep_mask")
+#: The kernels of the sharded path (phase 25): K19-K21.
+SHARDED_PATH = multichip.SHARDED_KERNELS
+#: Phase 25's meshes, ``(group, slot, spec)``, at the full width.
+SHARDED_MESHES = multichip.CHECK_MESHES
+#: Drains per mesh: the 32-block ring wraps.
+SHARDED_DRAINS = 40
 
 
 def _rows(batch: td.DepSetBatch) -> int:
@@ -1154,6 +1182,55 @@ def phase_geo(dev) -> tuple[dict, dict, dict]:
     return geo, storm, launches
 
 
+def phase_sharded(dev) -> tuple[dict, dict, dict]:
+    """The sharded path on four ranks that share the card (and on one
+    rank per card where there are two or more cards): the gates raise
+    inside ``multichip.check``. Returns the figures, the summed launches
+    of the path and each kernel's largest error."""
+    del dev
+    reset_launches()
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    errors = dict.fromkeys(SHARDED_PATH, 0)
+    cases = {}
+
+    def record(world, group, slot, spec, telemetry, key):
+        try:
+            ranks = multichip.check(world, group, slot, spec, telemetry,
+                                    window=WINDOW, block=BLOCK,
+                                    drains=SHARDED_DRAINS)
+        except multichip.WorldFailure as exc:
+            raise SmokeFailure(f"sharded: {exc}") from exc
+        for r in ranks:
+            for name in SHARDED_PATH:
+                launches[name] += r["launches"][name]
+                errors[name] = max(errors[name], r["errors"][name])
+        cases[key] = multichip.check_summary(ranks)
+
+    t0 = time.perf_counter()
+    with multichip.RankWorld(4, device_type="cuda") as world:
+        backend = world.backend
+        spawn_s = time.perf_counter() - t0
+        for group, slot, spec in SHARDED_MESHES:
+            for telemetry in (False, True):
+                record(world, group, slot, spec, telemetry,
+                       f"{group}x{slot} {spec} telemetry "
+                       f"{'on' if telemetry else 'off'}")
+    nccl = "not run: one card (NCCL takes one rank per card)"
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        k = min(cards, 4)
+        with multichip.RankWorld(k, device_type="cuda") as world:
+            require(world.backend == "nccl",
+                    f"{k} ranks on {cards} cards chose {world.backend}")
+            for telemetry in (False, True):
+                record(world, 1, k, "majority3", telemetry,
+                       f"1x{k} majority3 telemetry "
+                       f"{'on' if telemetry else 'off'} over nccl")
+        nccl = f"1x{k} over nccl, one rank per card"
+    return ({"backend": backend, "ranks": 4, "spawn_s": spawn_s,
+             "cases": cases, "nccl": nccl}, launches, errors)
+
+
 def time_ms(fn, iters: int) -> float:
     for _ in range(20):
         fn()
@@ -1378,6 +1455,28 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
                               * (K18_ZONES + 1) + k18_dst_np))
     library["link_keep_mask"] = lambda: k18_up[k18_src_l, k18_dst_l]
 
+    # K19-K21: rank 0's shard of phase 25's (1, 4) majority-3 mesh
+    # (b_local 8192 of a 2^18-slot local window), telemetry off. A phase
+    # alone needs no collective, so a mesh without process groups serves.
+    sh_mesh = Mesh(1, 4, 0, dev)
+    sh_b, sh_s = tp.local_block(BLOCK, 4)[0], 4
+    sh_states = {key: tp.make_sharded_state(sh_mesh, WINDOW, BLOCK, n)[0]
+                 for key in ("k19", "p19", "k20", "p20", "k21", "p21")}
+    sh_plans = {key: tp.make_shard_plan(sh_mesh, BLOCK, pred)
+                for key in sh_states}
+    sh_at = dict.fromkeys(sh_states, 0)
+
+    def shard_call(key, fn):
+        def run():
+            fn(sh_states[key], sh_at[key], sh_plans[key])
+            sh_at[key] += 1
+        return run
+
+    sh_rows = sh_plans["k19"].parts.shape[1]
+    sharded_cu = "frankenpaxos_tpu_torch/ops/csrc/pipeline_sharded.cu"
+    sharded_ref = "frankenpaxos_tpu/bench/pipeline.py"
+    sh_shape = f"N={n} b_local={sh_b} w_local={WINDOW // sh_s}, mesh (1, 4)"
+
     quorum, sparse, epoch = (f"frankenpaxos_tpu_torch/ops/csrc/{f}.cu"
                              for f in ("quorum", "sparse", "epoch"))
     ref = "frankenpaxos_tpu/ops/quorum.py"
@@ -1534,6 +1633,28 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          "frankenpaxos_tpu_torch/ops/csrc/simwave.cu",
          "frankenpaxos_tpu/ops/simwave.py:79 (_link_keep_jax L107)",
          f"n={k18_n} over [{K18_ZONES + 1}, {K18_ZONES + 1}] bool"),
+        # K19: per lane, both passes' N vote bytes read and written, a
+        # command and the R partial rows of both passes written; an
+        # arrival hash per vote and G * N multiply-adds per pass. K20:
+        # per lane both passes' partials and chosen bytes, the old
+        # command read, a result and the GC column (N + 1) written. K21:
+        # the slot words and three scalars read and written.
+        ("shard_vote_count", shard_call("k19", tp.shard_vote_count),
+         shard_call("p19", tp.shard_vote_count_plain),
+         "shard_vote_count_kernel", (4 * n + 4 + 8 * sh_rows) * sh_b,
+         (2 * (10 * n + 2 * g * n) + 10) * sh_b, sharded_cu,
+         f"{sharded_ref}:145 (make_sharded_step L494, psums L271-275)",
+         sh_shape),
+        ("shard_commit", shard_call("k20", tp.shard_commit),
+         shard_call("p20", tp.shard_commit_plain), "shard_commit_kernel",
+         (8 * sh_rows + 4 + 8 + n + 1) * sh_b + 8 * (sh_s + 1),
+         (2 * (2 * g + 6) + n + 10) * sh_b, sharded_cu,
+         f"{sharded_ref}:145 (L276-322 after the group psum)", sh_shape),
+        ("shard_fold", shard_call("k21", tp.shard_fold),
+         shard_call("p21", tp.shard_fold_plain), "shard_fold_kernel",
+         8 * (sh_s + 1) + 24, 4 * (sh_s + 1) + 20, sharded_cu,
+         f"{sharded_ref}:145 (L282-313 after the slot psum)",
+         f"S={sh_s}, telemetry off"),
     ]
     out = []
     for (name, fn, plain, kname, nbytes, ops, source, replaces,
@@ -1746,6 +1867,25 @@ def main() -> int:
             f"{geo_launches['link_keep_mask']}")
         log(json.dumps({"sim_core_ab": storm}))
 
+        sharded, sharded_launches, sharded_errors = phase_sharded(dev)
+        errors.update(sharded_errors)
+        phase(25, f"sharded drain on {name} ({smi}): backend "
+            f"{sharded['backend']}, {sharded['ranks']} ranks on one card "
+            f"(spawned in {sharded['spawn_s']:.1f} s); K19-K21 == plain "
+            f"(error 0), the gathered state == the unsharded drain's after "
+            f"{SHARDED_DRAINS} drains at W={WINDOW}, B={BLOCK}; per-drain "
+            f"ms (rank 0: K19, K20, K21 device; the all-reduces host): "
+            + "; ".join(
+                f"{key}: " + ", ".join(
+                    f"{k} {v:.4g}" for k, v in
+                    (fig["device_ms_rank0"] or {}).items())
+                + f", psum_group {fig['split_ms_rank0']['psum_group']:.4g}"
+                f", psum_slot {fig['split_ms_rank0']['psum_slot']:.4g}"
+                for key, fig in sharded["cases"].items())
+            + f"; {sharded['nccl']}; launches "
+            + str({k: sharded_launches[k] for k in SHARDED_PATH}))
+        log(json.dumps({"sharded": sharded}))
+
         log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
         kernels = phase_figures(dev, rng, {
             "headline_and_tracker": launches, "cluster": cluster_launches,
@@ -1755,8 +1895,9 @@ def main() -> int:
             "bpaxos": bpaxos_launches,
             "bpaxos_traffic": bpaxos["launches"],
             "telemetry": overhead_launches,
-            "libbench": lib_launches, "geo": geo_launches}, errors)
-        phase(25, f"per-kernel figures on {name} ({smi}); "
+            "libbench": lib_launches, "geo": geo_launches,
+            "sharded": sharded_launches}, errors)
+        phase(26, f"per-kernel figures on {name} ({smi}); "
             f"{time.perf_counter() - T0:.1f} s in all")
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

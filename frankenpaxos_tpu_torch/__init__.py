@@ -26,6 +26,12 @@ reimplements its device hot path for one NVIDIA Hopper GPU (H100):
     holds the drain against a pinned pre-telemetry copy
     (``bench/pipeline_baseline.py``), and ``bench/libbench.py`` times the
     host data structures and the depset / watermark kernels;
+  * ``mesh.py`` with ``bench/pipeline.py``'s sharded drain -- the drain
+    over a ``(group, slot)`` mesh of ``torch.distributed`` ranks, split
+    at the reference's psums into K19-K21; ``bench/multichip.py`` spawns
+    the ranks, ``bench/multichip_lt.py`` holds the mesh against one
+    device, and ``ingest/shard.py`` routes a block's lanes to their
+    shards;
   * ``convert.py`` -- state carried across from the JAX package.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,

@@ -16,17 +16,30 @@ acceptor), so both packages produce the same votes for the same slot:
 ~87.5% of votes arrive in the drain after the proposal, the rest one
 drain later.
 
-The sharded (multi-GPU) functions are not ported yet (ROADMAP.md
-queue 1 item 10).
+The sharded drain (the reference's ``make_sharded_step`` /
+``make_sharded_runner``) runs the same drain over a ``(group, slot)``
+mesh of ``torch.distributed`` ranks (``frankenpaxos_tpu_torch.mesh``):
+each rank holds one shard of the board -- acceptor rows over ``group``,
+the slot window over ``slot`` -- and a drain is three kernels split at
+the reference's psums (``ops/csrc/pipeline_sharded.cu``): K19
+:func:`shard_vote_count` writes this shard's quorum partials, one
+all-reduce over the group subgroup sums them, K20 :func:`shard_commit`
+decides, executes and collects the slot partials, one all-reduce over
+the slot subgroup sums those, and K21 :func:`shard_fold` folds them into
+the replicated scalars and counters. A block that does not divide over
+the slot shards pads every block (:func:`local_block`); the pad lanes
+are masked out of every effect, so the gathered state equals the
+unsharded one through :func:`gathered_layout`.
 """
 
 from __future__ import annotations
 
 import time
 from types import SimpleNamespace
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 from frankenpaxos_tpu_torch.device import resolve_device
+from frankenpaxos_tpu_torch.mesh import Mesh
 from frankenpaxos_tpu_torch.ops import _build
 from frankenpaxos_tpu_torch.ops.quorum import (
     int32,
@@ -37,13 +50,18 @@ from frankenpaxos_tpu_torch.ops.quorum import (
 )
 from frankenpaxos_tpu_torch.ops.telemetry import (
     buffer_words,
+    close_drain,
+    drain_deltas,
     drain_update,
     make_telemetry,
+    pass_deltas,
     quorum_pass_update,
+    TELEMETRY_PARTITION,
     TelemetryState,
 )
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class PipelineState(NamedTuple):
@@ -65,14 +83,10 @@ _STATE_DTYPES = (torch.uint8, torch.bool) + (torch.int32,) * 5
 def make_state(window: int, num_acceptors: int, *, telemetry: bool = False,
                slot_shards: int = 1, device=None) -> PipelineState:
     """A fresh pipeline state on ``device`` (``cuda`` when None; raises
-    without a GPU), with zeroed telemetry counters when ``telemetry``.
-    One GPU holds one slot shard: ``slot_shards`` other than 1 is the
-    multi-GPU drain (ROADMAP.md queue 1 item 10) and raises."""
+    without a GPU), with zeroed telemetry counters over ``slot_shards``
+    slot shards when ``telemetry``. The unsharded drain takes one slot
+    shard; :func:`make_sharded_state` builds a shard's state for more."""
     device = resolve_device(device)
-    if slot_shards != 1:
-        raise NotImplementedError(
-            f"slot_shards={slot_shards}: the sharded (multi-GPU) drain is "
-            f"not ported (ROADMAP.md queue 1 item 10)")
 
     def scalar():
         return torch.zeros((), dtype=torch.int32, device=device)
@@ -84,7 +98,7 @@ def make_state(window: int, num_acceptors: int, *, telemetry: bool = False,
         commands=torch.zeros((window,), dtype=torch.int32, device=device),
         results=torch.zeros((window,), dtype=torch.int32, device=device),
         sm_state=scalar(), committed=scalar(), exec_wm=scalar(),
-        telemetry=(make_telemetry(num_acceptors, 1, device=device)
+        telemetry=(make_telemetry(num_acceptors, slot_shards, device=device)
                    if telemetry else None))
 
 
@@ -192,9 +206,9 @@ def _kernel_args(state: PipelineState, block_size: int,
     if buffer is None or buffer.dtype != torch.int32 \
             or not buffer.is_contiguous() or buffer.numel() != buffer_words(n):
         if tel.shard_committed.numel() != 1:
-            raise NotImplementedError(
-                "telemetry over several slot shards is the sharded drain "
-                "(ROADMAP.md queue 1 item 10)")
+            raise ValueError(
+                "telemetry over several slot shards is the sharded drain's: "
+                "run it under make_sharded_step")
         raise ValueError(f"the telemetry state does not hold the flat "
                          f"int32 buffer make_telemetry builds for {n} "
                          f"acceptors")
@@ -338,3 +352,560 @@ def drain_latency_distribution(spec_arrays, num_acceptors: int,
             "beyond the median round trip is attributed to the drain "
             "(p99 is an upper bound)"),
     }
+
+
+# --------------------------------------------------------------------------
+# The sharded drain: the same drain over a (group, slot) mesh of ranks.
+# --------------------------------------------------------------------------
+
+
+def local_block(block_size: int, slot_shards: int) -> tuple:
+    """``(b_local, pad)``: the per-shard lane count (the global block
+    rounded UP over the slot shards) and the pad lanes the rounding adds
+    to the padded global block (the reference's ``local_block``)."""
+    b_local = -(-block_size // slot_shards)
+    return b_local, b_local * slot_shards - block_size
+
+
+def padded_window(window: int, block_size: int, slot_shards: int) -> int:
+    """The padded GLOBAL window of a sharded run: every shard holds whole
+    ``b_local`` blocks, so the window grows by ``pad`` lanes per block
+    when the block does not divide over the slot shards."""
+    if window % block_size:
+        raise ValueError(
+            f"window {window} must hold whole {block_size}-slot blocks")
+    b_local, _ = local_block(block_size, slot_shards)
+    return (window // block_size) * b_local * slot_shards
+
+
+def gathered_layout(slot_shards: int, w_local: int, b_local: int,
+                    block_size: int) -> tuple:
+    """``(logical, valid)`` for each physical column of the gathered
+    sharded window (shard windows concatenated): ``logical[c]`` is the
+    unsharded slot id the column holds, ``valid[c]`` False for pad
+    columns. Within shard ``s``, local column ``j`` holds block
+    ``j // b_local`` at block lane ``s * b_local + (j % b_local)``."""
+    cols = np.arange(slot_shards * w_local)
+    s, j = cols // w_local, cols % w_local
+    bi, lane = j // b_local, s * b_local + (j % b_local)
+    return bi * block_size + lane, lane < block_size
+
+
+#: How each leaf of a sharded state is laid out over the mesh (the
+#: reference's ``PIPELINE_PARTITION``): dimension ``k`` of a leaf is
+#: split over the mesh axis ``axes[k]`` and replicated over the others;
+#: votes over both axes, the slot columns over ``slot`` (replicated over
+#: ``group``), the scalars replicated; the telemetry counters per
+#: ``TELEMETRY_PARTITION``. :func:`shard_leaf` and :func:`unshard_leaf`
+#: read it to cut and to gather a state.
+PIPELINE_PARTITION = PipelineState(
+    votes=("group", "slot"),
+    chosen=("slot",),
+    commands=("slot",),
+    results=("slot",),
+    sm_state=(),
+    committed=(),
+    exec_wm=(),
+)
+
+
+def state_sharding(telemetry: bool = False) -> PipelineState:
+    """The partition table of a sharded state: ``PIPELINE_PARTITION``
+    leaf for leaf, with ``TELEMETRY_PARTITION`` attached when the
+    telemetry plane is on (it does not depend on the mesh's sizes)."""
+    return PIPELINE_PARTITION._replace(
+        telemetry=TELEMETRY_PARTITION if telemetry else None)
+
+
+def _shard_coords(mesh: Mesh) -> dict:
+    return {"group": (mesh.group_idx, mesh.group_shards),
+            "slot": (mesh.slot_idx, mesh.slot_shards)}
+
+
+def shard_leaf(array: np.ndarray, axes: tuple, mesh: Mesh) -> np.ndarray:
+    """This rank's piece of a gathered leaf laid out by ``axes`` (its
+    entry of the partition table): dimension ``k`` cut into
+    ``mesh``'s shards along ``axes[k]``."""
+    coords = _shard_coords(mesh)
+    index = []
+    for dim, axis in enumerate(axes):
+        at, shards = coords[axis]
+        size, rest = divmod(array.shape[dim], shards)
+        if rest:
+            raise ValueError(f"dimension {dim} ({array.shape[dim]}) does "
+                             f"not split over {shards} {axis} shards")
+        index.append(slice(at * size, (at + 1) * size))
+    return array[tuple(index)]
+
+
+def unshard_leaf(pieces: list, axes: tuple, mesh: Mesh,
+                 name: str) -> np.ndarray:
+    """The gathered leaf from every rank's piece (``pieces[r]`` for mesh
+    rank ``r``), laid out by ``axes``: pieces concatenated along the
+    axes the leaf is split over. Raises when the replicas of one piece
+    (the ranks that differ only along the other axes) disagree."""
+    s_sh = mesh.slot_shards
+    counts = {"group": mesh.group_shards, "slot": s_sh}
+    owners = {}
+    for r, piece in enumerate(pieces):
+        coord = {"group": r // s_sh, "slot": r % s_sh}
+        key = tuple(coord[axis] for axis in axes)
+        if key not in owners:
+            owners[key] = piece
+        elif not np.array_equal(owners[key], piece):
+            raise RuntimeError(f"{name} differs between the replicas of "
+                               f"shard {key}")
+
+    def build(prefix: tuple) -> np.ndarray:
+        if len(prefix) == len(axes):
+            return owners[prefix]
+        return np.concatenate(
+            [build(prefix + (k,)) for k in range(counts[axes[len(prefix)]])],
+            axis=len(prefix))
+
+    return build(())
+
+
+#: The shard's quorum partials: the psum'd mask matmul, or the missing
+#: (write grid) / full (read grid) row counts of the fused grid path.
+MATMUL, GRID_WRITE, GRID_READ = 0, 1, 2
+
+
+class ShardPlan(NamedTuple):
+    """What one rank's drain needs besides its state: its place in the
+    mesh, the global and local widths, its slice of the predicate, and
+    the two partial buffers the all-reduces carry."""
+
+    group_shards: int
+    slot_shards: int
+    group_idx: int
+    slot_idx: int
+    block_size: int          # GLOBAL block
+    b_local: int             # lanes per slot shard (rounded up)
+    n_local: int             # acceptor rows per group shard
+    n_global: int
+    kind: int                # MATMUL, GRID_WRITE or GRID_READ
+    cols: int                # grid row length (grid kinds)
+    masks: torch.Tensor      # [G, n_local] int32: this shard's columns
+    thresholds: torch.Tensor  # [G] int32
+    combine_any: bool
+    telemetry: bool
+    parts: torch.Tensor      # [2, R, b_local] int32: per pass, R rows
+    slot: torch.Tensor       # [S + 1 (+ n + 3)] int32, 0 between drains
+
+
+def make_shard_plan(mesh: Mesh, block_size: int, predicate: QuorumPredicate,
+                    *, telemetry: bool = False) -> ShardPlan:
+    """This rank's :class:`ShardPlan` for ``predicate`` (GLOBAL masks,
+    from ``make_predicate`` on the mesh's device). The fused grid path
+    engages when the spec is a row-major grid and every group shard holds
+    whole rows; otherwise the shard psums its mask-matmul counts (the
+    reference's gate, ``bench/pipeline.py`` L202-207).
+
+    Partials: ``parts[p]`` is pass ``p``'s ``[R, b_local]``: the G mask
+    counts (matmul) or one row count (grid), then the vote-byte sums when
+    ``telemetry``. ``slot``: ``[S]`` newly counts (each shard its own
+    entry), the ``cmds_old`` sum, then with telemetry ``[n + 1]``
+    occupancy bins, valid proposals and pad lanes."""
+    g_sh, s_sh = mesh.group_shards, mesh.slot_shards
+    n_global = predicate.num_nodes
+    if n_global % g_sh:
+        raise ValueError(f"{n_global} acceptors do not split over "
+                         f"{g_sh} group shards")
+    n_local = n_global // g_sh
+    b_local, _ = local_block(block_size, s_sh)
+    kind, cols, grid = MATMUL, 0, predicate.grid
+    if grid is not None and grid[3] is None and n_local % grid[2] == 0:
+        kind = GRID_WRITE if grid[0] == "write" else GRID_READ
+        cols = grid[2]
+    gi = mesh.group_idx
+    masks = predicate.masks[:, gi * n_local:(gi + 1) * n_local].contiguous()
+    rows = (masks.shape[0] if kind == MATMUL else 1) + int(telemetry)
+    dev = predicate.masks.device
+    return ShardPlan(
+        group_shards=g_sh, slot_shards=s_sh, group_idx=gi,
+        slot_idx=mesh.slot_idx, block_size=block_size, b_local=b_local,
+        n_local=n_local, n_global=n_global, kind=kind, cols=cols,
+        masks=masks, thresholds=predicate.thresholds,
+        combine_any=predicate.combine_any, telemetry=telemetry,
+        parts=torch.zeros((2, rows, b_local), dtype=torch.int32,
+                          device=dev),
+        slot=torch.zeros(s_sh + 1 + (n_global + 3 if telemetry else 0),
+                         dtype=torch.int32, device=dev))
+
+
+def _check_shard(state: PipelineState, plan: ShardPlan) -> int:
+    """The shard's local window, after the checks the three phases
+    share."""
+    tensors = state[:7]
+    n, w_local = state.votes.shape
+    if n != plan.n_local or w_local % plan.b_local or not w_local:
+        raise ValueError(f"a [{n}, {w_local}] board is not a shard of "
+                         f"{plan.n_local} acceptor rows and whole "
+                         f"{plan.b_local}-lane blocks")
+    if tuple(t.dtype for t in tensors) != _STATE_DTYPES \
+            or tuple(t.shape for t in tensors[1:]) != (
+                (w_local,),) * 3 + ((),) * 3:
+        raise ValueError("state tensors do not match make_sharded_state's")
+    tel = state.telemetry
+    if (tel is not None) != plan.telemetry:
+        raise ValueError("the state's telemetry plane and the plan's "
+                         "disagree")
+    if tel is not None:
+        buffer = tel.buffer
+        if buffer is None or buffer.dtype != torch.int32 \
+                or not buffer.is_contiguous() or buffer.numel() \
+                != buffer_words(plan.n_global, plan.slot_shards):
+            raise ValueError(
+                f"the telemetry state does not hold the flat int32 buffer "
+                f"make_telemetry builds for {plan.n_global} acceptors over "
+                f"{plan.slot_shards} slot shards")
+    return w_local
+
+
+def _ring(i: int, w_local: int, b_local: int) -> tuple:
+    """``(start_new, start_old, start_gc)``: the local columns of blocks
+    i, i-1 and i-2 in the shard's ring."""
+    num_blocks = w_local // b_local
+    return tuple((_wrap32(i - k) % num_blocks) * b_local for k in range(3))
+
+
+def _shard_lanes(plan: ShardPlan, device) -> tuple:
+    """The shard's global block lanes and which of them are real (lanes
+    past the global block are pad)."""
+    lanes = plan.slot_idx * plan.b_local + torch.arange(
+        plan.b_local, dtype=torch.int32, device=device)
+    return lanes, lanes < plan.block_size
+
+
+def _proposals(lanes: torch.Tensor, valid: torch.Tensor,
+               i_t: torch.Tensor) -> torch.Tensor:
+    return torch.where(valid, lanes * 7 + i_t * 13 + 1,
+                       torch.zeros_like(lanes))
+
+
+def _partials(block: torch.Tensor, plan: ShardPlan,
+              out: torch.Tensor) -> None:
+    """One pass's ``[R, b_local]`` partials of the shard's ``[n_local,
+    b_local]`` vote block, into ``out``."""
+    if plan.kind == MATMUL:
+        out[:plan.masks.shape[0]] = (
+            plan.masks[:, :, None] * block.to(torch.int32)[None]
+        ).sum(1, dtype=torch.int32)
+    else:
+        # The reference's uint8 chain: OR (write) or AND (read) along
+        # each local row, then a uint8 sum of the missing / full rows.
+        write = plan.kind == GRID_WRITE
+        total = torch.zeros_like(block[0])
+        for r in range(plan.n_local // plan.cols):
+            row = block[r * plan.cols]
+            for c in range(1, plan.cols):
+                cell = block[r * plan.cols + c]
+                row = (row | cell) if write else (row & cell)
+            total = total + ((1 - row) if write else row)
+        out[0] = total.to(torch.int32)
+    if plan.telemetry:
+        out[-1] = block.to(torch.int32).sum(0, dtype=torch.int32)
+
+
+def shard_vote_count_plain(state: PipelineState, i: int,
+                           plan: ShardPlan) -> torch.Tensor:
+    """Plain PyTorch version of K19: propose on the shard's lanes, OR
+    each pass's arrivals (pad lanes get none) into its block and write
+    its partials into ``plan.parts``; returns ``plan.parts``."""
+    votes, commands = state.votes, state.commands
+    dev = votes.device
+    n_local, w_local = votes.shape
+    b = plan.b_local
+    start_new, start_old, _ = _ring(i, w_local, b)
+    lanes, valid = _shard_lanes(plan, dev)
+    accs = plan.group_idx * n_local + torch.arange(
+        n_local, dtype=torch.int32, device=dev)
+    i_t = torch.tensor(i, dtype=torch.int32, device=dev)
+    commands[start_new:start_new + b] = _proposals(lanes, valid, i_t)
+    mask = valid.to(torch.uint8)[None, :]
+    passes = ((start_new, _arrivals(i, lanes, accs, salt=0)),
+              (start_old, 1 - _arrivals(_wrap32(i - 1), lanes, accs,
+                                        salt=0)))
+    for p, (start, arrivals) in enumerate(passes):
+        cols = slice(start, start + b)
+        block = votes[:, cols] | (arrivals & mask)
+        votes[:, cols] = block
+        _partials(block, plan, plan.parts[p])
+    return plan.parts
+
+
+def _shard_hit(part: torch.Tensor, plan: ShardPlan) -> torch.Tensor:
+    if plan.kind == MATMUL:
+        satisfied = part[:plan.masks.shape[0]] >= plan.thresholds[:, None]
+        return satisfied.any(0) if plan.combine_any else satisfied.all(0)
+    return part[0] == 0 if plan.kind == GRID_WRITE else part[0] > 0
+
+
+def shard_commit_plain(state: PipelineState, i: int,
+                       plan: ShardPlan) -> torch.Tensor:
+    """Plain PyTorch version of K20: from the group-reduced
+    ``plan.parts``, each pass's hits (never on a pad lane), ``chosen``
+    and newly-chosen lanes, then execution of the old block and GC; the
+    slot partials are added into ``plan.slot``, which it returns."""
+    votes, chosen, commands, results = state[:4]
+    dev = votes.device
+    w_local = votes.shape[1]
+    b, s_sh, n = plan.b_local, plan.slot_shards, plan.n_global
+    start_new, start_old, start_gc = _ring(i, w_local, b)
+    lanes, valid = _shard_lanes(plan, dev)
+    slot = plan.slot
+    for p, start in enumerate((start_new, start_old)):
+        part = plan.parts[p]
+        hit = _shard_hit(part, plan) & valid
+        cols = slice(start, start + b)
+        old = chosen[cols].clone()
+        newly = hit & ~old
+        chosen[cols] = hit | old
+        if plan.telemetry:
+            occ, count = pass_deltas(part[-1], newly, n + 1)
+            slot[s_sh + 1:s_sh + n + 2] += occ
+        else:
+            count = newly.sum(dtype=torch.int32)
+        slot[plan.slot_idx] += count
+    cmds_old = commands[start_old:start_old + b].clone()
+    results[start_old:start_old + b] = torch.where(
+        valid, cmds_old * 3 + 7, torch.zeros_like(cmds_old))
+    slot[s_sh] += cmds_old.sum(dtype=torch.int32)
+    votes[:, start_gc:start_gc + b] = 0
+    chosen[start_gc:start_gc + b] = False
+    if plan.telemetry:
+        i_t = torch.tensor(i, dtype=torch.int32, device=dev)
+        proposed, pad = drain_deltas(_proposals(lanes, valid, i_t), valid)
+        slot[s_sh + n + 2] += proposed
+        slot[s_sh + n + 3] += pad
+    return slot
+
+
+def shard_fold_plain(state: PipelineState, i: int,
+                     plan: ShardPlan) -> PipelineState:
+    """Plain PyTorch version of K21: fold the slot-reduced ``plan.slot``
+    into committed, sm_state, exec_wm (the GLOBAL block) and the
+    telemetry counters (the lag from the end-of-drain committed), then
+    zero ``plan.slot``."""
+    s_sh, n = plan.slot_shards, plan.n_global
+    slot = plan.slot
+    i_t = torch.tensor(i, dtype=torch.int32, device=slot.device)
+    state.committed.add_(slot[:s_sh].sum(dtype=torch.int32))
+    state.sm_state.add_(slot[s_sh])
+    state.exec_wm.copy_(i_t * plan.block_size if i >= 1
+                        else torch.zeros_like(i_t))
+    tel = state.telemetry
+    if tel is not None:
+        tel.shard_committed.add_(slot[:s_sh])
+        tel.proposed.add_(slot[s_sh + n + 2])
+        tel.occupancy.add_(slot[s_sh + 1:s_sh + n + 2])
+        tel.pad_lanes.add_(slot[s_sh + n + 3])
+        close_drain(tel, (i_t + 1) * plan.block_size - state.committed)
+    slot.zero_()
+    return state
+
+
+def _shard_kernel(plan: ShardPlan, *tensors: torch.Tensor) -> bool:
+    return use_kernel(*tensors, plan.masks, plan.thresholds, plan.parts,
+                      plan.slot)
+
+
+def shard_vote_count(state: PipelineState, i: int,
+                     plan: ShardPlan) -> torch.Tensor:
+    """K19 (``csrc/pipeline_sharded.cu::shard_vote_count_kernel``) on
+    CUDA state, counted in ``shard_vote_count.launches``;
+    :func:`shard_vote_count_plain` on CPU state. Never synchronises."""
+    w_local = _check_shard(state, plan)
+    i = int32(i)
+    if not _shard_kernel(plan, state.votes, state.commands):
+        return shard_vote_count_plain(state, i, plan)
+    rc = _build.library("pipeline_sharded").fpx_shard_vote_count(
+        state.votes.data_ptr(), state.commands.data_ptr(), w_local, i,
+        plan.block_size, plan.b_local, plan.slot_idx, plan.group_idx,
+        plan.n_local, plan.kind, plan.masks.shape[0], plan.cols,
+        plan.masks.data_ptr(), int(plan.telemetry), plan.parts.data_ptr(),
+        *_build.stream_args(state.votes.device))
+    _build.check("pipeline_sharded", "fpx_shard_vote_count", rc)
+    shard_vote_count.launches += 1
+    return plan.parts
+
+
+def shard_commit(state: PipelineState, i: int,
+                 plan: ShardPlan) -> torch.Tensor:
+    """K20 (``shard_commit_kernel``) on CUDA state, counted in
+    ``shard_commit.launches``; :func:`shard_commit_plain` on CPU state.
+    Never synchronises."""
+    w_local = _check_shard(state, plan)
+    i = int32(i)
+    tensors = state[:4]
+    if not _shard_kernel(plan, *tensors):
+        return shard_commit_plain(state, i, plan)
+    rc = _build.library("pipeline_sharded").fpx_shard_commit(
+        *(t.data_ptr() for t in tensors), w_local, i, plan.block_size,
+        plan.b_local, plan.slot_idx, plan.slot_shards, plan.n_local,
+        plan.n_global, plan.kind, plan.masks.shape[0],
+        plan.thresholds.data_ptr(), int(plan.combine_any),
+        int(plan.telemetry), plan.parts.data_ptr(), plan.slot.data_ptr(),
+        *_build.stream_args(state.votes.device))
+    _build.check("pipeline_sharded", "fpx_shard_commit", rc)
+    shard_commit.launches += 1
+    return plan.slot
+
+
+def shard_fold(state: PipelineState, i: int,
+               plan: ShardPlan) -> PipelineState:
+    """K21 (``shard_fold_kernel``) on CUDA state, counted in
+    ``shard_fold.launches``; :func:`shard_fold_plain` on CPU state.
+    Never synchronises."""
+    _check_shard(state, plan)
+    i = int32(i)
+    scalars = state[4:7]
+    tel = state.telemetry
+    extra = () if tel is None else (tel.buffer,)
+    if not _shard_kernel(plan, *scalars, *extra):
+        return shard_fold_plain(state, i, plan)
+    rc = _build.library("pipeline_sharded").fpx_shard_fold(
+        *(t.data_ptr() for t in scalars), i, plan.block_size,
+        plan.slot_shards, plan.n_global, plan.slot.data_ptr(),
+        None if tel is None else tel.buffer.data_ptr(),
+        *_build.stream_args(state.votes.device))
+    _build.check("pipeline_sharded", "fpx_shard_fold", rc)
+    shard_fold.launches += 1
+    return state
+
+
+shard_vote_count.launches = 0
+shard_commit.launches = 0
+shard_fold.launches = 0
+
+
+def _sharded(mesh: Mesh, state: PipelineState, i: int, plan: ShardPlan,
+             phases: tuple) -> PipelineState:
+    vote_count, commit, fold = phases
+    vote_count(state, i, plan)
+    mesh.psum_group(plan.parts)
+    commit(state, i, plan)
+    mesh.psum_slot(plan.slot)
+    fold(state, i, plan)
+    return state
+
+
+def sharded_step(mesh: Mesh, state: PipelineState, i: int,
+                 plan: ShardPlan) -> PipelineState:
+    """One drain on this rank's shard, IN PLACE: K19, the group
+    all-reduce of the partials, K20, the slot all-reduce of the slot
+    partials, K21 (each phase's plain version on CPU state). Every rank
+    of the mesh calls it with the same ``i``."""
+    _check_shard(state, plan)
+    return _sharded(mesh, state, int32(i), plan,
+                    (shard_vote_count, shard_commit, shard_fold))
+
+
+def sharded_step_plain(mesh: Mesh, state: PipelineState, i: int,
+                       plan: ShardPlan) -> PipelineState:
+    """Plain PyTorch version of :func:`sharded_step` on any device: the
+    three phases' plain versions around the same two all-reduces."""
+    _check_shard(state, plan)
+    return _sharded(mesh, state, int32(i), plan,
+                    (shard_vote_count_plain, shard_commit_plain,
+                     shard_fold_plain))
+
+
+def make_sharded_state(mesh: Mesh, window: int, block_size: int,
+                       num_acceptors: int, *, telemetry: bool = False,
+                       device=None) -> tuple:
+    """``(state, w_padded)``: this rank's fresh shard of a GLOBAL
+    ``window`` of whole ``block_size`` blocks over ``num_acceptors``
+    acceptors, on ``device`` (the mesh's when None): the unsharded state
+    of the padded window (:func:`padded_window`; a block that does not
+    divide over the slot shards pads it) cut by the partition table, so
+    each leaf holds :func:`shard_leaf`'s piece; the telemetry counters
+    are over the global acceptors and every slot shard."""
+    device = mesh.device if device is None else torch.device(device)
+    if num_acceptors % mesh.group_shards:
+        raise ValueError(f"{num_acceptors} acceptors do not split over "
+                         f"{mesh.group_shards} group shards")
+    w_padded = padded_window(window, block_size, mesh.slot_shards)
+    coords = _shard_coords(mesh)
+    # The board's [n, w] cut by its table entry; make_state sizes the
+    # slot columns from the board's second dimension.
+    n_local, w_local = (size // coords[axis][1] for size, axis in zip(
+        (num_acceptors, w_padded), PIPELINE_PARTITION.votes))
+    state = make_state(w_local, n_local, device=device)
+    if telemetry:
+        state = state._replace(telemetry=make_telemetry(
+            num_acceptors, mesh.slot_shards, device=device))
+    return state, w_padded
+
+
+def make_sharded_step(mesh: Mesh, *, block_size: int, masks, thresholds,
+                      combine_any: bool,
+                      telemetry: bool = False) -> Callable:
+    """``step(state, i)``: one drain on this rank's shard, in place (the
+    reference's ``make_sharded_step``, whose quorum counts psum over
+    ``group`` and counters over ``slot``). ``block_size`` and ``masks``
+    are GLOBAL; the step's plan is ``step.plan``."""
+    pred = make_predicate(masks, thresholds, combine_any,
+                          device=mesh.device)
+    plan = make_shard_plan(mesh, block_size, pred, telemetry=telemetry)
+
+    def step(state: PipelineState, i: int) -> PipelineState:
+        return sharded_step(mesh, state, i, plan)
+
+    step.plan = plan
+    return step
+
+
+def make_sharded_runner(mesh: Mesh, *, block_size: int, masks, thresholds,
+                        combine_any: bool, iters: int,
+                        telemetry: bool = False) -> Callable:
+    """``runner(state, start)``: drains ``start .. start + iters - 1`` on
+    this rank's shard, in place, without synchronising beyond the
+    all-reduces (the reference's ``make_sharded_runner``)."""
+    step = make_sharded_step(mesh, block_size=block_size, masks=masks,
+                             thresholds=thresholds, combine_any=combine_any,
+                             telemetry=telemetry)
+
+    def runner(state: PipelineState, start: int) -> PipelineState:
+        for i in range(start, start + iters):
+            step(state, i)
+        return state
+
+    runner.plan = step.plan
+    return runner
+
+
+def gather_state(mesh: Mesh, state: PipelineState) -> PipelineState:
+    """The whole sharded state as host numpy arrays, on every rank of
+    the mesh (collective): what ``jax.device_get`` gives for the
+    reference's sharded state -- votes ``[n, w_padded]`` and the slot
+    columns ``[w_padded]`` in the physical layout (shard windows
+    concatenated; :func:`gathered_layout` maps them to slots), the
+    scalars and counters as one copy, each leaf assembled by the
+    partition table (:func:`unshard_leaf`). Goes through the host
+    (``all_gather_object``), since gloo gathers only CPU tensors. Raises
+    when replicas that must agree (over ``group``, or everywhere) do
+    not."""
+    tel = state.telemetry
+    table = state_sharding(tel is not None)
+    names = PipelineState._fields[:7]
+    local = {name: t.detach().cpu().numpy()
+             for name, t in zip(names, state[:7])}
+    if tel is not None:
+        local["telemetry"] = tel.buffer.detach().cpu().numpy()
+    pieces = [None] * mesh.size
+    dist.all_gather_object(pieces, local, group=mesh.mesh_pg)
+    out = {name: unshard_leaf([p[name] for p in pieces],
+                              getattr(table, name), mesh, name)
+           for name in names}
+    if tel is not None:
+        buffer = unshard_leaf([p["telemetry"] for p in pieces],
+                              table.telemetry.buffer, mesh, "telemetry")
+        at, values = 0, {}
+        for field, view in zip(TelemetryState._fields[:6], tel[:6]):
+            values[field] = buffer[at:at + view.numel()].reshape(
+                tuple(view.shape))
+            at += view.numel()
+        out["telemetry"] = TelemetryState(**values)
+    return PipelineState(**out)

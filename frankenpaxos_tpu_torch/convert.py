@@ -10,7 +10,9 @@ bool, everything else int32. A pipeline's telemetry counters cross as a
 or a field that does not match raises rather than being converted. An
 ``EpochSegmentedChecker`` is carried as its epochs' specs and boundaries
 plus its board, so a test can start the JAX checker and the port's from
-one mid-flight state. A JAX ``DepSetBatch`` crosses as its three numpy
+one mid-flight state. A sharded pipeline state crosses as its gathered
+(physical) layout, each rank taking its shard. A JAX ``DepSetBatch``
+crosses as its three numpy
 arrays, and a GC role's ``QuorumWatermarkVector`` as its
 ``[replicas, leaders]`` int64 matrix. A WPaxos leader's
 ``ObjectEpochStore`` crosses as its epoch chains, and a
@@ -21,7 +23,15 @@ chain) and its buffered votes.
 
 from __future__ import annotations
 
-from frankenpaxos_tpu_torch.bench.pipeline import PipelineState
+from frankenpaxos_tpu_torch.bench.pipeline import (
+    gather_state,
+    gathered_layout,
+    local_block,
+    padded_window,
+    PIPELINE_PARTITION,
+    PipelineState,
+    shard_leaf,
+)
 from frankenpaxos_tpu_torch.device import resolve_device
 from frankenpaxos_tpu_torch.geo.epochs import GeoEpoch, ObjectEpochStore
 from frankenpaxos_tpu_torch.geo.quorum import GeoQuorumTracker
@@ -108,6 +118,45 @@ def pipeline_state_to_numpy(state: PipelineState) -> PipelineState:
     """The state as a ``PipelineState`` of numpy arrays on the host (its
     telemetry, when on, a ``TelemetryState`` of the six counters)."""
     return PipelineState(**_to_numpy(state))
+
+
+def sharded_state_from_numpy(mesh, arrays, window: int,
+                             block_size: int, device=None) -> PipelineState:
+    """This rank's shard, on ``device`` (the mesh's when None), of a
+    GATHERED sharded state: what ``jax.device_get`` gives for the
+    reference's state under ``make_sharded_step`` (or what
+    ``bench.pipeline.gather_state`` gives here) -- votes ``[n,
+    w_padded]`` and the slot columns ``[w_padded]`` in the physical
+    layout, the scalars and the telemetry counters (``shard_committed``
+    over every slot shard) whole. Pad columns, which
+    ``gathered_layout`` marks, must hold no votes and no commands."""
+    fields = _fields(arrays)
+    g_sh, s_sh = mesh.group_shards, mesh.slot_shards
+    w_padded = padded_window(window, block_size, s_sh)
+    votes = np.asarray(fields["votes"])
+    n = votes.shape[0]
+    if votes.shape != (n, w_padded) or n % g_sh:
+        raise ValueError(f"votes {votes.shape} are not a gathered [n, "
+                         f"{w_padded}] board over {g_sh} group shards")
+    b_local, _ = local_block(block_size, s_sh)
+    _, valid = gathered_layout(s_sh, w_padded // s_sh, b_local, block_size)
+    if votes[:, ~valid].any() or np.asarray(fields["commands"])[~valid].any():
+        raise ValueError("pad columns of the gathered state hold votes or "
+                         "commands")
+    local = dict(fields)
+    for name, axes in zip(PipelineState._fields[:7], PIPELINE_PARTITION):
+        local[name] = shard_leaf(np.asarray(fields[name]), axes, mesh)
+    return _from_numpy(PipelineState, local,
+                       mesh.device if device is None else device)
+
+
+def sharded_state_to_numpy(mesh, state: PipelineState) -> PipelineState:
+    """The gathered sharded state as numpy arrays (collective over the
+    mesh), the inverse of :func:`sharded_state_from_numpy`: the
+    conversion's name for ``bench.pipeline.gather_state``, which it
+    calls, so that each direction has its name here as in the
+    reference's tests."""
+    return gather_state(mesh, state)
 
 
 def vote_board_from_numpy(arrays, device=None) -> VoteBoard:

@@ -47,7 +47,8 @@ class GeoQuorumTracker:
         if mesh is not None:
             raise NotImplementedError(
                 "a GeoQuorumTracker over a device mesh is not ported yet "
-                "(ROADMAP.md queue 1 item 10, the multi-GPU drain)")
+                "(ROADMAP.md queue 1 item 10: the sharded vote board "
+                "under the checkers and trackers)")
         self.store = store
         self.group = group
         self.grid = grid

@@ -16,6 +16,7 @@ launches on the caller's stream, never synchronises, and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -122,6 +123,21 @@ SIGNATURES = {
         "fpx_steady_state_step_baseline": [_P, _P, _P, _P, _P, _P, _P, _L,
                                            _I, _I, *_PRED, _I, _P],
     },
+    # The sharded drain on one shard of a (group, slot) mesh.
+    "pipeline_sharded": {
+        # votes, commands, w_local, i, block_size, b_local, slot_idx,
+        # group_idx, n_local, kind, g, cols, local masks, telemetry, parts
+        "fpx_shard_vote_count": [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P, _I, _P, _I, _P],
+        # votes, chosen, commands, results, w_local, i, block_size,
+        # b_local, slot_idx, slot_shards, n_local, n_global, kind, g,
+        # thresholds, combine_any, telemetry, parts, slot_buf
+        "fpx_shard_commit": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P, _I, _I, _P, _P, _I, _P],
+        # sm_state, committed, exec_wm, i, block_size, slot_shards,
+        # n_global, slot_buf, telemetry buffer (or NULL)
+        "fpx_shard_fold": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+    },
 }
 
 
@@ -150,8 +166,19 @@ def build() -> float:
     """Compile every source whose library is missing, one ``nvcc`` per
     source, all started together. Returns the wall seconds spent (0 when
     every library was already built); raises with the compiler's output
-    when a build fails."""
+    when a build fails. Processes that build at once (the ranks of a
+    sharded run) take turns on a lock file, so the second finds the
+    first one's libraries."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_missing()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_missing() -> float:
     t0 = time.perf_counter()
     nvcc = None
     jobs = []

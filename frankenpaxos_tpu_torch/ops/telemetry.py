@@ -15,7 +15,8 @@ default and then launches K3, the drain without counters.
 Counter semantics (all cumulative since :func:`make_telemetry`):
 
   * ``shard_committed`` -- ``[slot_shards]`` newly-chosen commands per
-    slot shard (one shard on one GPU);
+    slot shard (one shard on one GPU; under the sharded drain every rank
+    holds every shard's entry, which the slot all-reduce fills);
   * ``proposed`` -- nonzero proposed commands;
   * ``occupancy`` -- ``[n_acceptors + 1]`` histogram: when a slot is
     first chosen, the int32 sum of its vote bytes, clipped to
@@ -24,7 +25,7 @@ Counter semantics (all cumulative since :func:`make_telemetry`):
     watermark lag ``(i + 1) * block_size - committed`` (int32, wrapping),
     bucketed by :func:`lag_bucket`;
   * ``pad_lanes`` -- pad-lane slots masked per drain under a
-    non-divisible multi-GPU split (always 0 on one GPU);
+    non-divisible slot split (always 0 unsharded);
   * ``drains`` -- drains accumulated.
 
 The six counters are int32 views into ONE flat int32 buffer
@@ -33,8 +34,20 @@ scratch word that K14 uses as its done-counter (always 0 between
 drains). One buffer makes a collect a single device-to-host copy. Every
 update here is an in-place add into those views.
 
-The multi-GPU drain (``slot_axis`` other than None) is not ported:
-ROADMAP.md queue 1 item 10.
+What each update adds is defined once: :func:`pass_deltas` and
+:func:`drain_deltas` give a shard's local contributions and
+:func:`close_drain` the once-per-drain lag sample and drain count.
+
+Over slot shards (the reference's ``slot_axis``), ``slot_axis`` is the
+mesh's :class:`~frankenpaxos_tpu_torch.mesh.SlotAxis` and each psum of
+the reference an all-reduce over the slot subgroup. The sharded drain
+does not call these ``slot_axis`` paths: its plain phases
+(``bench/pipeline.py``) take the same local deltas from
+:func:`pass_deltas` and :func:`drain_deltas`, carry them in its ONE slot
+all-reduce per drain and end with :func:`close_drain`; its kernels
+(K19-K21) compute the same deltas on the card. The ``slot_axis`` paths
+are the reference's API, one all-reduce per update, kept for parity
+with it.
 """
 
 from __future__ import annotations
@@ -63,6 +76,16 @@ class TelemetryState(NamedTuple):
     # The flat int32 storage the six counters view, plus the scratch
     # word (K14's done-counter) at its end.
     buffer: Optional[torch.Tensor] = None
+
+
+#: Where each counter of a sharded state lives, in the reference's
+#: ``PIPELINE_PARTITION`` idiom. The reference keeps ``shard_committed``
+#: sharded over ``slot`` (each shard its own entry); here the drain's
+#: slot all-reduce hands every rank every shard's entry, so every counter
+#: is replicated and a gather reads any rank's copy.
+TELEMETRY_PARTITION = TelemetryState(
+    shard_committed=(), proposed=(), occupancy=(), lag_hist=(),
+    pad_lanes=(), drains=(), buffer=())
 
 
 def _shapes(num_acceptors: int, slot_shards: int) -> tuple:
@@ -138,30 +161,65 @@ def lag_bucket(lag: torch.Tensor) -> torch.Tensor:
     return (lag >= bounds).sum(dtype=torch.int32)
 
 
-def _refuse_sharded(slot_axis) -> None:
-    if slot_axis is not None:
-        raise NotImplementedError(
-            "the sharded (multi-GPU) telemetry plane is not ported: "
-            "ROADMAP.md queue 1 item 10")
+def _psum(x: torch.Tensor, slot_axis) -> torch.Tensor:
+    """The reference's psum over the slot axis: the identity unsharded,
+    an all-reduce over the slot subgroup with a ``SlotAxis``."""
+    if slot_axis is None:
+        return x
+    if not hasattr(slot_axis, "psum"):
+        raise TypeError(f"slot_axis must be None or the mesh's SlotAxis "
+                        f"(mesh.slot_axis), not {slot_axis!r}")
+    return slot_axis.psum(x)
+
+
+def pass_deltas(votes_count: torch.Tensor, newly: torch.Tensor,
+                n_bins: int) -> tuple:
+    """One quorum pass's local counter deltas: the ``[n_bins]`` int32
+    occupancy histogram of the newly-chosen lanes, lane ``l`` in bin
+    ``clip(votes_count[l], 0, n_bins - 1)``, and the int32 newly count."""
+    bins = votes_count.clamp(0, n_bins - 1).long()[newly]
+    return (torch.bincount(bins, minlength=n_bins).to(torch.int32),
+            newly.sum(dtype=torch.int32))
+
+
+def drain_deltas(proposed_block: torch.Tensor,
+                 lane_valid: Optional[torch.Tensor]) -> tuple:
+    """One drain's local counter deltas: the nonzero proposals and the
+    pad lanes (``~lane_valid``; 0 when it is None), each int32."""
+    pad = (torch.zeros((), dtype=torch.int32, device=proposed_block.device)
+           if lane_valid is None else (~lane_valid).sum(dtype=torch.int32))
+    return (proposed_block != 0).sum(dtype=torch.int32), pad
+
+
+def close_drain(tel: TelemetryState, lag: torch.Tensor) -> TelemetryState:
+    """The once-per-drain counters, in place: one sample of the
+    end-of-drain lag's bucket (``lag`` is the same on every shard) and
+    the drain count."""
+    tel.lag_hist[lag_bucket(lag).long()] += 1
+    tel.drains.add_(1)
+    return tel
 
 
 def quorum_pass_update(tel: Optional[TelemetryState], *,
                        votes_count: torch.Tensor, newly: torch.Tensor,
-                       slot_axis: Optional[str]) -> \
-        Optional[TelemetryState]:
+                       slot_axis=None) -> Optional[TelemetryState]:
     """Accumulate one quorum pass, in place: ``votes_count`` is the
-    ``[B]`` int32 per-lane vote count and ``newly`` the ``[B]``
-    newly-chosen mask. Each newly-chosen lane adds one to occupancy bin
-    ``clip(votes_count, 0, n)``; ``shard_committed`` gains the newly
-    count. ``None`` in, ``None`` out."""
+    ``[B]`` int32 per-lane (group-reduced) vote count and ``newly`` the
+    ``[B]`` newly-chosen mask. The occupancy histogram of
+    :func:`pass_deltas` is summed over the slot shards; this shard's
+    entry of ``shard_committed`` gains the newly count (under a
+    ``slot_axis``, every shard's entry, through one all-reduce of the
+    one-hot vector). ``None`` in, ``None`` out."""
     if tel is None:
         return None
-    _refuse_sharded(slot_axis)
-    n_bins = tel.occupancy.shape[0]
-    bins = votes_count.clamp(0, n_bins - 1).long()[newly]
-    tel.occupancy.add_(torch.bincount(bins, minlength=n_bins)
-                       .to(torch.int32))
-    tel.shard_committed.add_(newly.sum(dtype=torch.int32))
+    occ, count = pass_deltas(votes_count, newly, tel.occupancy.shape[0])
+    tel.occupancy.add_(_psum(occ, slot_axis))
+    if slot_axis is None:
+        tel.shard_committed.add_(count)
+    else:
+        shards = torch.zeros_like(tel.shard_committed)
+        shards[slot_axis.index] = count
+        tel.shard_committed.add_(_psum(shards, slot_axis))
     return tel
 
 
@@ -169,16 +227,15 @@ def drain_update(tel: Optional[TelemetryState], *,
                  proposed_block: torch.Tensor,
                  lane_valid: Optional[torch.Tensor],
                  lag: torch.Tensor,
-                 slot_axis: Optional[str]) -> Optional[TelemetryState]:
-    """Accumulate the once-per-drain counters, in place: nonzero
-    proposals, pad lanes (``~lane_valid``; none when it is None), one
-    sample of the end-of-drain lag bucket, and the drain count."""
+                 slot_axis=None) -> Optional[TelemetryState]:
+    """Accumulate the once-per-drain counters, in place: the nonzero
+    proposals and pad lanes of :func:`drain_deltas`, each summed over the
+    slot shards (no pad lanes when ``lane_valid`` is None), then
+    :func:`close_drain`."""
     if tel is None:
         return None
-    _refuse_sharded(slot_axis)
-    tel.proposed.add_((proposed_block != 0).sum(dtype=torch.int32))
+    proposed, pad = drain_deltas(proposed_block, lane_valid)
+    tel.proposed.add_(_psum(proposed, slot_axis))
     if lane_valid is not None:
-        tel.pad_lanes.add_((~lane_valid).sum(dtype=torch.int32))
-    tel.lag_hist[lag_bucket(lag).long()] += 1
-    tel.drains.add_(1)
-    return tel
+        tel.pad_lanes.add_(_psum(pad, slot_axis))
+    return close_drain(tel, lag)

@@ -19,6 +19,8 @@ from frankenpaxos_tpu_torch.bench import (
     epaxos_sim,
     geo_lt,
     libbench,
+    multichip,
+    multichip_lt,
     multipaxos_sim,
     pipeline as tp,
     pipeline_baseline as tpin,
@@ -27,6 +29,7 @@ from frankenpaxos_tpu_torch.bench import (
     tracker_lt,
 )
 from frankenpaxos_tpu_torch.geo import GeoQuorumTracker, ObjectEpochStore
+from frankenpaxos_tpu_torch.mesh import Mesh, rank_device
 from frankenpaxos_tpu_torch.ops import (
     _build,
     depset as td,
@@ -99,9 +102,10 @@ def test_imports_with_jax_and_reference_blocked():
 
 #: The modules of the ProxyLeader's vote path, of the MultiPaxos cluster,
 #: of the EPaxos dependency-set plane, of the BPaxos watermark plane, of
-#: the telemetry plane and its benches, and of WPaxos over the geo
-#: simulator; each must import with JAX and the JAX package blocked (test
-#: above) and name neither.
+#: the telemetry plane and its benches, of WPaxos over the geo simulator,
+#: and of the sharded drain (the mesh, the rank worker that spawned ranks
+#: import, its bench and the lane router); each must import with JAX and
+#: the JAX package blocked (test above) and name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
     "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
@@ -127,7 +131,8 @@ PATH_MODULES = (
     "protocols.wpaxos.messages", "protocols.wpaxos.acceptor",
     "protocols.wpaxos.leader", "protocols.wpaxos.replica",
     "protocols.wpaxos.client", "protocols.wpaxos.harness",
-    "bench.geo_lt", "bench.sim_core_ab",
+    "bench.geo_lt", "bench.sim_core_ab", "mesh", "bench.multichip",
+    "bench.multichip_lt", "ingest", "ingest.shard",
 )
 
 
@@ -246,6 +251,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         geo_lt.run()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim_core_ab.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multichip_lt.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rank_device("cuda", 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multichip.RankWorld(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multichip.dryrun(2)
     # Naming the CPU explicitly is the only way to the plain versions.
     assert tp.make_state(1024, 3, device="cpu").votes.device.type == "cpu"
 
@@ -348,6 +361,13 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="meta"):
         tsw.link_keep_mask_tensor(zone_ids, zone_ids, torch.ones(
             (3, 3), dtype=torch.bool, device="meta"))
+    # K19-K21, on one shard of a mesh on the meta device.
+    mesh = Mesh(1, 1, 0, torch.device("meta"))
+    shard, _ = tp.make_sharded_state(mesh, 512, 256, 3)
+    plan = tp.make_shard_plan(mesh, 256, pred)
+    for wrapper in (tp.shard_vote_count, tp.shard_commit, tp.shard_fold):
+        with pytest.raises(ValueError, match="meta"):
+            wrapper(shard, 0, plan)
     launches = [tq.quorum_hit, tq.record_block, tp.steady_state_step,
                 tq.record_and_check, tq.release, tq.check_batch_multi,
                 tq.record_and_check_epochs, tq.reshape_columns,
@@ -356,8 +376,22 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
                 tw.contiguous_prefix_length, tp.telemetry_drain,
                 tpin.steady_state_step, tv.count_matching_replies,
                 td.union, td.intersect, td.compact, td.equal, td.size,
-                td.contains, tsw.link_keep_mask_tensor]
+                td.contains, tsw.link_keep_mask_tensor,
+                tp.shard_vote_count, tp.shard_commit, tp.shard_fold]
     assert [f.launches for f in launches] == [0] * len(launches)
+
+
+def test_spawned_rank_worker_loads_no_jax():
+    """The rank worker that a sharded run spawns (``bench/multichip.py``)
+    starts from a fresh interpreter and loads the port alone: never
+    ``jax`` nor the JAX package, though this process holds both."""
+    with multichip.RankWorld(2, device_type="cpu") as world:
+        assert world.backend == "gloo"
+        for modules in world.call("modules", deadline_s=60):
+            assert not {"jax", "jaxlib", "frankenpaxos_tpu"} & set(modules)
+            assert "frankenpaxos_tpu_torch" in modules
+    with pytest.raises(ValueError, match="not in the port"):
+        multichip._case("os:system")
 
 
 def test_c_bindings_match_the_cuda_sources():

@@ -158,12 +158,15 @@ def test_conversion_rejects_mismatched_state():
 def test_step_rejects_bad_shapes_and_telemetry():
     pred = make_predicate(*SPECS["majority3"].as_arrays(), device="cpu")
     # Telemetry on is a state with zeroed counters for one slot shard;
-    # more shards are the multi-GPU drain and raise.
+    # counters over more shards are the sharded drain's, which the
+    # unsharded drain refuses.
     on = tp.make_state(512, 3, telemetry=True, device="cpu")
     assert on.telemetry.shard_committed.shape == (1,)
     assert not on.telemetry.buffer.any()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tp.make_state(512, 3, telemetry=True, slot_shards=4, device="cpu")
+    four = tp.make_state(512, 3, telemetry=True, slot_shards=4, device="cpu")
+    assert four.telemetry.shard_committed.shape == (4,)
+    with pytest.raises(ValueError, match="make_sharded_step"):
+        tp.steady_state_step(four, 0, block_size=256, predicate=pred)
     with pytest.raises(ValueError, match="whole"):
         tp.steady_state_step(tp.make_state(500, 3, device="cpu"), 0,
                              block_size=256, predicate=pred)
