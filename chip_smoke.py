@@ -156,12 +156,34 @@ Phases, in order (any failure exits nonzero and prints no result):
      per-drain split (K19, K20, K21 device time, the two all-reduces'
      host time); with two or more cards, the same on one rank per card
      over NCCL;
-  26. per-kernel figures at the main paths' shapes: CUDA-event time per
+  26. the sharded vote board's path (``bench/multichip_board.py``'s
+     ``check_board``), on four ranks that share the card over gloo (and,
+     with two or more cards, one rank per card over NCCL): first each
+     kernel on every rank's shard against its plain version (K1; K2 on
+     4096-wide blocks across the shard edges of the 2^20 window; K4 on
+     256 straggler lanes, some outside the window; K5; K6 and K7 on the
+     epoch board; the pinned K19-K21 copies phase by phase: error 0);
+     then, with every count set to 0 in each rank, the ProxyLeader's
+     tracker at its default window 2^20 with its board split over the
+     mesh (``TpuQuorumTracker(mesh=)``), fed ``bench/tracker_lt.py``'s
+     stream made on every rank: pipelined majority-3 over 2^20 slots on
+     (1, 4), pipelined majority-3 and 2x3 grid over 2^18 slots on (2, 2),
+     the synchronous tracker over 2^16 slots on (1, 4) -- every drain's
+     reports equal to the unsharded port tracker's and the dict oracle's,
+     and the gathered board equal to the unsharded board; then on (1, 4)
+     ``EpochSegmentedChecker(mesh=)`` across a mid-window handover that
+     grows the universe (window 2^14), ``GeoQuorumTracker(mesh=)`` on the
+     ZoneGrid stream, ``union_reduce_sharded`` at [4096, 3, 64] and the
+     pinned drain's mesh form (40 drains at 2^20 / 2^15, equal to the
+     unsharded pinned K3 copy); K1, K2, K4-K7 and the pinned copies must
+     each have launched; the per-drain host ms split into the
+     all-reduces' and the kernels' time;
+  27. per-kernel figures at the main paths' shapes: CUDA-event time per
      call over many calls, the plain version's time, the time of one
      PyTorch call that computes the same function where there is one
      (``torch.kthvalue`` for K12, ``up[src, dst]`` for K18), the bound
      (bytes / 3.35 TB/s vs integer operations / 67 T/s, the larger) and
-     the launches of phases 11, 12, 14, 16, 18, 21, 23-24 and 25, printed
+     the launches of phases 11, 12, 14, 16, 18, 21, 23-24, 25 and 26, printed
      as one ``{"kernels": [...]}`` line; before it, each headline arm's
      drain split into device time (profiler) and the share of the drain
      the device sits idle.
@@ -186,6 +208,7 @@ from frankenpaxos_tpu_torch.bench import (
     headline,
     libbench,
     multichip,
+    multichip_board,
     multipaxos_sim,
     pipeline as tp,
     pipeline_baseline as tpin,
@@ -235,7 +258,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/26] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/27] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -753,6 +776,7 @@ WRAPPERS = {
     "shard_vote_count": tp.shard_vote_count,
     "shard_commit": tp.shard_commit,
     "shard_fold": tp.shard_fold,
+    **multichip_board.PINNED_KERNELS,
 }
 #: The kernels of the main path, K1-K7 (check_batch_multi, K6's
 #: stateless predicate, is not on it).
@@ -762,10 +786,10 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
 
 
 #: The runs whose launches the kernels line counts: phases 11, 12, 14,
-#: 16, 18, 21 and 23-24 (``*_traffic`` entries of ``launches_by_path``
-#: are subsets of these).
+#: 16, 18, 21, 23-24, 25 and 26 (``*_traffic`` entries of
+#: ``launches_by_path`` are subsets of these).
 MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
-              "telemetry", "libbench", "geo", "sharded")
+              "telemetry", "libbench", "geo", "sharded", "sharded_board")
 #: The kernels of the telemetry path (phase 18) and of the libbench path
 #: (phase 21).
 TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
@@ -1231,6 +1255,154 @@ def phase_sharded(dev) -> tuple[dict, dict, dict]:
              "cases": cases, "nccl": nccl}, launches, errors)
 
 
+def _shard_kernel_figures(dev, rng) -> dict:
+    """K1, K2, K4 and K6 at the shapes one rank's shard of phase 26's
+    (1, 4) meshes gives them: wrapper call time (CUDA events), device
+    time (profiler), the plain version's time and the bound. K1 on the
+    synchronous tracker's 4096-slot drain (whole on every rank); K2 on a
+    4096-slot block of the 2^18-column local window; K4 on a 256-lane
+    chunk of it; K6 on a 256-lane chunk of the epoch board's 2^12-column
+    local window (N = 4, K = 2)."""
+    spec = specs()["majority3"]
+    n = spec.num_nodes
+    pred = predicate(spec, dev)
+    g = pred.masks.shape[0]
+    w_local, e_local, width, chunk = WINDOW // 4, EPOCH_WINDOW // 4, 4096, 256
+    votes = torch.from_numpy(
+        (rng.random((n, width)) < 0.6).astype(np.uint8)).to(dev)
+    k2_k, k2_p = (tq.make_vote_board(w_local, n, device=dev)
+                  for _ in range(2))
+    (k4_k, k4_p), k4_lanes, k4_cols = _sparse_case(dev, rng, n, w_local,
+                                                  chunk)
+    universe = tuple(range(4))
+    planes = tq.make_multi_predicate(*pad_specs(
+        [SimpleMajority(m).write_spec().reindexed(universe)
+         for m in ((0, 1, 2), (0, 1, 3))]), device=dev)
+    kk, kg, kn = planes.masks.shape
+    plane_bytes = 4 * kk * kg * kn + 4 * kk * kg + kk + 4 * (kk - 1)
+    bounds = torch.tensor([EPOCH_WINDOW // 2], dtype=torch.int32,
+                          device=dev)
+    (k6_k, k6_p), k6_lanes, k6_cols = _sparse_case(dev, rng, kn, e_local,
+                                                  chunk)
+    cases = (
+        ("quorum_hit", lambda: tq.quorum_hit(votes, pred),
+         lambda: tq.quorum_hit_plain(votes, pred), "quorum_hit_kernel",
+         (n + 1) * width, (2 * g * n + 2 * g) * width,
+         f"N={n} B={width}"),
+        ("record_block",
+         lambda: tq.record_block(k2_k, 0, 0, votes, 0, pred),
+         lambda: tq.record_block_plain(k2_p, 0, 0, votes, 0, pred),
+         "record_block_kernel", (3 * n + 19) * width,
+         (6 * n + 2 * g * n + 30) * width,
+         f"N={n} B={width} w_local={w_local}"),
+        ("record_and_check",
+         lambda: tq.record_and_check(k4_k, k4_lanes, pred),
+         lambda: tq.record_and_check_plain(k4_p, k4_lanes, pred),
+         "record_and_check_kernel", 21 * chunk + 2 * (9 + n) * k4_cols,
+         (40 + 2 * g * n) * chunk, f"N={n} B={chunk} w_local={w_local}"),
+        ("record_and_check_epochs",
+         lambda: tq.record_and_check_epochs(k6_k, k6_lanes, bounds, planes),
+         lambda: tq.record_and_check_epochs_plain(k6_p, k6_lanes, bounds,
+                                                  planes),
+         "record_and_check_epochs_kernel",
+         21 * chunk + 2 * (9 + kn) * k6_cols + plane_bytes,
+         (42 + 2 * kg * kn) * chunk,
+         f"N={kn} K={kk} B={chunk} w_local={e_local}"),
+    )
+    out = {}
+    for name, fn, plain, kname, nbytes, ops, shape in cases:
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / INT_OPS_PER_S * 1e3
+        out[name] = {"ms": time_ms(fn, 2000), "plain_ms": time_ms(plain, 100),
+                     "device_ms": device_ms(fn, kname),
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations", "library_ms": None, "shape": shape}
+    return out
+
+
+def _board_summary(result: dict, figures: dict) -> dict:
+    """Phase 26's figures: per tracker arm (rank 0) the drains, host ms
+    per drain, all-reduces per drain and their share of the drain (each
+    all-reduce's synchronised host ms times the count), and the kernels'
+    device ms per drain (rank 0's launches per drain times each kernel's
+    device time at the shard's shape); the slowest rank's ms per drain;
+    the all-reduce's ms alone."""
+    ranks = result["ranks"]
+    lead = next(r for r in ranks if r["rank"] == 0)
+    reduce_ms = lead["allreduce_ms"]
+    arms = {}
+    for name, arm in lead["arms"].items():
+        drains = arm["drains"]
+        per_drain = arm["allreduces"] / drains
+        # A dense part's all-reduce carries up to 4096 bytes, a sparse
+        # part's 256: bound the share by the wider one.
+        kernels = sum(arm["launches"][k] / drains
+                      * (figures[k]["device_ms"] or figures[k]["ms"])
+                      for k in figures if arm["launches"].get(k))
+        arms[name] = {
+            "drains": drains, "chosen": arm["chosen"],
+            "run_s": arm["run_s"], "drain_ms_median": arm["drain_ms_median"],
+            "drain_ms_mean": arm["drain_ms_mean"],
+            "drain_ms_mean_slowest_rank": max(
+                r["arms"][name]["drain_ms_mean"] for r in ranks
+                if name in r["arms"]),
+            "allreduces_per_drain": per_drain,
+            "allreduce_ms_per_drain_at_most": per_drain * reduce_ms[4096],
+            "kernels_device_ms_per_drain": kernels,
+            "launches_rank0": arm["launches"]}
+    return {"backend": lead["backend"], "ranks": len(ranks),
+            "allreduce_ms_rank0": reduce_ms, "arms": arms,
+            "expectations_s": result["expect_s"],
+            "shard_kernels": figures}
+
+
+def phase_sharded_board(dev, rng) -> tuple[dict, dict, dict]:
+    """The sharded vote board's path on four ranks that share the card
+    (and on one rank per card where there are two or more cards); the
+    gates raise inside ``multichip_board.check_board``. Returns the
+    figures, the summed launches of the path and each kernel's largest
+    error against its plain version."""
+    reset_launches()
+    errors: dict = {}
+    t0 = time.perf_counter()
+
+    def run(world, **kw):
+        try:
+            result = multichip_board.check_board(world, device=dev, **kw)
+        except multichip.WorldFailure as exc:
+            raise SmokeFailure(f"sharded board: {exc}") from exc
+        for r in result["ranks"]:
+            for name, err in (r["errors"] or {}).items():
+                errors[name] = max(errors.get(name, 0), err)
+        return result
+
+    with multichip.RankWorld(4, device_type="cuda") as world:
+        spawn_s = time.perf_counter() - t0
+        result = run(world)
+    launches = {name: result["launches"].get(name, 0) for name in WRAPPERS}
+    summary = _board_summary(result, _shard_kernel_figures(dev, rng))
+    summary["spawn_s"] = spawn_s
+    summary["nccl"] = "not run: one card (NCCL takes one rank per card)"
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        k = min(cards, 4)
+        with multichip.RankWorld(k, device_type="cuda") as world:
+            require(world.backend == "nccl",
+                    f"{k} ranks on {cards} cards chose {world.backend}")
+            arms = {f"{name} 1x{k}": ((1, k), *arm[1:]) for name, arm in
+                    multichip_board.BOARD_ARMS.items()}
+            nccl = run(world, arms=arms, side=(1, k))
+        summary["nccl"] = {
+            "ranks": k, "backend": "nccl",
+            "allreduce_ms_rank0": next(r for r in nccl["ranks"]
+                                       if r["rank"] == 0)["allreduce_ms"],
+            "drain_ms_median": {name: arm["drain_ms_median"] for name, arm in
+                                next(r for r in nccl["ranks"] if r["rank"]
+                                     == 0)["arms"].items()}}
+    return summary, launches, errors
+
+
 def time_ms(fn, iters: int) -> float:
     for _ in range(20):
         fn()
@@ -1473,6 +1645,21 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         return run
 
     sh_rows = sh_plans["k19"].parts.shape[1]
+    # The pinned copies on the same shard.
+    pin_states = {key: tpin.make_sharded_state(sh_mesh, WINDOW, BLOCK, n)[0]
+                  for key in ("k19", "p19", "k20", "p20", "k21", "p21")}
+    pin_plans = {key: tpin.make_shard_plan(sh_mesh, BLOCK, pred)
+                 for key in pin_states}
+    pin_at = dict.fromkeys(pin_states, 0)
+
+    def pinned_call(key, fn):
+        def run():
+            fn(pin_states[key], pin_at[key], pin_plans[key])
+            pin_at[key] += 1
+        return run
+
+    pinned_cu = "frankenpaxos_tpu_torch/ops/csrc/pipeline_sharded_baseline.cu"
+    pinned_ref = "frankenpaxos_tpu/bench/pipeline_baseline.py"
     sharded_cu = "frankenpaxos_tpu_torch/ops/csrc/pipeline_sharded.cu"
     sharded_ref = "frankenpaxos_tpu/bench/pipeline.py"
     sh_shape = f"N={n} b_local={sh_b} w_local={WINDOW // sh_s}, mesh (1, 4)"
@@ -1655,6 +1842,26 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          8 * (sh_s + 1) + 24, 4 * (sh_s + 1) + 20, sharded_cu,
          f"{sharded_ref}:145 (L282-313 after the slot psum)",
          f"S={sh_s}, telemetry off"),
+        # The pinned copies of K19-K21 (the pinned drain's mesh form):
+        # K19's and K20's work without the telemetry rows, K21's.
+        ("shard_vote_count_baseline",
+         pinned_call("k19", tpin.shard_vote_count),
+         pinned_call("p19", tpin.shard_vote_count_plain),
+         "shard_vote_count_baseline_kernel", (4 * n + 4 + 8 * g) * sh_b,
+         (2 * (10 * n + 2 * g * n) + 10) * sh_b, pinned_cu,
+         f"{pinned_ref}:76 (L76-80 with axes; psums L154-L185)", sh_shape),
+        ("shard_commit_baseline", pinned_call("k20", tpin.shard_commit),
+         pinned_call("p20", tpin.shard_commit_plain),
+         "shard_commit_baseline_kernel",
+         (8 * g + 4 + 8 + n + 1) * sh_b + 8 * (sh_s + 1),
+         (2 * (2 * g + 6) + n + 10) * sh_b, pinned_cu,
+         f"{pinned_ref}:76 (L160-L185 after the group psum)", sh_shape),
+        ("shard_fold_baseline", pinned_call("k21", tpin.shard_fold),
+         pinned_call("p21", tpin.shard_fold_plain),
+         "shard_fold_baseline_kernel", 8 * (sh_s + 1) + 24,
+         4 * (sh_s + 1) + 20, pinned_cu,
+         f"{pinned_ref}:76 (L169, L185 after the slot psum)",
+         f"S={sh_s}"),
     ]
     out = []
     for (name, fn, plain, kname, nbytes, ops, source, replaces,
@@ -1886,6 +2093,28 @@ def main() -> int:
             + str({k: sharded_launches[k] for k in SHARDED_PATH}))
         log(json.dumps({"sharded": sharded}))
 
+        board, board_launches, board_errors = phase_sharded_board(dev, rng)
+        for kernel, err in board_errors.items():
+            errors[kernel] = max(errors.get(kernel, 0), err)
+        phase(26, f"sharded vote board on {name} ({smi}): backend "
+            f"{board['backend']}, {board['ranks']} ranks on one card "
+            f"(spawned in {board['spawn_s']:.1f} s); kernels == plain on "
+            f"every shard (error 0); every drain == the unsharded tracker "
+            f"== the dict oracle, boards equal, at W={WINDOW}; all-reduce "
+            f"ms (rank 0, 256 / 4096 B) "
+            f"{board['allreduce_ms_rank0'][256]:.4g} / "
+            f"{board['allreduce_ms_rank0'][4096]:.4g}; per-drain ms: "
+            + "; ".join(
+                f"{arm}: {fig['drain_ms_median']:.4g} (all-reduces "
+                f"{fig['allreduces_per_drain']:.3g} per drain, <= "
+                f"{fig['allreduce_ms_per_drain_at_most']:.4g} ms; kernels "
+                f"{fig['kernels_device_ms_per_drain']:.3g} ms)"
+                for arm, fig in board["arms"].items())
+            + f"; {board['nccl'] if isinstance(board['nccl'], str) else 'nccl run'}"
+            f"; launches " + str({k: v for k, v in board_launches.items()
+                                  if v}))
+        log(json.dumps({"sharded_board": board}))
+
         log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
         kernels = phase_figures(dev, rng, {
             "headline_and_tracker": launches, "cluster": cluster_launches,
@@ -1896,8 +2125,9 @@ def main() -> int:
             "bpaxos_traffic": bpaxos["launches"],
             "telemetry": overhead_launches,
             "libbench": lib_launches, "geo": geo_launches,
-            "sharded": sharded_launches}, errors)
-        phase(26, f"per-kernel figures on {name} ({smi}); "
+            "sharded": sharded_launches,
+            "sharded_board": board_launches}, errors)
+        phase(27, f"per-kernel figures on {name} ({smi}); "
             f"{time.perf_counter() - T0:.1f} s in all")
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:

@@ -23,13 +23,16 @@ world, every rank taking part in the subgroups' creation):
   * ``check_drain`` -- on the card: K19-K21 held against their plain
     versions, the gathered state against the unsharded drain (K3 or
     K14), and the per-phase time split (``chip_smoke.py``);
-  * ``modules`` -- which top-level modules a worker has loaded.
+  * ``modules`` -- which top-level modules a worker has loaded;
+  * the sharded vote board's cases (``bench/multichip_board.py``, merged
+    into :data:`CASES`).
 
-:func:`dryrun` shards one drain over an ``n``-rank mesh (majority and
-grid specs), as the reference's ``dryrun_multichip`` does on its forced
-host mesh. Its third part -- the MultiPaxos ``TpuQuorumTracker`` with a
-mesh -- is the sharded vote board, not ported yet (ROADMAP.md queue 1
-item 10).
+:func:`dryrun` is the twin of the reference's ``dryrun_multichip`` on
+its forced host mesh: one drain sharded over an ``n``-rank mesh
+(majority and grid specs), then the ProxyLeader's pipelined
+``TpuQuorumTracker`` with its vote board sharded over the same mesh,
+which must choose three ring wraps of slots, each drain equal to the
+dict oracle.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from frankenpaxos_tpu_torch import convert
+from frankenpaxos_tpu_torch.bench import multichip_board
 from frankenpaxos_tpu_torch.bench import pipeline as tp
 from frankenpaxos_tpu_torch.device import nvidia_smi_line, resolve_device
 from frankenpaxos_tpu_torch.ingest.shard import place_block
@@ -329,8 +333,10 @@ def _dryrun_shape(n: int) -> tuple:
 
 def case_dryrun(ctx: WorkerContext, *, n: int) -> Optional[dict]:
     """One drain (i = 2) on the reference's dryrun mesh under the majority
-    spec and under the 3 x group grid write spec; rank 0 returns both
-    committed counts."""
+    spec and under the 3 x group grid write spec, then the sharded
+    pipelined tracker's three ring wraps
+    (``multichip_board.sharded_tracker_dryrun``); rank 0 returns both
+    committed counts and the slots the tracker chose."""
     group, slot = _dryrun_shape(n)
     n_acc, window, block = 3 * group, 1 << 12, 1 << 9
     out = {"mesh": f"{group}x{slot}"}
@@ -351,6 +357,7 @@ def case_dryrun(ctx: WorkerContext, *, n: int) -> Optional[dict]:
                                  thresholds=thresholds,
                                  combine_any=combine_any)(state, 2)
             out[name] = int(state.committed)
+        out["chosen"] = multichip_board.sharded_tracker_dryrun(mesh)
         return out if mesh.rank == 0 else None
 
 
@@ -612,8 +619,11 @@ def dryrun(n_devices: int = 8, *, device_type: Optional[str] = None,
     """Shard one drain of the pipeline over an ``n_devices``-rank
     ``(group, slot)`` mesh -- acceptor rows over ``group`` (3, else 2,
     else 1), the slot window over ``slot`` -- under the majority and the
-    grid write specs, after a mesh probe. Raises when a run commits
-    nothing; returns the committed counts. Spawns its own world on
+    grid write specs, after a mesh probe; then run the ProxyLeader's
+    pipelined tracker with its vote board sharded over the mesh for
+    three ring wraps against the dict oracle. Raises when a run commits
+    nothing or the tracker does not choose exactly ``3 << 10`` slots;
+    returns the counts. Spawns its own world on
     ``device_type`` (None: ``cuda``, raising with no GPU; name ``"cpu"``
     for gloo ranks on the host) unless one of at least ``n_devices``
     ranks is given."""
@@ -623,10 +633,16 @@ def dryrun(n_devices: int = 8, *, device_type: Optional[str] = None,
     out = world.call("dryrun", n=n_devices)[0]
     if out["committed"] <= 0 or out["grid_committed"] <= 0:
         raise RuntimeError(f"the sharded drain committed nothing: {out}")
-    print(f"dryrun ok: mesh {out['mesh']} (group x slot) over "
+    if out["chosen"] != 3 << 10:
+        raise RuntimeError(f"the sharded tracker chose {out['chosen']} "
+                           f"slots, not {3 << 10}")
+    group = out["mesh"].split("x")[0]
+    print(f"dryrun_multichip ok: mesh {out['mesh']} (group x slot) over "
           f"{world.backend}, {out['committed']} slots committed in one "
-          f"drain (majority spec), {out['grid_committed']} under the grid "
-          f"write spec")
+          f"step (majority spec) and {out['grid_committed']} under the "
+          f"3x{group} grid write spec; real TpuQuorumChecker vote board "
+          f"sharded over the mesh chose {out['chosen']} slots across 3 "
+          f"ring wraps, bit-identical to the host oracle")
     return out
 
 
@@ -637,15 +653,18 @@ CASES = {
     "dryrun": case_dryrun,
     "check_drain": case_check_drain,
     "modules": case_modules,
+    **multichip_board.CASES,
 }
 
 
 def main(argv=None) -> int:
     """``python -m frankenpaxos_tpu_torch.bench.multichip [--ranks N]``:
     build the kernels, spawn ``N`` ranks on the card(s) (one per card
-    over NCCL when there are as many cards, else sharing over gloo) and
-    run :func:`check` on every mesh of :data:`CHECK_MESHES` that fits,
-    telemetry off and on; one JSON line, nonzero on a failed gate."""
+    over NCCL when there are as many cards, else sharing over gloo), run
+    :func:`check` on every mesh of :data:`CHECK_MESHES` that fits,
+    telemetry off and on, then the sharded vote board's check
+    (``multichip_board.check_board``; its arms on ``(1, N)`` unless N is
+    4); one JSON line, nonzero on a failed gate."""
     parser = argparse.ArgumentParser(description=main.__doc__.split("\n")[0])
     parser.add_argument("--ranks", type=int, default=4)
     args = parser.parse_args(argv)
@@ -662,6 +681,20 @@ def main(argv=None) -> int:
                 out["cases"][f"{group}x{slot} {spec} telemetry "
                              f"{'on' if telemetry else 'off'}"] = \
                     check_summary(check(world, group, slot, spec, telemetry))
+        arms, side = multichip_board.BOARD_ARMS, (1, 4)
+        if args.ranks != 4:
+            side = (1, args.ranks)
+            arms = {name: (side, *arm[1:])
+                    for name, arm in multichip_board.BOARD_ARMS.items()}
+        board = multichip_board.check_board(
+            world, device=torch.device("cuda", 0), arms=arms, side=side)
+        lead = next(r for r in board["ranks"] if r["rank"] == 0)
+        out["board"] = {
+            "launches": board["launches"],
+            "allreduce_ms_rank0": lead["allreduce_ms"],
+            "arms": {name: {k: arm[k] for k in (
+                "drains", "chosen", "drain_ms_median", "allreduces")}
+                for name, arm in lead["arms"].items()}}
     print(json.dumps(out), flush=True)
     return 0
 

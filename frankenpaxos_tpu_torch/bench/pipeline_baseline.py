@@ -12,6 +12,11 @@ telemetry-OFF arm of the live drain against this copy, so the baseline
 arm must be immune to later edits of ``bench/pipeline.py`` and
 ``ops/csrc/pipeline.cu``.
 
+The mesh form at the end of the module is the pinned drain of the
+reference with its axes (``steady_state_step`` L76-80 with
+``group_axis`` / ``slot_axis``): a frozen copy of the live sharded
+drain's telemetry-off path, over ``ops/csrc/pipeline_sharded_baseline.cu``.
+
 Do NOT edit the function bodies here; they are the measurement. If the
 live drain's semantics change on purpose, re-pin a fresh copy and say so
 in the overhead bench's methodology string.
@@ -163,3 +168,338 @@ def run_steps_from(state: PipelineState, start: int, iters: int,
     for i in range(start, start + iters):
         steady_state_step(state, i, block_size=block_size, predicate=pred)
     return state
+
+
+# --------------------------------------------------------------------------
+# The pinned drain's mesh form: the reference's pinned ``steady_state_step``
+# with ``group_axis`` / ``slot_axis`` (L76-80) as ``shard_map`` runs it,
+# split at its psums into three phases around two all-reduces, over its
+# own copies of the telemetry-off K19-K21 (``ops/csrc/
+# pipeline_sharded_baseline.cu``, entries ``fpx_shard_*_baseline``). A
+# frozen copy of the live sharded drain's telemetry-off path
+# (``bench/pipeline.py``), immune to later redesigns of that path, as the
+# unsharded drain above is to ``pipeline.cu``.
+# --------------------------------------------------------------------------
+
+
+def local_block(block_size: int, slot_shards: int) -> tuple:
+    """``(b_local, pad)``: lanes per slot shard (the global block rounded
+    UP over the slot shards) and the pad lanes the rounding adds."""
+    b_local = -(-block_size // slot_shards)
+    return b_local, b_local * slot_shards - block_size
+
+
+def padded_window(window: int, block_size: int, slot_shards: int) -> int:
+    """The padded GLOBAL window of a sharded run (whole ``b_local``
+    blocks per shard)."""
+    if window % block_size:
+        raise ValueError(
+            f"window {window} must hold whole {block_size}-slot blocks")
+    b_local, _ = local_block(block_size, slot_shards)
+    return (window // block_size) * b_local * slot_shards
+
+
+#: The shard's quorum partials: the psum'd mask matmul, or the missing
+#: (write grid) / full (read grid) row counts of the fused grid path.
+MATMUL, GRID_WRITE, GRID_READ = 0, 1, 2
+
+
+class ShardPlan(NamedTuple):
+    """One rank's place in the mesh, its widths, its slice of the
+    predicate and the two partial buffers the all-reduces carry."""
+
+    group_shards: int
+    slot_shards: int
+    group_idx: int
+    slot_idx: int
+    block_size: int          # GLOBAL block
+    b_local: int
+    n_local: int
+    kind: int                # MATMUL, GRID_WRITE or GRID_READ
+    cols: int                # grid row length (grid kinds)
+    masks: torch.Tensor      # [G, n_local] int32: this shard's columns
+    thresholds: torch.Tensor  # [G] int32
+    combine_any: bool
+    parts: torch.Tensor      # [2, R, b_local] int32: per pass, R rows
+    slot: torch.Tensor       # [S + 1] int32, 0 between drains
+
+
+def make_shard_plan(mesh, block_size: int,
+                    predicate: QuorumPredicate) -> ShardPlan:
+    """This rank's plan for ``predicate`` (GLOBAL masks on the mesh's
+    device): the fused grid path when the spec is a row-major grid and
+    every group shard holds whole rows, else the psum'd matmul."""
+    g_sh, s_sh = mesh.group_shards, mesh.slot_shards
+    n_global = predicate.num_nodes
+    if n_global % g_sh:
+        raise ValueError(f"{n_global} acceptors do not split over "
+                         f"{g_sh} group shards")
+    n_local = n_global // g_sh
+    b_local, _ = local_block(block_size, s_sh)
+    kind, cols, grid = MATMUL, 0, predicate.grid
+    if grid is not None and grid[3] is None and n_local % grid[2] == 0:
+        kind = GRID_WRITE if grid[0] == "write" else GRID_READ
+        cols = grid[2]
+    gi = mesh.group_idx
+    masks = predicate.masks[:, gi * n_local:(gi + 1) * n_local].contiguous()
+    rows = masks.shape[0] if kind == MATMUL else 1
+    dev = predicate.masks.device
+    return ShardPlan(
+        group_shards=g_sh, slot_shards=s_sh, group_idx=gi,
+        slot_idx=mesh.slot_idx, block_size=block_size, b_local=b_local,
+        n_local=n_local, kind=kind, cols=cols, masks=masks,
+        thresholds=predicate.thresholds, combine_any=predicate.combine_any,
+        parts=torch.zeros((2, rows, b_local), dtype=torch.int32,
+                          device=dev),
+        slot=torch.zeros(s_sh + 1, dtype=torch.int32, device=dev))
+
+
+def make_sharded_state(mesh, window: int, block_size: int,
+                       num_acceptors: int, device=None) -> tuple:
+    """``(state, w_padded)``: this rank's fresh shard of a GLOBAL
+    ``window`` (padded when the block does not divide over the slot
+    shards): votes ``[n / group, w_padded / slot]``, the slot columns
+    ``[w_padded / slot]``, the scalars whole."""
+    device = mesh.device if device is None else torch.device(device)
+    if num_acceptors % mesh.group_shards:
+        raise ValueError(f"{num_acceptors} acceptors do not split over "
+                         f"{mesh.group_shards} group shards")
+    w_padded = padded_window(window, block_size, mesh.slot_shards)
+    return make_state(w_padded // mesh.slot_shards,
+                      num_acceptors // mesh.group_shards,
+                      device=device), w_padded
+
+
+def _check_shard(state: PipelineState, plan: ShardPlan) -> int:
+    tensors = state[:7]
+    n, w_local = state.votes.shape
+    if n != plan.n_local or w_local % plan.b_local or not w_local:
+        raise ValueError(f"a [{n}, {w_local}] board is not a shard of "
+                         f"{plan.n_local} acceptor rows and whole "
+                         f"{plan.b_local}-lane blocks")
+    if tuple(t.dtype for t in tensors) != _STATE_DTYPES \
+            or tuple(t.shape for t in tensors[1:]) != (
+                (w_local,),) * 3 + ((),) * 3:
+        raise ValueError("state tensors do not match make_sharded_state's")
+    return w_local
+
+
+def _ring(i: int, w_local: int, b_local: int) -> tuple:
+    num_blocks = w_local // b_local
+    return tuple((_wrap32(i - k) % num_blocks) * b_local for k in range(3))
+
+
+def _shard_lanes(plan: ShardPlan, device) -> tuple:
+    lanes = plan.slot_idx * plan.b_local + torch.arange(
+        plan.b_local, dtype=torch.int32, device=device)
+    return lanes, lanes < plan.block_size
+
+
+def shard_vote_count_plain(state: PipelineState, i: int,
+                           plan: ShardPlan) -> torch.Tensor:
+    """Plain version of the pinned K19: propose on the shard's lanes, OR
+    each pass's arrivals (pad lanes get none) into its block and write
+    its partials into ``plan.parts``."""
+    votes, commands = state.votes, state.commands
+    dev = votes.device
+    n_local, w_local = votes.shape
+    b = plan.b_local
+    start_new, start_old, _ = _ring(i, w_local, b)
+    lanes, valid = _shard_lanes(plan, dev)
+    accs = plan.group_idx * n_local + torch.arange(
+        n_local, dtype=torch.int32, device=dev)
+    i_t = torch.tensor(i, dtype=torch.int32, device=dev)
+    commands[start_new:start_new + b] = torch.where(
+        valid, lanes * 7 + i_t * 13 + 1, torch.zeros_like(lanes))
+    mask = valid.to(torch.uint8)[None, :]
+    passes = ((start_new, _arrivals(i, lanes, accs, salt=0)),
+              (start_old, 1 - _arrivals(_wrap32(i - 1), lanes, accs,
+                                        salt=0)))
+    for p, (start, arrivals) in enumerate(passes):
+        cols = slice(start, start + b)
+        block = votes[:, cols] | (arrivals & mask)
+        votes[:, cols] = block
+        out = plan.parts[p]
+        if plan.kind == MATMUL:
+            out[:] = (plan.masks[:, :, None]
+                      * block.to(torch.int32)[None]).sum(1, dtype=torch.int32)
+        else:
+            write = plan.kind == GRID_WRITE
+            total = torch.zeros_like(block[0])
+            for r in range(plan.n_local // plan.cols):
+                row = block[r * plan.cols]
+                for c in range(1, plan.cols):
+                    cell = block[r * plan.cols + c]
+                    row = (row | cell) if write else (row & cell)
+                total = total + ((1 - row) if write else row)
+            out[0] = total.to(torch.int32)
+    return plan.parts
+
+
+def shard_commit_plain(state: PipelineState, i: int,
+                       plan: ShardPlan) -> torch.Tensor:
+    """Plain version of the pinned K20: each pass's hits from the
+    group-reduced partials (never on a pad lane), ``chosen``, execution
+    of the old block and GC; the newly count and the ``cmds_old`` sum
+    are added into ``plan.slot``."""
+    votes, chosen, commands, results = state[:4]
+    w_local = votes.shape[1]
+    b, s_sh = plan.b_local, plan.slot_shards
+    start_new, start_old, start_gc = _ring(i, w_local, b)
+    _, valid = _shard_lanes(plan, votes.device)
+    for p, start in enumerate((start_new, start_old)):
+        part = plan.parts[p]
+        if plan.kind == MATMUL:
+            satisfied = part >= plan.thresholds[:, None]
+            hit = satisfied.any(0) if plan.combine_any else satisfied.all(0)
+        else:
+            hit = part[0] == 0 if plan.kind == GRID_WRITE else part[0] > 0
+        hit = hit & valid
+        cols = slice(start, start + b)
+        old = chosen[cols].clone()
+        chosen[cols] = hit | old
+        plan.slot[plan.slot_idx] += (hit & ~old).sum(dtype=torch.int32)
+    cmds_old = commands[start_old:start_old + b].clone()
+    results[start_old:start_old + b] = torch.where(
+        valid, cmds_old * 3 + 7, torch.zeros_like(cmds_old))
+    plan.slot[s_sh] += cmds_old.sum(dtype=torch.int32)
+    votes[:, start_gc:start_gc + b] = 0
+    chosen[start_gc:start_gc + b] = False
+    return plan.slot
+
+
+def shard_fold_plain(state: PipelineState, i: int,
+                     plan: ShardPlan) -> PipelineState:
+    """Plain version of the pinned K21: fold the slot-reduced
+    ``plan.slot`` into committed, sm_state and exec_wm (the GLOBAL
+    block), then zero it."""
+    s_sh, slot = plan.slot_shards, plan.slot
+    i_t = torch.tensor(i, dtype=torch.int32, device=slot.device)
+    state.committed.add_(slot[:s_sh].sum(dtype=torch.int32))
+    state.sm_state.add_(slot[s_sh])
+    state.exec_wm.copy_(i_t * plan.block_size if i >= 1
+                        else torch.zeros_like(i_t))
+    slot.zero_()
+    return state
+
+
+def _shard_kernel(plan: ShardPlan, *tensors: torch.Tensor) -> bool:
+    return use_kernel(*tensors, plan.masks, plan.thresholds, plan.parts,
+                      plan.slot)
+
+
+def shard_vote_count(state: PipelineState, i: int,
+                     plan: ShardPlan) -> torch.Tensor:
+    """The pinned K19 (``fpx_shard_vote_count_baseline``) on CUDA state,
+    counted in ``shard_vote_count.launches``; the plain version on CPU
+    state. Never synchronises."""
+    w_local = _check_shard(state, plan)
+    i = int32(i)
+    if not _shard_kernel(plan, state.votes, state.commands):
+        return shard_vote_count_plain(state, i, plan)
+    lib = _build.library("pipeline_sharded_baseline")
+    rc = lib.fpx_shard_vote_count_baseline(
+        state.votes.data_ptr(), state.commands.data_ptr(), w_local, i,
+        plan.block_size, plan.b_local, plan.slot_idx, plan.group_idx,
+        plan.n_local, plan.kind, plan.masks.shape[0], plan.cols,
+        plan.masks.data_ptr(), plan.parts.data_ptr(),
+        *_build.stream_args(state.votes.device))
+    _build.check("pipeline_sharded_baseline",
+                 "fpx_shard_vote_count_baseline", rc)
+    shard_vote_count.launches += 1
+    return plan.parts
+
+
+def shard_commit(state: PipelineState, i: int,
+                 plan: ShardPlan) -> torch.Tensor:
+    """The pinned K20 (``fpx_shard_commit_baseline``) on CUDA state,
+    counted in ``shard_commit.launches``; the plain version on CPU
+    state. Never synchronises."""
+    w_local = _check_shard(state, plan)
+    i = int32(i)
+    tensors = state[:4]
+    if not _shard_kernel(plan, *tensors):
+        return shard_commit_plain(state, i, plan)
+    lib = _build.library("pipeline_sharded_baseline")
+    rc = lib.fpx_shard_commit_baseline(
+        *(t.data_ptr() for t in tensors), w_local, i, plan.block_size,
+        plan.b_local, plan.slot_idx, plan.slot_shards, plan.n_local,
+        plan.kind, plan.masks.shape[0], plan.thresholds.data_ptr(),
+        int(plan.combine_any), plan.parts.data_ptr(), plan.slot.data_ptr(),
+        *_build.stream_args(state.votes.device))
+    _build.check("pipeline_sharded_baseline", "fpx_shard_commit_baseline",
+                 rc)
+    shard_commit.launches += 1
+    return plan.slot
+
+
+def shard_fold(state: PipelineState, i: int,
+               plan: ShardPlan) -> PipelineState:
+    """The pinned K21 (``fpx_shard_fold_baseline``) on CUDA state, counted
+    in ``shard_fold.launches``; the plain version on CPU state. Never
+    synchronises."""
+    _check_shard(state, plan)
+    i = int32(i)
+    scalars = state[4:7]
+    if not _shard_kernel(plan, *scalars):
+        return shard_fold_plain(state, i, plan)
+    lib = _build.library("pipeline_sharded_baseline")
+    rc = lib.fpx_shard_fold_baseline(
+        *(t.data_ptr() for t in scalars), i, plan.block_size,
+        plan.slot_shards, plan.slot.data_ptr(),
+        *_build.stream_args(state.votes.device))
+    _build.check("pipeline_sharded_baseline", "fpx_shard_fold_baseline", rc)
+    shard_fold.launches += 1
+    return state
+
+
+shard_vote_count.launches = 0
+shard_commit.launches = 0
+shard_fold.launches = 0
+
+
+def _sharded(mesh, state: PipelineState, i: int, plan: ShardPlan,
+             phases: tuple) -> PipelineState:
+    vote_count, commit, fold = phases
+    vote_count(state, i, plan)
+    mesh.psum_group(plan.parts)
+    commit(state, i, plan)
+    mesh.psum_slot(plan.slot)
+    fold(state, i, plan)
+    return state
+
+
+def sharded_step(mesh, state: PipelineState, i: int,
+                 plan: ShardPlan) -> PipelineState:
+    """One pinned drain on this rank's shard, IN PLACE: the K19 copy, the
+    group all-reduce, the K20 copy, the slot all-reduce, the K21 copy
+    (each phase's plain version on CPU state). Every rank of the mesh
+    calls it with the same ``i``."""
+    _check_shard(state, plan)
+    return _sharded(mesh, state, int32(i), plan,
+                    (shard_vote_count, shard_commit, shard_fold))
+
+
+def sharded_step_plain(mesh, state: PipelineState, i: int,
+                       plan: ShardPlan) -> PipelineState:
+    """:func:`sharded_step` with the three phases' plain versions, on any
+    device."""
+    _check_shard(state, plan)
+    return _sharded(mesh, state, int32(i), plan,
+                    (shard_vote_count_plain, shard_commit_plain,
+                     shard_fold_plain))
+
+
+def make_sharded_step(mesh, *, block_size: int, masks, thresholds,
+                      combine_any: bool):
+    """``step(state, i)``: one pinned drain on this rank's shard, in
+    place; ``block_size`` and ``masks`` are GLOBAL, the plan is
+    ``step.plan``."""
+    plan = make_shard_plan(mesh, block_size, make_predicate(
+        masks, thresholds, combine_any, device=mesh.device))
+
+    def step(state: PipelineState, i: int) -> PipelineState:
+        return sharded_step(mesh, state, i, plan)
+
+    step.plan = plan
+    return step

@@ -11,7 +11,9 @@ or a field that does not match raises rather than being converted. An
 ``EpochSegmentedChecker`` is carried as its epochs' specs and boundaries
 plus its board, so a test can start the JAX checker and the port's from
 one mid-flight state. A sharded pipeline state crosses as its gathered
-(physical) layout, each rank taking its shard. A JAX ``DepSetBatch``
+(physical) layout, each rank taking its shard; a vote board sharded over
+a mesh crosses as the whole board, each rank taking its columns, and is
+gathered back to the whole board on every rank. A JAX ``DepSetBatch``
 crosses as its three numpy
 arrays, and a GC role's ``QuorumWatermarkVector`` as its
 ``[replicas, leaders]`` int64 matrix. A WPaxos leader's
@@ -36,7 +38,11 @@ from frankenpaxos_tpu_torch.device import resolve_device
 from frankenpaxos_tpu_torch.geo.epochs import GeoEpoch, ObjectEpochStore
 from frankenpaxos_tpu_torch.geo.quorum import GeoQuorumTracker
 from frankenpaxos_tpu_torch.ops.depset import DepSetBatch
-from frankenpaxos_tpu_torch.ops.quorum import EpochSegmentedChecker, VoteBoard
+from frankenpaxos_tpu_torch.ops.quorum import (
+    EpochSegmentedChecker,
+    shard_board,
+    VoteBoard,
+)
 from frankenpaxos_tpu_torch.ops.telemetry import (
     FIELDS as TELEMETRY_FIELDS,
     make_telemetry,
@@ -46,6 +52,7 @@ from frankenpaxos_tpu_torch.quorums.spec import QuorumSpec
 from frankenpaxos_tpu_torch.utils.watermark import QuorumWatermarkVector
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _DTYPES = {"votes": np.uint8, "chosen": np.bool_}
 
@@ -168,6 +175,30 @@ def vote_board_from_numpy(arrays, device=None) -> VoteBoard:
 def vote_board_to_numpy(board: VoteBoard) -> VoteBoard:
     """The board as a ``VoteBoard`` of numpy arrays on the host."""
     return VoteBoard(**_to_numpy(board))
+
+
+def sharded_vote_board_from_numpy(mesh, arrays, window: int) -> VoteBoard:
+    """This rank's shard of a whole ``window``-column board given as numpy
+    arrays (a named tuple or dict, e.g. a JAX board fetched with
+    ``jax.device_get``, sharded or not): the columns ``shard_board``
+    gives this rank, on the mesh's device."""
+    return shard_board(vote_board_from_numpy(arrays, device="cpu"), mesh,
+                       window)
+
+
+def gather_vote_board(mesh, board: VoteBoard) -> VoteBoard:
+    """The whole sharded board as a ``VoteBoard`` of numpy arrays on
+    every rank of ``mesh`` (collective): each rank's columns gathered in
+    rank order, the column map of ``shard_board``. Goes through the host
+    (``all_gather_object``), since gloo gathers only CPU tensors."""
+    local = vote_board_to_numpy(board)
+    if mesh.size == 1:
+        return local
+    pieces = [None] * mesh.size
+    dist.all_gather_object(pieces, local, group=mesh.mesh_pg)
+    return VoteBoard(np.concatenate([p.votes for p in pieces], axis=1),
+                     *(np.concatenate([p[k] for p in pieces])
+                       for k in range(1, 4)))
 
 
 def quorum_spec_from(spec) -> QuorumSpec:

@@ -19,8 +19,13 @@ outputs (tests/test_torch_geo.py holds both against the reference's):
 
 The universe is the fixed grid (a steal moves leadership, not
 membership), so ``add_epoch`` never widens it and K7
-(``reshape_columns``) never runs here. A mesh (the reference's sharded
-board) is not ported: ``mesh`` other than None is refused.
+(``reshape_columns``) never runs here. With a ``mesh`` (a ``mesh.Mesh``
+of ``torch.distributed`` ranks) the cuda backend's board is split over
+the ranks (``EpochSegmentedChecker(mesh=)``: the steal planes whole on
+every rank, the slot columns split); every rank builds the same tracker
+and is fed the same calls, ``note_epochs`` appends or rebuilds on every
+rank, and every rank reports the same pairs. The dict oracle ignores
+``mesh``, as the reference's does.
 
 Both report each (slot, ballot)'s quorum exactly once.
 """
@@ -38,23 +43,25 @@ class GeoQuorumTracker:
                  grid: ZoneGrid, backend: str = "dict",
                  window: int = 4096, mesh=None, device=None):
         """``device``: where the ``cuda`` backend's checker lives
-        (``cuda`` when None; ``"cpu"`` runs the plain versions). Ignored
-        by the dict oracle."""
+        (``cuda`` when None; ``"cpu"`` runs the plain versions; the
+        mesh's device with a ``mesh``). Both are ignored by the dict
+        oracle."""
         if backend not in ("dict", "cuda"):
             raise ValueError(f"unknown geo tracker backend {backend!r} "
                              f"(the port's backends are 'dict' and "
                              f"'cuda')")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a GeoQuorumTracker over a device mesh is not ported yet "
-                "(ROADMAP.md queue 1 item 10: the sharded vote board "
-                "under the checkers and trackers)")
         self.store = store
         self.group = group
         self.grid = grid
         self.backend = backend
         self.window = window
-        self.device = resolve_device(device) if backend == "cuda" else None
+        self.mesh = mesh if backend == "cuda" else None
+        self.device = None
+        if backend == "cuda":
+            from frankenpaxos_tpu_torch.ops.quorum import mesh_device
+
+            self.device = resolve_device(device) if mesh is None \
+                else mesh_device(mesh, device)
         self._known = store.known(group)
         # dict backend: each zone's row, so that a vote is judged as
         # ``home_write_spec(zone).check(votes)`` judges it (a majority
@@ -84,6 +91,7 @@ class GeoQuorumTracker:
         specs, starts = self._specs_and_starts()
         self._checker = EpochSegmentedChecker(specs, starts,
                                               window=self.window,
+                                              mesh=self.mesh,
                                               device=self.device)
         # The reference's prewarm before client traffic (one K6 and one
         # K5 launch on the card).

@@ -6,7 +6,9 @@ row-major (rank ``r`` holds group shard ``r // slot_shards`` and slot
 shard ``r % slot_shards``), and a psum over an axis becomes an
 all-reduce SUM over that axis's subgroup -- the ranks that share the
 other coordinate. A psum over an axis of size 1 is the identity, so no
-collective runs for it.
+collective runs for it. An axis split over the whole mesh (the sharded
+vote board's slot columns) is split in rank order: rank ``r`` holds the
+``r``-th piece, as JAX's ``PartitionSpec(("group", "slot"))`` places it.
 
 The backend is chosen explicitly and printed by rank 0 when the world
 starts: ``nccl`` when every rank has a card of its own, ``gloo`` on the
@@ -124,13 +126,18 @@ class Mesh:
     def slot_axis(self) -> SlotAxis:
         return SlotAxis(self.slot_idx, self.slot_shards, self)
 
+    def _reduce(self, tensor: torch.Tensor, shards: int, pg,
+                op=dist.ReduceOp.SUM, async_op: bool = False):
+        if shards == 1:
+            return None if async_op else tensor
+        if pg is None:
+            raise RuntimeError("this mesh holds no process groups: make it "
+                               "with make_mesh")
+        work = dist.all_reduce(tensor, op=op, group=pg, async_op=async_op)
+        return work if async_op else tensor
+
     def _psum(self, tensor: torch.Tensor, shards: int, pg) -> torch.Tensor:
-        if shards > 1:
-            if pg is None:
-                raise RuntimeError("this mesh holds no process groups: "
-                                   "make it with make_mesh")
-            dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=pg)
-        return tensor
+        return self._reduce(tensor, shards, pg)
 
     def psum_group(self, tensor: torch.Tensor) -> torch.Tensor:
         """All-reduce SUM over the group axis, in place."""
@@ -139,6 +146,36 @@ class Mesh:
     def psum_slot(self, tensor: torch.Tensor) -> torch.Tensor:
         """All-reduce SUM over the slot axis, in place."""
         return self._psum(tensor, self.slot_shards, self.slot_pg)
+
+    def psum_mesh(self, tensor: torch.Tensor) -> torch.Tensor:
+        """All-reduce SUM over the whole mesh, in place (the identity on
+        a mesh of one rank)."""
+        return self._reduce(tensor, self.size, self.mesh_pg)
+
+    def psum_mesh_async(self, tensor: torch.Tensor):
+        """:meth:`psum_mesh` without waiting: the work handle to
+        ``wait()`` on before ``tensor`` is read, or None when nothing
+        runs (a mesh of one rank)."""
+        return self._reduce(tensor, self.size, self.mesh_pg, async_op=True)
+
+    def pmax_mesh(self, tensor: torch.Tensor) -> torch.Tensor:
+        """All-reduce MAX over the whole mesh, in place."""
+        return self._reduce(tensor, self.size, self.mesh_pg,
+                            op=dist.ReduceOp.MAX)
+
+    def columns(self, window: int) -> tuple:
+        """``(lo, hi)``: the slot columns ``[rank * w_local, (rank + 1) *
+        w_local)`` of a ``window``-column axis that this rank holds when
+        the axis is split over every rank of the mesh. Ranks are
+        row-major ``(group, slot)``, the order of the reference's
+        ``PartitionSpec(("group", "slot"))`` over
+        ``devices.reshape(group, slot)``. Raises unless the mesh size
+        divides ``window`` (the reference's words)."""
+        if window % self.size:
+            raise ValueError(f"window {window} must be a multiple of the "
+                             f"mesh size {self.size}")
+        w_local = window // self.size
+        return self.rank * w_local, (self.rank + 1) * w_local
 
     def close(self) -> None:
         """Destroy the mesh's subgroups (collective over the mesh)."""

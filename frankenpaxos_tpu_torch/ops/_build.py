@@ -138,6 +138,22 @@ SIGNATURES = {
         # n_global, slot_buf, telemetry buffer (or NULL)
         "fpx_shard_fold": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     },
+    # The pinned sharded drain (the telemetry-off K19-K21 copies).
+    "pipeline_sharded_baseline": {
+        # votes, commands, w_local, i, block_size, b_local, slot_idx,
+        # group_idx, n_local, kind, g, cols, local masks, parts
+        "fpx_shard_vote_count_baseline": [_P, _P, _L, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _P, _P, _I, _P],
+        # votes, chosen, commands, results, w_local, i, block_size,
+        # b_local, slot_idx, slot_shards, n_local, kind, g, thresholds,
+        # combine_any, parts, slot_buf
+        "fpx_shard_commit_baseline": [_P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _P, _I, _P, _P, _I,
+                                      _P],
+        # sm_state, committed, exec_wm, i, block_size, slot_shards,
+        # slot_buf
+        "fpx_shard_fold_baseline": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    },
 }
 
 

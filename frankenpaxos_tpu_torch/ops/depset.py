@@ -27,6 +27,11 @@ version beside it:
     :func:`contains`, with :func:`equal_plain`, :func:`size_plain` and
     :func:`contains_plain`.
 
+A batch may also be split by rows over a ``mesh.Mesh`` of ranks
+(:func:`shard_rows`): the rowwise functions (``union``, ``equal``,
+``size``, ...) then run on each rank's rows as they stand, and
+:func:`union_reduce_sharded` reduces across the ranks.
+
 A wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; anything else raises, and nothing falls back.
 The ``_checked`` forms read both tail bases on the host (a sync), as the
@@ -220,6 +225,39 @@ def union_reduce(d: DepSetBatch) -> DepSetBatch:
 
 
 union_reduce.launches = 0
+
+
+def shard_rows(d: DepSetBatch, mesh) -> DepSetBatch:
+    """This rank's rows of a batch whose B axis is split over every rank
+    of ``mesh`` in rank order (the reference's batch sharding over
+    ``PartitionSpec(("group", "slot"))``), ``tail_base`` whole, moved to
+    the mesh's device. Raises unless the mesh size divides B."""
+    _check(d)
+    lo, hi = mesh.columns(d.watermarks.shape[0])
+    dev = mesh.device
+    return DepSetBatch(d.watermarks[lo:hi].contiguous().to(dev),
+                       d.tails[lo:hi].contiguous().to(dev),
+                       d.tail_base.to(dev))
+
+
+def union_reduce_sharded(d: DepSetBatch, mesh) -> DepSetBatch:
+    """:func:`union_reduce` of a batch whose rows are split over
+    ``mesh`` (``d`` is this rank's rows, at the one ``tail_base`` every
+    rank holds): K10 on the local rows, an all-reduce MAX of the union
+    row's watermarks and tails over the mesh, then K9 on that row. Every
+    rank gets the whole batch's union row. It equals the unsharded
+    reduction because a normalized row is canonical for its set at a
+    fixed ``tail_base`` (the watermark is the least absent id from the
+    window on, or the row is left as it stands when the watermark is
+    below the window), normalization keeps the set, and MAX over rows of
+    0/1 tails is their union: so normalizing the max of the local union
+    rows gives the canonical row of the union of all rows, as
+    normalizing the max of all rows does. Tails must hold 0/1 bytes
+    (sets), as every batch built from prefix sets does."""
+    local = union_reduce(d)
+    mesh.pmax_mesh(local.watermarks)
+    mesh.pmax_mesh(local.tails)
+    return normalized(local)
 
 
 def conflict_max(seqs: torch.Tensor, d: DepSetBatch

@@ -27,6 +27,17 @@ its CUDA kernel (``csrc/quorum.cu``, ``sparse.cu``, ``epoch.cu``) for
 CUDA tensors and runs the plain version only for CPU tensors; it never
 falls back. The JAX reference donates the board; here the board tensors
 are updated IN PLACE (K7 alone writes a new tensor).
+
+The board may be split over a ``mesh.Mesh`` of ``torch.distributed``
+ranks (the reference's ``_shard_board``: the slot columns over every
+mesh axis, the acceptor axis whole on each shard). No kernel is needed
+for that beyond the ones above: with the acceptor axis whole, every
+per-column step of K2, K4, K5, K6 and K7 is local to the rank that holds
+the column, and the only value that crosses ranks is the per-lane
+result, which one rank computes. So the partitioned program is host
+arithmetic that maps each call onto local columns (no launch), the
+unchanged kernels on the local ``[N, W / size]`` board, and one
+all-reduce of the per-lane result per call (the sharded section below).
 """
 
 from __future__ import annotations
@@ -65,9 +76,15 @@ class VoteBoard(NamedTuple):
 _BOARD_DTYPES = (torch.uint8, torch.int32, torch.bool, torch.int32)
 
 
-def make_vote_board(window: int, num_nodes: int, device=None) -> VoteBoard:
+def make_vote_board(window: int, num_nodes: int, device=None,
+                    mesh=None) -> VoteBoard:
     """A fresh board on ``device`` (``cuda`` when None; raises without a
-    GPU)."""
+    GPU). With a ``mesh``, this rank's shard of a ``window``-column board
+    (:func:`shard_board`'s columns, on the mesh's device); raises unless
+    the mesh size divides ``window``."""
+    if mesh is not None:
+        lo, hi = mesh.columns(window)
+        window, device = hi - lo, mesh_device(mesh, device)
     device = resolve_device(device)
     return VoteBoard(
         votes=torch.zeros((num_nodes, window), dtype=torch.uint8,
@@ -813,6 +830,226 @@ def reshape_block(block: np.ndarray, old_universe, new_universe,
         stage(cmap, device)).cpu().numpy()
 
 
+# --- the sharded board: the slot axis over a mesh -------------------------------
+#
+# The reference's ``_shard_board`` splits the board's slot columns over
+# every axis of a mesh and keeps the acceptor axis whole on each device,
+# and XLA's partitioner inserts the collectives. Every per-column step of
+# K2, K4, K5, K6 and K7 reads and writes only its own column (plus
+# per-lane and per-call scalars), so on a rank that holds columns
+# ``[lo, hi)`` each kernel runs unchanged on the local ``[N, W / size]``
+# board: the only value that crosses ranks is a per-lane result
+# (``newly``), which exactly one rank computes. So the sharded forms below
+# are (1) host arithmetic that maps the call onto local columns, (2) the
+# kernel on the local board, and (3) one all-reduce SUM of the per-lane
+# result over the mesh (a uint8 0/1 view: gloo does not reduce bool
+# reliably). Every rank of the mesh makes the same calls in the same
+# order, and every rank gets the whole result.
+
+
+class MeshResult:
+    """A per-lane result whose mesh all-reduce may still be in flight:
+    :meth:`wait` (or ``.cpu()``, as a fetch of a device mask does) waits
+    on the all-reduce and returns the ``[B]`` bool tensor."""
+
+    __slots__ = ("_out", "_work")
+
+    def __init__(self, out: torch.Tensor, work) -> None:
+        self._out, self._work = out, work
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._out.view(torch.bool)
+
+    def cpu(self) -> torch.Tensor:
+        return self.wait().cpu()
+
+
+def mesh_device(mesh, device=None) -> torch.device:
+    """The device of a sharded board: ``mesh.device`` (a ``device`` of
+    another kind raises, as does a ``cuda`` mesh with no GPU present)."""
+    dev = torch.device(mesh.device)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device} is not the mesh's {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; make the mesh on "
+                           "the CPU (device_type='cpu') for the plain "
+                           "PyTorch versions")
+    return dev
+
+
+def shard_board(board: VoteBoard, mesh, window: int) -> VoteBoard:
+    """This rank's columns of a whole ``window``-column board (any
+    device), as a new contiguous board on the mesh's device: the
+    reference's ``_shard_board`` for one rank. Raises unless the mesh
+    size divides ``window``."""
+    lo, hi = mesh.columns(window)
+    if board.votes.shape[1] != window:
+        raise ValueError(f"a board of {board.votes.shape[1]} columns is not "
+                         f"a {window}-column window")
+    dev = mesh_device(mesh)
+    return VoteBoard(board.votes[:, lo:hi].contiguous().to(dev),
+                     *(t[lo:hi].contiguous().to(dev) for t in board[1:]))
+
+
+def _combine(mesh, out: torch.Tensor, async_op: bool):
+    """The mesh-wide sum of a uint8 per-lane result (each lane set by at
+    most one rank): a bool tensor, or a :class:`MeshResult` to wait on."""
+    if async_op:
+        return MeshResult(out, mesh.psum_mesh_async(out))
+    return mesh.psum_mesh(out).view(torch.bool)
+
+
+def localize_lanes(lanes: np.ndarray, mesh, window: int) -> tuple:
+    """``(local, owned)``: this rank's copy of a ``[5, B]`` lane array
+    (:func:`pack_lanes`) for a ``window`` split over ``mesh``, and which
+    lanes it owns. The owner of a lane follows JAX's index rules for the
+    GLOBAL window: a negative slot counts from the end; a slot still
+    ``>= window`` reads the clamped column ``window - 1`` and writes
+    nothing, so the last rank owns it at local slot ``w_local`` (out of
+    range there too); one still negative reads column 0 and writes
+    nothing, so rank 0 owns it at local slot ``-w_local - 1``. An owned
+    lane's slot is rebased to local columns; its true slot (the owner id
+    and K6's epoch key) is kept. A lane another rank owns becomes an
+    out-of-range invalid lane (local slot ``w_local``, valid 0), which
+    writes nothing and reports nothing -- not a pad lane at slot 0, whose
+    owner max would touch column 0."""
+    lo, hi = mesh.columns(window)
+    w_local = hi - lo
+    s = lanes[0].astype(np.int64)
+    s = np.where(s < 0, s + window, s)
+    owner = np.where(s < 0, 0, np.where(s >= window, mesh.size - 1,
+                                        s // w_local))
+    local_slot = np.where(s < 0, -w_local - 1,
+                          np.where(s >= window, w_local, s - lo))
+    owned = owner == mesh.rank
+    local = lanes.copy()
+    local[0] = np.where(owned, local_slot, w_local)
+    local[4] = np.where(owned, lanes[4], 0)
+    return local, owned
+
+
+def _host_lanes(lanes) -> np.ndarray:
+    lanes = np.asarray(lanes)
+    if lanes.dtype != np.int32 or lanes.ndim != 2 \
+            or lanes.shape[0] != LANE_FIELDS:
+        raise ValueError(f"lanes must be a [{LANE_FIELDS}, B] int32 host "
+                         f"array, got {lanes.dtype} {lanes.shape}")
+    return lanes
+
+
+def record_block_sharded(board: VoteBoard, mesh, start: int, true_start: int,
+                         block, vote_round: int, pred: QuorumPredicate, *,
+                         async_op: bool = False):
+    """K2 on a sharded board: records the host ``block [N, B]`` (uint8)
+    for GLOBAL columns ``[start, start + B)`` (within the window
+    ``w_local * mesh.size``) holding slots from ``true_start``. This rank
+    runs K2 on its part of the block, the local columns with
+    ``true_start`` shifted (as int32 wraps); a rank whose part is empty
+    launches nothing. Returns the ``[B]`` newly-chosen mask on every rank
+    (a :class:`MeshResult` when ``async_op``)."""
+    n, w_local = board.votes.shape
+    window = w_local * mesh.size
+    block = np.asarray(block)
+    if block.dtype != np.uint8 or block.ndim != 2 or block.shape[0] != n:
+        raise ValueError(f"block must be [{n}, B] uint8, got {block.dtype} "
+                         f"{block.shape}")
+    b = block.shape[1]
+    start, true_start, vote_round = (int32(start), int32(true_start),
+                                     int32(vote_round))
+    if not 0 <= start <= window - b:
+        raise ValueError(f"block [{start}, {start + b}) outside the "
+                         f"window {window}")
+    dev = board.votes.device
+    out = torch.zeros((b,), dtype=torch.uint8, device=dev)
+    part = block_part(mesh, window, start, b)
+    if part is not None:
+        first, last, local = part
+        out[first:last] = record_block(
+            board, local, _wrap32(true_start + first), stage(
+                block[:, first:last], dev), vote_round, pred)
+    return _combine(mesh, out, async_op)
+
+
+def block_part(mesh, window: int, start: int, b: int):
+    """This rank's part of the dense block of GLOBAL columns ``[start,
+    start + b)``: ``(first, last, local)`` -- the block's columns
+    ``[first, last)`` lie on this rank from local column ``local`` -- or
+    None when none does."""
+    lo, hi = mesh.columns(window)
+    first, last = max(start, lo), min(start + b, hi)
+    if first >= last:
+        return None
+    return first - start, last - start, first - lo
+
+
+def _sparse_sharded(board: VoteBoard, mesh, lanes, launch,
+                    async_op: bool):
+    lanes = _host_lanes(lanes)
+    window = board.votes.shape[1] * mesh.size
+    local, owned = localize_lanes(lanes, mesh, window)
+    dev = board.votes.device
+    b = lanes.shape[1]
+    if not b:
+        return torch.zeros((0,), dtype=torch.bool, device=dev)
+    if owned.any():
+        out = launch(stage(local, dev)).to(torch.uint8)
+    else:
+        out = torch.zeros((b,), dtype=torch.uint8, device=dev)
+    return _combine(mesh, out, async_op)
+
+
+def record_and_check_sharded(board: VoteBoard, mesh, lanes,
+                             pred: QuorumPredicate, *,
+                             async_op: bool = False):
+    """K4 on a sharded board: the host ``[5, B]`` int32 ``lanes``
+    (:func:`pack_lanes`, slots as the GLOBAL window sees them) localized
+    by :func:`localize_lanes`, K4 on the local board (not launched when
+    this rank owns no lane), and the per-lane result summed over the
+    mesh: the ``[B]`` newly mask on every rank."""
+    return _sparse_sharded(
+        board, mesh, lanes, lambda t: record_and_check(board, t, pred),
+        async_op)
+
+
+def record_and_check_epochs_sharded(board: VoteBoard, mesh, lanes,
+                                    boundaries: torch.Tensor,
+                                    planes: MultiPredicate, *,
+                                    async_op: bool = False):
+    """K6 on a sharded board, as :func:`record_and_check_sharded`; the
+    epoch planes and boundaries are whole on every rank, and each lane's
+    plane comes from its (unrebased) true slot."""
+    return _sparse_sharded(
+        board, mesh, lanes,
+        lambda t: record_and_check_epochs(board, t, boundaries, planes),
+        async_op)
+
+
+def release_sharded(board: VoteBoard, mesh, slots, valid) -> None:
+    """K5 on a sharded board: of the host ``[B]`` slots (JAX's rules for
+    the GLOBAL window: negative from the end, out of range dropped) this
+    rank resets the columns it holds; a rank that holds none launches
+    nothing. No collective: K5 returns nothing per lane."""
+    window = board.votes.shape[1] * mesh.size
+    lo, hi = mesh.columns(window)
+    s = np.asarray(slots).astype(np.int64)
+    valid = np.asarray(valid, dtype=bool)
+    if s.ndim != 1 or valid.shape != s.shape:
+        raise ValueError("release takes [B] slots and [B] valid")
+    s = np.where(s < 0, s + window, s)
+    mine = (s >= lo) & (s < hi)
+    if mine.any():
+        dev = board.votes.device
+        release(board, stage((s[mine] - lo).astype(np.int32), dev),
+                stage(valid[mine], dev))
+
+
+def _wrap32(x: int) -> int:
+    return (int(x) + 2**31) % 2**32 - 2**31
+
+
 # --- stateless wrappers -------------------------------------------------------
 
 
@@ -850,12 +1087,25 @@ class TpuQuorumChecker:
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the plain versions. The board lives on the
     device and is updated in place.
+
+    ``mesh`` (a ``mesh.Mesh`` of ``torch.distributed`` ranks): the board's
+    SLOT axis is split over every rank of the mesh in rank order (the
+    reference's ``_shard_board``), each rank holding ``window /
+    mesh.size`` columns on ``mesh.device``. Every rank builds the same
+    checker and makes the same calls in the same order, with the same
+    host inputs; the board calls run on local columns and sum their
+    per-lane result over the mesh, so every rank returns the unsharded
+    checker's answer. The stateless ``check_block`` / ``check_batch``
+    run whole on every rank, with no collective.
     """
 
-    def __init__(self, spec: QuorumSpec, window: int, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, spec: QuorumSpec, window: int, mesh=None,
+                 device=None):
         if window <= 0:
             raise ValueError("window must be positive")
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh_device(mesh, device)
         self.spec = spec
         self.window = window
         self.num_nodes = spec.num_nodes
@@ -868,16 +1118,18 @@ class TpuQuorumChecker:
         self._masks_t, self._meta = spec_statics(spec)
         self._pred = make_predicate(self._masks_t, *self._meta[:2],
                                     device=self.device)
-        self.board = make_vote_board(window, spec.num_nodes, self.device)
+        self.board = make_vote_board(window, spec.num_nodes, self.device,
+                                     mesh)
 
     def _to_device(self, block: np.ndarray) -> torch.Tensor:
         return stage(np.asarray(block, dtype=np.uint8), self.device)
 
     def record_block_async(self, start_slot: int, block: np.ndarray,
-                           vote_round: int = 0) -> torch.Tensor:
+                           vote_round: int = 0):
         """Like :meth:`record_block` but returns the DEVICE newly-chosen
         mask without waiting. It keeps the PADDED bucket length (entries
-        past the input width are padding)."""
+        past the input width are padding). On a mesh it is a
+        :class:`MeshResult`, whose ``.cpu()`` waits for the all-reduce."""
         n, b = block.shape
         if n != self.num_nodes:
             raise ValueError(f"block has {n} acceptor rows, spec has "
@@ -895,6 +1147,11 @@ class TpuQuorumChecker:
             block = np.concatenate(
                 [np.asarray(block, dtype=np.uint8),
                  np.zeros((n, padded - b), dtype=np.uint8)], axis=1)
+        if self.mesh is not None:
+            return record_block_sharded(
+                self.board, self.mesh, start, int32(start_slot),
+                np.asarray(block, dtype=np.uint8), int32(vote_round),
+                self._pred, async_op=True)
         return record_block(self.board, start, int32(start_slot),
                             self._to_device(block), int32(vote_round),
                             self._pred)
@@ -929,16 +1186,19 @@ class TpuQuorumChecker:
         return self.check_block_async(block).cpu().numpy()[:b]
 
     def record_and_check_async(self, slots, node_cols, rounds=None,
-                               pad_to: Optional[int] = None
-                               ) -> torch.Tensor:
+                               pad_to: Optional[int] = None):
         """Like :meth:`record_and_check` but returns the DEVICE per-vote
-        mask without waiting; it keeps the PADDED batch length."""
+        mask without waiting; it keeps the PADDED batch length (on a
+        mesh, a :class:`MeshResult`)."""
         slots = np.asarray(slots, dtype=np.int32)
         b = slots.shape[0]
         if b:
             self._note_slot_span(int(slots.min()), int(slots.max()))
         lanes = _checker_lanes(slots, node_cols, rounds, self.window,
                                _bucket(b) if pad_to is None else pad_to)
+        if self.mesh is not None:
+            return record_and_check_sharded(self.board, self.mesh, lanes,
+                                            self._pred, async_op=True)
         return record_and_check(self.board, stage(lanes, self.device),
                                 self._pred)
 
@@ -966,7 +1226,7 @@ class TpuQuorumChecker:
     def release(self, slots) -> None:
         """GC slot columns below the chosen watermark so the ring can
         wrap (K5)."""
-        _release_slots(self.board, slots)
+        _release_slots(self.board, slots, self.mesh)
 
     def check_batch(self, present: np.ndarray) -> np.ndarray:
         """Stateless: evaluate the predicate for ``[B, N]`` responder
@@ -999,8 +1259,14 @@ class TpuQuorumChecker:
             self._max_slot_seen = highest
 
 
-def _release_slots(board: VoteBoard, slots) -> None:
-    """K5 on the columns of ``slots`` (taken % window), all valid."""
+def _release_slots(board: VoteBoard, slots, mesh=None) -> None:
+    """K5 on the columns of ``slots`` (taken % window), all valid; on a
+    mesh, on the columns this rank holds."""
+    if mesh is not None:
+        window = board.votes.shape[1] * mesh.size
+        slots = np.asarray(slots, dtype=np.int32) % window
+        release_sharded(board, mesh, slots, np.ones(slots.shape[0], bool))
+        return
     window = board.votes.shape[1]
     slots = np.asarray(slots, dtype=np.int32) % window
     device = board.votes.device
@@ -1011,7 +1277,9 @@ def _release_slots(board: VoteBoard, slots) -> None:
 def _reshape_board(board: VoteBoard, old_universe,
                    new_universe) -> VoteBoard:
     """The board with its acceptor rows gathered onto ``new_universe``
-    by K7; the slot-axis state is kept."""
+    by K7; the slot-axis state is kept. A sharded board's reshape is the
+    same call on its local columns (the acceptor axis is whole on every
+    rank), with no collective."""
     cmap = epoch_column_map(old_universe, new_universe)
     return board._replace(votes=reshape_columns(
         board.votes, stage(cmap, board.votes.device)))
@@ -1030,23 +1298,31 @@ class EpochSegmentedChecker:
     handover. ``add_epoch`` grows the stack and reshapes the live board
     by K7, so mid-flight votes of surviving acceptors keep counting.
     ``device`` defaults to ``cuda``.
+
+    ``mesh``: the board's slot axis split over the mesh's ranks as in
+    :class:`TpuQuorumChecker`; the planes and boundaries are whole on
+    every rank (each builds them from the same specs), and ``add_epoch``
+    reshapes the local columns (K7, no collective).
     """
 
     def __init__(self, specs: Sequence[QuorumSpec], boundaries: Sequence[int],
-                 window: int = 4096, device=None):
+                 window: int = 4096, mesh=None, device=None):
         if len(specs) != len(boundaries):
             raise ValueError(
                 f"{len(specs)} specs vs {len(boundaries)} boundaries")
         if list(boundaries) != sorted(boundaries):
             raise ValueError(
                 f"epoch boundaries must be nondecreasing: {boundaries}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh_device(mesh, device)
         self.window = window
         self._own_specs = list(specs)
         self._starts = [int(b) for b in boundaries]
         self.universe: tuple = ()
         self._rebuild_universe()
-        self.board = make_vote_board(window, len(self.universe), self.device)
+        self.board = make_vote_board(window, len(self.universe), self.device,
+                                     mesh)
 
     def _rebuild_universe(self) -> None:
         seen: dict = {}
@@ -1111,13 +1387,17 @@ class EpochSegmentedChecker:
         b = slots.shape[0]
         lanes = _checker_lanes(slots, node_cols, rounds, self.window,
                                _bucket(b))
+        if self.mesh is not None:
+            return record_and_check_epochs_sharded(
+                self.board, self.mesh, lanes, self._boundaries,
+                self.planes).cpu().numpy()[:b]
         return record_and_check_epochs(
             self.board, stage(lanes, self.device), self._boundaries,
             self.planes).cpu().numpy()[:b]
 
     def release(self, slots) -> None:
         """GC chosen columns below the watermark (ring wrap; K5)."""
-        _release_slots(self.board, slots)
+        _release_slots(self.board, slots, self.mesh)
 
 
 class MultiConfigQuorumChecker:

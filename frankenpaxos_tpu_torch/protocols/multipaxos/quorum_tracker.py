@@ -55,8 +55,8 @@ CPU_MIN_DEVICE_SLOTS = 1024
 
 def _fetch(mask) -> np.ndarray:
     """A device mask on the host. Blocks only until this mask's copy is
-    done (everything queued before it on its stream); safe to call from
-    a collector thread."""
+    done (everything queued before it on its stream; on a mesh, its
+    all-reduce too); safe to call from a collector thread."""
     return mask.cpu().numpy()
 
 
@@ -152,11 +152,19 @@ class TpuQuorumTracker(QuorumTracker):
     device-link latency behind the event loop -- essential when the
     accelerator sits across a high-RTT link -- at the cost of one
     dispatch of added choose latency; the board must see every vote
-    because results are not available within the drain."""
+    because results are not available within the drain.
+
+    ``mesh`` (a ``mesh.Mesh``): the checker's board is split over the
+    mesh's ranks (``TpuQuorumChecker(mesh=)``) in both modes; the
+    synchronous mode's board is ``min(window, 4096)`` columns, so the
+    mesh size must divide that too. Every rank builds the same tracker
+    and is fed the same votes in the same order; the dedup ring, the
+    host spill tally and ``collect`` stay on the host of every rank, and
+    every rank reports the same pairs. The device is the mesh's."""
 
     def __init__(self, config: MultiPaxosConfig, window: int = 1 << 20,
                  pipelined: bool = False, device=None,
-                 min_device_slots: int = 0):
+                 min_device_slots: int = 0, mesh=None):
         import collections
 
         self.config = config
@@ -182,7 +190,7 @@ class TpuQuorumTracker(QuorumTracker):
         # there -- just enough columns for the largest dense bucket.
         checker_window = window if pipelined else min(window, 4096)
         self.checker = TpuQuorumChecker(spec, window=checker_window,
-                                        device=device)
+                                        mesh=mesh, device=device)
         self._slots: list[int] = []
         self._cols: list[int] = []
         self._rounds: list[int] = []

@@ -20,6 +20,7 @@ from frankenpaxos_tpu_torch.bench import (
     geo_lt,
     libbench,
     multichip,
+    multichip_board,
     multichip_lt,
     multipaxos_sim,
     pipeline as tp,
@@ -103,9 +104,10 @@ def test_imports_with_jax_and_reference_blocked():
 #: The modules of the ProxyLeader's vote path, of the MultiPaxos cluster,
 #: of the EPaxos dependency-set plane, of the BPaxos watermark plane, of
 #: the telemetry plane and its benches, of WPaxos over the geo simulator,
-#: and of the sharded drain (the mesh, the rank worker that spawned ranks
-#: import, its bench and the lane router); each must import with JAX and
-#: the JAX package blocked (test above) and name neither.
+#: of the sharded drain (the mesh, the rank worker that spawned ranks
+#: import, its bench and the lane router) and of the sharded vote board
+#: (its rank cases); each must import with JAX and the JAX package
+#: blocked (test above) and name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
     "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
@@ -132,7 +134,7 @@ PATH_MODULES = (
     "protocols.wpaxos.leader", "protocols.wpaxos.replica",
     "protocols.wpaxos.client", "protocols.wpaxos.harness",
     "bench.geo_lt", "bench.sim_core_ab", "mesh", "bench.multichip",
-    "bench.multichip_lt", "ingest", "ingest.shard",
+    "bench.multichip_lt", "ingest", "ingest.shard", "bench.multichip_board",
 )
 
 
@@ -259,6 +261,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         multichip.RankWorld(2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         multichip.dryrun(2)
+    # The sharded vote board: a mesh on the card raises with no GPU; a
+    # mesh made on the CPU (``device_type="cpu"``) is the only way to the
+    # plain versions.
+    card = Mesh(1, 1, 0, torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TpuQuorumTracker(config, mesh=card)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TpuQuorumTracker(config, pipelined=True, mesh=card)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.TpuQuorumChecker(spec, window=1024, mesh=card)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.EpochSegmentedChecker([spec], [0], mesh=card)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.make_vote_board(1024, 3, mesh=card)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GeoQuorumTracker(ObjectEpochStore(1, [0]), 0,
+                         ZoneGrid([[0, 1, 2]]), backend="cuda", mesh=card)
+    host = TpuQuorumTracker(config, mesh=Mesh(1, 1, 0, torch.device("cpu")))
+    assert host.checker.board.votes.device.type == "cpu"
     # Naming the CPU explicitly is the only way to the plain versions.
     assert tp.make_state(1024, 3, device="cpu").votes.device.type == "cpu"
 
@@ -368,6 +389,23 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     for wrapper in (tp.shard_vote_count, tp.shard_commit, tp.shard_fold):
         with pytest.raises(ValueError, match="meta"):
             wrapper(shard, 0, plan)
+    # The pinned mesh form's K19-K21 copies.
+    pinned, _ = tpin.make_sharded_state(mesh, 512, 256, 3)
+    pinned_plan = tpin.make_shard_plan(mesh, 256, pred)
+    for wrapper in (tpin.shard_vote_count, tpin.shard_commit,
+                    tpin.shard_fold):
+        with pytest.raises(ValueError, match="meta"):
+            wrapper(pinned, 0, pinned_plan)
+    # The sharded board's forms hand the local board to K2, K4 and K5.
+    sharded_board = tq.make_vote_board(256, 3, mesh=mesh)
+    with pytest.raises(ValueError, match="meta"):
+        tq.record_block_sharded(sharded_board, mesh, 0, 0,
+                                np.ones((3, 64), np.uint8), 0, pred)
+    with pytest.raises(ValueError, match="meta"):
+        tq.record_and_check_sharded(sharded_board, mesh, tq.pack_lanes(
+            [1], [1], [0], [0], [True]), pred)
+    with pytest.raises(ValueError, match="meta"):
+        tq.release_sharded(sharded_board, mesh, [1], [True])
     launches = [tq.quorum_hit, tq.record_block, tp.steady_state_step,
                 tq.record_and_check, tq.release, tq.check_batch_multi,
                 tq.record_and_check_epochs, tq.reshape_columns,
@@ -377,19 +415,33 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
                 tpin.steady_state_step, tv.count_matching_replies,
                 td.union, td.intersect, td.compact, td.equal, td.size,
                 td.contains, tsw.link_keep_mask_tensor,
-                tp.shard_vote_count, tp.shard_commit, tp.shard_fold]
+                tp.shard_vote_count, tp.shard_commit, tp.shard_fold,
+                tpin.shard_vote_count, tpin.shard_commit, tpin.shard_fold]
     assert [f.launches for f in launches] == [0] * len(launches)
 
 
 def test_spawned_rank_worker_loads_no_jax():
     """The rank worker that a sharded run spawns (``bench/multichip.py``)
     starts from a fresh interpreter and loads the port alone: never
-    ``jax`` nor the JAX package, though this process holds both."""
+    ``jax`` nor the JAX package, though this process holds both -- also
+    after it has run the sharded vote board's cases (a tracker replay,
+    the pinned mesh form)."""
     with multichip.RankWorld(2, device_type="cpu") as world:
         assert world.backend == "gloo"
         for modules in world.call("modules", deadline_s=60):
             assert not {"jax", "jaxlib", "frankenpaxos_tpu"} & set(modules)
             assert "frankenpaxos_tpu_torch" in modules
+        config = tracker_lt.make_config()
+        drains = tracker_lt.make_stream(1 << 10, 3, drain=256)
+        reports = multichip_board.same_on_every_rank(world.call(
+            "tracker_replay", group=1, slot=2, config=config, window=1 << 10,
+            pipelined=True, drains=drains))
+        assert sum(map(len, reports)) == 1 << 10
+        spec = SimpleMajority(range(3)).write_spec().as_arrays()
+        world.call("pinned_drain", group=1, slot=2, window=512, block=128,
+                   spec=spec, iters=3)
+        for modules in world.call("modules", deadline_s=60):
+            assert not {"jax", "jaxlib", "frankenpaxos_tpu"} & set(modules)
     with pytest.raises(ValueError, match="not in the port"):
         multichip._case("os:system")
 

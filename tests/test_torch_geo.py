@@ -37,6 +37,7 @@ from frankenpaxos_tpu_torch.geo import (
 )
 from frankenpaxos_tpu_torch.geo.epochs import GeoEpoch
 from frankenpaxos_tpu_torch.geo.transport import delivery_schedule
+from frankenpaxos_tpu_torch.mesh import Mesh
 from frankenpaxos_tpu_torch.ops import simwave as tsw
 from frankenpaxos_tpu_torch.quorums import (
     quorum_system_from_dict,
@@ -469,11 +470,23 @@ class TestGeoQuorumTracker:
         grid = ZoneGrid(GRID)
         with pytest.raises(ValueError, match="tpu"):
             GeoQuorumTracker(store, 0, grid, backend="tpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            GeoQuorumTracker(store, 0, grid, backend="cuda", mesh=object())
+        # A mesh is taken (the sharded board), on the mesh's device; a
+        # device of another kind is refused, and the dict oracle ignores
+        # the mesh.
+        cpu_mesh = Mesh(1, 1, 0, torch.device("cpu"))
+        sharded = GeoQuorumTracker(store, 0, grid, backend="cuda",
+                                   mesh=cpu_mesh)
+        assert sharded.device == torch.device("cpu")
+        with pytest.raises(ValueError, match="not the mesh's"):
+            GeoQuorumTracker(store, 0, grid, backend="cuda", mesh=cpu_mesh,
+                             device="meta")
+        assert GeoQuorumTracker(store, 0, grid, mesh=object()).device is None
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GeoQuorumTracker(store, 0, grid, backend="cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GeoQuorumTracker(store, 0, grid, backend="cuda", mesh=Mesh(
+                1, 1, 0, torch.device("cuda")))
         assert GeoQuorumTracker(store, 0, grid).device is None
 
 

@@ -226,12 +226,18 @@ def test_resumes_from_a_jax_state(world, shape):
                                           state=mid))
 
 
-def test_dryrun_multichip_entry(world):
+def test_dryrun_multichip_entry(world, capsys):
     """The port's twin of ``__graft_entry__.dryrun_multichip`` runs
-    clean on 8 ranks."""
+    clean on 8 ranks, its third part included: the pipelined tracker
+    with its board sharded over the 2x4 mesh chooses exactly three ring
+    wraps of slots, each drain equal to the dict oracle."""
     out = multichip.dryrun(8, world=world)
     assert out["mesh"] == "2x4"
     assert out["committed"] > 0 and out["grid_committed"] > 0
+    assert out["chosen"] == 3 << 10
+    assert ("vote board sharded over the mesh chose 3072 slots across 3 "
+            "ring wraps, bit-identical to the host oracle"
+            in capsys.readouterr().out)
 
 
 def test_worker_loads_no_jax(world):
