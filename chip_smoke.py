@@ -71,9 +71,14 @@ Phases, in order (any failure exits nonzero and prints no result):
      the cluster's traffic;
   15. K12 ``quorum_watermark`` and K13 ``contiguous_prefix_length``
      against their plain versions: exact. K12 at n in {1, 2, 3, 5, 7,
-     9, 33, 64} and B in {1, 4096, 2^16}, every quorum size in [1, n],
-     per-row sizes and the out-of-range 0, -1 and n + 1, values near
-     +-2^31; its vector form on int64 matrices that wrap to int32. K13
+     9, 31, 32, 33, 64, 65, 128, 1001} and B in {1, 4096, 2^16}, and at
+     n in {1025, 2500} (rows taken in tiles) and B in {1, 4096}, every
+     quorum size in [1, n] (a spread of them above 65), per-row sizes
+     and the out-of-range 0, -1 and n + 1, values near +-2^31 and ties,
+     strided rows, an ``out=`` buffer written and returned; a launch
+     inside a side stream's context ordered on that stream; its vector
+     form on int64 matrices that wrap to int32, in shapes that grow and
+     shrink between calls. K13
      on libbench's [4096] (one False in the middle), [4096, 3] rows,
      arbitrary bytes and signed types, all-true rows long enough for
      many passes, and an empty last axis;
@@ -118,9 +123,13 @@ Phases, in order (any failure exits nonzero and prints no result):
      K13 and K16's ``union`` must each have launched;
   22. K18 ``link_keep_mask`` against its plain version: exact, at 1000
      zones (a [1001, 1001] up-matrix with about 20% of its links down)
-     for n in {32, 33, 500, 4096, 65536}, ids at every edge of JAX's
-     index rule (-1, -Z-1, <= -Z-2, Z, > Z); the transport-facing
-     ``link_keep_mask_cuda`` equal to it, its result writable and not
+     for n in {1, 15, 16, 17, 31, 32, 33, 500, 4096, 65536}, ids at
+     every edge of JAX's index rule (-1, -Z-1, <= -Z-2, Z, > Z); on
+     views whose start is 1-15 elements off a 16-byte boundary at ragged
+     lengths, src, dst and an ``out=`` buffer offset alike and apart;
+     a launch inside a side stream's context ordered on that stream;
+     the transport-facing ``link_keep_mask_cuda`` equal to it (also at
+     ragged lengths after a longer wave), its result writable and not
      aliased by the next call, and a partition between two calls (a new
      ``up_matrix``) changing exactly the cut link's frames;
   23. the geo path, with every count set to 0 first: the geo_lt twin
@@ -178,10 +187,16 @@ Phases, in order (any failure exits nonzero and prints no result):
      unsharded pinned K3 copy); K1, K2, K4-K7 and the pinned copies must
      each have launched; the per-drain host ms split into the
      all-reduces' and the kernels' time;
-  27. per-kernel figures at the main paths' shapes: CUDA-event time per
-     call over many calls, the plain version's time, the time of one
+  27. the host time of K18's and K12's wrappers and transport-facing
+     entries, whole and split by function under ``cProfile``
+     (``bench/call_split.py``);
+     per-kernel figures at the main paths' shapes: CUDA-event time per
+     call over many calls (K12 and K18 in turns with their library call:
+     kernel, library, library, kernel, six blocks of 400 calls each, the
+     medians), the plain version's time, the time of one
      PyTorch call that computes the same function where there is one
-     (``torch.kthvalue`` for K12, ``up[src, dst]`` for K18), the bound
+     (``torch.kthvalue`` for K12, ``up[src, dst]`` for K18), the two
+     entries' host ms per call, the bound
      (bytes / 3.35 TB/s vs integer operations / 67 T/s, the larger) and
      the launches of phases 11, 12, 14, 16, 18, 21, 23-24, 25 and 26, printed
      as one ``{"kernels": [...]}`` line; before it, each headline arm's
@@ -195,6 +210,7 @@ import itertools
 import json
 import os
 import re
+import statistics
 import sys
 import time
 import warnings
@@ -202,6 +218,7 @@ import warnings
 import frankenpaxos_tpu_torch
 from frankenpaxos_tpu_torch.bench import (
     bpaxos_sim,
+    call_split,
     depset_lt,
     epaxos_sim,
     geo_lt,
@@ -669,16 +686,63 @@ def phase_depset(dev, rng) -> dict:
 
 
 #: K12's row widths and batch sizes (n 3 and B 1..2^16 cover the GC
-#: roles' [leaders, replicas] = [2, 3] and wider deployments).
-WATERMARK_WIDTHS = (1, 2, 3, 5, 7, 9, 33, 64)
+#: roles' [leaders, replicas] = [2, 3] and wider deployments; 31-33,
+#: 64-65, 128 and 1001 the warp kernel's edges: one lane per element,
+#: several per lane, up to 1024 in one tile of registers).
+WATERMARK_WIDTHS = (1, 2, 3, 5, 7, 9, 31, 32, 33, 64, 65, 128, 1001)
 WATERMARK_ROWS = (1, 4096, 1 << 16)
+#: Widths above 1024, which the warp kernel takes in tiles of 1024
+#: against the row read again by chunks of 32, at these batch sizes.
+WATERMARK_TILED_WIDTHS = (1025, 2500)
+WATERMARK_TILED_ROWS = (1, 4096)
+#: Widths above this are held at a spread of quorum sizes, not at every
+#: size in [1, n].
+WATERMARK_EVERY_Q = 65
 INT32_EXTREMES = np.array([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2,
                            2**31 - 1], dtype=np.int32)
 
 
+def _quorum_sizes(n: int) -> list:
+    """Every size in [1, n] up to ``WATERMARK_EVERY_Q``, else a spread;
+    and the out-of-range 0, -1 and n + 1."""
+    inside = range(1, n + 1) if n <= WATERMARK_EVERY_Q else sorted(
+        {1, 2, 3, n // 3, n // 2, n // 2 + 1, n - 2, n - 1, n})
+    return [*inside, 0, -1, n + 1]
+
+
+def _busy(dev) -> None:
+    """Enqueue some milliseconds of matrix products on the current
+    stream, so that work queued behind them waits."""
+    a = torch.ones((4096, 4096), device=dev)
+    for _ in range(8):
+        a @ a
+
+
+def side_stream_check(dev, name: str, stale, fresh, launch, want) -> None:
+    """A launch inside ``with torch.cuda.stream(s):`` must be ordered on
+    ``s``: ``fresh`` is copied into the input ``stale`` on ``s`` behind
+    some milliseconds of work, and the launch that follows on ``s`` must
+    read it (a launch on another stream would read the stale input)."""
+    side = torch.cuda.Stream(dev)
+    torch.cuda.synchronize(dev)
+    with torch.cuda.stream(side):
+        require(_build.stream_handle(dev.index) == side.cuda_stream,
+                f"{name}: the stream handle does not follow "
+                f"torch.cuda.stream")
+        _busy(dev)
+        stale.copy_(fresh)
+        got = launch()
+    side.synchronize()
+    require(torch.equal(got, want),
+            f"{name} launched inside a side stream's context was not "
+            f"ordered on that stream")
+    torch.cuda.synchronize(dev)
+
+
 def phase_watermark(dev, rng) -> dict:
     """K12 and K13 against their plain versions, exact: K12 at every
-    width of ``WATERMARK_WIDTHS`` and batch of ``WATERMARK_ROWS`` for
+    width of ``WATERMARK_WIDTHS`` and batch of ``WATERMARK_ROWS``, and
+    of ``WATERMARK_TILED_WIDTHS`` and ``WATERMARK_TILED_ROWS``, for
     every quorum size in [1, n], per-row sizes, and 0, -1, n + 1, with a
     quarter of the rows near +-2^31; its vector form on int64 matrices
     that wrap; K13 on bool, byte and signed rows of every kind the
@@ -691,27 +755,46 @@ def phase_watermark(dev, rng) -> dict:
         require(got.shape == want.shape and err == 0,
                 f"{name} differs from plain at {what}")
 
-    for n in WATERMARK_WIDTHS:
-        for b in WATERMARK_ROWS:
-            w = rng.integers(-1000, 1000, size=(b, n)).astype(np.int32)
-            w[: b // 4] = rng.choice(INT32_EXTREMES, size=(b // 4, n))
-            w[b // 4: b // 2] = rng.integers(0, 3, size=(b // 2 - b // 4, n))
-            wt = torch.from_numpy(w).to(dev)
-            for q in (*range(1, n + 1), 0, -1, n + 1):
-                check("quorum_watermark", tw.quorum_watermark(wt, q),
-                      tw.quorum_watermark_plain(wt, q), f"n={n} B={b} q={q}")
-            per_row = torch.from_numpy(rng.integers(
-                -1, n + 2, size=b).astype(np.int32)).to(dev)
-            check("quorum_watermark", tw.quorum_watermark(wt, per_row),
-                  tw.quorum_watermark_plain(wt, per_row),
-                  f"n={n} B={b} per-row q")
-            # The vector form's strided read: columns of a [n, B] matrix.
-            cols = wt.t().contiguous()
-            check("quorum_watermark", tw.quorum_watermark(cols.t(), 1),
-                  tw.quorum_watermark_plain(wt, 1), f"n={n} B={b} strided")
-    for shape in ((3, 2), (5, 3), (64, 7)):
+    cases = [(n, b) for n in WATERMARK_WIDTHS for b in WATERMARK_ROWS]
+    cases += [(n, b) for n in WATERMARK_TILED_WIDTHS
+              for b in WATERMARK_TILED_ROWS]
+    for n, b in cases:
+        w = rng.integers(-1000, 1000, size=(b, n)).astype(np.int32)
+        w[: b // 4] = rng.choice(INT32_EXTREMES, size=(b // 4, n))
+        w[b // 4: b // 2] = rng.integers(0, 3, size=(b // 2 - b // 4, n))
+        wt = torch.from_numpy(w).to(dev)
+        for q in _quorum_sizes(n):
+            check("quorum_watermark", tw.quorum_watermark(wt, q),
+                  tw.quorum_watermark_plain(wt, q), f"n={n} B={b} q={q}")
+        per_row = torch.from_numpy(rng.integers(
+            -1, n + 2, size=b).astype(np.int32)).to(dev)
+        check("quorum_watermark", tw.quorum_watermark(wt, per_row),
+              tw.quorum_watermark_plain(wt, per_row),
+              f"n={n} B={b} per-row q")
+        # The vector form's strided read: columns of a [n, B] matrix.
+        cols = wt.t().contiguous()
+        check("quorum_watermark", tw.quorum_watermark(cols.t(), 1),
+              tw.quorum_watermark_plain(wt, 1), f"n={n} B={b} strided")
+        # The out= buffer: written and returned itself.
+        out = torch.full((b,), 7, dtype=torch.int32, device=dev)
+        got = tw.quorum_watermark(cols.t(), (n + 1) // 2, out=out)
+        require(got is out, "quorum_watermark(out=) returned another "
+                "tensor")
+        check("quorum_watermark", out,
+              tw.quorum_watermark_plain(wt, (n + 1) // 2),
+              f"n={n} B={b} strided, out=")
+    # The transport of a GC fold: 4096 rows of 5, the input rewritten on
+    # a side stream just before the launch.
+    stale = torch.zeros((4096, 5), dtype=torch.int32, device=dev)
+    fresh = torch.from_numpy(rng.integers(-1000, 1000, size=(4096, 5))
+                             .astype(np.int32)).to(dev)
+    side_stream_check(dev, "quorum_watermark", stale, fresh,
+                      lambda: tw.quorum_watermark(stale, 3),
+                      tw.quorum_watermark_plain(fresh, 3))
+    for shape in ((3, 2), (5, 3), (64, 7), (33, 5), (1001, 3), (1025, 2),
+                  (3, 1), (2, 40), (0, 3), (5, 3)):
         m = rng.integers(0, 1 << 34, size=shape, dtype=np.int64)
-        for q in range(1, shape[0] + 1):
+        for q in range(1, max(shape[0], 1) + 1):
             got = tw.quorum_watermark_vector(m, q, device=dev)
             want = tw.quorum_watermark_vector(m, q, device="cpu")
             require(np.array_equal(got, want),
@@ -1110,9 +1193,12 @@ def phase_libbench(dev) -> tuple[dict, dict]:
 
 
 
-#: K18's zones (the storm's topology) and wave sizes.
+#: K18's zones (the storm's topology) and wave sizes (1-31: a wave
+#: shorter than the 16-frame head, 8-frame groups, and ragged tails).
 K18_ZONES = 1000
-K18_WAVES = (32, 33, 500, 4096, 1 << 16)
+K18_WAVES = (1, 15, 16, 17, 31, 32, 33, 500, 4096, 1 << 16)
+#: Ragged lengths of the offset views, and of the transport entry.
+K18_RAGGED = (1, 15, 16, 17, 31, 33, 500)
 
 
 def _k18_ids(rng, n: int, z: int) -> tuple:
@@ -1122,8 +1208,9 @@ def _k18_ids(rng, n: int, z: int) -> tuple:
                       2**31 - 1], np.int32)
     src = rng.integers(-1, z, n).astype(np.int32)
     dst = rng.integers(-1, z, n).astype(np.int32)
-    src[:len(edges)] = edges
-    dst[-len(edges):] = edges
+    k = min(n, len(edges))
+    src[:k] = edges[:k]
+    dst[n - k:] = edges[len(edges) - k:]
     return src, dst
 
 
@@ -1157,6 +1244,45 @@ def phase_k18(dev, rng) -> int:
         entry = tsw.link_keep_mask_cuda(src, dst, up)
         require(np.array_equal(entry, host.numpy()),
                 f"link_keep_mask_cuda differs from plain at n={n}")
+    # Views whose start is 1-15 elements off a 16-byte boundary, with
+    # src, dst and out offset alike (a head, 8-frame groups and a tail)
+    # and apart (no common aligned frame: every frame scalar).
+    for n in K18_RAGGED:
+        src, dst = _k18_ids(rng, n + 16, z)
+        src_t, dst_t = (torch.from_numpy(a).to(dev) for a in (src, dst))
+        out_t = torch.zeros(n + 16, dtype=torch.bool, device=dev)
+        for off in range(1, 16):
+            for d_off, o_off in ((off, off), (off, 0), ((off + 1) % 16, off),
+                                 (0, (off * 7) % 16)):
+                s_v, d_v = src_t[off:off + n], dst_t[d_off:d_off + n]
+                want = tsw.link_keep_mask_plain(s_v, d_v, up_t)
+                got = tsw.link_keep_mask_tensor(s_v, d_v, up_t)
+                into = tsw.link_keep_mask_tensor(s_v, d_v, up_t,
+                                                 out=out_t[o_off:])
+                err = max(max_abs_err(got, want), max_abs_err(into, want))
+                worst = max(worst, err)
+                require(err == 0 and into.data_ptr() == out_t[o_off:]
+                        .data_ptr(),
+                        f"link_keep_mask differs from plain at n={n}, "
+                        f"offsets src {off} dst {d_off} out {o_off}")
+        # The transport entry at ragged lengths, each after a longer
+        # wave (its reused buffers hold a stale tail).
+        tsw.link_keep_mask_cuda(*_k18_ids(rng, 4096, z), up)
+        entry = tsw.link_keep_mask_cuda(src[:n], dst[:n], up)
+        require(np.array_equal(entry, tsw.link_keep_mask_plain(
+            torch.from_numpy(src[:n]), torch.from_numpy(dst[:n]),
+            torch.from_numpy(up)).numpy()),
+            f"link_keep_mask_cuda differs from plain at n={n}")
+    # The FIFO arm's wave, its ids rewritten on a side stream just before
+    # the launch (from the sentinel row, every link up, to live ids).
+    n = sim_core_ab.FIFO_DEPTH
+    src, dst = _k18_ids(rng, n, z)
+    stale = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    fresh = torch.from_numpy(src).to(dev)
+    dst_t = torch.from_numpy(dst).to(dev)
+    side_stream_check(dev, "link_keep_mask", stale, fresh,
+                      lambda: tsw.link_keep_mask_tensor(stale, dst_t, up_t),
+                      tsw.link_keep_mask_plain(fresh, dst_t, up_t))
     # A partition between two calls: the topology hands out a new
     # up-matrix, and the cut link's frames (both ways) flip to dropped.
     topo = GeoTopology({f"r{i}": [f"z{i}-{j}" for j in range(10)]
@@ -1417,6 +1543,38 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: The in-turn order of phase 27's kernel-against-library timing (K18
+#: also with the main path's reused out= buffer), repeated
+#: ``TURN_ROUNDS`` times: each of the three gets six blocks.
+TURN_ORDER = ("kernel", "library", "out", "out", "library", "kernel")
+TURN_ROUNDS = 3
+TURN_CALLS = 400
+
+
+def in_turns(fns: dict) -> dict:
+    """CUDA-event ms per call of each of ``fns`` (keyed as in
+    ``TURN_ORDER``), timed in blocks of ``TURN_CALLS`` calls in turns;
+    ``{key: (median of its blocks, [blocks])}``."""
+    for fn in fns.values():
+        for _ in range(20):
+            fn()
+    torch.cuda.synchronize()
+    blocks = {key: [] for key in fns}
+    for _ in range(TURN_ROUNDS):
+        for key in TURN_ORDER:
+            if key not in fns:
+                continue
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(TURN_CALLS):
+                fns[key]()
+            end.record()
+            end.synchronize()
+            blocks[key].append(start.elapsed_time(end) / TURN_CALLS)
+    return {key: (statistics.median(b), b) for key, b in blocks.items()}
+
+
 def device_ms(fn, kernel: str, iters: int = 200):
     """Mean device time of ``kernel`` from the profiler's CUDA trace, or
     None when the trace shows no device time for it."""
@@ -1626,6 +1784,9 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     k18_pairs = len(np.unique(k18_src_np.astype(np.int64)
                               * (K18_ZONES + 1) + k18_dst_np))
     library["link_keep_mask"] = lambda: k18_up[k18_src_l, k18_dst_l]
+    k18_out = torch.empty(k18_n, dtype=torch.bool, device=dev)
+    with_out = {"link_keep_mask": lambda: tsw.link_keep_mask_tensor(
+        k18_src, k18_dst, k18_up, out=k18_out)}
 
     # K19-K21: rank 0's shard of phase 25's (1, 4) majority-3 mesh
     # (b_local 8192 of a 2^18-slot local window), telemetry off. A phase
@@ -1866,10 +2027,16 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     out = []
     for (name, fn, plain, kname, nbytes, ops, source, replaces,
          shape) in cases:
-        ms = time_ms(fn, 2000)
+        turns = None
+        if name in library:
+            # In turns with the library call (and the out= form).
+            turns = in_turns({"kernel": fn, "library": library[name],
+                              **({"out": with_out[name]}
+                                 if name in with_out else {})})
+            ms, library_ms = turns["kernel"][0], turns["library"][0]
+        else:
+            ms, library_ms = time_ms(fn, 2000), None
         plain_ms = time_ms(plain, 200)
-        library_ms = (time_ms(library[name], 2000) if name in library
-                      else None)
         dev_ms = device_ms(fn, kname)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / INT_OPS_PER_S * 1e3
@@ -1886,15 +2053,27 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
             "library_ms": library_ms, "device_ms": dev_ms, "bytes": nbytes,
             "shape": shape,
         })
-    # K18's transport-facing call (numpy in, ids through pinned staging,
-    # the mask back with a synchronise): host clock per call.
-    entry = (k18_src_np, k18_dst_np, k18_up_np)
-    tsw.link_keep_mask_cuda(*entry)
-    t0 = time.perf_counter()
-    for _ in range(200):
-        tsw.link_keep_mask_cuda(*entry)
-    row = next(r for r in out if r["name"] == "link_keep_mask")
-    row["entry_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+        if turns is not None:
+            out[-1]["in_turns_ms_blocks"] = {k: b for k, (_, b) in
+                                            turns.items()}
+            if "out" in turns:
+                out[-1]["ms_out"] = turns["out"][0]
+    # The transport-facing calls (numpy in, through reused pinned
+    # staging, one staged ctypes call, numpy out): host clock per call.
+    # K18 at the FIFO wave; K12's vector form on the GC roles' [3, 2].
+    frontiers_np = frontiers.cpu().numpy().astype(np.int64)
+    for name, call in (
+            ("link_keep_mask",
+             lambda: tsw.link_keep_mask_cuda(k18_src_np, k18_dst_np,
+                                             k18_up_np)),
+            ("quorum_watermark",
+             lambda: tw.quorum_watermark_vector(frontiers_np, k12_q))):
+        call()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            call()
+        row = next(r for r in out if r["name"] == name)
+        row["entry_ms"] = (time.perf_counter() - t0) / 2000 * 1e3
     return out
 
 
@@ -1992,7 +2171,9 @@ def main() -> int:
 
         errors.update(phase_watermark(dev, rng))
         phase(15, f"K12 quorum_watermark == plain at n in "
-            f"{list(WATERMARK_WIDTHS)}, B in {list(WATERMARK_ROWS)}, every "
+            f"{list(WATERMARK_WIDTHS)}, B in {list(WATERMARK_ROWS)}, and "
+            f"n in {list(WATERMARK_TILED_WIDTHS)}, B in "
+            f"{list(WATERMARK_TILED_ROWS)} (tiled), every "
             f"quorum size, per-row and out-of-range sizes, int64 that "
             f"wraps; K13 contiguous_prefix_length == plain on bool, byte "
             f"and signed rows")
@@ -2116,6 +2297,8 @@ def main() -> int:
         log(json.dumps({"sharded_board": board}))
 
         log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
+        split = call_split.split(dev)
+        log(json.dumps({"call_split": split}))
         kernels = phase_figures(dev, rng, {
             "headline_and_tracker": launches, "cluster": cluster_launches,
             "cluster_traffic": cluster["launches"],
@@ -2127,8 +2310,21 @@ def main() -> int:
             "libbench": lib_launches, "geo": geo_launches,
             "sharded": sharded_launches,
             "sharded_board": board_launches}, errors)
-        phase(27, f"per-kernel figures on {name} ({smi}); "
-            f"{time.perf_counter() - T0:.1f} s in all")
+        turns = {row["name"]: row for row in kernels
+                 if "in_turns_ms_blocks" in row}
+        phase(27, f"per-kernel figures on {name} ({smi}); in turns, ms "
+            f"per call: "
+            + "; ".join(f"{k} {row['ms']:.5f}"
+                        + (f" (out= {row['ms_out']:.5f})" if "ms_out" in row
+                           else "")
+                        + f" vs library {row['library_ms']:.5f}, device "
+                        f"{row['device_ms']} vs bound {row['bound_ms']:.4g},"
+                        f" entry {row['entry_ms']:.5f}"
+                        for k, row in turns.items())
+            + "; whole calls (host ns): "
+            + ", ".join(f"{k} {v['whole_ns']:.0f}"
+                        for k, v in split["paths"].items())
+            + f"; {time.perf_counter() - T0:.1f} s in all")
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

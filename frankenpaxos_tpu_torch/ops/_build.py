@@ -10,7 +10,21 @@ Nothing is built at import time.
 
 Each C entry point takes every pointer and the stream as ``void*``,
 launches on the caller's stream, never synchronises, and returns
-``cudaGetLastError()``; :func:`check` raises when that is not 0.
+``cudaGetLastError()``; :func:`check` raises when that is not 0. The
+exceptions are the two ``*_staged`` entry points, which run a
+transport-facing call whole (copy up, launch, copy down) and return
+after the stream has drained.
+
+The lean call path (:class:`Entry`, :func:`stream_handle`) serves the
+wrappers whose host cost is the call itself (K12, K18): the entry point
+is looked up once; its arguments cross as ONE packed block of int64
+(``struct`` bytes), which ctypes converts once instead of one argument
+at a time; a launch-only entry is called through a ``ctypes.PyDLL``
+handle (it keeps the GIL, which a call that only enqueues does not need
+to give up), a staged entry through a ``ctypes.CDLL`` handle (it waits
+for its stream, and other Python threads run meanwhile); and the stream
+handle is read in the cheapest public form, on every call, so that a
+launch follows a caller's ``with torch.cuda.stream(s):``.
 """
 
 from __future__ import annotations
@@ -21,9 +35,13 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
+from typing import NamedTuple
 
+from frankenpaxos_tpu_torch.device import resolve_device
+import numpy as np
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -34,6 +52,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: One packed block of int64 arguments (``struct`` bytes, which
+#: ``c_void_p`` passes as a pointer to their buffer; see :class:`Entry`).
+_B = [_P]
 # The shared quorum predicate (csrc/quorum.cuh): masks, thresholds and
 # perm pointers, then n, g, combine_any, grid_kind, rows, cols.
 _PRED = [_P, _P, _P, _I, _I, _I, _I, _I, _I]
@@ -98,9 +119,13 @@ SIGNATURES = {
                              _I, _P, _I, _P],
     },
     "watermark": {
-        # watermarks, rows, n, row_stride, elem_stride, quorum sizes (or
-        # NULL), quorum size, out
-        "fpx_quorum_watermark": [_P, _L, _I, _L, _L, _P, _I, _P, _I, _P],
+        # packed: watermarks, rows, n, row_stride, elem_stride, quorum
+        # sizes (or 0), quorum size, out, device, stream
+        "fpx_quorum_watermark": _B,
+        # packed: pinned [n, depth] int32, its device copy, n, depth,
+        # quorum size, device out [depth], pinned out [depth], device,
+        # stream
+        "fpx_quorum_watermark_staged": _B,
         # present, elem_kind, rows, length, row_stride, elem_stride, out
         "fpx_contiguous_prefix_length": [_P, _I, _L, _L, _L, _L, _P, _I,
                                          _P],
@@ -115,8 +140,13 @@ SIGNATURES = {
                                             _I, _I, *_PRED, _P, _I, _P],
     },
     "simwave": {
-        # src zones, dst zones, n, up, rows, cols, out
-        "fpx_link_keep_mask": [_P, _P, _L, _P, _I, _I, _P, _I, _P],
+        # packed: src zones, dst zones, n, up, rows, cols, out, device,
+        # stream
+        "fpx_link_keep_mask": _B,
+        # packed: pinned ids (src, then dst at an offset), their device
+        # copy, n, dst offset, up, rows, cols, device mask, pinned mask,
+        # device, stream
+        "fpx_link_keep_mask_staged": _B,
     },
     # The pinned pre-telemetry drain: K3's arguments.
     "pipeline_baseline": {
@@ -259,6 +289,112 @@ def stream_args(device: torch.device) -> tuple:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return index, torch.cuda.current_stream(index).cuda_stream
+
+
+@functools.cache
+def packed_library(name: str, keep_gil: bool) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library (built first if needed) with its
+    packed entry points declared, through a ``PyDLL`` handle (calls keep
+    the GIL) when ``keep_gil``, else a ``CDLL`` one (calls release it)."""
+    library(name)
+    lib = (ctypes.PyDLL if keep_gil else ctypes.CDLL)(_target(name))
+    for fn, argtypes in SIGNATURES[name].items():
+        if argtypes is _B:
+            entry = getattr(lib, fn)
+            entry.argtypes = argtypes
+            entry.restype = ctypes.c_int
+    return lib
+
+
+class Entry:
+    """One packed C entry point of ``csrc/<source>.cu``, looked up once:
+    ``fn`` is None until :meth:`resolve` (which builds and loads the
+    library at the first launch), then the ``ctypes`` function itself,
+    called as ``fn(entry.pack(*slots))`` with its ``slots`` int64
+    arguments (0 for a null pointer). ``keep_gil`` is False for an entry
+    that waits on the device, so that other threads run while it waits."""
+
+    __slots__ = ("source", "name", "fn", "pack", "keep_gil")
+
+    def __init__(self, source: str, name: str, slots: int,
+                 keep_gil: bool = True):
+        self.source, self.name, self.fn = source, name, None
+        self.pack = struct.Struct(f"={slots}q").pack
+        self.keep_gil = keep_gil
+
+    def resolve(self):
+        self.fn = getattr(packed_library(self.source, self.keep_gil),
+                          self.name)
+        return self.fn
+
+    def check(self, rc: int) -> None:
+        """Raise when the call reported a CUDA error."""
+        check(self.source, self.name, rc)
+
+
+class Pair(NamedTuple):
+    """A pinned host buffer and a device buffer of ``cap`` elements, the
+    host one's numpy view, and both pointers."""
+
+    cap: int
+    host: np.ndarray
+    host_ptr: int
+    device_ptr: int
+    tensors: tuple
+
+
+class Staging:
+    """One device's staging for a transport-facing call, reused across
+    calls: named pinned-host / device buffer pairs, each grown to a power
+    of two on demand, and a stream of its own. The staged C call drains
+    that stream before it returns, so it waits for its own work only,
+    not for a caller's queued work, and a buffer is free again when the
+    next call writes it."""
+
+    def __init__(self, device: torch.device):
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device, self.index = device, device.index
+        self.stream = torch.cuda.Stream(device)
+        self.stream_handle = self.stream.cuda_stream
+        self.pairs: dict = {}
+
+    def pair(self, name: str, n: int, dtype: torch.dtype) -> Pair:
+        got = self.pairs.get(name)
+        if got is None or got.cap < n:
+            cap = 1 << max(5, (n - 1).bit_length())
+            host = torch.empty(cap, dtype=dtype, pin_memory=True)
+            device = torch.empty(cap, dtype=dtype, device=self.device)
+            got = self.pairs[name] = Pair(cap, host.numpy(), host.data_ptr(),
+                                          device.data_ptr(), (host, device))
+        return got
+
+
+def staging(table: dict, device, make=Staging):
+    """``table``'s staging for ``device``, made by ``make(dev)`` at its
+    first call, or None where ``device`` resolves to the CPU (which
+    raises when ``device`` is None and there is no GPU). ``device=None``
+    is the current card, looked up on every call; a named device is
+    resolved at its first call."""
+    key = device
+    if device is None and torch.cuda.is_initialized():
+        key = torch.cuda.current_device()
+    got = table.get(key)
+    if got is None:
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            return None
+        got = make(dev)
+        table[got.index if device is None else device] = got
+    return got
+
+
+def stream_handle(index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device
+    ``index`` (``with torch.cuda.stream(s):`` included), read on every
+    call: through ``torch.accelerator``, which builds no Python-level
+    stream object (``bench/call_split.py`` times the public forms)."""
+    return torch.accelerator.current_stream(index).native_handle
 
 
 def check(name: str, entry: str, rc: int) -> None:

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import os
 
-from frankenpaxos_tpu_torch.device import resolve_device
 from frankenpaxos_tpu_torch.ops import _build
 from frankenpaxos_tpu_torch.ops.quorum import use_kernel
 import numpy as np
@@ -73,20 +72,41 @@ def link_keep_mask(src_zones: np.ndarray, dst_zones: np.ndarray,
 # --- K18: the link mask on the card ------------------------------------------
 
 
+_INT32, _BOOL = torch.int32, torch.bool
+
+
 def _check_k18(src: torch.Tensor, dst: torch.Tensor,
-               up: torch.Tensor) -> None:
-    if src.dtype != torch.int32 or dst.dtype != torch.int32 \
-            or src.dim() != 1 or src.shape != dst.shape:
+               up: torch.Tensor) -> tuple[int, int, int]:
+    """Raise unless ``src``/``dst`` are ``[n]`` int32 and ``up`` a 2-D
+    bool matrix with a link to read when ``n > 0``; returns ``(n, rows,
+    cols)``."""
+    shape = src.shape
+    if src.dtype is not _INT32 or dst.dtype is not _INT32 \
+            or len(shape) != 1 or dst.shape != shape:
         raise ValueError(
             f"link_keep_mask takes two [n] int32 zone-id vectors, got "
             f"{src.dtype} {tuple(src.shape)} and {dst.dtype} "
             f"{tuple(dst.shape)}")
-    if up.dtype != torch.bool or up.dim() != 2:
+    try:
+        if up.dtype is not _BOOL:
+            raise ValueError
+        rows, cols = up.shape
+    except ValueError:
         raise ValueError(f"link_keep_mask takes a [Z+1, Z+1] bool "
-                         f"up-matrix, got {up.dtype} {tuple(up.shape)}")
-    if src.shape[0] and (up.shape[0] == 0 or up.shape[1] == 0):
+                         f"up-matrix, got {up.dtype} {tuple(up.shape)}"
+                         ) from None
+    n = shape[0]
+    if n and not rows * cols:
         raise ValueError("link_keep_mask: an empty up-matrix has no link "
                          "to read")
+    return n, rows, cols
+
+
+def _check_out(out: torch.Tensor, n: int) -> None:
+    if out.dtype is not _BOOL or out.dim() != 1 or out.shape[0] < n \
+            or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous [>= {n}] bool buffer, "
+                         f"got {out.dtype} {tuple(out.shape)}")
 
 
 def _jax_index(ids: torch.Tensor, size: int) -> torch.Tensor:
@@ -107,127 +127,154 @@ def link_keep_mask_plain(src_zones: torch.Tensor, dst_zones: torch.Tensor,
               _jax_index(dst_zones, up.shape[1])]
 
 
+_K18 = _build.Entry("simwave", "fpx_link_keep_mask", 9)
+_K18_STAGED = _build.Entry("simwave", "fpx_link_keep_mask_staged", 11,
+                             keep_gil=False)
+
+
 def link_keep_mask_tensor(src_zones: torch.Tensor, dst_zones: torch.Tensor,
                           up: torch.Tensor,
                           out: torch.Tensor | None = None) -> torch.Tensor:
     """K18: ``up[src, dst]`` per frame of a wave (JAX's index rules),
-    ``[n]`` bool. CUDA tensors launch ``link_keep_mask_kernel``; CPU
-    tensors run the plain version; anything else raises. ``out``, a
-    CUDA ``[>= n]`` bool buffer, receives the mask (its first ``n``
-    elements are returned) so a caller can reuse one buffer."""
-    _check_k18(src_zones, dst_zones, up)
-    tensors = (src_zones, dst_zones, up) + ((out,) if out is not None
-                                            else ())
-    if not use_kernel(*tensors):
-        return link_keep_mask_plain(src_zones, dst_zones, up)
-    n = src_zones.shape[0]
-    if out is None:
-        out = torch.empty(n, dtype=torch.bool, device=up.device)
-    elif out.dtype != torch.bool or out.dim() != 1 or out.shape[0] < n:
-        raise ValueError(f"out must be a [>= {n}] bool buffer, got "
-                         f"{out.dtype} {tuple(out.shape)}")
+    ``[n]`` bool. Tensors on one CUDA device launch
+    ``link_keep_mask_kernel`` on the current stream; CPU tensors run the
+    plain version; anything else raises. ``out``, a contiguous ``[>= n]``
+    bool buffer on the inputs' device, receives the mask: it is returned
+    itself when it is ``n`` long, else its first ``n`` elements, so that
+    a caller can reuse one buffer.
+
+    The call path is lean: the device test is three ``get_device``
+    reads, ``.contiguous()`` runs only on a strided input (the kernel
+    takes any 1-D offset and length), and a fresh output is allocated
+    exactly ``n`` long."""
+    index = up.get_device()
+    if index < 0 or src_zones.get_device() != index \
+            or dst_zones.get_device() != index \
+            or (out is not None and out.get_device() != index):
+        n = _check_k18(src_zones, dst_zones, up)[0]
+        tensors = (src_zones, dst_zones, up) + ((out,) if out is not None
+                                                else ())
+        if not use_kernel(*tensors):
+            mask = link_keep_mask_plain(src_zones, dst_zones, up)
+            if out is None:
+                return mask
+            _check_out(out, n)
+            return out[:n].copy_(mask) if out.shape[0] != n \
+                else out.copy_(mask)
+    n, rows, cols = _check_k18(src_zones, dst_zones, up)
+    fresh = out is None
+    if fresh:
+        out = up.new_empty(n)
+    else:
+        _check_out(out, n)
     if n == 0:
-        return out[:0]
-    src_zones, dst_zones = src_zones.contiguous(), dst_zones.contiguous()
-    up = up.contiguous()
-    lib = _build.library("simwave")
-    rc = lib.fpx_link_keep_mask(
-        src_zones.data_ptr(), dst_zones.data_ptr(), n, up.data_ptr(),
-        up.shape[0], up.shape[1], out.data_ptr(),
-        *_build.stream_args(up.device))
-    _build.check("simwave", "fpx_link_keep_mask", rc)
+        return out if fresh or out.shape[0] == 0 else out[:0]
+    if not src_zones.is_contiguous():
+        src_zones = src_zones.contiguous()
+    if not dst_zones.is_contiguous():
+        dst_zones = dst_zones.contiguous()
+    if not up.is_contiguous():
+        up = up.contiguous()
+    fn = _K18.fn or _K18.resolve()
+    rc = fn(_K18.pack(src_zones.data_ptr(), dst_zones.data_ptr(), n,
+                      up.data_ptr(), rows, cols, out.data_ptr(), index,
+                      _build.stream_handle(index)))
+    if rc:
+        _K18.check(rc)
     link_keep_mask_tensor.launches += 1
-    return out[:n]
+    return out if fresh or out.shape[0] == n else out[:n]
 
 
 link_keep_mask_tensor.launches = 0
 
 
-class _Staging:
-    """One device's staging for the transport-facing call: a pinned host
-    buffer and a device buffer for the wave's ``[2, cap]`` zone ids, a
-    device and a pinned host buffer for the ``[cap]`` mask (``cap`` a
-    power of two, grown on demand), and the device copy of the last
-    up-matrix with a reference to its numpy source, so that the source's
-    ``id`` cannot be reused while the copy is kept."""
+class _Staging(_build.Staging):
+    """One device's staging for the transport-facing call: the wave's ids
+    (``src`` at ``[0, n)``, ``dst`` from the next multiple of 4, so both
+    sit on 16 bytes and one copy moves both) and its mask, and the device
+    copy of the last up-matrix with a reference to its numpy source, so
+    that the source's ``id`` cannot be reused while the copy is kept."""
 
     def __init__(self, device: torch.device):
-        self.device = device
-        self.cap = 0
+        super().__init__(device)
         self.up_source = None
         self.up_device = None
 
-    def grow(self, n: int) -> None:
-        if n <= self.cap:
-            return
-        cap = 1 << max(5, (n - 1).bit_length())
-        self.ids_host = torch.empty((2, cap), dtype=torch.int32,
-                                    pin_memory=True)
-        self.ids_device = torch.empty((2, cap), dtype=torch.int32,
-                                      device=self.device)
-        self.mask_device = torch.empty(cap, dtype=torch.bool,
-                                       device=self.device)
-        self.mask_host = torch.empty(cap, dtype=torch.bool,
-                                     pin_memory=True)
-        self.cap = cap
-
     def up(self, up: np.ndarray) -> torch.Tensor:
         if up is not self.up_source:
+            if up.dtype != np.bool_ or up.ndim != 2:
+                raise ValueError(f"link_keep_mask_cuda takes a 2-D bool "
+                                 f"up-matrix, got {up.dtype} {up.shape}")
+            # A synchronous copy: the up-matrix is on the card before the
+            # staged call's stream reads it.
             self.up_device = torch.from_numpy(
                 np.ascontiguousarray(up)).to(self.device)
             self.up_source = up
         return self.up_device
 
 
+#: ``{card index, or the device named: _Staging}`` (``_build.staging``).
 _STAGING: dict = {}
 
 
 def link_keep_mask_cuda(src_zones: np.ndarray, dst_zones: np.ndarray,
                         up: np.ndarray, device=None) -> np.ndarray:
     """K18 for the geo transport (the JAX twin ``link_keep_mask_jit``'s
-    contract): numpy zone ids ``[n]`` (taken as int32) and the
-    topology's ``[Z+1, Z+1]`` bool up-matrix in, a WRITABLE numpy bool
-    ``[n]`` out, never a view of a buffer the next call reuses (the
-    transport ANDs the partition mask into it in place).
+    contract): numpy zone ids ``[n]`` (taken as int32, wrapped as
+    ``astype`` wraps) and the topology's ``[Z+1, Z+1]`` bool up-matrix
+    in, a WRITABLE numpy bool ``[n]`` out, never a view of a buffer the
+    next call reuses (the transport ANDs the partition mask into it in
+    place).
 
-    ``device`` is ``cuda`` when None (and raises without a GPU: there is
-    no numpy fall-back); ``"cpu"`` runs the plain version. The device
-    copy of ``up`` is kept per device and re-uploaded only when a
-    different array arrives: ``GeoTopology.up_matrix`` returns one
-    cached array until a partition or heal, then a new one, and never
-    edits an array it handed out. The ids cross through reused
-    power-of-two pinned buffers with one upload, and the mask comes back
-    with one download and a synchronise."""
-    device = resolve_device(device)
-    src = np.asarray(src_zones).astype(np.int32, copy=False)
-    dst = np.asarray(dst_zones).astype(np.int32, copy=False)
-    up = np.asarray(up)
-    if up.dtype != np.bool_:
-        raise ValueError(f"link_keep_mask_cuda takes a bool up-matrix, "
-                         f"got {up.dtype}")
-    n = src.shape[0]
-    if device.type != "cuda":
+    ``device`` is the current card when None (and raises without a GPU:
+    there is no numpy fall-back; a named device is resolved at its first
+    call); ``"cpu"`` runs the plain version. The device copy of ``up``
+    is kept per device and re-uploaded only when a different array
+    arrives: ``GeoTopology.up_matrix`` returns one cached array until a
+    partition or heal, then a new one, and never edits an array it
+    handed out. A wave costs two numpy writes into reused pinned memory,
+    ONE ``ctypes`` call (the ids up in one copy, the launch, the mask
+    down, a wait on the staging's own stream, with the GIL released)
+    and a numpy copy out."""
+    staging = _build.staging(_STAGING, device, _Staging)
+    if staging is None:
+        src = np.asarray(src_zones).astype(np.int32, copy=False)
+        dst = np.asarray(dst_zones).astype(np.int32, copy=False)
+        up = np.asarray(up)
+        if up.dtype != np.bool_:
+            raise ValueError(f"link_keep_mask_cuda takes a bool "
+                             f"up-matrix, got {up.dtype}")
         return link_keep_mask_tensor(
             torch.from_numpy(src.copy()), torch.from_numpy(dst.copy()),
             torch.from_numpy(up.copy()).to(device)).cpu().numpy()
-    staging = _STAGING.get(device)
-    if staging is None:
-        staging = _STAGING[device] = _Staging(device)
-    staging.grow(n)
-    ids = staging.ids_host.numpy()
-    ids[0, :n] = src
-    ids[1, :n] = dst
-    # The copy is ordered on the stream before the launch, and the call
-    # synchronises on its result, so the pinned buffer is free again
-    # when the next call overwrites it.
-    staging.ids_device[:, :n].copy_(staging.ids_host[:, :n],
-                                    non_blocking=True)
-    mask = link_keep_mask_tensor(staging.ids_device[0, :n],
-                                 staging.ids_device[1, :n],
-                                 staging.up(up), out=staging.mask_device)
-    staging.mask_host[:n].copy_(mask, non_blocking=True)
-    torch.cuda.current_stream(device).synchronize()
-    return staging.mask_host[:n].numpy().copy()
+    src = np.asarray(src_zones)
+    dst = np.asarray(dst_zones)
+    n = src.shape[0]
+    if src.ndim != 1 or dst.shape != (n,):
+        raise ValueError(f"link_keep_mask_cuda takes two [n] zone-id "
+                         f"vectors, got {src.shape} and {dst.shape}")
+    up_device = staging.up(up if isinstance(up, np.ndarray)
+                           else np.asarray(up))
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    rows, cols = up_device.shape
+    if not rows * cols:
+        raise ValueError("link_keep_mask: an empty up-matrix has no link "
+                         "to read")
+    offset = (n + 3) & ~3
+    ids = staging.pair("ids", offset + n, torch.int32)
+    mask = staging.pair("mask", n, torch.bool)
+    ids.host[:n] = src  # an unsafe cast, as astype: int64 ids wrap
+    ids.host[offset:offset + n] = dst
+    fn = _K18_STAGED.fn or _K18_STAGED.resolve()
+    rc = fn(_K18_STAGED.pack(ids.host_ptr, ids.device_ptr, n, offset,
+                             up_device.data_ptr(), rows, cols,
+                             mask.device_ptr, mask.host_ptr, staging.index,
+                             staging.stream_handle))
+    if rc:
+        _K18_STAGED.check(rc)
+    link_keep_mask_tensor.launches += 1
+    return mask.host[:n].copy()
 
 
 #: The link-mask kernel the geo transport dispatches through (looked up

@@ -107,28 +107,67 @@ def quorum_watermark_plain(watermarks: torch.Tensor, quorum_size
                        torch.tensor(INT32_MIN, dtype=torch.int32, device=dev))
 
 
-def quorum_watermark(watermarks: torch.Tensor, quorum_size) -> torch.Tensor:
+_K12 = _build.Entry("watermark", "fpx_quorum_watermark", 10)
+_K12_STAGED = _build.Entry("watermark", "fpx_quorum_watermark_staged", 9,
+                             keep_gil=False)
+
+
+def _check_out(out: torch.Tensor, lead: tuple) -> None:
+    if out.dtype is not torch.int32 or tuple(out.shape) != lead \
+            or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {list(lead)} int32 "
+                         f"tensor, got {out.dtype} {tuple(out.shape)}")
+
+
+def quorum_watermark(watermarks: torch.Tensor, quorum_size,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """K12: per row of ``[..., n]`` int32 ``watermarks``, the largest w
     that at least ``quorum_size`` of the row reach (element ``n -
     quorum_size`` of the row sorted ascending); ``[...]`` int32.
     ``quorum_size`` is an int or an int32 tensor that broadcasts over the
     leading axes. The row may be strided (the vector form passes a
-    transposed view)."""
-    _check_watermarks(watermarks)
-    if not use_kernel(watermarks):
-        return quorum_watermark_plain(watermarks, quorum_size)
-    lead, n = tuple(watermarks.shape[:-1]), watermarks.shape[-1]
-    per_row, scalar = _quorum_sizes(quorum_size, lead, watermarks.device)
-    rows, row_stride, elem_stride = _rows(watermarks, "quorum_watermark")
-    out = torch.empty(lead, dtype=torch.int32, device=watermarks.device)
+    transposed view). ``out``, a contiguous ``[...]`` int32 tensor on the
+    watermarks' device, receives the result and is returned.
+
+    The call path is lean: a 2-D input (the GC roles') is read by its
+    shape and strides, never viewed, and an int quorum size is range-
+    checked in place."""
+    index = watermarks.get_device()
+    if index < 0 or (out is not None and out.get_device() != index):
+        _check_watermarks(watermarks)
+        if not use_kernel(watermarks, *(() if out is None else (out,))):
+            got = quorum_watermark_plain(watermarks, quorum_size)
+            if out is None:
+                return got
+            _check_out(out, tuple(watermarks.shape[:-1]))
+            return out.copy_(got)
+    if watermarks.dtype is not torch.int32 or watermarks.dim() != 2:
+        _check_watermarks(watermarks)
+        lead, n = tuple(watermarks.shape[:-1]), watermarks.shape[-1]
+        rows, row_stride, elem_stride = _rows(watermarks,
+                                              "quorum_watermark")
+    else:
+        rows, n = watermarks.shape
+        row_stride, elem_stride = watermarks.stride()
+        lead = (rows,)
+    if type(quorum_size) is int and -(1 << 31) <= quorum_size < (1 << 31):
+        per_row, scalar = None, quorum_size
+    else:
+        per_row, scalar = _quorum_sizes(quorum_size, lead,
+                                        watermarks.device)
+    if out is None:
+        out = watermarks.new_empty(lead)
+    else:
+        _check_out(out, lead)
     if rows == 0:
         return out
-    lib = _build.library("watermark")
-    rc = lib.fpx_quorum_watermark(
-        watermarks.data_ptr(), rows, n, row_stride, elem_stride,
-        None if per_row is None else per_row.data_ptr(), scalar,
-        out.data_ptr(), *_build.stream_args(watermarks.device))
-    _build.check("watermark", "fpx_quorum_watermark", rc)
+    q_ptr = 0 if per_row is None else per_row.data_ptr()
+    fn = _K12.fn or _K12.resolve()
+    rc = fn(_K12.pack(watermarks.data_ptr(), rows, n, row_stride,
+                      elem_stride, q_ptr, scalar, out.data_ptr(), index,
+                      _build.stream_handle(index)))
+    if rc:
+        _K12.check(rc)
     quorum_watermark.launches += 1
     return out
 
@@ -136,21 +175,47 @@ def quorum_watermark(watermarks: torch.Tensor, quorum_size) -> torch.Tensor:
 quorum_watermark.launches = 0
 
 
+#: ``{card index, or the device named: _build.Staging}``
+#: (``_build.staging``).
+_STAGING: dict = {}
+
+
 def quorum_watermark_vector(watermarks: np.ndarray, quorum_size: int,
                             device=None) -> np.ndarray:
     """Columnwise quorum watermark of a ``[n, depth]`` host matrix
-    (QuorumWatermarkVector.scala:20+): one K12 launch on ``device``
-    (``cuda`` when None; ``"cpu"`` runs the plain version) over the
-    matrix's columns, read in place through a transposed view. The
-    matrix crosses as int32, wrapped as the reference's ``jnp.asarray``
-    wraps int64; returns ``[depth]`` int32."""
-    device = resolve_device(device)
+    (QuorumWatermarkVector.scala:20+): one K12 launch on ``device`` (the
+    current card when None, and a named device resolved at its first
+    call; ``"cpu"`` runs the plain version) over the matrix's columns,
+    read in place. The matrix crosses as int32, wrapped as the
+    reference's ``jnp.asarray`` wraps int64; returns a fresh ``[depth]``
+    int32 array. On the card a call costs one numpy write into reused
+    pinned memory, ONE ``ctypes`` call (the matrix up, the launch, the
+    result down, a wait on the staging's own stream, with the GIL
+    released) and a numpy copy out."""
     matrix = np.asarray(watermarks)
     if matrix.ndim != 2:
         raise ValueError(f"quorum_watermark_vector takes a [n, depth] "
                          f"matrix, got shape {matrix.shape}")
-    on_device = stage(matrix.astype(np.int32), device)
-    return quorum_watermark(on_device.t(), int32(quorum_size)).cpu().numpy()
+    q = int32(quorum_size)
+    staging = _build.staging(_STAGING, device)
+    if staging is None:
+        on_device = stage(matrix.astype(np.int32), resolve_device(device))
+        return quorum_watermark(on_device.t(), q).cpu().numpy()
+    n, depth = matrix.shape
+    if depth == 0:
+        return np.zeros(0, dtype=np.int32)
+    cells = staging.pair("watermarks", n * depth, torch.int32)
+    out = staging.pair("out", depth, torch.int32)
+    # An unsafe cast, as astype: int64 watermarks wrap to int32.
+    cells.host[:n * depth].reshape(n, depth)[...] = matrix
+    fn = _K12_STAGED.fn or _K12_STAGED.resolve()
+    rc = fn(_K12_STAGED.pack(cells.host_ptr, cells.device_ptr, n, depth, q,
+                             out.device_ptr, out.host_ptr, staging.index,
+                             staging.stream_handle))
+    if rc:
+        _K12_STAGED.check(rc)
+    quorum_watermark.launches += 1
+    return out.host[:depth].copy()
 
 
 def _check_present(present: torch.Tensor) -> None:

@@ -1,14 +1,19 @@
 """K18, the geo transport's link mask: the port's plain version against
 the JAX package's jitted twin (``link_keep_mask_jit``, run by JAX on the
 CPU), bit for bit, at random waves and at every index edge of JAX's
-gather rule; the transport-facing ``link_keep_mask_cuda`` on the CPU;
-the ``FPX_SIMWAVE_JIT`` switch; and the port's copies of the numpy
-masks against the reference's."""
+gather rule, on offset views and at ragged lengths (the kernel's
+unaligned head and tail); the ``out=`` contract; the transport-facing
+``link_keep_mask_cuda`` on the CPU across waves of changing size; the
+kernel path's packed C block (a stand-in library, no card); the
+``FPX_SIMWAVE_JIT`` switch; and the port's copies of the numpy masks
+against the reference's."""
 
 import functools
 import os
+import struct
 import subprocess
 import sys
+import types
 
 from frankenpaxos_tpu_torch.ops import simwave as tsw
 import numpy as np
@@ -175,3 +180,186 @@ def test_tensor_wrapper_counts_only_kernel_launches():
     got = tsw.link_keep_mask_tensor(ids, ids.flip(0), up)
     assert torch.equal(got, tsw.link_keep_mask_plain(ids, ids.flip(0), up))
     assert tsw.link_keep_mask_tensor.launches == before
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 31, 33])
+@pytest.mark.parametrize("offset", [0, 1, 7, 15])
+def test_offset_views_and_ragged_lengths_match_jax(n, offset):
+    """The wrapper and the plain version on views that start ``offset``
+    elements into their buffers (the kernel's unaligned head) at ragged
+    lengths (its tail), with ids past every edge of JAX's rule and an
+    ``out=`` view offset as well, against JAX's jitted gather."""
+    rng = np.random.default_rng(100 * n + offset)
+    z = 12
+    up = _up(rng, z)
+    src = rng.integers(-2 * z, 2 * z, n + 16).astype(np.int32)
+    dst = rng.integers(-2 * z, 2 * z, n + 16).astype(np.int32)
+    want = np.asarray(jsw._link_keep_jax(src[offset:offset + n],
+                                         dst[offset:offset + n], up))
+    src_t = torch.from_numpy(src)[offset:offset + n]
+    dst_t = torch.from_numpy(dst)[offset:offset + n]
+    up_t = torch.from_numpy(up)
+    assert src_t.storage_offset() == offset
+    assert np.array_equal(tsw.link_keep_mask_plain(src_t, dst_t,
+                                                   up_t).numpy(), want)
+    assert np.array_equal(tsw.link_keep_mask_tensor(src_t, dst_t,
+                                                    up_t).numpy(), want)
+    out = torch.zeros(n + 16, dtype=torch.bool)
+    into = tsw.link_keep_mask_tensor(src_t, dst_t, up_t, out=out[offset:])
+    assert into.data_ptr() == out[offset:].data_ptr() and len(into) == n
+    assert np.array_equal(out[offset:offset + n].numpy(), want)
+    assert not out[:offset].any() and not out[offset + n:].any()
+
+
+def test_out_contract_on_the_cpu_path():
+    """``out=`` on the CPU path: an ``n``-long buffer is returned itself,
+    a longer one as its first ``n`` elements; a short, non-bool, strided
+    or non-CPU buffer raises, and so does a mix of devices."""
+    rng = np.random.default_rng(11)
+    up = torch.from_numpy(_up(rng, 9))
+    src = torch.from_numpy(rng.integers(-1, 9, 40).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(-1, 9, 40).astype(np.int32))
+    want = tsw.link_keep_mask_plain(src, dst, up)
+    exact = torch.zeros(40, dtype=torch.bool)
+    assert tsw.link_keep_mask_tensor(src, dst, up, out=exact) is exact
+    assert torch.equal(exact, want)
+    longer = torch.zeros(64, dtype=torch.bool)
+    got = tsw.link_keep_mask_tensor(src, dst, up, out=longer)
+    assert got.data_ptr() == longer.data_ptr() and torch.equal(got, want)
+    for bad in (torch.zeros(39, dtype=torch.bool),
+                torch.zeros(40, dtype=torch.uint8),
+                torch.zeros(80, dtype=torch.bool)[::2]):
+        with pytest.raises(ValueError, match="out must be"):
+            tsw.link_keep_mask_tensor(src, dst, up, out=bad)
+    # A buffer on another device (meta stands in for a CUDA one here).
+    with pytest.raises(ValueError, match="never a mix"):
+        tsw.link_keep_mask_tensor(src, dst, up,
+                                  out=torch.empty(40, dtype=torch.bool,
+                                                  device="meta"))
+    with pytest.raises(ValueError, match="never a mix"):
+        tsw.link_keep_mask_tensor(src, dst, up.to("meta"))
+    assert tsw.link_keep_mask_tensor.launches == 0
+
+
+def test_cuda_entry_on_the_cpu_across_changing_shapes():
+    """The transport-facing entry (``device="cpu"``) over waves that
+    grow and shrink, with int64 ids: each answer equals the JAX twin's
+    and is a fresh, writable array that no later call touches."""
+    rng = np.random.default_rng(12)
+    up = _up(rng, 30)
+    answers = []
+    for n in (64, 5, 1000, 33, 1, 0, 4096, 17):
+        src = rng.integers(-1, 30, n)
+        dst = rng.integers(-1, 30, n)
+        got = tsw.link_keep_mask_cuda(src, dst, up, device="cpu")
+        assert got.dtype == np.bool_ and got.shape == (n,)
+        assert got.flags.writeable
+        want = (jsw.link_keep_mask_jit(src, dst, up) if n
+                else np.zeros(0, bool))
+        assert np.array_equal(got, want)
+        answers.append((got, got.copy()))
+    for got, kept in answers:
+        assert np.array_equal(got, kept)
+    for (a, _), (b, _) in zip(answers, answers[1:]):
+        assert not np.shares_memory(a, b)
+
+
+class _Recorder:
+    """Stands in for the kernel library: records each packed block's
+    int64 slots, launches nothing, returns 0 (no CUDA error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        def call(block):
+            self.calls.append((entry, struct.unpack(
+                f"={len(block) // 8}q", block)))
+            return 0
+
+        return call
+
+
+def test_kernel_path_packs_the_c_block(monkeypatch):
+    """With the kernel path forced on CPU tensors: the wrapper hands the
+    C entry its 9-slot block (src, dst, n, up, rows, cols, out, device,
+    stream) with the views' own pointers (no copy of a contiguous
+    offset view), returns ``out`` itself, and counts one launch; a
+    strided input is made contiguous first, and an empty wave launches
+    nothing."""
+    recorder = _Recorder()
+    monkeypatch.setattr(tsw, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(tsw._build, "packed_library",
+                        lambda name, keep_gil: recorder)
+    monkeypatch.setattr(tsw._build, "stream_handle", lambda index: 0)
+    monkeypatch.setattr(tsw._K18, "fn", None)
+    monkeypatch.setattr(tsw.link_keep_mask_tensor, "launches", 0)
+    ids = torch.arange(-1, 20, dtype=torch.int32)
+    up = torch.ones((5, 7), dtype=torch.bool)
+    out = torch.zeros(13, dtype=torch.bool)
+    src, dst = ids[3:16], ids[5:18]
+    assert tsw.link_keep_mask_tensor(src, dst, up, out=out) is out
+    entry, slots = recorder.calls[-1]
+    assert entry == "fpx_link_keep_mask" and len(slots) == 9
+    assert slots == (src.data_ptr(), dst.data_ptr(), 13, up.data_ptr(), 5,
+                     7, out.data_ptr(), -1, 0)
+    strided = ids[::2][:7]
+    tsw.link_keep_mask_tensor(strided, strided, up)
+    entry, slots = recorder.calls[-1]
+    assert slots[0] != strided.data_ptr() and slots[2] == 7
+    empty = ids[:0]
+    assert tsw.link_keep_mask_tensor(empty, empty, up).shape == (0,)
+    assert len(recorder.calls) == 2
+    assert tsw.link_keep_mask_tensor.launches == 2
+
+
+def test_staged_entries_release_the_gil(monkeypatch):
+    """The launch-only entries resolve through a handle whose calls keep
+    the GIL; the staged ones, which wait on the card, through one whose
+    calls release it."""
+    from frankenpaxos_tpu_torch.ops import watermark as tw
+
+    seen = []
+
+    def library(name, keep_gil):
+        seen.append((name, keep_gil))
+        return _Recorder()
+
+    monkeypatch.setattr(tsw._build, "packed_library", library)
+    for entry in (tsw._K18, tsw._K18_STAGED, tw._K12, tw._K12_STAGED):
+        monkeypatch.setattr(entry, "fn", None)
+        entry.resolve()
+    assert seen == [("simwave", True), ("simwave", False),
+                    ("watermark", True), ("watermark", False)]
+
+
+def test_staging_follows_the_current_card(monkeypatch):
+    """``device=None`` finds the staging of the card current at each
+    call, not of the card current at the first call; a named device is
+    resolved at its first call; a CPU device has no staging."""
+    current = [0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    made = []
+
+    def make(dev):
+        index = current[0] if dev.index is None else dev.index
+        made.append(types.SimpleNamespace(index=index))
+        return made[-1]
+
+    table = {}
+    first = tsw._build.staging(table, None, make)
+    assert first.index == 0
+    assert tsw._build.staging(table, None, make) is first
+    current[0] = 1
+    second = tsw._build.staging(table, None, make)
+    assert second is not first and second.index == 1
+    current[0] = 0
+    assert tsw._build.staging(table, None, make) is first
+    named = tsw._build.staging(table, "cuda:1", make)
+    assert named.index == 1
+    current[0] = 1
+    assert tsw._build.staging(table, "cuda:1", make) is named
+    assert tsw._build.staging(table, "cpu", make) is None
+    assert len(made) == 3

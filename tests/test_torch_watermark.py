@@ -10,13 +10,16 @@ near +-2^31, ties, empty axes; non-bool and wrapping K13 input.
 of ``test_gc_watermark_tpu_backend_matches_host``, repeated on the
 port's ``utils/watermark.py`` with ``backend="cuda"`` on the CPU.
 (c) ``convert.watermark_vector_from_numpy`` / ``_to_numpy``.
-(d) The wrappers: launch counts, refusals, and the kernel path's
-arguments against the C signatures (a stand-in library, no card).
+(d) The wrappers: launch counts, refusals, the ``out=`` contract, and
+the kernel path's arguments against the C signatures (a stand-in
+library, no card). K12 is also held at the warp kernel's widths (31-33,
+64-65) on strided rows, and its vector form across changing shapes.
 
 Integer outputs, so every comparison is exact.
 """
 
 import random
+import struct
 
 from frankenpaxos_tpu_torch import convert
 from frankenpaxos_tpu_torch.ops import _build, watermark as tw
@@ -131,6 +134,69 @@ def test_quorum_watermark_vector_wraps_int64():
     for i, row in enumerate(w):
         host.update(i, row)
     assert host.watermark(2) != got.tolist()
+
+
+@pytest.mark.parametrize("n", [31, 32, 33, 64, 65, 1025, 2500])
+def test_quorum_watermark_warp_widths_strided_per_row(n):
+    """The warp kernel's widths (one element a lane up to 32, several
+    above, tiles of 1024 above 1024), on strided rows (columns of a [n, B] matrix, as the vector
+    form reads them) with ties, the int32 extremes and a per-row quorum
+    size that wanders out of range, against JAX."""
+    rng = np.random.default_rng(300 + n)
+    b = 40
+    w = rng.integers(-40, 40, size=(b, n)).astype(np.int32)
+    w[:8] = rng.integers(0, 3, size=(8, n))  # many ties
+    w[8:16] = rng.choice(np.array([INT32_MIN, INT32_MIN + 1, -1, 0, 1,
+                                   INT32_MAX - 1, INT32_MAX], np.int32),
+                         size=(8, n))
+    strided = torch.from_numpy(np.ascontiguousarray(w.T)).t()
+    assert strided.stride() == (1, b)
+    per_row = rng.integers(-2, n + 3, size=b).astype(np.int32)
+    got = tw.quorum_watermark(strided, torch.from_numpy(per_row)).numpy()
+    _assert_same(got, _ref_qw(w, per_row))
+    for q in (1, n // 2, n - 1, n, n + 1, 0):
+        _assert_same(tw.quorum_watermark(strided, q).numpy(),
+                     _ref_qw(w, q))
+
+
+def test_quorum_watermark_out_on_the_cpu_path():
+    """``out=`` on the CPU path: written and returned itself; a buffer of
+    another shape, type or layout raises, and so does one on another
+    device (meta stands in for a CUDA buffer here)."""
+    rng = np.random.default_rng(17)
+    w = torch.from_numpy(rng.integers(0, 50, size=(4, 3, 5))
+                         .astype(np.int32))
+    out = torch.full((4, 3), 7, dtype=torch.int32)
+    assert tw.quorum_watermark(w, 2, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), _ref_qw(w.numpy(), 2))
+    for bad in (torch.zeros(12, dtype=torch.int32),
+                torch.zeros((4, 3), dtype=torch.int64),
+                torch.zeros((3, 4), dtype=torch.int32).t()):
+        with pytest.raises(ValueError, match="out must be"):
+            tw.quorum_watermark(w, 2, out=bad)
+    with pytest.raises(ValueError, match="never a mix"):
+        tw.quorum_watermark(w, 2, out=torch.empty((4, 3), dtype=torch.int32,
+                                                  device="meta"))
+    assert tw.quorum_watermark.launches == 0
+
+
+def test_quorum_watermark_vector_on_the_cpu_across_changing_shapes():
+    """The GC roles' entry (``device="cpu"``) over matrices that grow
+    and shrink, int64 values that wrap: each answer equals the
+    reference's and is a fresh array that no later call touches."""
+    rng = np.random.default_rng(18)
+    answers = []
+    for shape in ((3, 2), (1001, 3), (5, 40), (3, 1), (33, 7), (2, 2)):
+        m = rng.integers(-(1 << 34), 1 << 34, size=shape, dtype=np.int64)
+        q = int(rng.integers(1, shape[0] + 1))
+        got = tw.quorum_watermark_vector(m, q, device="cpu")
+        _assert_same(got, np.asarray(jw.quorum_watermark_vector(m, q)))
+        assert got.flags.writeable
+        answers.append((got, got.copy()))
+    for got, kept in answers:
+        np.testing.assert_array_equal(got, kept)
+    for (a, _), (b, _) in zip(answers, answers[1:]):
+        assert not np.shares_memory(a, b)
 
 
 # --- (a) K13 -----------------------------------------------------------------
@@ -352,13 +418,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 class _Recorder:
     """Stands in for the kernel library: records each entry point's
-    arguments, launches nothing, returns 0 (no CUDA error)."""
+    arguments (a packed block of int64 unpacked), launches nothing,
+    returns 0 (no CUDA error)."""
 
     def __init__(self):
         self.calls = []
 
     def __getattr__(self, entry):
         def call(*args):
+            if len(args) == 1 and isinstance(args[0], bytes):
+                args = struct.unpack(f"={len(args[0]) // 8}q", args[0])
             self.calls.append((entry, args))
             return 0
 
@@ -370,6 +439,11 @@ def _force_kernel_path(monkeypatch):
     monkeypatch.setattr(tw, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(_build, "library", lambda name: recorder)
     monkeypatch.setattr(_build, "stream_args", lambda device: (0, None))
+    monkeypatch.setattr(_build, "packed_library",
+                        lambda name, keep_gil: recorder)
+    monkeypatch.setattr(_build, "stream_handle", lambda index: 0)
+    for entry in (tw._K12, tw._K12_STAGED):
+        monkeypatch.setattr(entry, "fn", None)
     for wrapper in (tw.quorum_watermark, tw.contiguous_prefix_length):
         monkeypatch.setattr(wrapper, "launches", 0)
     return recorder
@@ -377,20 +451,22 @@ def _force_kernel_path(monkeypatch):
 
 def test_kernel_path_arguments_and_launch_counts(monkeypatch):
     """With the kernel path forced on CPU tensors: each wrapper passes
-    as many arguments as its C signature, the strides of the rows it
-    was given, the per-row quorum sizes or the scalar, and the element
-    kind; an empty batch launches and counts nothing."""
+    as many arguments as its C entry reads (K12's packed block of 10
+    int64: watermarks, rows, n, the two strides, per-row sizes, scalar,
+    out, device, stream), the strides of the rows it was given, the
+    per-row quorum sizes or the scalar, and the element kind; an empty
+    batch launches and counts nothing."""
     recorder = _force_kernel_path(monkeypatch)
     sig = _build.SIGNATURES["watermark"]
     m = torch.zeros((3, 5), dtype=torch.int32)
     tw.quorum_watermark(m.t(), 2)
     entry, args = recorder.calls[-1]
-    assert entry == "fpx_quorum_watermark" and len(args) == len(sig[entry])
-    assert args[1:5] == (5, 3, 1, 5) and args[5] is None and args[6] == 2
+    assert entry == "fpx_quorum_watermark" and len(args) == 10
+    assert args[1:5] == (5, 3, 1, 5) and args[5] == 0 and args[6] == 2
     tw.quorum_watermark(torch.zeros((2, 4, 3), dtype=torch.int32),
                         torch.ones((2, 1), dtype=torch.int32))
     entry, args = recorder.calls[-1]
-    assert args[1:5] == (8, 3, 3, 1) and args[5] is not None
+    assert args[1:5] == (8, 3, 3, 1) and args[5] != 0
     tw.contiguous_prefix_length(torch.zeros((6, 7), dtype=torch.int8))
     entry, args = recorder.calls[-1]
     assert entry == "fpx_contiguous_prefix_length"
