@@ -16,9 +16,16 @@ Phases, in order (any failure exits nonzero and prints no result):
      ``TpuQuorumChecker`` at window 2^20 through 64 record_block calls of
      width 32768 with ring wrap, round preemption and stale owners; the
      newly masks and the whole board must be equal after every call;
-  5. K3 ``steady_state_step`` against its plain version: 64 drains at
-     window 2^20, block 2^15, majority-3 and 2x3 grid; every field of
-     the state equal after every drain;
+  5. the chunked drain kernel, one launch a run: K3 (telemetry off), K14
+     (telemetry on) and the re-pinned copy, at window 2^20, block 2^15,
+     one run after another (each resuming the one before): majority-3
+     runs of 1, 2, 3, 64 and 4096 drains from drain 0 and of 1, 2, 3,
+     128, 4096 and 32768 from 2^31 - 70, the 2x3 grid 1, 2, 3, 64 and
+     4096 from 0 and 1, 2, 3 and 4096 from 2^31 - 70 (the 128- and
+     4096-drain runs from 2^31 - 70 cross the int32 wrap inside one
+     launch), against the plain drain loop: every field of K3 and K14
+     and every counter of K14 equal to the plain version's after every
+     run, and K3 equal to the pinned copy bit for bit;
   6. K4 ``record_and_check`` against its plain version: 64 calls of
      64-4096 lanes at window 2^20 per spec (majority-3, 2x3 grid) on a
      mid-flight board, with duplicate slots, stale owners, ring wrap,
@@ -35,7 +42,9 @@ Phases, in order (any failure exits nonzero and prints no result):
      Leader's pow2 padding rows: exact;
   11. the main path, with every kernel's launch count set to 0 first:
      the headline (``frankenpaxos_tpu_torch.bench.headline``) at full
-     size for both arms (2^30 commits each, commit count checked), a
+     size for both arms (2^30 commits each, commit count checked; each
+     run of 32768 drains is ONE launch of K3, each latency sample one
+     launch), a
      ``TpuQuorumChecker`` drain loop at window 2^20 (check_block,
      check_batch, record_block) checked against the host oracle, and
      ``bench/tracker_lt.py`` at full width (window 2^20, 2^20 slots per
@@ -91,24 +100,28 @@ Phases, in order (any failure exits nonzero and prints no result):
      gate of the bench passes, and K10 ``union_reduce`` and K12
      ``quorum_watermark`` must each have launched on the cluster's
      traffic;
-  17. K14 (the telemetry-on drain) against its plain version, and the
-     telemetry-off drain K3 against the pinned pre-telemetry copy: 64
-     drains x {majority-3, 2x3 grid} at window 2^20, block 2^15, and 8
-     drains at windows 2^15 and 2^16 (window/block 1 and 2, where the
-     new, old and GC blocks alias), each from drain 0 and from
-     2^31 - 70; every field and counter of K14's state
-     equal to the plain version's, its drain equal to K3's, K3 equal to
-     the pinned copy bit for bit, the counters re-adding to the
-     committed count; then 64 telemetry-on drains under
+  17. the same three kernels in their other forms, against the plain
+     loop: at the full width, runs of 1, 3 and 64 drains from 2^31 - 40
+     for majority-5, the 2x3 read grid, a permuted 2x3 write grid, a 3x3
+     grid, a 3x1 grid, WPaxos's 3x3 zone grid (three groups), two
+     overlapping groups and 17 acceptors (the memory path); at
+     window/block 1 to 6 (1 and 2: the blocks alias, the memory path; 3
+     and 4: the register carry's GC-zeroed next and ahead columns; 3, 5
+     and 6: rings that jump at the int32 wrap): runs of 1, 2, 3 and 40
+     drains from drain 0 and from 2^31 - 20 (the 40-drain run crosses
+     the wrap), both specs; the counters re-adding to the committed
+     count; telemetry-on runs of 1, 64 and 4096 drains under
      ``torch.cuda.set_sync_debug_mode("error")`` (any hidden sync
-     raises) and one ``collect``;
+     raises) and one ``collect``; and a K3 and a K14 run launched inside
+     a side stream's context, behind work that copies the state it
+     resumes, ordered on that stream;
   18. the telemetry path, with every count set to 0 first: the
      telemetry-overhead twin (``bench/telemetry_overhead.py``) at the
      reference's widths 2^12/2^8 and 2^13/2^9 and the headline width
      2^20/2^15, the reference's ``--smoke`` knobs, through
      ``measure_width``; the arms must agree (the 3% gate is printed as
-     measured, not enforced); K3, K14 and the pinned copy must each have
-     launched;
+     measured, not enforced); every arm advances one launch a chunk; K3,
+     K14 and the pinned copy must each have launched;
   19. K15 ``count_matching_replies`` against its plain version: exact, S
      in {1, 4096, 2^16} x N in {1, 2, 3, 5, 7, 16}, with ties, rows with
      no valid reply, ids near +-2^31, and an empty S;
@@ -187,21 +200,33 @@ Phases, in order (any failure exits nonzero and prints no result):
      unsharded pinned K3 copy); K1, K2, K4-K7 and the pinned copies must
      each have launched; the per-drain host ms split into the
      all-reduces' and the kernels' time;
-  27. the host time of K18's and K12's wrappers and transport-facing
+  27. the block sweep (``bench/block_sweep.py``): blocks 2^12-2^17 at
+     window 2^20, one timed run each after a warm run (the reference's
+     three cut to one), a short per-drain latency distribution, and the
+     best block under the 50 us target;
+  28. the host time of K18's and K12's wrappers and transport-facing
      entries, whole and split by function under ``cProfile``
      (``bench/call_split.py``);
      per-kernel figures at the main paths' shapes: CUDA-event time per
      call over many calls (K12 and K18 in turns with their library call:
      kernel, library, library, kernel, six blocks of 400 calls each, the
-     medians), the plain version's time, the time of one
-     PyTorch call that computes the same function where there is one
-     (``torch.kthvalue`` for K12, ``up[src, dst]`` for K18), the two
-     entries' host ms per call, the bound
-     (bytes / 3.35 TB/s vs integer operations / 67 T/s, the larger) and
-     the launches of phases 11, 12, 14, 16, 18, 21, 23-24, 25 and 26, printed
-     as one ``{"kernels": [...]}`` line; before it, each headline arm's
-     drain split into device time (profiler) and the share of the drain
-     the device sits idle.
+     medians), the device time (the profiler's; for K3, K14 and the
+     pinned copy, whose call is one launch of a run of 1024 drains, CUDA
+     events around single launches, the median of 21), the plain
+     version's time, the time of one PyTorch call that computes the same
+     function where there is one (``torch.kthvalue`` for K12,
+     ``up[src, dst]`` for K18), the two entries' host ms per call, the
+     bound (bytes / 3.35 TB/s vs integer operations / 67 T/s, the
+     larger; each input read once and each output written once, so a
+     drain run's bytes are its state's, read and written once, with the
+     reference's (5N+17)·B bytes a drain beside it as
+     ``reference_bytes``) and the launches of phases 11, 12, 14, 16, 18,
+     21, 23-24, 25 and 26 (K3, K14 and the pinned copy with their drains
+     beside their launches, each figure per drain too, and the device µs
+     a drain of every form of phases 5 and 17), printed as one
+     ``{"kernels": [...]}`` line; before it, each headline arm's timed
+     run split into host and device time (CUDA events around the same
+     run) and the share of it the device sat idle.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -217,6 +242,7 @@ import warnings
 
 import frankenpaxos_tpu_torch
 from frankenpaxos_tpu_torch.bench import (
+    block_sweep,
     bpaxos_sim,
     call_split,
     depset_lt,
@@ -245,8 +271,8 @@ from frankenpaxos_tpu_torch.ops import (
     value as tv,
     watermark as tw,
 )
-from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority
-from frankenpaxos_tpu_torch.quorums.spec import pad_specs
+from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority, ZoneGrid
+from frankenpaxos_tpu_torch.quorums.spec import ALL, pad_specs, QuorumSpec
 import numpy as np
 import torch
 
@@ -275,7 +301,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/27] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/28] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -373,21 +399,84 @@ def phase_k2(dev, rng) -> int:
     return worst
 
 
-def phase_k3(dev) -> int:
-    worst = 0
-    for name, n in (("majority3", 3), ("grid2x3_write", 6)):
-        pred = predicate(specs()[name], dev)
-        kern = tp.make_state(WINDOW, n, device=dev)
-        plain = tp.make_state(WINDOW, n, device=dev)
-        for i in range(64):
-            tp.steady_state_step(kern, i, block_size=BLOCK, predicate=pred)
-            tp.steady_state_step_plain(plain, i, BLOCK, pred)
-            err = max(max_abs_err(a, b) for a, b in zip(kern[:7], plain[:7]))
-            worst = max(worst, err)
-            require(err == 0, f"K3 differs from plain on {name} at drain "
-                              f"{i}")
-        require(int(kern.committed) > 60 * BLOCK,
-                f"K3 {name} committed only {int(kern.committed)}")
+#: Phase 5's runs of the chunked drain kernel at the full width, per spec
+#: and first drain, each sequence run one chunk after another (each
+#: resumes the one before): from 2^31 - 70 the 128- and the 4096-drain
+#: runs cross the int32 wrap inside one launch, and majority-3's
+#: 32768-drain run resumes past it. The plain loop takes about 1.4 ms a
+#: drain on the card, so the longest run is held on one spec.
+DRAIN_CHUNKS = {
+    "majority3": {0: (1, 2, 3, 64, 4096),
+                  2**31 - 70: (1, 2, 3, 128, 4096, 32768)},
+    "grid2x3_write": {0: (1, 2, 3, 64, 4096), 2**31 - 70: (1, 2, 3, 4096)},
+}
+#: The three drain kernels, by the name of their row in the kernels line.
+DRAIN_KERNELS = ("steady_state_step", "steady_state_step_telemetry",
+                 "steady_state_step_baseline")
+
+
+def _fields_err(a, b) -> int:
+    """Largest difference over the seven drain fields of two states."""
+    return max(max_abs_err(x, y) for x, y in zip(a[:7], b[:7]))
+
+
+def _drain_states(window: int, n: int, dev) -> tuple:
+    """Fresh states for K3, K14, the pinned copy and the plain drain (the
+    plain one carries the counters, so that one plain loop holds all
+    three kernels)."""
+    return (tp.make_state(window, n, device=dev),
+            tp.make_state(window, n, telemetry=True, device=dev),
+            tpin.make_state(window, n, device=dev),
+            tp.make_state(window, n, telemetry=True, device=dev))
+
+
+def _run_chunks(states, arrays, pred, first: int, chunks, where: str,
+                worst: dict) -> int:
+    """Runs ``chunks`` one after another from drain ``first`` through K3,
+    K14 and the pinned copy (one launch a chunk each) and drain by drain
+    through the plain version; after every chunk every field of K3 and
+    K14 and every counter of K14 must equal the plain version's, and the
+    pinned copy must equal K3 bit for bit. Returns the drains run."""
+    k3, k14, pinned, plain = states
+    at = first
+    for chunk in chunks:
+        tp.run_steps_from(k3, at, chunk, BLOCK, *arrays)
+        tp.run_steps_from(k14, at, chunk, BLOCK, *arrays)
+        tpin.run_steps_from(pinned, at, chunk, BLOCK, *arrays)
+        for k in range(chunk):
+            tp.steady_state_step_plain(plain, tp._wrap32(at + k), BLOCK, pred)
+        errs = {"steady_state_step": _fields_err(k3, plain),
+                "steady_state_step_telemetry": max(
+                    _fields_err(k14, plain),
+                    max_abs_err(k14.telemetry.buffer,
+                                plain.telemetry.buffer)),
+                "steady_state_step_baseline": _fields_err(pinned, k3)}
+        for kernel, err in errs.items():
+            worst[kernel] = max(worst[kernel], err)
+            require(err == 0, f"{kernel} differs on {where}, the "
+                              f"{chunk}-drain run from drain {at}: error "
+                              f"{err}")
+        at = tp._wrap32(at + chunk)
+    return sum(chunks)
+
+
+def phase_k3(dev) -> dict:
+    """K3, K14 and the pinned copy, one launch a run, against the plain
+    drain loop at the full width: the runs of ``DRAIN_CHUNKS``,
+    majority-3 and the 2x3 grid."""
+    worst = dict.fromkeys(DRAIN_KERNELS, 0)
+    for name, runs in DRAIN_CHUNKS.items():
+        spec = specs()[name]
+        arrays = headline.spec_arrays(spec)
+        for first, chunks in runs.items():
+            states = _drain_states(WINDOW, spec.num_nodes, dev)
+            drains = _run_chunks(states, arrays,
+                                 tp.predicate_for(*arrays, dev), first,
+                                 chunks, f"{name} W={WINDOW}", worst)
+            committed = int(states[0].committed)
+            require(committed > (drains - 4) * BLOCK,
+                    f"K3 {name} committed only {committed} in {drains} "
+                    f"drains")
     torch.cuda.synchronize(dev)
     return worst
 
@@ -902,6 +991,19 @@ def _shape(batch: td.DepSetBatch) -> str:
 def reset_launches() -> None:
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "drains"):
+            wrapper.drains = 0
+
+
+#: ``{path: {drain kernel: drains}}``: the drains K3, K14 and the pinned
+#: copy ran on the paths that drive them from this process (phases 11 and
+#: 18), beside their launches.
+DRAINS_BY_PATH: dict = {}
+
+
+def record_drains(path: str) -> None:
+    DRAINS_BY_PATH[path] = {name: WRAPPERS[name].drains
+                            for name in DRAIN_KERNELS}
 
 
 def phase_cluster(dev) -> tuple[dict, dict]:
@@ -981,22 +1083,79 @@ def phase_main_path(dev, rng) -> tuple[dict, dict, dict]:
     # against its dict oracle inside run() (a mismatch raises).
     votes = tracker_lt.run(dev)
     launches = {name: w.launches for name, w in WRAPPERS.items()}
+    record_drains("headline_and_tracker")
     require(all(launches[name] > 0 for name in MAIN_PATH),
             f"a kernel of the main path never launched: {launches}")
     return result, votes, launches
 
 #: Starts of phase 17's runs: drain 0, and near 2^31 (the index, the
-#: proposals and the lag wrap as int32).
-TELEMETRY_STARTS = (0, 2**31 - 70)
-#: Phase 17's boards and drains per run: the full width, then
-#: window/block 1 and 2, where the new, old and GC blocks alias (the
-#: occupancy is read after pass 1 and again after pass 2 on one column).
-TELEMETRY_RUNS = ((WINDOW, 64), (BLOCK, 8), (2 * BLOCK, 8))
+#: proposals and the lag wrap as int32; each 40-drain run crosses the wrap
+#: inside one launch).
+TELEMETRY_STARTS = (0, 2**31 - 20)
+#: Phase 17's boards and chunks at window/block 1 to 6: at 1 and 2 the
+#: new, old and GC blocks alias (the occupancy is read after pass 1 and
+#: again after pass 2 on one column) and the kernel takes its memory path;
+#: at 3 and 4 the register carry's next and ahead columns are zeroed by a
+#: GC before their drain instead of loaded; at 3, 5 and 6 (rings that are
+#: not a power of two) a run that crosses the int32 wrap takes the memory
+#: path, the others the register carry.
+TELEMETRY_RUNS = tuple((ratio * BLOCK, (1, 2, 3, 40))
+                       for ratio in range(1, 7))
+#: Phase 17's other predicates at the full width, each a register form
+#: of its own that the headline's two shapes do not take: a group of 5, a
+#: 2x3 read grid, a 2x3 write grid through a permutation, a 3x3 grid, a
+#: 3x1 grid (run as one row of the other kind), WPaxos's 3x3 zone grid
+#: (a majority of every row: three groups) and two overlapping groups (the
+#: loop over groups), and a board of 17 acceptors (the memory path); runs
+#: of ``OTHER_CHUNKS`` one after another.
+OTHER_FORMS = ("majority5", "grid2x3_read", "grid_perm_write",
+               "grid3x3_write", "grid3x1_write", "zonegrid3x3", "groups2",
+               "majority17")
+OTHER_CHUNKS = (1, 3, 64)
 
 
-def _fields_err(a, b) -> int:
-    """Largest difference over the seven drain fields of two states."""
-    return max(max_abs_err(x, y) for x, y in zip(a[:7], b[:7]))
+def form_specs() -> dict:
+    """The headline's two specs and phase 17's other forms, by name."""
+    return {**specs(),
+            "grid3x3_write": Grid([[0, 1, 2], [3, 4, 5],
+                                   [6, 7, 8]]).write_spec(),
+            "grid3x1_write": Grid([[0], [1], [2]]).write_spec(),
+            "zonegrid3x3": ZoneGrid([[0, 1, 2], [3, 4, 5],
+                                     [6, 7, 8]]).write_spec(),
+            "groups2": QuorumSpec(np.array([[1, 1, 0], [0, 1, 1]]),
+                                  np.array([1, 1]), ALL, (0, 1, 2)),
+            "majority17": SimpleMajority(range(17)).write_spec()}
+
+
+def drain_forms(dev) -> dict:
+    """Device µs a drain of each drain kernel in each form at the full
+    width (``launch_ms`` of a run of ``FIGURE_DRAINS`` drains, over the
+    drains): the headline's two and phase 17's other forms."""
+    out = {name: {} for name in DRAIN_KERNELS}
+    # Some milliseconds of drains first, so that the card's clocks have
+    # ramped up before the first form is timed.
+    warm = tp.make_state(WINDOW, 3, device=dev)
+    tp.run_steps_from(warm, 0, 1 << 15, BLOCK,
+                      *headline.spec_arrays(specs()["majority3"]))
+    for form, spec in form_specs().items():
+        if form not in ("majority3", "grid2x3_write") + OTHER_FORMS:
+            continue
+        arrays = headline.spec_arrays(spec)
+        for name, module, telemetry in (
+                ("steady_state_step", tp, False),
+                ("steady_state_step_telemetry", tp, True),
+                ("steady_state_step_baseline", tpin, False)):
+            kw = {"telemetry": True} if telemetry else {}
+            state = module.make_state(WINDOW, spec.num_nodes, device=dev,
+                                      **kw)
+            at = [0]
+
+            def run():
+                module.run_steps_from(state, at[0], FIGURE_DRAINS, BLOCK,
+                                      *arrays)
+                at[0] += FIGURE_DRAINS
+            out[name][form] = launch_ms(run, 7) * 1e3 / FIGURE_DRAINS
+    return out
 
 
 def _nonzero_proposals(first: int, drains: int) -> int:
@@ -1007,39 +1166,44 @@ def _nonzero_proposals(first: int, drains: int) -> int:
                    for i in range(first, first + drains)))
 
 
+def _clone(state):
+    """A copy of a drain state, counters included."""
+    tel = state.telemetry
+    copy = tp.PipelineState(*(t.clone() for t in state[:7]))
+    if tel is None:
+        return copy
+    fresh = tp.make_telemetry(tel.occupancy.numel() - 1,
+                              device=tel.buffer.device)
+    fresh.buffer.copy_(tel.buffer)
+    return copy._replace(telemetry=fresh)
+
+
 def phase_telemetry(dev) -> dict:
-    """K14 against its plain version, K14's drain against K3's, and K3
-    against the pinned copy, at full width and where the blocks alias;
-    the counters re-add; the telemetry-on drain makes no hidden sync."""
-    worst = {"steady_state_step_telemetry": 0,
-             "steady_state_step_baseline": 0}
-    for (name, n), (window, drains), first in itertools.product(
+    """The aliasing ratios and the kernel's other forms (K3, K14 and the
+    pinned copy against the plain loop, as phase 5 does), the counters
+    re-adding, no hidden sync on the telemetry-on runs, one collect, and
+    a run inside a side stream's context ordered on that stream."""
+    worst = dict.fromkeys(DRAIN_KERNELS, 0)
+    others = form_specs()
+    for name in OTHER_FORMS:
+        spec = others[name]
+        arrays = headline.spec_arrays(spec)
+        states = _drain_states(WINDOW, spec.num_nodes, dev)
+        drains = _run_chunks(states, arrays, tp.predicate_for(*arrays, dev),
+                             2**31 - 40, OTHER_CHUNKS, f"{name} W={WINDOW}",
+                             worst)
+        committed = int(states[0].committed)
+        require(committed > (drains - 4) * BLOCK,
+                f"K3 {name} committed only {committed} in {drains} drains")
+    for (name, n), (window, chunks), first in itertools.product(
             (("majority3", 3), ("grid2x3_write", 6)), TELEMETRY_RUNS,
             TELEMETRY_STARTS):
-        pred = predicate(specs()[name], dev)
-        on = tp.make_state(window, n, telemetry=True, device=dev)
-        plain = tp.make_state(window, n, telemetry=True, device=dev)
-        off = tp.make_state(window, n, device=dev)
-        pinned = tpin.make_state(window, n, device=dev)
-        at = f"{name}, window {window}, drain"
-        for i in range(first, first + drains):
-            tp.steady_state_step(on, i, block_size=BLOCK, predicate=pred)
-            tp.steady_state_step_plain(plain, i, BLOCK, pred)
-            tp.steady_state_step(off, i, block_size=BLOCK, predicate=pred)
-            tpin.steady_state_step(pinned, i, block_size=BLOCK,
-                                   predicate=pred)
-            err = max(_fields_err(on, plain),
-                      max_abs_err(on.telemetry.buffer,
-                                  plain.telemetry.buffer))
-            worst["steady_state_step_telemetry"] = max(
-                worst["steady_state_step_telemetry"], err)
-            require(err == 0, f"K14 differs from plain on {at} {i}")
-            require(_fields_err(on, off) == 0,
-                    f"K14's drain differs from K3's on {at} {i}")
-            err = _fields_err(off, pinned)
-            worst["steady_state_step_baseline"] = max(
-                worst["steady_state_step_baseline"], err)
-            require(err == 0, f"K3 differs from the pinned copy on {at} {i}")
+        arrays = headline.spec_arrays(specs()[name])
+        states = _drain_states(window, n, dev)
+        at = f"{name} W={window}"
+        drains = _run_chunks(states, arrays, tp.predicate_for(*arrays, dev),
+                             first, chunks, at, worst)
+        on = states[1]
         snap = tobs.collect(on)
         committed = int(on.committed)
         require(snap.drains == drains and sum(snap.lag_hist) == drains
@@ -1048,23 +1212,54 @@ def phase_telemetry(dev) -> dict:
                 and snap.proposed == _nonzero_proposals(first, drains)
                 and snap.pad_lanes == 0
                 and committed > (drains - 4) * BLOCK,
-                f"K14's counters do not re-add on {at}s from {first}: "
+                f"K14's counters do not re-add on {at} from {first}: "
                 f"{snap}, committed {committed}")
-    # No hidden sync on the telemetry-on drain: under the sync debug
-    # mode any synchronising CUDA call raises. Then one collect.
-    pred = predicate(specs()["majority3"], dev)
+    # No hidden sync on telemetry-on runs: under the sync debug mode any
+    # synchronising CUDA call raises. Then one collect.
+    arrays = headline.spec_arrays(specs()["majority3"])
     state = tp.make_state(WINDOW, 3, telemetry=True, device=dev)
-    tp.steady_state_step(state, 0, block_size=BLOCK, predicate=pred)
+    tp.run_steps_from(state, 0, 1, BLOCK, *arrays)
     torch.cuda.synchronize(dev)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for i in range(1, 65):
-            tp.steady_state_step(state, i, block_size=BLOCK, predicate=pred)
+        at = 1
+        for chunk in (1, 64, 4096):
+            tp.run_steps_from(state, at, chunk, BLOCK, *arrays)
+            at += chunk
     finally:
         torch.cuda.set_sync_debug_mode("default")
     snap = tobs.collect(state)
-    require(snap.drains == 65 and snap.committed == int(state.committed),
-            f"collect after the guarded drains: {snap}")
+    require(snap.drains == at and snap.committed == int(state.committed),
+            f"collect after the guarded runs: {snap}")
+    # A run launched inside ``with torch.cuda.stream(s):`` is ordered on
+    # s: the state it resumes is copied in on s behind some milliseconds
+    # of work (a launch on another stream would read a stale state), and
+    # K14's scratch is the side stream's own.
+    for telemetry in (False, True):
+        src = tp.make_state(WINDOW, 3, telemetry=telemetry, device=dev)
+        tp.run_steps_from(src, 0, 10, BLOCK, *arrays)
+        want = tp.run_steps_from(_clone(src), 10, 3, BLOCK, *arrays)
+        target = tp.make_state(WINDOW, 3, telemetry=telemetry, device=dev)
+        side = torch.cuda.Stream(dev)
+        torch.cuda.synchronize(dev)
+        with torch.cuda.stream(side):
+            require(_build.stream_handle(dev.index) == side.cuda_stream,
+                    "the drain's stream handle does not follow "
+                    "torch.cuda.stream")
+            _busy(dev)
+            for dst, got in zip(target[:7], src[:7]):
+                dst.copy_(got)
+            if telemetry:
+                target.telemetry.buffer.copy_(src.telemetry.buffer)
+            tp.run_steps_from(target, 10, 3, BLOCK, *arrays)
+        side.synchronize()
+        err = _fields_err(target, want)
+        if telemetry:
+            err = max(err, max_abs_err(target.telemetry.buffer,
+                                       want.telemetry.buffer))
+        require(err == 0, f"a run (telemetry {telemetry}) launched inside "
+                          f"a side stream's context was not ordered on "
+                          f"that stream")
     torch.cuda.synchronize(dev)
     return worst
 
@@ -1077,6 +1272,7 @@ def phase_overhead(dev) -> tuple[dict, dict]:
         dev, smoke=True,
         widths=(*telemetry_overhead.WIDTHS, (WINDOW, BLOCK)))
     launches = {name: w.launches for name, w in WRAPPERS.items()}
+    record_drains("telemetry")
     require(all(row["arms_agree"] for row in result["pairs"].values()),
             f"the overhead arms disagree: {result['pairs']}")
     require(all(launches[name] > 0 for name in TELEMETRY_PATH),
@@ -1529,8 +1725,8 @@ def phase_sharded_board(dev, rng) -> tuple[dict, dict, dict]:
     return summary, launches, errors
 
 
-def time_ms(fn, iters: int) -> float:
-    for _ in range(20):
+def time_ms(fn, iters: int, warm: int = 20) -> float:
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1543,7 +1739,7 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-#: The in-turn order of phase 27's kernel-against-library timing (K18
+#: The in-turn order of phase 28's kernel-against-library timing (K18
 #: also with the main path's reused out= buffer), repeated
 #: ``TURN_ROUNDS`` times: each of the three gets six blocks.
 TURN_ORDER = ("kernel", "library", "out", "out", "library", "kernel")
@@ -1595,29 +1791,41 @@ def device_ms(fn, kernel: str, iters: int = 200):
     return None
 
 
-def phase_breakdown(dev, result: dict) -> dict:
-    """Per headline arm: the device time of one drain (profiler) beside
-    the headline's host-timed mean drain, and the share of each drain
-    the device sits idle."""
-    out = {}
-    for arm, mean_key in (("majority3", "mean_quorum_batch_latency_us"),
-                          ("grid2x3_write", "grid_mean_batch_latency_us")):
-        spec = specs()[arm]
-        pred = predicate(spec, dev)
-        state = tp.make_state(WINDOW, spec.num_nodes, device=dev)
-        drain = iter(range(1 << 30))
-        kernel_ms = device_ms(
-            lambda: tp.steady_state_step(state, next(drain),
-                                         block_size=BLOCK, predicate=pred),
-            "steady_state_step_kernel", iters=1000)
-        mean_us = result[mean_key]
-        out[arm] = {
-            "mean_drain_us": mean_us,
-            "kernel_us": None if kernel_ms is None else kernel_ms * 1e3,
-            "device_idle_share": None if kernel_ms is None
-            else 1 - kernel_ms * 1e3 / mean_us,
-        }
-    return out
+#: Drains per run where the drain kernels are timed alone (phase 28's
+#: rows): the telemetry twin's chunk, one launch a run.
+FIGURE_DRAINS = 1024
+#: Launches timed one by one for a drain row's device time.
+FIGURE_LAUNCHES = 21
+
+
+def launch_ms(fn, launches: int = FIGURE_LAUNCHES) -> float:
+    """Device ms of one call of ``fn`` that is ONE long launch: CUDA
+    events recorded on the stream right before and after each of
+    ``launches`` calls (after one warm call), the median. A millisecond
+    of sleep is queued ahead of each start event, so the launch is
+    enqueued before the start event runs and the events bracket the
+    kernel alone, not the host's enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(launches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_block_sweep(dev) -> dict:
+    """The block-size frontier (``bench/block_sweep.py``) at cut
+    repeats: every block size of the reference at window 2^20, one timed
+    run each after a warm run, a short latency distribution."""
+    return block_sweep.run(dev, repeats=1, latency_budget_s=2.0,
+                           target_samples=64)
 
 
 def _sparse_case(dev, rng, n: int, window: int, b: int):
@@ -1645,18 +1853,33 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         (rng.random((n, BLOCK)) < 0.6).astype(np.uint8)).to(dev)
     board_k = tq.make_vote_board(WINDOW, n, device=dev)
     board_p = tq.make_vote_board(WINDOW, n, device=dev)
-    state_k = tp.make_state(WINDOW, n, device=dev)
-    state_p = tp.make_state(WINDOW, n, device=dev)
-    drains = {"k": 0, "p": 0}
+    # K3, K14 and the pinned copy: one call is a run of FIGURE_DRAINS
+    # drains (one launch); the plain versions run them drain by drain.
+    forms = drain_forms(dev)
+    drain_arrays = headline.spec_arrays(spec)
+    drain_at = {}
 
-    def k3():
-        tp.steady_state_step(state_k, drains["k"], block_size=BLOCK,
-                             predicate=pred)
-        drains["k"] += 1
+    def drain_run(key, state, run):
+        drain_at[key] = 0
 
-    def k3_plain():
-        tp.steady_state_step_plain(state_p, drains["p"], BLOCK, pred)
-        drains["p"] += 1
+        def call():
+            run(state, drain_at[key], FIGURE_DRAINS, BLOCK, *drain_arrays)
+            drain_at[key] = tp._wrap32(drain_at[key] + FIGURE_DRAINS)
+        return call
+
+    def drain_plain(key, state, step):
+        drain_at[key] = 0
+
+        def call():
+            for k in range(FIGURE_DRAINS):
+                step(state, tp._wrap32(drain_at[key] + k), BLOCK, pred)
+            drain_at[key] = tp._wrap32(drain_at[key] + FIGURE_DRAINS)
+        return call
+
+    k3 = drain_run("k3", tp.make_state(WINDOW, n, device=dev),
+                   tp.run_steps_from)
+    k3_plain = drain_plain("k3p", tp.make_state(WINDOW, n, device=dev),
+                           tp.steady_state_step_plain)
 
     # K4: one scatter chunk of the pipelined tracker (max_chunk lanes).
     chunk = 256
@@ -1724,27 +1947,20 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
 
     # K14 and the pinned K3 copy: the headline's drain, telemetry on, and
     # the overhead bench's baseline arm; the counters are n + 22 words.
-    tel_k = tp.make_state(WINDOW, n, telemetry=True, device=dev)
-    tel_p = tp.make_state(WINDOW, n, telemetry=True, device=dev)
-    pin_k = tpin.make_state(WINDOW, n, device=dev)
-    pin_p = tpin.make_state(WINDOW, n, device=dev)
-    at = dict.fromkeys(("tk", "tp", "pk", "pp"), 0)
-
-    def drain(key, step):
-        def run():
-            step(at[key])
-            at[key] += 1
-        return run
-
-    k14 = drain("tk", lambda i: tp.steady_state_step(
-        tel_k, i, block_size=BLOCK, predicate=pred))
-    k14_plain = drain("tp", lambda i: tp.steady_state_step_plain(
-        tel_p, i, BLOCK, pred))
-    pinned = drain("pk", lambda i: tpin.steady_state_step(
-        pin_k, i, block_size=BLOCK, predicate=pred))
-    pinned_plain = drain("pp", lambda i: tpin.steady_state_step_plain(
-        pin_p, i, BLOCK, pred))
-    tel_words = 4 * tel_k.telemetry.buffer.numel()
+    k14 = drain_run("k14", tp.make_state(WINDOW, n, telemetry=True,
+                                         device=dev), tp.run_steps_from)
+    k14_plain = drain_plain("k14p", tp.make_state(WINDOW, n, telemetry=True,
+                                                  device=dev),
+                            tp.steady_state_step_plain)
+    pinned = drain_run("pin", tpin.make_state(WINDOW, n, device=dev),
+                       tpin.run_steps_from)
+    pinned_plain = drain_plain("pinp", tpin.make_state(WINDOW, n,
+                                                       device=dev),
+                               tpin.steady_state_step_plain)
+    tel_words = 4 * tp.make_telemetry(n, device=dev).buffer.numel()
+    # The drain state's bytes: votes and chosen (N + 1 a slot), commands
+    # and results (8 a slot), three int32 scalars.
+    state_bytes = (n + 9) * WINDOW + 12
     k3_ops = (2 * (10 * n + 2 * g * n + 8) + 30) * BLOCK
     # K15 at S = 2^16, N = 5: ids from a few values, 70% valid.
     k15_s, k15_n = 1 << 16, 5
@@ -1841,11 +2057,16 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          "record_block_kernel", (3 * n + 19) * BLOCK,
          (6 * n + 2 * g * n + 30) * BLOCK, quorum, f"{ref}:267",
          f"N={n} B={BLOCK} W={WINDOW}"),
-        ("steady_state_step", k3, k3_plain, "steady_state_step_kernel",
-         (5 * n + 17) * BLOCK, (2 * (10 * n + 2 * g * n + 8) + 30) * BLOCK,
+        # K3 (and K14, the pinned copy) per run of FIGURE_DRAINS drains:
+        # the state read once and written once, and each drain's integer
+        # operations (the reference's (5N+17)·B bytes a drain go beside
+        # the row as reference_bytes).
+        ("steady_state_step", k3, k3_plain, "run_steps_kernel",
+         2 * state_bytes, k3_ops * FIGURE_DRAINS,
          "frankenpaxos_tpu_torch/ops/csrc/pipeline.cu",
-         "frankenpaxos_tpu/bench/pipeline.py:145",
-         f"N={n} B={BLOCK} W={WINDOW}"),
+         "frankenpaxos_tpu/bench/pipeline.py:145 (run_steps L341, "
+         "run_steps_from L358)",
+         f"N={n} B={BLOCK} W={WINDOW}, {FIGURE_DRAINS} drains a run"),
         # Lanes (20 B each) and newly (1 B) plus, per distinct column,
         # owner, round, chosen and N vote bytes read and written.
         ("record_and_check",
@@ -1924,16 +2145,19 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         # K14: K3's bytes and operations, the counters read and written
         # once, a vote sum and a bin add per newly-chosen lane.
         ("steady_state_step_telemetry", k14, k14_plain,
-         "steady_state_step_kernel", (5 * n + 17) * BLOCK + 2 * tel_words,
-         k3_ops + 2 * (n + 2) * BLOCK,
+         "run_steps_kernel", 2 * (state_bytes + tel_words),
+         (k3_ops + 2 * (n + 2) * BLOCK) * FIGURE_DRAINS,
          "frankenpaxos_tpu_torch/ops/csrc/pipeline.cu",
          "frankenpaxos_tpu/bench/pipeline.py:145 (ops/telemetry.py:99, "
-         ":108, :136)", f"N={n} B={BLOCK} W={WINDOW}, telemetry on"),
+         ":108, :136)",
+         f"N={n} B={BLOCK} W={WINDOW}, telemetry on, {FIGURE_DRAINS} "
+         f"drains a run"),
         ("steady_state_step_baseline", pinned, pinned_plain,
-         "steady_state_step_kernel", (5 * n + 17) * BLOCK, k3_ops,
+         "run_steps_kernel", 2 * state_bytes, k3_ops * FIGURE_DRAINS,
          "frankenpaxos_tpu_torch/ops/csrc/pipeline_baseline.cu",
-         "frankenpaxos_tpu/bench/pipeline_baseline.py:76",
-         f"N={n} B={BLOCK} W={WINDOW}"),
+         "frankenpaxos_tpu/bench/pipeline_baseline.py:76 (run_steps_from "
+         "L201)", f"N={n} B={BLOCK} W={WINDOW}, {FIGURE_DRAINS} drains a "
+         f"run"),
         # K15: ids (4 B) and valid (1 B) read, two int32 written per row;
         # N^2 compares, ANDs and adds per row.
         ("count_matching_replies",
@@ -2034,10 +2258,17 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
                               **({"out": with_out[name]}
                                  if name in with_out else {})})
             ms, library_ms = turns["kernel"][0], turns["library"][0]
+        elif name in DRAIN_KERNELS:
+            ms, library_ms = time_ms(fn, 200), None
         else:
             ms, library_ms = time_ms(fn, 2000), None
-        plain_ms = time_ms(plain, 200)
-        dev_ms = device_ms(fn, kname)
+        if name in DRAIN_KERNELS:
+            # A run of FIGURE_DRAINS plain drains takes about a second.
+            plain_ms = time_ms(plain, 1, warm=1)
+            dev_ms = launch_ms(fn)
+        else:
+            plain_ms = time_ms(plain, 200)
+            dev_ms = device_ms(fn, kname)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / INT_OPS_PER_S * 1e3
         by_path = {path: counts.get(name, 0)
@@ -2053,6 +2284,25 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
             "library_ms": library_ms, "device_ms": dev_ms, "bytes": nbytes,
             "shape": shape,
         })
+        if name in DRAIN_KERNELS:
+            per = FIGURE_DRAINS
+            by_drains = {path: counts.get(name, 0)
+                         for path, counts in DRAINS_BY_PATH.items()}
+            ref_bytes = (5 * n + 17) * BLOCK * per
+            out[-1].update({
+                "device_ms_source": "cuda events around one launch "
+                                    f"(median of {FIGURE_LAUNCHES})",
+                "reference_bytes": ref_bytes,
+                "reference_bound_ms": ref_bytes / HBM_BYTES_PER_S * 1e3,
+                "device_us_per_drain_by_form": forms[name],
+                "drains_per_call": per,
+                "drains": sum(by_drains.values()),
+                "drains_by_path": by_drains,
+                "ms_per_drain": ms / per,
+                "device_us_per_drain": dev_ms * 1e3 / per,
+                "bound_us_per_drain": max(bytes_ms, ops_ms) * 1e3 / per,
+                "plain_ms_per_drain": plain_ms / per,
+            })
         if turns is not None:
             out[-1]["in_turns_ms_blocks"] = {k: b for k, (_, b) in
                                             turns.items()}
@@ -2109,8 +2359,12 @@ def main() -> int:
         phase(3, f"K1 quorum_hit == plain (5 specs, B={BLOCK})")
         errors["record_block"] = phase_k2(dev, rng)
         phase(4, f"K2 record_block == plain (64 calls, W={WINDOW})")
-        errors["steady_state_step"] = phase_k3(dev)
-        phase(5, "K3 steady_state_step == plain (64 drains x 2 specs)")
+        errors.update(phase_k3(dev))
+        phase(5, f"K3 and K14 (one launch a run) == the plain drains, K3 "
+            f"== the pinned copy, at W={WINDOW}: runs of "
+            + "; ".join(f"{name} {list(c)} from {first}"
+                        for name, runs in DRAIN_CHUNKS.items()
+                        for first, c in runs.items()))
         errors["record_and_check"] = phase_k4(dev, rng)
         phase(6, f"K4 record_and_check == plain (64 calls of 64-4096 "
             f"lanes x 2 specs, W={WINDOW})")
@@ -2131,7 +2385,13 @@ def main() -> int:
         phase(11, f"main path on {name} ({smi}): headline "
             f"{result['value']} cmds/s majority-3, "
             f"{result['grid_cmds_per_sec']} cmds/s grid 2x3; mean drain "
-            f"{result['mean_quorum_batch_latency_us']} us, p50 "
+            f"{result['mean_quorum_batch_latency_us']} us; the timed runs' "
+            f"host / device us a drain and device idle share: "
+            + ", ".join(f"{arm} {fig['host_us_per_drain']} / "
+                        f"{fig['device_us_per_drain']}, "
+                        f"{fig['device_idle_share']}"
+                        for arm, fig in result["timed_run"].items())
+            + f"; p50 "
             f"{result['p50_drain_latency_us']} us, p99 "
             f"{result['p99_drain_latency_us']} us; tracker_lt votes/s "
             + ", ".join(f"{arm} {fig['votes_per_sec']:.0f}"
@@ -2187,11 +2447,15 @@ def main() -> int:
             f"traffic {bpaxos['launches']}")
         log(json.dumps({"bpaxos": bpaxos}))
 
-        errors.update(phase_telemetry(dev))
-        phase(17, f"K14 steady_state_step_telemetry == plain, K3 == the "
-            f"pinned copy ((W, drains) {list(TELEMETRY_RUNS)} x 2 specs x "
-            f"starts {list(TELEMETRY_STARTS)}); no sync under "
-            f"set_sync_debug_mode('error'); one collect")
+        for kernel, err in phase_telemetry(dev).items():
+            errors[kernel] = max(errors[kernel], err)
+        phase(17, f"K3, K14 == plain, K3 == the pinned copy in the other "
+            f"forms ({list(OTHER_FORMS)}, runs {list(OTHER_CHUNKS)}) and "
+            f"at window/block 1-6 ((W, runs) {list(TELEMETRY_RUNS)} x 2 "
+            f"specs x "
+            f"starts {list(TELEMETRY_STARTS)}); the counters re-add; no "
+            f"sync under set_sync_debug_mode('error'); one collect; runs "
+            f"inside a side stream's context ordered on it")
 
         overhead, overhead_launches = phase_overhead(dev)
         phase(18, f"telemetry overhead on {name} ({smi}): "
@@ -2296,7 +2560,18 @@ def main() -> int:
                                   if v}))
         log(json.dumps({"sharded_board": board}))
 
-        log(json.dumps({"drain_breakdown": phase_breakdown(dev, result)}))
+        sweep = phase_block_sweep(dev)
+        phase(27, f"block sweep on {name} ({smi}), W={WINDOW}, one timed "
+            f"run a block: "
+            + ", ".join(f"{r['block_slots']}: {r['cmds_per_sec']:.4g} "
+                        f"cmds/s, mean {r['drain_latency_us']:.4g} us, p50 "
+                        f"{r['p50_drain_latency_us']} us"
+                        for r in sweep["rows"])
+            + f"; best under {block_sweep.TARGET_US} us: "
+            f"{sweep['chosen_block']}")
+        log(json.dumps({"block_sweep": sweep}))
+
+        log(json.dumps({"drain_breakdown": result["timed_run"]}))
         split = call_split.split(dev)
         log(json.dumps({"call_split": split}))
         kernels = phase_figures(dev, rng, {
@@ -2312,7 +2587,7 @@ def main() -> int:
             "sharded_board": board_launches}, errors)
         turns = {row["name"]: row for row in kernels
                  if "in_turns_ms_blocks" in row}
-        phase(27, f"per-kernel figures on {name} ({smi}); in turns, ms "
+        phase(28, f"per-kernel figures on {name} ({smi}); in turns, ms "
             f"per call: "
             + "; ".join(f"{k} {row['ms']:.5f}"
                         + (f" (out= {row['ms_out']:.5f})" if "ms_out" in row

@@ -9,7 +9,9 @@ reimplements its device hot path for one NVIDIA Hopper GPU (H100):
     with the quorum predicate (K1) and the dense board update (K2) as
     hand-written CUDA kernels in ``ops/csrc/``;
   * ``bench/pipeline.py`` -- the device-resident MultiPaxos
-    steady-state drain (K3), looped by ``run_steps``;
+    steady-state drain (K3): ``run_steps`` runs a run of drains as ONE
+    launch of the chunked drain kernel; ``bench/block_sweep.py`` sweeps
+    its block size;
   * ``bench/headline.py`` -- the single-GPU headline benchmark;
   * ``protocols/multipaxos/`` with ``runtime/`` -- the MultiPaxos
     cluster of actors over ``SimTransport``: the ProxyLeaders' vote
@@ -23,7 +25,7 @@ reimplements its device hot path for one NVIDIA Hopper GPU (H100):
   * ``ops/telemetry.py`` with ``obs/telemetry.py`` -- the telemetry
     plane: counters the drain accumulates (K14, the telemetry-on twin of
     K3) and their one-copy collection; ``bench/telemetry_overhead.py``
-    holds the drain against a pinned pre-telemetry copy
+    holds the drain against a pinned telemetry-off copy
     (``bench/pipeline_baseline.py``), and ``bench/libbench.py`` times the
     host data structures and the depset / watermark kernels;
   * ``mesh.py`` with ``bench/pipeline.py``'s sharded drain -- the drain

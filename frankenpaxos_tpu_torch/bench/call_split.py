@@ -30,7 +30,7 @@ checkout. Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/call_split.py [--tree ROOT]
 
-It prints ONE JSON line; ``chip_smoke.py``'s phase 27 calls
+It prints ONE JSON line; ``chip_smoke.py``'s phase 28 calls
 :func:`split` on its own tree. It raises without a CUDA device.
 """
 

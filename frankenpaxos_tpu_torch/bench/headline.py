@@ -45,11 +45,13 @@ def spec_arrays(spec) -> tuple:
 
 
 def measure_arm(spec, num_acceptors: int,
-                device=None) -> tuple[float, float]:
-    """``(cmds_per_sec, mean drain latency us)`` of ``ITERS`` drains at
-    ``WINDOW``/``BLOCK``: a warm run, then a timed run from a fresh state
-    that must commit what the warm run did, within 2 blocks of
-    ``ITERS * BLOCK``."""
+                device=None) -> tuple[float, float, float]:
+    """``(cmds_per_sec, mean drain latency us, mean drain device us)`` of
+    ``ITERS`` drains at ``WINDOW``/``BLOCK``: a warm run, then a timed run
+    from a fresh state that must commit what the warm run did, within 2
+    blocks of ``ITERS * BLOCK``. The host clock times the run to its
+    value fetch; CUDA events recorded on the stream around the same run
+    time its device work (one launch of the drain kernel)."""
     device = resolve_device(device)
     arrays = spec_arrays(spec)
     state = make_state(WINDOW, num_acceptors, device=device)
@@ -57,9 +59,13 @@ def measure_arm(spec, num_acceptors: int,
     warm_committed = int(state.committed)
 
     state = make_state(WINDOW, num_acceptors, device=device)
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
+    begin.record()
     run_steps(state, ITERS, BLOCK, *arrays)
+    end.record()
     # A value fetch cannot complete before the last drain.
     committed = int(state.committed)
     elapsed = time.perf_counter() - t0
@@ -70,7 +76,8 @@ def measure_arm(spec, num_acceptors: int,
     if abs(committed - expected) > 2 * BLOCK:
         raise RuntimeError(f"committed {committed}, expected {expected} "
                            f"+- {2 * BLOCK}")
-    return committed / elapsed, elapsed / ITERS * 1e6
+    device_us = begin.elapsed_time(end) * 1e3 / ITERS
+    return committed / elapsed, elapsed / ITERS * 1e6, device_us
 
 
 def measure(device=None, latency_budget_s: float = 20.0) -> dict:
@@ -80,14 +87,14 @@ def measure(device=None, latency_budget_s: float = 20.0) -> dict:
     if device.type != "cuda":
         raise ValueError("the headline measures a CUDA device")
     majority = SimpleMajority(range(NUM_ACCEPTORS)).write_spec()
-    cmds_per_sec, batch_latency_us = measure_arm(majority, NUM_ACCEPTORS,
-                                                 device)
+    cmds_per_sec, batch_latency_us, device_us = measure_arm(
+        majority, NUM_ACCEPTORS, device)
     dist = drain_latency_distribution(
         spec_arrays(majority), NUM_ACCEPTORS, WINDOW, BLOCK,
         batch_latency_us, time_budget_s=latency_budget_s, device=device)
     # The grid (flexible-quorum) predicate at the same scale: a 2x3
     # grid's write quorums, "one vote in every row".
-    grid_cmds_per_sec, grid_latency_us = measure_arm(
+    grid_cmds_per_sec, grid_latency_us, grid_device_us = measure_arm(
         Grid([[0, 1, 2], [3, 4, 5]]).write_spec(), 6, device)
     return {
         "metric": METRIC,
@@ -101,6 +108,14 @@ def measure(device=None, latency_budget_s: float = 20.0) -> dict:
                          "the timed run (throughput figure); p50/p99_"
                          "drain_latency_us come from the chunked "
                          "distribution (see latency_method)"),
+        # The timed runs unrounded: host clock and CUDA events over the
+        # same run, and the share of it the device sat idle.
+        "timed_run": {
+            arm: {"host_us_per_drain": host, "device_us_per_drain": dev,
+                  "device_idle_share": 1 - dev / host}
+            for arm, host, dev in (
+                ("majority3", batch_latency_us, device_us),
+                ("grid2x3_write", grid_latency_us, grid_device_us))},
         "block_slots": BLOCK,
         "window_slots": WINDOW,
         "iters": ITERS,

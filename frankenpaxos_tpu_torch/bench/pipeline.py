@@ -3,18 +3,17 @@
 Counterpart of ``frankenpaxos_tpu/bench/pipeline.py`` (unsharded): the
 steady-state Phase-2 write path of compartmentalized MultiPaxos --
 propose -> acceptor votes -> quorum check -> chosen -> replica execute
--> GC -- over a ``[acceptors, window]`` vote board, one drain per
-launch of the hand-written kernel K3 (``ops/csrc/pipeline.cu``), or of
-its telemetry-on twin K14 when the state carries the telemetry plane
-(``ops/telemetry.py``: ``make_state(telemetry=True)``).
-
-Where the reference iterates a jitted step under ``lax.fori_loop`` with
-donated state, :func:`run_steps` is a Python loop of one launch per
-drain, and every drain updates the :class:`PipelineState` tensors IN
-PLACE. Vote arrivals are the reference's hash of (drain, block lane,
-acceptor), so both packages produce the same votes for the same slot:
-~87.5% of votes arrive in the drain after the proposal, the rest one
-drain later.
+-> GC -- over a ``[acceptors, window]`` vote board. A RUN of drains is
+ONE launch of the hand-written chunked drain kernel K3
+(``ops/csrc/pipeline.cu``, ``run_steps_kernel<false>``), or of its
+telemetry-on twin K14 when the state carries the telemetry plane
+(``ops/telemetry.py``: ``make_state(telemetry=True)``), as the
+reference runs its drains in one jitted ``lax.fori_loop``; a single
+drain is a run of one. Every run updates the :class:`PipelineState`
+tensors IN PLACE. Vote arrivals are the reference's hash of (drain,
+block lane, acceptor), so both packages produce the same votes for the
+same slot: ~87.5% of votes arrive in the drain after the proposal, the
+rest one drain later.
 
 The sharded drain (the reference's ``make_sharded_step`` /
 ``make_sharded_runner``) runs the same drain over a ``(group, slot)``
@@ -52,7 +51,7 @@ from frankenpaxos_tpu_torch.ops.telemetry import (
     buffer_words,
     close_drain,
     drain_deltas,
-    drain_update,
+    lag_bucket,
     make_telemetry,
     pass_deltas,
     quorum_pass_update,
@@ -62,6 +61,11 @@ from frankenpaxos_tpu_torch.ops.telemetry import (
 import numpy as np
 import torch
 import torch.distributed as dist
+
+#: Drains per launch at most (``pipeline.cu``'s ``kMaxDrains``: K14's
+#: scratch holds one int32 per drain); a longer run is split into
+#: launches of this many drains.
+MAX_DRAINS = 1 << 16
 
 
 class PipelineState(NamedTuple):
@@ -110,28 +114,27 @@ def _arrivals(i: int, lanes: torch.Tensor, accs: torch.Tensor,
               salt: int) -> torch.Tensor:
     """Deterministic pseudo-random ``[len(accs), len(lanes)]`` uint8
     arrival mask (the reference's ``_arrivals``), in int32 arithmetic
-    that wraps as the reference's does: the drain index is an int32
-    tensor, never a Python int."""
-    step = torch.tensor(_wrap32(i + salt), dtype=torch.int32,
-                        device=lanes.device)
-    h = (lanes[None, :] * 1103515245 + accs[:, None] * 12820163
-         + step * 22695477) >> 7
+    that wraps as the reference's does: the drain's term is wrapped to
+    int32 on the host and added to int32 tensors, so no scalar is copied
+    to the device (and no copy waits for it)."""
+    step = _wrap32(_wrap32(i + salt) * 22695477)
+    h = (lanes[None, :] * 1103515245 + accs[:, None] * 12820163 + step) >> 7
     return ((h & 7) < 7).to(torch.uint8)  # ~87.5% arrive this drain
 
 
-def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
-                            pred: QuorumPredicate) -> PipelineState:
-    """Plain PyTorch version of K3 and K14: one drain, in the reference's
-    order (propose, pass 1 on the new block, pass 2 on the old block,
-    execute, GC), updating ``state`` in place; with telemetry on, each
-    pass's :func:`quorum_pass_update` and the end-of-drain
-    :func:`drain_update` woven in where the reference weaves them."""
+def _drain_plain(state: PipelineState, i: int, block_size: int,
+                 pred: QuorumPredicate) -> torch.Tensor:
+    """One drain of the plain version in the reference's order (propose,
+    pass 1 on the new block, pass 2 on the old block, execute, GC),
+    updating ``state`` in place, with every telemetry counter but the
+    once-per-drain lag sample and drain count; returns the drain's int32
+    newly-chosen count. The drain index enters as int32 values wrapped
+    on the host: nothing here waits for the device."""
     votes, chosen, commands, results = state[:4]
     n, w = votes.shape
     b = block_size
     num_blocks = w // b
     dev = votes.device
-    i_t = torch.tensor(i, dtype=torch.int32, device=dev)
     lanes = torch.arange(b, dtype=torch.int32, device=dev)
     accs = torch.arange(n, dtype=torch.int32, device=dev)
     start_new = (i % num_blocks) * b
@@ -139,9 +142,10 @@ def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
     start_gc = (_wrap32(i - 2) % num_blocks) * b
 
     tel = state.telemetry
+    total = torch.zeros((), dtype=torch.int32, device=dev)
 
     # Leader: assign slots, propose command ids.
-    proposed = lanes * 7 + i_t * 13 + 1
+    proposed = lanes * 7 + _wrap32(i * 13 + 1)
     commands[start_new:start_new + b] = proposed
 
     def quorum_pass(start, arrivals):
@@ -152,7 +156,9 @@ def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
         old = chosen[cols].clone()
         chosen[cols] = hit | old
         newly = hit & ~old
-        state.committed.add_(newly.sum(dtype=torch.int32))
+        count = newly.sum(dtype=torch.int32)
+        state.committed.add_(count)
+        total.add_(count)
         if tel is not None:
             quorum_pass_update(tel, newly=newly, slot_axis=None,
                                votes_count=block.sum(0, dtype=torch.int32))
@@ -166,15 +172,64 @@ def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
     cmds_old = commands[start_old:start_old + b].clone()
     results[start_old:start_old + b] = cmds_old * 3 + 7
     state.sm_state.add_(cmds_old.sum(dtype=torch.int32))
-    state.exec_wm.copy_(i_t * b if i >= 1 else torch.zeros_like(i_t))
+    state.exec_wm.fill_(_wrap32(i * b) if i >= 1 else 0)
     # GC: release block i-2 so the ring can wrap.
     votes[:, start_gc:start_gc + b] = 0
     chosen[start_gc:start_gc + b] = False
-    # Telemetry: proposals, and the end-of-drain watermark lag.
+    # Telemetry: the drain's nonzero proposals.
     if tel is not None:
-        lag = (i_t + 1) * b - state.committed
-        drain_update(tel, proposed_block=proposed, lane_valid=None,
-                     lag=lag, slot_axis=None)
+        tel.proposed.add_(drain_deltas(proposed, None)[0])
+    return total
+
+
+def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
+                            pred: QuorumPredicate) -> PipelineState:
+    """Plain PyTorch version of K3 and K14, one drain (the per-drain
+    reference): :func:`_drain_plain`, then, with telemetry on, the
+    end-of-drain watermark lag sampled and the drain counted where the
+    reference's ``drain_update`` does both."""
+    _drain_plain(state, i, block_size, pred)
+    if state.telemetry is not None:
+        close_drain(state.telemetry,
+                    _wrap32((i + 1) * block_size) - state.committed)
+    return state
+
+
+def fold_lag_plain(tel: TelemetryState, committed: torch.Tensor,
+                   newly: torch.Tensor, start: int,
+                   block_size: int) -> TelemetryState:
+    """Plain PyTorch version of K14's once-per-launch fold, in place: from
+    ``newly`` (the ``[iters]`` int32 newly-chosen counts of drains
+    ``start`` ..., the index wrapping as int32) and the END-of-run
+    ``committed``, the run's starting committed (the final value minus
+    the run's sum, mod 2^32), each drain's end-of-drain committed by
+    prefix sums (int32, wrapping), one :func:`lag_bucket` sample of each
+    drain's lag ``(i + 1) * block_size - committed`` and the drain
+    count. The arithmetic is int64 cut to int32, as the kernel's uint32."""
+    counts = newly.to(torch.int64)
+    iters = counts.numel()
+    ends = committed.to(torch.int64) - counts.sum() + counts.cumsum(0)
+    drains = torch.arange(iters, dtype=torch.int64, device=counts.device)
+    lag = ((start + drains + 1) * block_size - ends + 2**31) % 2**32 - 2**31
+    buckets = lag_bucket(lag.to(torch.int32)).long()
+    tel.lag_hist.scatter_add_(0, buckets, torch.ones_like(buckets,
+                                                          dtype=torch.int32))
+    tel.drains.add_(_wrap32(iters))
+    return tel
+
+
+def run_steps_plain(state: PipelineState, start: int, iters: int,
+                    block_size: int, pred: QuorumPredicate) -> PipelineState:
+    """Plain PyTorch version of one launch of K3 / K14: drains ``start``
+    .. ``start + iters - 1`` (the index wrapping as int32) by
+    :func:`_drain_plain`, collecting the per-drain newly counts; with
+    telemetry on, the lags are then folded in at once by
+    :func:`fold_lag_plain`, as the kernel folds them."""
+    newly = [_drain_plain(state, _wrap32(start + k), block_size, pred)
+             for k in range(iters)]
+    if state.telemetry is not None and newly:
+        fold_lag_plain(state.telemetry, state.committed, torch.stack(newly),
+                       start, block_size)
     return state
 
 
@@ -182,10 +237,10 @@ def _kernel_args(state: PipelineState, block_size: int,
                  predicate: QuorumPredicate) -> tuple:
     """The tensors the drain kernel takes -- K3's seven, then the flat
     telemetry buffer when the state carries one -- and the board's
-    ``(n, window)``, after the checks K3 and K14 share. Per drain the
-    buffer needs only what K14's writes need (contiguous int32 of
-    ``n + 22`` words: one slot shard, ``n + 1`` occupancy bins), read
-    from its attributes; ``collect`` checks the counter views in full
+    ``(n, window)``, after the checks K3 and K14 share. The buffer needs
+    only what K14's writes need (contiguous int32 of ``n + 22`` words:
+    one slot shard, ``n + 1`` occupancy bins), read from its attributes;
+    ``collect`` checks the counter views in full
     (:func:`~frankenpaxos_tpu_torch.ops.telemetry.flat_buffer`)."""
     tensors = state[:7]
     n, window = state.votes.shape
@@ -215,53 +270,114 @@ def _kernel_args(state: PipelineState, block_size: int,
     return tensors + (buffer,), n, window
 
 
+#: The packed entries: 24 int64 slots each (``pipeline.cu``'s block).
+_K3 = _build.Entry("pipeline", "fpx_run_steps", 24)
+_K14 = _build.Entry("pipeline", "fpx_run_steps_telemetry", 24)
+
+#: ``{(card index, stream handle): [capacity] int32}``: K14's scratch, one
+#: int32 per drain of a launch, zero between launches (the kernel's last
+#: block zeroes what it used). Per stream, so that runs on two streams
+#: never share one.
+_SCRATCH: dict = {}
+
+
+def _scratch(index: int, stream: int, iters: int,
+             device: torch.device) -> int:
+    key = (index, stream)
+    got = _SCRATCH.get(key)
+    if got is None or got.numel() < iters:
+        got = _SCRATCH[key] = torch.zeros(
+            1 << max(6, (iters - 1).bit_length()), dtype=torch.int32,
+            device=device)
+    return got.data_ptr()
+
+
+def _run(state: PipelineState, start: int, iters: int, block_size: int,
+         pred: QuorumPredicate) -> PipelineState:
+    """Drains ``start`` .. ``start + iters - 1`` (the index wrapping as
+    int32) on ``state``, in place: on CUDA state ONE packed C call per
+    launch of at most :data:`MAX_DRAINS` drains, K3 (counted in
+    ``steady_state_step.launches`` and ``.drains``) or, with telemetry,
+    K14 (``telemetry_drain.launches`` and ``.drains``); on CPU state
+    :func:`run_steps_plain`. Never synchronises."""
+    tensors, n, window = _kernel_args(state, block_size, pred)
+    start = int32(start)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    if not use_kernel(*tensors, pred.masks):
+        return run_steps_plain(state, start, iters, block_size, pred)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the drain kernel needs contiguous tensors")
+    index = state.votes.get_device()
+    stream = _build.stream_handle(index)
+    if state.telemetry is None:
+        entry, counter, tel = _K3, steady_state_step, 0
+    else:
+        entry, counter = _K14, telemetry_drain
+        tel = tensors[7].data_ptr()
+    fn = entry.fn or entry.resolve()
+    head = (*(t.data_ptr() for t in tensors[:7]), window, block_size)
+    pred_args = pred.c_args()
+    while iters > 0:
+        k = min(iters, MAX_DRAINS)
+        scratch = 0 if tel == 0 else _scratch(index, stream, k,
+                                               state.votes.device)
+        rc = fn(entry.pack(*head, start, k, *pred_args, tel, scratch, index,
+                           stream))
+        if rc:
+            entry.check(rc)
+        counter.launches += 1
+        counter.drains += k
+        start, iters = _wrap32(start + k), iters - k
+    return state
+
+
 def steady_state_step(state: PipelineState, i: int, *, block_size: int,
                       predicate: QuorumPredicate) -> PipelineState:
     """One event-loop drain -- new proposals + straggler completion --
     applied to ``state`` IN PLACE (the reference donates it); returns
-    ``state``.
+    ``state``: the run of one drain.
 
     ``i`` is the drain index (an int32 value). ``predicate`` comes from
     :func:`~frankenpaxos_tpu_torch.ops.quorum.make_predicate` on the
-    state's device. CUDA state launches
-    ``csrc/pipeline.cu::steady_state_step_kernel<false>`` (K3, counted
-    in ``steady_state_step.launches``), or ``<true>`` (K14, the same
-    drain plus the counters in one launch, counted in
-    ``telemetry_drain.launches``) when the state carries telemetry; CPU
-    state takes :func:`steady_state_step_plain`. Never synchronises."""
-    tensors, n, window = _kernel_args(state, block_size, predicate)
-    i = int32(i)
-    if not use_kernel(*tensors, predicate.masks):
-        return steady_state_step_plain(state, i, block_size, predicate)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("steady_state_step needs contiguous tensors")
-    lib = _build.library("pipeline")
-    args = (*(t.data_ptr() for t in tensors[:7]), window, block_size, i,
-            *predicate.c_args())
-    stream = _build.stream_args(state.votes.device)
-    if state.telemetry is None:
-        rc = lib.fpx_steady_state_step(*args, *stream)
-        _build.check("pipeline", "fpx_steady_state_step", rc)
-        steady_state_step.launches += 1
-    else:
-        rc = lib.fpx_steady_state_step_telemetry(
-            *args, tensors[7].data_ptr(), *stream)
-        _build.check("pipeline", "fpx_steady_state_step_telemetry", rc)
-        telemetry_drain.launches += 1
-    return state
+    state's device. CUDA state launches K3 (``run_steps_kernel<false>``)
+    or, when the state carries telemetry, K14 (``<true>``) with
+    ``iters = 1``; CPU state takes :func:`run_steps_plain`. Never
+    synchronises."""
+    return _run(state, i, 1, block_size, predicate)
 
 
+#: K3's counts: launches, and drains over all its launches.
 steady_state_step.launches = 0
-#: K14's launch count: :func:`steady_state_step` launches K14 on a state
-#: that carries telemetry and counts it here.
-telemetry_drain = SimpleNamespace(launches=0)
+steady_state_step.drains = 0
+#: K14's counts: :func:`steady_state_step` and :func:`run_steps_from`
+#: launch K14 on a state that carries telemetry and count it here.
+telemetry_drain = SimpleNamespace(launches=0, drains=0)
+
+#: ``{(masks_t, thresholds_t, combine_any, device): QuorumPredicate}``:
+#: each predicate made and uploaded once.
+_PREDICATES: dict = {}
+
+
+def predicate_for(masks_t, thresholds_t, combine_any: bool,
+                  device) -> QuorumPredicate:
+    """The predicate of a spec's arrays on ``device``, made (and copied
+    to the device) at its first use and reused after."""
+    key = (tuple(map(tuple, masks_t)), tuple(thresholds_t),
+           bool(combine_any), torch.device(device))
+    pred = _PREDICATES.get(key)
+    if pred is None:
+        pred = _PREDICATES[key] = make_predicate(masks_t, thresholds_t,
+                                                 combine_any, device=key[3])
+    return pred
 
 
 def run_steps(state: PipelineState, iters: int, block_size: int,
               masks_t: tuple, thresholds_t: tuple,
               combine_any: bool) -> PipelineState:
-    """``iters`` drains from drain 0 (the bench hot loop), one kernel
-    launch each, without synchronising; ``state`` is updated in place."""
+    """``iters`` drains from drain 0 (the bench hot loop) in one launch
+    (one per :data:`MAX_DRAINS` drains), without synchronising; ``state``
+    is updated in place."""
     return run_steps_from(state, 0, iters, block_size, masks_t,
                           thresholds_t, combine_any)
 
@@ -271,17 +387,11 @@ def run_steps_from(state: PipelineState, start: int, iters: int,
                    combine_any: bool) -> PipelineState:
     """:func:`run_steps` from drain ``start``: chunked runs resume the
     drain counter where the previous chunk left off (ring positions and
-    arrival hashes continue instead of replaying drain 0)."""
-    pred = make_predicate(masks_t, thresholds_t, combine_any,
-                          device=state.votes.device)
+    arrival hashes continue instead of replaying drain 0); the index
+    wraps as int32 inside a run."""
+    pred = predicate_for(masks_t, thresholds_t, combine_any,
+                         state.votes.device)
     return _run(state, start, iters, block_size, pred)
-
-
-def _run(state: PipelineState, start: int, iters: int, block_size: int,
-         pred: QuorumPredicate) -> PipelineState:
-    for i in range(start, start + iters):
-        steady_state_step(state, i, block_size=block_size, predicate=pred)
-    return state
 
 
 def drain_latency_distribution(spec_arrays, num_acceptors: int,
@@ -291,8 +401,8 @@ def drain_latency_distribution(spec_arrays, num_acceptors: int,
                                target_samples: int = 1024,
                                device=None) -> dict:
     """A per-drain latency distribution: host-timed runs of ``chunk``
-    drains each, p50/p99 over dozens to 1k samples (the reference's
-    method, on the GPU).
+    drains each, one launch a run, p50/p99 over dozens to 1k samples
+    (the reference's method, on the GPU).
 
     The null round trip (one tiny launch plus a value fetch, the same
     sync pattern as a timed sample) is measured first; its p50 is
@@ -317,13 +427,13 @@ def drain_latency_distribution(spec_arrays, num_acceptors: int,
     null_p90_us = float(np.percentile(null, 90) * 1e6)
 
     chunk = 128
-    while chunk * mean_drain_us < 8 * null_p90_us and chunk < (1 << 16):
+    while chunk * mean_drain_us < 8 * null_p90_us and chunk < MAX_DRAINS:
         chunk *= 2
     est_sample_s = (chunk * mean_drain_us + null_p50_us) / 1e6
     samples = max(24, min(target_samples,
                           int(time_budget_s / max(est_sample_s, 1e-9))))
 
-    pred = make_predicate(masks_t, thresholds_t, combine_any, device)
+    pred = predicate_for(masks_t, thresholds_t, combine_any, device)
     state = make_state(window, num_acceptors, device=device)
     _run(state, 0, chunk, block_size, pred)
     _ = int(state.committed)  # warm the exact chunked shape
@@ -345,12 +455,12 @@ def drain_latency_distribution(spec_arrays, num_acceptors: int,
         "null_rtt_p50_us": round(null_p50_us, 1),
         "null_rtt_p90_us": round(null_p90_us, 1),
         "latency_method": (
-            "host-timed runs of drains_per_sample drains each (one "
-            "kernel launch per drain, one value fetch per sample); "
-            "per-drain = (sample - null_rtt_p50) / drains_per_sample; "
-            "chunk auto-scaled so compute >= 8x null-RTT p90, so jitter "
-            "beyond the median round trip is attributed to the drain "
-            "(p99 is an upper bound)"),
+            "host-timed runs of drains_per_sample drains each (ONE kernel "
+            "launch per run: the chunked drain kernel runs every drain of "
+            "the sample, one value fetch per sample); per-drain = (sample "
+            "- null_rtt_p50) / drains_per_sample; chunk auto-scaled so "
+            "compute >= 8x null-RTT p90, so jitter beyond the median round "
+            "trip is attributed to the drain (p99 is an upper bound)"),
     }
 
 

@@ -1,15 +1,17 @@
-"""The PINNED pre-telemetry drain of the port, the overhead baseline.
+"""The PINNED telemetry-off drain of the port, the overhead baseline.
 
 Counterpart of ``frankenpaxos_tpu/bench/pipeline_baseline.py``
 (``steady_state_step`` L76, ``run_steps_from`` L201). This module is a
-frozen copy of the port's ``bench/pipeline.py`` hot path as it stood
-before the telemetry plane: ``PipelineState``, ``make_state``, the plain
-step and ``run_steps_from``, over its own copy of the K3 source
+frozen copy of the port's ``bench/pipeline.py`` hot path without the
+telemetry plane: ``PipelineState``, ``make_state``, the plain step and
+``run_steps_from``, over its own copy of the K3 source
 (``ops/csrc/pipeline_baseline.cu``) behind its own C entry point,
-``fpx_steady_state_step_baseline``. It exists for one purpose: the
-paired overhead A/B in ``bench/telemetry_overhead.py`` holds the
-telemetry-OFF arm of the live drain against this copy, so the baseline
-arm must be immune to later edits of ``bench/pipeline.py`` and
+``fpx_run_steps_baseline``. Re-pinned to the chunked design:
+a run of drains is ONE packed call of a verbatim copy of K3's chunked
+drain kernel, as the live telemetry-off arm's is. It exists for one
+purpose: the paired overhead A/B in ``bench/telemetry_overhead.py``
+holds the telemetry-OFF arm of the live drain against this copy, so the
+baseline arm must be immune to later edits of ``bench/pipeline.py`` and
 ``ops/csrc/pipeline.cu``.
 
 The mesh form at the end of the module is the pinned drain of the
@@ -123,11 +125,21 @@ def steady_state_step_plain(state: PipelineState, i: int, block_size: int,
     return state
 
 
-def steady_state_step(state: PipelineState, i: int, *, block_size: int,
-                      predicate: QuorumPredicate) -> PipelineState:
-    """The pinned K3: one drain applied to ``state`` IN PLACE. CUDA state
-    launches ``csrc/pipeline_baseline.cu``; CPU state takes
-    :func:`steady_state_step_plain`."""
+#: Drains per launch at most (``pipeline_baseline.cu``'s ``kMaxDrains``).
+MAX_DRAINS = 1 << 16
+
+#: The packed entry: ``fpx_run_steps``'s 24 int64 slots.
+_K3 = _build.Entry("pipeline_baseline", "fpx_run_steps_baseline", 24)
+
+
+def _run(state: PipelineState, start: int, iters: int, block_size: int,
+         predicate: QuorumPredicate) -> PipelineState:
+    """The pinned run: drains ``start`` .. ``start + iters - 1`` (the
+    index wrapping as int32) applied to ``state`` IN PLACE. CUDA state
+    makes ONE packed call of ``csrc/pipeline_baseline.cu`` per launch of
+    at most :data:`MAX_DRAINS` drains (counted in
+    ``steady_state_step.launches`` and ``.drains``); CPU state loops
+    :func:`steady_state_step_plain`. Never synchronises."""
     tensors = state[:7]
     votes = state.votes
     n, window = votes.shape
@@ -141,33 +153,61 @@ def steady_state_step(state: PipelineState, i: int, *, block_size: int,
             or tuple(t.shape for t in tensors[1:]) != (
                 (window,),) * 3 + ((),) * 3:
         raise ValueError("state tensors do not match make_state's")
-    i = int32(i)
+    start = int32(start)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
     if not use_kernel(*tensors, predicate.masks):
-        return steady_state_step_plain(state, i, block_size, predicate)
+        for k in range(iters):
+            steady_state_step_plain(state, _wrap32(start + k), block_size,
+                                    predicate)
+        return state
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("steady_state_step needs contiguous tensors")
-    lib = _build.library("pipeline_baseline")
-    rc = lib.fpx_steady_state_step_baseline(
-        *(t.data_ptr() for t in tensors), window, block_size, i,
-        *predicate.c_args(), *_build.stream_args(votes.device))
-    _build.check("pipeline_baseline", "fpx_steady_state_step_baseline", rc)
-    steady_state_step.launches += 1
+        raise ValueError("the drain kernel needs contiguous tensors")
+    index = votes.get_device()
+    stream = _build.stream_handle(index)
+    fn = _K3.fn or _K3.resolve()
+    head = (*(t.data_ptr() for t in tensors), window, block_size)
+    pred_args = predicate.c_args()
+    while iters > 0:
+        k = min(iters, MAX_DRAINS)
+        rc = fn(_K3.pack(*head, start, k, *pred_args, 0, 0, index, stream))
+        if rc:
+            _K3.check(rc)
+        steady_state_step.launches += 1
+        steady_state_step.drains += k
+        start, iters = _wrap32(start + k), iters - k
     return state
 
 
+def steady_state_step(state: PipelineState, i: int, *, block_size: int,
+                      predicate: QuorumPredicate) -> PipelineState:
+    """The pinned K3: one drain applied to ``state`` IN PLACE, the run of
+    one."""
+    return _run(state, i, 1, block_size, predicate)
+
+
 steady_state_step.launches = 0
+steady_state_step.drains = 0
 
 
 def run_steps_from(state: PipelineState, start: int, iters: int,
                    block_size: int, masks_t: tuple, thresholds_t: tuple,
                    combine_any: bool) -> PipelineState:
-    """The pinned chunked runner: ``iters`` drains from drain ``start``,
-    one launch each, without synchronising; ``state`` in place."""
-    pred = make_predicate(masks_t, thresholds_t, combine_any,
-                          device=state.votes.device)
-    for i in range(start, start + iters):
-        steady_state_step(state, i, block_size=block_size, predicate=pred)
-    return state
+    """The pinned chunked runner: ``iters`` drains from drain ``start``
+    in one launch (one per :data:`MAX_DRAINS` drains), without
+    synchronising; ``state`` in place. The predicate is made and
+    uploaded once per spec and device, as the live runner's is."""
+    key = (tuple(map(tuple, masks_t)), tuple(thresholds_t),
+           bool(combine_any), state.votes.device)
+    pred = _PREDICATES.get(key)
+    if pred is None:
+        pred = _PREDICATES[key] = make_predicate(
+            masks_t, thresholds_t, combine_any, device=key[3])
+    return _run(state, start, iters, block_size, pred)
+
+
+#: ``{(masks_t, thresholds_t, combine_any, device): QuorumPredicate}``.
+_PREDICATES: dict = {}
 
 
 # --------------------------------------------------------------------------

@@ -13,13 +13,16 @@ a state without telemetry launches K3, the drain as it was before the
 plane. Three arms, each a persistent state advanced in ``iters``-drain
 chunks by ``run_steps_from``:
 
-  * **baseline** -- the pinned pre-telemetry drain
-    (``bench/pipeline_baseline.py``, its own copy of the K3 source), so
-    the comparison arm cannot drift when the live module is edited;
+  * **baseline** -- the pinned telemetry-off drain
+    (``bench/pipeline_baseline.py``, its own copy of the K3 source,
+    re-pinned to the chunked design), so the comparison arm
+    cannot drift when the live module is edited;
   * **off** -- the live drain with ``telemetry=False`` (K3). Gate: less
     than 3% throughput overhead against the baseline at the worst width;
-  * **on** -- the live drain with ``telemetry=True`` (K14, one launch per
-    drain), recorded but not gated: telemetry is an explicit opt-in.
+  * **on** -- the live drain with ``telemetry=True`` (K14), recorded but
+    not gated: telemetry is an explicit opt-in.
+
+Every arm advances a chunk as ONE launch of its chunked drain kernel.
 
 Methodology (the reference's): chunks of the three arms interleaved,
 order rotated every chunk, GC off across the timed region, warmup chunks
@@ -175,10 +178,12 @@ def run(device=None, smoke: bool = False, blocks=None, widths=None,
         "gate_passed": off_worst < 3.0,
         "methodology": (
             "three-arm paired in-process A/B, alternating-chunk with GC "
-            "off: pinned pre-telemetry drain (bench/pipeline_baseline.py "
+            "off: pinned telemetry-off drain (bench/pipeline_baseline.py "
             "over ops/csrc/pipeline_baseline.cu, immune to live-module "
-            "edits) vs live telemetry-off (K3) vs live telemetry-on "
-            "(K14, one launch per drain). Persistent per-arm states "
+            "edits; re-pinned to the chunked design, a verbatim copy "
+            "of the chunked K3 kernel) vs live telemetry-off (K3) vs "
+            "live telemetry-on (K14), each chunk ONE launch of its chunked "
+            "drain kernel. Persistent per-arm states "
             "advance in run_steps_from chunks (ring positions and arrival "
             "hashes continue across chunks), order rotated per chunk, "
             "warmup chunks discarded, one value fetch per chunk, "

@@ -15,7 +15,18 @@ Measurements:
     storm, FIFO backlog), events/s with the numpy mask and with K18;
   * ``bpaxos``: ``bench/bpaxos_sim.py`` (simple-conflict2/25 and gc) on
     the host and the cuda backends, commands/s, at ``--bpaxos-commands``
-    per arm; every gate of both benches holds in every run.
+    per arm; every gate of both benches holds in every run;
+  * ``headline``: ``bench/headline.py``'s measurement (majority-3 and
+    2x3 grid cmds/s at 1M in-flight slots, the mean drain, p50 / p99 of
+    the per-drain distribution with a cut time budget); its commit-count
+    checks hold in every run;
+  * ``telemetry``: ``bench/telemetry_overhead.py``'s ``measure_width``
+    at the headline width 2^20/2^15 with the reference's ``--smoke``
+    knobs: the off/baseline and on/off ratios and each arm's cmds/s
+    (the arms must agree).
+
+``--kinds`` picks some of them (``split,storm,bpaxos,headline,telemetry``
+on a card, all by default).
 
 Unpack the parent into a directory the checkout ignores, then run from
 the root of this checkout::
@@ -24,7 +35,8 @@ the root of this checkout::
     python frankenpaxos_tpu_torch/bench/tree_ab.py --parent _chipcheck/parent
 
 (``--device cpu --bpaxos-commands 256`` rehearses it on the CPU, without
-the split.) It prints ONE JSON line (the medians per tree, a verdict
+the split and the headline, the telemetry arm at 2^12/2^8 with tiny
+knobs.) It prints ONE JSON line (the medians per tree, a verdict
 per metric, then every reading) and, with ``--out FILE``, writes it
 there too. A verdict is a gain or a loss only when one tree wins at
 least nine pairs in ten and the medians differ by more than the
@@ -47,6 +59,13 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 #: and BPaxos arms by more than a host-side change gains.
 ORDER = ("parent", "change", "change", "parent") * 5
 BPAXOS_COMMANDS = 1 << 13
+#: Every measurement, in the order they run; ``split`` and ``headline``
+#: time CUDA calls only.
+KINDS = ("split", "storm", "bpaxos", "headline", "telemetry")
+CUDA_ONLY = ("split", "headline")
+#: The headline arm's latency-distribution budget (the bench's 20 s,
+#: cut: ten runs a tree).
+HEADLINE_LATENCY_S = 5.0
 
 
 def _worker(kind: str, tree: str, commands: int, device=None) -> dict:
@@ -68,6 +87,34 @@ def _worker(kind: str, tree: str, commands: int, device=None) -> dict:
         return {arm: {b: fig[b]["commands_per_sec"]
                       for b in ("host", "cuda")}
                 for arm, fig in out["arms"].items()}
+    if kind == "headline":
+        from frankenpaxos_tpu_torch.bench import headline
+
+        out = headline.measure(device,
+                               latency_budget_s=HEADLINE_LATENCY_S)
+        return {"majority3_cmds_per_s": out["value"],
+                "grid_cmds_per_s": out["grid_cmds_per_sec"],
+                "majority3_mean_drain_us":
+                    out["mean_quorum_batch_latency_us"],
+                "grid_mean_drain_us": out["grid_mean_batch_latency_us"],
+                "p50_drain_us": out["p50_drain_latency_us"],
+                "p99_drain_us": out["p99_drain_latency_us"],
+                "nvidia_smi": out["nvidia_smi"]}
+    if kind == "telemetry":
+        from frankenpaxos_tpu_torch.bench import telemetry_overhead as tover
+
+        if device == "cpu":
+            width, knobs = (1 << 12, 1 << 8), {"warmup": 0, "chunks": 1,
+                                               "iters": 4, "blocks": 1}
+        else:
+            width, knobs = (1 << 20, 1 << 15), tover.SMOKE_KNOBS
+        row = tover.measure_width(*width, knobs, device)
+        if not row["arms_agree"]:
+            raise RuntimeError(f"the overhead arms disagree: {row}")
+        return {key: row[key] for key in (
+            "off_over_baseline_ratio", "on_over_off_ratio",
+            "baseline_cmds_per_sec_med", "off_cmds_per_sec_med",
+            "on_cmds_per_sec_med")}
     raise ValueError(f"unknown measurement {kind!r}")
 
 
@@ -92,21 +139,21 @@ def _flatten(reading: dict, prefix: str = "") -> dict:
 
 
 def _verdicts(sides: dict) -> dict:
-    """Per metric (host ns, lower is better; events/s and commands/s,
-    higher), over the runs in pairs (the i-th parent run beside the i-th
-    change run): both medians, the parent's interquartile spread, the
-    pairs the change won, and the verdict. A ``gain`` (or ``loss``) needs
-    the change (or the parent) to win at least nine pairs in ten and
-    the medians to differ by more than the parent's spread; anything
-    else is ``unresolved``. The split's per-function shares are left
-    out."""
+    """Per metric (host ns and drain µs, lower is better; events/s,
+    commands/s and the overhead ratios, higher), over the runs in pairs
+    (the i-th parent run beside the i-th change run): both medians, the
+    parent's interquartile spread, the pairs the change won, and the
+    verdict. A ``gain`` (or ``loss``) needs the change (or the parent)
+    to win at least nine pairs in ten and the medians to differ by more
+    than the parent's spread; anything else is ``unresolved``. The
+    split's per-function shares are left out."""
     flat = {side: [_flatten(r) for r in runs] for side, runs in sides.items()}
     out = {}
     for key in flat["parent"][0]:
         if key.startswith("split_ns") or not all(
                 key in f for side in flat for f in flat[side]):
             continue
-        lower = "_ns" in key
+        lower = "_ns" in key or key.endswith("_us")
         parent = [f[key] for f in flat["parent"]]
         change = [f[key] for f in flat["change"]]
         pairs = list(zip(parent, change))
@@ -128,13 +175,17 @@ def _verdicts(sides: dict) -> dict:
     return out
 
 
-def run(parent: str, commands: int = BPAXOS_COMMANDS, device=None) -> dict:
-    """The measurements in turns, ``parent`` against this checkout; on
-    the CPU (``device="cpu"``, a rehearsal) without the split, which
-    times CUDA calls."""
+def run(parent: str, commands: int = BPAXOS_COMMANDS, device=None,
+        kinds=KINDS) -> dict:
+    """The measurements of ``kinds`` in turns, ``parent`` against this
+    checkout; on the CPU (``device="cpu"``, a rehearsal) without the
+    split and the headline, which time CUDA calls."""
     trees = {"parent": os.path.abspath(parent), "change": ROOT}
-    kinds = ("storm", "bpaxos") if device == "cpu" \
-        else ("split", "storm", "bpaxos")
+    unknown = set(kinds) - set(KINDS)
+    if unknown:
+        raise ValueError(f"unknown measurements {sorted(unknown)}")
+    kinds = [kind for kind in KINDS if kind in kinds
+             and not (device == "cpu" and kind in CUDA_ONLY)]
     readings = {kind: {"parent": [], "change": []} for kind in kinds}
     started = time.perf_counter()
     for kind in readings:
@@ -165,18 +216,20 @@ def run(parent: str, commands: int = BPAXOS_COMMANDS, device=None) -> dict:
             medians.setdefault(kind, {})[side] = {
                 key: statistics.median(f[key] for f in flat) for key in keys}
     verdicts = {kind: _verdicts(sides) for kind, sides in readings.items()}
-    digests = {side: [{arm: fig["projection_sha256"]
-                       for arm, fig in r.items()}
-                      for r in readings["storm"][side]]
-               for side in trees}
-    if any(d != digests["parent"][0] for side in digests
-           for d in digests[side]):
-        raise RuntimeError(f"the storm's deliveries differ across trees: "
-                           f"{digests}")
+    if "storm" in readings:
+        digests = {side: [{arm: fig["projection_sha256"]
+                           for arm, fig in r.items()}
+                          for r in readings["storm"][side]]
+                   for side in trees}
+        if any(d != digests["parent"][0] for side in digests
+               for d in digests[side]):
+            raise RuntimeError(f"the storm's deliveries differ across "
+                               f"trees: {digests}")
+    smi = next((readings[kind]["change"][0]["nvidia_smi"]
+                for kind in ("split", "headline") if kind in readings), None)
     return {"benchmark": "tree_ab", "trees": trees, "order": list(ORDER),
-            "bpaxos_commands": commands,
-            "nvidia_smi": (readings["split"]["change"][0]["nvidia_smi"]
-                           if "split" in readings else None),
+            "kinds": kinds, "bpaxos_commands": commands,
+            "nvidia_smi": smi,
             "seconds": time.perf_counter() - started,
             "medians": medians, "verdicts": verdicts, "readings": readings}
 
@@ -190,7 +243,10 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda); cpu rehearses "
                              "without the split")
-    parser.add_argument("--worker", choices=("storm", "bpaxos"),
+    parser.add_argument("--kinds", default=",".join(KINDS),
+                        help="the measurements, comma-separated, of "
+                             + ",".join(KINDS))
+    parser.add_argument("--worker", choices=KINDS[1:],
                         help=argparse.SUPPRESS)
     parser.add_argument("--tree", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -201,7 +257,8 @@ def main(argv=None) -> int:
         return 0
     if not args.parent:
         parser.error("--parent is required")
-    result = json.dumps(run(args.parent, args.bpaxos_commands, args.device))
+    result = json.dumps(run(args.parent, args.bpaxos_commands, args.device,
+                            kinds=args.kinds.split(",")))
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
             f.write(result + "\n")

@@ -16,7 +16,8 @@ transport-facing call whole (copy up, launch, copy down) and return
 after the stream has drained.
 
 The lean call path (:class:`Entry`, :func:`stream_handle`) serves the
-wrappers whose host cost is the call itself (K12, K18): the entry point
+wrappers whose host cost is the call itself (K12, K18, and the drain
+runs of K3, K14 and the pinned copy): the entry point
 is looked up once; its arguments cross as ONE packed block of int64
 (``struct`` bytes), which ctypes converts once instead of one argument
 at a time; a launch-only entry is called through a ``ctypes.PyDLL``
@@ -48,8 +49,12 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
+#: ``--split-compile=0`` optimises a source's kernels on every core: the
+#: drain's one instantiation per board structure (``pipeline.cu``) builds
+#: in well under half the time.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: One packed block of int64 arguments (``struct`` bytes, which
@@ -131,13 +136,12 @@ SIGNATURES = {
                                          _P],
     },
     "pipeline": {
-        # votes, chosen, commands, results, sm_state, committed,
-        # exec_wm, window, block_size, i, *pred
-        "fpx_steady_state_step": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
-                                  *_PRED, _I, _P],
-        # K3's arguments, then the flat telemetry buffer
-        "fpx_steady_state_step_telemetry": [_P, _P, _P, _P, _P, _P, _P, _L,
-                                            _I, _I, *_PRED, _P, _I, _P],
+        # packed: votes, chosen, commands, results, sm_state, committed,
+        # exec_wm, window, block_size, start, iters, masks, thresholds,
+        # perm, n, g, combine_any, grid_kind, rows, cols, telemetry buffer
+        # (0 for K3), scratch (0 for K3), device, stream
+        "fpx_run_steps": _B,
+        "fpx_run_steps_telemetry": _B,
     },
     "simwave": {
         # packed: src zones, dst zones, n, up, rows, cols, out, device,
@@ -148,10 +152,9 @@ SIGNATURES = {
         # device, stream
         "fpx_link_keep_mask_staged": _B,
     },
-    # The pinned pre-telemetry drain: K3's arguments.
+    # The pinned telemetry-off drain: fpx_run_steps's packed block.
     "pipeline_baseline": {
-        "fpx_steady_state_step_baseline": [_P, _P, _P, _P, _P, _P, _P, _L,
-                                           _I, _I, *_PRED, _I, _P],
+        "fpx_run_steps_baseline": _B,
     },
     # The sharded drain on one shard of a (group, slot) mesh.
     "pipeline_sharded": {

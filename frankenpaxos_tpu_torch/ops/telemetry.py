@@ -3,7 +3,7 @@
 Counterpart of ``frankenpaxos_tpu/ops/telemetry.py``. A small set of
 int32 counters rides inside the pipeline state and is accumulated by the
 drain itself -- in the CUDA drain K14 (``csrc/pipeline.cu``, the
-``kTelemetry`` instantiation of K3), or by :func:`quorum_pass_update`
+``kTelemetry`` instantiation of K3's chunked drain kernel), or by :func:`quorum_pass_update`
 and :func:`drain_update` in the plain version -- with no callbacks, no
 clocks and no device-to-host copy until an explicit
 ``frankenpaxos_tpu_torch.obs.telemetry.collect`` at the reporting
@@ -31,7 +31,7 @@ Counter semantics (all cumulative since :func:`make_telemetry`):
 The six counters are int32 views into ONE flat int32 buffer
 (``TelemetryState.buffer``), in the order above, followed by one private
 scratch word that K14 uses as its done-counter (always 0 between
-drains). One buffer makes a collect a single device-to-host copy. Every
+launches). One buffer makes a collect a single device-to-host copy. Every
 update here is an in-place add into those views.
 
 What each update adds is defined once: :func:`pass_deltas` and
@@ -153,12 +153,14 @@ def lag_bucket_bounds() -> np.ndarray:
 
 
 def lag_bucket(lag: torch.Tensor) -> torch.Tensor:
-    """The bucket index of a scalar int32 lag: how many of the bounds
-    2^0 ... 2^14 it reaches, by signed integer compares (a negative lag
-    gives 0, the largest bucket is 15)."""
-    bounds = torch.from_numpy(2 ** np.arange(LAG_BUCKETS - 1,
-                                             dtype=np.int32)).to(lag.device)
-    return (lag >= bounds).sum(dtype=torch.int32)
+    """The bucket index of each int32 lag (a scalar, or any shape): how
+    many of the bounds 2^0 ... 2^14 it reaches, by signed integer
+    compares (a negative lag gives 0, the largest bucket is 15)."""
+    # lag >= 2^k  <=>  lag >> k >= 1 (an arithmetic shift: a negative
+    # lag stays negative); the shifts are made on the lag's device.
+    shifts = torch.arange(LAG_BUCKETS - 1, dtype=torch.int32,
+                          device=lag.device)
+    return ((lag[..., None] >> shifts) >= 1).sum(-1, dtype=torch.int32)
 
 
 def _psum(x: torch.Tensor, slot_axis) -> torch.Tensor:
@@ -176,9 +178,11 @@ def pass_deltas(votes_count: torch.Tensor, newly: torch.Tensor,
                 n_bins: int) -> tuple:
     """One quorum pass's local counter deltas: the ``[n_bins]`` int32
     occupancy histogram of the newly-chosen lanes, lane ``l`` in bin
-    ``clip(votes_count[l], 0, n_bins - 1)``, and the int32 newly count."""
-    bins = votes_count.clamp(0, n_bins - 1).long()[newly]
-    return (torch.bincount(bins, minlength=n_bins).to(torch.int32),
+    ``clip(votes_count[l], 0, n_bins - 1)``, and the int32 newly count
+    (a scatter-add of the newly flags: nothing waits for the device)."""
+    bins = votes_count.clamp(0, n_bins - 1).long()
+    occ = torch.zeros(n_bins, dtype=torch.int32, device=bins.device)
+    return (occ.scatter_add_(0, bins, newly.to(torch.int32)),
             newly.sum(dtype=torch.int32))
 
 
@@ -195,7 +199,9 @@ def close_drain(tel: TelemetryState, lag: torch.Tensor) -> TelemetryState:
     """The once-per-drain counters, in place: one sample of the
     end-of-drain lag's bucket (``lag`` is the same on every shard) and
     the drain count."""
-    tel.lag_hist[lag_bucket(lag).long()] += 1
+    bucket = lag_bucket(lag).reshape(1).long()
+    tel.lag_hist.scatter_add_(0, bucket, torch.ones_like(bucket,
+                                                         dtype=torch.int32))
     tel.drains.add_(1)
     return tel
 

@@ -184,3 +184,84 @@ def test_step_rejects_bad_shapes_and_telemetry():
     with pytest.raises(ValueError, match="make_state"):
         tp.steady_state_step(state._replace(committed=state.commands[:1]),
                              0, block_size=256, predicate=pred)
+
+
+# --- runs of drains: what one launch of the chunked drain kernel does ------
+
+CHUNKS = (1, 2, 3, 17)
+RATIOS = (1, 2, 3, 8)
+STARTS = (0, 2**31 - 5)
+
+
+def _jax_run(ref_state, name, start, iters, block_size):
+    """JAX's ``run_steps_from`` where the run stays inside int32; a run
+    that crosses the wrap runs JAX's jitted step drain by drain at the
+    wrapped index (``run_steps_from``'s loop bound would wrap)."""
+    if start + iters - 1 < 2**31:
+        return jp.run_steps_from(ref_state, jnp.int32(start), iters,
+                                 block_size, *_statics(SPECS[name]))
+    step = _jax_step(name, block_size)
+    for k in range(iters):
+        ref_state = step(ref_state, jnp.int32(tp._wrap32(start + k)))
+    return ref_state
+
+
+@pytest.mark.parametrize("start", STARTS)
+@pytest.mark.parametrize("ratio", RATIOS)
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_run_steps_from_chunks_match_reference(chunk, ratio, start):
+    """``run_steps_from`` on CPU tensors (the plain version of one
+    launch) against JAX's, every field bit for bit, after a chunk and
+    after a second chunk that resumes it: chunks of 1, 2, 3 and 17
+    drains, window / block 1, 2, 3 and 8 (1 and 2 alias the new, old and
+    GC blocks; 3 makes the next drain's new block this drain's GC
+    block), from 0 and from 2^31 - 5 (17 drains wrap int32)."""
+    name = "grid2x3" if ratio % 2 else "majority3"
+    block = 128
+    n = SPECS[name].num_nodes
+    statics = _statics(SPECS[name])
+    ref_state = jp.make_state(block * ratio, n)
+    state = tp.make_state(block * ratio, n, device="cpu")
+    at = start
+    for _ in range(2):
+        ref_state = _jax_run(ref_state, name, at, chunk, block)
+        out = tp.run_steps_from(state, at, chunk, block, *statics)
+        assert out is state
+        _assert_same(state, ref_state, f"after the chunk from {at}")
+        at = tp._wrap32(at + chunk)
+    assert int(state.committed) > 0
+
+
+@pytest.mark.parametrize("start", STARTS)
+def test_two_chunks_equal_one_long_chunk(start):
+    """7 drains then 10 from where they stopped equal 17 in one run,
+    and JAX's 17."""
+    name, block = "majority3", 256
+    statics = _statics(SPECS[name])
+    ref_state = _jax_run(jp.make_state(1024, 3), name, start, 17, block)
+    one = tp.run_steps_from(tp.make_state(1024, 3, device="cpu"), start, 17,
+                            block, *statics)
+    two = tp.make_state(1024, 3, device="cpu")
+    tp.run_steps_from(two, start, 7, block, *statics)
+    tp.run_steps_from(two, tp._wrap32(start + 7), 10, block, *statics)
+    _assert_same(one, ref_state)
+    _assert_same(two, ref_state)
+
+
+def test_run_steps_plain_is_the_per_drain_reference():
+    """The plain version of one launch equals the per-drain plain step
+    looped, and a run of 0 drains leaves the state alone."""
+    pred = make_predicate(*SPECS["grid3x3"].as_arrays(), device="cpu")
+    run = tp.run_steps_plain(tp.make_state(1536, 9, device="cpu"),
+                             2**31 - 3, 6, 512, pred)
+    loop = tp.make_state(1536, 9, device="cpu")
+    for k in range(6):
+        tp.steady_state_step_plain(loop, tp._wrap32(2**31 - 3 + k), 512,
+                                   pred)
+    for name in tp.PipelineState._fields[:7]:
+        assert torch.equal(getattr(run, name), getattr(loop, name)), name
+    before = [t.clone() for t in run[:7]]
+    tp.run_steps_from(run, 0, 0, 512, *_statics(SPECS["grid3x3"]))
+    assert all(torch.equal(a, b) for a, b in zip(before, run[:7]))
+    with pytest.raises(ValueError, match="iters"):
+        tp.run_steps_from(run, 0, -1, 512, *_statics(SPECS["grid3x3"]))

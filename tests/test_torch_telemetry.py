@@ -11,9 +11,9 @@ libbench twin launches against those plain versions on the GPU.
 (a) The single-device cases of ``tests/test_telemetry.py`` on the port.
 Two change form: "one batched fetch" is counted through
 ``obs.telemetry.fetch``, and "off traces to the pinned program" becomes
-"the off arm and the pinned twin make the same C calls with the same
-arguments, one per drain (a stand-in library), and end in bit-identical
-state". The mesh cases run over gloo ranks in
+"the off arm and the pinned twin make the same packed C call with the
+same scalars, one per run (a stand-in library), and end in
+bit-identical state". The mesh cases run over gloo ranks in
 ``tests/test_torch_multichip_telemetry.py``; the SIGKILL post-mortem
 waits for ``obs/flight.py`` (ROADMAP.md queue 1 item 8).
 (b) Parity with JAX: the counters after every drain, ``lag_bucket``,
@@ -22,6 +22,7 @@ the update functions, the reporter. (c) The benches at tiny sizes.
 
 import functools
 import json
+import struct
 
 from frankenpaxos_tpu_torch import convert
 from frankenpaxos_tpu_torch.bench import (
@@ -146,13 +147,16 @@ def test_collect_is_one_batched_fetch(monkeypatch):
 
 class _Recorder:
     """Stands in for the kernel libraries: records each entry point's
-    arguments, launches nothing, returns 0 (no CUDA error)."""
+    arguments (a packed block of int64 unpacked), launches nothing,
+    returns 0 (no CUDA error)."""
 
     def __init__(self):
         self.calls = []
 
     def __getattr__(self, entry):
         def call(*args):
+            if len(args) == 1 and isinstance(args[0], bytes):
+                args = struct.unpack(f"={len(args[0]) // 8}q", args[0])
             self.calls.append((entry, args))
             return 0
 
@@ -160,31 +164,43 @@ class _Recorder:
 
 
 def _force_kernel_path(monkeypatch):
+    """The kernel path on CPU tensors: every ``_build.Entry`` call of the
+    live drain and the pinned copy goes to a recorder."""
     recorder = _Recorder()
     for module in (tp, tpin):
         monkeypatch.setattr(module, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(_build, "library", lambda name: recorder)
-    monkeypatch.setattr(_build, "stream_args", lambda device: (0, None))
+    monkeypatch.setattr(_build, "packed_library",
+                        lambda name, keep_gil: recorder)
+    monkeypatch.setattr(_build, "stream_handle", lambda index: 0)
+    for entry in (tp._K3, tp._K14, tpin._K3):
+        monkeypatch.setattr(entry, "fn", None)
     for wrapper in (tp.steady_state_step, tp.telemetry_drain,
                     tpin.steady_state_step):
         monkeypatch.setattr(wrapper, "launches", 0)
+        monkeypatch.setattr(wrapper, "drains", 0)
     return recorder
 
 
-def _scalars(entry, args):
-    """The non-pointer arguments of a recorded call."""
-    for source in _build.SIGNATURES.values():
-        if entry in source:
-            return [a for a, t in zip(args, source[entry])
-                    if t is not _build._P]
-    raise KeyError(entry)
+#: Slots of the drain's packed block that hold pointers: the seven state
+#: tensors and the predicate's three arrays (``pipeline.cu``'s layout).
+_POINTER_SLOTS = frozenset(range(7)) | {11, 12, 13}
+
+
+def _scalars(args):
+    """The non-pointer slots of a recorded drain call: window, block,
+    start, iters, the predicate's six ints, the telemetry and scratch
+    slots, device and stream."""
+    return [a for k, a in enumerate(args) if k not in _POINTER_SLOTS]
 
 
 def test_off_traces_to_pinned_baseline_program(monkeypatch):
     """Telemetry off makes the pinned program's calls: the live off arm
-    and the pinned twin make one C call per drain with the same scalar
-    arguments (pointers at the same positions), through entry points of
-    the same signature; and on the CPU they end in bit-identical state."""
+    and the pinned twin make ONE packed call per run, through entries of
+    the same signature, with the same scalar slots (pointers at the same
+    positions) and no telemetry or scratch; a run longer than a launch's
+    cap splits alike; the launch and drain counters count; and on the
+    CPU they end in bit-identical state."""
     statics = _statics(SPECS["majority3"])
     recorder = _force_kernel_path(monkeypatch)
     tp.run_steps_from(tp.make_state(1 << 10, 3, device="cpu"), 5, 8, 128,
@@ -194,18 +210,38 @@ def test_off_traces_to_pinned_baseline_program(monkeypatch):
     tpin.run_steps_from(tpin.make_state(1 << 10, 3, device="cpu"), 5, 8,
                         128, *statics)
     pinned_calls = list(recorder.calls)
-    assert [e for e, _ in live_calls] == ["fpx_steady_state_step"] * 8
-    assert [e for e, _ in pinned_calls] == \
-        ["fpx_steady_state_step_baseline"] * 8
-    assert _build.SIGNATURES["pipeline"]["fpx_steady_state_step"] == \
-        _build.SIGNATURES["pipeline_baseline"][
-            "fpx_steady_state_step_baseline"]
-    for (le, la), (pe, pa) in zip(live_calls, pinned_calls):
-        assert len(la) == len(pa)
-        assert _scalars(le, la) == _scalars(pe, pa)
-    assert tp.steady_state_step.launches == 8
-    assert tpin.steady_state_step.launches == 8
-    assert tp.telemetry_drain.launches == 0
+    assert [e for e, _ in live_calls] == ["fpx_run_steps"]
+    assert [e for e, _ in pinned_calls] == ["fpx_run_steps_baseline"]
+    assert _build.SIGNATURES["pipeline"]["fpx_run_steps"] is _build._B
+    assert _build.SIGNATURES["pipeline_baseline"][
+        "fpx_run_steps_baseline"] is _build._B
+    (_, la), (_, pa) = live_calls[0], pinned_calls[0]
+    assert len(la) == len(pa) == 24
+    assert _scalars(la) == _scalars(pa) == \
+        [1 << 10, 128, 5, 8, 3, 1, 1, 0, 0, 0, 0, 0, -1, 0]
+    assert all(la[k] and pa[k] for k in _POINTER_SLOTS)
+    assert tp.steady_state_step.launches == 1
+    assert tp.steady_state_step.drains == 8
+    assert tpin.steady_state_step.launches == 1
+    assert tpin.steady_state_step.drains == 8
+    assert tp.telemetry_drain.launches == tp.telemetry_drain.drains == 0
+    # A run over the cap: launches of at most MAX_DRAINS drains, the
+    # index wrapping as int32 between them, in both modules alike.
+    for module in (tp, tpin):
+        monkeypatch.setattr(module, "MAX_DRAINS", 3)
+    recorder.calls.clear()
+    tp.run_steps_from(tp.make_state(1 << 10, 3, device="cpu"),
+                      2**31 - 4, 8, 128, *statics)
+    live_calls = list(recorder.calls)
+    recorder.calls.clear()
+    tpin.run_steps_from(tpin.make_state(1 << 10, 3, device="cpu"),
+                        2**31 - 4, 8, 128, *statics)
+    runs = [(a[9], a[10]) for _, a in live_calls]
+    assert runs == [(2**31 - 4, 3), (2**31 - 1, 3), (-2**31 + 2, 2)]
+    assert runs == [(a[9], a[10]) for _, a in recorder.calls]
+    assert tp.steady_state_step.launches == 4
+    assert tp.steady_state_step.drains == 16
+    assert tpin.steady_state_step.launches == 4
     monkeypatch.undo()
 
     live = tp.run_steps_from(tp.make_state(1 << 10, 3, device="cpu"), 5, 8,
@@ -217,21 +253,33 @@ def test_off_traces_to_pinned_baseline_program(monkeypatch):
 
 
 def test_telemetry_kernel_path_arguments(monkeypatch):
-    """K14's wrapper passes K3's arguments plus the flat buffer, counts
-    one launch per drain and none on K3's count."""
+    """K14's wrapper passes K3's block plus the flat buffer and a scratch
+    array of at least ``iters`` zeroed int32, in ONE call per run;
+    counts one launch of 3 drains and none on K3's counts; a single
+    drain is a run of one."""
     recorder = _force_kernel_path(monkeypatch)
     state = tp.make_state(1 << 10, 3, telemetry=True, device="cpu")
     tp.run_steps_from(state, 0, 3, 128, *_statics(SPECS["majority3"]))
     entries = [e for e, _ in recorder.calls]
-    assert entries == ["fpx_steady_state_step_telemetry"] * 3
-    sig = _build.SIGNATURES["pipeline"]["fpx_steady_state_step_telemetry"]
+    assert entries == ["fpx_run_steps_telemetry"]
+    assert _build.SIGNATURES["pipeline"]["fpx_run_steps_telemetry"] is \
+        _build._B
     args = recorder.calls[-1][1]
-    assert len(args) == len(sig)
-    assert args[-3] == state.telemetry.buffer.data_ptr()
-    assert _scalars("fpx_steady_state_step_telemetry", args)[:3] == \
-        [1 << 10, 128, 2]
-    assert tp.telemetry_drain.launches == 3
-    assert tp.steady_state_step.launches == 0
+    assert len(args) == 24
+    assert args[20] == state.telemetry.buffer.data_ptr()
+    scratch = next(t for t in tp._SCRATCH.values()
+                   if t.data_ptr() == args[21])
+    assert scratch.dtype == torch.int32 and scratch.numel() >= 3
+    assert not scratch.any()
+    assert _scalars(args)[:4] == [1 << 10, 128, 0, 3]
+    assert tp.telemetry_drain.launches == 1
+    assert tp.telemetry_drain.drains == 3
+    assert tp.steady_state_step.launches == tp.steady_state_step.drains == 0
+    tp.steady_state_step(state, 9, block_size=128,
+                         predicate=_pred(SPECS["majority3"]))
+    assert recorder.calls[-1][1][9:11] == (9, 1)
+    assert tp.telemetry_drain.launches == 2
+    assert tp.telemetry_drain.drains == 4
 
 
 def test_collect_off_state_returns_none():
@@ -359,6 +407,108 @@ def test_counters_match_reference_up_to_int32_max(name):
 
 LAGS = [-2**31, -1, 0, 1, 2, 3, 4, 5, 2**14 - 1, 2**14, 2**14 + 1,
         2**31 - 1]
+
+
+def _jax_run(ref_state, name, start, iters, block_size):
+    """JAX's ``run_steps_from`` where the run stays inside int32; a run
+    that crosses the wrap runs JAX's jitted step drain by drain at the
+    wrapped index (``run_steps_from``'s loop bound would wrap)."""
+    if start + iters - 1 < 2**31:
+        return jp.run_steps_from(ref_state, jnp.int32(start), iters,
+                                 block_size, *_statics(SPECS[name]))
+    step = _jax_step(name, block_size)
+    for k in range(iters):
+        ref_state = step(ref_state, jnp.int32(tp._wrap32(start + k)))
+    return ref_state
+
+
+@pytest.mark.parametrize("start", [0, 2**31 - 5])
+@pytest.mark.parametrize("ratio", [1, 2, 3, 8])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 17])
+def test_run_chunks_counters_match_reference(chunk, ratio, start):
+    """Telemetry on, ``run_steps_from`` on CPU tensors (the plain version
+    of one K14 launch, its lags folded at the end of the run by
+    ``fold_lag_plain``) against JAX's, every field and counter bit for
+    bit, after a chunk and after a second that resumes it: chunks of 1,
+    2, 3 and 17 drains, window / block 1, 2, 3 and 8, from 0 and from
+    2^31 - 5 (17 drains wrap int32)."""
+    name = "majority3" if ratio % 2 else "grid2x3"
+    block, n = 128, SPECS[name].num_nodes
+    ref_state = jp.make_state(block * ratio, n, telemetry=True)
+    state = tp.make_state(block * ratio, n, telemetry=True, device="cpu")
+    at = start
+    for _ in range(2):
+        ref_state = _jax_run(ref_state, name, at, chunk, block)
+        tp.run_steps_from(state, at, chunk, block, *_statics(SPECS[name]))
+        _assert_same_state(state, ref_state, f"after the chunk from {at}")
+        at = tp._wrap32(at + chunk)
+    assert int(state.telemetry.drains) == 2 * chunk
+
+
+@pytest.mark.parametrize("start", [0, 2**31 - 5])
+def test_telemetry_two_chunks_equal_one_long_chunk(start):
+    """With the counters: 7 drains then 10 equal 17 in one run, and
+    JAX's 17."""
+    name, block = "grid2x3", 256
+    statics = _statics(SPECS[name])
+    ref_state = _jax_run(jp.make_state(1024, 6, telemetry=True), name,
+                         start, 17, block)
+    one = tp.run_steps_from(
+        tp.make_state(1024, 6, telemetry=True, device="cpu"), start, 17,
+        block, *statics)
+    two = tp.make_state(1024, 6, telemetry=True, device="cpu")
+    tp.run_steps_from(two, start, 7, block, *statics)
+    tp.run_steps_from(two, tp._wrap32(start + 7), 10, block, *statics)
+    _assert_same_state(one, ref_state)
+    _assert_same_state(two, ref_state)
+
+
+def test_run_with_committed_crossing_int32_matches_reference():
+    """A JAX state whose committed is 2^31 - 2000 carried into the port:
+    17 telemetry-on drains in one run from 2^24 - 8, where both the
+    end-of-drain committed and ``(i + 1) * block`` cross 2^31 mid-run
+    (the fold recovers the run's start mod 2^32 and its prefix sums
+    wrap): the lags equal JAX's drain-by-drain ones, about 1000 each
+    (bucket 10 or 11), not the bucket 0 a lag off by 2^32 would give."""
+    name, block = "majority3", 128
+    ref_state = jp.make_state(512, 3, telemetry=True)
+    ref_state = ref_state._replace(committed=jnp.int32(2**31 - 2000))
+    state = convert.pipeline_state_from_numpy(jax.device_get(ref_state),
+                                              device="cpu")
+    start = 2**24 - 8
+    ref_state = _jax_run(ref_state, name, start, 17, block)
+    tp.run_steps_from(state, start, 17, block, *_statics(SPECS[name]))
+    _assert_same_state(state, ref_state)
+    assert int(state.committed) < 0  # wrapped
+    assert int(state.telemetry.lag_hist[10:12].sum()) == 17
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_fold_lag_matches_reference_drain_by_drain(seed):
+    """``fold_lag_plain`` (one fold of a run's per-drain newly counts)
+    against JAX's ``drain_update`` applied drain by drain with the
+    end-of-drain lag: the run's start near 2^31 (the index wraps), the
+    committed count crossing 2^31, counts from 0 to 2^20."""
+    rng = np.random.default_rng(seed)
+    iters, block = 40, 1 << 12
+    start = 2**31 - 17
+    newly = rng.integers(0, 1 << 20, size=iters).astype(np.int32)
+    first = np.int64(2**31 - 3 * (1 << 19))
+    committed = first
+    jax_tel = jtel.make_telemetry(3)
+    zeros = jnp.zeros(4, jnp.int32)
+    for k in range(iters):
+        committed = committed + np.int64(newly[k])
+        i = tp._wrap32(start + k)
+        lag = tp._wrap32((i + 1) * block - tp._wrap32(int(committed)))
+        jax_tel = jtel.drain_update(jax_tel, proposed_block=zeros,
+                                    lane_valid=None, lag=jnp.int32(lag),
+                                    slot_axis=None)
+    tel = ttel.make_telemetry(3, device="cpu")
+    final = torch.tensor(tp._wrap32(int(committed)), dtype=torch.int32)
+    tp.fold_lag_plain(tel, final, torch.from_numpy(newly), start, block)
+    _assert_tel_equal(tel, jax_tel)
+    assert int(tel.drains) == iters
 
 
 def test_lag_bucket_matches_reference():
