@@ -10,8 +10,17 @@ Phases, in order (any failure exits nonzero and prints no result):
   1. device: the card's name, and ``nvidia-smi``'s name and power limit;
   2. build: compiles every kernel of ``frankenpaxos_tpu_torch/ops/csrc``
      (one ``nvcc`` per source, in parallel) and prints the seconds;
-  3. K1 ``quorum_hit`` against its plain version at B = 32768 for five
-     specs, on 0/1 blocks and on arbitrary bytes, both layouts: exact;
+  3. K1 ``quorum_hit`` against its plain version, exact: every form
+     (majorities of 1-16 acceptors, the register forms, and of 17, the
+     runtime loop; two overlapping groups under any and all, no group, a
+     weighted group; the 2x3, 3x3, permuted 2x3 and 3x1 grids, write
+     and read; the zone grid) at B = 1, 15, 16, 63, 64, 1007, 4096 and
+     32768, on 0/1 votes and arbitrary bytes, contiguous, transposed,
+     offset 1, 7 and 15 bytes off a 16-byte boundary, and with a row
+     stride that is not a multiple of 16; then the staged entry
+     (``TpuQuorumChecker.check_block``, and three segments side by side
+     through ``stage_block`` / ``check_staged``) against a checker on the
+     CPU;
   4. K2 ``record_block`` against its plain version: a
      ``TpuQuorumChecker`` at window 2^20 through 64 record_block calls of
      width 32768 with ring wrap, round preemption and stale owners; the
@@ -34,7 +43,18 @@ Phases, in order (any failure exits nonzero and prints no result):
   7. K5 ``release`` against its plain version at window 2^20;
   8. K6 ``check_batch_multi`` alone and ``record_and_check_epochs``
      against their plain versions: three epochs over a 5-node union,
-     window 2^14 (the epoch tracker's);
+     window 2^14 (the epoch tracker's), one-chunk calls of 64-1024
+     lanes, and of 1024 (workspace in shared memory past 48 KB) and
+     8192 (workspace in device memory); then the run (one launch a run
+     of 256-lane chunks) against the plain version called chunk by
+     chunk: runs of 1, 2 and 48 chunks with duplicates inside and across
+     chunks, stale owners, ring wrap, preemption, slots and nodes out of
+     range and pad lanes, a chunk across each epoch boundary, true slots
+     across the int32 wrap, a ragged last chunk, the same run without
+     its pad lanes (equal), and the tracker's staged entry
+     (``EpochSegmentedChecker.record_and_check_run``, 48 chunks a call)
+     against a checker on the CPU, also right behind a release (K5) and
+     an epoch reshape (K7) queued on the current stream behind a sleep;
   9. K7 ``reshape_columns`` against its plain version: a [3, 2^20]
      board to [4, 2^20] and to [2, 2^20];
   10. K8 ``safe_values`` against its plain version: [2^16, 3] and
@@ -226,7 +246,12 @@ Phases, in order (any failure exits nonzero and prints no result):
      a drain of every form of phases 5 and 17), printed as one
      ``{"kernels": [...]}`` line; before it, each headline arm's timed
      run split into host and device time (CUDA events around the same
-     run) and the share of it the device sat idle.
+     run) and the share of it the device sat idle. The K1, K6 and K10
+     rows also carry ``bench/launch_shapes.py``'s figures at the shapes
+     the paths launch them (K1 at N = 3 and the synchronous tracker's
+     buckets, with the staged entry's host time; K6 on one chunk and on
+     a drain's run of 48 chunks, with the epoch checker's; K10 at the
+     BPaxos Leader's [2, 2, W]).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -249,6 +274,7 @@ from frankenpaxos_tpu_torch.bench import (
     epaxos_sim,
     geo_lt,
     headline,
+    launch_shapes,
     libbench,
     multichip,
     multichip_board,
@@ -272,7 +298,7 @@ from frankenpaxos_tpu_torch.ops import (
     watermark as tw,
 )
 from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority, ZoneGrid
-from frankenpaxos_tpu_torch.quorums.spec import ALL, pad_specs, QuorumSpec
+from frankenpaxos_tpu_torch.quorums.spec import ALL, ANY, pad_specs, QuorumSpec
 import numpy as np
 import torch
 
@@ -328,23 +354,106 @@ def predicate(spec, dev):
     return tq.make_predicate(*spec.as_arrays(), device=dev)
 
 
+#: K1's widths: one column, around one and four 16-column vectors, the
+#: tracker's smallest and largest buckets, the main path's block, and a
+#: ragged width.
+K1_WIDTHS = (1, 15, 16, 63, 64, 1007, 4096, BLOCK)
+
+
+def k1_predicates() -> dict:
+    """Every form of K1, by name: ``(masks, thresholds, combine_any)``.
+    Majorities of 1-16 acceptors (the one-group register forms) and 17
+    (the runtime loop), groups (two overlapping, any and all; none; a
+    weighted group), and the grids: 2x3, 3x3 and permuted 2x3, write and
+    read, 3x1 (rows of one), WPaxos's zone grid (three groups)."""
+    out = {}
+    for n in range(1, 18):
+        spec = SimpleMajority(range(n)).write_spec()
+        out[f"majority{n}"] = spec.as_arrays()
+    grids = {"2x3": [[0, 1, 2], [3, 4, 5]],
+             "3x3": [[0, 1, 2], [3, 4, 5], [6, 7, 8]],
+             "perm2x3": [[0, 2, 4], [1, 3, 5]],
+             "3x1": [[0], [1], [2]]}
+    for name, rows in grids.items():
+        out[f"grid{name}_write"] = Grid(rows).write_spec().as_arrays()
+        out[f"grid{name}_read"] = Grid(rows).read_spec().as_arrays()
+    out["zonegrid3x3"] = ZoneGrid(grids["3x3"]).write_spec().as_arrays()
+    two = np.array([[1, 1, 1, 0, 0], [0, 0, 1, 1, 1]])
+    out["groups2_all"] = (two, np.array([2, 2]), False)
+    out["groups2_any"] = (two, np.array([3, 2]), True)
+    out["groups0_all"] = (np.zeros((0, 3), np.int32), np.zeros(0), False)
+    out["groups0_any"] = (np.zeros((0, 3), np.int32), np.zeros(0), True)
+    out["weighted"] = (np.array([[2, 1, 1, 1]]), np.array([3]), False)
+    return out
+
+
+def _k1_views(votes: torch.Tensor, rng) -> dict:
+    """The layouts K1 reads, each a view of ``votes`` [N, B] (equal
+    values): contiguous; transposed (check_batch's [B, N] rows); offset
+    1, 7 and 15 bytes off a 16-byte boundary with aligned rows (a head of
+    scalar columns, then vectors, then a tail); and rows whose stride is
+    not a multiple of 16 (every column scalar)."""
+    n, b = votes.shape
+    out = {"contiguous": votes, "transposed": votes.t().contiguous().t()}
+    for off in (1, 7, 15):
+        width = (b + off + 31) // 16 * 16
+        big = torch.from_numpy(rng.integers(0, 256, (n, width),
+                                            dtype=np.uint8)).to(votes.device)
+        big[:, off:off + b] = votes
+        out[f"offset{off}"] = big[:, off:off + b]
+    big = torch.zeros((n, b + 3), dtype=torch.uint8, device=votes.device)
+    big[:, :b] = votes
+    out["stride+3"] = big[:, :b]
+    return out
+
+
 def phase_k1(dev, rng) -> int:
+    """K1 against its plain version, exact: every form of
+    ``k1_predicates`` at every width of ``K1_WIDTHS``, on 0/1 votes and on
+    arbitrary bytes, in every layout of ``_k1_views``; then the staged
+    entry (``TpuQuorumChecker.check_block``, and several segments side by
+    side through ``stage_block`` / ``check_staged``) against a checker on
+    the CPU."""
     worst = 0
-    for name, spec in specs().items():
-        pred = predicate(spec, dev)
-        n = spec.num_nodes
-        blocks = [(rng.random((n, BLOCK)) < p).astype(np.uint8)
-                  for p in (0.3, 0.7)]
-        blocks.append(rng.integers(0, 256, (n, BLOCK), dtype=np.uint8))
-        for blk in blocks:
-            votes = torch.from_numpy(blk).to(dev)
-            present = votes.t().contiguous()  # check_batch's [B, N] layout
-            for view in (votes, present.t()):
-                got = tq.quorum_hit(view, pred)
-                want = tq.quorum_hit_plain(view, pred)
-                err = max_abs_err(got, want)
-                worst = max(worst, err)
-                require(err == 0, f"K1 differs from plain on {name}")
+    for name, (masks, thresholds, any_) in k1_predicates().items():
+        pred = tq.make_predicate(masks, thresholds, any_, device=dev)
+        n = pred.num_nodes
+        for b in K1_WIDTHS:
+            for kind in ("0/1", "bytes"):
+                blk = (rng.random((n, b)) < 0.5).astype(np.uint8) \
+                    if kind == "0/1" \
+                    else rng.integers(0, 256, (n, b), dtype=np.uint8)
+                votes = torch.from_numpy(blk).to(dev)
+                for layout, view in _k1_views(votes, rng).items():
+                    got = tq.quorum_hit(view, pred)
+                    want = tq.quorum_hit_plain(view, pred)
+                    err = max_abs_err(got, want)
+                    worst = max(worst, err)
+                    require(err == 0, f"K1 differs from plain on {name} "
+                                      f"B={b} {kind} {layout}")
+    for name in ("majority3", "grid2x3_write", "grid3x3_read",
+                 "zonegrid3x3", "majority17"):
+        masks, thresholds, any_ = k1_predicates()[name]
+        spec = QuorumSpec(masks, thresholds, ANY if any_ else ALL,
+                          tuple(range(masks.shape[1])))
+        on_card = tq.TpuQuorumChecker(spec, window=1 << 12, device=dev)
+        on_host = tq.TpuQuorumChecker(spec, window=1 << 12, device="cpu")
+        for b in (1, 63, 64, 1007, 4096):
+            blk = rng.integers(0, 3, (spec.num_nodes, b), dtype=np.uint8)
+            err = int((on_card.check_block(blk)
+                       != on_host.check_block(blk)).sum())
+            worst = max(worst, err)
+            require(err == 0, f"K1's staged entry differs on {name} B={b}")
+        # The synchronous tracker's form: segments of 64, 4096 and 1024
+        # columns side by side in one staged block, one call.
+        total = 64 + 4096 + 1024
+        blk = rng.integers(0, 2, (spec.num_nodes, total), dtype=np.uint8)
+        for checker in (on_card, on_host):
+            checker.stage_block(total)[...] = blk
+        got = on_card.check_staged(total).copy()
+        err = int((got != on_host.check_staged(total)).sum())
+        worst = max(worst, err)
+        require(err == 0, f"K1's staged segments differ on {name}")
     torch.cuda.synchronize(dev)
     return worst
 
@@ -628,9 +737,152 @@ def phase_k6(dev, rng) -> dict:
         require(err == 0, f"K6 differs from plain at call {step}")
     require(frontier > 9000 and all(kinds.values()),
             f"K6 sequence lacks a case: frontier {frontier}, {kinds}")
+    # One call of a chunk whose workspace takes shared memory past 48 KB
+    # (1024 lanes) and one whose workspace is a device buffer (8192).
+    for b in (1024, 8192):
+        frontier += b
+        lanes = torch.from_numpy(_sparse_lanes(
+            rng, EPOCH_WINDOW, 5, frontier, b, kinds)).to(dev)
+        got = tq.record_and_check_epochs(board_k, lanes, boundaries, planes)
+        want = tq.record_and_check_epochs_plain(board_p, lanes, boundaries,
+                                                planes)
+        err = max(max_abs_err(got, want), _boards_equal(board_k, board_p))
+        worst = max(worst, err)
+        require(err == 0, f"K6 differs from plain on {b} lanes")
+    worst = max(worst, _k6_runs(dev, rng, planes, boundaries))
     torch.cuda.synchronize(dev)
     return {"record_and_check_epochs": worst,
             "check_batch_multi": worst_multi}
+
+
+#: The epoch tracker's chunk.
+K6_CHUNK = 256
+#: GPU cycles of the sleep queued ahead of the K5 or K7 work that a staged
+#: K6 drain must wait for (tens of ms: longer than the host's share).
+K6_QUEUED_SLEEP_CYCLES = 100_000_000
+
+
+def _wrap_lanes(rng, window: int, b: int) -> np.ndarray:
+    """``b`` lanes whose true slots cross the int32 wrap (from 2^31 - b/4,
+    two votes a slot): slots taken % window before the wrap, true slots
+    wrapped into int32 by ``pack_lanes``."""
+    true = (1 << 31) - b // 4 + np.arange(b) // 2
+    return tq.pack_lanes(true % window, true, rng.integers(0, 5, size=b),
+                         rng.integers(0, 2, size=b), np.ones(b, bool))
+
+
+def _k6_runs(dev, rng, planes, boundaries) -> int:
+    """K6's run (one launch a run of chunks) against the plain version
+    called chunk by chunk in order: runs of 1, 2 and 48 chunks of 256
+    lanes with duplicates inside and across chunks, stale owners, ring
+    wrap, preemption, slots and nodes out of range and pad lanes; a
+    chunk across each epoch boundary; true slots across the int32 wrap;
+    a ragged last chunk; pad lanes removed changing nothing; and the
+    tracker's staged entry (``EpochSegmentedChecker.record_and_check_run``)
+    against a checker on the CPU."""
+    worst = 0
+    board_k, board_p = _random_board(rng, 5, EPOCH_WINDOW, dev)
+
+    def check(lanes_np, what, chunk=K6_CHUNK):
+        nonlocal worst
+        lanes = torch.from_numpy(lanes_np).to(dev)
+        got = tq.record_and_check_epochs_run(board_k, lanes, boundaries,
+                                             planes, chunk)
+        want = torch.cat([tq.record_and_check_epochs_plain(
+            board_p, lanes[:, at:at + chunk], boundaries, planes)
+            for at in range(0, lanes.shape[1], chunk)])
+        err = max(max_abs_err(got, want), _boards_equal(board_k, board_p))
+        worst = max(worst, err)
+        require(err == 0, f"K6's run differs from plain chunks: {what}")
+        return got
+
+    kinds = dict.fromkeys(("dup", "stale", "wrap", "pad", "preempt",
+                           "range"), 0)
+    for frontier, chunks in ((2000, 1), (3100, 2), (6000, 48), (9050, 1),
+                             (12000, 48)):
+        check(_sparse_lanes(rng, EPOCH_WINDOW, 5, frontier,
+                            chunks * K6_CHUNK, kinds),
+              f"{chunks} chunks at {frontier}")
+    require(all(kinds.values()), f"K6 runs lack a case: {kinds}")
+    check(_wrap_lanes(rng, EPOCH_WINDOW, 4 * K6_CHUNK), "the int32 wrap")
+    check(_sparse_lanes(rng, EPOCH_WINDOW, 5, 13000, 5 * K6_CHUNK - 37,
+                        kinds), "a ragged last chunk")
+    # Pad lanes are inert: the same run with and without them.
+    lanes = _sparse_lanes(rng, EPOCH_WINDOW, 5, 14000, 3 * K6_CHUNK, kinds)
+    pads = lanes[4] == 0
+    require(pads.any(), "the pad-lane run has no pad lane")
+    snapshot = [t.clone() for t in board_k]
+    padded = check(lanes, "pad lanes").cpu().numpy()
+    after = [t.clone() for t in board_k]
+    for t, saved in zip(board_k, snapshot):
+        t.copy_(saved)
+    for t, saved in zip(board_p, snapshot):
+        t.copy_(saved)
+    bare = tq.record_and_check_epochs_run(
+        board_k, torch.from_numpy(np.ascontiguousarray(
+            lanes[:, ~pads])).to(dev), boundaries, planes,
+        K6_CHUNK).cpu().numpy()
+    err = max(_boards_equal(tq.VoteBoard(*after), board_k),
+              int(padded[pads].sum()))
+    worst = max(worst, err)
+    require(err == 0, "K6: pad lanes changed the board or reported")
+    # The pads sit at the end: the other lanes keep their chunks.
+    require(bool((padded[~pads] == bare).all()),
+            "K6: removing pad lanes changed newly")
+    for t, saved in zip(board_p, after):
+        t.copy_(saved)
+
+    # The tracker's staged entry: 48 chunks a drain, a handover inside.
+    universe = tuple(range(5))
+    specs_ = [SimpleMajority(m).write_spec().reindexed(universe)
+              for m in ((0, 1, 2), (0, 1, 3))]
+    card = tq.EpochSegmentedChecker(specs_, [0, 5000], window=EPOCH_WINDOW,
+                                    device=dev)
+    host = tq.EpochSegmentedChecker(specs_, [0, 5000], window=EPOCH_WINDOW,
+                                    device="cpu")
+    for frontier in (4000, 5100, 9000):
+        lanes = _sparse_lanes(rng, EPOCH_WINDOW, 5, frontier,
+                              48 * K6_CHUNK, kinds)
+        live = lanes[4] != 0
+        slots, nodes, rounds = (lanes[1, live].astype(np.int64),
+                                lanes[2, live], lanes[3, live])
+        got = card.record_and_check_run(slots, nodes, rounds)
+        want = host.record_and_check_run(slots, nodes, rounds)
+        err = max(int((got != want).sum()), _boards_equal(
+            card.board, tq.VoteBoard(*(t.to(dev) for t in host.board))))
+        worst = max(worst, err)
+        require(err == 0, f"K6's staged entry differs at {frontier}")
+
+    # The staged entry runs behind the caller's queued work: a release
+    # (K5) and an epoch that widens the universe (K7's reshape) queued on
+    # the current stream behind a sleep, then a drain at once; the drain
+    # must see both, as the checker on the CPU does. The released slots
+    # are voted again, so they are newly chosen only after the release.
+    def queued(what, queue, slots, nodes):
+        nonlocal worst
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(K6_QUEUED_SLEEP_CYCLES)
+        queue(card)
+        got = card.record_and_check_run(slots, nodes, None)
+        queue(host)
+        want = host.record_and_check_run(slots, nodes, None)
+        require(want.any(), f"K6's queued {what} case chooses nothing")
+        err = max(int((got != want).sum()), _boards_equal(
+            card.board, tq.VoteBoard(*(t.to(dev) for t in host.board))))
+        worst = max(worst, err)
+        require(err == 0, f"K6's staged entry ran ahead of a {what} "
+                          f"queued before it")
+
+    chosen = np.unique(slots[want])
+    queued("release", lambda c: c.release(chosen), np.repeat(chosen, 4),
+           np.tile(np.arange(4, dtype=np.int32), chosen.size))
+    # Node 5 widens the universe (0 .. 4) by column 5.
+    wide = SimpleMajority((0, 1, 5)).write_spec()
+    fresh = np.arange(12000, 12100, dtype=np.int64)
+    queued("reshape", lambda c: c.add_epoch(wide, 12000),
+           np.repeat(fresh, 3),
+           np.tile(np.asarray([0, 1, 5], np.int32), fresh.size))
+    return worst
 
 
 def phase_k7(dev, rng) -> int:
@@ -1626,7 +1878,7 @@ def _shard_kernel_figures(dev, rng) -> dict:
          lambda: tq.record_and_check_epochs(k6_k, k6_lanes, bounds, planes),
          lambda: tq.record_and_check_epochs_plain(k6_p, k6_lanes, bounds,
                                                   planes),
-         "record_and_check_epochs_kernel",
+         "record_and_check_epochs_run_kernel",
          21 * chunk + 2 * (9 + kn) * k6_cols + plane_bytes,
          (42 + 2 * kg * kn) * chunk,
          f"N={kn} K={kk} B={chunk} w_local={e_local}"),
@@ -2083,7 +2335,7 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          lambda: tq.record_and_check_epochs(k6_k, k6_lanes, bounds, planes),
          lambda: tq.record_and_check_epochs_plain(k6_p, k6_lanes, bounds,
                                                   planes),
-         "record_and_check_epochs_kernel",
+         "record_and_check_epochs_run_kernel",
          21 * chunk + 2 * (9 + kn) * k6_cols + plane_bytes,
          (42 + 2 * kg * kn) * chunk, epoch, f"{ref}:237",
          f"N={kn} K={kk} B={chunk} W={EPOCH_WINDOW}"),
@@ -2324,6 +2576,16 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
             call()
         row = next(r for r in out if r["name"] == name)
         row["entry_ms"] = (time.perf_counter() - t0) / 2000 * 1e3
+    # K1 at the synchronous tracker's buckets (N = 3) with its staged
+    # entry's host time, K6 on one chunk and on a drain's run of 48
+    # chunks with the epoch checker's, K10 at the BPaxos Leader's
+    # [2, 2, W] (bench/launch_shapes.py).
+    shapes = launch_shapes.kernels(dev)
+    for name, key, fig in (("quorum_hit", "at_launch_shapes", "k1"),
+                           ("record_and_check_epochs", "at_launch_shapes",
+                            "k6"),
+                           ("union_reduce", "at_bpaxos_leader", "k10")):
+        next(r for r in out if r["name"] == name)[key] = shapes[fig]
     return out
 
 
@@ -2356,7 +2618,9 @@ def main() -> int:
                     log(f"      {lib}: {line.strip()}")
 
         errors = {"quorum_hit": phase_k1(dev, rng)}
-        phase(3, f"K1 quorum_hit == plain (5 specs, B={BLOCK})")
+        phase(3, f"K1 quorum_hit == plain ({len(k1_predicates())} forms, "
+            f"B in {list(K1_WIDTHS)}, 0/1 and arbitrary bytes, contiguous, "
+            f"transposed, offset and strided; the staged entry)")
         errors["record_block"] = phase_k2(dev, rng)
         phase(4, f"K2 record_block == plain (64 calls, W={WINDOW})")
         errors.update(phase_k3(dev))
@@ -2373,7 +2637,10 @@ def main() -> int:
             f"W={WINDOW})")
         errors.update(phase_k6(dev, rng))
         phase(8, f"K6 check_batch_multi and record_and_check_epochs == "
-            f"plain (3 epochs, 5-node union, W={EPOCH_WINDOW})")
+            f"plain (3 epochs, 5-node union, W={EPOCH_WINDOW}; one-chunk "
+            f"calls of 64-8192 lanes; runs of 1-48 chunks of {K6_CHUNK} "
+            f"== plain chunk calls, the int32 wrap, pad lanes; the staged "
+            f"entry)")
         errors["reshape_columns"] = phase_k7(dev, rng)
         phase(9, f"K7 reshape_columns == plain ([3, {WINDOW}] -> "
             f"[4, {WINDOW}] and [2, {WINDOW}])")

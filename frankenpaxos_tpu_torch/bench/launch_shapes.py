@@ -1,0 +1,457 @@
+"""K1, K6 and K10 at the shapes the paths launch them, and the host split
+of the two tracker drains that call K1 and K6, on one GPU.
+
+Two parts, each against whichever checkout ``--tree`` names (this one by
+default), so that one call can measure a parent and its change alike:
+
+  * ``drains``: the host ns per ``drain()`` and each function's own ns
+    per drain under ``cProfile`` (``bench/call_split.py``'s method: the
+    whole call unprofiled, then the same calls profiled), with each
+    function's calls per drain, for
+      - ``TpuQuorumTracker``'s synchronous drain (K1) on
+        ``bench/tracker_lt.py``'s stream at window 2^20 (the sync arm),
+        and on contiguous ranged drains of 64, 256, 1024 and 4096 slots
+        forced onto the device (the crossover's shape);
+      - ``EpochQuorumTracker.drain`` (K6) on the epoch arm: the same
+        stream with its handover at slot 2^19, window 2^14.
+    Only ``drain()`` is timed and profiled; feeding the votes is not.
+  * ``kernels``: CUDA-event ms per call and the profiler's device ms of
+      - K1 ``quorum_hit`` at N = 3 (majority) and B = 64, 256, 1024, 4096
+        (the synchronous tracker's buckets), 32768, 2^18 and 2^20 (where
+        the block's bytes, not the launch, set the time), with the host
+        ns per ``TpuQuorumChecker.check_block`` call at the same widths;
+      - K6 ``record_and_check_epochs`` on one 256-lane chunk (N = 4,
+        K = 2, window 2^14: the epoch arm after its handover; and over 16,
+        64, 128 and 256 distinct columns; and at the sharded epoch
+        board's shape: the rank of four that holds the chunk's first
+        slot, a 2^12-column local board and the chunk's lanes localized
+        by ``localize_lanes``) and on a drain of 48 chunks (12,288
+        lanes): one run launch where the tree
+        has ``record_and_check_epochs_run``, else 48 chunk calls; the
+        host ns of ``EpochSegmentedChecker`` over the same 48 chunks
+        (``record_and_check_run`` where the tree has it, else 48
+        ``record_and_check`` calls);
+      - K10 ``union_reduce`` at the BPaxos Leader's ``[2, 2, W]``, W in
+        8, 64 and 2048 (its tail widths: the least, a middle one, the
+        cap ``MAX_TAIL_WINDOW``).
+    Each with its bound: bytes (each input read once, each output
+    written once) over 3.35 TB/s; K6's from the chunk's distinct
+    columns.
+
+Run from the root of a checkout::
+
+    python frankenpaxos_tpu_torch/bench/launch_shapes.py [--tree ROOT] \\
+        [--parts drains,kernels]
+
+It prints ONE JSON line, with the seconds the tree's kernels took to
+build (0 when they were built before). It raises without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import cProfile
+import json
+import os
+import pstats
+import sys
+import time
+from types import SimpleNamespace
+
+import numpy as np
+
+SEED = 20261017
+HBM_BYTES_PER_S = 3.35e12
+CALLS = 2000
+TOP = 12
+K1_WIDTHS = (64, 256, 1024, 4096, 32768, 1 << 18, 1 << 20)
+TRACKER_WIDTHS = (64, 256, 1024, 4096)
+TRACKER_DRAINS = 200
+CHUNK = 256
+RUN_CHUNKS = 48
+EPOCH_WINDOW = 1 << 14
+K10_WIDTHS = (8, 64, 2048)
+K6_DISTINCT = (16, 64, 128, 256)
+
+
+class DrainClock:
+    """Times (or profiles) only the ``drain()`` calls it is handed."""
+
+    def __init__(self, profiled: bool):
+        self.profile = cProfile.Profile() if profiled else None
+        self.ns = 0
+        self.drains = 0
+
+    def drain(self, tracker) -> list:
+        if self.profile is not None:
+            self.profile.enable()
+            out = tracker.drain()
+            self.profile.disable()
+        else:
+            t0 = time.perf_counter_ns()
+            out = tracker.drain()
+            self.ns += time.perf_counter_ns() - t0
+        self.drains += 1
+        return out
+
+    def split(self) -> dict:
+        from frankenpaxos_tpu_torch.bench.call_split import _label
+
+        here = os.path.abspath(__file__)
+        own: dict = {}
+        calls: dict = {}
+        for (path, _, name), (_, ncalls, tottime, _, _) in \
+                pstats.Stats(self.profile).stats.items():
+            if os.path.abspath(path) == here or "_lsprof.Profiler" in name:
+                continue
+            label = _label(path, name)
+            own[label] = own.get(label, 0.0) + tottime * 1e9 / self.drains
+            calls[label] = calls.get(label, 0) + ncalls / self.drains
+        ranked = sorted(own.items(), key=lambda kv: -kv[1])
+        split_ns = dict(ranked[:TOP])
+        split_ns["(the rest)"] = sum(v for _, v in ranked[TOP:])
+        return {"profiled_ns_per_drain": sum(own.values()),
+                "split_ns_per_drain": split_ns,
+                "calls_per_drain": {k: calls[k] for k, _ in ranked[:TOP]}}
+
+
+def _feed(tracker, events, row: int) -> None:
+    for event in events:
+        if event[0] == "range":
+            _, start, end, rnd, acc = event
+            tracker.record_range(start, end, rnd, acc // row, acc % row)
+        else:
+            _, slot, rnd, acc = event
+            tracker.record(slot, rnd, acc // row, acc % row)
+
+
+def _measure(make, replay) -> dict:
+    """``replay(tracker, clock)`` on a fresh tracker unprofiled, then on
+    another profiled: host ns per drain and the split."""
+    import torch
+
+    whole = DrainClock(False)
+    replay(make(), whole)
+    torch.cuda.synchronize()
+    profiled = DrainClock(True)
+    replay(make(), profiled)
+    torch.cuda.synchronize()
+    return {"drains": whole.drains, "whole_ns_per_drain":
+            whole.ns / whole.drains, **profiled.split()}
+
+
+def drains(device) -> dict:
+    from frankenpaxos_tpu_torch.bench import tracker_lt as lt
+    from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
+        TpuQuorumTracker,
+    )
+    from frankenpaxos_tpu_torch.reconfig import (
+        EpochConfig,
+        EpochQuorumTracker,
+        EpochStore,
+    )
+
+    config = lt.make_config()
+    stream = lt.make_stream(lt.SLOTS, 3, lt.DRAIN)
+    out = {}
+
+    def sync_replay(tracker, clock):
+        for events in stream:
+            _feed(tracker, events, 3)
+            clock.drain(tracker)
+
+    out["sync_arm"] = _measure(
+        lambda: TpuQuorumTracker(config, window=lt.WINDOW, device=device),
+        sync_replay)
+    for width in TRACKER_WIDTHS:
+        def ranged(tracker, clock, width=width):
+            for d in range(TRACKER_DRAINS):
+                base = d * width
+                for acc in range(3):
+                    tracker.record_range(base, base + width, 0, 0, acc)
+                if len(clock.drain(tracker)) != width:
+                    raise RuntimeError(f"width {width}: a slot was missed")
+        out[f"sync_ranged/width={width}"] = _measure(
+            lambda: TpuQuorumTracker(config, window=1 << 14, device=device,
+                                     min_device_slots=1), ranged)
+
+    members = (("a0", "a1", "a2"), ("a0", "a1", "a3"))
+
+    def epoch_replay(pair, clock):
+        tracker, store = pair
+        switched = False
+        for d, events in enumerate(stream):
+            if not switched and d * lt.DRAIN >= lt.HANDOVER:
+                store.add(EpochConfig(epoch=1, start_slot=lt.HANDOVER, f=1,
+                                      members=members[1]))
+                tracker.note_epochs()
+                switched = True
+            for event in events:
+                if event[0] == "range":
+                    _, start, end, rnd, acc = event
+                    tracker.record_range(start, end, rnd,
+                                         members[start >= lt.HANDOVER][acc])
+                else:
+                    _, slot, rnd, acc = event
+                    tracker.record(slot, rnd,
+                                   members[slot >= lt.HANDOVER][acc])
+            clock.drain(tracker)
+
+    def make_epoch():
+        store = EpochStore.from_members(members[0], f=1)
+        return (EpochQuorumTracker(store, backend="cuda",
+                                   window=EPOCH_WINDOW, device=device),
+                store)
+
+    whole = DrainClock(False)
+    epoch_replay(make_epoch(), whole)
+    profiled = DrainClock(True)
+    epoch_replay(make_epoch(), profiled)
+    out["epoch_arm"] = {"drains": whole.drains,
+                        "whole_ns_per_drain": whole.ns / whole.drains,
+                        **profiled.split()}
+    out["votes_per_epoch_drain"] = lt.count_votes(stream) / len(stream)
+    return out
+
+
+def _cuda_ms(fn, calls: int = CALLS, warm: int = 20) -> float:
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _host_ns(fn, calls: int = CALLS, warm: int = 20) -> float:
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t0) / calls
+
+
+def _device_ms(fn, kernel: str, iters: int = 200):
+    """Mean device ms per launch of kernels whose name holds ``kernel``
+    (the profiler's CUDA trace), and the launches per call of ``fn``; None
+    when the trace shows no device time."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key and evt.count:
+            total += getattr(evt, "device_time_total", 0) or 0
+            count += evt.count
+    if not count or not total:
+        return None, None
+    return total / count / 1e3, count / iters
+
+
+def kernels(device) -> dict:
+    import torch
+    from frankenpaxos_tpu_torch.ops import depset as td, quorum as tq
+    from frankenpaxos_tpu_torch.quorums import SimpleMajority
+    from frankenpaxos_tpu_torch.quorums.spec import pad_specs
+
+    rng = np.random.default_rng(SEED)
+    out: dict = {"k1": {}, "k6": {}, "k10": {}}
+    spec = SimpleMajority(range(3)).write_spec()
+    pred = tq.make_predicate(*spec.as_arrays(), device=device)
+    checker = tq.TpuQuorumChecker(spec, window=1 << 14, device=device)
+    for b in K1_WIDTHS:
+        block = (rng.random((3, b)) < 0.6).astype(np.uint8)
+        votes = torch.from_numpy(block).to(device)
+        dev_ms, per_call = _device_ms(lambda: tq.quorum_hit(votes, pred),
+                                      "quorum_hit")
+        out["k1"][f"B={b}"] = {
+            "call_ms": _cuda_ms(lambda: tq.quorum_hit(votes, pred)),
+            "device_ms": dev_ms,
+            "bound_ms": 4 * b / HBM_BYTES_PER_S * 1e3,
+            "check_block_host_ns": _host_ns(
+                lambda: checker.check_block(block), calls=500),
+        }
+
+    universe = tuple(range(4))
+    planes = tq.make_multi_predicate(*pad_specs(
+        [SimpleMajority(m).write_spec().reindexed(universe)
+         for m in ((0, 1, 2), (0, 1, 3))]), device=device)
+    bounds = torch.tensor([EPOCH_WINDOW // 2], dtype=torch.int32,
+                          device=device)
+    board = tq.make_vote_board(EPOCH_WINDOW, 4, device=device)
+    kk, kg, kn = planes.masks.shape
+    plane_bytes = 4 * kk * kg * kn + 4 * kk * kg + kk + 4 * (kk - 1)
+    lanes_np = _epoch_lanes(rng, CHUNK * RUN_CHUNKS)
+    lanes = torch.from_numpy(lanes_np).to(device)
+    chunk = lanes[:, :CHUNK].contiguous()
+    cols = len(np.unique(lanes_np[0, :CHUNK]))
+    chunk_bytes = 21 * CHUNK + 2 * (9 + kn) * cols + plane_bytes
+    dev_ms, per_call = _device_ms(
+        lambda: tq.record_and_check_epochs(board, chunk, bounds, planes),
+        "record_and_check_epochs")
+    out["k6"]["chunk"] = {
+        "lanes": CHUNK, "call_ms": _cuda_ms(
+            lambda: tq.record_and_check_epochs(board, chunk, bounds,
+                                               planes)),
+        "device_ms": dev_ms, "bound_ms": chunk_bytes / HBM_BYTES_PER_S * 1e3,
+        "distinct_columns": cols}
+    # One chunk's device time against its distinct columns (each read
+    # from the board and written back once): 256 lanes over 16 ... 256
+    # columns.
+    by_columns = {}
+    for distinct in K6_DISTINCT:
+        pick = rng.choice(EPOCH_WINDOW, size=distinct, replace=False)
+        true = pick[rng.integers(0, distinct, size=CHUNK)]
+        true[:distinct] = pick
+        spread = torch.from_numpy(tq.pack_lanes(
+            true, true, rng.integers(0, kn, size=CHUNK),
+            np.zeros(CHUNK, np.int32), np.ones(CHUNK, bool))).to(device)
+        by_columns[str(distinct)] = _device_ms(
+            lambda: tq.record_and_check_epochs(board, spread, bounds,
+                                               planes),
+            "record_and_check_epochs")[0]
+    out["k6"]["chunk"]["device_ms_by_distinct_columns"] = by_columns
+    # The sharded epoch board's K6 launch: of four ranks, the one that
+    # holds the chunk's first slot.
+    ranks = 4
+    w_local = EPOCH_WINDOW // ranks
+    rank = int(lanes_np[0, 0]) // w_local
+    shard = SimpleNamespace(size=ranks, rank=rank, columns=lambda window: (
+        rank * (window // ranks), (rank + 1) * (window // ranks)))
+    local, owned = tq.localize_lanes(lanes_np[:, :CHUNK], shard,
+                                     EPOCH_WINDOW)
+    local_board = tq.make_vote_board(w_local, 4, device=device)
+    local_t = torch.from_numpy(np.ascontiguousarray(local)).to(device)
+    out["k6"]["sharded_chunk"] = {
+        "w_local": w_local, "ranks": ranks, "rank": rank,
+        "owned_lanes": int(owned.sum()),
+        "device_ms": _device_ms(
+            lambda: tq.record_and_check_epochs(local_board, local_t, bounds,
+                                               planes),
+            "record_and_check_epochs")[0]}
+    run_fn = getattr(tq, "record_and_check_epochs_run", None)
+    if run_fn is not None:
+        def run():
+            run_fn(board, lanes, bounds, planes, CHUNK)
+    else:
+        chunks = [lanes[:, c * CHUNK:(c + 1) * CHUNK].contiguous()
+                  for c in range(RUN_CHUNKS)]
+
+        def run():
+            for c in chunks:
+                tq.record_and_check_epochs(board, c, bounds, planes)
+    run_cols = sum(len(np.unique(lanes_np[0, c * CHUNK:(c + 1) * CHUNK]))
+                   for c in range(RUN_CHUNKS))
+    dev_ms, per_call = _device_ms(run, "record_and_check_epochs", iters=50)
+    out["k6"]["run"] = {
+        "chunks": RUN_CHUNKS, "form": "run" if run_fn else "chunk calls",
+        "call_ms": _cuda_ms(run, calls=200),
+        "device_ms_per_launch": dev_ms, "launches_per_run": per_call,
+        "device_ms": None if dev_ms is None else dev_ms * per_call,
+        "bound_ms": (21 * CHUNK * RUN_CHUNKS + 2 * (9 + kn) * run_cols
+                     + plane_bytes) / HBM_BYTES_PER_S * 1e3}
+    seg = tq.EpochSegmentedChecker(
+        [SimpleMajority(m).write_spec() for m in (("a0", "a1", "a2"),
+                                                  ("a0", "a1", "a3"))],
+        [0, EPOCH_WINDOW // 2], window=EPOCH_WINDOW, device=device)
+    slots = lanes_np[1].astype(np.int64)
+    nodes, rounds = lanes_np[2], lanes_np[3]
+    if hasattr(seg, "record_and_check_run"):
+        def checker_run():
+            seg.record_and_check_run(slots, nodes, rounds, chunk=CHUNK)
+    else:
+        def checker_run():
+            for at in range(0, slots.size, CHUNK):
+                seg.record_and_check(slots[at:at + CHUNK],
+                                     nodes[at:at + CHUNK],
+                                     rounds[at:at + CHUNK])
+    out["k6"]["checker_run_host_ns"] = _host_ns(checker_run, calls=100)
+
+    for w in K10_WIDTHS:
+        wm = torch.from_numpy(rng.integers(0, 1 << 12, size=(2, 2)).astype(
+            np.int32)).to(device)
+        tails = torch.from_numpy((rng.random((2, 2, w)) < 0.3).astype(
+            np.uint8)).to(device)
+        batch = td.DepSetBatch(wm, tails, torch.tensor(
+            1 << 12, dtype=torch.int32).to(device))
+        dev_ms, _ = _device_ms(lambda: td.union_reduce(batch),
+                               "union_reduce")
+        out["k10"][f"[2, 2, {w}]"] = {
+            "call_ms": _cuda_ms(lambda: td.union_reduce(batch)),
+            "device_ms": dev_ms,
+            "bound_ms": (2 * 2 * (4 + w) + 2 * (4 + w))
+            / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
+def _epoch_lanes(rng, b: int) -> np.ndarray:
+    """``b`` votes of the epoch arm's shape: 4096-slot runs of three
+    acceptors (each slot voted by three of four nodes), with 10% of the
+    votes straggling a drain behind and the handover inside, packed as
+    the checker packs them (slot % window, true slot, node, round 0)."""
+    from frankenpaxos_tpu_torch.ops import quorum as tq
+
+    slot = EPOCH_WINDOW // 2 - b // 6 + np.arange(b) // 3
+    late = rng.random(b) < 0.1
+    slot = np.where(late, slot - 4096, slot)
+    node = np.where(slot >= EPOCH_WINDOW // 2, [0, 1, 3] * (b // 3),
+                    [0, 1, 2] * (b // 3)).astype(np.int32)
+    return tq.pack_lanes(slot % EPOCH_WINDOW, slot, node,
+                         np.zeros(b, np.int32), np.ones(b, bool))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", default=None)
+    parser.add_argument("--parts", default="drains,kernels")
+    args = parser.parse_args(argv)
+    root = args.tree or os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import frankenpaxos_tpu_torch
+    from frankenpaxos_tpu_torch.device import nvidia_smi_line
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("launch_shapes times CUDA calls: no CUDA device")
+    from frankenpaxos_tpu_torch.ops import _build
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    result = {"benchmark": "launch_shapes",
+              "package": os.path.dirname(os.path.abspath(
+                  frankenpaxos_tpu_torch.__file__)),
+              "device": torch.cuda.get_device_name(device),
+              "nvidia_smi": nvidia_smi_line(),
+              # Wall seconds of this tree's kernel build (0 when built).
+              "build_s": _build.build()}
+    parts = args.parts.split(",")
+    if "kernels" in parts:
+        result["kernels"] = kernels(device)
+    if "drains" in parts:
+        result["drains"] = drains(device)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,10 +23,18 @@ Measurements:
   * ``telemetry``: ``bench/telemetry_overhead.py``'s ``measure_width``
     at the headline width 2^20/2^15 with the reference's ``--smoke``
     knobs: the off/baseline and on/off ratios and each arm's cmds/s
-    (the arms must agree).
+    (the arms must agree);
+  * ``tracker``: ``bench/tracker_lt.py``'s sync arm (K1) and epoch arm
+    (K6) at full width (window 2^20, 2^20 slots; the epoch window 2^14),
+    votes/s with each arm's pairs equal to its dict oracle's, and the
+    crossover's ``measured_min_device_slots`` (lower is better);
+  * ``geo``: ``bench/geo_lt.py`` at the reference's deployment, the host
+    seconds of its cuda run and of its dict run (every gate of the bench
+    holds, and the cuda run equals the dict run).
 
-``--kinds`` picks some of them (``split,storm,bpaxos,headline,telemetry``
-on a card, all by default).
+``--kinds`` picks some of them
+(``split,storm,bpaxos,headline,telemetry,tracker,geo`` on a card, all by
+default).
 
 Unpack the parent into a directory the checkout ignores, then run from
 the root of this checkout::
@@ -61,7 +69,8 @@ ORDER = ("parent", "change", "change", "parent") * 5
 BPAXOS_COMMANDS = 1 << 13
 #: Every measurement, in the order they run; ``split`` and ``headline``
 #: time CUDA calls only.
-KINDS = ("split", "storm", "bpaxos", "headline", "telemetry")
+KINDS = ("split", "storm", "bpaxos", "headline", "telemetry", "tracker",
+         "geo")
 CUDA_ONLY = ("split", "headline")
 #: The headline arm's latency-distribution budget (the bench's 20 s,
 #: cut: ten runs a tree).
@@ -115,7 +124,65 @@ def _worker(kind: str, tree: str, commands: int, device=None) -> dict:
             "off_over_baseline_ratio", "on_over_off_ratio",
             "baseline_cmds_per_sec_med", "off_cmds_per_sec_med",
             "on_cmds_per_sec_med")}
+    if kind == "tracker":
+        return _tracker_arms(device)
+    if kind == "geo":
+        from frankenpaxos_tpu_torch.bench import geo_lt
+
+        out = geo_lt.run(device)
+        return {f"{b}_seconds": out["backends"][b]["seconds"]
+                for b in ("cuda", "dict")}
     raise ValueError(f"unknown measurement {kind!r}")
+
+
+def _tracker_arms(device) -> dict:
+    """``bench/tracker_lt.py``'s sync and epoch arms and its crossover,
+    through the functions every tree's copy of it has (at a small size
+    on the CPU); raises when an arm disagrees with its dict oracle."""
+    from frankenpaxos_tpu_torch.bench import tracker_lt as lt
+    from frankenpaxos_tpu_torch.device import nvidia_smi_line, \
+        resolve_device
+    from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
+        DictQuorumTracker,
+        TpuQuorumTracker,
+    )
+    from frankenpaxos_tpu_torch.reconfig import (
+        EpochQuorumTracker,
+        EpochStore,
+    )
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        slots, window, drain, handover = (lt.SLOTS, lt.WINDOW, lt.DRAIN,
+                                          lt.HANDOVER)
+        widths = lt.CROSSOVER_WIDTHS
+    else:
+        slots, window, drain, handover = 1 << 13, 1 << 12, 1024, 1 << 12
+        widths = (1, 64)
+    config = lt.make_config()
+    stream = lt.make_stream(slots, 3, drain)
+    votes = lt.count_votes(stream)
+    oracle = lt.replay(DictQuorumTracker(config), stream, 3)
+    sync = TpuQuorumTracker(config, window=window, device=dev)
+    got, sync_s = lt._timed(dev, lambda: lt.replay(sync, stream, 3))
+    lt.check_against_oracle("sync", got, oracle)
+    members = (("a0", "a1", "a2"), ("a0", "a1", "a3"))
+    reported = {}
+    for backend in ("dict", "cuda"):
+        store = EpochStore.from_members(members[0], f=1)
+        tracker = EpochQuorumTracker(store, backend=backend,
+                                     window=min(window, 1 << 14),
+                                     device=dev)
+        reported[backend] = lt._timed(dev, lambda: lt.replay_epochs(
+            tracker, store, stream, drain, handover, members))
+    lt.check_against_oracle("epoch", reported["cuda"][0],
+                            reported["dict"][0])
+    _, threshold = lt.crossover(dev, widths)
+    return {"sync_votes_per_s": votes / sync_s,
+            "epoch_votes_per_s": votes / reported["cuda"][1],
+            "measured_min_device_slots": threshold,
+            "nvidia_smi": nvidia_smi_line() if dev.type == "cuda"
+            else None}
 
 
 def _run(cmd: list, timeout: float) -> dict:
@@ -139,8 +206,9 @@ def _flatten(reading: dict, prefix: str = "") -> dict:
 
 
 def _verdicts(sides: dict) -> dict:
-    """Per metric (host ns and drain µs, lower is better; events/s,
-    commands/s and the overhead ratios, higher), over the runs in pairs
+    """Per metric (host ns, drain µs, host seconds and the crossover's
+    slots, lower is better; events/s, commands/s, votes/s and the
+    overhead ratios, higher), over the runs in pairs
     (the i-th parent run beside the i-th change run): both medians, the
     parent's interquartile spread, the pairs the change won, and the
     verdict. A ``gain`` (or ``loss``) needs the change (or the parent)
@@ -153,7 +221,8 @@ def _verdicts(sides: dict) -> dict:
         if key.startswith("split_ns") or not all(
                 key in f for side in flat for f in flat[side]):
             continue
-        lower = "_ns" in key or key.endswith("_us")
+        lower = "_ns" in key or key.endswith(("_us", "_seconds",
+                                              "_slots"))
         parent = [f[key] for f in flat["parent"]]
         change = [f[key] for f in flat["change"]]
         pairs = list(zip(parent, change))
@@ -226,7 +295,8 @@ def run(parent: str, commands: int = BPAXOS_COMMANDS, device=None,
             raise RuntimeError(f"the storm's deliveries differ across "
                                f"trees: {digests}")
     smi = next((readings[kind]["change"][0]["nvidia_smi"]
-                for kind in ("split", "headline") if kind in readings), None)
+                for kind in ("split", "headline", "tracker")
+                if kind in readings), None)
     return {"benchmark": "tree_ab", "trees": trees, "order": list(ORDER),
             "kinds": kinds, "bpaxos_commands": commands,
             "nvidia_smi": smi,

@@ -11,9 +11,10 @@ outputs (tests/test_torch_geo.py holds both against the reference's):
     against the slot's epoch plane (a majority of its home zone's row,
     as ``home_write_spec(zone).check`` judges it).
   * ``cuda`` -- the port's ``ops.quorum.EpochSegmentedChecker``: each
-    drain's votes go through K6 (``record_and_check_epochs``) in chunks
-    of 256 lanes, the plane selected per slot inside the kernel, so a
-    drain spanning a steal handover is still one launch per chunk; the
+    drain's votes go through K6 in chunks of 256 lanes, the whole drain
+    in one staged call and one launch (``record_and_check_run``), the
+    plane selected per slot inside the kernel, so a drain spanning a
+    steal handover needs no split; the
     leader's watermark advances release chosen columns through K5.
     The reference's ``"tpu"`` is refused by name.
 
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 from frankenpaxos_tpu_torch.device import resolve_device
 from frankenpaxos_tpu_torch.geo.epochs import ObjectEpochStore
+from frankenpaxos_tpu_torch.ops.quorum import newly_pairs
 from frankenpaxos_tpu_torch.quorums import ZoneGrid
 import numpy as np
 
@@ -146,8 +148,9 @@ class GeoQuorumTracker:
     # --- drain --------------------------------------------------------------
     def drain(self) -> list:
         """Newly complete ``(slot, ballot)`` quorums since the last
-        drain (one K6 launch per 256 votes on the cuda backend; the
-        first report of a slot in a drain wins)."""
+        drain (on the cuda backend one staged K6 call and launch per
+        drain, the votes taken 256 at a time; the first report of a slot
+        in a drain wins)."""
         if self.backend == "dict":
             newly, self._newly = self._newly, []
             return newly
@@ -157,19 +160,9 @@ class GeoQuorumTracker:
         cols = np.asarray(self._cols, dtype=np.int32)
         ballots = np.asarray(self._ballots, dtype=np.int32)
         self._slots, self._cols, self._ballots = [], [], []
-        out: list = []
-        seen: set = set()
-        for at in range(0, slots.size, self._chunk):
-            sl = slots[at:at + self._chunk]
-            newly = self._checker.record_and_check(
-                sl, cols[at:at + self._chunk],
-                ballots[at:at + self._chunk])
-            for i in np.flatnonzero(newly).tolist():
-                key = (int(sl[i]), int(ballots[at + i]))
-                if key[0] not in seen:
-                    seen.add(key[0])
-                    out.append(key)
-        return out
+        newly = self._checker.record_and_check_run(slots, cols, ballots,
+                                                   chunk=self._chunk)
+        return newly_pairs(slots, ballots, newly)
 
     def release(self, slots) -> None:
         """Watermark GC passthrough (ring wrap for the cuda board; K5)."""

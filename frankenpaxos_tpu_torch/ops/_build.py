@@ -11,13 +11,14 @@ Nothing is built at import time.
 Each C entry point takes every pointer and the stream as ``void*``,
 launches on the caller's stream, never synchronises, and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0. The
-exceptions are the two ``*_staged`` entry points, which run a
-transport-facing call whole (copy up, launch, copy down) and return
-after the stream has drained.
+exceptions are the ``*_staged`` entry points, which run a
+transport-facing or tracker call whole (copy up, launch, copy down) and
+return after the stream has drained (:class:`Staging` says which
+stream).
 
 The lean call path (:class:`Entry`, :func:`stream_handle`) serves the
-wrappers whose host cost is the call itself (K12, K18, and the drain
-runs of K3, K14 and the pinned copy): the entry point
+wrappers whose host cost is the call itself (K1, K6, K12, K18, and the
+drain runs of K3, K14 and the pinned copy): the entry point
 is looked up once; its arguments cross as ONE packed block of int64
 (``struct`` bytes), which ctypes converts once instead of one argument
 at a time; a launch-only entry is called through a ``ctypes.PyDLL``
@@ -68,8 +69,13 @@ _PRED = [_P, _P, _P, _I, _I, _I, _I, _I, _I]
 #: every entry point are the device index and the stream.
 SIGNATURES = {
     "quorum": {
-        # votes, row_stride, col_stride, b, out, *pred
-        "fpx_quorum_hit": [_P, _L, _L, _I, _P, *_PRED, _I, _P],
+        # packed: votes, row_stride, col_stride, b, out, the predicate
+        # (masks, thresholds, perm, n, g, combine_any, grid_kind, rows,
+        # cols), device, stream
+        "fpx_quorum_hit": _B,
+        # packed: pinned votes [n, b], their device copy, b, device out,
+        # pinned out, the predicate, device, stream
+        "fpx_quorum_hit_staged": _B,
         # votes, rounds, chosen, owner, window, block, b, start,
         # true_start, vote_round, newly, *pred
         "fpx_record_block": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _P,
@@ -88,11 +94,12 @@ SIGNATURES = {
         # thresholds, combine_any, k, g, n
         "fpx_check_batch_multi": [_P, _L, _L, _I, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _P],
-        # votes, rounds, chosen, owner, window, lanes, b, boundaries, nb,
-        # newly, scratch, masks, thresholds, combine_any, k, g, n
-        "fpx_record_and_check_epochs": [_P, _P, _P, _P, _L, _P, _I, _P, _I,
-                                        _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _P],
+        # packed: votes, rounds, chosen, owner, window, n, lanes [5, b],
+        # b, chunk, boundaries, nb, newly, masks, thresholds, combine_any,
+        # k, g, device, stream
+        "fpx_record_and_check_epochs": _B,
+        # packed: the same, then the pinned lanes and the pinned newly
+        "fpx_record_and_check_epochs_staged": _B,
         # block, n_old, b, cmap, n_new, out
         "fpx_reshape_columns": [_P, _I, _L, _P, _I, _P, _I, _P],
     },
@@ -347,12 +354,15 @@ class Pair(NamedTuple):
 
 
 class Staging:
-    """One device's staging for a transport-facing call, reused across
-    calls: named pinned-host / device buffer pairs, each grown to a power
-    of two on demand, and a stream of its own. The staged C call drains
-    that stream before it returns, so it waits for its own work only,
-    not for a caller's queued work, and a buffer is free again when the
-    next call writes it."""
+    """One device's staging for a staged call, reused across calls:
+    named pinned-host / device buffer pairs, each grown to a power of two
+    on demand, and a stream of its own. A staged C call drains the stream
+    it ran on before it returns, so a buffer is free again when the next
+    call writes it. The transport-facing calls (K12, K18), whose inputs
+    all come from the host, run on this stream and so wait for their own
+    work only, not for a caller's queued work; the tracker calls (K1,
+    K6), which read state on the card, run on PyTorch's current stream,
+    behind the work that made that state."""
 
     def __init__(self, device: torch.device):
         if device.index is None:

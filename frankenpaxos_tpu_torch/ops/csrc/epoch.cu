@@ -2,7 +2,9 @@
 // the epoch-segmented and multi-config checkers.
 //
 // K6 replaces frankenpaxos_tpu/ops/quorum.py::_record_and_check_epochs
-// (L237) and _check_batch_multi (L359):
+// (L237, over _apply_sparse_votes L170) and _check_batch_multi (L359),
+// and the tracker's loop over 256-vote chunks that calls it
+// (frankenpaxos_tpu/reconfig/tracker.py:161-165):
 //
 //   * check_batch_multi_kernel, one thread per row: select plane
 //     config_idx[b] of the [K, G, N] masks (a negative index counts from
@@ -12,24 +14,79 @@
 //     is NO grid branch: the reference's multi-config predicate always
 //     counts, so a grid plane is counted too (the uint8 OR/AND chain of
 //     quorum.cuh would differ on bytes other than 0/1);
-//   * record_and_check_epochs_kernel: the sparse board update of
-//     sparse.cuh (shared with K4), then per lane the epoch of its true
-//     slot, searchsorted(boundaries, true_slot, side="right") over the
-//     int32 boundaries, then the multi-config predicate of that epoch on
-//     the lane's column.
+//   * record_and_check_epochs_run_kernel: a RUN of chunks of lanes in one
+//     launch, each chunk one call of the reference's scatter, strictly in
+//     order: duplicates inside a chunk each report `newly`, and a chunk
+//     sees the board the chunks before it left (their `chosen` bits). A
+//     single call is a run of one chunk.
+//
+// The chunk body. Every phase of the reference's scatter is per column
+// (a lane's result reads only its column's state), so a launch's blocks
+// split the COLUMNS: block p of P (one per 32 lanes of a chunk, at most
+// 8) takes the lanes whose column c has c % P == p, runs every chunk of
+// the run in order on them, and the blocks never meet. Inside a block
+// (the chunks are ordered, and a chunk's phases read what other lanes of
+// it wrote) a chunk's lanes are loaded once into the workspace (each
+// thread's first lane a chunk ahead, so that the load overlaps the chunk
+// before), and each DISTINCT column gets one entry of a table keyed by
+// column (open addressing on a shared-memory hash, twice the chunk's
+// size): every lane reads its column's owner, round, chosen byte and N
+// vote bytes from the board before it looks for the entry (one round trip
+// that overlaps the insert), the lane that inserts the entry stores them
+// there, every phase works on the entry, and the inserting lane writes it
+// back once (the entry phases run over the lanes). The reference's
+// scatter-max phases become atomicMax on the entries, a lane's column
+// state is the entry's, and a lane's epoch plane is
+// searchsorted(boundaries, true_slot, side="right") over the int32
+// boundaries. Six barriers a chunk, one per phase the order needs:
+//   1. lanes: read the column, insert it (its first lane stores it),
+//      owner max (valid ? true : -inf);
+//   2. lanes: `mine` (valid, and the column's owner after the max), round
+//      max;
+//   3. entries (by their inserting lanes): a newer owner reclaims the
+//      column (votes 0, round -1, chosen 0); the new round; a newer round
+//      preempts (votes 0);
+//   4. lanes: a live vote sets its byte to max(byte, 1);
+//   5. lanes: hit (mine, and the lane's epoch plane on the entry's votes),
+//      newly = hit & ~chosen0, and the entry's chosen;
+//   6. entries (by their inserting lanes): written back, and the table
+//      cleared for the next chunk.
+// JAX's index rules are kept: a negative slot counts from the end, one
+// still out of range reads the clamped column and writes nothing (its
+// scatters are dropped, and an entry no writing lane names is written
+// back unchanged); a negative node is normalised and one still out of
+// range records nothing. Padding lanes (valid 0, slot 0) change nothing
+// and report nothing, so a run takes its lanes unpadded.
+// The [K, G, N] planes, thresholds, any flags and boundaries are copied
+// into each block's shared memory once a launch (when they fit 16 KB; one
+// round trip), and the workspace (lanes and table) lives there too when
+// it fits 160 KB (a chunk of 256 lanes at N = 4 takes about 17 KB); a
+// larger chunk's workspace, one a block, is allocated on the stream for
+// the launch.
 //
 // K7 replaces _reshape_columns (L441): out[i, :] = block[cmap[i], :], or
 // a zero row where cmap[i] < 0 (an index past the end is clamped, as
 // jnp.clip does). It writes a NEW tensor: a permutation in place could
 // read a row another thread has already overwritten.
 //
-// Bound on the H100: K6 as K4 (launch- and barrier-bound at 256 lanes);
+// Bound on the H100: K6 moves 20 bytes of lanes and one `newly` byte per
+// lane, the planes, and each distinct column's N + 9 bytes read and
+// written (about 1.2 KB of columns for a 256-lane chunk): a few
+// nanoseconds at 3.35 TB/s, so the launch and the chunks' barriers set
+// its time; a run of 48 chunks is one launch, not 48.
 // check_batch_multi moves (4N + 5) bytes per row; K7 moves (N_new +
 // N_old') bytes per column plus the map, bytes-bound at 3.35 TB/s
 // (about 2 us for a [3, 2^20] -> [4, 2^20] board). One thread per output
 // byte keeps each warp's loads and stores on neighbouring addresses.
 
-#include "sparse.cuh"
+#include <algorithm>
+#include <climits>
+#include <cstring>
+
+#include "quorum.cuh"
+
+// The reference's _NEG_INF32 = -(2**31) + 1.
+#define FPX_NEG_INF32 (-2147483647)
 
 namespace {
 
@@ -89,21 +146,338 @@ __global__ void check_batch_multi_kernel(const int32_t* __restrict__ present,
   });
 }
 
-__global__ void record_and_check_epochs_kernel(Board bd, Lanes ln,
-                                               const int32_t* boundaries,
-                                               int nb, uint8_t* newly,
-                                               int32_t* scratch,
-                                               MultiPred m) {
-  sparse_update(bd, ln, scratch);
-  choose(bd, ln, newly, scratch, [&](int j) {
-    const long long s = ln.col(j);
-    return lane_mine(bd, ln, j) &&
-           multi_hit(m, epoch_of(boundaries, nb, ln.true_slot(j)),
-                     [&](int i) {
-                       return static_cast<int32_t>(
-                           bd.votes[i * bd.window + s]);
-                     });
-  });
+// The vote board, updated in place.
+struct Board {
+  uint8_t* votes;   // [n, window]
+  int32_t* rounds;  // [window]
+  uint8_t* chosen;  // [window] (bool)
+  int32_t* owner;   // [window]
+  long long window;
+  int n;
+};
+
+// Planes in shared memory when they fit this many bytes.
+constexpr int kPlaneSharedBytes = 16384;
+// A chunk's workspace in shared memory when it fits this many bytes.
+constexpr int kWorkSharedBytes = 160 * 1024;
+// Threads of each block of a K6 launch, at most (a chunk of more lanes
+// gives a thread several).
+constexpr int kRunThreads = 512;
+// A launch's blocks, each taking a share of the columns: one for each
+// kLanesPerPart lanes of a chunk, at most kMaxParts (a power of two).
+constexpr int kMaxParts = 8;
+constexpr int kLanesPerPart = 32;
+
+// A chunk's table: a power of two, at least twice the chunk (so a probe
+// ends soon) and at least 32.
+__host__ __device__ inline int table_size(int chunk) {
+  int h = 32;
+  while (h < 2 * chunk) h <<= 1;
+  return h;
+}
+
+// The workspace's bytes.
+inline long long work_bytes(int chunk, int n) {
+  const long long h = table_size(chunk);
+  return 4 * (5LL * chunk + 5 * h) + chunk + h * (2 + n);
+}
+
+inline int plane_bytes(const MultiPred& m, int nb) {
+  const long long words =
+      static_cast<long long>(m.k) * m.g * m.n + m.k * m.g + nb;
+  const long long bytes = 4 * words + m.k;
+  return bytes > kPlaneSharedBytes ? -1 : static_cast<int>((bytes + 15) & ~15);
+}
+
+// One chunk's lanes and its table of distinct columns.
+struct Work {
+  int32_t* col;      // [chunk] the column a lane reads (clamped)
+  int32_t* tslot;    // [chunk] true slot
+  int32_t* node;     // [chunk] normalised node
+  int32_t* round;    // [chunk]
+  int32_t* entry;    // [chunk] the lane's table entry
+  int32_t* key;      // [h] the entry's column, -1 when free
+  int32_t* owner;    // [h] owner max, then the column's owner
+  int32_t* board_owner;  // [h] the column's owner on the board
+  int32_t* round0;   // [h] the column's round (-1 after a reclaim)
+  int32_t* rnd;      // [h] round max, then the column's round
+  uint8_t* flags;    // [chunk] 1 valid, 2 writes, 4 mine, 8 inserted,
+                     // 16 this block's column (the other bits 0 else)
+  uint8_t* chosen0;  // [h] chosen (0 after a reclaim)
+  uint8_t* hit;      // [h] a writing lane hit
+  uint8_t* votes;    // [h, n]
+};
+
+__device__ __forceinline__ Work carve(uint8_t* base, int chunk, int h) {
+  Work w;
+  int32_t* p = reinterpret_cast<int32_t*>(base);
+  w.col = p;
+  w.tslot = p + chunk;
+  w.node = p + 2 * chunk;
+  w.round = p + 3 * chunk;
+  w.entry = p + 4 * chunk;
+  p += 5 * chunk;
+  w.key = p;
+  w.owner = p + h;
+  w.board_owner = p + 2 * h;
+  w.round0 = p + 3 * h;
+  w.rnd = p + 4 * h;
+  uint8_t* q = reinterpret_cast<uint8_t*>(p + 5 * h);
+  w.flags = q;
+  w.chosen0 = q + chunk;
+  w.hit = q + chunk + h;
+  w.votes = q + chunk + 2 * h;
+  return w;
+}
+
+// One lane as packed: slot, true slot, node, round, valid.
+struct Lane {
+  int32_t slot, tslot, node, round, valid;
+};
+
+__device__ __forceinline__ Lane load_lane(const int32_t* lanes, int b,
+                                          int j) {
+  return Lane{lanes[j], lanes[b + j], lanes[2 * b + j], lanes[3 * b + j],
+              lanes[4 * b + j]};
+}
+
+__device__ __forceinline__ void clear_entry(const Work& w, int e) {
+  w.key[e] = -1;
+  w.owner[e] = INT_MIN;
+  w.rnd[e] = INT_MIN;
+  w.hit[e] = 0;
+}
+
+// A column of the board as a lane reads it: every load is issued before
+// anything is stored (the table's pointers may alias the board's as far
+// as the compiler knows, so a load after a store would wait for it), so
+// the column costs one round trip to memory, not N + 3.
+constexpr int kHeld = 16;
+struct Column {
+  int32_t owner, round;
+  uint8_t chosen;
+  uint8_t v[kHeld];
+};
+
+__device__ __forceinline__ Column load_column(const Board& bd, int32_t col) {
+  Column c;
+  c.owner = bd.owner[col];
+  c.round = bd.rounds[col];
+  c.chosen = bd.chosen[col];
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    c.v[i] = i < bd.n ? bd.votes[i * bd.window + col] : 0;
+  }
+  return c;
+}
+
+// Column c into entry e (rows past kHeld read from the board here).
+__device__ __forceinline__ void store_column(const Board& bd, int32_t col,
+                                             const Column& c, const Work& w,
+                                             int e) {
+  const int n = bd.n;
+  w.board_owner[e] = c.owner;
+  w.round0[e] = c.round;
+  w.chosen0[e] = c.chosen;
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    if (i < n) w.votes[e * n + i] = c.v[i];
+  }
+  for (int i = kHeld; i < n; ++i) {
+    w.votes[e * n + i] = bd.votes[i * bd.window + col];
+  }
+}
+
+// Entry e back into the board's column `col`, and the entry cleared:
+// every load from the table first, then the stores.
+__device__ __forceinline__ void write_column(const Board& bd, int32_t col,
+                                             const Work& w, int e) {
+  const long long window = bd.window;
+  const int n = bd.n;
+  const int32_t owner = w.owner[e];
+  const int32_t round = w.rnd[e];
+  const uint8_t chosen = w.chosen0[e] | w.hit[e];
+  uint8_t v[kHeld];
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) v[i] = i < n ? w.votes[e * n + i] : 0;
+  for (int i = kHeld; i < n; ++i) {
+    bd.votes[i * window + col] = w.votes[e * n + i];
+  }
+  clear_entry(w, e);
+  bd.owner[col] = owner;
+  bd.rounds[col] = round;
+  bd.chosen[col] = chosen;
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    if (i < n) bd.votes[i * window + col] = v[i];
+  }
+}
+
+// kShared: the workspace in shared memory (after the planes, when those
+// are there too), else block p's at `global_work + p * work_stride`.
+// Block p of the grid's P (a power of two) takes the columns c with
+// c % P == p: every phase is per column, so the blocks never meet, and
+// each keeps the chunks' order on its own columns.
+template <bool kShared>
+__global__ void __launch_bounds__(kRunThreads)
+    record_and_check_epochs_run_kernel(Board bd, const int32_t* lanes, int b,
+                                       int chunk, const int32_t* boundaries,
+                                       int nb, MultiPred m, uint8_t* newly,
+                                       uint8_t* global_work,
+                                       long long work_stride,
+                                       int planes_shared) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int part = blockIdx.x, parts_mask = gridDim.x - 1;
+  // Each thread's first lane of a chunk is loaded a chunk ahead (the
+  // first chunk's while the planes are copied).
+  Lane ahead{};
+  if (tid < min(chunk, b)) ahead = load_lane(lanes, b, tid);
+  uint8_t* base = smem;
+  if (planes_shared > 0) {
+    // One word of the planes per thread and round, its load before any
+    // store (the stores may alias the planes as far as the compiler
+    // knows), so the copy costs one round trip to memory, not four.
+    const int gn = m.k * m.g * m.n, kg = m.k * m.g, words = gn + kg + nb;
+    int32_t* sp = reinterpret_cast<int32_t*>(smem);
+    uint8_t* sa = reinterpret_cast<uint8_t*>(sp + words);
+    for (int t0 = 0; t0 < max(words, m.k); t0 += nt) {
+      const int t = t0 + tid;
+      int32_t word = 0;
+      uint8_t any = 0;
+      if (t < gn) {
+        word = m.masks[t];
+      } else if (t < gn + kg) {
+        word = m.thresholds[t - gn];
+      } else if (t < words) {
+        word = boundaries[t - gn - kg];
+      }
+      if (t < m.k) any = m.any[t];
+      if (t < words) sp[t] = word;
+      if (t < m.k) sa[t] = any;
+    }
+    m.masks = sp;
+    m.thresholds = sp + gn;
+    boundaries = sp + gn + kg;
+    m.any = sa;
+    base += planes_shared;
+  }
+  const int h = table_size(chunk);
+  const int shift = 32 - __ffs(h) + 1;  // h = 2^(33 - shift)
+  const Work w = carve(kShared ? base : global_work + part * work_stride,
+                       chunk, h);
+  const int n = bd.n;
+  const long long window = bd.window;
+  for (int e = tid; e < h; e += nt) clear_entry(w, e);
+  __syncthreads();
+
+  for (long long first = 0; first < b; first += chunk) {
+    const int c0 = static_cast<int>(first);
+    const int lanes_here = min(chunk, b - c0);
+    const Lane mine_first = ahead;
+    if (first + chunk + tid < b) {
+      ahead = load_lane(lanes, b, static_cast<int>(first + chunk + tid));
+    }
+    // 1. Lanes: read the column, find its entry (the lane that inserts
+    // the entry stores the column there), owner max.
+    for (int l = tid; l < lanes_here; l += nt) {
+      const Lane in = l == tid ? mine_first : load_lane(lanes, b, c0 + l);
+      long long s = in.slot;
+      if (s < 0) s += window;
+      const bool writes = s >= 0 && s < window;
+      const int32_t col =
+          static_cast<int32_t>(min(max(s, 0LL), window - 1));
+      if ((col & parts_mask) != part) {  // another block's column
+        w.flags[l] = 0;
+        continue;
+      }
+      // Issued before the insert, so the read overlaps it.
+      const Column column = load_column(bd, col);
+      int32_t node = in.node;
+      if (node < 0) node += n;
+      uint32_t e = (static_cast<uint32_t>(col) * 0x9E3779B1u) >> shift;
+      int32_t prev;
+      while ((prev = atomicCAS(&w.key[e], -1, col)) != -1 && prev != col) {
+        e = (e + 1) & (h - 1);
+      }
+      uint8_t f = 16 | (in.valid != 0 ? 1 : 0) | (writes ? 2 : 0);
+      if (prev == -1) {
+        store_column(bd, col, column, w, e);
+        f |= 8;
+      }
+      w.col[l] = col;
+      w.tslot[l] = in.tslot;
+      w.node[l] = node;
+      w.round[l] = in.round;
+      w.entry[l] = static_cast<int32_t>(e);
+      w.flags[l] = f;
+      if (writes) {
+        atomicMax(&w.owner[e], in.valid != 0 ? in.tslot : FPX_NEG_INF32);
+      }
+    }
+    __syncthreads();
+    // 2. Lanes: `mine` (valid, and the column's owner after the max),
+    // round max.
+    for (int l = tid; l < lanes_here; l += nt) {
+      const uint8_t f = w.flags[l];
+      const int e = w.entry[l];  // read only where f is not 0
+      const bool mine = (f & 1) &&
+                        w.tslot[l] == max(w.board_owner[e], w.owner[e]);
+      if (mine) w.flags[l] = f | 4;
+      if (f & 2) atomicMax(&w.rnd[e], mine ? w.round[l] : FPX_NEG_INF32);
+    }
+    __syncthreads();
+    // 3. Entries, each by the lane that inserted it: a newer owner
+    // reclaims the column (round -1, chosen 0, votes 0); the column's new
+    // round; a newer round preempts (votes 0).
+    for (int l = tid; l < lanes_here; l += nt) {
+      if (!(w.flags[l] & 8)) continue;
+      const int e = w.entry[l];
+      const int32_t owner = max(w.board_owner[e], w.owner[e]);
+      const bool reclaimed = owner > w.board_owner[e];
+      const int32_t round0 = reclaimed ? -1 : w.round0[e];
+      const int32_t r = max(round0, w.rnd[e]);
+      w.owner[e] = owner;
+      w.rnd[e] = r;
+      if (reclaimed) w.chosen0[e] = 0;
+      if (reclaimed || r > round0) {
+        for (int i = 0; i < n; ++i) w.votes[e * n + i] = 0;
+      }
+    }
+    __syncthreads();
+    // 4. Lanes: votes.at[nodes, slots].max(live).
+    for (int l = tid; l < lanes_here; l += nt) {
+      const int e = w.entry[l];
+      const uint8_t f = w.flags[l];
+      const int32_t node = w.node[l];
+      if ((f & 4) && (f & 2) && w.round[l] == w.rnd[e] && node >= 0 &&
+          node < n && w.votes[e * n + node] == 0) {
+        w.votes[e * n + node] = 1;
+      }
+    }
+    __syncthreads();
+    // 5. Lanes: hit under the lane's epoch plane, newly, chosen.
+    for (int l = tid; l < lanes_here; l += nt) {
+      const uint8_t f = w.flags[l];
+      if (!(f & 16)) continue;  // another block reports it
+      const int e = w.entry[l];
+      const uint8_t* v = w.votes + e * n;
+      const bool hit =
+          (f & 4) && multi_hit(m, epoch_of(boundaries, nb, w.tslot[l]),
+                               [&](int i) {
+                                 return static_cast<int32_t>(v[i]);
+                               });
+      newly[c0 + l] = hit && w.chosen0[e] == 0;
+      if (hit && (f & 2)) w.hit[e] = 1;
+    }
+    __syncthreads();
+    // 6. Entries, each by the lane that inserted it: written back once;
+    // the table cleared.
+    for (int l = tid; l < lanes_here; l += nt) {
+      if (w.flags[l] & 8) write_column(bd, w.col[l], w, w.entry[l]);
+    }
+    __syncthreads();
+  }
 }
 
 __global__ void reshape_columns_kernel(const uint8_t* __restrict__ block,
@@ -148,23 +522,111 @@ extern "C" int fpx_check_batch_multi(const void* present,
   return cudaGetLastError();
 }
 
-extern "C" int fpx_record_and_check_epochs(
-    void* votes, void* rounds, void* chosen, void* owner, long long window,
-    const void* lanes, int b, const void* boundaries, int nb, void* newly,
-    void* scratch, const void* masks, const void* thresholds,
-    const void* combine_any, int k, int g, int n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+namespace {
+
+cudaError_t select_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
+template <typename T>
+T* pointer(long long slot) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(slot));
+}
+
+// block: votes, rounds, chosen, owner, window, n, lanes [5, b] (device),
+// b, chunk, boundaries, nb, newly (device), masks, thresholds, any, k, g,
+// device, stream. A workspace too large for shared memory is allocated
+// on the stream and freed after the launch.
+cudaError_t run_epochs(const long long* a) {
+  const long long window = a[4], b = a[7], chunk = a[8];
+  const int n = static_cast<int>(a[5]);
+  if (b <= 0) return cudaSuccess;
+  if (window <= 0 || window > INT_MAX || b > INT_MAX || chunk <= 0 ||
+      chunk > (INT_MAX >> 2) || n <= 0 || a[10] < 0 || a[15] <= 0 ||
+      a[16] < 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int c = static_cast<int>(std::min(chunk, b));
+  const Board bd{pointer<uint8_t>(a[0]), pointer<int32_t>(a[1]),
+                 pointer<uint8_t>(a[2]), pointer<int32_t>(a[3]), window, n};
+  const MultiPred m = make_multi(pointer<const void>(a[12]),
+                                 pointer<const void>(a[13]),
+                                 pointer<const void>(a[14]),
+                                 static_cast<int>(a[15]),
+                                 static_cast<int>(a[16]), n);
+  const int nb = static_cast<int>(a[10]);
+  const int planes = plane_bytes(m, nb);
+  const long long need = work_bytes(c, n);
+  const bool shared = need <= kWorkSharedBytes;
+  int threads = 64;
+  while (threads < c && threads < kRunThreads) threads <<= 1;
+  int parts = 1;
+  while (parts < kMaxParts && parts * kLanesPerPart < c) parts <<= 1;
+  const size_t smem = (planes > 0 ? planes : 0) + (shared ? need : 0);
+  const cudaStream_t s = pointer<CUstream_st>(a[18]);
+  const long long stride = (need + 15) & ~15LL;
+  void* work = nullptr;
+  if (!shared) {
+    cudaError_t err =
+        cudaMallocAsync(&work, static_cast<size_t>(stride * parts), s);
+    if (err != cudaSuccess) return err;
+  }
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<parts, threads, smem, s>>>(
+        bd, pointer<const int32_t>(a[6]), static_cast<int>(b), c,
+        pointer<const int32_t>(a[9]), nb, m, pointer<uint8_t>(a[11]),
+        static_cast<uint8_t*>(work), stride, planes > 0 ? planes : 0);
+    return cudaGetLastError();
+  };
+  if (shared) return go(record_and_check_epochs_run_kernel<true>);
+  const cudaError_t err = go(record_and_check_epochs_run_kernel<false>);
+  const cudaError_t freed = cudaFreeAsync(work, s);
+  return err != cudaSuccess ? err : freed;
+}
+
+}  // namespace
+
+// K6, a run of chunks in one launch (a single call: chunk = b); the
+// packed block of run_epochs.
+extern "C" int fpx_record_and_check_epochs(const void* block) {
+  long long a[19];
+  std::memcpy(a, block, sizeof a);
+  cudaError_t err = select_device(static_cast<int>(a[17]));
   if (err != cudaSuccess) return err;
-  record_and_check_epochs_kernel<<<1, FPX_SPARSE_THREADS, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      Board{static_cast<uint8_t*>(votes), static_cast<int32_t*>(rounds),
-            static_cast<uint8_t*>(chosen), static_cast<int32_t*>(owner),
-            window, n},
-      Lanes{static_cast<const int32_t*>(lanes), b, window},
-      static_cast<const int32_t*>(boundaries), nb,
-      static_cast<uint8_t*>(newly), static_cast<int32_t*>(scratch),
-      make_multi(masks, thresholds, combine_any, k, g, n));
-  return cudaGetLastError();
+  return run_epochs(a);
+}
+
+// The tracker's drain in one call: run_epochs's block, then the pinned
+// lanes [5, b] and the pinned newly [b]. The lanes up, the run, newly
+// down, then a wait on the stream. The stream is the caller's current
+// one: the board is state on the card, and work the caller queued before
+// (K5's release, K7's reshape, the board's fill) must land first.
+extern "C" int fpx_record_and_check_epochs_staged(const void* block) {
+  long long a[21];
+  std::memcpy(a, block, sizeof a);
+  const long long b = a[7];
+  const cudaStream_t s = pointer<CUstream_st>(a[18]);
+  cudaError_t err = select_device(static_cast<int>(a[17]));
+  if (err != cudaSuccess || b <= 0) return err;
+  err = cudaMemcpyAsync(pointer<void>(a[6]), pointer<const void>(a[19]),
+                        static_cast<size_t>(b) * 5 * 4,
+                        cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return err;
+  err = run_epochs(a);
+  if (err != cudaSuccess) return err;
+  err = cudaMemcpyAsync(pointer<void>(a[20]), pointer<const void>(a[11]),
+                        static_cast<size_t>(b), cudaMemcpyDeviceToHost, s);
+  if (err != cudaSuccess) return err;
+  return cudaStreamSynchronize(s);
 }
 
 extern "C" int fpx_reshape_columns(const void* block, int n_old,

@@ -93,10 +93,12 @@
 
 #include "drain.cuh"
 #include "quorum.cuh"
+#include "quorum_regs.cuh"
 
 namespace {
 
 using namespace fpx_drain;
+using namespace fpx_regs;
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 // Drains per launch at most: K14's scratch holds one int32 per drain
@@ -185,85 +187,6 @@ struct Column {
   uint32_t v[kN];
   uint32_t chosen;
 };
-
-// The register path's predicate forms (kCols): a grid of kN / kCols rows
-// of kCols slots (kCols > 0; slot s holds acceptor perm[s]), one weighted
-// group (kOneGroup), or any other count of groups (kGroups: a loop over
-// them, uniform over the grid).
-constexpr int kOneGroup = 0;
-constexpr int kGroups = -1;
-
-// The predicate as the register path reads it: group 0's weights in
-// registers, the other groups' read from the predicate's (shared) arrays.
-template <int kN, int kCols>
-struct RegPred {
-  uint32_t flip;               // grid: 0xff for a read grid, 0 for a write
-  int g, any;                  // groups: their count, the any/all combiner
-  uint32_t mask0[kN];          // group 0's weights
-  int32_t thr0;
-  const int32_t* masks;        // [g, kN]
-  const int32_t* thresholds;   // [g]
-};
-
-template <int kN, int kCols>
-__device__ __forceinline__ RegPred<kN, kCols> reg_pred(const QuorumPred& q) {
-  RegPred<kN, kCols> p;
-  p.flip = q.grid_kind == 1 ? 0u : 0xffu;  // quorum.cuh: not 1 reads
-  p.g = q.g;
-  p.any = q.combine_any;
-#pragma unroll
-  for (int s = 0; s < kN; ++s) {
-    p.mask0[s] = (kCols <= 0 && q.g > 0) ? static_cast<uint32_t>(q.masks[s])
-                                         : 0u;
-  }
-  p.thr0 = (kCols <= 0 && q.g > 0) ? q.thresholds[0] : 0;
-  p.masks = q.masks;
-  p.thresholds = q.thresholds;
-  return p;
-}
-
-// quorum.cuh's quorum_hit on a column in slot order, every size and loop a
-// constant. A grid is quorum.cuh's uint8 chain: a write grid ORs each
-// row's bytes and ANDs the rows; a read grid ANDs each row and ORs the
-// rows, which on bytes is the complement of the write chain on the
-// complemented bytes (De Morgan), so both run one chain with `flip`.
-template <int kN, int kCols>
-__device__ __forceinline__ bool hit_regs(const uint32_t (&v)[kN],
-                                         const RegPred<kN, kCols>& p) {
-  if constexpr (kCols > 0) {
-    uint32_t acc = 0xffu;
-#pragma unroll
-    for (int r = 0; r < kN / kCols; ++r) {
-      uint32_t row = 0;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) row |= v[r * kCols + c] ^ p.flip;
-      acc &= row;
-    }
-    return ((acc ^ p.flip) & 0xffu) != 0;
-  } else {
-    // int32 matmul arithmetic, wrapping like XLA's (unsigned: no UB).
-    uint32_t count = 0;
-#pragma unroll
-    for (int s = 0; s < kN; ++s) count += p.mask0[s] * v[s];
-    const bool sat0 = static_cast<int32_t>(count) >= p.thr0;
-    if constexpr (kCols == kOneGroup) {
-      return sat0;  // any() and all() of one test are the test
-    } else {
-      // any() of nothing is false, all() true.
-      bool out = p.g == 0 ? !p.any : sat0;
-      for (int gi = 1; gi < p.g; ++gi) {
-        uint32_t c = 0;
-#pragma unroll
-        for (int s = 0; s < kN; ++s) {
-          c += static_cast<uint32_t>(p.masks[gi * kN + s]) * v[s];
-        }
-        const bool sat = static_cast<int32_t>(c) >= p.thresholds[gi];
-        out = p.any ? (out || sat) : (out && sat);
-      }
-      return out;
-    }
-  }
-}
 
 template <int kN>
 __device__ __forceinline__ void load_column(const Run& r,
@@ -668,9 +591,6 @@ __global__ void __launch_bounds__(FPX_THREADS)
   }
 }
 
-// The boards the register path takes: up to this many acceptors.
-constexpr int kMaxRegN = 16;
-
 // Everything a launch of one instantiation needs.
 struct Launch {
   Run r;
@@ -685,37 +605,6 @@ cudaError_t launch(const Launch& l) {
   run_steps_kernel<kTelemetry, kN, kCols>
       <<<l.grid, FPX_THREADS, l.smem, l.stream>>>(l.r, l.q, l.in_shared);
   return cudaGetLastError();
-}
-
-// The grid forms of kN acceptors: one per divisor kCols of kN but 1 (a
-// column of single-slot rows is one row of the other kind, see
-// run_steps).
-template <bool kTelemetry, int kN, int kCols = 2>
-cudaError_t launch_grid(const Launch& l) {
-  if constexpr (kN == 1) {
-    return launch<kTelemetry, 1, 1>(l);  // one acceptor: one row of one
-  } else if constexpr (kCols > kN) {
-    return launch<kTelemetry, 0, 0>(l);  // rows * cols != n: unreachable
-  } else {
-    if constexpr (kN % kCols == 0) {
-      if (l.q.cols == kCols) return launch<kTelemetry, kN, kCols>(l);
-    }
-    return launch_grid<kTelemetry, kN, kCols + 1>(l);
-  }
-}
-
-// The register forms: per acceptor count, one group, other counts of
-// groups, and a grid per column count.
-template <bool kTelemetry, int kN = 1>
-cudaError_t launch_regs(const Launch& l) {
-  if constexpr (kN > kMaxRegN) {
-    return launch<kTelemetry, 0, 0>(l);  // n > kMaxRegN: unreachable
-  } else {
-    if (l.q.n != kN) return launch_regs<kTelemetry, kN + 1>(l);
-    if (l.q.grid_kind != 0) return launch_grid<kTelemetry, kN>(l);
-    if (l.q.g == 1) return launch<kTelemetry, kN, kOneGroup>(l);
-    return launch<kTelemetry, kN, kGroups>(l);
-  }
 }
 
 cudaError_t select_device(int device) {
@@ -763,21 +652,12 @@ cudaError_t run_steps(const void* block) {
       static_cast<int>(a[17]), static_cast<int>(a[18]),
       static_cast<int>(a[19]));
   // The register carry needs three distinct blocks and a ring that steps
-  // by one through the run (always, with a power-of-two ring); a grid's
-  // rows must tile its acceptors.
+  // by one through the run (always, with a power-of-two ring), and a
+  // register form of the predicate.
   const bool contiguous =
       (nb & (nb - 1)) == 0 ||
       (start - 2 >= INT_MIN && start + iters - 1 <= INT_MAX);
-  const bool regs = nb >= 3 && contiguous && q.n >= 1 && q.n <= kMaxRegN &&
-                    (q.grid_kind == 0 ||
-                     (q.cols >= 1 && q.rows * q.cols == q.n));
-  if (regs && q.grid_kind != 0 && q.cols == 1) {
-    // n rows of one: a write grid ANDs the n votes and a read grid ORs
-    // them, which is one row of n of the other kind (the same slots).
-    q.grid_kind = q.grid_kind == 1 ? 2 : 1;
-    q.rows = 1;
-    q.cols = q.n;
-  }
+  const bool regs = nb >= 3 && contiguous && register_form(q);
   const size_t pred_bytes =
       4 * (static_cast<size_t>(q.g) * q.n + q.g + q.n);
   const int in_shared = pred_bytes <= kPredSharedBytes;
@@ -788,7 +668,11 @@ cudaError_t run_steps(const void* block) {
       (in_shared ? pred_bytes : 0) +
           (kTelemetry ? 4 * (static_cast<size_t>(q.n) + 1) : 0),
       pointer<CUstream_st>(a[23])};
-  return regs ? launch_regs<kTelemetry>(l) : launch<kTelemetry, 0, 0>(l);
+  auto go = [&l](auto form) {
+    using F = decltype(form);
+    return launch<kTelemetry, F::n, F::cols>(l);
+  };
+  return regs ? dispatch_regs(l.q, go) : go(Form<0, 0>{});
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
-// The sparse vote-board update shared by K4 record_and_check
-// (sparse.cu) and K6 record_and_check_epochs (epoch.cu): the device
-// twin of frankenpaxos_tpu/ops/quorum.py::_apply_sparse_votes (L170).
+// The sparse vote-board update of K4 record_and_check (sparse.cu): the
+// device twin of frankenpaxos_tpu/ops/quorum.py::_apply_sparse_votes
+// (L170). (K6 in epoch.cu runs the same update over a table of a chunk's
+// distinct columns instead, a run of chunks a launch.)
 //
 // The reference runs ordered phases, each of which reads every lane's
 // "old" value before any lane of that phase scatters:

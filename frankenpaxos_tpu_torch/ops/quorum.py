@@ -10,7 +10,9 @@ its OWNER slot, so wrapping is self-reclaiming.
 Seven kernels live here, each beside its plain PyTorch version:
 
   * K1 :func:`quorum_hit` -- the quorum predicate over a vote block
-    (the reference's ``_check_block`` / ``_check_batch``);
+    (the reference's ``_check_block`` / ``_check_batch``), and
+    :func:`quorum_hit_staged`, the synchronous tracker's whole drain in
+    one call;
   * K2 :func:`record_block` -- the dense board update for one
     contiguous slot block (``_record_block``);
   * K4 :func:`record_and_check` -- the sparse scatter of straggler
@@ -18,7 +20,11 @@ Seven kernels live here, each beside its plain PyTorch version:
   * K5 :func:`release` -- the column reset of GC'd slots (``_release``);
   * K6 :func:`record_and_check_epochs` and :func:`check_batch_multi` --
     the epoch-segmented scatter and the per-row multi-config predicate
-    (``_record_and_check_epochs``, ``_check_batch_multi``);
+    (``_record_and_check_epochs``, ``_check_batch_multi``); the scatter
+    takes a run of chunks in one launch
+    (:func:`record_and_check_epochs_run`, the trackers' loop over
+    256-vote chunks), and :meth:`EpochSegmentedChecker.record_and_check_run`
+    is a tracker drain in one call;
   * K7 :func:`reshape_columns` -- the epoch reshape gather of the
     acceptor axis (``_reshape_columns``).
 
@@ -249,32 +255,66 @@ def quorum_hit_plain(votes: torch.Tensor,
     return satisfied.any(0) if pred.combine_any else satisfied.all(0)
 
 
+_K1 = _build.Entry("quorum", "fpx_quorum_hit", 16)
+_K1_STAGED = _build.Entry("quorum", "fpx_quorum_hit_staged", 16,
+                          keep_gil=False)
+
+
 def quorum_hit(votes: torch.Tensor, pred: QuorumPredicate) -> torch.Tensor:
     """K1: ``[N, B]`` uint8 vote block -> ``[B]`` bool quorum hits.
 
     ``votes`` may have any strides (``check_batch`` passes a transposed
     ``[B, N]`` view, which the kernel reads in place). CUDA tensors
-    launch ``csrc/quorum.cu::quorum_hit_kernel``; CPU tensors take
+    launch ``csrc/quorum.cu::quorum_hit_kernel`` through the lean call
+    path (one packed ``ctypes`` call); CPU tensors take
     :func:`quorum_hit_plain`."""
-    if votes.dtype != torch.uint8 or votes.dim() != 2:
+    if votes.dtype is not torch.uint8 or votes.dim() != 2:
         raise ValueError(f"votes must be a 2-D uint8 tensor, got "
                          f"{votes.dtype} {tuple(votes.shape)}")
     n, b = votes.shape
     if n != pred.num_nodes:
         raise ValueError(f"votes have {n} rows, predicate has "
                          f"{pred.num_nodes} nodes")
-    if not use_kernel(votes, pred.masks):
+    index = votes.get_device()
+    if (index < 0 or pred.masks.get_device() != index) \
+            and not use_kernel(votes, pred.masks):
         return quorum_hit_plain(votes, pred)
     out = torch.empty((b,), dtype=torch.bool, device=votes.device)
     if b == 0:
         return out
-    lib = _build.library("quorum")
-    rc = lib.fpx_quorum_hit(
-        votes.data_ptr(), votes.stride(0), votes.stride(1), b,
-        out.data_ptr(), *pred.c_args(), *_build.stream_args(votes.device))
-    _build.check("quorum", "fpx_quorum_hit", rc)
+    fn = _K1.fn or _K1.resolve()
+    rc = fn(_K1.pack(votes.data_ptr(), votes.stride(0), votes.stride(1), b,
+                     out.data_ptr(), *pred.c_args(), index,
+                     _build.stream_handle(index)))
+    if rc:
+        _K1.check(rc)
     quorum_hit.launches += 1
     return out
+
+
+def quorum_hit_staged(staging: _build.Staging, width: int,
+                      pred: QuorumPredicate) -> np.ndarray:
+    """K1 over the ``[N, width]`` block already written into
+    ``staging``'s pinned ``"votes"`` buffer (row-major), in
+    ONE ``ctypes`` call with the GIL released: the block up, the launch,
+    the hits down into pinned memory, a wait, all on PyTorch's current
+    stream (which runs work the caller queued first, before the launch
+    reads the predicate).
+    Returns the ``[width]`` bool hits, a view of the staging's pinned
+    ``"hits"`` buffer that the next call overwrites."""
+    n = pred.num_nodes
+    votes = staging.pair("votes", n * width, torch.uint8)
+    hits = staging.pair("hits", width, torch.bool)
+    if width:
+        fn = _K1_STAGED.fn or _K1_STAGED.resolve()
+        rc = fn(_K1_STAGED.pack(votes.host_ptr, votes.device_ptr, width,
+                                hits.device_ptr, hits.host_ptr,
+                                *pred.c_args(), staging.index,
+                                _build.stream_handle(staging.index)))
+        if rc:
+            _K1_STAGED.check(rc)
+        quorum_hit.launches += 1
+    return hits.host[:width]
 
 
 quorum_hit.launches = 0
@@ -383,30 +423,36 @@ LANE_FIELDS = 5  # slots % window, true slots, nodes, rounds, valid
 
 
 def pack_lanes(slots, true_slots, nodes, vote_rounds, valid,
-               size: Optional[int] = None) -> np.ndarray:
+               size: Optional[int] = None,
+               out: Optional[np.ndarray] = None) -> np.ndarray:
     """The ``[5, size]`` int32 lane array the sparse kernels take: slots
     (already reduced mod window), true slots, acceptor rows, rounds and
     valid (0/1), each assigned into int32 as the reference packs them
     (so true slots past 2^31 - 1 wrap), then padding lanes up to
-    ``size`` at slot 0 with valid 0."""
+    ``size`` at slot 0 with valid 0. ``out``, a ``[5, size]`` int32
+    array (a view of pinned staging), is written and returned in place of
+    a new array."""
     b = np.shape(slots)[0]
-    lanes = np.zeros((LANE_FIELDS, max(b, size or 0)), dtype=np.int32)
+    if out is None:
+        out = np.zeros((LANE_FIELDS, max(b, size or 0)), dtype=np.int32)
+    else:
+        out[:, b:] = 0
     for row, values in enumerate((slots, true_slots, nodes, vote_rounds,
                                   valid)):
-        lanes[row, :b] = values
-    return lanes
+        out[row, :b] = values
+    return out
 
 
 def _checker_lanes(slots: np.ndarray, node_cols, rounds, window: int,
-                   size: int) -> np.ndarray:
+                   size: int, out: Optional[np.ndarray] = None) -> np.ndarray:
     """The checkers' packing of one batch of votes (all valid; rounds 0
-    when None), padded to ``size``."""
+    when None), padded to ``size`` (into ``out`` when given)."""
     b = slots.shape[0]
     rounds = np.zeros(b, dtype=np.int32) if rounds is None \
         else np.asarray(rounds, dtype=np.int32)
     return pack_lanes(slots % window, slots,
                       np.asarray(node_cols, dtype=np.int32), rounds,
-                      np.ones(b, dtype=bool), size)
+                      np.ones(b, dtype=bool), size, out)
 
 
 def _check_lanes(board: VoteBoard, lanes: torch.Tensor) -> int:
@@ -422,26 +468,25 @@ def _check_lanes(board: VoteBoard, lanes: torch.Tensor) -> int:
     return lanes.shape[1]
 
 
-def _launch_sparse(entry: str, source: str, board: VoteBoard,
-                   lanes: torch.Tensor, extra: tuple,
-                   pred_args: tuple) -> torch.Tensor:
-    """Launch one of the single-block sparse kernels (K4, K6): the board,
-    the lanes, ``extra`` arguments, the ``newly`` output and a scratch
-    buffer, then the predicate's ``pred_args``. Returns ``newly``; the
-    caller, which has made sure ``B > 0``, counts the launch."""
+def _launch_sparse(board: VoteBoard, lanes: torch.Tensor,
+                   pred: QuorumPredicate) -> torch.Tensor:
+    """Launch K4, the single-block sparse kernel: the board, the lanes,
+    the ``newly`` output and a scratch buffer, then the predicate.
+    Returns ``newly``; the caller, which has made sure ``B > 0``, counts
+    the launch."""
     if not all(t.is_contiguous() for t in (lanes, *board)):
-        raise ValueError(f"{entry} needs contiguous tensors")
+        raise ValueError("fpx_record_and_check needs contiguous tensors")
     b = lanes.shape[1]
     newly = torch.empty((b,), dtype=torch.bool, device=lanes.device)
     scratch = torch.empty((2 * b,), dtype=torch.int32, device=lanes.device)
     n, window = board.votes.shape
-    lib = _build.library(source)
-    rc = getattr(lib, entry)(
+    lib = _build.library("sparse")
+    rc = lib.fpx_record_and_check(
         board.votes.data_ptr(), board.rounds.data_ptr(),
         board.chosen.data_ptr(), board.owner.data_ptr(), window,
-        lanes.data_ptr(), b, *extra, newly.data_ptr(), scratch.data_ptr(),
-        *pred_args, *_build.stream_args(lanes.device))
-    _build.check(source, entry, rc)
+        lanes.data_ptr(), b, newly.data_ptr(), scratch.data_ptr(),
+        *pred.c_args(), *_build.stream_args(lanes.device))
+    _build.check("sparse", "fpx_record_and_check", rc)
     return newly
 
 
@@ -562,8 +607,7 @@ def record_and_check(board: VoteBoard, lanes: torch.Tensor,
         return record_and_check_plain(board, lanes, pred)
     if b == 0:
         return torch.empty((0,), dtype=torch.bool, device=lanes.device)
-    newly = _launch_sparse("fpx_record_and_check", "sparse", board, lanes,
-                           (), pred.c_args())
+    newly = _launch_sparse(board, lanes, pred)
     record_and_check.launches += 1
     return newly
 
@@ -728,16 +772,41 @@ def record_and_check_epochs_plain(board: VoteBoard, lanes: torch.Tensor,
     return _finish_sparse_plain(board, *state, hit)
 
 
-def record_and_check_epochs(board: VoteBoard, lanes: torch.Tensor,
-                            boundaries: torch.Tensor,
-                            planes: MultiPredicate) -> torch.Tensor:
-    """K6: the epoch-segmented sparse scatter, IN PLACE.
+def record_and_check_epochs_run_plain(board: VoteBoard, lanes: torch.Tensor,
+                                      boundaries: torch.Tensor,
+                                      planes: MultiPredicate,
+                                      chunk: int) -> torch.Tensor:
+    """Plain PyTorch version of K6's run: :func:`record_and_check_epochs_plain`
+    on each ``chunk`` lanes in order, the results concatenated."""
+    b = lanes.shape[1]
+    parts = [record_and_check_epochs_plain(board, lanes[:, at:at + chunk],
+                                           boundaries, planes)
+             for at in range(0, b, chunk)]
+    return torch.cat(parts) if parts \
+        else torch.empty((0,), dtype=torch.bool, device=lanes.device)
 
-    As :func:`record_and_check`, but each lane's quorum predicate is the
-    plane of its SLOT's epoch; ``boundaries`` is the ``[K-1]`` int32
-    nondecreasing start slots of epochs 1..K-1. CUDA tensors launch
-    ``csrc/epoch.cu::record_and_check_epochs_kernel``; CPU tensors take
-    :func:`record_and_check_epochs_plain`."""
+
+def _epochs_block(board: VoteBoard, lanes_ptr: int, b: int, chunk: int,
+                  boundaries: torch.Tensor, planes: MultiPredicate,
+                  newly_ptr: int) -> tuple:
+    """The first 17 slots of K6's packed block (the device and the stream
+    follow)."""
+    n, window = board.votes.shape
+    k, g, _ = planes.masks.shape
+    return (board.votes.data_ptr(), board.rounds.data_ptr(),
+            board.chosen.data_ptr(), board.owner.data_ptr(), window, n,
+            lanes_ptr, b, chunk, boundaries.data_ptr(), boundaries.shape[0],
+            newly_ptr, planes.masks.data_ptr(), planes.thresholds.data_ptr(),
+            planes.combine_any.data_ptr(), k, g)
+
+
+_K6 = _build.Entry("epoch", "fpx_record_and_check_epochs", 19)
+_K6_STAGED = _build.Entry("epoch", "fpx_record_and_check_epochs_staged", 21,
+                          keep_gil=False)
+
+
+def _check_epochs(board: VoteBoard, lanes: torch.Tensor,
+                  boundaries: torch.Tensor, planes: MultiPredicate) -> int:
     n = board.votes.shape[0]
     b = _check_lanes(board, lanes)
     if n != planes.num_nodes:
@@ -747,18 +816,67 @@ def record_and_check_epochs(board: VoteBoard, lanes: torch.Tensor,
             or boundaries.shape != (planes.masks.shape[0] - 1,):
         raise ValueError(f"boundaries must be [{planes.masks.shape[0] - 1}]"
                          f" int32")
+    return b
+
+
+def record_and_check_epochs_run(board: VoteBoard, lanes: torch.Tensor,
+                                boundaries: torch.Tensor,
+                                planes: MultiPredicate,
+                                chunk: int) -> torch.Tensor:
+    """K6 on a RUN of chunks, IN PLACE: the ``[5, B]`` lanes taken
+    ``chunk`` at a time, in order, each chunk one call of
+    :func:`record_and_check_epochs` (duplicates inside a chunk each
+    report; a chunk sees the ``chosen`` bits of the chunks before it).
+    Returns the ``[B]`` newly mask, the chunks' results concatenated.
+    Padding lanes change nothing, so a run takes its lanes unpadded.
+    CUDA tensors launch ``csrc/epoch.cu::record_and_check_epochs_run_kernel``
+    ONCE (one packed ``ctypes`` call); CPU tensors take
+    :func:`record_and_check_epochs_run_plain`."""
+    b = _check_epochs(board, lanes, boundaries, planes)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if not use_kernel(lanes, *board, boundaries, *planes):
+        return record_and_check_epochs_run_plain(board, lanes, boundaries,
+                                                 planes, chunk)
+    return _launch_epochs(board, lanes, boundaries, planes, chunk, b)
+
+
+def _launch_epochs(board: VoteBoard, lanes: torch.Tensor,
+                   boundaries: torch.Tensor, planes: MultiPredicate,
+                   chunk: int, b: int) -> torch.Tensor:
+    """One launch of K6's run kernel on checked CUDA tensors."""
+    if not all(t.is_contiguous() for t in (lanes, boundaries, *board,
+                                            *planes)):
+        raise ValueError("record_and_check_epochs needs contiguous tensors")
+    newly = torch.empty((b,), dtype=torch.bool, device=lanes.device)
+    if b == 0:
+        return newly
+    index = lanes.get_device()
+    fn = _K6.fn or _K6.resolve()
+    rc = fn(_K6.pack(*_epochs_block(
+        board, lanes.data_ptr(), b, chunk, boundaries, planes,
+        newly.data_ptr()), index, _build.stream_handle(index)))
+    if rc:
+        _K6.check(rc)
+    record_and_check_epochs.launches += 1
+    return newly
+
+
+def record_and_check_epochs(board: VoteBoard, lanes: torch.Tensor,
+                            boundaries: torch.Tensor,
+                            planes: MultiPredicate) -> torch.Tensor:
+    """K6: the epoch-segmented sparse scatter, IN PLACE.
+
+    As :func:`record_and_check`, but each lane's quorum predicate is the
+    plane of its SLOT's epoch; ``boundaries`` is the ``[K-1]`` int32
+    nondecreasing start slots of epochs 1..K-1. The run kernel with one
+    chunk of all ``B`` lanes (:func:`record_and_check_epochs_run`); CPU
+    tensors take :func:`record_and_check_epochs_plain`."""
+    b = _check_epochs(board, lanes, boundaries, planes)
     if not use_kernel(lanes, *board, boundaries, *planes):
         return record_and_check_epochs_plain(board, lanes, boundaries,
                                              planes)
-    if not all(t.is_contiguous() for t in (boundaries, *planes)):
-        raise ValueError("record_and_check_epochs needs contiguous planes")
-    if b == 0:
-        return torch.empty((0,), dtype=torch.bool, device=lanes.device)
-    newly = _launch_sparse("fpx_record_and_check_epochs", "epoch", board,
-                           lanes, (boundaries.data_ptr(),
-                                   boundaries.shape[0]), planes.c_args())
-    record_and_check_epochs.launches += 1
-    return newly
+    return _launch_epochs(board, lanes, boundaries, planes, max(b, 1), b)
 
 
 record_and_check_epochs.launches = 0
@@ -1017,13 +1135,18 @@ def record_and_check_sharded(board: VoteBoard, mesh, lanes,
 def record_and_check_epochs_sharded(board: VoteBoard, mesh, lanes,
                                     boundaries: torch.Tensor,
                                     planes: MultiPredicate, *,
+                                    chunk: Optional[int] = None,
                                     async_op: bool = False):
     """K6 on a sharded board, as :func:`record_and_check_sharded`; the
     epoch planes and boundaries are whole on every rank, and each lane's
-    plane comes from its (unrebased) true slot."""
+    plane comes from its (unrebased) true slot. With ``chunk``, the lanes
+    are a run (:func:`record_and_check_epochs_run`): one launch and one
+    all-reduce for all of its chunks (a lane another rank owns is inert
+    in its chunk, so each chunk keeps its batch semantics)."""
     return _sparse_sharded(
         board, mesh, lanes,
-        lambda t: record_and_check_epochs(board, t, boundaries, planes),
+        lambda t: record_and_check_epochs_run(board, t, boundaries, planes,
+                                              chunk or max(t.shape[1], 1)),
         async_op)
 
 
@@ -1120,6 +1243,10 @@ class TpuQuorumChecker:
                                     device=self.device)
         self.board = make_vote_board(window, spec.num_nodes, self.device,
                                      mesh)
+        # check_block's host block: pinned staging on a CUDA device, made
+        # at the first call; a numpy array on the CPU.
+        self._staging = None
+        self._host_block = None
 
     def _to_device(self, block: np.ndarray) -> torch.Tensor:
         return stage(np.asarray(block, dtype=np.uint8), self.device)
@@ -1180,10 +1307,44 @@ class TpuQuorumChecker:
         return check_block(self._to_device(block), self._pred)
 
     def check_block(self, block: np.ndarray) -> np.ndarray:
-        """Synchronous :meth:`check_block_async`, sliced to the input
-        width."""
-        b = block.shape[1]
-        return self.check_block_async(block).cpu().numpy()[:b]
+        """Stateless drain-local quorum over a ``[n, B]`` vote block:
+        the ``[B]`` hit mask. The block is padded to its bucket in the
+        staging and checked by :meth:`check_staged` (one call)."""
+        n, b = block.shape
+        if n != self.num_nodes:
+            raise ValueError(f"block has {n} acceptor rows, spec has "
+                             f"{self.num_nodes}")
+        self.stage_block(_bucket(b))[:, :b] = block
+        return self.check_staged(_bucket(b))[:b].copy()
+
+    def stage_block(self, width: int) -> np.ndarray:
+        """A zeroed ``[n, width]`` uint8 host block for the next
+        :meth:`check_staged`: on a CUDA device a view of this checker's
+        reused pinned staging, on the CPU a numpy array. The caller
+        writes its votes into it (several segments may lie side by
+        side: K1 is column-local) and reads it until the next call."""
+        if self.device.type != "cuda":
+            self._host_block = np.zeros((self.num_nodes, width),
+                                        dtype=np.uint8)
+            return self._host_block
+        if self._staging is None:
+            self._staging = _build.Staging(self.device)
+        n = self.num_nodes
+        view = self._staging.pair("votes", n * width, torch.uint8).host
+        view = view[:n * width].reshape(n, width)
+        view.fill(0)
+        return view
+
+    def check_staged(self, width: int) -> np.ndarray:
+        """K1 over the block of the last :meth:`stage_block` ``(width)``:
+        the ``[width]`` bool hits. On a CUDA device ONE ``ctypes`` call
+        (:func:`quorum_hit_staged`; its result is a view of pinned
+        memory that the next call overwrites); on the CPU the plain
+        version. Stateless: on a mesh it runs whole on every rank."""
+        if self.device.type != "cuda":
+            return quorum_hit_plain(torch.from_numpy(self._host_block),
+                                    self._pred).numpy()
+        return quorum_hit_staged(self._staging, width, self._pred)
 
     def record_and_check_async(self, slots, node_cols, rounds=None,
                                pad_to: Optional[int] = None):
@@ -1323,6 +1484,9 @@ class EpochSegmentedChecker:
         self._rebuild_universe()
         self.board = make_vote_board(window, len(self.universe), self.device,
                                      mesh)
+        # record_and_check_run's pinned lanes and newly, made at the
+        # first call on a CUDA device.
+        self._staging = None
 
     def _rebuild_universe(self) -> None:
         seen: dict = {}
@@ -1395,9 +1559,69 @@ class EpochSegmentedChecker:
             self.board, stage(lanes, self.device), self._boundaries,
             self.planes).cpu().numpy()[:b]
 
+    def record_and_check_run(self, slots, node_cols, rounds=None,
+                             chunk: int = 256) -> np.ndarray:
+        """A tracker drain's votes through K6 ``chunk`` at a time, in
+        order: equal to :meth:`record_and_check` on each chunk in turn,
+        the masks concatenated. On a CUDA device ONE ``ctypes`` call with
+        the GIL released (the lanes written unpadded into reused pinned
+        staging and sent up, one launch of the run, ``newly`` down, a
+        wait, all on PyTorch's current stream, so that K5's releases and
+        K7's reshapes queued before it land first); on the CPU the plain
+        run. With a mesh, one sharded run: one launch on each rank's
+        columns and one all-reduce a drain."""
+        slots = np.asarray(slots, dtype=np.int64)
+        b = slots.shape[0]
+        if chunk < 1:
+            raise ValueError(f"chunk must be positive, got {chunk}")
+        if self.mesh is not None:
+            lanes = _checker_lanes(slots, node_cols, rounds, self.window, b)
+            return record_and_check_epochs_sharded(
+                self.board, self.mesh, lanes, self._boundaries, self.planes,
+                chunk=chunk).cpu().numpy()
+        if self.device.type != "cuda":
+            lanes = _checker_lanes(slots, node_cols, rounds, self.window, b)
+            return record_and_check_epochs_run(
+                self.board, stage(lanes, self.device), self._boundaries,
+                self.planes, chunk).numpy()
+        if b == 0:
+            return np.zeros(0, dtype=bool)
+        if self._staging is None:
+            self._staging = _build.Staging(self.device)
+        st = self._staging
+        lanes = st.pair("lanes", LANE_FIELDS * b, torch.int32)
+        _checker_lanes(slots, node_cols, rounds, self.window, b,
+                       out=lanes.host[:LANE_FIELDS * b].reshape(LANE_FIELDS,
+                                                                b))
+        newly = st.pair("newly", b, torch.bool)
+        fn = _K6_STAGED.fn or _K6_STAGED.resolve()
+        rc = fn(_K6_STAGED.pack(*_epochs_block(
+            self.board, lanes.device_ptr, b, chunk, self._boundaries,
+            self.planes, newly.device_ptr), st.index,
+            _build.stream_handle(st.index), lanes.host_ptr, newly.host_ptr))
+        if rc:
+            _K6_STAGED.check(rc)
+        record_and_check_epochs.launches += 1
+        return newly.host[:b].copy()
+
     def release(self, slots) -> None:
         """GC chosen columns below the watermark (ring wrap; K5)."""
         _release_slots(self.board, slots, self.mesh)
+
+
+def newly_pairs(slots: np.ndarray, rounds: np.ndarray,
+                newly: np.ndarray) -> list:
+    """A tracker drain's reports from its per-vote ``newly`` mask: the
+    ``(slot, round)`` of each newly-chosen vote, the first vote of each
+    slot only, in vote order (the board reports every same-batch
+    duplicate of a newly-chosen slot; exactly-once within the drain is
+    host-side, across drains the chosen bitmap's)."""
+    idx = np.flatnonzero(newly)
+    if not idx.size:
+        return []
+    _, first = np.unique(slots[idx], return_index=True)
+    keep = idx[np.sort(first)]
+    return list(zip(slots[keep].tolist(), rounds[keep].tolist()))
 
 
 class MultiConfigQuorumChecker:

@@ -37,8 +37,10 @@ import numpy as np
 #: The synchronous mode's routing threshold on a CUDA device: a drain
 #: whose single-round slot span is at least this wide goes to the device
 #: predicate, a narrower one to the host tally. The crossover of
-#: ``bench/tracker_lt.py`` on an NVIDIA H100 80GB HBM3 at 700 W, in the
-#: ranged-ack shape (PERF.md): the device path wins from 256 slots on.
+#: ``bench/tracker_lt.py`` on an NVIDIA H100 80GB HBM3 at 700.00 W, in
+#: the ranged-ack shape (PERF.md): with the drain one staged K1 call the
+#: device path wins from 128 slots on (from 256 when each segment was a
+#: launch and a fetch of its own).
 #: In ``bench/multipaxos_sim.py``'s traffic (one client, waves of 4096)
 #: every vote reaches a ProxyLeader as a Phase2bRange or a packed
 #: Phase2bVotes, none as a lone Phase2b, but every drain is 4096 slots
@@ -46,7 +48,7 @@ import numpy as np
 #: deployed ProxyLeader's drains are is still open (PERF.md). Acceptors
 #: that sent lone Phase2bs (``range_phase2bs=False``) would meet the
 #: per-slot crossover instead, 512-2048 slots depending on the run.
-CUDA_MIN_DEVICE_SLOTS = 256
+CUDA_MIN_DEVICE_SLOTS = 128
 
 #: The same threshold for the plain versions on the CPU: the reference's
 #: value for a host backend, so CPU runs route as the JAX package's do.
@@ -127,8 +129,9 @@ class TpuQuorumTracker(QuorumTracker):
 
     **Synchronous (default).** Each drain whose dominant-round span is
     at least ``min_device_slots`` wide is decided by ONE stateless
-    predicate over the drain's ``[n, B]`` vote block
-    (``TpuQuorumChecker.check_block``, K1) -- no board state, no ring
+    predicate over the drain's ``[n, B]`` vote block (K1: every active
+    segment written into the checker's pinned staging, then one call,
+    ``TpuQuorumChecker.check_staged``) -- no board state, no ring
     bookkeeping, cost flat in B. Votes below quorum after that check
     (quorums straddling drains) spill into a host tally (a
     ``DictQuorumTracker``, the oracle itself) -- SURVEY.md section 7's
@@ -297,8 +300,9 @@ class TpuQuorumTracker(QuorumTracker):
              np.asarray(rounds, dtype=np.int32)))
 
     def drain(self) -> list[tuple[int, int]]:
-        """At most a few device calls (usually one, often zero) per
-        event-loop drain; see the class docstring for the two modes."""
+        """At most a few device calls per event-loop drain (in the
+        synchronous mode one at most, often zero); see the class
+        docstring for the two modes."""
         if not self._slots and not self._ranges \
                 and not self._array_votes:
             return []
@@ -441,18 +445,20 @@ class TpuQuorumTracker(QuorumTracker):
         for s_arr, _, _ in av:
             if s_arr.size:
                 active.update(np.unique((s_arr - lo) // seg).tolist())
-        # Two phases: dispatch every segment's check first, THEN fetch
-        # -- k segments pay one overlap-able round-trip, not k
-        # serialized ones.
-        dispatched = []
+        # Every active segment side by side in ONE block, each at its
+        # bucket's width (K1 is column-local), written straight into the
+        # checker's staging and checked by one call.
+        segments = []
+        total = 0
         for seg_idx in sorted(active):
             seg_start = lo + seg_idx * seg
             seg_end = min(seg_start + seg, hi + 1)
-            seg_width = seg_end - seg_start
-            bucket = next(b for b in self.dense_buckets
-                          if b >= seg_width)
-            block = np.zeros((self.checker.num_nodes, bucket),
-                             dtype=np.uint8)
+            segments.append((seg_start, seg_end, total))
+            total += next(b for b in self.dense_buckets
+                          if b >= seg_end - seg_start)
+        view = self.checker.stage_block(total)
+        for seg_start, seg_end, at in segments:
+            block = view[:, at:at + seg_end - seg_start]
             if single.shape[0]:
                 inseg = ((single[:, 0] >= seg_start)
                          & (single[:, 0] < seg_end))
@@ -468,11 +474,12 @@ class TpuQuorumTracker(QuorumTracker):
             for s_arr, col, _ in av:
                 inseg = (s_arr >= seg_start) & (s_arr < seg_end)
                 block[col, s_arr[inseg] - seg_start] = 1
-            dispatched.append((seg_start, seg_width, block,
-                               self.checker.check_block_async(block)))
-        for seg_start, seg_width, block, mask in dispatched:
-            hit = _fetch(mask)[:seg_width]
-            touched = block[:, :seg_width].any(axis=0)
+        hits = self.checker.check_staged(total)
+        for seg_start, seg_end, at in segments:
+            seg_width = seg_end - seg_start
+            block = view[:, at:at + seg_width]
+            hit = hits[at:at + seg_width]
+            touched = block.any(axis=0)
             chosen = np.flatnonzero(hit & touched)
             if chosen.size:
                 chosen_slots = seg_start + chosen.astype(np.int64)
@@ -484,8 +491,7 @@ class TpuQuorumTracker(QuorumTracker):
                 # Below-quorum residue: votes whose quorum straddles
                 # drains. Spill to the host tally (few by
                 # construction), which may complete earlier slots.
-                rcols, rpos = np.nonzero(block[:, :seg_width]
-                                         * resid[None, :])
+                rcols, rpos = np.nonzero(block * resid[None, :])
                 for col, pos in zip(rcols.tolist(), rpos.tolist()):
                     g, i = divmod(col, self._row_size)
                     self._host.record(seg_start + pos, rnd0, g, i)

@@ -10,8 +10,9 @@ EPOCH's spec, resolved through the ``EpochStore``. Two backends:
   * ``dict`` -- the oracle: per-(slot, round) voter sets checked with
     ``EpochConfig.has_write_quorum`` (set intersection, the reference
     semantics). Counts only the slot's epoch's members.
-  * ``cuda`` -- ``ops.quorum.EpochSegmentedChecker`` scatters (K6, in
-    256-vote chunks) per event-loop drain over the store's union
+  * ``cuda`` -- ``ops.quorum.EpochSegmentedChecker`` scatters each
+    event-loop drain's votes (K6, in 256-vote chunks, the whole drain in
+    one staged call and one launch) over the store's union
     universe; the epoch plane is selected per slot INSIDE the kernel,
     so a drain spanning the handover boundary needs no split, and a new
     epoch reshapes the board in place (K7). It runs on ``device``
@@ -26,7 +27,10 @@ sentinel; the board's chosen bitmap).
 
 from __future__ import annotations
 
-from frankenpaxos_tpu_torch.ops.quorum import EpochSegmentedChecker
+from frankenpaxos_tpu_torch.ops.quorum import (
+    EpochSegmentedChecker,
+    newly_pairs,
+)
 from frankenpaxos_tpu_torch.reconfig.epoch import EpochStore
 import numpy as np
 
@@ -158,22 +162,11 @@ class EpochQuorumTracker:
         cols = np.asarray(self._cols, dtype=np.int32)
         rounds = np.asarray(self._rounds, dtype=np.int32)
         self._slots, self._cols, self._rounds = [], [], []
-        out: list = []
-        seen: set = set()
-        for at in range(0, slots.size, self._chunk):
-            sl = slots[at:at + self._chunk]
-            newly = self._checker.record_and_check(
-                sl, cols[at:at + self._chunk],
-                rounds[at:at + self._chunk])
-            for i in np.flatnonzero(newly).tolist():
-                key = (int(sl[i]), int(rounds[at + i]))
-                # The board reports every same-batch duplicate of a
-                # newly-chosen slot; exactly-once within the drain is
-                # host-side (cross-drain is the chosen bitmap's job).
-                if key[0] not in seen:
-                    seen.add(key[0])
-                    out.append(key)
-        return out
+        # One call for the whole drain: K6 over the votes 256 at a time,
+        # each chunk one batch of the reference's scatter.
+        newly = self._checker.record_and_check_run(slots, cols, rounds,
+                                                   chunk=self._chunk)
+        return newly_pairs(slots, rounds, newly)
 
     def release(self, slots) -> None:
         """Watermark GC passthrough (ring wrap for the device board)."""

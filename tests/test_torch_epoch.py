@@ -386,3 +386,174 @@ def test_pad_specs_and_reindexed_match_reference(seed):
     for got, want in zip(pad_specs(ports), jpad_specs(refs)):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+# --- K6's run: one launch a drain, chunk by chunk ------------------------------
+
+RUN_CHUNK = 32
+RUN_WINDOW = 64
+RUN_STARTS = (0, 40, 90)
+
+
+def _run_planes():
+    universe = tuple(range(5))
+    specs = [SimpleMajority(m).write_spec().reindexed(universe)
+             for m in ((0, 1, 2), (0, 1, 3), (1, 3, 4))]
+    return jpad_specs(specs)
+
+
+def _run_board(nrng):
+    return jq.VoteBoard(
+        votes=nrng.integers(0, 3, size=(5, RUN_WINDOW), dtype=np.uint8),
+        rounds=nrng.integers(-1, 3, size=RUN_WINDOW).astype(np.int32),
+        chosen=nrng.random(RUN_WINDOW) < 0.2,
+        owner=nrng.integers(-1, 160, size=RUN_WINDOW).astype(np.int32))
+
+
+def _run_lanes(nrng, case: str) -> tuple:
+    """``(slots, true slots, nodes, rounds, valid)`` of one run: chunks of
+    ``RUN_CHUNK`` lanes with duplicates inside and across chunks; the
+    cases add an epoch boundary inside a chunk, true slots across the
+    int32 wrap, slots and nodes out of range, pad lanes and a ragged
+    last chunk."""
+    chunks = {"one": 1, "two": 2, "many": 12, "boundary": 3, "wrap": 4,
+              "oob": 3, "pads": 3, "ragged": 3}[case]
+    b = chunks * RUN_CHUNK - (11 if case == "ragged" else 0)
+    base = {"boundary": 30, "wrap": 2**31 - 20}.get(case, 100)
+    true = base + nrng.integers(0, 24, size=b).astype(np.int64)
+    true[nrng.integers(0, b, size=b // 4)] = true[0]  # across chunks
+    true[1::7] = true[0::7][:true[1::7].size]         # inside a chunk
+    if case == "boundary":
+        true[::3] = nrng.choice([39, 40, 41, 89, 90, 91], size=true[::3].size)
+    slots = true % RUN_WINDOW
+    nodes = nrng.integers(0, 5, size=b)
+    rounds = nrng.integers(0, 3, size=b)
+    valid = np.ones(b, dtype=bool)
+    if case == "oob":
+        far = nrng.random(b) < 0.2
+        slots[far] += nrng.choice([-2, -1, 1], size=int(far.sum())) \
+            * RUN_WINDOW
+        odd = nrng.random(b) < 0.2
+        nodes[odd] = nrng.choice([-7, -6, -1, 5, 6], size=int(odd.sum()))
+    if case in ("pads", "ragged"):
+        valid[nrng.random(b) < 0.25] = False
+        slots[~valid], true[~valid] = 0, 0
+    return slots, true, nodes, rounds, valid
+
+
+@pytest.mark.parametrize("case", ["one", "two", "many", "boundary", "wrap",
+                                  "oob", "pads", "ragged"])
+def test_record_and_check_epochs_run_matches_reference_chunks(case):
+    """The run's plain version against the reference's
+    ``_record_and_check_epochs`` called on each chunk in turn, on a board
+    carried in mid-flight: the concatenated newly masks and the board
+    after the run equal."""
+    nrng = np.random.default_rng(sum(map(ord, case)))
+    masks, thresholds, combine_any = _run_planes()
+    planes = tq.make_multi_predicate(masks, thresholds, combine_any,
+                                     device="cpu")
+    arrays = _run_board(nrng)
+    board = convert.vote_board_from_numpy(arrays, device="cpu")
+    ref_board = jq.VoteBoard(*(jnp.asarray(x) for x in arrays))
+    slots, true, nodes, rounds, valid = _run_lanes(nrng, case)
+    lanes = tq.pack_lanes(slots, true, nodes, rounds, valid)
+    boundaries = np.asarray(RUN_STARTS[1:], dtype=np.int32)
+    got = tq.record_and_check_epochs_run(
+        board, torch.from_numpy(lanes), torch.from_numpy(boundaries),
+        planes, RUN_CHUNK)
+    want = []
+    for at in range(0, lanes.shape[1], RUN_CHUNK):
+        ref_board, newly = jq._record_and_check_epochs(
+            ref_board, *(jnp.asarray(x) for x in (
+                *lanes[:4, at:at + RUN_CHUNK], lanes[4, at:at + RUN_CHUNK]
+                != 0, boundaries, masks, thresholds, combine_any)))
+        want.append(np.asarray(newly))
+    np.testing.assert_array_equal(got.numpy(), np.concatenate(want))
+    _boards_equal(board, ref_board, case)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_pad_lanes_are_inert_in_a_run(seed):
+    """A run with pad lanes (valid 0, slot 0: what a chunk padded to its
+    bucket carries) and the same run without them leave the same board,
+    and the other lanes report the same; a pad lane reports nothing. So
+    the run takes its lanes unpadded."""
+    nrng = np.random.default_rng(40 + seed)
+    masks, thresholds, combine_any = _run_planes()
+    planes = tq.make_multi_predicate(masks, thresholds, combine_any,
+                                     device="cpu")
+    boundaries = torch.tensor(RUN_STARTS[1:], dtype=torch.int32)
+    arrays = _run_board(nrng)
+    slots, true, nodes, rounds, _ = _run_lanes(nrng, "many")
+    bare = tq.pack_lanes(slots, true, nodes, rounds,
+                         np.ones(slots.size, bool))
+    # Each chunk padded at its end, as the chunk loop padded it.
+    padded, is_pad = [], []
+    for at in range(0, bare.shape[1], RUN_CHUNK - 8):
+        part = bare[:, at:at + RUN_CHUNK - 8]
+        padded.append(np.pad(part, ((0, 0), (0, 8))))
+        is_pad.append(np.arange(part.shape[1] + 8) >= part.shape[1])
+    padded, is_pad = np.concatenate(padded, axis=1), np.concatenate(is_pad)
+    boards = [convert.vote_board_from_numpy(arrays, device="cpu")
+              for _ in range(2)]
+    got_padded = tq.record_and_check_epochs_run(
+        boards[0], torch.from_numpy(padded), boundaries, planes,
+        RUN_CHUNK).numpy()
+    got_bare = tq.record_and_check_epochs_run(
+        boards[1], torch.from_numpy(bare), boundaries, planes,
+        RUN_CHUNK - 8).numpy()
+    assert not got_padded[is_pad].any()
+    np.testing.assert_array_equal(got_padded[~is_pad], got_bare)
+    for a, b in zip(boards[0], boards[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_record_and_check_run_matches_reference_checker(seed):
+    """``EpochSegmentedChecker.record_and_check_run`` (one call a drain)
+    against the reference checker's ``record_and_check`` on each chunk of
+    256 votes in turn (the reference tracker's loop), across a handover
+    that widens the universe: masks and boards equal."""
+    rng = random.Random(500 + seed)
+    nrng = np.random.default_rng(500 + seed)
+    members = (("a0", "a1", "a2"), ("a0", "a1", "a3"))
+    checker = tq.EpochSegmentedChecker(
+        [SimpleMajority(members[0]).write_spec()], [0], window=256,
+        device="cpu")
+    ref = jq.EpochSegmentedChecker(
+        [JSimpleMajority(members[0]).write_spec()], [0], window=256)
+    handover = 300
+    for drain in range(6):
+        if drain == 3:
+            checker.add_epoch(SimpleMajority(members[1]).write_spec(),
+                              handover)
+            ref.add_epoch(JSimpleMajority(members[1]).write_spec(),
+                          handover)
+        b = rng.randrange(1, 900)
+        slots = nrng.integers(drain * 100, drain * 100 + 150,
+                              size=b).astype(np.int64)
+        cols = nrng.integers(0, len(checker.universe), size=b)
+        rounds = nrng.integers(0, 2, size=b).astype(np.int32)
+        got = checker.record_and_check_run(slots, cols, rounds)
+        want = np.concatenate([ref.record_and_check(
+            slots[at:at + 256], cols[at:at + 256], rounds[at:at + 256])
+            for at in range(0, b, 256)])
+        np.testing.assert_array_equal(got, want)
+        _boards_equal(checker.board, ref.board, f"drain {drain}")
+    assert checker.record_and_check_run([], [], []).shape == (0,)
+
+
+@pytest.mark.parametrize("size", [None, 7, 12])
+def test_pack_lanes_into_a_view_matches_a_new_array(size):
+    """``pack_lanes(out=)`` (the staged drain's pinned view) writes what
+    a new array holds: the five rows, true slots past 2^31 - 1 wrapped,
+    and the padding lanes zeroed over whatever the view held."""
+    rng = np.random.default_rng(3)
+    true = rng.integers(2**31 - 4, 2**31 + 4, size=7)
+    args = (true % 64, true, rng.integers(0, 5, size=7),
+            rng.integers(0, 3, size=7), np.ones(7, bool))
+    want = tq.pack_lanes(*args, size)
+    view = np.full((tq.LANE_FIELDS, want.shape[1]), -5, dtype=np.int32)
+    got = tq.pack_lanes(*args, size, out=view)
+    assert got is view
+    np.testing.assert_array_equal(got, want)

@@ -118,6 +118,32 @@ def test_sharded_check_batch_matches_two_config_oracle(world, seed):
         assert results[0].tolist() == want
 
 
+@pytest.mark.parametrize("seed", range(2))
+def test_sharded_run_equals_the_chunk_loop(world, seed):
+    """``record_and_check_run`` with a mesh (one sharded run: one launch
+    and one all-reduce a drain) equals, on every mesh shape, the JAX
+    checker's ``record_and_check`` over the same chunks in turn: a
+    boundary inside the votes, the ring's wrap, duplicates inside a
+    chunk and across chunks, newer rounds, a ragged last chunk."""
+    rng = np.random.default_rng(seed)
+    specs = [SimpleMajority([0, 1, 2]).write_spec(),
+             SimpleMajority([0, 1, 3]).write_spec()]
+    boundary, chunk, b = 150, 16, 200
+    slots = rng.integers(100, 200, size=b)
+    slots[::7] += WINDOW  # a newer slot reclaims its column
+    nodes = rng.integers(0, 4, size=b).astype(np.int32)
+    rounds = rng.integers(0, 3, size=b).astype(np.int32)
+    ref = EpochSegmentedChecker(specs, [0, boundary], window=WINDOW)
+    want = np.concatenate([
+        ref.record_and_check(slots[at:at + chunk], nodes[at:at + chunk],
+                             rounds[at:at + chunk])
+        for at in range(0, b, chunk)])
+    assert want.any() and not want.all()
+    ops = [("record_and_check_run", slots, nodes, rounds, chunk)]
+    for results, _ in _port_runs(world, specs, [0, boundary], ops):
+        assert results[0].tolist() == want.tolist()
+
+
 def _mid_window_stream(rng, boundary, old_universe, new_universe) -> tuple:
     """The reference test's two feeds: 100 ``(slot, voter)`` votes below
     the boundary from the old universe, then 100 up to ``boundary + 30``

@@ -379,3 +379,63 @@ def test_vote_board_round_trip_keeps_dtypes():
         convert.vote_board_from_numpy(
             fetched._replace(rounds=fetched.rounds.astype(np.int64)),
             device="cpu")
+
+
+# --- K1's staged entry: the synchronous tracker's call path ------------------
+
+
+@pytest.mark.parametrize("case", SPECS, ids=SPEC_IDS)
+def test_staged_segments_match_reference(case):
+    """Several segments side by side in one staged block (the
+    synchronous tracker's drain: each at its bucket's width, with
+    arbitrary vote bytes) checked by ONE ``check_staged`` call equal the
+    reference's ``check_block`` on each segment; ``check_block`` through
+    the staging equals it at every width."""
+    _, port_qs, ref_qs, kind = case
+    spec = getattr(port_qs, f"{kind}_spec")()
+    ref_spec = getattr(ref_qs, f"{kind}_spec")()
+    n = spec.num_nodes
+    rng = np.random.default_rng(len(SPEC_IDS) + SPEC_IDS.index(case[0]))
+    checker = tq.TpuQuorumChecker(spec, window=1 << 12, device="cpu")
+    ref = jq.TpuQuorumChecker(ref_spec, window=1 << 12)
+    widths = (64, 4096, 256, 1024, 64)
+    total = sum(widths)
+    view = checker.stage_block(total)
+    assert view.shape == (n, total) and not view.any()
+    blocks = []
+    at = 0
+    for w in widths:
+        blk = rng.integers(0, 3, (n, w), dtype=np.uint8)
+        view[:, at:at + w] = blk
+        blocks.append((at, blk))
+        at += w
+    hits = checker.check_staged(total)
+    for at, blk in blocks:
+        np.testing.assert_array_equal(hits[at:at + blk.shape[1]],
+                                      ref.check_block(blk))
+    for b in WIDTHS:
+        blk = rng.integers(0, 256, (n, b), dtype=np.uint8)
+        np.testing.assert_array_equal(checker.check_block(blk),
+                                      ref.check_block(blk))
+    # A later, narrower stage starts from zeros again.
+    assert not checker.stage_block(64).any()
+
+
+def test_newly_pairs_keeps_each_slot_first_report():
+    """The trackers' drain reports: every newly vote's (slot, round),
+    the first of each slot only, in vote order -- the reference's
+    per-vote loop with a seen set."""
+    rng = np.random.default_rng(5)
+    for _ in range(20):
+        b = int(rng.integers(0, 200))
+        slots = rng.integers(0, 40, size=b).astype(np.int64)
+        rounds = rng.integers(0, 3, size=b).astype(np.int32)
+        newly = rng.random(b) < 0.4
+        want, seen = [], set()
+        for i in np.flatnonzero(newly).tolist():
+            if int(slots[i]) not in seen:
+                seen.add(int(slots[i]))
+                want.append((int(slots[i]), int(rounds[i])))
+        got = tq.newly_pairs(slots, rounds, newly)
+        assert got == want
+        assert all(type(s) is int and type(r) is int for s, r in got)

@@ -262,11 +262,18 @@ def test_launch_counts_only_launches(index, monkeypatch):
     wrapper, call = _wrapper_calls()[index]
     monkeypatch.setattr(tq, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(tq._build, "library", _no_library)
+    monkeypatch.setattr(tq._build, "packed_library",
+                        lambda name, keep_gil: _no_library(name))
+    for entry in (tq._K1, tq._K6):
+        monkeypatch.setattr(entry, "fn", None)
     monkeypatch.setattr(wrapper, "launches", 0)
     call(0)
     assert wrapper.launches == 0
     monkeypatch.setattr(tq._build, "library", lambda name: _FakeLibrary())
+    monkeypatch.setattr(tq._build, "packed_library",
+                        lambda name, keep_gil: _FakeLibrary())
     monkeypatch.setattr(tq._build, "stream_args", lambda device: (0, None))
+    monkeypatch.setattr(tq._build, "stream_handle", lambda index: 0)
     call(4)
     assert wrapper.launches == 1
 

@@ -439,6 +439,170 @@ def test_epoch_tracker_backends_agree(seed):
         np.asarray(trackers["ref"]._checker.board.votes))
 
 
+def _count_calls(monkeypatch, obj, name: str) -> list:
+    """Wrap ``obj.name`` so that each call is noted in the returned list."""
+    calls = []
+    real = getattr(obj, name)
+
+    def counted(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(obj, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_sync_drain_is_one_staged_call(seed, monkeypatch):
+    """Wide single-round drains whose span holds several active 4096-slot
+    segments (with gaps between them and a narrow last one), fed ranged,
+    per-slot and packed votes, some slots below quorum: every drain makes
+    ONE staged K1 call (``check_staged``) and reports what the dict
+    oracle and the JAX tracker report."""
+    rng = np.random.default_rng(700 + seed)
+    port = _tracker(window=1 << 17, min_device_slots=1)
+    calls = _count_calls(monkeypatch, port.checker, "check_staged")
+    trackers = [qt.DictQuorumTracker(CONFIG), port,
+                jqt.TpuQuorumTracker(_jax_config(), window=1 << 17,
+                                     min_device_slots=1)]
+    cursor = 0
+    for d in range(6):
+        span = int(rng.integers(4097, 3 * 4096 + 700))
+        events = []
+        for seg_start in range(cursor, cursor + span, 4096):
+            if seg_start != cursor and rng.random() < 0.3:
+                continue  # an inactive segment: a gap
+            width = int(rng.integers(1, min(4096, cursor + span - seg_start)
+                                     + 1))
+            for acc in range(3):
+                if rng.random() < 0.9:
+                    events.append(("range", seg_start, seg_start + width,
+                                   acc))
+        for _ in range(int(rng.integers(0, 40))):
+            events.append(("vote", cursor + int(rng.integers(0, span)),
+                           int(rng.integers(0, 3))))
+        packed = np.sort(rng.choice(span, size=30, replace=False)) + cursor
+        events.append(("votes", packed, int(rng.integers(0, 3))))
+        events.append(("vote", cursor + span - 1, 0))
+        for t in trackers:
+            for event in events:
+                if event[0] == "range":
+                    t.record_range(event[1], event[2], 0, 0, event[3])
+                elif event[0] == "vote":
+                    t.record(event[1], 0, 0, event[2])
+                else:
+                    t.record_votes(event[1], np.zeros(event[1].size,
+                                                      np.int32), 0, event[2])
+        got = [sorted(t.drain()) for t in trackers]
+        assert got[0] == got[1] == got[2], (seed, d)
+        assert len(calls) == d + 1
+        cursor += span
+
+
+def _epoch_drain_events(rng, drain: int, handover: int, members) -> list:
+    """One drain of the epoch tracker's traffic: ranged runs of 40-200
+    slots from three voters (a stranger among them now and then), and
+    per-slot duplicates and stragglers, several 256-vote chunks a drain;
+    slots on both sides of ``handover`` after drain 2."""
+    events = []
+    base = drain * 150
+    for _ in range(int(rng.integers(1, 4))):
+        start = base + int(rng.integers(0, 100))
+        end = start + int(rng.integers(40, 200))
+        for acc in range(3):
+            voter = members[start >= handover][acc] \
+                if rng.random() < 0.95 else "stranger"
+            events.append(("range", start, end, int(rng.integers(0, 2)),
+                           voter))
+    for _ in range(int(rng.integers(0, 120))):
+        slot = base + int(rng.integers(-100, 200))
+        events.append(("vote", max(slot, 0), int(rng.integers(0, 2)),
+                       members[slot >= handover][int(rng.integers(0, 3))]))
+    return events
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_epoch_tracker_drain_is_one_staged_call(seed, monkeypatch):
+    """Drains of several 256-vote chunks (duplicates across chunks, a
+    handover inside a drain, strangers): the port's cuda backend (plain
+    versions) makes ONE ``record_and_check_run`` call a drain and reports,
+    drain for drain and in order, what the JAX tpu tracker reports; the
+    boards equal."""
+    rng = np.random.default_rng(800 + seed)
+    members = (("a0", "a1", "a2"), ("a0", "a1", "a3"))
+    handover = 450
+    port_store = EpochStore.from_members(members[0], f=1)
+    ref_store = JEpochStore.from_members(members[0], f=1)
+    port = EpochQuorumTracker(port_store, backend="cuda", window=1024,
+                              device="cpu")
+    ref = JEpochQuorumTracker(ref_store, backend="tpu", window=1024)
+    calls = _count_calls(monkeypatch, port._checker, "record_and_check_run")
+    busy = 0
+    for drain in range(8):
+        if drain == 3:
+            port_store.add(EpochConfig(epoch=1, start_slot=handover, f=1,
+                                       members=members[1]))
+            ref_store.add(JEpochConfig(epoch=1, start_slot=handover, f=1,
+                                       members=members[1]))
+            port.note_epochs()
+            ref.note_epochs()
+        for kind, *args in _epoch_drain_events(rng, drain, handover,
+                                               members):
+            for t in (port, ref):
+                (t.record_range if kind == "range" else t.record)(*args)
+        votes = len(port._slots)
+        got, want = port.drain(), ref.drain()
+        assert got == want, (seed, drain)
+        busy += votes > 256
+        assert len(calls) == drain + 1
+    assert busy >= 4
+    board = convert.vote_board_to_numpy(port._checker.board)
+    for name, ref_arr in zip(board._fields, ref._checker.board):
+        np.testing.assert_array_equal(getattr(board, name),
+                                      np.asarray(ref_arr))
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_geo_tracker_drain_is_one_staged_call(seed, monkeypatch):
+    """The geo tracker on drains of several 256-vote chunks across a
+    steal: ONE ``record_and_check_run`` call a drain on the port's cuda
+    backend (plain versions), and the JAX tpu tracker's reports, drain
+    for drain and in order."""
+    from frankenpaxos_tpu_torch.geo import GeoQuorumTracker, ObjectEpochStore
+    from frankenpaxos_tpu_torch.geo.epochs import GeoEpoch
+    from frankenpaxos_tpu_torch.quorums import ZoneGrid
+
+    from frankenpaxos_tpu import geo as jgeo
+    from frankenpaxos_tpu.geo import epochs as jepochs
+    from frankenpaxos_tpu.quorums import ZoneGrid as JZoneGrid
+
+    grid_rows = [[0, 1, 2], [3, 4, 5], [6, 7, 8]]
+    store, jstore = ObjectEpochStore(1, [0]), jepochs.ObjectEpochStore(1, [0])
+    port = GeoQuorumTracker(store, 0, ZoneGrid(grid_rows), backend="cuda",
+                            window=1024, device="cpu")
+    ref = jgeo.GeoQuorumTracker(jstore, 0, JZoneGrid(grid_rows),
+                                backend="tpu", window=1024)
+    calls = _count_calls(monkeypatch, port._checker, "record_and_check_run")
+    rng = np.random.default_rng(900 + seed)
+    for drain in range(6):
+        if drain == 2:
+            for st, cls in ((store, GeoEpoch), (jstore, jepochs.GeoEpoch)):
+                st.offer(cls(group=0, epoch=1, start_slot=330, home_zone=1,
+                             ballot=4))
+            port.note_epochs()
+            ref.note_epochs()
+        for _ in range(int(rng.integers(300, 900))):
+            slot = drain * 110 + int(rng.integers(0, 160))
+            entry = store.epoch_of_slot(0, slot)
+            ballot = entry.ballot if rng.random() < 0.9 else 0
+            row = grid_rows[entry.home_zone] if rng.random() < 0.85 \
+                else grid_rows[int(rng.integers(0, 3))]
+            acceptor = row[int(rng.integers(0, 3))]
+            for t in (port, ref):
+                t.record(slot, ballot, acceptor)
+        assert port.drain() == ref.drain(), (seed, drain)
+        assert len(calls) == drain + 1
+
+
 def test_epoch_tracker_refuses_the_tpu_backend():
     store = EpochStore.from_members(("a0", "a1", "a2"), f=1)
     with pytest.raises(ValueError, match="'dict' and 'cuda'"):
