@@ -85,9 +85,15 @@ Phases, in order (any failure exits nonzero and prints no result):
   13. K9 ``normalized``, K10 ``union_reduce`` / ``conflict_max`` and
      K11 ``all_equal`` against their plain versions: exact, at
      [4096, 5, 2048] (arbitrary bytes), [4096, 3, 32] (depset_lt's),
-     [3, 5, 8], [5, 5, 2048] and [1, 1, 37], with window bases near
-     2^31 - 1 and negative watermarks, and ``all_equal`` cases that are
-     equal only after normalization;
+     [3, 5, 8], [5, 5, 2048] and [1, 1, 37], and K10 and K11 also at the
+     cluster paths' [2, 2, 8 / 64 / 2048] and [4, 5, 8], rows wider than
+     K10's shared chunk ([3, 2, 10000], [64, 2, 9000]) and W = 37 over
+     64 and 600 rows (the large batches take K10's and K11's cluster
+     forms), 0/1 and arbitrary bytes, with window bases near 2^31 - 1 and
+     negative watermarks, and ``all_equal`` cases that are equal only
+     after normalization; the staged entries (``union_packed`` in seq
+     mode, ``all_equal_packed``: one call a decision) on packed blocks
+     holding the same batches, against the same plain versions;
   14. the EPaxos path, with every count set to 0 again first:
      ``bench/epaxos_sim.py`` (f = 2, five replicas, 64 closed-loop
      pairs, arms conflict2 and conflict25, each on the host and the
@@ -97,7 +103,7 @@ Phases, in order (any failure exits nonzero and prints no result):
      (widths 256, 1024, 4096, aggregates equal on every drain; the
      host runs go to two worker processes beside the cuda runs); K10
      ``conflict_max`` and K11 ``all_equal`` must each have launched on
-     the cluster's traffic;
+     the cluster's traffic (each decision one staged call);
   15. K12 ``quorum_watermark`` and K13 ``contiguous_prefix_length``
      against their plain versions: exact. K12 at n in {1, 2, 3, 5, 7,
      9, 31, 32, 33, 64, 65, 128, 1001} and B in {1, 4096, 2^16}, and at
@@ -117,9 +123,9 @@ Phases, in order (any failure exits nonzero and prints no result):
      the cuda backends, 2^13 commands each, cut from the bench's 2^14 to
      hold the smoke's time; the gc arm's replica 2 partitioned for the
      first half and caught up through a peer's CommitSnapshot); every
-     gate of the bench passes, and K10 ``union_reduce`` and K12
-     ``quorum_watermark`` must each have launched on the cluster's
-     traffic;
+     gate of the bench passes, and K10 ``union_reduce`` (one staged
+     call a Leader's decision) and K12 ``quorum_watermark`` must each
+     have launched on the cluster's traffic;
   17. the same three kernels in their other forms, against the plain
      loop: at the full width, runs of 1, 3 and 64 drains from 2^31 - 40
      for majority-5, the 2x3 read grid, a permuted 2x3 write grid, a 3x3
@@ -225,8 +231,9 @@ Phases, in order (any failure exits nonzero and prints no result):
      three cut to one), a short per-drain latency distribution, and the
      best block under the 50 us target;
   28. the host time of K18's and K12's wrappers and transport-facing
-     entries, whole and split by function under ``cProfile``
-     (``bench/call_split.py``);
+     entries, and of the EPaxos / BPaxos decisions on K10 and K11 (the
+     sims' own calls replayed), whole and split by function under
+     ``cProfile`` (``bench/call_split.py``);
      per-kernel figures at the main paths' shapes: CUDA-event time per
      call over many calls (K12 and K18 in turns with their library call:
      kernel, library, library, kernel, six blocks of 400 calls each, the
@@ -251,7 +258,9 @@ Phases, in order (any failure exits nonzero and prints no result):
      the paths launch them (K1 at N = 3 and the synchronous tracker's
      buckets, with the staged entry's host time; K6 on one chunk and on
      a drain's run of 48 chunks, with the epoch checker's; K10 at the
-     BPaxos Leader's [2, 2, W]).
+     BPaxos Leader's [2, 2, W] and depset_lt's [4096, 3, 32], in seq mode
+     at [4, 5, 8], K11 at [3, 5, 8]), and the K10 / K11 rows the staged
+     entries' error and each decision's host time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -980,29 +989,64 @@ def _aliased(batch: td.DepSetBatch, rng) -> td.DepSetBatch:
                           n.tail_base.to(dev))
 
 
+#: K10's and K11's extra shapes: the cluster paths' launch shapes (the
+#: BPaxos Leader's [2, 2, W], the EPaxos slow path's [4, 5, 8]), rows
+#: wider than K10's shared chunk (8192 bytes; with a cluster), and W = 37
+#: (byte words) over many rows, with a cluster.
+K10_K11_SHAPES = ((2, 2, 8), (2, 2, 64), (2, 2, 2048), (4, 5, 8),
+                  (3, 2, 10000), (64, 2, 9000), (64, 3, 37), (600, 2, 37))
+
+
+def _staged(batch: td.DepSetBatch, seqs) -> tuple:
+    """The staged entries on the same batch: ``(union_packed`` in seq
+    mode when ``seqs`` is given, ``all_equal_packed)`` of a packed block
+    on the batch's card holding its arrays."""
+    b, l, w = batch.tails.shape
+    out = []
+    for s in (seqs, None):
+        p = td.packed(b, l, w, 0 if s is None else s.shape[0],
+                      batch.tails.device)
+        p.watermarks[...] = batch.watermarks.cpu().numpy()
+        p.tails[...] = batch.tails.cpu().numpy()
+        p.tail_base[...] = int(batch.tail_base)
+        if s is not None:
+            p.seqs[:] = s.cpu().numpy()
+            seq, wm, tails = td.union_packed(p)
+            out.append((torch.tensor(seq, dtype=torch.int32),
+                        torch.from_numpy(wm.copy()),
+                        torch.from_numpy(tails.copy())))
+        else:
+            out.append(torch.tensor(td.all_equal_packed(p)))
+    return tuple(out)
+
+
 def phase_depset(dev, rng) -> dict:
     """K9, K10 (both modes) and K11 against their plain versions, exact,
-    at every shape of ``DEPSET_SHAPES`` for window bases in the middle,
-    near 2^31 - 1 and below 0 (negative watermarks), bits and arbitrary
-    bytes; K11 also on batches equal only after normalization, and with
-    one byte changed."""
+    at every shape of ``DEPSET_SHAPES`` and ``K10_K11_SHAPES`` (K9 at
+    the first) for window bases in the middle, near 2^31 - 1 and below 0
+    (negative watermarks), bits and arbitrary bytes; K11 also on batches
+    equal only after normalization, and with one byte changed; the
+    staged entries (``union_packed`` in seq mode, ``all_equal_packed``)
+    on the same batches, against the same plain versions."""
     worst = dict.fromkeys(("normalized", "union_reduce", "conflict_max",
-                           "all_equal"), 0)
+                           "all_equal", "union_staged", "all_equal_staged"),
+                          0)
     seen = {"equal": 0, "unequal": 0}
 
     def check(name, got, want):
-        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        err = max(max_abs_err(a.cpu(), b.cpu()) for a, b in zip(got, want))
         worst[name] = max(worst[name], err)
         require(err == 0, f"{name} differs from plain at {shape} base "
                           f"{base} ({kind})")
 
-    for shape in DEPSET_SHAPES:
+    for shape in DEPSET_SHAPES + K10_K11_SHAPES:
         w = shape[2]
         for base in (1000, 2**31 - 1 - w // 2, -w // 2 - 5):
             for kind in ("bits", "bytes"):
                 batch = _depset_batch(rng, shape, base, kind, dev)
-                check("normalized", td.normalized(batch),
-                      td.normalized_plain(batch))
+                if shape in DEPSET_SHAPES:
+                    check("normalized", td.normalized(batch),
+                          td.normalized_plain(batch))
                 check("union_reduce", td.union_reduce(batch),
                       td.union_reduce_plain(batch))
                 seqs = torch.from_numpy(rng.integers(
@@ -1010,6 +1054,7 @@ def phase_depset(dev, rng) -> dict:
                     .astype(np.int32)).to(dev)
                 got_seq, got = td.conflict_max(seqs, batch)
                 want_seq, want = td.conflict_max_plain(seqs, batch)
+                want_row = (want_seq, want.watermarks[0], want.tails[0])
                 check("conflict_max", (got_seq, *got),
                       (want_seq, *want))
                 cases = [batch, _aliased(batch, rng)]
@@ -1017,10 +1062,16 @@ def phase_depset(dev, rng) -> dict:
                 if shape[0] > 1:
                     changed.tails[-1, -1, -1] ^= 1
                     cases.append(changed)
-                for case in cases:
+                for i, case in enumerate(cases):
                     got, want = td.all_equal(case), td.all_equal_plain(case)
                     check("all_equal", (got,), (want,))
                     seen["equal" if bool(want) else "unequal"] += 1
+                    if shape[0] * shape[1] * shape[2] > 1 << 22:
+                        continue  # the staged block: up to 4 MB a call
+                    union_row, equal = _staged(case, seqs)
+                    if i == 0:
+                        check("union_staged", union_row, want_row)
+                    check("all_equal_staged", (equal,), (want,))
     require(all(seen.values()), f"K11 cases lack an outcome: {seen}")
     torch.cuda.synchronize(dev)
     return worst
@@ -2584,8 +2635,17 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     for name, key, fig in (("quorum_hit", "at_launch_shapes", "k1"),
                            ("record_and_check_epochs", "at_launch_shapes",
                             "k6"),
-                           ("union_reduce", "at_bpaxos_leader", "k10")):
+                           ("union_reduce", "at_launch_shapes", "k10"),
+                           ("conflict_max", "at_launch_shapes", "k10_seq"),
+                           ("all_equal", "at_launch_shapes", "k11")):
         next(r for r in out if r["name"] == name)[key] = shapes[fig]
+    # The staged entries (one call a decision): their error against the
+    # plain versions in phase 13.
+    for name, staged in (("union_reduce", "union_staged"),
+                         ("conflict_max", "union_staged"),
+                         ("all_equal", "all_equal_staged")):
+        next(r for r in out if r["name"] == name)["staged_max_abs_err"] = \
+            errors[staged]
     return out
 
 
@@ -2680,7 +2740,8 @@ def main() -> int:
 
         errors.update(phase_depset(dev, rng))
         phase(13, f"K9 normalized, K10 union_reduce / conflict_max, K11 "
-            f"all_equal == plain at {list(DEPSET_SHAPES)}, bases near "
+            f"all_equal == plain at {list(DEPSET_SHAPES)} and K10, K11 and "
+            f"their staged entries at {list(K10_K11_SHAPES)}, bases near "
             f"2^31 - 1 and below 0")
 
         epaxos, pairs, epaxos_launches = phase_epaxos(dev)
@@ -2852,6 +2913,13 @@ def main() -> int:
             "libbench": lib_launches, "geo": geo_launches,
             "sharded": sharded_launches,
             "sharded_board": board_launches}, errors)
+        # Each decision path's host ms a call (one staged call each):
+        # bench/call_split.py's replay of the sims' own calls.
+        for kernel, path in (("union_reduce", "union_many"),
+                             ("conflict_max", "conflict_max_many"),
+                             ("all_equal", "all_identical")):
+            next(r for r in kernels if r["name"] == kernel)[
+                "decision_host_ms"] = split["paths"][path]["whole_ns"] / 1e6
         turns = {row["name"]: row for row in kernels
                  if "in_turns_ms_blocks" in row}
         phase(28, f"per-kernel figures on {name} ({smi}); in turns, ms "

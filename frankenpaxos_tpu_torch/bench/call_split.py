@@ -1,4 +1,5 @@
-"""Host time of the K18 and K12 call paths, split by function, on one GPU.
+"""Host time of the K18, K12, K10 and K11 call paths, split by function,
+on one GPU.
 
 Each path is the real wrapper or entry, called ``CALLS`` times:
 
@@ -23,12 +24,27 @@ function (``up[src, dst]``, ``torch.kthvalue``), of the public forms of
 the current stream's handle, and of the wait after a download (the
 stream's synchronise against an event's).
 
+The dependency-set paths (``depset``), each a decision of a protocol:
+``device_deps.union_many`` (the SimpleBPaxos Leader's quorum union,
+K10), ``device_deps.conflict_max_many`` (the EPaxos slow path, K10 in
+its seq mode) and ``device_deps.all_identical`` (the EPaxos fast path,
+K11), replayed in turn over the first ``CAPTURE`` calls that a short run
+of each sim's cuda backend made (``bench/bpaxos_sim.py``'s
+simple-conflict25 and ``bench/epaxos_sim.py``'s conflict25 workloads of
+``CAPTURE_COMMANDS`` commands: the sims' own sets), with the histogram of
+their ``[B, L, W]`` shapes; the staged entries alone
+(``depset.union_packed``, ``all_equal_packed``) on one packed block of
+each path, where the tree has them; and ``bench/depset_lt.py``'s
+``coalesced_aggregate`` on one drain at each in-flight width (256, 1024,
+4096: K10 on ``[width, 3, 32]``).
+
 It times the calls, not copies of them, so it splits any checkout's
 wrappers alike: ``--tree ROOT`` imports ``frankenpaxos_tpu_torch`` from
 ``ROOT`` (another commit, for an A/B in one call), else from this
 checkout. Run from the root of a checkout::
 
-    python frankenpaxos_tpu_torch/bench/call_split.py [--tree ROOT]
+    python frankenpaxos_tpu_torch/bench/call_split.py [--tree ROOT] \\
+        [--paths k12_k18,depset]
 
 It prints ONE JSON line; ``chip_smoke.py``'s phase 28 calls
 :func:`split` on its own tree. It raises without a CUDA device.
@@ -37,10 +53,13 @@ It prints ONE JSON line; ``chip_smoke.py``'s phase 28 calls
 from __future__ import annotations
 
 import argparse
+import copy
 import cProfile
+import itertools
 import json
 import os
 import pstats
+import random
 import sys
 import time
 
@@ -52,19 +71,28 @@ TOP = 12
 ZONES = 1000
 WAVES = (256, 32768)
 SEED = 20261017
+#: Calls of each dependency-set path kept from a sim's run, and the
+#: commands of that run.
+CAPTURE = 512
+CAPTURE_COMMANDS = 2048
+#: depset_lt's in-flight widths; its drains cost ~1 ms of host each, so
+#: they are timed over fewer calls.
+COALESCED_WIDTHS = (256, 1024, 4096)
+COALESCED_CALLS = 200
+PARTS = ("k12_k18", "depset")
 
 
-def _whole(fn) -> float:
-    """Host ns per call of ``fn()`` over ``CALLS`` calls, unsplit, with
+def _whole(fn, calls: int = CALLS) -> float:
+    """Host ns per call of ``fn()`` over ``calls`` calls, unsplit, with
     one synchronise at the end."""
     for _ in range(50):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter_ns()
-    for _ in range(CALLS):
+    for _ in range(calls):
         fn()
     torch.cuda.synchronize()
-    return (time.perf_counter_ns() - t0) / CALLS
+    return (time.perf_counter_ns() - t0) / calls
 
 
 def _label(path: str, name: str) -> str:
@@ -80,15 +108,15 @@ def _label(path: str, name: str) -> str:
     return os.path.basename(path) + ":" + name
 
 
-def _split(fn) -> dict:
-    """``fn()`` ``CALLS`` times under ``cProfile``: each function's own
+def _split(fn, calls: int = CALLS) -> dict:
+    """``fn()`` ``calls`` times under ``cProfile``: each function's own
     ns per call, the largest ``TOP`` and the rest."""
     for _ in range(50):
         fn()
     torch.cuda.synchronize()
     profile = cProfile.Profile()
     profile.enable()
-    for _ in range(CALLS):
+    for _ in range(calls):
         fn()
     profile.disable()
     torch.cuda.synchronize()
@@ -99,7 +127,7 @@ def _split(fn) -> dict:
         if os.path.abspath(path) == here or "_lsprof.Profiler" in name:
             continue
         label = _label(path, name)
-        own[label] = own.get(label, 0.0) + tottime * 1e9 / CALLS
+        own[label] = own.get(label, 0.0) + tottime * 1e9 / calls
     ranked = sorted(own.items(), key=lambda kv: -kv[1])
     split_ns = dict(ranked[:TOP])
     split_ns["(the rest)"] = sum(v for _, v in ranked[TOP:])
@@ -189,9 +217,141 @@ def _stream_and_wait(dev) -> dict:
     return out
 
 
-def split(device=None) -> dict:
+def _dep_shape(sets: list, columns: int) -> str:
+    """The ``[B, L, W]`` that ``device_deps`` gives ``sets`` (W 0 past
+    ``MAX_TAIL_WINDOW``: the host algebra)."""
+    values = [v for s in sets for c in s.columns for v in c.values]
+    spread = max(values) - min(values) + 1 if values else 1
+    width = max(8, 1 << (spread - 1).bit_length())
+    return str([len(sets), columns, width if width <= 2048 else 0])
+
+
+def capture(dev, commands: int = CAPTURE_COMMANDS,
+            keep: int = CAPTURE) -> dict:
+    """``{path: [(args, kwargs)]}``: the first ``keep`` calls of each
+    ``device_deps`` path that the sims' cuda runs make (SimpleBPaxos's
+    Leader: ``union_many``; EPaxos: ``conflict_max_many`` and
+    ``all_identical``) on workloads of ``commands`` commands with 25%
+    conflicts, deep-copied, without the runtime metrics."""
+    from frankenpaxos_tpu_torch.bench import bpaxos_sim, epaxos_sim
+    from frankenpaxos_tpu_torch.protocols.epaxos import device_deps
+
+    store: dict = {name: [] for name in ("union_many", "conflict_max_many",
+                                         "all_identical")}
+    originals = {name: getattr(device_deps, name) for name in store}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            if len(store[name]) < keep:
+                store[name].append((copy.deepcopy(args), {
+                    k: v for k, v in kwargs.items() if k != "metrics"}))
+            return originals[name](*args, **kwargs)
+
+        return call
+
+    try:
+        for name in store:
+            setattr(device_deps, name, spy(name))
+        bpaxos_sim.drive_simple(dev, "cuda", bpaxos_sim.workload(
+            0.25, commands, 0), 0)
+        epaxos_sim.drive(dev, "cuda", epaxos_sim.workload(
+            0.25, commands, 0), 0)
+    finally:
+        for name, fn in originals.items():
+            setattr(device_deps, name, fn)
+    return store
+
+
+def _replay(fn, calls: list):
+    """A function that makes the next of ``calls`` (in a cycle) to
+    ``fn``."""
+    replay = itertools.cycle(calls)
+
+    def call():
+        args, kwargs = next(replay)
+        return fn(*args, **kwargs)
+
+    return call
+
+
+def _staged_entries(calls_by_path: dict) -> dict:
+    """``{path: fn}``: the staged entries alone (where the tree has
+    them), each on the block of its path's first captured call, packed
+    at the first call of ``fn`` (the block lives in the card's reused
+    staging, so a path is timed whole before the next one packs)."""
+    from frankenpaxos_tpu_torch.ops import depset
+    from frankenpaxos_tpu_torch.protocols.epaxos import device_deps
+
+    if not hasattr(device_deps, "pack"):
+        return {}
+    out = {}
+    for name, entry in (("union_many", depset.union_packed),
+                        ("conflict_max_many", depset.union_packed),
+                        ("all_identical", depset.all_equal_packed)):
+        args, kwargs = calls_by_path[name][0]
+        if name == "union_many":
+            sets, seqs = args[0], None
+        else:
+            sets = [deps for _, deps in args[0]]
+            seqs = [seq for seq, _ in args[0]] if name != "all_identical" \
+                else None
+        block = []
+
+        def call(sets=sets, seqs=seqs, args=args, kwargs=kwargs,
+                 entry=entry, block=block):
+            if not block:
+                block.append(device_deps.pack(
+                    sets, args[1], kwargs["device"] if "device" in kwargs
+                    else args[2], seqs=seqs))
+            return entry(block[0])
+
+        label = "union_packed" if entry is depset.union_packed \
+            else "all_equal_packed"
+        out[f"{label}/{_dep_shape(sets, args[1])}"] = call
+    return out
+
+
+def _depset_paths(dev) -> tuple[dict, dict]:
+    """``({path: (fn, calls)}, {path: shape histogram})``: each
+    dependency-set path as a replay of its captured calls, one call of
+    ``fn`` a decision, and depset_lt's coalesced arm per width."""
+    from frankenpaxos_tpu_torch.bench import depset_lt
+    from frankenpaxos_tpu_torch.protocols.epaxos import device_deps
+    from frankenpaxos_tpu_torch.runs import depruns
+
+    paths, shapes = {}, {}
+    calls_by_path = capture(dev)
+    for name, calls in calls_by_path.items():
+        if not calls:
+            raise RuntimeError(f"the sims never called device_deps.{name}")
+        paths[name] = (_replay(getattr(device_deps, name), calls), CALLS)
+        hist: dict = {}
+        for args, _ in calls:
+            sets = args[0] if name == "union_many" \
+                else [deps for _, deps in args[0]]
+            key = _dep_shape(sets, args[1])
+            hist[key] = hist.get(key, 0) + 1
+        shapes[name] = hist
+    staged = _staged_entries(calls_by_path)
+    paths.update({name: (fn, CALLS) for name, fn in staged.items()})
+    rng = random.Random(SEED)
+    for width in COALESCED_WIDTHS:
+        messages = depset_lt.make_drain(width, rng)
+        columns = depruns.sets_to_columns([m.dependencies
+                                           for m in messages])
+        seqs = np.asarray([m.sequence_number for m in messages],
+                          dtype=np.int32)
+        paths[f"coalesced_aggregate/width={width}"] = (
+            lambda columns=columns, seqs=seqs:
+            depset_lt.coalesced_aggregate(columns, seqs, dev),
+            COALESCED_CALLS)
+    return paths, shapes
+
+
+def split(device=None, parts=PARTS) -> dict:
     """Every path's whole time and split on ``device`` (``cuda`` when
-    None)."""
+    None): the K12 / K18 paths (``k12_k18``) and the dependency-set
+    paths (``depset``) of ``parts``."""
     from frankenpaxos_tpu_torch.device import nvidia_smi_line, \
         resolve_device
 
@@ -201,22 +361,31 @@ def split(device=None) -> dict:
                            f"got device {dev}")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    up, ids, frontiers = _inputs()
-    paths = {name: {"whole_ns": _whole(fn), **_split(fn)}
-             for name, fn in _paths(dev, up, ids, frontiers).items()}
     import frankenpaxos_tpu_torch
 
-    return {
+    out = {
         "benchmark": "call_split",
         "package": os.path.dirname(os.path.abspath(
             frankenpaxos_tpu_torch.__file__)),
         "device": torch.cuda.get_device_name(dev),
         "nvidia_smi": nvidia_smi_line(),
         "calls": CALLS,
-        "paths": paths,
-        "library_ns": _library_calls(dev, up, ids, frontiers),
-        "stream_and_wait_ns": _stream_and_wait(dev),
+        "paths": {},
     }
+    if "k12_k18" in parts:
+        up, ids, frontiers = _inputs()
+        out["paths"].update(
+            {name: {"whole_ns": _whole(fn), **_split(fn)}
+             for name, fn in _paths(dev, up, ids, frontiers).items()})
+        out["library_ns"] = _library_calls(dev, up, ids, frontiers)
+        out["stream_and_wait_ns"] = _stream_and_wait(dev)
+    if "depset" in parts:
+        paths, out["depset_shapes"] = _depset_paths(dev)
+        out["paths"].update(
+            {name: {"calls": calls, "whole_ns": _whole(fn, calls),
+                    **_split(fn, calls)}
+             for name, (fn, calls) in paths.items()})
+    return out
 
 
 def main(argv=None) -> int:
@@ -224,11 +393,13 @@ def main(argv=None) -> int:
     parser.add_argument("--tree", default=None,
                         help="import frankenpaxos_tpu_torch from this "
                              "checkout (default: this one)")
+    parser.add_argument("--paths", default=",".join(PARTS),
+                        help="comma-separated, of " + ",".join(PARTS))
     args = parser.parse_args(argv)
     root = args.tree or os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     sys.path.insert(0, os.path.abspath(root))
-    print(json.dumps(split()), flush=True)
+    print(json.dumps(split(parts=args.paths.split(","))), flush=True)
     return 0
 
 

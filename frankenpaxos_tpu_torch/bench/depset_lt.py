@@ -15,13 +15,15 @@ aggregated by two leader-edge arms in one process:
     (epaxos/Replica.scala:795-813);
   * ``coalesced``: the drain's dependency columns
     (``runs/depruns.sets_to_columns``) go through one
-    ``columns_to_batch`` scatter into a ``[B, 3, W]`` DepSetBatch, one
-    K10 ``conflict_max`` launch for the whole drain, and one
-    ``from_row`` fetch.
+    ``columns_to_batch`` scatter into the staging's packed ``[B, 3, W]``
+    block, one K10 launch in its seq mode for the whole drain and one
+    fetch, as ONE staged call (``depset.union_packed``), then
+    ``from_row``.
 
-The port has no wire codecs yet, so both arms start from decoded data:
-the reference's per-message ``PreAcceptOkCodec`` decode and run-frame
-decode are left out of both, and the output says so. Both arms'
+The port has no wire codecs yet (ROADMAP.md item 3), so both arms start
+from decoded data: the reference's per-message ``PreAcceptOkCodec``
+decode and run-frame decode are left out of both, and the output says
+so. Both arms'
 ``(sequence number, dependency set)`` aggregates must be equal on every
 drain before any timing counts (``GateFailure`` otherwise). Blocks
 alternate the arm order with GC off; the per-arm figure is the median
@@ -31,6 +33,7 @@ msgs/s over blocks, on the host clock.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import random
@@ -41,7 +44,6 @@ import time
 from frankenpaxos_tpu_torch.compact import IntPrefixSet
 from frankenpaxos_tpu_torch.device import nvidia_smi_line, resolve_device
 from frankenpaxos_tpu_torch.ops import depset
-from frankenpaxos_tpu_torch.ops.quorum import stage
 from frankenpaxos_tpu_torch.protocols.epaxos import device_deps
 from frankenpaxos_tpu_torch.protocols.epaxos.instance_prefix_set import (
     Instance,
@@ -101,12 +103,14 @@ def host_aggregate(messages: list) -> tuple:
 
 
 def coalesced_aggregate(columns: tuple, seqs: np.ndarray, device) -> tuple:
-    """Arm B: one scatter, one K10 launch, one fetch."""
-    batch = depruns.columns_to_batch(*columns, device=device)
-    seq, reduced = depset.conflict_max(stage(seqs, device), batch)
-    return int(seq), device_deps.from_row(reduced.watermarks[0].cpu().numpy(),
-                                          reduced.tails[0].cpu().numpy(),
-                                          int(reduced.tail_base))
+    """Arm B: one scatter into the staging's packed block, one K10 launch
+    in its seq mode and one fetch, as ONE staged call."""
+    block = depruns.columns_to_batch(
+        *columns, out=functools.partial(depset.packed, device=device),
+        seqs=seqs)
+    seq, watermarks, tails = depset.union_packed(block)
+    return seq, device_deps.from_row(watermarks, tails,
+                                     int(block.tail_base))
 
 
 def run_pair(device, width: int, blocks: int, drains_per_block: int,

@@ -33,7 +33,10 @@ default), so that one call can measure a parent and its change alike:
         ``record_and_check`` calls);
       - K10 ``union_reduce`` at the BPaxos Leader's ``[2, 2, W]``, W in
         8, 64 and 2048 (its tail widths: the least, a middle one, the
-        cap ``MAX_TAIL_WINDOW``).
+        cap ``MAX_TAIL_WINDOW``) and at depset_lt's ``[4096, 3, 32]``;
+        K10 in its seq mode at the EPaxos slow path's ``[4, 5, 8]``; K11
+        at the fast path's ``[3, 5, 8]`` (``--parts depset`` measures
+        these alone).
     Each with its bound: bytes (each input read once, each output
     written once) over 3.35 TB/s; K6's from the chunk's distinct
     columns.
@@ -41,7 +44,7 @@ default), so that one call can measure a parent and its change alike:
 Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/launch_shapes.py [--tree ROOT] \\
-        [--parts drains,kernels]
+        [--parts drains,kernels|depset]
 
 It prints ONE JSON line, with the seconds the tree's kernels took to
 build (0 when they were built before). It raises without a CUDA device.
@@ -71,6 +74,11 @@ CHUNK = 256
 RUN_CHUNKS = 48
 EPOCH_WINDOW = 1 << 14
 K10_WIDTHS = (8, 64, 2048)
+#: depset_lt's coalesced drain at 4096 in flight; the EPaxos slow path's
+#: quorum of four replies and fast path's three, over five columns.
+K10_MANY_ROWS = (4096, 3, 32)
+K10_SEQ_SHAPE = (4, 5, 8)
+K11_SHAPE = (3, 5, 8)
 K6_DISTINCT = (16, 64, 128, 256)
 
 
@@ -269,7 +277,7 @@ def _device_ms(fn, kernel: str, iters: int = 200):
 
 def kernels(device) -> dict:
     import torch
-    from frankenpaxos_tpu_torch.ops import depset as td, quorum as tq
+    from frankenpaxos_tpu_torch.ops import quorum as tq
     from frankenpaxos_tpu_torch.quorums import SimpleMajority
     from frankenpaxos_tpu_torch.quorums.spec import pad_specs
 
@@ -386,20 +394,71 @@ def kernels(device) -> dict:
                                      rounds[at:at + CHUNK])
     out["k6"]["checker_run_host_ns"] = _host_ns(checker_run, calls=100)
 
-    for w in K10_WIDTHS:
-        wm = torch.from_numpy(rng.integers(0, 1 << 12, size=(2, 2)).astype(
-            np.int32)).to(device)
-        tails = torch.from_numpy((rng.random((2, 2, w)) < 0.3).astype(
-            np.uint8)).to(device)
-        batch = td.DepSetBatch(wm, tails, torch.tensor(
-            1 << 12, dtype=torch.int32).to(device))
-        dev_ms, _ = _device_ms(lambda: td.union_reduce(batch),
-                               "union_reduce")
-        out["k10"][f"[2, 2, {w}]"] = {
-            "call_ms": _cuda_ms(lambda: td.union_reduce(batch)),
-            "device_ms": dev_ms,
-            "bound_ms": (2 * 2 * (4 + w) + 2 * (4 + w))
-            / HBM_BYTES_PER_S * 1e3}
+    out.update(depset_kernels(device, rng))
+    return out
+
+
+def _bits_batch(rng, shape, device):
+    """A ``[B, L, W]`` batch as the bridge packs the sims' sets: 0/1
+    tail bytes (30% set) above watermarks near the window's base."""
+    import torch
+    from frankenpaxos_tpu_torch.ops import depset as td
+
+    b, l, w = shape
+    base = 1 << 12
+    wm = base + rng.integers(-4, 4, size=(b, l)).astype(np.int32)
+    tails = (rng.random((b, l, w)) < 0.3).astype(np.uint8)
+    return td.DepSetBatch(torch.from_numpy(wm).to(device),
+                          torch.from_numpy(tails).to(device),
+                          torch.tensor(base, dtype=torch.int32).to(device))
+
+
+def depset_kernels(device, rng=None) -> dict:
+    """K10 and K11 through their tensor wrappers at the paths' launch
+    shapes: K10 ``union_reduce`` at the BPaxos Leader's ``[2, 2, W]``
+    (``K10_WIDTHS``) and depset_lt's ``[4096, 3, 32]``, in its seq mode
+    (``conflict_max``) at the EPaxos slow path's ``[4, 5, 8]``, K11
+    ``all_equal`` at the fast path's ``[3, 5, 8]``: CUDA-event ms per
+    call, the profiler's device ms per launch, and the bound (bytes:
+    each input read once, each output written once); beside them the
+    card's floor, PyTorch's fill of a one-element tensor."""
+    import torch
+    from frankenpaxos_tpu_torch.ops import depset as td
+
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    out: dict = {"k10": {}, "k10_seq": {}, "k11": {}}
+
+    def figures(fn, kernel, read, written):
+        dev_ms, _ = _device_ms(fn, kernel)
+        return {"call_ms": _cuda_ms(fn), "device_ms": dev_ms,
+                "bound_ms": (read + written) / HBM_BYTES_PER_S * 1e3}
+
+    for shape in [(2, 2, w) for w in K10_WIDTHS] + [K10_MANY_ROWS]:
+        b, l, w = shape
+        batch = _bits_batch(rng, shape, device)
+        out["k10"][str(list(shape))] = figures(
+            lambda: td.union_reduce(batch), "union_reduce",
+            b * l * (4 + w) + 4, l * (4 + w))
+    b, l, w = K10_SEQ_SHAPE
+    batch = _bits_batch(rng, K10_SEQ_SHAPE, device)
+    seqs = torch.from_numpy(rng.integers(0, 1 << 20, size=b).astype(
+        np.int32)).to(device)
+    out["k10_seq"][str(list(K10_SEQ_SHAPE))] = figures(
+        lambda: td.conflict_max(seqs, batch), "union_reduce",
+        4 * b + b * l * (4 + w) + 4, 4 + l * (4 + w))
+    # This card's floor for a launch that reads and writes a few bytes:
+    # PyTorch's fill of a one-element tensor (one CTA).
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    out["floor"] = {"fill_[1]": figures(lambda: one.fill_(1), "FillFunctor",
+                                        0, 4)}
+    b, l, w = K11_SHAPE
+    # Equal rows: the fast path's common answer, and every row read.
+    batch = _bits_batch(rng, (1, l, w), device)
+    batch = td.DepSetBatch(batch.watermarks.expand(b, l).contiguous(),
+                           batch.tails.expand(b, l, w).contiguous(),
+                           batch.tail_base)
+    out["k11"][str(list(K11_SHAPE))] = figures(
+        lambda: td.all_equal(batch), "all_equal", b * l * (4 + w) + 4, 1)
     return out
 
 
@@ -447,6 +506,8 @@ def main(argv=None) -> int:
     parts = args.parts.split(",")
     if "kernels" in parts:
         result["kernels"] = kernels(device)
+    elif "depset" in parts:
+        result["kernels"] = depset_kernels(device)
     if "drains" in parts:
         result["drains"] = drains(device)
     print(json.dumps(result), flush=True)

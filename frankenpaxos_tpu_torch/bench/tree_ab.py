@@ -16,6 +16,10 @@ Measurements:
   * ``bpaxos``: ``bench/bpaxos_sim.py`` (simple-conflict2/25 and gc) on
     the host and the cuda backends, commands/s, at ``--bpaxos-commands``
     per arm; every gate of both benches holds in every run;
+  * ``epaxos``: ``bench/epaxos_sim.py`` (conflict2 and conflict25) on
+    the host and the cuda backends, commands/s, at the same
+    ``--bpaxos-commands`` per arm (2^13, cut from the bench's 2^14 to
+    hold ten runs a tree); every gate of the bench holds in every run;
   * ``headline``: ``bench/headline.py``'s measurement (majority-3 and
     2x3 grid cmds/s at 1M in-flight slots, the mean drain, p50 / p99 of
     the per-drain distribution with a cut time budget); its commit-count
@@ -33,8 +37,8 @@ Measurements:
     holds, and the cuda run equals the dict run).
 
 ``--kinds`` picks some of them
-(``split,storm,bpaxos,headline,telemetry,tracker,geo`` on a card, all by
-default).
+(``split,storm,bpaxos,epaxos,headline,telemetry,tracker,geo`` on a
+card, all by default).
 
 Unpack the parent into a directory the checkout ignores, then run from
 the root of this checkout::
@@ -69,8 +73,8 @@ ORDER = ("parent", "change", "change", "parent") * 5
 BPAXOS_COMMANDS = 1 << 13
 #: Every measurement, in the order they run; ``split`` and ``headline``
 #: time CUDA calls only.
-KINDS = ("split", "storm", "bpaxos", "headline", "telemetry", "tracker",
-         "geo")
+KINDS = ("split", "storm", "bpaxos", "epaxos", "headline", "telemetry",
+         "tracker", "geo")
 CUDA_ONLY = ("split", "headline")
 #: The headline arm's latency-distribution budget (the bench's 20 s,
 #: cut: ten runs a tree).
@@ -93,6 +97,13 @@ def _worker(kind: str, tree: str, commands: int, device=None) -> dict:
         from frankenpaxos_tpu_torch.bench import bpaxos_sim
 
         out = bpaxos_sim.run(device, commands=commands)
+        return {arm: {b: fig[b]["commands_per_sec"]
+                      for b in ("host", "cuda")}
+                for arm, fig in out["arms"].items()}
+    if kind == "epaxos":
+        from frankenpaxos_tpu_torch.bench import epaxos_sim
+
+        out = epaxos_sim.run(device, commands=commands)
         return {arm: {b: fig[b]["commands_per_sec"]
                       for b in ("host", "cuda")}
                 for arm, fig in out["arms"].items()}

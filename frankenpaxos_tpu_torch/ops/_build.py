@@ -17,8 +17,8 @@ return after the stream has drained (:class:`Staging` says which
 stream).
 
 The lean call path (:class:`Entry`, :func:`stream_handle`) serves the
-wrappers whose host cost is the call itself (K1, K6, K12, K18, and the
-drain runs of K3, K14 and the pinned copy): the entry point
+wrappers whose host cost is the call itself (K1, K6, K10, K11, K12, K18,
+and the drain runs of K3, K14 and the pinned copy): the entry point
 is looked up once; its arguments cross as ONE packed block of int64
 (``struct`` bytes), which ctypes converts once instead of one argument
 at a time; a launch-only entry is called through a ``ctypes.PyDLL``
@@ -113,12 +113,21 @@ SIGNATURES = {
         # watermarks, tails, tail_base, rows (B * L), width, out_wm,
         # out_tails
         "fpx_depset_normalized": [_P, _P, _P, _L, _I, _P, _P, _I, _P],
-        # watermarks, tails, tail_base, b, l, width, seqs (or NULL), s,
-        # out_wm, out_tails, out_seq (or NULL)
-        "fpx_depset_union_reduce": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P,
-                                    _P, _I, _P],
-        # watermarks, tails, tail_base, b, l, width, out (one bool byte)
-        "fpx_depset_all_equal": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+        # packed: watermarks, tails, tail_base, b, l, width, seqs (or 0),
+        # s, out_wm, out_tails, out_seq (or 0), device, stream
+        "fpx_depset_union_reduce": _B,
+        # packed: watermarks, tails, tail_base, b, l, width, out (one
+        # bool byte), device, stream
+        "fpx_depset_all_equal": _B,
+        # packed: pinned input block, its device copy, its bytes, pinned
+        # output block, its device copy, its bytes, b, l, width, s, the
+        # input offsets of seqs, watermarks, base and tails, the output
+        # offsets of seq, watermarks and tails, device, stream
+        "fpx_depset_union_staged": _B,
+        # packed: pinned input block, its device copy, its bytes, pinned
+        # answer byte, its device copy, b, l, width, the input offsets of
+        # watermarks, base and tails, device, stream
+        "fpx_depset_all_equal_staged": _B,
         # mode (0 union, 1 intersect, 2 compact), a watermarks, a tails,
         # b watermarks, b tails (or NULL), executed (or NULL), its two
         # strides, tail_base, b, l, width, out_wm, out_tails
@@ -358,9 +367,10 @@ class Staging:
     named pinned-host / device buffer pairs, each grown to a power of two
     on demand, and a stream of its own. A staged C call drains the stream
     it ran on before it returns, so a buffer is free again when the next
-    call writes it. The transport-facing calls (K12, K18), whose inputs
-    all come from the host, run on this stream and so wait for their own
-    work only, not for a caller's queued work; the tracker calls (K1,
+    call writes it. The transport-facing calls (K12, K18) and the EPaxos
+    / BPaxos decisions (K10, K11), whose inputs all come from the host,
+    run on this stream and so wait for their own work only, not for a
+    caller's queued work; the tracker calls (K1,
     K6), which read state on the card, run on PyTorch's current stream,
     behind the work that made that state."""
 

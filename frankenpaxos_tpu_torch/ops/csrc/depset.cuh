@@ -16,10 +16,13 @@
 // and count as covered, as in the reference. Bytes other than 0/1 enter
 // the product as they are: [2, 3, 1, 0] at wm = base gives run 2+6+6 = 14.
 //
-// A warp computes `run` together: each pass takes 32 bytes, a shuffle
-// scan forms their products mod 256, a shuffle sum adds them, and the
-// last lane's product carries into the next pass. Once the product is 0
-// it stays 0 (0 * x = 0, also when 16 * 16 wraps to 0), so the loop stops
+// A warp computes `run` together: each pass takes 32 bytes, and the
+// last lane's product carries into the next pass. When the pass's
+// factors are all 0 or 1 (every batch built from sets), the products are
+// the carry up to the first zero and 0 from there, so one __ballot_sync
+// and __ffs give the pass's sum. Otherwise a shuffle scan forms the
+// products mod 256 and a shuffle sum adds them. Once the product is 0 it
+// stays 0 (0 * x = 0, also when 16 * 16 wraps to 0), so the loop stops
 // there: the work is the length of the run, not W. The `wm - base` ids
 // below the watermark are factors of 1 and are counted without a pass.
 #pragma once
@@ -50,6 +53,17 @@ __device__ __forceinline__ int32_t fpx_normalized_watermark(
     uint32_t p = 1;
     if (w < width) {
       p = fpx_tail_id(base, w) >= wm ? tails[w] : 1u;
+    }
+    if (__all_sync(FPX_FULL_WARP, p <= 1u)) {
+      // Lanes past the row hold 1, so a zero lies inside the row.
+      const unsigned zeros = __ballot_sync(FPX_FULL_WARP, p == 0u);
+      if (zeros == 0) {
+        const int valid = width - w0 < 32 ? width - w0 : 32;
+        run += carry * static_cast<uint32_t>(valid);
+        continue;
+      }
+      run += carry * static_cast<uint32_t>(__ffs(zeros) - 1);
+      break;
     }
     for (int off = 1; off < 32; off <<= 1) {
       const uint32_t q = __shfl_up_sync(FPX_FULL_WARP, p, off);

@@ -51,6 +51,7 @@ from typing import NamedTuple
 
 from frankenpaxos_tpu_torch.ops import _build
 from frankenpaxos_tpu_torch.ops.quorum import use_kernel
+import numpy as np
 import torch
 
 
@@ -189,24 +190,30 @@ def conflict_max_plain(seqs: torch.Tensor, d: DepSetBatch
     return seqs.amax(), union_reduce_plain(d)
 
 
+_K10 = _build.Entry("depset", "fpx_depset_union_reduce", 13)
+_K11 = _build.Entry("depset", "fpx_depset_all_equal", 9)
+
+
 def _union_launch(d: DepSetBatch, seqs):
     """One launch of ``csrc/depset.cu::depset_union_reduce_kernel``:
     the union row, and the max of ``seqs`` when it is given."""
     _contiguous(d)
     b, l, w = d.tails.shape
     dev = d.tails.device
+    index = d.tails.get_device()
     wm = torch.empty((1, l), dtype=torch.int32, device=dev)
     tails = torch.empty((1, l, w), dtype=torch.uint8, device=dev)
     seq = None if seqs is None \
         else torch.empty((), dtype=torch.int32, device=dev)
-    lib = _build.library("depset")
-    rc = lib.fpx_depset_union_reduce(
+    fn = _K10.fn or _K10.resolve()
+    rc = fn(_K10.pack(
         d.watermarks.data_ptr(), d.tails.data_ptr(), d.tail_base.data_ptr(),
-        b, l, w, None if seqs is None else seqs.data_ptr(),
+        b, l, w, 0 if seqs is None else seqs.data_ptr(),
         0 if seqs is None else seqs.shape[0], wm.data_ptr(),
-        tails.data_ptr(), None if seq is None else seq.data_ptr(),
-        *_build.stream_args(dev))
-    _build.check("depset", "fpx_depset_union_reduce", rc)
+        tails.data_ptr(), 0 if seq is None else seq.data_ptr(), index,
+        _build.stream_handle(index)))
+    if rc:
+        _K10.check(rc)
     return seq, DepSetBatch(wm, tails, d.tail_base)
 
 
@@ -214,8 +221,9 @@ def union_reduce(d: DepSetBatch) -> DepSetBatch:
     """K10: the union of ALL rows as a normalized one-row batch (the
     EPaxos slow path unions the dependency sets of every PreAcceptOk in
     a quorum, epaxos/Replica.scala:795-813). ``B = 0`` raises. CUDA
-    tensors launch the kernel (one block per leader column); CPU tensors
-    take :func:`union_reduce_plain`."""
+    tensors launch the kernel (one CTA per leader column, or a cluster
+    of up to 8 that split the rows of a large batch); CPU tensors take
+    :func:`union_reduce_plain`."""
     _check_nonempty(d, "union_reduce")
     if not use_kernel(*d):
         return union_reduce_plain(d)
@@ -297,25 +305,169 @@ def all_equal(d: DepSetBatch) -> torch.Tensor:
     row and as a watermark in another compares equal. ``B = 0`` raises.
 
     CUDA tensors launch ``csrc/depset.cu::depset_all_equal_kernel`` (one
-    warp per row ``(b >= 1, l)`` against row ``(0, l)``) and return the
-    0-d bool on the device WITHOUT a sync: the caller reads it. CPU
-    tensors take :func:`all_equal_plain`."""
+    CTA, or one cluster of up to 8 for a large batch; row (0, l)
+    normalized once per column) and return the 0-d bool on the device
+    WITHOUT a sync: the caller reads it. CPU tensors take
+    :func:`all_equal_plain`."""
     _check_nonempty(d, "all_equal")
     if not use_kernel(*d):
         return all_equal_plain(d)
     _contiguous(d)
     b, l, w = d.tails.shape
-    out = torch.empty((), dtype=torch.bool, device=d.tails.device)
-    lib = _build.library("depset")
-    rc = lib.fpx_depset_all_equal(
+    dev = d.tails.device
+    index = d.tails.get_device()
+    out = torch.empty((), dtype=torch.bool, device=dev)
+    fn = _K11.fn or _K11.resolve()
+    rc = fn(_K11.pack(
         d.watermarks.data_ptr(), d.tails.data_ptr(), d.tail_base.data_ptr(),
-        b, l, w, out.data_ptr(), *_build.stream_args(d.tails.device))
-    _build.check("depset", "fpx_depset_all_equal", rc)
+        b, l, w, out.data_ptr(), index, _build.stream_handle(index)))
+    if rc:
+        _K11.check(rc)
     all_equal.launches += 1
     return out
 
 
 all_equal.launches = 0
+
+
+# --- K10 and K11 on a packed host block: one staged call a decision ----
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+class Packed(NamedTuple):
+    """One K10 / K11 decision's packed input block: numpy views to fill
+    (``seqs [S]``, ``watermarks [B, L]``, ``tail_base []`` int32 and the
+    zeroed ``tails [B, L, W]`` uint8, at a 16-byte offset), the block's
+    bytes, and the card's ``staging`` and pinned ``pair`` it lies in
+    (both None on the CPU). Valid until the next :func:`packed` on that
+    card."""
+
+    seqs: np.ndarray
+    watermarks: np.ndarray
+    tail_base: np.ndarray
+    tails: np.ndarray
+    size: int
+    staging: object
+    pair: object
+
+
+#: ``{card index, or the device named: _build.Staging}``
+#: (``_build.staging``).
+_STAGING: dict = {}
+_K10_STAGED = _build.Entry("depset", "fpx_depset_union_staged", 19,
+                           keep_gil=False)
+_K11_STAGED = _build.Entry("depset", "fpx_depset_all_equal_staged", 13,
+                           keep_gil=False)
+
+
+def packed(b: int, l: int, w: int, s: int = 0, device=None) -> Packed:
+    """A packed input block for one K10 (with ``s`` sequence numbers:
+    its seq mode) or K11 call of a ``[b, l, w]`` batch on ``device``
+    (the current card when None, and a named device resolved at its
+    first call; ``"cpu"`` gives a plain numpy block that
+    :func:`union_packed` and :func:`all_equal_packed` run through the
+    plain versions). On a card the block is the staging's reused pinned
+    memory: seqs, watermarks, base, then the tails at a 16-byte offset,
+    which are zeroed here."""
+    staging = _build.staging(_STAGING, device)
+    wm_at = 4 * s
+    base_at = wm_at + 4 * b * l
+    tails_at = _align16(base_at + 4)
+    size = tails_at + b * l * w
+    if staging is None:
+        pair, block = None, np.zeros(size, dtype=np.uint8)
+    else:
+        pair = staging.pair("depset_in", size, torch.uint8)
+        block = pair.host[:size]
+        block[tails_at:] = 0
+    words = block[:tails_at].view(np.int32)
+    return Packed(words[:s], words[s:s + b * l].reshape(b, l),
+                  words[base_at // 4:base_at // 4 + 1].reshape(()),
+                  block[tails_at:].reshape(b, l, w), size, staging, pair)
+
+
+def _packed_batch(p: Packed) -> DepSetBatch:
+    """The block's batch as CPU tensors (views, no copy)."""
+    return DepSetBatch(torch.from_numpy(p.watermarks),
+                       torch.from_numpy(p.tails),
+                       torch.from_numpy(p.tail_base))
+
+
+def union_packed(p: Packed) -> tuple:
+    """K10 over a :func:`packed` block: ``(seq, watermarks [L] int32,
+    tails [L, W] uint8)``, the normalized union row, with ``seq`` the
+    max of the block's sequence numbers as an int in seq mode (``S >
+    0``), else None. On a card, ONE ``ctypes`` call (the block up, one
+    launch, the packed result down into reused pinned memory, a wait on
+    the staging's own stream, with the GIL released) and views of the
+    result, valid until the next call on that card; on the CPU,
+    :func:`union_reduce_plain` or :func:`conflict_max_plain` over the
+    same block. ``B = 0`` raises."""
+    b, l, w = p.tails.shape
+    s = p.seqs.shape[0]
+    if b == 0:
+        raise ValueError("union_packed of an empty batch (B = 0)")
+    staging = p.staging
+    if staging is None:
+        batch = _packed_batch(p)
+        if s:
+            seq, out = conflict_max_plain(torch.from_numpy(p.seqs), batch)
+            seq = int(seq)
+        else:
+            seq, out = None, union_reduce_plain(batch)
+        return seq, out.watermarks[0].numpy(), out.tails[0].numpy()
+    wm_at = _align16(4)  # the seq, then the watermarks
+    tails_at = _align16(wm_at + 4 * l)
+    size = tails_at + l * w
+    out = staging.pair("depset_out", size, torch.uint8)
+    inp = p.pair
+    base_at = 4 * s + 4 * b * l
+    fn = _K10_STAGED.fn or _K10_STAGED.resolve()
+    rc = fn(_K10_STAGED.pack(
+        inp.host_ptr, inp.device_ptr, p.size, out.host_ptr, out.device_ptr,
+        size, b, l, w, s, 0, 4 * s, base_at, _align16(base_at + 4), 0,
+        wm_at, tails_at, staging.index, staging.stream_handle))
+    if rc:
+        _K10_STAGED.check(rc)
+    if s:
+        conflict_max.launches += 1
+    else:
+        union_reduce.launches += 1
+    host = out.host
+    return (int(host[:4].view(np.int32)[0]) if s else None,
+            host[wm_at:wm_at + 4 * l].view(np.int32),
+            host[tails_at:size].reshape(l, w))
+
+
+def all_equal_packed(p: Packed) -> bool:
+    """K11 over a :func:`packed` block (no sequence numbers): do all B
+    rows denote the same set? On a card, ONE ``ctypes`` call (the block
+    up, one launch, the answer byte down, a wait on the staging's own
+    stream, with the GIL released); on the CPU, :func:`all_equal_plain`
+    over the same block. ``B = 0`` raises."""
+    b, l, w = p.tails.shape
+    if b == 0:
+        raise ValueError("all_equal_packed of an empty batch (B = 0)")
+    if p.seqs.shape[0]:
+        raise ValueError("all_equal_packed takes a block without seqs")
+    staging = p.staging
+    if staging is None:
+        return bool(all_equal_plain(_packed_batch(p)))
+    out = staging.pair("depset_answer", 1, torch.uint8)
+    inp = p.pair
+    base_at = 4 * b * l
+    fn = _K11_STAGED.fn or _K11_STAGED.resolve()
+    rc = fn(_K11_STAGED.pack(
+        inp.host_ptr, inp.device_ptr, p.size, out.host_ptr,
+        out.device_ptr, b, l, w, 0, base_at, _align16(base_at + 4),
+        staging.index, staging.stream_handle))
+    if rc:
+        _K11_STAGED.check(rc)
+    all_equal.launches += 1
+    return bool(out.host[0])
 
 
 # --- K16: union, intersect and compact ----------------------------------

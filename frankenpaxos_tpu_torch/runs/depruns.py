@@ -2,9 +2,9 @@
 
 The port's copy of ``frankenpaxos_tpu/runs/depruns.py``: the columns
 scatter into a ``DepSetBatch`` of the port's ``ops/depset.py`` on an
-explicit device, and :func:`drain_union` reduces it with K10. The
-DepRun codecs (``runs/wire.py``, tags 208/209) are not ported yet
-(ROADMAP.md: they come with the wire codecs).
+explicit device (or into a packed staging block, ``out=``), and
+:func:`drain_union` reduces it with K10. The DepRun codecs
+(``runs/wire.py``, tags 208/209) are not ported yet (ROADMAP.md item 3).
 
 A drain's dependency-carrying replies (EPaxos PreAcceptOk, BPaxos
 DependencyReply) coalesce on the wire into ONE run message whose
@@ -89,19 +89,25 @@ def split_columns(num_leaders: int, watermarks, counts, values):
 
 
 def columns_to_batch(num_leaders: int, watermarks, counts, values,
-                     device=None) -> Optional[depset.DepSetBatch]:
+                     device=None, out=None, seqs=None):
     """Flat columns -> one ``[B, L, W]`` DepSetBatch on ``device``
     (``cuda`` when None), scattered on the host without per-entry Python
     objects, then one copy per array. None when the sparse ids span a
     window wider than ``MAX_TAIL_WINDOW`` (callers fall back to host
     sets).
+
+    With ``out``, a function of ``(b, l, w, s)`` that returns a
+    ``depset.Packed`` block (``functools.partial(depset.packed,
+    device=...)``: on a card, the staging's reused pinned memory), the
+    same arrays land in that block instead, with ``seqs`` (``[B]``
+    int32 sequence numbers, for K10's seq mode) beside them, and the
+    block is returned for ``drain_union`` / ``depset.union_packed``.
     """
-    device = resolve_device(device)
     if num_leaders <= 0 or len(watermarks) % num_leaders:
         return None
     num_entries = len(watermarks) // num_leaders
-    vals = np.asarray(values, dtype=np.int64)
-    counts_arr = np.asarray(counts, dtype=np.int64)
+    vals = np.fromiter(values, dtype=np.int64, count=len(values))
+    counts_arr = np.fromiter(counts, dtype=np.int64, count=len(counts))
     if counts_arr.sum() != vals.shape[0]:
         return None
     base = int(vals.min()) if vals.size else 0
@@ -111,10 +117,21 @@ def columns_to_batch(num_leaders: int, watermarks, counts, values,
         width *= 2
     if width > MAX_TAIL_WINDOW:
         return None
+    rows = np.repeat(np.arange(num_entries * num_leaders), counts_arr)
+    if out is not None:
+        packed = out(num_entries, num_leaders, width,
+                     0 if seqs is None else len(seqs))
+        packed.watermarks.reshape(-1)[:] = np.fromiter(
+            watermarks, dtype=np.int32, count=len(watermarks))
+        packed.tails.reshape(-1, width)[rows, vals - base] = 1
+        packed.tail_base[...] = int32(base)
+        if seqs is not None:
+            packed.seqs[:] = seqs
+        return packed
+    device = resolve_device(device)
     wm = np.asarray(watermarks, dtype=np.int32).reshape(num_entries,
                                                         num_leaders)
     tails = np.zeros((num_entries * num_leaders, width), dtype=np.uint8)
-    rows = np.repeat(np.arange(num_entries * num_leaders), counts_arr)
     tails[rows, vals - base] = 1
     return depset.DepSetBatch(
         stage(wm, device),
@@ -122,12 +139,16 @@ def columns_to_batch(num_leaders: int, watermarks, counts, values,
         torch.tensor(int32(base), dtype=torch.int32).to(device))
 
 
-def drain_union(batch: depset.DepSetBatch) -> tuple[np.ndarray,
-                                                    np.ndarray, int]:
-    """Union every dependency set of a decoded drain in one reduction
-    (K10 on a CUDA batch): ``(watermarks [L], tails [L, W], tail_base)``
-    on host.
+def drain_union(batch) -> tuple[np.ndarray, np.ndarray, int]:
+    """Union every dependency set of a decoded drain in one reduction:
+    ``(watermarks [L], tails [L, W], tail_base)`` on host. A
+    ``DepSetBatch`` goes through K10's tensor wrapper (on a CUDA batch);
+    a ``depset.Packed`` block (``columns_to_batch(out=...)``) through ONE
+    staged K10 call, its result copied out of the reused staging.
     """
+    if isinstance(batch, depset.Packed):
+        _, watermarks, tails = depset.union_packed(batch)
+        return watermarks.copy(), tails.copy(), int(batch.tail_base)
     reduced = depset.union_reduce(batch)
     return (reduced.watermarks[0].cpu().numpy(),
             reduced.tails[0].cpu().numpy(), int(reduced.tail_base))
