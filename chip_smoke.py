@@ -25,6 +25,14 @@ Phases, in order (any failure exits nonzero and prints no result):
      ``TpuQuorumChecker`` at window 2^20 through 64 record_block calls of
      width 32768 with ring wrap, round preemption and stale owners; the
      newly masks and the whole board must be equal after every call;
+     then K2's run entry (``record_block_run``, one launch a run of
+     blocks) against ``record_block_run_plain`` in every form of phase
+     3's predicates, on random mid-flight boards: runs of 1-9 blocks at
+     unaligned columns, at the ring end, across the int32 wrap, with
+     bytes 0-255, preemption, claims, stale owners and a block over an
+     earlier one's columns (another launch); and the checker's staged
+     run (``dense_run``: one staged call with the held releases ahead of
+     the launch) against a checker on the CPU, a K4 call between runs;
   5. the chunked drain kernel, one launch a run: K3 (telemetry off), K14
      (telemetry on) and the re-pinned copy, at window 2^20, block 2^15,
      one run after another (each resuming the one before): majority-3
@@ -40,7 +48,12 @@ Phases, in order (any failure exits nonzero and prints no result):
      mid-flight board, with duplicate slots, stale owners, ring wrap,
      round preemption and padding lanes; newly masks and boards equal
      after every call;
-  7. K5 ``release`` against its plain version at window 2^20;
+  7. K5 ``release`` against its plain version at window 2^20; its
+     all-valid form (``release_all``) against ``release_all_plain`` at
+     1-4096 lanes, from aligned and unaligned slot arrays; and a card
+     checker's held releases against a CPU checker's (a release, then a
+     vote a window on, K4, several releases before one call, a reshape,
+     ``flush_releases``), boards equal after each;
   8. K6 ``check_batch_multi`` alone and ``record_and_check_epochs``
      against their plain versions: three epochs over a 5-node union,
      window 2^14 (the epoch tracker's), one-chunk calls of 64-1024
@@ -231,9 +244,11 @@ Phases, in order (any failure exits nonzero and prints no result):
      three cut to one), a short per-drain latency distribution, and the
      best block under the 50 us target;
   28. the host time of K18's and K12's wrappers and transport-facing
-     entries, and of the EPaxos / BPaxos decisions on K10 and K11 (the
-     sims' own calls replayed), whole and split by function under
-     ``cProfile`` (``bench/call_split.py``);
+     entries, of the EPaxos / BPaxos decisions on K10 and K11 (the sims'
+     own calls replayed), and of the WPaxos leaders' ``release`` and
+     ``drain`` calls on ``GeoQuorumTracker`` (a geo_lt cuda run's calls
+     replayed), whole and split by function under ``cProfile``
+     (``bench/call_split.py``);
      per-kernel figures at the main paths' shapes: CUDA-event time per
      call over many calls (K12 and K18 in turns with their library call:
      kernel, library, library, kernel, six blocks of 400 calls each, the
@@ -259,7 +274,10 @@ Phases, in order (any failure exits nonzero and prints no result):
      buckets, with the staged entry's host time; K6 on one chunk and on
      a drain's run of 48 chunks, with the epoch checker's; K10 at the
      BPaxos Leader's [2, 2, W] and depset_lt's [4096, 3, 32], in seq mode
-     at [4, 5, 8], K11 at [3, 5, 8]), and the K10 / K11 rows the staged
+     at [4, 5, 8], K11 at [3, 5, 8]; K2 at the pipelined tracker's
+     buckets 64-4096, 32768, the 2x3 grid, the sharded rank and a
+     drain's run of three blocks; K5 at the leaders' 1-16 lanes, 256 and
+     4096, both forms), and the K10 / K11 rows the staged
      entries' error and each decision's host time.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -514,6 +532,196 @@ def phase_k2(dev, rng) -> int:
                               f"{step}")
         require(all(kinds.values()), f"K2 sequence lacks a case: {kinds}")
     torch.cuda.synchronize(dev)
+    return max(worst, _k2_runs(dev, rng))
+
+
+#: K2's run form: block widths (one column, around one and four 16-column
+#: vectors, the pipelined tracker's buckets, ragged ones) on a 2^16-column
+#: ring, and the runs a form is held on.
+K2_RUN_WIDTHS = (1, 15, 16, 17, 63, 64, 200, 256, 1007, 1024, 4096)
+K2_RUN_WINDOW = 1 << 16
+K2_RUNS = 6
+
+
+def _k2_run_blocks(rng, window: int, step: int) -> tuple:
+    """One run's ``(columns, true starts, widths, rounds)``: 1-9 blocks at
+    columns off the 16-byte grid, the last one at the ring end on even
+    steps; slot numbers small (owners on a random board go stale), large,
+    or crossing 2^31 - 1 inside a block (the int32 wrap), by step; and on
+    odd steps a block repeated over the first one's columns in a newer
+    round (the table starts another launch)."""
+    nb = int(rng.integers(1, 10))
+    kind = step % 3
+    cols, trues, widths = [], [], []
+    at = int(rng.integers(0, window // 2))
+    for k in range(nb):
+        width = int(rng.choice(K2_RUN_WIDTHS))
+        col = at + int(rng.integers(0, 40))
+        if col + width > window or (k == nb - 1 and step % 2 == 0):
+            col = window - width
+        true = (col + int(rng.integers(0, 2)) * window if kind == 0
+                else col + window * int(rng.integers(2, 2**30 // window))
+                if kind == 1 else 2**31 - 1 - width // 2)
+        cols.append(col)
+        trues.append(true)
+        widths.append(width)
+        at = col + width
+    rounds = [int(r) for r in rng.integers(0, 3, size=nb)]
+    if step % 2 and nb > 1:
+        cols.append(cols[0])
+        trues.append(trues[0])
+        widths.append(widths[0])
+        rounds.append(rounds[0] + 1)
+    return cols, trues, widths, rounds
+
+
+def _k2_runs(dev, rng) -> int:
+    """K2's run entry (``record_block_run``, one launch, more where the
+    table starts one) against ``record_block_run_plain`` on the card,
+    exact, in every form of ``k1_predicates`` (majorities of 1-16
+    acceptors and 17, groups, grids, the zone grid): ``K2_RUNS`` runs a
+    form on random mid-flight boards (claims, stale owners, preemption),
+    vote bytes 0/1 and 0-255, unaligned starts, the ring end, the int32
+    wrap and overlapping blocks; then the checker's staged run
+    (``dense_run``) against a checker on the CPU, with releases held
+    before it and a K4 call between runs. Returns the largest error."""
+    worst = 0
+    window = K2_RUN_WINDOW
+    overlaps = wraps = ends = 0
+    for name, arrays in k1_predicates().items():
+        n = np.asarray(arrays[0]).shape[1]
+        pred = tq.make_predicate(*arrays, device=dev)
+        board_k, board_p = _random_board(rng, n, window, dev)
+        for step in range(K2_RUNS):
+            cols, trues, widths, rounds = _k2_run_blocks(rng, window, step)
+            table, stride = tq.run_table(cols, widths, rounds, window, trues)
+            bytes_ = step % 3 == 1
+            blocks = torch.from_numpy(
+                rng.integers(0, 256, (n, stride), dtype=np.uint8) if bytes_
+                else (rng.random((n, stride)) < 0.6).astype(np.uint8)
+            ).to(dev)
+            got = tq.record_block_run(board_k, table, blocks, pred)
+            want = tq.record_block_run_plain(board_p, table, blocks, pred)
+            overlaps += int(table[1:, 5].sum()) if len(table) > 1 else 0
+            wraps += int(any(t + w > 2**31 for t, w in zip(trues, widths)))
+            ends += int(((table[:, 0] + table[:, 2]) == window).any())
+            err = max(max_abs_err(got, want), _boards_equal(board_k, board_p))
+            worst = max(worst, err)
+            require(err == 0, f"K2's run differs from plain on {name} at "
+                              f"run {step}")
+    require(overlaps and wraps and ends,
+            f"K2's runs lack a case: {overlaps} overlaps, {wraps} wraps, "
+            f"{ends} ring ends")
+    # The staged run: a card checker against a CPU one, releases held
+    # ahead of the run, a K4 call (which flushes them) between runs.
+    for name in ("majority3", "grid2x3_write", "grid_perm_write"):
+        spec = specs()[name]
+        card = tq.TpuQuorumChecker(spec, window=window, device=dev)
+        host = tq.TpuQuorumChecker(spec, window=window, device="cpu")
+        frontier = 5000
+        for step in range(8):
+            spans = []
+            at = frontier
+            for _ in range(int(rng.integers(1, 5))):
+                width = int(rng.choice((64, 256, 1024, 4096)))
+                spans.append((at, width, int(rng.integers(0, 2))))
+                at += width + int(rng.integers(0, 30))
+            fills = [(rng.random((spec.num_nodes, w)) < 0.6).astype(
+                np.uint8) for _, w, _ in spans]
+            released = np.arange(frontier - 3000, frontier - 2000)
+            cut = (int(rng.integers(1, 1000)), int(rng.integers(1, 50)))
+            for c in (card, host):
+                c.release(released[:cut[0]])
+                c.release(released[-cut[1]:])
+            results = []
+            for c in (card, host):
+                run = c.dense_run(spans)
+                for (s, w, _), fill, off in zip(spans, fills, run.offsets):
+                    run.block[:, off:off + w] = fill
+                res = run.dispatch()
+                results.append([res.wait()[o:o + w].copy()
+                                for o, (_, w, _) in zip(run.offsets, spans)])
+                res.free()
+            err = max(int((a != b).sum()) for a, b in zip(*results))
+            if step % 3 == 2:  # a K4 call behind held releases
+                for c in (card, host):
+                    c.release(np.arange(frontier, frontier + 64))
+                lanes = [frontier + np.arange(64), np.zeros(64, np.int32)]
+                got = card.record_and_check(*lanes)
+                want = host.record_and_check(*lanes)
+                err = max(err, int((got != want).sum()))
+            err = max(err, _boards_equal(card.board, tq.VoteBoard(
+                *(t.to(dev) for t in host.board))))
+            worst = max(worst, err)
+            require(err == 0, f"K2's staged run differs from the CPU "
+                              f"checker on {name} at drain {step}")
+            frontier = at
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+#: K5's all-valid form: widths around one thread's four lanes, the
+#: leaders' few slots, and the prewarm's 4096.
+K5_ALL_WIDTHS = (1, 3, 4, 5, 16, 17, 256, 4096)
+
+
+def _k5_all(dev, rng) -> int:
+    """K5's all-valid form (``release_all``) against
+    ``release_all_plain``: every width of ``K5_ALL_WIDTHS`` on slots with
+    duplicates, negatives and ones out of range, from an aligned and an
+    unaligned (one element in) slot array; then the held releases of a
+    card checker against a CPU one: a release before a vote for slot +
+    window in the next call, before K4, before a reshape, several before
+    one call, and ``flush_releases``, boards compared after each."""
+    worst = 0
+    board_k, board_p = _random_board(rng, 3, WINDOW, dev)
+    for width in K5_ALL_WIDTHS:
+        for offset in (0, 1):
+            slots = rng.integers(-WINDOW - 8, WINDOW + 8,
+                                 size=width + offset).astype(np.int32)
+            slots[offset + width // 2:] = slots[offset]
+            s = torch.from_numpy(slots).to(dev)[offset:]
+            tq.release_all(board_k, s)
+            tq.release_all_plain(board_p, s)
+            err = _boards_equal(board_k, board_p)
+            worst = max(worst, err)
+            require(err == 0, f"K5's all-valid form differs at {width} "
+                              f"lanes, offset {offset}")
+    spec = specs()["majority3"]
+    window = 1 << 12
+    card = tq.TpuQuorumChecker(spec, window=window, device=dev)
+    host = tq.TpuQuorumChecker(spec, window=window, device="cpu")
+
+    def both(what, fn):
+        nonlocal worst
+        got = [fn(c) for c in (card, host)]
+        err = 0
+        if got[0] is not None:
+            err = int((np.asarray(got[0]) != np.asarray(got[1])).sum())
+        err = max(err, _boards_equal(card.board, tq.VoteBoard(
+            *(t.to(dev) for t in host.board))))
+        worst = max(worst, err)
+        require(err == 0, f"held releases differ from the CPU: {what}")
+
+    block = np.ones((3, 64), np.uint8)
+    both("record", lambda c: c.record_block(100, block))
+    both("release, then slot + window", lambda c: (
+        c.release(np.arange(100, 164)),
+        c.record_block(100 + window, block))[1])
+    both("release, then K4", lambda c: (
+        c.release(np.arange(100 + window, 130 + window)),
+        c.record_and_check(np.arange(110 + window, 140 + window),
+                           np.ones(30, np.int32)))[1])
+    both("several releases, then K2", lambda c: (
+        c.release([130 + window]), c.release(np.arange(150, 160) + window),
+        c.release(np.arange(140, 150) + window),
+        c.record_block(130 + window, block))[3])
+    both("release, then reshape", lambda c: (
+        c.release(np.arange(100, 200) + window),
+        c.reshape(SimpleMajority(range(4)).write_spec()))[1])
+    both("release, then flush_releases", lambda c: (
+        c.release(np.arange(0, window, 7)), c.flush_releases())[1])
+    torch.cuda.synchronize(dev)
     return worst
 
 
@@ -693,7 +901,7 @@ def phase_k5(dev, rng) -> int:
         worst = max(worst, err)
         require(err == 0, f"K5 differs from plain at call {step}")
     torch.cuda.synchronize(dev)
-    return worst
+    return max(worst, _k5_all(dev, rng))
 
 
 EPOCH_WINDOW = 1 << 14   # the ProxyLeader's epoch tracker window
@@ -1917,7 +2125,7 @@ def _shard_kernel_figures(dev, rng) -> dict:
         ("record_block",
          lambda: tq.record_block(k2_k, 0, 0, votes, 0, pred),
          lambda: tq.record_block_plain(k2_p, 0, 0, votes, 0, pred),
-         "record_block_kernel", (3 * n + 19) * width,
+         "record_block_run_kernel", (3 * n + 19) * width,
          (6 * n + 2 * g * n + 30) * width,
          f"N={n} B={width} w_local={w_local}"),
         ("record_and_check",
@@ -2357,7 +2565,7 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         ("record_block",
          lambda: tq.record_block(board_k, 0, 0, votes, 0, pred),
          lambda: tq.record_block_plain(board_p, 0, 0, votes, 0, pred),
-         "record_block_kernel", (3 * n + 19) * BLOCK,
+         "record_block_run_kernel", (3 * n + 19) * BLOCK,
          (6 * n + 2 * g * n + 30) * BLOCK, quorum, f"{ref}:267",
          f"N={n} B={BLOCK} W={WINDOW}"),
         # K3 (and K14, the pinned copy) per run of FIGURE_DRAINS drains:
@@ -2378,10 +2586,13 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          "record_and_check_kernel", 21 * chunk + 2 * (9 + n) * k4_cols,
          (40 + 2 * g * n) * chunk, sparse, f"{ref}:214",
          f"N={n} B={chunk} W={WINDOW}"),
-        ("release", lambda: tq.release(k5_k, k5_slots, k5_valid),
-         lambda: tq.release_plain(k5_p, k5_slots, k5_valid),
-         "release_kernel", 5 * rel + (9 + n) * rel, (8 + n) * rel, sparse,
-         f"{ref}:327", f"N={n} B={rel} W={WINDOW}"),
+        # K5's all-valid form (every checker's): the slots read, each
+        # reset column's N + 9 bytes written.
+        ("release", lambda: tq.release_all(k5_k, k5_slots),
+         lambda: tq.release_all_plain(k5_p, k5_slots),
+         "release_all_kernel", 4 * rel + (9 + n) * rel, (8 + n) * rel,
+         "frankenpaxos_tpu_torch/ops/csrc/release.cuh", f"{ref}:327",
+         f"N={n} B={rel} W={WINDOW}"),
         ("record_and_check_epochs",
          lambda: tq.record_and_check_epochs(k6_k, k6_lanes, bounds, planes),
          lambda: tq.record_and_check_epochs_plain(k6_p, k6_lanes, bounds,
@@ -2639,6 +2850,13 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
                            ("conflict_max", "at_launch_shapes", "k10_seq"),
                            ("all_equal", "at_launch_shapes", "k11")):
         next(r for r in out if r["name"] == name)[key] = shapes[fig]
+    # K2 at the pipelined tracker's buckets, the grid, the sharded rank
+    # and a drain's run; K5 at the leaders' widths (bench/launch_shapes.py
+    # --parts board).
+    board = launch_shapes.board_kernels(dev)
+    for name, fig in (("record_block", "k2"), ("release", "k5")):
+        next(r for r in out if r["name"] == name)["at_launch_shapes"] = \
+            board[fig]
     # The staged entries (one call a decision): their error against the
     # plain versions in phase 13.
     for name, staged in (("union_reduce", "union_staged"),
@@ -2682,7 +2900,9 @@ def main() -> int:
             f"B in {list(K1_WIDTHS)}, 0/1 and arbitrary bytes, contiguous, "
             f"transposed, offset and strided; the staged entry)")
         errors["record_block"] = phase_k2(dev, rng)
-        phase(4, f"K2 record_block == plain (64 calls, W={WINDOW})")
+        phase(4, f"K2 record_block == plain (64 calls, W={WINDOW}); its run "
+            f"entry == record_block_run_plain in {len(k1_predicates())} "
+            f"forms x {K2_RUNS} runs, the staged run == a CPU checker")
         errors.update(phase_k3(dev))
         phase(5, f"K3 and K14 (one launch a run) == the plain drains, K3 "
             f"== the pinned copy, at W={WINDOW}: runs of "
@@ -2694,7 +2914,8 @@ def main() -> int:
             f"lanes x 2 specs, W={WINDOW})")
         errors["release"] = phase_k5(dev, rng)
         phase(7, f"K5 release == plain (16 calls of 4096 lanes, "
-            f"W={WINDOW})")
+            f"W={WINDOW}); release_all == plain at {list(K5_ALL_WIDTHS)} "
+            f"lanes; held releases == a CPU checker's")
         errors.update(phase_k6(dev, rng))
         phase(8, f"K6 check_batch_multi and record_and_check_epochs == "
             f"plain (3 epochs, 5-node union, W={EPOCH_WINDOW}; one-chunk "
@@ -2922,6 +3143,12 @@ def main() -> int:
                 "decision_host_ms"] = split["paths"][path]["whole_ns"] / 1e6
         turns = {row["name"]: row for row in kernels
                  if "in_turns_ms_blocks" in row}
+        # The board paths' host split (bench/call_split.py --paths board):
+        # the geo leaders' release and drain calls.
+        next(r for r in kernels if r["name"] == "release")[
+            "geo_host_ns_per_call"] = split["board"]["whole_ns_per_call"]
+        shapes = {name: next(r for r in kernels if r["name"] == name)[
+            "at_launch_shapes"] for name in ("record_block", "release")}
         phase(28, f"per-kernel figures on {name} ({smi}); in turns, ms "
             f"per call: "
             + "; ".join(f"{k} {row['ms']:.5f}"
@@ -2931,6 +3158,14 @@ def main() -> int:
                         f"{row['device_ms']} vs bound {row['bound_ms']:.4g},"
                         f" entry {row['entry_ms']:.5f}"
                         for k, row in turns.items())
+            + "; K2 at the tracker's shapes (call / device us): "
+            + ", ".join(f"{k} {v['call_ms'] * 1e3:.2f} / "
+                        f"{(v['device_ms'] or 0) * 1e3:.3f}"
+                        for k, v in shapes["record_block"].items())
+            + "; K5 at the leaders' widths: "
+            + ", ".join(f"{k} {v['call_ms'] * 1e3:.2f} / "
+                        f"{(v['device_ms'] or 0) * 1e3:.3f}"
+                        for k, v in shapes["release"].items())
             + "; whole calls (host ns): "
             + ", ".join(f"{k} {v['whole_ns']:.0f}"
                         for k, v in split["paths"].items())

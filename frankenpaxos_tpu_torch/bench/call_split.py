@@ -1,5 +1,5 @@
-"""Host time of the K18, K12, K10 and K11 call paths, split by function,
-on one GPU.
+"""Host time of the K18, K12, K10, K11, K5 and K6 call paths, split by
+function, on one GPU.
 
 Each path is the real wrapper or entry, called ``CALLS`` times:
 
@@ -38,13 +38,22 @@ each path, where the tree has them; and ``bench/depset_lt.py``'s
 ``coalesced_aggregate`` on one drain at each in-flight width (256, 1024,
 4096: K10 on ``[width, 3, 32]``).
 
+The vote-board paths (``board``): ``GeoQuorumTracker.release`` (K5)
+and ``GeoQuorumTracker.drain`` (K6, with the releases held before it
+where the tree holds them), replayed from the first ``CAPTURE`` drain
+and release calls that a ``bench/geo_lt.py`` cuda run made (every arm,
+the reference's deployment), each leader's tracker replayed onto a
+fresh tracker of its own with the votes recorded between its calls
+(recording untimed); host ns per call of each kind, whole and split,
+and the histogram of the release calls' widths.
+
 It times the calls, not copies of them, so it splits any checkout's
 wrappers alike: ``--tree ROOT`` imports ``frankenpaxos_tpu_torch`` from
 ``ROOT`` (another commit, for an A/B in one call), else from this
 checkout. Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/call_split.py [--tree ROOT] \\
-        [--paths k12_k18,depset]
+        [--paths k12_k18,depset,board]
 
 It prints ONE JSON line; ``chip_smoke.py``'s phase 28 calls
 :func:`split` on its own tree. It raises without a CUDA device.
@@ -79,7 +88,7 @@ CAPTURE_COMMANDS = 2048
 #: they are timed over fewer calls.
 COALESCED_WIDTHS = (256, 1024, 4096)
 COALESCED_CALLS = 200
-PARTS = ("k12_k18", "depset")
+PARTS = ("k12_k18", "depset", "board")
 
 
 def _whole(fn, calls: int = CALLS) -> float:
@@ -348,6 +357,120 @@ def _depset_paths(dev) -> tuple[dict, dict]:
     return paths, shapes
 
 
+def capture_geo(dev, keep: int = CAPTURE) -> list:
+    """``[(tracker, kind, args)]``: the calls that a ``geo_lt`` cuda run
+    makes on its leaders' ``GeoQuorumTracker`` s (``record``, and the
+    first ``keep`` of ``drain`` and ``release`` together), ``tracker``
+    the index of the tracker in order of its first call."""
+    from frankenpaxos_tpu_torch.bench import geo_lt
+    from frankenpaxos_tpu_torch.geo import GeoQuorumTracker
+
+    calls: list = []
+    ids: dict = {}
+    kept = [0]
+    originals = {name: getattr(GeoQuorumTracker, name)
+                 for name in ("record", "drain", "release")}
+
+    def spy(name):
+        def call(self, *args):
+            if self.backend == "cuda" and kept[0] < keep:
+                key = ids.setdefault(id(self), len(ids))
+                if name != "record":
+                    kept[0] += 1
+                calls.append((key, name, copy.deepcopy(args)))
+            return originals[name](self, *args)
+
+        return call
+
+    try:
+        for name in originals:
+            setattr(GeoQuorumTracker, name, spy(name))
+        geo_lt.backend_run("cuda", dev, geo_lt.WRITES, geo_lt.FLAT_COMMANDS,
+                           geo_lt.FLAT_REPS, 0)
+    finally:
+        for name, fn in originals.items():
+            setattr(GeoQuorumTracker, name, fn)
+    return calls
+
+
+def _geo_replay(dev, calls: list, profiled: bool) -> dict:
+    """Replay ``calls`` onto fresh trackers (one per captured tracker,
+    group 0 of a one-epoch store on the 3x3 grid), timing (or profiling)
+    only ``drain`` and ``release``: host ns per call of each."""
+    from frankenpaxos_tpu_torch.geo import GeoQuorumTracker, ObjectEpochStore
+    from frankenpaxos_tpu_torch.quorums import ZoneGrid
+
+    grid = ZoneGrid([[0, 1, 2], [3, 4, 5], [6, 7, 8]])
+    trackers: dict = {}
+    ns = {"drain": 0, "release": 0}
+    count = {"drain": 0, "release": 0}
+    profile = cProfile.Profile() if profiled else None
+    torch.cuda.synchronize()
+    for key, name, args in calls:
+        tracker = trackers.get(key)
+        if tracker is None:
+            tracker = trackers[key] = GeoQuorumTracker(
+                ObjectEpochStore(1, [0]), 0, grid, backend="cuda",
+                device=dev)
+            torch.cuda.synchronize()
+        fn = getattr(tracker, name)
+        if name == "record":
+            fn(*args)
+            continue
+        if profile is not None:
+            profile.enable()
+            fn(*args)
+            profile.disable()
+        else:
+            t0 = time.perf_counter_ns()
+            fn(*args)
+            ns[name] += time.perf_counter_ns() - t0
+        count[name] += 1
+    torch.cuda.synchronize()
+    return {"ns": ns, "count": count, "profile": profile}
+
+
+def _geo_paths(dev) -> dict:
+    """The board paths' figures (see the module docstring)."""
+    calls = capture_geo(dev)
+    widths: dict = {}
+    between, pending = [], 0
+    for _, name, args in calls:
+        if name == "release":
+            width = len(args[0])
+            widths[width] = widths.get(width, 0) + 1
+            pending += 1
+        elif name == "drain":
+            between.append(pending)
+            pending = 0
+    _geo_replay(dev, calls, False)  # warm: builds, first calls
+    whole = _geo_replay(dev, calls, False)
+    profiled = _geo_replay(dev, calls, True)
+    here = os.path.abspath(__file__)
+    own: dict = {}
+    calls_made = sum(profiled["count"].values())
+    for (path, _, name), (_, _, tottime, _, _) in \
+            pstats.Stats(profiled["profile"]).stats.items():
+        if os.path.abspath(path) == here or "_lsprof.Profiler" in name:
+            continue
+        label = _label(path, name)
+        own[label] = own.get(label, 0.0) + tottime * 1e9 / calls_made
+    ranked = sorted(own.items(), key=lambda kv: -kv[1])
+    split_ns = dict(ranked[:TOP])
+    split_ns["(the rest)"] = sum(v for _, v in ranked[TOP:])
+    return {
+        "calls": whole["count"],
+        "whole_ns_per_call": {k: whole["ns"][k] / max(whole["count"][k], 1)
+                              for k in whole["ns"]},
+        "profiled_ns_per_call": sum(own.values()),
+        "split_ns_per_call": split_ns,
+        "release_width_histogram": {str(k): widths[k]
+                                    for k in sorted(widths)},
+        "releases_before_each_drain_histogram": {
+            str(k): between.count(k) for k in sorted(set(between))},
+    }
+
+
 def split(device=None, parts=PARTS) -> dict:
     """Every path's whole time and split on ``device`` (``cuda`` when
     None): the K12 / K18 paths (``k12_k18``) and the dependency-set
@@ -379,6 +502,8 @@ def split(device=None, parts=PARTS) -> dict:
              for name, fn in _paths(dev, up, ids, frontiers).items()})
         out["library_ns"] = _library_calls(dev, up, ids, frontiers)
         out["stream_and_wait_ns"] = _stream_and_wait(dev)
+    if "board" in parts:
+        out["board"] = _geo_paths(dev)
     if "depset" in parts:
         paths, out["depset_shapes"] = _depset_paths(dev)
         out["paths"].update(

@@ -1,5 +1,5 @@
-"""K1, K6 and K10 at the shapes the paths launch them, and the host split
-of the two tracker drains that call K1 and K6, on one GPU.
+"""K1, K2, K5, K6 and K10 at the shapes the paths launch them, and the
+host split of the tracker drains that call them, on one GPU.
 
 Two parts, each against whichever checkout ``--tree`` names (this one by
 default), so that one call can measure a parent and its change alike:
@@ -40,11 +40,28 @@ default), so that one call can measure a parent and its change alike:
     Each with its bound: bytes (each input read once, each output
     written once) over 3.35 TB/s; K6's from the chunk's distinct
     columns.
+  * ``board`` (the vote board's dense update and release):
+      - K2 ``record_block`` by CUDA events and by the profiler's device
+        time at N = 3 and B = 64, 256, 1024, 4096 (the pipelined
+        tracker's buckets, each block starting at an unaligned column as
+        a member slot does) and 32768, on the 2x3 grid at 4096, and at
+        the sharded rank's shape (B = 4096 on a 2^18-column local
+        board); a drain's dense blocks (three 4096-column blocks at
+        unaligned starts): one launch of ``record_block_run`` where the
+        tree has it, else three ``record_block`` calls;
+      - K5 ``release`` at 1, 4, 16 and 256 lanes (the leaders' widths)
+        and 4096 (the prewarm), and ``release_all`` (the all-valid form)
+        where the tree has it;
+      - the card's floor (PyTorch's fill of one element);
+      - the host ns per pipelined ``drain()`` and per ``collect()`` on
+        ``bench/tracker_lt.py``'s stream (window 2^20), whole and split
+        by function under ``cProfile``, each dispatch collected on the
+        caller's thread right after its drain.
 
 Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/launch_shapes.py [--tree ROOT] \\
-        [--parts drains,kernels|depset]
+        [--parts drains,kernels|depset|board]
 
 It prints ONE JSON line, with the seconds the tree's kernels took to
 build (0 when they were built before). It raises without a CUDA device.
@@ -80,6 +97,14 @@ K10_MANY_ROWS = (4096, 3, 32)
 K10_SEQ_SHAPE = (4, 5, 8)
 K11_SHAPE = (3, 5, 8)
 K6_DISTINCT = (16, 64, 128, 256)
+#: K2 at the pipelined tracker's buckets and the 2^20 board's 32768, and
+#: K5 at the leaders' release widths and the prewarm's 4096.
+K2_WIDTHS = (64, 256, 1024, 4096, 32768)
+K5_WIDTHS = (1, 4, 16, 256, 4096)
+BOARD_WINDOW = 1 << 20
+SHARD_WINDOW = 1 << 18
+#: A block's first column: a member slot, off the 16-byte grid.
+K2_START = 4099
 
 
 class DrainClock:
@@ -100,6 +125,7 @@ class DrainClock:
             out = tracker.drain()
             self.ns += time.perf_counter_ns() - t0
         self.drains += 1
+        self.last = out
         return out
 
     def split(self) -> dict:
@@ -478,6 +504,145 @@ def _epoch_lanes(rng, b: int) -> np.ndarray:
                          np.zeros(b, np.int32), np.ones(b, bool))
 
 
+def board_kernels(device, rng=None) -> dict:
+    """K2 and K5 through their wrappers at the paths' launch shapes (see
+    the module docstring): CUDA-event ms per call, the profiler's device
+    ms per launch and the launches per call, and the bound (bytes: K2
+    moves (3N + 19) bytes a column, K5 4 bytes a lane read and N + 9 a
+    reset column written)."""
+    import torch
+    from frankenpaxos_tpu_torch.ops import quorum as tq
+    from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority
+
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    out: dict = {"k2": {}, "k5": {}}
+
+    def figures(fn, kernel, nbytes):
+        dev_ms, per_call = _device_ms(fn, kernel)
+        return {"call_ms": _cuda_ms(fn), "device_ms": dev_ms,
+                "launches_per_call": per_call,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+    run_fn = getattr(tq, "record_block_run", None)
+    majority = SimpleMajority(range(3)).write_spec()
+    grid = Grid([[0, 1, 2], [3, 4, 5]]).write_spec()
+    shapes = [("N=3", majority, BOARD_WINDOW, b) for b in K2_WIDTHS]
+    shapes += [("grid2x3", grid, BOARD_WINDOW, 4096),
+               ("sharded_rank", majority, SHARD_WINDOW, 4096)]
+    for label, spec, window, b in shapes:
+        n = spec.num_nodes
+        pred = tq.make_predicate(*spec.as_arrays(), device=device)
+        board = tq.make_vote_board(window, n, device=device)
+        block = torch.from_numpy(
+            (rng.random((n, b)) < 0.6).astype(np.uint8)).to(device)
+        out["k2"][f"{label}/B={b}"] = figures(
+            lambda: tq.record_block(board, K2_START, K2_START, block, 0,
+                                    pred),
+            "record_block", (3 * n + 19) * b)
+    # A drain's dense blocks: three 4096-column blocks from member slots.
+    pred = tq.make_predicate(*majority.as_arrays(), device=device)
+    board = tq.make_vote_board(BOARD_WINDOW, 3, device=device)
+    starts = [K2_START, K2_START + 4096 + 5, K2_START + 2 * 4096 + 11]
+    blocks = [torch.from_numpy((rng.random((3, 4096)) < 0.6).astype(
+        np.uint8)).to(device) for _ in starts]
+    if run_fn is not None:
+        table, stride = tq.run_table(starts, [4096] * 3, [0] * 3,
+                                     BOARD_WINDOW)
+        joined = torch.zeros((3, stride), dtype=torch.uint8, device=device)
+        for (col, _, width, at, _, _), blk in zip(table.tolist(), blocks):
+            joined[:, at:at + width] = blk
+
+        def drain_blocks():
+            run_fn(board, table, joined, pred)
+    else:
+        def drain_blocks():
+            for start, blk in zip(starts, blocks):
+                tq.record_block(board, start, start, blk, 0, pred)
+    fig = figures(drain_blocks, "record_block", (3 * 3 + 19) * 3 * 4096)
+    fig["form"] = "run" if run_fn is not None else "three calls"
+    if fig["device_ms"] is not None:
+        fig["device_ms_per_drain"] = fig["device_ms"] * fig[
+            "launches_per_call"]
+    out["k2"]["drain_run/3x4096"] = fig
+
+    all_fn = getattr(tq, "release_all", None)
+    board = tq.make_vote_board(BOARD_WINDOW, 3, device=device)
+    for r in K5_WIDTHS:
+        slots = torch.from_numpy(rng.choice(BOARD_WINDOW, size=r,
+                                            replace=False).astype(
+            np.int32)).to(device)
+        valid = torch.ones(r, dtype=torch.bool, device=device)
+        out["k5"][f"release/B={r}"] = figures(
+            lambda: tq.release(board, slots, valid), "release",
+            5 * r + (3 + 9) * r)
+        if all_fn is not None:
+            out["k5"][f"release_all/B={r}"] = figures(
+                lambda: all_fn(board, slots), "release",
+                4 * r + (3 + 9) * r)
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    out["floor"] = {"fill_[1]": figures(lambda: one.fill_(1), "FillFunctor",
+                                        4)}
+    return out
+
+
+def board_drains(device) -> dict:
+    """The pipelined tracker's host cost on tracker_lt's stream: ns per
+    ``drain()`` and per ``collect()`` (each dispatch collected right
+    after its drain, on this thread), whole and split."""
+    import torch
+    from frankenpaxos_tpu_torch.bench import tracker_lt as lt
+    from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
+        TpuQuorumTracker,
+    )
+
+    config = lt.make_config()
+    stream = lt.make_stream(lt.SLOTS, 3, lt.DRAIN)
+
+    def replay(drain_clock, collect_clock):
+        tracker = TpuQuorumTracker(config, window=lt.WINDOW,
+                                   pipelined=True, device=device)
+        torch.cuda.synchronize()
+        got = []
+        for events in stream:
+            _feed(tracker, events, 3)
+            drain_clock.drain(tracker)
+            collect_clock.drain(_Collector(tracker))
+            got.extend(collect_clock.last)
+        torch.cuda.synchronize()
+        return got
+
+    whole = (DrainClock(False), DrainClock(False))
+    got = replay(*whole)
+    oracle = lt.replay(lt.DictQuorumTracker(config), stream, 3)
+    lt.check_against_oracle("pipelined", got, oracle)
+    profiled = (DrainClock(True), DrainClock(True))
+    replay(*profiled)
+    return {"pipelined_drain": {
+                "drains": whole[0].drains,
+                "whole_ns_per_drain": whole[0].ns / whole[0].drains,
+                **profiled[0].split()},
+            "pipelined_collect": {
+                "drains": whole[1].drains,
+                "whole_ns_per_drain": whole[1].ns / whole[1].drains,
+                **profiled[1].split()},
+            "votes_per_drain": lt.count_votes(stream) / len(stream)}
+
+
+class _Collector:
+    """A tracker's pending dispatches as one ``drain()``, for the clock:
+    every dispatch taken and collected; ``DrainClock.last`` keeps what
+    they reported."""
+
+    def __init__(self, tracker):
+        self.tracker = tracker
+
+    def drain(self) -> list:
+        out = []
+        while (d := self.tracker.take_dispatch()) is not None:
+            out.extend(self.tracker.collect(d))
+        return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=None)
@@ -508,6 +673,9 @@ def main(argv=None) -> int:
         result["kernels"] = kernels(device)
     elif "depset" in parts:
         result["kernels"] = depset_kernels(device)
+    if "board" in parts:
+        result["board"] = {"kernels": board_kernels(device),
+                           "drains": board_drains(device)}
     if "drains" in parts:
         result["drains"] = drains(device)
     print(json.dumps(result), flush=True)

@@ -28,9 +28,10 @@ Measurements:
     at the headline width 2^20/2^15 with the reference's ``--smoke``
     knobs: the off/baseline and on/off ratios and each arm's cmds/s
     (the arms must agree);
-  * ``tracker``: ``bench/tracker_lt.py``'s sync arm (K1) and epoch arm
-    (K6) at full width (window 2^20, 2^20 slots; the epoch window 2^14),
-    votes/s with each arm's pairs equal to its dict oracle's, and the
+  * ``tracker``: ``bench/tracker_lt.py``'s sync arm (K1), pipelined and
+    grid arms (K2, K4, K5) and epoch arm (K6) at full width (window
+    2^20, 2^20 slots, the grid's 2^18; the epoch window 2^14), votes/s
+    with each arm's pairs equal to its dict oracle's, and the
     crossover's ``measured_min_device_slots`` (lower is better);
   * ``geo``: ``bench/geo_lt.py`` at the reference's deployment, the host
     seconds of its cuda run and of its dict run (every gate of the bench
@@ -166,10 +167,10 @@ def _tracker_arms(device) -> dict:
     if dev.type == "cuda":
         slots, window, drain, handover = (lt.SLOTS, lt.WINDOW, lt.DRAIN,
                                           lt.HANDOVER)
-        widths = lt.CROSSOVER_WIDTHS
+        grid_slots, widths = lt.GRID_SLOTS, lt.CROSSOVER_WIDTHS
     else:
         slots, window, drain, handover = 1 << 13, 1 << 12, 1024, 1 << 12
-        widths = (1, 64)
+        grid_slots, widths = 1 << 12, (1, 64)
     config = lt.make_config()
     stream = lt.make_stream(slots, 3, drain)
     votes = lt.count_votes(stream)
@@ -177,6 +178,19 @@ def _tracker_arms(device) -> dict:
     sync = TpuQuorumTracker(config, window=window, device=dev)
     got, sync_s = lt._timed(dev, lambda: lt.replay(sync, stream, 3))
     lt.check_against_oracle("sync", got, oracle)
+    piped = TpuQuorumTracker(config, window=window, pipelined=True,
+                             device=dev)
+    got, piped_s = lt._timed(dev, lambda: lt.replay_pipelined(piped, stream,
+                                                              3))
+    lt.check_against_oracle("pipelined", got, oracle)
+    grid_config = lt.make_config(flexible=True)
+    grid_stream = lt.make_stream(grid_slots, 6, drain, lt.SEED + 1)
+    grid_oracle = lt.replay(DictQuorumTracker(grid_config), grid_stream, 3)
+    grid = TpuQuorumTracker(grid_config, window=window, pipelined=True,
+                            device=dev)
+    got, grid_s = lt._timed(dev, lambda: lt.replay_pipelined(
+        grid, grid_stream, 3))
+    lt.check_against_oracle("grid", got, grid_oracle)
     members = (("a0", "a1", "a2"), ("a0", "a1", "a3"))
     reported = {}
     for backend in ("dict", "cuda"):
@@ -190,6 +204,8 @@ def _tracker_arms(device) -> dict:
                             reported["dict"][0])
     _, threshold = lt.crossover(dev, widths)
     return {"sync_votes_per_s": votes / sync_s,
+            "pipelined_votes_per_s": votes / piped_s,
+            "grid_votes_per_s": lt.count_votes(grid_stream) / grid_s,
             "epoch_votes_per_s": votes / reported["cuda"][1],
             "measured_min_device_slots": threshold,
             "nvidia_smi": nvidia_smi_line() if dev.type == "cuda"

@@ -14,8 +14,9 @@ outputs (tests/test_torch_geo.py holds both against the reference's):
     drain's votes go through K6 in chunks of 256 lanes, the whole drain
     in one staged call and one launch (``record_and_check_run``), the
     plane selected per slot inside the kernel, so a drain spanning a
-    steal handover needs no split; the
-    leader's watermark advances release chosen columns through K5.
+    steal handover needs no split; the leader's watermark advances
+    release chosen columns through K5, held on the host and applied by
+    the next drain's staged call ahead of its run.
     The reference's ``"tpu"`` is refused by name.
 
 The universe is the fixed grid (a steal moves leadership, not
@@ -165,6 +166,9 @@ class GeoQuorumTracker:
         return newly_pairs(slots, ballots, newly)
 
     def release(self, slots) -> None:
-        """Watermark GC passthrough (ring wrap for the cuda board; K5)."""
+        """Watermark GC passthrough (ring wrap for the cuda board; K5).
+        The checker holds the slots until its next board call: the next
+        drain's staged K6 call resets their columns ahead of its run, in
+        one K5 launch for every release since the drain before."""
         if self._checker is not None and len(slots):
             self._checker.release(np.asarray(slots))

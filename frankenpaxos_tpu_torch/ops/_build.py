@@ -14,11 +14,12 @@ launches on the caller's stream, never synchronises, and returns
 exceptions are the ``*_staged`` entry points, which run a
 transport-facing or tracker call whole (copy up, launch, copy down) and
 return after the stream has drained (:class:`Staging` says which
-stream).
+stream), and K2's staged run, which records an event instead of waiting
+(its caller waits on the event when it collects).
 
 The lean call path (:class:`Entry`, :func:`stream_handle`) serves the
-wrappers whose host cost is the call itself (K1, K6, K10, K11, K12, K18,
-and the drain runs of K3, K14 and the pinned copy): the entry point
+wrappers whose host cost is the call itself (K1, K2, K5, K6, K10, K11,
+K12, K18, and the drain runs of K3, K14 and the pinned copy): the entry point
 is looked up once; its arguments cross as ONE packed block of int64
 (``struct`` bytes), which ctypes converts once instead of one argument
 at a time; a launch-only entry is called through a ``ctypes.PyDLL``
@@ -76,18 +77,33 @@ SIGNATURES = {
         # packed: pinned votes [n, b], their device copy, b, device out,
         # pinned out, the predicate, device, stream
         "fpx_quorum_hit_staged": _B,
-        # votes, rounds, chosen, owner, window, block, b, start,
-        # true_start, vote_round, newly, *pred
-        "fpx_record_block": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _P,
-                             *_PRED, _I, _P],
+        # packed: votes, rounds, chosen, owner, window, n, the host table
+        # [nb, 6], nb, the staged block [n, stride] (device), stride,
+        # newly (device), perm identity, the predicate, device, stream
+        "fpx_record_block_run": _B,
+        # packed: the board (6), the host table, nb, the pinned in-block
+        # (held slots, then the staged block), its device copy, held
+        # slots, block offset, stride, device newly, pinned newly, bytes
+        # of newly, perm identity, the predicate, event, device, stream
+        "fpx_record_block_run_staged": _B,
+        # packed: device, the address of the int64 handle / the event
+        "fpx_event_create": _B,
+        "fpx_event_wait": _B,
+        "fpx_event_destroy": _B,
     },
     "sparse": {
         # votes, rounds, chosen, owner, window, lanes [5, b], b, newly,
         # scratch [2, b], *pred
         "fpx_record_and_check": [_P, _P, _P, _P, _L, _P, _I, _P, _P,
                                  *_PRED, _I, _P],
-        # votes, rounds, chosen, owner, window, n, slots, valid, b
-        "fpx_release": [_P, _P, _P, _P, _L, _I, _P, _P, _I, _I, _P],
+        # packed: votes, rounds, chosen, owner, window, n, slots, valid,
+        # b, device, stream
+        "fpx_release": _B,
+        # packed: the board (6), slots, r, device, stream
+        "fpx_release_all": _B,
+        # packed: the board (6), pinned slots, their device copy, r,
+        # device, stream
+        "fpx_release_staged": _B,
     },
     "epoch": {
         # present, row_stride, col_stride, b, config_idx, out, masks,
@@ -98,7 +114,8 @@ SIGNATURES = {
         # b, chunk, boundaries, nb, newly, masks, thresholds, combine_any,
         # k, g, device, stream
         "fpx_record_and_check_epochs": _B,
-        # packed: the same, then the pinned lanes and the pinned newly
+        # packed: the same, then the pinned lanes (and the held released
+        # slots after them), the pinned newly, the held slots' count
         "fpx_record_and_check_epochs_staged": _B,
         # block, n_old, b, cmap, n_new, out
         "fpx_reshape_columns": [_P, _I, _L, _P, _I, _P, _I, _P],

@@ -84,6 +84,7 @@
 #include <cstring>
 
 #include "quorum.cuh"
+#include "release.cuh"
 
 // The reference's _NEG_INF32 = -(2**31) + 1.
 #define FPX_NEG_INF32 (-2147483647)
@@ -606,20 +607,30 @@ extern "C" int fpx_record_and_check_epochs(const void* block) {
 }
 
 // The tracker's drain in one call: run_epochs's block, then the pinned
-// lanes [5, b] and the pinned newly [b]. The lanes up, the run, newly
-// down, then a wait on the stream. The stream is the caller's current
-// one: the board is state on the card, and work the caller queued before
-// (K5's release, K7's reshape, the board's fill) must land first.
+// lanes [5, b] and the pinned newly [b], then r, the releases the checker
+// held since its last board call (r int32 slots right after the lanes,
+// in the same pinned buffer and device copy). The lanes and slots up,
+// K5's all-valid form on the slots (release.cuh), the run, newly down,
+// then a wait on the stream. The stream is the caller's current one: the
+// board is state on the card, and work the caller queued before (K7's
+// reshape, the board's fill) must land first.
 extern "C" int fpx_record_and_check_epochs_staged(const void* block) {
-  long long a[21];
+  long long a[22];
   std::memcpy(a, block, sizeof a);
-  const long long b = a[7];
+  const long long b = a[7], held = a[21];
   const cudaStream_t s = pointer<CUstream_st>(a[18]);
+  if (held < 0 || held > INT_MAX) return cudaErrorInvalidValue;
   cudaError_t err = select_device(static_cast<int>(a[17]));
   if (err != cudaSuccess || b <= 0) return err;
   err = cudaMemcpyAsync(pointer<void>(a[6]), pointer<const void>(a[19]),
-                        static_cast<size_t>(b) * 5 * 4,
+                        static_cast<size_t>(5 * b + held) * 4,
                         cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return err;
+  const ReleaseBoard bd{pointer<uint8_t>(a[0]), pointer<int32_t>(a[1]),
+                        pointer<uint8_t>(a[2]), pointer<int32_t>(a[3]), a[4],
+                        static_cast<int>(a[5])};
+  err = launch_release_all(bd, pointer<const int32_t>(a[6]) + 5 * b, held,
+                           s);
   if (err != cudaSuccess) return err;
   err = run_epochs(a);
   if (err != cudaSuccess) return err;

@@ -20,19 +20,33 @@
 // hits down into pinned memory, a wait on the stream) in one call; both
 // K1 entry points take their arguments as one packed block of int64.
 //
-// K2 replaces _record_block (L267): one thread per column of the block
-// [start, start + B) runs the reference's ring self-reclaim, round max
-// with preemption clear, OR-in of live votes, predicate and
-// `newly = hit & ~old_chosen & touched` for its column and writes the
-// votes, rounds, chosen and owner columns back IN PLACE (JAX donates the
-// board; the port updates it).
+// K2 replaces _record_block (L267): for each column of a block [start,
+// start + B) the reference's ring self-reclaim, round max with
+// preemption clear, OR-in of live votes, predicate and
+// `newly = hit & ~old_chosen & touched`, written back IN PLACE (JAX
+// donates the board; the port updates it). One launch takes a RUN of
+// blocks (record_block_run_kernel, one blockIdx.y a block; the table of
+// board column, true start, width, staged column and round travels in
+// the kernel's parameters), which the reference applies in order: the
+// blocks of one launch are column-disjoint modulo the window, and the
+// host starts a new launch at a block that overlaps one before it. A
+// thread takes one column: every global load of it is started before the
+// first is used (the block's rows, the board's rows, owner, rounds,
+// chosen), the new column is built in registers and the predicate runs
+// in its register form on those registers (quorum_regs.cuh, as K1; the
+// runtime loop past 16 acceptors), and each array is stored once.
+// fpx_record_block_run_staged runs a pipelined drain's dense blocks
+// whole: the pinned in-block up, K5's all-valid form on the releases the
+// checker held (release.cuh), the run, newly down into pinned memory and
+// an event recorded, without waiting; fpx_event_wait waits for the event
+// with the GIL released.
 //
 // Bound on the H100: bytes. K1 moves N + 1 bytes per column, K2 about
-// 3N + 14, with a few integer operations per byte; at the tracker's
-// B = 64 .. 4096 that is under 20 KB, so the launch itself sets K1's time
-// (about 1.3 us a launch on the card): the vector path gives a bucket of
-// 4096 columns 256 threads. K2 keeps one thread per column; neighbouring
-// threads touch neighbouring bytes, so every row read is coalesced.
+// 3N + 19, with a few integer operations per byte; at the trackers'
+// B = 64 .. 4096 that is under 100 KB, so the launch and the chain of
+// dependent memory round trips set the time (about 1.3 us a launch on
+// the card): K1's vector path gives a bucket of 4096 columns 256
+// threads; K2 keeps a thread a column (see run_column).
 
 #include <algorithm>
 #include <climits>
@@ -40,6 +54,7 @@
 
 #include "quorum.cuh"
 #include "quorum_regs.cuh"
+#include "release.cuh"
 
 namespace {
 
@@ -134,58 +149,163 @@ __global__ void __launch_bounds__(FPX_THREADS)
   }
 }
 
-__global__ void record_block_kernel(uint8_t* __restrict__ votes,
-                                    int32_t* __restrict__ rounds,
-                                    uint8_t* __restrict__ chosen,
-                                    int32_t* __restrict__ owner,
-                                    long long window,
-                                    const uint8_t* __restrict__ block, int b,
-                                    int start, int true_start, int vote_round,
-                                    uint8_t* __restrict__ newly,
-                                    QuorumPred q) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= b) return;
-  const long long c = static_cast<long long>(start) + j;
+// --- K2: a run of dense blocks ---------------------------------------------
 
-  bool touched = false;
-  for (int i = 0; i < q.n; ++i) {
-    touched |= block[static_cast<long long>(i) * b + j] != 0;
-  }
-  // Ring self-reclaim: claim a column owned by an older slot, drop votes
-  // for a slot the column has moved past. slot ids wrap as int32.
-  const int32_t slot_id = static_cast<int32_t>(
-      static_cast<uint32_t>(true_start) + static_cast<uint32_t>(j));
-  const int32_t old_owner = owner[c];
-  const bool claim = touched && slot_id > old_owner;
+// Blocks of one K2 launch at most: the table travels in the kernel's
+// parameters (1.3 KB of the 4 KB they may take), and the entry
+// starts another launch past it.
+constexpr int kMaxRunBlocks = 64;
+// Fields of a row of the host table: board column, true start, width,
+// staged column, round, and 1 where the block starts a new launch.
+constexpr int kRunFields = 6;
+
+struct RunBlock {
+  int col;         // board column of the block's first column
+  int true_start;  // the slot of that column (int32)
+  int width;
+  int at;          // the block's first column in the staged block / newly
+  int round;
+};
+
+// One launch: the board, the staged [n, stride] block rows, `newly` at
+// the staged columns, and the launch's blocks (blockIdx.y picks one).
+struct Run {
+  uint8_t* votes;
+  int32_t* rounds;
+  uint8_t* chosen;
+  int32_t* owner;
+  long long window;
+  const uint8_t* blocks;
+  long long stride;
+  uint8_t* newly;
+  int perm_identity;  // perm[s] == s: the rows need no lookup
+  RunBlock blk[kMaxRunBlocks];
+};
+
+// A column's ring self-reclaim, round max and preemption (the
+// reference's _record_block L288-304), from whether the block has a vote
+// byte for it.
+struct Step {
+  bool claim, clear, live, touched;
+  int32_t owner, round;
+};
+
+__device__ __forceinline__ Step column_step(bool touched, int32_t slot_id,
+                                            int32_t old_owner,
+                                            int32_t round_now,
+                                            int32_t vote_round) {
+  Step st;
+  // Claim a column owned by an older slot; drop votes for a slot the
+  // column has moved past.
+  st.claim = touched && slot_id > old_owner;
   const bool stale = touched && slot_id < old_owner;
-  touched = touched && !stale;
-  const int32_t new_owner = claim ? slot_id : old_owner;
-
-  const int32_t old_round = claim ? -1 : rounds[c];
-  const int32_t new_round =
-      touched ? max(old_round, vote_round) : old_round;
-  const bool preempted = new_round > old_round;
-  const bool live = touched && vote_round == new_round;
-  // The reference ANDs the block with touched and with live as uint8
-  // 0/1 masks, so a live vote byte contributes only its low bit.
-  const uint8_t keep = live ? 1 : 0;
-  for (int i = 0; i < q.n; ++i) {
-    uint8_t* cell = votes + static_cast<long long>(i) * window + c;
-    uint8_t v = (claim || preempted) ? 0 : *cell;
-    v |= block[static_cast<long long>(i) * b + j] & keep;
-    *cell = v;
-  }
-  const bool hit = quorum_hit(q, [&](int i) {
-    return votes[static_cast<long long>(i) * window + c];
-  });
-  const bool old_chosen = claim ? false : chosen[c] != 0;
-  newly[j] = hit && !old_chosen && touched;
-  chosen[c] = hit || old_chosen;
-  rounds[c] = new_round;
-  owner[c] = new_owner;
+  st.touched = touched && !stale;
+  st.owner = st.claim ? slot_id : old_owner;
+  const int32_t old_round = st.claim ? -1 : round_now;
+  st.round = st.touched ? max(old_round, vote_round) : old_round;
+  st.clear = st.claim || st.round > old_round;  // reclaimed or preempted
+  st.live = st.touched && vote_round == st.round;
+  return st;
 }
 
-inline int blocks_for(int b) { return (b + FPX_THREADS - 1) / FPX_THREADS; }
+// One column a thread: every load started first (the block's N bytes
+// through the read-only cache, the board's N bytes, owner, round,
+// chosen), the new column built in registers, the predicate in its
+// register form on those registers, each array stored once. (Several
+// columns a thread, with 16-byte accesses, measured slower at every
+// width: the chain of per-column work a thread runs grows with them,
+// and at these sizes that chain, not the bytes, sets the time.)
+template <int kN, int kCols>
+__device__ __forceinline__ void run_column(const Run& r, const RunBlock& b,
+                                           const RegPred<kN, kCols>& p,
+                                           const long long (&row_b)[kN],
+                                           const long long (&row_v)[kN],
+                                           int j) {
+  const long long c = static_cast<long long>(b.col) + j;
+  const long long s = static_cast<long long>(b.at) + j;
+  uint32_t blk[kN], v[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    blk[i] = __ldg(r.blocks + row_b[i] + s);
+    v[i] = r.votes[row_v[i] + c];
+  }
+  const int32_t own = r.owner[c], rnd = r.rounds[c];
+  const bool ch = r.chosen[c] != 0;
+  uint32_t any = 0;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) any |= blk[i];
+  const Step st = column_step(
+      any != 0,
+      static_cast<int32_t>(static_cast<uint32_t>(b.true_start) +
+                           static_cast<uint32_t>(j)),
+      own, rnd, b.round);
+  const uint32_t keep = st.live ? 1u : 0u;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) v[i] = (st.clear ? 0u : v[i]) | (blk[i] & keep);
+  const bool hit = hit_regs(v, p);
+  const bool old_chosen = !st.claim && ch;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    r.votes[row_v[i] + c] = static_cast<uint8_t>(v[i]);
+  }
+  r.newly[s] = hit && !old_chosen && st.touched;
+  r.chosen[c] = hit || old_chosen;
+  r.rounds[c] = st.round;
+  r.owner[c] = st.owner;
+}
+
+// Boards of more than kMaxRegN acceptors: quorum.cuh's runtime loop on
+// the new column, computed from the board's old bytes and the block's
+// (the board is written after the predicate).
+__device__ __forceinline__ void run_runtime(const Run& r, const RunBlock& b,
+                                            const QuorumPred& q, int j) {
+  const long long c = static_cast<long long>(b.col) + j;
+  const long long s = static_cast<long long>(b.at) + j;
+  const int32_t own = r.owner[c], rnd = r.rounds[c];
+  const bool ch = r.chosen[c] != 0;
+  bool any = false;
+  for (int i = 0; i < q.n; ++i) any |= r.blocks[i * r.stride + s] != 0;
+  const Step st = column_step(
+      any,
+      static_cast<int32_t>(static_cast<uint32_t>(b.true_start) +
+                           static_cast<uint32_t>(j)),
+      own, rnd, b.round);
+  const uint8_t keep = st.live ? 1 : 0;
+  auto vote = [&](int i) -> uint8_t {
+    const uint8_t old = st.clear ? 0 : r.votes[i * r.window + c];
+    return old | (r.blocks[i * r.stride + s] & keep);
+  };
+  const bool hit = quorum_hit(q, vote);
+  for (int i = 0; i < q.n; ++i) r.votes[i * r.window + c] = vote(i);
+  const bool old_chosen = !st.claim && ch;
+  r.newly[s] = hit && !old_chosen && st.touched;
+  r.chosen[c] = hit || old_chosen;
+  r.rounds[c] = st.round;
+  r.owner[c] = st.owner;
+}
+
+// K2 (the reference's _record_block L267) on a run of blocks, one
+// blockIdx.y a block, a thread a column. kN = 0: the runtime loop.
+template <int kN, int kCols>
+__global__ void __launch_bounds__(FPX_THREADS)
+    record_block_run_kernel(const __grid_constant__ Run r, QuorumPred q) {
+  const RunBlock& b = r.blk[blockIdx.y];
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= b.width) return;
+  if constexpr (kN == 0) {
+    run_runtime(r, b, q, j);
+  } else {
+    const RegPred<kN, kCols> p = reg_pred<kN, kCols>(q);
+    long long row_b[kN], row_v[kN];
+#pragma unroll
+    for (int s = 0; s < kN; ++s) {
+      const long long node = r.perm_identity ? s : q.perm[s];
+      row_b[s] = node * r.stride;
+      row_v[s] = node * r.window;
+    }
+    run_column<kN, kCols>(r, b, p, row_b, row_v, j);
+  }
+}
 
 cudaError_t select_device(int device) {
   int current = -1;
@@ -235,6 +355,65 @@ QuorumPred packed_pred(const long long* a) {
                    static_cast<int>(a[8]));
 }
 
+// K2's launches for the table's blocks (`table` [nb, kRunFields] in host
+// memory; `r` carries the board, the staged block and newly): a new
+// launch where a row's flag says (a block that overlaps a column of the
+// launch before it, modulo the window: the blocks must be applied in
+// order) or past kMaxRunBlocks.
+cudaError_t launch_run(Run& r, const int32_t* table, long long nb,
+                       QuorumPred q, cudaStream_t stream) {
+  if (nb <= 0) return cudaSuccess;
+  const bool regs = register_form(q);
+  for (long long first = 0; first < nb;) {
+    long long last = first + 1;
+    while (last < nb && last - first < kMaxRunBlocks &&
+           table[last * kRunFields + 5] == 0) {
+      ++last;
+    }
+    long long width = 1;
+    for (long long k = first; k < last; ++k) {
+      const int32_t* row = table + k * kRunFields;
+      RunBlock& b = r.blk[k - first];
+      b = RunBlock{row[0], row[1], row[2], row[3], row[4]};
+      if (b.col < 0 || b.width < 0 || b.at < 0 ||
+          b.col + static_cast<long long>(b.width) > r.window ||
+          b.at + static_cast<long long>(b.width) > r.stride) {
+        return cudaErrorInvalidValue;
+      }
+      width = std::max(width, static_cast<long long>(b.width));
+    }
+    const dim3 grid(
+        static_cast<unsigned>((width + FPX_THREADS - 1) / FPX_THREADS),
+        static_cast<unsigned>(last - first));
+    auto go = [&](auto form) {
+      using F = decltype(form);
+      record_block_run_kernel<F::n, F::cols>
+          <<<grid, FPX_THREADS, 0, stream>>>(r, q);
+      return cudaGetLastError();
+    };
+    const cudaError_t err = regs ? dispatch_regs(q, go) : go(Form<0, 0>{});
+    if (err != cudaSuccess) return err;
+    first = last;
+  }
+  return cudaSuccess;
+}
+
+// a[0 .. 5]: votes, rounds, chosen, owner, window, n.
+Run make_run(const long long* a, const uint8_t* blocks, long long stride,
+             uint8_t* newly, long long perm_identity) {
+  Run r;
+  r.votes = pointer<uint8_t>(a[0]);
+  r.rounds = pointer<int32_t>(a[1]);
+  r.chosen = pointer<uint8_t>(a[2]);
+  r.owner = pointer<int32_t>(a[3]);
+  r.window = a[4];
+  r.blocks = blocks;
+  r.stride = stride;
+  r.newly = newly;
+  r.perm_identity = perm_identity != 0;
+  return r;
+}
+
 }  // namespace
 
 // block: votes, row stride, column stride, b, out, the predicate (9),
@@ -280,23 +459,101 @@ extern "C" int fpx_quorum_hit_staged(const void* block) {
   return cudaStreamSynchronize(s);
 }
 
-extern "C" int fpx_record_block(void* votes, void* rounds, void* chosen,
-                                void* owner, long long window,
-                                const void* block, int b, int start,
-                                int true_start, int vote_round, void* newly,
-                                const void* masks, const void* thresholds,
-                                const void* perm, int n, int g,
-                                int combine_any, int grid_kind, int rows,
-                                int cols, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// K2 on device tensors: block votes, rounds, chosen, owner, window, n, the
+// host table [nb, 6] (see launch_run), nb, the staged block [n, stride]
+// (device), stride, newly [stride] (device), perm identity, the predicate
+// (9), device, stream. A single record_block call is a run of one block.
+extern "C" int fpx_record_block_run(const void* block) {
+  long long a[23];
+  std::memcpy(a, block, sizeof a);
+  if (a[4] <= 0 || a[4] > INT_MAX || a[9] < 0 || a[9] > INT_MAX ||
+      a[5] != a[15]) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = select_device(static_cast<int>(a[21]));
   if (err != cudaSuccess) return err;
-  record_block_kernel<<<blocks_for(b), FPX_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(votes), static_cast<int32_t*>(rounds),
-      static_cast<uint8_t*>(chosen), static_cast<int32_t*>(owner), window,
-      static_cast<const uint8_t*>(block), b, start, true_start, vote_round,
-      static_cast<uint8_t*>(newly),
-      make_pred(masks, thresholds, perm, n, g, combine_any, grid_kind, rows,
-                cols));
-  return cudaGetLastError();
+  Run r = make_run(a, pointer<const uint8_t>(a[8]), a[9],
+                   pointer<uint8_t>(a[10]), a[11]);
+  return launch_run(r, pointer<const int32_t>(a[6]), a[7],
+                    packed_pred(a + 12), pointer<CUstream_st>(a[22]));
+}
+
+// The pipelined tracker's dense blocks of one drain in one call, with the
+// releases the checker held since its last board call: board (6), the
+// host table, nb, the pinned in-block and its device copy (the r held
+// slots as int32 at offset 0, the staged [n, stride] block at `blocks
+// offset`), r, blocks offset, stride, device newly, pinned newly, the
+// bytes of newly to copy down, perm identity, the predicate (9), an event
+// (0: none), device, stream. The in-block up, K5's all-valid form on the
+// held slots, K2's run, newly down into pinned memory, then the event is
+// recorded; it does not wait. All on the caller's current stream, behind
+// the work queued there (K4's parts of the same drain, K7's reshapes).
+extern "C" int fpx_record_block_run_staged(const void* block) {
+  long long a[29];
+  std::memcpy(a, block, sizeof a);
+  const long long n = a[5], nb = a[7], held = a[10], off = a[11],
+                  stride = a[12];
+  if (a[4] <= 0 || a[4] > INT_MAX || stride < 0 || stride > INT_MAX ||
+      held < 0 || held > INT_MAX || off < 4 * held || off % 16 != 0 ||
+      n != a[20]) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = pointer<CUstream_st>(a[28]);
+  cudaError_t err = select_device(static_cast<int>(a[27]));
+  if (err != cudaSuccess) return err;
+  uint8_t* dev_in = pointer<uint8_t>(a[9]);
+  const size_t in_bytes =
+      static_cast<size_t>(nb > 0 ? off + n * stride : 4 * held);
+  if (in_bytes) {
+    err = cudaMemcpyAsync(dev_in, pointer<const void>(a[8]), in_bytes,
+                          cudaMemcpyHostToDevice, s);
+    if (err != cudaSuccess) return err;
+  }
+  const ReleaseBoard bd{pointer<uint8_t>(a[0]), pointer<int32_t>(a[1]),
+                        pointer<uint8_t>(a[2]), pointer<int32_t>(a[3]), a[4],
+                        static_cast<int>(n)};
+  err = launch_release_all(bd, reinterpret_cast<const int32_t*>(dev_in),
+                           held, s);
+  if (err != cudaSuccess) return err;
+  Run r = make_run(a, dev_in + off, stride, pointer<uint8_t>(a[13]), a[16]);
+  err = launch_run(r, pointer<const int32_t>(a[6]), nb, packed_pred(a + 17),
+                   s);
+  if (err != cudaSuccess) return err;
+  if (a[15] > 0) {
+    err = cudaMemcpyAsync(pointer<void>(a[14]), pointer<const void>(a[13]),
+                          static_cast<size_t>(a[15]), cudaMemcpyDeviceToHost,
+                          s);
+    if (err != cudaSuccess) return err;
+  }
+  if (a[26]) return cudaEventRecord(pointer<CUevent_st>(a[26]), s);
+  return cudaSuccess;
+}
+
+// An event for a staged run: a[0] device, a[1] the address of an int64
+// that receives the handle. Timing off: it orders, it does not time.
+extern "C" int fpx_event_create(const void* block) {
+  long long a[2];
+  std::memcpy(a, block, sizeof a);
+  cudaError_t err = select_device(static_cast<int>(a[0]));
+  if (err != cudaSuccess) return err;
+  cudaEvent_t e = nullptr;
+  err = cudaEventCreateWithFlags(&e, cudaEventDisableTiming);
+  if (err == cudaSuccess) {
+    *pointer<long long>(a[1]) =
+        static_cast<long long>(reinterpret_cast<uintptr_t>(e));
+  }
+  return err;
+}
+
+// Wait for an event (a[0]); called with the GIL released.
+extern "C" int fpx_event_wait(const void* block) {
+  long long a[1];
+  std::memcpy(a, block, sizeof a);
+  return cudaEventSynchronize(pointer<CUevent_st>(a[0]));
+}
+
+extern "C" int fpx_event_destroy(const void* block) {
+  long long a[1];
+  std::memcpy(a, block, sizeof a);
+  return cudaEventDestroy(pointer<CUevent_st>(a[0]));
 }

@@ -9,20 +9,33 @@
 // per-lane "slot newly has quorum" mask. The ordered phases run in one
 // thread block (sparse.cuh explains why).
 //
-// K5 replaces _release (L327): for each valid lane, reset the column to
-// votes 0, round -1, chosen false, owner -1. One thread per lane; every
-// writer of a column stores the same reset values, so duplicate lanes
-// need no order. JAX's `.set` leaves the order of a duplicate slot's
-// lanes unspecified when their valid flags differ; here the column is
-// reset when ANY of its lanes is valid.
+// K5 replaces _release (L327): reset the column of each released slot to
+// votes 0, round -1, chosen false, owner -1. Two forms. The general one
+// (release_kernel, fpx_release), one thread per lane, reads a `valid`
+// array: every writer of a column stores the same reset values, so
+// duplicate lanes need no order; JAX's `.set` leaves the order of a
+// duplicate slot's lanes unspecified when their valid flags differ, and
+// here the column is reset when ANY of its lanes is valid. The all-valid
+// one (release.cuh's release_all_kernel, four lanes a thread, no `valid`
+// array) is every checker's: the checkers hold released slots on the host
+// until their next board call, whose staged entry (K2's run, K6's run)
+// launches it ahead of its own launch; every other board call first
+// flushes them through fpx_release_staged (the slots up from pinned
+// memory, the launch, a wait on the caller's stream), and fpx_release_all
+// takes device tensors.
 //
 // Bound on the H100: neither. At the tracker's 256-lane chunks K4 moves
 // about 20 bytes of lanes plus ~(2N + 18) bytes per touched column, a
-// few kilobytes, and K5 (4096 lanes in the prewarm) about 100 KB: both
-// are far below a microsecond of memory time, so the launch and K4's
-// nine block-wide barriers set their time. Moving the lanes in one
-// packed int32 [5, B] array keeps it to one host-to-device copy per call.
+// few kilobytes, and K5 (a few slots a watermark advance, 4096 lanes in
+// the prewarm) at most about 100 KB: both are far below a microsecond of
+// memory time, so the launch and K4's nine block-wide barriers set their
+// time. Moving the lanes in one packed int32 [5, B] array keeps it to one
+// host-to-device copy per call.
 
+#include <climits>
+#include <cstring>
+
+#include "release.cuh"
 #include "sparse.cuh"
 
 namespace {
@@ -81,16 +94,80 @@ extern "C" int fpx_record_and_check(void* votes, void* rounds, void* chosen,
   return cudaGetLastError();
 }
 
-extern "C" int fpx_release(void* votes, void* rounds, void* chosen,
-                           void* owner, long long window, int n,
-                           const void* slots, const void* valid, int b,
-                           int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  release_kernel<<<(b + FPX_THREADS - 1) / FPX_THREADS, FPX_THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      make_board(votes, rounds, chosen, owner, window, n),
-      static_cast<const int32_t*>(slots), static_cast<const uint8_t*>(valid),
-      b);
+namespace {
+
+template <typename T>
+T* pointer(long long slot) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(slot));
+}
+
+cudaError_t select_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
+// a[0 .. 5]: votes, rounds, chosen, owner, window, n.
+ReleaseBoard release_board(const long long* a) {
+  return ReleaseBoard{pointer<uint8_t>(a[0]), pointer<int32_t>(a[1]),
+                      pointer<uint8_t>(a[2]), pointer<int32_t>(a[3]), a[4],
+                      static_cast<int>(a[5])};
+}
+
+}  // namespace
+
+// block: votes, rounds, chosen, owner, window, n, slots, valid, b,
+// device, stream.
+extern "C" int fpx_release(const void* block) {
+  long long a[11];
+  std::memcpy(a, block, sizeof a);
+  const long long b = a[8];
+  if (b < 0 || b > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = select_device(static_cast<int>(a[9]));
+  if (err != cudaSuccess || b == 0) return err;
+  release_kernel<<<static_cast<unsigned>((b + FPX_THREADS - 1) /
+                                         FPX_THREADS),
+                   FPX_THREADS, 0, pointer<CUstream_st>(a[10])>>>(
+      make_board(pointer<void>(a[0]), pointer<void>(a[1]),
+                 pointer<void>(a[2]), pointer<void>(a[3]), a[4],
+                 static_cast<int>(a[5])),
+      pointer<const int32_t>(a[6]), pointer<const uint8_t>(a[7]),
+      static_cast<int>(b));
   return cudaGetLastError();
+}
+
+// The all-valid form on device slots: votes, rounds, chosen, owner,
+// window, n, slots, r, device, stream.
+extern "C" int fpx_release_all(const void* block) {
+  long long a[10];
+  std::memcpy(a, block, sizeof a);
+  if (a[7] < 0 || a[7] > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = select_device(static_cast<int>(a[8]));
+  if (err != cudaSuccess) return err;
+  return launch_release_all(release_board(a), pointer<const int32_t>(a[6]),
+                            a[7], pointer<CUstream_st>(a[9]));
+}
+
+// A checker's held releases flushed ahead of a board call that carries
+// none: votes, rounds, chosen, owner, window, n, pinned slots, their
+// device copy, r, device, stream. The slots up, the all-valid form, then
+// a wait on the stream (the caller's current one, which the board call
+// that follows uses too), so that the pinned slots are free again.
+extern "C" int fpx_release_staged(const void* block) {
+  long long a[11];
+  std::memcpy(a, block, sizeof a);
+  const long long r = a[8];
+  if (r < 0 || r > INT_MAX) return cudaErrorInvalidValue;
+  const cudaStream_t s = pointer<CUstream_st>(a[10]);
+  cudaError_t err = select_device(static_cast<int>(a[9]));
+  if (err != cudaSuccess || r == 0) return err;
+  err = cudaMemcpyAsync(pointer<void>(a[7]), pointer<const void>(a[6]),
+                        static_cast<size_t>(r) * 4, cudaMemcpyHostToDevice,
+                        s);
+  if (err != cudaSuccess) return err;
+  err = launch_release_all(release_board(a), pointer<const int32_t>(a[7]), r,
+                           s);
+  if (err != cudaSuccess) return err;
+  return cudaStreamSynchronize(s);
 }

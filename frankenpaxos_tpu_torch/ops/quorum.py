@@ -14,10 +14,16 @@ Seven kernels live here, each beside its plain PyTorch version:
     :func:`quorum_hit_staged`, the synchronous tracker's whole drain in
     one call;
   * K2 :func:`record_block` -- the dense board update for one
-    contiguous slot block (``_record_block``);
+    contiguous slot block (``_record_block``); :func:`record_block_run`
+    takes a run of blocks in one launch, and
+    :meth:`TpuQuorumChecker.dense_run` is the pipelined tracker's dense
+    blocks of a drain in one staged call that does not wait;
   * K4 :func:`record_and_check` -- the sparse scatter of straggler
     votes (``_apply_sparse_votes`` + ``_record_and_check``);
-  * K5 :func:`release` -- the column reset of GC'd slots (``_release``);
+  * K5 :func:`release` -- the column reset of GC'd slots (``_release``),
+    and :func:`release_all`, its all-valid form, which the checkers run
+    on the releases they hold until their next board call
+    (:class:`_HeldReleases`);
   * K6 :func:`record_and_check_epochs` and :func:`check_batch_multi` --
     the epoch-segmented scatter and the per-row multi-config predicate
     (``_record_and_check_epochs``, ``_check_batch_multi``); the scatter
@@ -49,6 +55,7 @@ all-reduce of the per-lane result per call (the sharded section below).
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence
+import weakref
 
 from frankenpaxos_tpu_torch.device import resolve_device
 from frankenpaxos_tpu_torch.ops import _build
@@ -160,6 +167,13 @@ class QuorumPredicate(NamedTuple):
     @property
     def num_nodes(self) -> int:
         return self.masks.shape[1]
+
+    @property
+    def perm_identity(self) -> int:
+        """1 where ``perm`` is the identity (every predicate but a grid
+        over a universe out of row-major order), so that a kernel reads
+        its rows without looking ``perm`` up."""
+        return int(self.grid is None or self.grid[3] is None)
 
     def c_args(self) -> tuple:
         """The predicate arguments of every C entry point."""
@@ -322,6 +336,54 @@ quorum_hit.launches = 0
 
 # --- K2: the dense board update --------------------------------------------
 
+#: Fields of a row of a run's table: board column, true start (int32),
+#: width, staged column, round, and 1 where the block starts a launch.
+RUN_FIELDS = 6
+#: Blocks of one K2 launch at most (the table travels in the kernel's
+#: parameters); a longer run takes several launches, in order.
+MAX_RUN_BLOCKS = 64
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def run_table(starts, widths, rounds, window: int,
+              true_starts=None) -> tuple:
+    """``(table, stride)`` for a run of dense blocks: block ``k`` records
+    ``widths[k]`` columns from slot ``starts[k]`` (which must not straddle
+    the ring end) in round ``rounds[k]``; ``true_starts[k]``, when given,
+    is the slot number of its first column in place of ``starts[k]``
+    (``record_block``'s ``true_start``). ``table`` is the ``[nb, 6]``
+    int32 array of :data:`RUN_FIELDS`, the blocks side by side in a
+    ``[N, stride]`` staged block. A block
+    starts a new launch where it shares a board column with a block of
+    the current launch (the reference applies blocks in order; only a
+    window violation brings two blocks of a drain onto one column), or
+    past :data:`MAX_RUN_BLOCKS`."""
+    nb = len(starts)
+    table = np.empty((nb, RUN_FIELDS), dtype=np.int32)
+    end = 0
+    launch: list = []
+    if true_starts is None:
+        true_starts = starts
+    for k, (start, true_start, width, rnd) in enumerate(
+            zip(starts, true_starts, widths, rounds)):
+        start, width = int(start), int(width)
+        col = start % window
+        if width < 0 or col + width > window:
+            raise ValueError(f"block [{col}, {col + width}) outside the "
+                             f"window {window}")
+        at, end = end, end + width
+        overlap = any(col < c + w and c < col + width for c, w in launch)
+        fresh = not launch or overlap or len(launch) == MAX_RUN_BLOCKS
+        if fresh:
+            launch = []
+        launch.append((col, width))
+        table[k] = (col, int32(true_start), width, at, int32(rnd),
+                    int(fresh))
+    return table, end
+
 
 def record_block_plain(board: VoteBoard, start: int, true_start: int,
                        block: torch.Tensor, vote_round: int,
@@ -364,6 +426,105 @@ def record_block_plain(board: VoteBoard, start: int, true_start: int,
     return newly
 
 
+def record_block_run_plain(board: VoteBoard, table: np.ndarray,
+                           blocks: torch.Tensor,
+                           pred: QuorumPredicate) -> torch.Tensor:
+    """Plain PyTorch version of K2's run: :func:`record_block_plain` on
+    each block of ``table`` (:func:`run_table`) in order, block ``k``
+    from the staged ``blocks [N, stride]`` columns ``[at, at + width)``.
+    Returns the ``[stride]`` newly mask at the staged columns (False
+    elsewhere)."""
+    newly = torch.zeros((blocks.shape[1],), dtype=torch.bool,
+                        device=blocks.device)
+    for col, true_start, width, at, rnd, _ in np.asarray(table).tolist():
+        newly[at:at + width] = record_block_plain(
+            board, col, true_start, blocks[:, at:at + width], rnd, pred)
+    return newly
+
+
+def _check_board(board: VoteBoard, pred: QuorumPredicate) -> tuple:
+    n, window = board.votes.shape
+    if n != pred.num_nodes:
+        raise ValueError(f"board has {n} rows, predicate has "
+                         f"{pred.num_nodes} nodes")
+    if tuple(t.dtype for t in board) != _BOARD_DTYPES \
+            or board.rounds.shape != (window,) \
+            or any(t.shape != board.rounds.shape for t in board[2:]):
+        raise ValueError("board tensors do not match make_vote_board's")
+    return n, window
+
+
+def _board_ptrs(board: VoteBoard) -> tuple:
+    n, window = board.votes.shape
+    return (board.votes.data_ptr(), board.rounds.data_ptr(),
+            board.chosen.data_ptr(), board.owner.data_ptr(), window, n)
+
+
+_K2 = _build.Entry("quorum", "fpx_record_block_run", 23)
+_K2_STAGED = _build.Entry("quorum", "fpx_record_block_run_staged", 29)
+
+
+def record_block_run(board: VoteBoard, table: np.ndarray,
+                     blocks: torch.Tensor,
+                     pred: QuorumPredicate) -> torch.Tensor:
+    """K2 on a run of blocks, IN PLACE: the host ``table`` of
+    :func:`run_table` and the ``[N, stride]`` uint8 staged ``blocks``;
+    returns the ``[stride]`` newly mask at the staged columns. CUDA
+    tensors launch ``csrc/quorum.cu::record_block_run_kernel`` through
+    the lean call path (one packed ``ctypes`` call; one launch, more only
+    where the table starts one); CPU tensors take
+    :func:`record_block_run_plain`."""
+    n, window = _check_board(board, pred)
+    table = np.ascontiguousarray(table, dtype=np.int32)
+    if table.ndim != 2 or table.shape[1] != RUN_FIELDS:
+        raise ValueError(f"table must be [nb, {RUN_FIELDS}] int32")
+    if blocks.dtype != torch.uint8 or blocks.dim() != 2 \
+            or blocks.shape[0] != n:
+        raise ValueError(f"blocks must be [{n}, stride] uint8, got "
+                         f"{blocks.dtype} {tuple(blocks.shape)}")
+    stride = blocks.shape[1]
+    if table.size and ((table[:, 0] < 0).any() or (table[:, 2] < 0).any()
+                       or (table[:, 3] < 0).any()
+                       or (table[:, 0] + table[:, 2] > window).any()
+                       or (table[:, 3] + table[:, 2] > stride).any()):
+        raise ValueError("a block of the table lies outside the window or "
+                         "the staged block")
+    index = blocks.get_device()
+    if (index < 0 or board.votes.get_device() != index
+            or pred.masks.get_device() != index) \
+            and not use_kernel(blocks, *board, pred.masks):
+        return record_block_run_plain(board, table, blocks, pred)
+    if not (blocks.is_contiguous()
+            and all(t.is_contiguous() for t in board)):
+        raise ValueError("record_block_run needs contiguous tensors")
+    newly = torch.zeros((stride,), dtype=torch.bool, device=blocks.device)
+    if not len(table):
+        return newly
+    fn = _K2.fn or _K2.resolve()
+    rc = fn(_K2.pack(*_board_ptrs(board), table.ctypes.data, len(table),
+                     blocks.data_ptr(), stride, newly.data_ptr(),
+                     pred.perm_identity, *pred.c_args(), index,
+                     _build.stream_handle(index)))
+    if rc:
+        _K2.check(rc)
+    record_block.launches += _launch_count(table)
+    return newly
+
+
+def _launch_count(table: np.ndarray) -> int:
+    """The launches of a run's table, as the C entry splits it: one at
+    the first block, at each flagged block, and past MAX_RUN_BLOCKS."""
+    count, k, nb = 0, 0, len(table)
+    while k < nb:
+        count += 1
+        last = k + 1
+        while last < nb and last - k < MAX_RUN_BLOCKS \
+                and not table[last, 5]:
+            last += 1
+        k = last
+    return count
+
+
 def record_block(board: VoteBoard, start: int, true_start: int,
                  block: torch.Tensor, vote_round: int,
                  pred: QuorumPredicate) -> torch.Tensor:
@@ -372,46 +533,263 @@ def record_block(board: VoteBoard, start: int, true_start: int,
     ``block`` is ``[N, B]`` uint8 with ``start + B <= window``;
     ``true_start`` is the slot number of column ``start``. Returns the
     ``[B]`` newly-chosen mask. CUDA tensors launch
-    ``csrc/quorum.cu::record_block_kernel``; CPU tensors take
+    ``csrc/quorum.cu::record_block_run_kernel`` on a run of one block
+    (one packed ``ctypes`` call); CPU tensors take
     :func:`record_block_plain`."""
-    n, window = board.votes.shape
+    n, window = _check_board(board, pred)
     if block.dtype != torch.uint8 or block.dim() != 2 \
             or block.shape[0] != n:
         raise ValueError(f"block must be [{n}, B] uint8, got {block.dtype} "
                          f"{tuple(block.shape)}")
-    if n != pred.num_nodes:
-        raise ValueError(f"board has {n} rows, predicate has "
-                         f"{pred.num_nodes} nodes")
     b = block.shape[1]
     start, true_start, vote_round = (int32(start), int32(true_start),
                                      int32(vote_round))
     if not 0 <= start <= window - b:
         raise ValueError(f"block [{start}, {start + b}) outside the "
                          f"window {window}")
-    if tuple(t.dtype for t in board) != _BOARD_DTYPES \
-            or board.rounds.shape != (window,) \
-            or any(t.shape != board.rounds.shape for t in board[2:]):
-        raise ValueError("board tensors do not match make_vote_board's")
-    if not use_kernel(block, *board, pred.masks):
+    index = block.get_device()
+    if (index < 0 or board.votes.get_device() != index
+            or pred.masks.get_device() != index) \
+            and not use_kernel(block, *board, pred.masks):
         return record_block_plain(board, start, true_start, block,
                                   vote_round, pred)
-    if not all(t.is_contiguous() for t in (block, *board)):
+    if not (block.is_contiguous()
+            and all(t.is_contiguous() for t in board)):
         raise ValueError("record_block needs contiguous tensors")
     newly = torch.empty((b,), dtype=torch.bool, device=block.device)
     if b == 0:
         return newly
-    lib = _build.library("quorum")
-    rc = lib.fpx_record_block(
-        board.votes.data_ptr(), board.rounds.data_ptr(),
-        board.chosen.data_ptr(), board.owner.data_ptr(), window,
-        block.data_ptr(), b, start, true_start, vote_round, newly.data_ptr(),
-        *pred.c_args(), *_build.stream_args(block.device))
-    _build.check("quorum", "fpx_record_block", rc)
+    table = np.array([[start, true_start, b, 0, vote_round, 1]],
+                     dtype=np.int32)
+    fn = _K2.fn or _K2.resolve()
+    rc = fn(_K2.pack(*_board_ptrs(board), table.ctypes.data, 1,
+                     block.data_ptr(), b, newly.data_ptr(),
+                     pred.perm_identity, *pred.c_args(), index,
+                     _build.stream_handle(index)))
+    if rc:
+        _K2.check(rc)
     record_block.launches += 1
     return newly
 
 
 record_block.launches = 0
+
+
+class RunRing:
+    """The pinned slots of a checker's staged K2 runs, one a dispatch in
+    flight. A slot holds a pinned in-block (held released slots, then
+    the staged ``[N, stride]`` block), its device copy, a device and a
+    pinned ``newly``, and an event the run records after its copy down.
+    :meth:`take` hands out the next slot in ring order when it is free,
+    and otherwise inserts a new one there, so the ring grows while a
+    collector lags and keeps its oldest dispatch next in turn. A slot is
+    free again once its result was waited on (its event complete) and
+    read (:meth:`RunResult.free`); so a pinned buffer is never written
+    while a copy of it may be in flight.
+
+    ``alloc(nbytes)`` returns ``(host uint8 array, host pointer, device
+    pointer, keep-alive)`` and ``events`` has ``create()``,
+    ``wait(handle)`` and ``destroy(handle)``: on a card, pinned and
+    device tensors and ``csrc/quorum.cu``'s event entries
+    (``TpuQuorumChecker._run_ring``); the tests stand in for them."""
+
+    #: Slots made at the first dispatch.
+    INITIAL = 2
+
+    def __init__(self, alloc, events):
+        self.alloc, self.events = alloc, events
+        self.slots: list = []
+        self.next = 0
+        # The slots' events go with the ring.
+        weakref.finalize(self, RunRing._destroy, events, self.slots)
+
+    @staticmethod
+    def _destroy(events, slots: list) -> None:
+        for slot in slots:
+            events.destroy(slot.event)
+
+    def _new(self) -> "_RunSlot":
+        return _RunSlot(self.events.create())
+
+    def take(self, in_bytes: int, out_bytes: int) -> "_RunSlot":
+        if not self.slots:
+            self.slots.extend(self._new() for _ in range(self.INITIAL))
+        slot = self.slots[self.next]
+        if slot.busy:
+            slot = self._new()
+            self.slots.insert(self.next, slot)
+        self.next = (self.next + 1) % len(self.slots)
+        if slot.in_cap < in_bytes:
+            slot.in_cap = 1 << max(12, (in_bytes - 1).bit_length())
+            slot.host_in, slot.host_in_ptr, slot.dev_in_ptr, slot.keep_in = \
+                self.alloc(slot.in_cap)
+        if slot.out_cap < out_bytes:
+            slot.out_cap = 1 << max(12, (out_bytes - 1).bit_length())
+            (slot.host_out, slot.host_out_ptr, slot.dev_out_ptr,
+             slot.keep_out) = self.alloc(slot.out_cap)
+        slot.busy = True
+        return slot
+
+
+class _RunSlot:
+    __slots__ = ("event", "busy", "in_cap", "host_in", "host_in_ptr",
+                 "dev_in_ptr", "keep_in", "out_cap", "host_out",
+                 "host_out_ptr", "dev_out_ptr", "keep_out")
+
+    def __init__(self, event: int):
+        self.event, self.busy = event, False
+        self.in_cap = self.out_cap = 0
+        self.host_in = self.host_out = self.keep_in = self.keep_out = None
+        self.host_in_ptr = self.dev_in_ptr = 0
+        self.host_out_ptr = self.dev_out_ptr = 0
+
+
+class _CardEvents:
+    """``RunRing``'s events on card ``index`` (``csrc/quorum.cu``)."""
+
+    def __init__(self, index: int):
+        self.index = index
+        self._out = np.zeros(1, dtype=np.int64)
+
+    def create(self) -> int:
+        fn = _EVENT_CREATE.fn or _EVENT_CREATE.resolve()
+        rc = fn(_EVENT_CREATE.pack(self.index, self._out.ctypes.data))
+        if rc:
+            _EVENT_CREATE.check(rc)
+        return int(self._out[0])
+
+    @staticmethod
+    def wait(handle: int) -> None:
+        fn = _EVENT_WAIT.fn or _EVENT_WAIT.resolve()
+        rc = fn(_EVENT_WAIT.pack(handle))
+        if rc:
+            _EVENT_WAIT.check(rc)
+
+    @staticmethod
+    def destroy(handle: int) -> None:
+        fn = _EVENT_DESTROY.fn or _EVENT_DESTROY.resolve()
+        fn(_EVENT_DESTROY.pack(handle))
+
+
+_EVENT_CREATE = _build.Entry("quorum", "fpx_event_create", 2)
+_EVENT_WAIT = _build.Entry("quorum", "fpx_event_wait", 1, keep_gil=False)
+_EVENT_DESTROY = _build.Entry("quorum", "fpx_event_destroy", 1)
+
+
+def _card_alloc(device: torch.device):
+    """``RunRing``'s buffers on ``device``: a pinned host tensor and a
+    device tensor of ``nbytes`` each."""
+    def alloc(nbytes: int):
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        return host.numpy(), host.data_ptr(), dev.data_ptr(), (host, dev)
+
+    return alloc
+
+
+class RunResult:
+    """A dispatched run's ``newly`` mask (``[stride]`` bool at the staged
+    columns). :meth:`wait` blocks until it is on the host (on the card:
+    a wait on the run's event with the GIL released) and returns it, a
+    view of the run's pinned slot; :meth:`free` gives the slot back once
+    the caller has read it."""
+
+    __slots__ = ("_newly", "_slot", "_events", "_parts", "_stride",
+                 "_waited")
+
+    def __init__(self, newly=None, slot=None, events=None, parts=None,
+                 stride: int = 0):
+        self._newly, self._slot, self._events = newly, slot, events
+        self._parts, self._stride = parts, stride
+        self._waited = False
+
+    def wait(self) -> np.ndarray:
+        if self._slot is not None:
+            if not self._waited:
+                self._events.wait(self._slot.event)
+                self._waited = True
+            return self._slot.host_out[:self._stride].view(bool)
+        if self._parts is not None:
+            newly = np.zeros(self._stride, dtype=bool)
+            for at, width, part in self._parts:
+                newly[at:at + width] = part.cpu().numpy()[:width]
+            self._newly, self._parts = newly, None
+        return self._newly
+
+    def free(self) -> None:
+        """Give the pinned slot back (after :meth:`wait`; the view it
+        returned must not be read after this)."""
+        slot, self._slot = self._slot, None
+        if slot is not None:
+            if not self._waited:
+                self._events.wait(slot.event)
+            slot.busy = False
+
+
+class DenseRun:
+    """A run of dense blocks being staged for one K2 dispatch (see
+    :meth:`TpuQuorumChecker.dense_run`): ``block`` is the zeroed
+    ``[N, stride]`` uint8 host block (on a card a view of a pinned ring
+    slot), block ``k`` at columns ``offsets[k]``; the caller writes its
+    votes (0/1) there, then calls :meth:`dispatch` before its next call
+    to the checker."""
+
+    __slots__ = ("checker", "table", "stride", "block", "offsets", "_slot",
+                 "_held", "_off")
+
+    def __init__(self, checker, table: np.ndarray, stride: int):
+        self.checker, self.table, self.stride = checker, table, stride
+        self.offsets = table[:, 3]
+        n = checker.num_nodes
+        self._slot = None
+        if checker._staged:
+            self._held = checker._take_held()
+            r = self._held.size
+            self._off = _align16(4 * r)
+            slot = checker._run_ring().take(self._off + n * stride, stride)
+            if r:
+                slot.host_in[:4 * r].view(np.int32)[:] = self._held
+            self.block = slot.host_in[self._off:self._off + n * stride] \
+                .reshape(n, stride)
+            self.block.fill(0)
+            self._slot = slot
+        else:
+            self.block = np.zeros((n, stride), dtype=np.uint8)
+
+    def dispatch(self) -> RunResult:
+        """Record the run on the board: on a card ONE staged C call that
+        does not wait (the in-block up, K5 on the held releases, the K2
+        launch, ``newly`` down, an event), on PyTorch's current stream;
+        on the CPU the plain versions; on a mesh each block's
+        :func:`record_block_sharded` (one all-reduce a block)."""
+        c = self.checker
+        if c.mesh is not None:
+            parts = [(at, width, record_block_sharded(
+                c.board, c.mesh, col, true_start,
+                self.block[:, at:at + width], rnd, c._pred, async_op=True))
+                for col, true_start, width, at, rnd, _ in self.table.tolist()]
+            return RunResult(parts=parts, stride=self.stride)
+        if self._slot is None:
+            return RunResult(newly=record_block_run_plain(
+                c.board, self.table, torch.from_numpy(self.block),
+                c._pred).numpy(), stride=self.stride)
+        slot, board, pred = self._slot, c._board, c._pred
+        r = self._held.size
+        index = c._ring_index
+        fn = _K2_STAGED.fn or _K2_STAGED.resolve()
+        rc = fn(_K2_STAGED.pack(
+            *_board_ptrs(board), self.table.ctypes.data, len(self.table),
+            slot.host_in_ptr, slot.dev_in_ptr, r, self._off, self.stride,
+            slot.dev_out_ptr, slot.host_out_ptr, self.stride,
+            pred.perm_identity, *pred.c_args(), slot.event, index,
+            _build.stream_handle(index)))
+        if rc:
+            _K2_STAGED.check(rc)
+        record_block.launches += _launch_count(self.table)
+        if r:
+            release.launches += 1
+        return RunResult(slot=slot, events=c._ring.events,
+                         stride=self.stride)
 
 
 # --- K4 / K6 shared: the sparse board update --------------------------------
@@ -633,6 +1011,12 @@ def release_plain(board: VoteBoard, slots: torch.Tensor,
     board.owner.index_fill_(0, cols, -1)
 
 
+_K5 = _build.Entry("sparse", "fpx_release", 11)
+_K5_ALL = _build.Entry("sparse", "fpx_release_all", 10)
+_K5_STAGED = _build.Entry("sparse", "fpx_release_staged", 11,
+                          keep_gil=False)
+
+
 def release(board: VoteBoard, slots: torch.Tensor,
             valid: torch.Tensor) -> None:
     """K5: reset the columns of GC'd slots IN PLACE: votes 0, round -1,
@@ -641,10 +1025,9 @@ def release(board: VoteBoard, slots: torch.Tensor,
     ``slots`` is ``[B]`` int32, ``valid`` ``[B]`` bool. A slot named by
     several lanes is reset when ANY of them is valid (JAX's ``.set``
     leaves the order of such duplicates unspecified; every caller passes
-    all-valid lanes). CUDA tensors launch
-    ``csrc/sparse.cu::release_kernel``; CPU tensors take
-    :func:`release_plain`."""
-    n, window = board.votes.shape
+    all-valid lanes, which :func:`release_all` takes). CUDA tensors
+    launch ``csrc/sparse.cu::release_kernel`` (one packed ``ctypes``
+    call); CPU tensors take :func:`release_plain`."""
     if slots.dtype != torch.int32 or valid.dtype != torch.bool \
             or slots.dim() != 1 or valid.shape != slots.shape:
         raise ValueError("release takes [B] int32 slots and [B] bool valid")
@@ -655,15 +1038,66 @@ def release(board: VoteBoard, slots: torch.Tensor,
     b = slots.shape[0]
     if b == 0:
         return None
-    lib = _build.library("sparse")
-    rc = lib.fpx_release(
-        board.votes.data_ptr(), board.rounds.data_ptr(),
-        board.chosen.data_ptr(), board.owner.data_ptr(), window, n,
-        slots.data_ptr(), valid.data_ptr(), b,
-        *_build.stream_args(slots.device))
-    _build.check("sparse", "fpx_release", rc)
+    index = slots.get_device()
+    fn = _K5.fn or _K5.resolve()
+    rc = fn(_K5.pack(*_board_ptrs(board), slots.data_ptr(),
+                     valid.data_ptr(), b, index,
+                     _build.stream_handle(index)))
+    if rc:
+        _K5.check(rc)
     release.launches += 1
     return None
+
+
+def release_all_plain(board: VoteBoard, slots: torch.Tensor) -> None:
+    """Plain PyTorch version of K5's all-valid form: :func:`release_plain`
+    with every lane valid."""
+    release_plain(board, slots, torch.ones(slots.shape, dtype=torch.bool,
+                                           device=slots.device))
+
+
+def release_all(board: VoteBoard, slots: torch.Tensor) -> None:
+    """K5's all-valid form, IN PLACE: reset the column of every ``[B]``
+    int32 slot (JAX's index rules, as :func:`release`). CUDA tensors
+    launch ``csrc/release.cuh::release_all_kernel`` (four lanes a thread,
+    no ``valid`` array; one packed call); CPU tensors take
+    :func:`release_all_plain`."""
+    if slots.dtype != torch.int32 or slots.dim() != 1:
+        raise ValueError("release_all takes [B] int32 slots")
+    if not use_kernel(slots, *board):
+        return release_all_plain(board, slots)
+    if not all(t.is_contiguous() for t in (slots, *board)):
+        raise ValueError("release_all needs contiguous tensors")
+    if slots.shape[0] == 0:
+        return None
+    index = slots.get_device()
+    fn = _K5_ALL.fn or _K5_ALL.resolve()
+    rc = fn(_K5_ALL.pack(*_board_ptrs(board), slots.data_ptr(),
+                         slots.shape[0], index, _build.stream_handle(index)))
+    if rc:
+        _K5_ALL.check(rc)
+    release.launches += 1
+    return None
+
+
+def release_staged(board: VoteBoard, staging: _build.Staging,
+                   cols: np.ndarray) -> None:
+    """K5's all-valid form on host ``cols`` (int32, already % window) in
+    ONE call with the GIL released: the slots written into ``staging``'s
+    pinned ``"released"`` buffer, up, the launch, a wait on PyTorch's
+    current stream (the stream the board call that follows uses)."""
+    r = cols.shape[0]
+    if not r:
+        return
+    pair = staging.pair("released", r, torch.int32)
+    pair.host[:r] = cols
+    fn = _K5_STAGED.fn or _K5_STAGED.resolve()
+    rc = fn(_K5_STAGED.pack(*_board_ptrs(board), pair.host_ptr,
+                            pair.device_ptr, r, staging.index,
+                            _build.stream_handle(staging.index)))
+    if rc:
+        _K5_STAGED.check(rc)
+    release.launches += 1
 
 
 release.launches = 0
@@ -801,7 +1235,7 @@ def _epochs_block(board: VoteBoard, lanes_ptr: int, b: int, chunk: int,
 
 
 _K6 = _build.Entry("epoch", "fpx_record_and_check_epochs", 19)
-_K6_STAGED = _build.Entry("epoch", "fpx_record_and_check_epochs_staged", 21,
+_K6_STAGED = _build.Entry("epoch", "fpx_record_and_check_epochs_staged", 22,
                           keep_gil=False)
 
 
@@ -1196,7 +1630,70 @@ def _bucket(b: int) -> int:
     return padded
 
 
-class TpuQuorumChecker:
+_NO_SLOTS = np.zeros(0, dtype=np.int32)
+
+
+class _HeldReleases:
+    """A checker's board and the releases it holds.
+
+    The reference's ``release`` resets the columns at once. A checker
+    without a mesh keeps the released slots (% window) in a host list
+    until its next board call instead: K2's run (:class:`DenseRun`) and
+    K6's run (``EpochSegmentedChecker.record_and_check_run``) apply them on
+    the card ahead of their own launch, in the same staged call and on the
+    same stream; every other access to the board (K4, a single K2 call,
+    K7's reshape, reading or replacing ``board``) flushes them first
+    (:meth:`flush_releases`: one staged K5 call on a card, the plain
+    version on the CPU). Only the checker's own calls read or write its
+    board, so the board goes through the same sequence of resets and
+    updates as with an immediate release. On a mesh a release is
+    immediate (``release_sharded``)."""
+
+    @property
+    def board(self) -> VoteBoard:
+        self.flush_releases()
+        return self._board
+
+    @board.setter
+    def board(self, board: VoteBoard) -> None:
+        self.flush_releases()
+        self._board = board
+
+    def release(self, slots) -> None:
+        """GC slot columns below the chosen watermark so the ring can wrap
+        (K5): held until the checker's next board call (see the class
+        docstring); on a mesh, reset at once on this rank's columns."""
+        slots = np.asarray(slots, dtype=np.int32) % self.window
+        if self.mesh is not None:
+            release_sharded(self._board, self.mesh, slots,
+                            np.ones(slots.shape[0], dtype=bool))
+        elif slots.size:
+            self._held.append(slots.astype(np.int32, copy=False))
+
+    def flush_releases(self) -> None:
+        """Apply the held releases to the board now."""
+        if not self._held:
+            return
+        cols = self._take_held()
+        if self._staged:
+            release_staged(self._board, self._stage(), cols)
+        else:
+            release_all_plain(self._board,
+                              torch.from_numpy(cols).to(self.device))
+
+    def _take_held(self) -> np.ndarray:
+        held, self._held = self._held, []
+        if not held:
+            return _NO_SLOTS
+        return held[0] if len(held) == 1 else np.concatenate(held)
+
+    def _stage(self) -> _build.Staging:
+        if self._staging is None:
+            self._staging = _build.Staging(self.device)
+        return self._staging
+
+
+class TpuQuorumChecker(_HeldReleases):
     """Stateful batched quorum checking for one quorum predicate, on one
     device (the reference's ``TpuQuorumChecker``).
 
@@ -1241,12 +1738,27 @@ class TpuQuorumChecker:
         self._masks_t, self._meta = spec_statics(spec)
         self._pred = make_predicate(self._masks_t, *self._meta[:2],
                                     device=self.device)
-        self.board = make_vote_board(window, spec.num_nodes, self.device,
-                                     mesh)
-        # check_block's host block: pinned staging on a CUDA device, made
-        # at the first call; a numpy array on the CPU.
+        self._board = make_vote_board(window, spec.num_nodes, self.device,
+                                      mesh)
+        self._held: list = []
+        # The staged paths (K1's check_staged, K2's runs, K5's flush) on a
+        # card without a mesh; check_block's host block and the flush's
+        # slots in pinned staging made at the first call, K2's runs in a
+        # ring of pinned slots (RunRing).
+        self._staged = self.device.type == "cuda" and mesh is None
         self._staging = None
         self._host_block = None
+        self._ring = None
+        self._ring_index = self.device.index
+
+    def _run_ring(self) -> RunRing:
+        if self._ring is None:
+            if self._ring_index is None:
+                self._ring_index = torch.cuda.current_device()
+            dev = torch.device("cuda", self._ring_index)
+            self._ring = RunRing(_card_alloc(dev),
+                                 _CardEvents(self._ring_index))
+        return self._ring
 
     def _to_device(self, block: np.ndarray) -> torch.Tensor:
         return stage(np.asarray(block, dtype=np.uint8), self.device)
@@ -1271,9 +1783,9 @@ class TpuQuorumChecker:
         # Power-of-two buckets from 64, but no padding across the ring
         # end: a bucket that would cross it keeps the exact width.
         if padded != b and start + padded <= self.window:
-            block = np.concatenate(
-                [np.asarray(block, dtype=np.uint8),
-                 np.zeros((n, padded - b), dtype=np.uint8)], axis=1)
+            wide = np.zeros((n, padded), dtype=np.uint8)
+            wide[:, :b] = block
+            block = wide
         if self.mesh is not None:
             return record_block_sharded(
                 self.board, self.mesh, start, int32(start_slot),
@@ -1287,10 +1799,42 @@ class TpuQuorumChecker:
                      vote_round: int = 0) -> np.ndarray:
         """Dense path: record ``block[n, B]`` arrivals for slots
         ``[start_slot, start_slot + B)`` (must not straddle the ring
-        end); return the ``[B]`` newly-chosen mask."""
-        b = block.shape[1]
-        return self.record_block_async(start_slot, block,
-                                       vote_round).cpu().numpy()[:b]
+        end); return the ``[B]`` newly-chosen mask. A run of one block
+        (:meth:`dense_run`): on a card one staged call, then a wait."""
+        n, b = np.shape(block)
+        if n != self.num_nodes:
+            raise ValueError(f"block has {n} acceptor rows, spec has "
+                             f"{self.num_nodes}")
+        run = self.dense_run([(start_slot, b, vote_round)])
+        at = int(run.offsets[0])
+        run.block[:, at:at + b] = block
+        result = run.dispatch()
+        newly = result.wait()[at:at + b].copy()
+        result.free()
+        return newly
+
+    def dense_run(self, spans) -> DenseRun:
+        """A run of dense blocks for ONE K2 dispatch: ``spans`` is
+        ``[(start_slot, width, vote_round)]``, each block within the ring
+        (no straddle), applied in order. Returns a :class:`DenseRun`
+        whose zeroed ``block`` the caller fills, block ``k`` at columns
+        ``offsets[k]``, then dispatches it (:meth:`DenseRun.dispatch`):
+        on a card one staged call and (where blocks overlap modulo the window, which
+        only a window violation brings) more than one launch, with the
+        held releases applied ahead of them."""
+        starts, widths, rounds = [], [], []
+        for start_slot, width, vote_round in spans:
+            start = start_slot % self.window
+            if start + width > self.window:
+                raise ValueError(
+                    f"block [{start}, {start + width}) straddles the ring "
+                    f"end (window {self.window}); split it")
+            self._note_slot_span(start_slot, start_slot + width - 1)
+            starts.append(int32(start_slot))
+            widths.append(width)
+            rounds.append(int32(vote_round))
+        table, stride = run_table(starts, widths, rounds, self.window)
+        return DenseRun(self, table, stride)
 
     def check_block_async(self, block: np.ndarray) -> torch.Tensor:
         """Stateless drain-local quorum over a ``[n, B]`` vote block:
@@ -1384,11 +1928,6 @@ class TpuQuorumChecker:
         self._pred = make_predicate(self._masks_t, *self._meta[:2],
                                     device=self.device)
 
-    def release(self, slots) -> None:
-        """GC slot columns below the chosen watermark so the ring can
-        wrap (K5)."""
-        _release_slots(self.board, slots, self.mesh)
-
     def check_batch(self, present: np.ndarray) -> np.ndarray:
         """Stateless: evaluate the predicate for ``[B, N]`` responder
         rows (taken as uint8)."""
@@ -1420,21 +1959,6 @@ class TpuQuorumChecker:
             self._max_slot_seen = highest
 
 
-def _release_slots(board: VoteBoard, slots, mesh=None) -> None:
-    """K5 on the columns of ``slots`` (taken % window), all valid; on a
-    mesh, on the columns this rank holds."""
-    if mesh is not None:
-        window = board.votes.shape[1] * mesh.size
-        slots = np.asarray(slots, dtype=np.int32) % window
-        release_sharded(board, mesh, slots, np.ones(slots.shape[0], bool))
-        return
-    window = board.votes.shape[1]
-    slots = np.asarray(slots, dtype=np.int32) % window
-    device = board.votes.device
-    release(board, stage(slots, device),
-            stage(np.ones(slots.shape[0], dtype=bool), device))
-
-
 def _reshape_board(board: VoteBoard, old_universe,
                    new_universe) -> VoteBoard:
     """The board with its acceptor rows gathered onto ``new_universe``
@@ -1446,7 +1970,7 @@ def _reshape_board(board: VoteBoard, old_universe,
         board.votes, stage(cmap, board.votes.device)))
 
 
-class EpochSegmentedChecker:
+class EpochSegmentedChecker(_HeldReleases):
     """Quorum checking where each SLOT selects its epoch's predicate (the
     reference's ``EpochSegmentedChecker``).
 
@@ -1482,10 +2006,12 @@ class EpochSegmentedChecker:
         self._starts = [int(b) for b in boundaries]
         self.universe: tuple = ()
         self._rebuild_universe()
-        self.board = make_vote_board(window, len(self.universe), self.device,
-                                     mesh)
-        # record_and_check_run's pinned lanes and newly, made at the
-        # first call on a CUDA device.
+        self._board = make_vote_board(window, len(self.universe),
+                                      self.device, mesh)
+        self._held: list = []
+        # record_and_check_run's pinned lanes (and held releases) and
+        # newly, made at the first call on a CUDA device without a mesh.
+        self._staged = self.device.type == "cuda" and mesh is None
         self._staging = None
 
     def _rebuild_universe(self) -> None:
@@ -1565,11 +2091,12 @@ class EpochSegmentedChecker:
         order: equal to :meth:`record_and_check` on each chunk in turn,
         the masks concatenated. On a CUDA device ONE ``ctypes`` call with
         the GIL released (the lanes written unpadded into reused pinned
-        staging and sent up, one launch of the run, ``newly`` down, a
-        wait, all on PyTorch's current stream, so that K5's releases and
-        K7's reshapes queued before it land first); on the CPU the plain
-        run. With a mesh, one sharded run: one launch on each rank's
-        columns and one all-reduce a drain."""
+        staging, the held releases after them, both sent up, K5's
+        all-valid form on the releases, one launch of the run, ``newly``
+        down, a wait, all on PyTorch's current stream, so that K7's
+        reshapes queued before it land first); on the CPU the held
+        releases, then the plain run. With a mesh, one sharded run: one
+        launch on each rank's columns and one all-reduce a drain."""
         slots = np.asarray(slots, dtype=np.int64)
         b = slots.shape[0]
         if chunk < 1:
@@ -1579,34 +2106,35 @@ class EpochSegmentedChecker:
             return record_and_check_epochs_sharded(
                 self.board, self.mesh, lanes, self._boundaries, self.planes,
                 chunk=chunk).cpu().numpy()
-        if self.device.type != "cuda":
+        if not self._staged:
             lanes = _checker_lanes(slots, node_cols, rounds, self.window, b)
             return record_and_check_epochs_run(
                 self.board, stage(lanes, self.device), self._boundaries,
                 self.planes, chunk).numpy()
         if b == 0:
             return np.zeros(0, dtype=bool)
-        if self._staging is None:
-            self._staging = _build.Staging(self.device)
-        st = self._staging
-        lanes = st.pair("lanes", LANE_FIELDS * b, torch.int32)
+        st = self._stage()
+        held = self._take_held()
+        r = held.size
+        lanes = st.pair("lanes", LANE_FIELDS * b + r, torch.int32)
         _checker_lanes(slots, node_cols, rounds, self.window, b,
                        out=lanes.host[:LANE_FIELDS * b].reshape(LANE_FIELDS,
                                                                 b))
+        if r:
+            lanes.host[LANE_FIELDS * b:LANE_FIELDS * b + r] = held
         newly = st.pair("newly", b, torch.bool)
         fn = _K6_STAGED.fn or _K6_STAGED.resolve()
         rc = fn(_K6_STAGED.pack(*_epochs_block(
-            self.board, lanes.device_ptr, b, chunk, self._boundaries,
+            self._board, lanes.device_ptr, b, chunk, self._boundaries,
             self.planes, newly.device_ptr), st.index,
-            _build.stream_handle(st.index), lanes.host_ptr, newly.host_ptr))
+            _build.stream_handle(st.index), lanes.host_ptr, newly.host_ptr,
+            r))
         if rc:
             _K6_STAGED.check(rc)
         record_and_check_epochs.launches += 1
+        if r:
+            release.launches += 1
         return newly.host[:b].copy()
-
-    def release(self, slots) -> None:
-        """GC chosen columns below the watermark (ring wrap; K5)."""
-        _release_slots(self.board, slots, self.mesh)
 
 
 def newly_pairs(slots: np.ndarray, rounds: np.ndarray,

@@ -10,9 +10,11 @@ it is a strategy interface with two implementations:
     keyed (slot, round) accumulating (group, acceptor) votes. The oracle.
   * ``TpuQuorumTracker`` -- votes buffered per event-loop drain, then a
     few calls of the port's ``TpuQuorumChecker`` per drain: the
-    stateless predicate (K1) in the synchronous mode; the dense board
-    update (K2), the sparse scatter (K4) and ``release`` (K5) in the
-    pipelined mode. It keeps the reference's name; it runs on ``cuda``
+    stateless predicate (K1, one staged call) in the synchronous mode;
+    in the pipelined mode the drain's dense blocks as one run of the
+    board update (K2: one staged call and one launch, the held
+    ``release`` s (K5) ahead of it), and the sparse scatter (K4) for
+    stragglers. It keeps the reference's name; it runs on ``cuda``
     unless given ``device="cpu"``, where the kernels' plain versions run.
     Acceptor coordinates flatten to columns ``group * group_size + index``.
     In non-flexible mode only a slot's own group is ever messaged, so a
@@ -144,11 +146,15 @@ class TpuQuorumTracker(QuorumTracker):
     per-drain cost stays flat while the oracle's grows per vote.
 
     **Pipelined.** Every dense run goes through the stateful on-device
-    vote board (``record_block``, K2; stragglers and off-round votes
-    through the scatter, K4): the drain DISPATCHES asynchronously
-    (returning []; host arrays reach the device through pinned buffers,
-    so the drain never waits on the device) and enqueues an in-flight
-    record; the caller
+    vote board (K2; stragglers and off-round votes through the scatter,
+    K4): the drain DISPATCHES asynchronously (returning []) and enqueues
+    an in-flight record. Its dense blocks are written straight into a
+    pinned slot of the checker's ring and go up as ONE run
+    (``TpuQuorumChecker.dense_run``: one staged call, one K2 launch,
+    ``newly`` copied down into the slot and an event recorded, nothing
+    waited on), in order with the K4 parts around it on PyTorch's
+    current stream; a K4 part's lanes go up through pinned buffers too,
+    so the drain never waits on the device. The caller
     collects completed dispatches via :meth:`take_dispatch` +
     :meth:`collect` -- from a worker thread (ProxyLeader posts results
     back onto the event loop) or a flush timer. This hides the
@@ -614,6 +620,7 @@ class TpuQuorumTracker(QuorumTracker):
             rounds = np.concatenate(parts_r)
 
         # The drain's dominant round (fast path: single-round drain).
+        run: list = []
         if rounds[0] == rounds[-1] and (rounds == rounds[0]).all():
             dom = int(rounds[0])
             # Single-round drain within one dense bucket: one block.
@@ -624,10 +631,9 @@ class TpuQuorumTracker(QuorumTracker):
                           None) if width <= self.max_dense else None
             if (bucket is not None
                     and slots.shape[0] >= width * self.min_fill):
-                block = np.zeros((self.checker.num_nodes, bucket),
-                                 dtype=np.uint8)
-                block[cols, slots - lo] = 1
-                self._record_board(parts, lo, block, bucket, dom)
+                self._add_dense(parts, run, lo, bucket, dom, cols,
+                                slots - lo)
+                self._flush_run(parts, run)
                 self._slots, self._cols, self._rounds = [], [], []
                 self._ranges = []
                 self._array_votes = []
@@ -643,7 +649,7 @@ class TpuQuorumTracker(QuorumTracker):
             pre = np.flatnonzero(rounds < dom)
             post = np.flatnonzero(rounds > dom)
         if pre is not None and pre.size:
-            self._dispatch_sparse(parts, slots, cols, rounds, pre)
+            self._dispatch_sparse(parts, run, slots, cols, rounds, pre)
 
         # Cluster the dominant round's slots into contiguous runs.
         ds = slots[dense_idx]
@@ -675,16 +681,15 @@ class TpuQuorumTracker(QuorumTracker):
                                if b >= min(remaining, self.max_dense)))
                 j = int(np.searchsorted(cs, start + bucket))
                 members = cl[i:j]
-                block = np.zeros(
-                    (self.checker.num_nodes, bucket), dtype=np.uint8)
-                block[cols[members], slots[members] - start] = 1
-                self._record_board(parts, start, block, bucket, dom)
+                self._add_dense(parts, run, start, bucket, dom,
+                                cols[members], slots[members] - start)
                 i = j
 
         for cl in sparse_leftover:
-            self._dispatch_sparse(parts, slots, cols, rounds, cl)
+            self._dispatch_sparse(parts, run, slots, cols, rounds, cl)
         if post is not None and post.size:
-            self._dispatch_sparse(parts, slots, cols, rounds, post)
+            self._dispatch_sparse(parts, run, slots, cols, rounds, post)
+        self._flush_run(parts, run)
 
         self._slots, self._cols, self._rounds = [], [], []
         self._ranges = []
@@ -692,57 +697,71 @@ class TpuQuorumTracker(QuorumTracker):
         self._inflight.append(parts)
         return []
 
-    def _record_board(self, parts: list, start: int, block: np.ndarray,
-                      bucket: int, rnd: int) -> None:
-        """Record a dense run on the vote board, splitting at the ring
-        end (record_block's no-straddle contract)."""
-        window = self.checker.window
-        room = window - start % window
+    def _add_dense(self, parts: list, run: list, start: int, bucket: int,
+                   rnd: int, rows: np.ndarray, pos: np.ndarray) -> None:
+        """Add a dense block of ``bucket`` slots from ``start`` (votes of
+        acceptor columns ``rows`` at offsets ``pos``) to the drain's
+        pending run, split at the ring end (record_block's no-straddle
+        contract)."""
+        room = self.checker.window - start % self.checker.window
         if bucket <= room:
-            newly = self.checker.record_block_async(start, block,
-                                                    vote_round=rnd)
-            parts.append(("block", start, bucket, rnd, newly))
-        else:
-            self._record_board_split(parts, start, block, room, rnd)
+            run.append((start, bucket, rnd, rows, pos))
+            return
+        # Straddling the ring end: each side decomposed into the bucket
+        # widths, sub-bucket remainders through the scatter path.
+        first = pos < room
+        self._add_bucketed(parts, run, start, room, rnd, rows[first],
+                           pos[first])
+        if not first.all():
+            self._add_bucketed(parts, run, start + room, bucket - room, rnd,
+                               rows[~first], pos[~first] - room)
 
-    def _record_board_split(self, parts: list, start: int,
-                            block: np.ndarray, room: int,
-                            rnd: int) -> None:
-        """Record a block that straddles the ring end in prewarmed
-        widths only: each piece is decomposed into the bucket widths,
-        and sub-bucket remainders take the scatter path."""
-        self._record_board_bucketed(parts, start, block[:, :room], rnd)
-        rest = block[:, room:]
-        if rest.any():
-            self._record_board_bucketed(parts, start + room,
-                                        np.ascontiguousarray(rest), rnd)
-
-    def _record_board_bucketed(self, parts: list, start: int,
-                               block: np.ndarray, rnd: int) -> None:
-        width = block.shape[1]
+    def _add_bucketed(self, parts: list, run: list, start: int, width: int,
+                      rnd: int, rows: np.ndarray, pos: np.ndarray) -> None:
         i = 0
         while i < width:
             bucket = next((b for b in reversed(self.dense_buckets)
                            if b <= width - i), None)
             if bucket is None:
-                # Remainder narrower than the smallest bucket: scatter.
-                rows, pos = np.nonzero(block[:, i:])
-                if rows.size:
+                # Remainder narrower than the smallest bucket: scatter
+                # its distinct votes, in acceptor-then-slot order.
+                rest = pos >= i
+                key = np.unique(rows[rest].astype(np.int64) * width
+                                + pos[rest])
+                if key.size:
                     self._dispatch_sparse(
-                        parts, (start + i + pos).astype(np.int64),
-                        rows.astype(np.int32),
-                        np.full(rows.size, rnd, dtype=np.int32),
-                        np.arange(rows.size))
+                        parts, run, start + key % width,
+                        (key // width).astype(np.int32),
+                        np.full(key.size, rnd, dtype=np.int32),
+                        np.arange(key.size))
                 return
-            sub = block[:, i:i + bucket]
-            if sub.any():
-                newly = self.checker.record_block_async(
-                    start + i, np.ascontiguousarray(sub), vote_round=rnd)
-                parts.append(("block", start + i, bucket, rnd, newly))
+            inside = (pos >= i) & (pos < i + bucket)
+            if inside.any():
+                run.append((start + i, bucket, rnd, rows[inside],
+                            pos[inside] - i))
             i += bucket
 
-    def _dispatch_sparse(self, parts, slots, cols, rounds, idx) -> None:
-        """Scatter-path dispatch, chunked so only prewarmed widths run."""
+    def _flush_run(self, parts: list, run: list) -> None:
+        """The drain's pending dense blocks as ONE dispatch of the
+        checker's dense run (on a card one staged call and one K2 launch,
+        with the held releases ahead of it): each block's votes written
+        straight into the run's (pinned) staged block."""
+        if not run:
+            return
+        dense = self.checker.dense_run([(s, w, r) for s, w, r, _, _ in run])
+        blocks = []
+        for (start, width, rnd, rows, pos), at in zip(run, dense.offsets):
+            at = int(at)
+            dense.block[rows, at + pos] = 1
+            blocks.append((start, width, rnd, at))
+        parts.append(("run", blocks, dense.dispatch()))
+        run.clear()
+
+    def _dispatch_sparse(self, parts, run, slots, cols, rounds, idx) -> None:
+        """Scatter-path dispatch, chunked so only prewarmed widths run,
+        after the pending dense run (the order the reference applies
+        them in)."""
+        self._flush_run(parts, run)
         for at in range(0, idx.size, self.max_chunk):
             chunk = idx[at:at + self.max_chunk]
             parts.append(("votes", slots[chunk], rounds[chunk],
@@ -765,25 +784,33 @@ class TpuQuorumTracker(QuorumTracker):
 
     def collect(self, dispatch) -> list[tuple[int, int]]:
         """Fetch a dispatch's results (blocking on the device only until
-        this dispatch's masks are copied) and dedup per slot, keeping each slot's
-        first reporting round in part order (as the dict oracle's
-        arrival-order reporting does).
+        this dispatch's masks are on the host) and dedup per slot,
+        keeping each slot's first reporting round in part order (as the
+        dict oracle's arrival-order reporting does).
 
-        Parts come in two shapes: ``("block", start, width, round,
-        device_mask)`` -- a per-slot newly-chosen mask from the board;
-        ``("votes", slots, rounds, device_mask, n)`` -- a per-vote mask
-        from the scatter path."""
+        Parts come in two shapes: ``("run", [(start, width, round,
+        at)], result)`` -- the dense blocks of a run, each block's
+        per-slot newly-chosen mask at staged columns ``[at, at + width)``
+        of ``result`` (a ``RunResult``: on a card a wait on the run's
+        event with the GIL released, then its pinned ``newly``, no
+        ``.cpu()``); ``("votes", slots, rounds, device_mask, n)`` -- a
+        per-vote mask from the scatter path."""
         out: list[tuple[int, int]] = []
         for part in dispatch:
             kind = part[0]
-            if kind == "block":
-                _, start, width, rnd, mask = part
-                m = _fetch(mask)[:width]
-                slots = start + np.flatnonzero(m).astype(np.int64)
-                if slots.size:
-                    fresh = self._fresh_mask(slots, rnd)
-                    out.extend(zip(slots[fresh].tolist(),
-                                   (rnd,) * int(fresh.sum())))
+            if kind == "run":
+                _, blocks, result = part
+                try:
+                    m = result.wait()
+                    for start, width, rnd, at in blocks:
+                        slots = start + np.flatnonzero(
+                            m[at:at + width]).astype(np.int64)
+                        if slots.size:
+                            fresh = self._fresh_mask(slots, rnd)
+                            out.extend(zip(slots[fresh].tolist(),
+                                           (rnd,) * int(fresh.sum())))
+                finally:
+                    result.free()
             else:  # "votes"
                 _, vslots, vrounds, mask, n = part
                 m = _fetch(mask)[:n]

@@ -169,6 +169,8 @@ class EpochQuorumTracker:
         return newly_pairs(slots, rounds, newly)
 
     def release(self, slots) -> None:
-        """Watermark GC passthrough (ring wrap for the device board)."""
+        """Watermark GC passthrough (ring wrap for the device board; K5):
+        held until the checker's next board call, whose staged call
+        (the next drain's) resets the columns ahead of its run."""
         if self._checker is not None and len(slots):
             self._checker.release(np.asarray(slots))
