@@ -47,7 +47,18 @@ Phases, in order (any failure exits nonzero and prints no result):
      64-4096 lanes at window 2^20 per spec (majority-3, 2x3 grid) on a
      mid-flight board, with duplicate slots, stale owners, ring wrap,
      round preemption and padding lanes; newly masks and boards equal
-     after every call;
+     after every call; K4's run (``record_and_check_run``, one launch a
+     run of chunks) against ``record_and_check_run_plain`` in every form
+     of phase 3's predicates at runs of 1, 4 and 48 chunks of 1-256
+     lanes, duplicates inside and across chunks, slots and nodes out of
+     range, true slots across 2^31 - 1; then the pipelined tracker on the
+     card (each drain ONE staged call, ``fpx_board_run_staged``: its
+     dense blocks and scatter chunks in order) against the same tracker
+     on the CPU, on tracker_lt's mixed stream (chunks of older, newer and
+     the drain's round, bursts, ring-end remainders between dense runs)
+     and on its first 2^16 slots at window 2^20: every drain's reports
+     equal, the boards equal (error 0), one staged call a drain, and at
+     most one K4 launch a sparse segment;
   7. K5 ``release`` against its plain version at window 2^20; its
      all-valid form (``release_all``) against ``release_all_plain`` at
      1-4096 lanes, from aligned and unaligned slot arrays; and a card
@@ -216,7 +227,13 @@ Phases, in order (any failure exits nonzero and prints no result):
      drain's (K3, K14 with telemetry) after the same 40 drains; then the
      per-drain split (K19, K20, K21 device time, the two all-reduces'
      host time); with two or more cards, the same on one rank per card
-     over NCCL;
+     over NCCL; then, in this process, K19 against
+     ``shard_vote_count_plain`` in every instantiated form (majorities of
+     1-16 acceptors, two groups over two acceptors, whole rows of three,
+     write and read) and the generic template, telemetry off and on, on
+     up to four ranks of each mesh, boards of arbitrary bytes, rings of
+     16, 1 and 2 blocks (and the four meshes at 2^20 / 2^15), drains from
+     0 and across the int32 wrap (error 0);
   26. the sharded vote board's path (``bench/multichip_board.py``'s
      ``check_board``), on four ranks that share the card over gloo (and,
      with two or more cards, one rank per card over NCCL): first each
@@ -277,8 +294,10 @@ Phases, in order (any failure exits nonzero and prints no result):
      at [4, 5, 8], K11 at [3, 5, 8]; K2 at the pipelined tracker's
      buckets 64-4096, 32768, the 2x3 grid, the sharded rank and a
      drain's run of three blocks; K5 at the leaders' 1-16 lanes, 256 and
-     4096, both forms), and the K10 / K11 rows the staged
-     entries' error and each decision's host time.
+     4096, both forms; K4 on a 256-lane chunk and runs of 1, 4 and 48,
+     and a drain's board updates whole; K19-K21 at rank 0 of each
+     sharded mesh, telemetry off and on), and the K10 / K11 rows the
+     staged entries' error and each decision's host time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -324,6 +343,7 @@ from frankenpaxos_tpu_torch.ops import (
     value as tv,
     watermark as tw,
 )
+from frankenpaxos_tpu_torch.protocols.multipaxos import quorum_tracker as qt
 from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority, ZoneGrid
 from frankenpaxos_tpu_torch.quorums.spec import ALL, ANY, pad_specs, QuorumSpec
 import numpy as np
@@ -876,6 +896,141 @@ def phase_k4(dev, rng) -> int:
         require(all(kinds.values()), f"K4 sequence lacks a case: {kinds}")
     torch.cuda.synchronize(dev)
     return worst
+
+
+#: K4's runs in phase 6: 1, 4 and 48 chunks of 1-256 lanes (the tracker's
+#: chunk is at most 256), one launch a run.
+K4_RUNS = (1, 4, 48)
+
+
+def _k4_runs(dev, rng) -> int:
+    """K4's run (``record_and_check_run``, one launch a run) against
+    ``record_and_check_run_plain`` in every form of phase 3's predicates,
+    on a mid-flight 2^20 board: runs of 1, 4 and 48 chunks of 1-256
+    lanes with duplicates inside and across chunks, stale owners, ring
+    wrap, preemption, slots and nodes out of range, pad lanes and a
+    chunk of true slots across 2^31 - 1; newly and the board equal after
+    every run."""
+    worst = 0
+    for name, (masks, thresholds, any_) in k1_predicates().items():
+        pred = tq.make_predicate(masks, thresholds, any_, device=dev)
+        n = pred.num_nodes
+        board_k, board_p = _random_board(rng, n, WINDOW, dev)
+        kinds = dict.fromkeys(("dup", "stale", "wrap", "pad", "preempt",
+                               "range"), 0)
+        frontier = WINDOW // 2
+        for chunks in K4_RUNS:
+            sizes = rng.integers(1, 257, size=chunks)
+            sizes[0] = 256
+            parts = []
+            for b in sizes.tolist():
+                frontier += int(rng.integers(0, 2 * b))
+                parts.append(_sparse_lanes(rng, WINDOW, n, frontier, b,
+                                           kinds))
+            # One chunk of true slots across 2^31 - 1 (they wrap to int32).
+            b = int(sizes[-1])
+            true = 2**31 - 1 - b // 2 + rng.integers(0, b, size=b)
+            parts[-1] = tq.pack_lanes(true % WINDOW, true,
+                                      rng.integers(0, n, size=b),
+                                      rng.integers(0, 4, size=b),
+                                      np.ones(b, bool))
+            lanes = torch.from_numpy(np.concatenate(parts, axis=1)).to(dev)
+            bounds = tq.chunk_bounds(sizes.tolist())
+            got = tq.record_and_check_run(board_k, lanes, bounds, pred)
+            want = tq.record_and_check_run_plain(board_p, lanes, bounds,
+                                                 pred)
+            err = max(max_abs_err(got, want), _boards_equal(board_k, board_p))
+            worst = max(worst, err)
+            require(err == 0, f"K4's run differs from plain on {name} at "
+                              f"{chunks} chunks")
+        require(all(kinds.values()), f"K4 runs lack a case: {kinds}")
+    torch.cuda.synchronize(dev)
+    return worst
+
+
+class _Counted:
+    """Counts the calls of a staged C entry (``tq._BOARD_STAGED`` and
+    ``tq._K2_STAGED``) while it is in place."""
+
+    def __init__(self, entries: dict):
+        self.entries, self.calls, self.fns = entries, {}, {}
+
+    def __enter__(self):
+        for key, entry in self.entries.items():
+            fn = entry.fn or entry.resolve()
+            self.fns[key], self.calls[key] = fn, 0
+
+            def counted(block, fn=fn, key=key):
+                self.calls[key] += 1
+                return fn(block)
+            entry.fn = counted
+        return self
+
+    def __exit__(self, *exc):
+        for key, entry in self.entries.items():
+            entry.fn = self.fns[key]
+
+
+#: Phase 6's pipelined drains: tracker_lt's mixed stream (every kind of
+#: scatter part, ring-end remainders) and the first 2^16 slots of its
+#: stream at the ProxyLeader's window.
+K4_DRAIN_SLOTS = 1 << 16
+
+
+def _k4_drains(dev) -> tuple[int, dict]:
+    """The pipelined tracker on the card (each drain ONE staged call:
+    ``fpx_board_run_staged``, or K2's run where a drain has no chunk)
+    against the same tracker on the CPU: per drain the same reports, the
+    boards equal after the stream (error 0). With the counts set to 0
+    after the trackers' prewarm: every drain one staged call, and at most
+    one K4 launch a sparse segment."""
+    config = tracker_lt.make_config()
+    worst, out = 0, {}
+    for name, stream, window in (
+            ("mixed", tracker_lt.make_mixed_stream(SEED % 997),
+             tracker_lt.MIXED_WINDOW),
+            ("tracker_lt", tracker_lt.make_stream(K4_DRAIN_SLOTS, 3),
+             WINDOW)):
+        card, host = (qt.TpuQuorumTracker(config, window=window,
+                                          pipelined=True, device=d)
+                      for d in (dev, "cpu"))
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        segments = chunks = dispatches = 0
+        with _Counted({"board": tq._BOARD_STAGED,
+                       "k2": tq._K2_STAGED}) as counted:
+            for d, events in enumerate(stream):
+                got, want = [], []
+                for t, out_ in ((card, got), (host, want)):
+                    tracker_lt.replay(t, [events], 3)
+                    while (x := t.take_dispatch()) is not None:
+                        if t is card:
+                            dispatches += 1
+                            shape = [i[0] for _, items, _ in x
+                                     for i in items]
+                            chunks += shape.count("votes")
+                            segments += sum(
+                                1 for k, kind in enumerate(shape)
+                                if kind == "votes"
+                                and (k == 0 or shape[k - 1] != "votes"))
+                        out_.extend(t.collect(x))
+                require(got == want, f"the staged drain differs from a CPU "
+                                     f"tracker on {name} at drain {d}")
+                require(sum(counted.calls.values()) == dispatches,
+                        f"{name}: drain {d} was not one staged call")
+        k4 = tq.record_and_check.launches
+        require(k4 <= segments, f"{name}: {k4} K4 launches for {segments} "
+                                f"sparse segments")
+        err = _boards_equal(card.checker.board, tq.VoteBoard(
+            *(t.to(dev) for t in host.checker.board)))
+        worst = max(worst, err)
+        require(err == 0, f"{name}: the staged drain's board differs")
+        out[name] = {"drains": len(stream), "dispatches": dispatches,
+                     "staged_calls": dict(counted.calls),
+                     "sparse_chunks": chunks, "sparse_segments": segments,
+                     "k4_launches": k4,
+                     "k2_launches": tq.record_block.launches}
+    return worst, out
 
 
 def phase_k5(dev, rng) -> int:
@@ -2088,6 +2243,96 @@ def phase_sharded(dev) -> tuple[dict, dict, dict]:
              "cases": cases, "nccl": nccl}, launches, errors)
 
 
+#: K19's structures held in phase 25 in one process, no ranks: ((group,
+#: slot), spec) -- majorities of 3k acceptors over three group shards
+#: (a shard of k = 1-16 acceptors and one group: the one-group forms; a
+#: majority of one or two acceptors is a grid to the reference's gate),
+#: 17 acceptors whole (generic), the 2x3 grid over three group shards (two
+#: groups) and two (whole write rows; and read rows), the four meshes of
+#: the sharded path, and structures of no form (a permuted grid, a 2x3
+#: grid whole, a 3x3 grid whole, one acceptor).
+ROWS2x3 = [[0, 1, 2], [3, 4, 5]]
+K19_CASES = ([((3, 1), SimpleMajority(range(3 * k)).write_spec())
+              for k in range(1, 17)]
+             + [((1, 1), SimpleMajority(range(n)).write_spec())
+                for n in (1, 17)]
+             + [((3, 1), Grid(ROWS2x3).write_spec()),
+                ((2, 2), Grid(ROWS2x3).write_spec()),
+                ((2, 1), Grid(ROWS2x3).read_spec()),
+                ((1, 4), SimpleMajority(range(3)).write_spec()),
+                ((1, 3), SimpleMajority(range(3)).write_spec()),
+                ((2, 2), Grid([[0, 2, 4], [1, 3, 5]]).write_spec()),
+                ((1, 4), Grid(ROWS2x3).write_spec()),
+                ((3, 1), Grid([[0, 1, 2], [3, 4, 5], [6, 7, 8]])
+                 .read_spec()),
+                ((1, 1), Grid([[0, 1, 2], [3, 4, 5], [6, 7, 8]])
+                 .write_spec())])
+#: (window, block) of each case: a ring of 16 blocks, one block (the old
+#: block is the new one) and two; and the sharded path's full width.
+K19_SIZES = ((4096, 256), (256, 256), (512, 256))
+#: Drains of each run: from 0 and across the int32 wrap.
+K19_STARTS = (0, 2**31 - 2)
+K19_DRAINS = 3
+
+
+def _k19_forms(dev, rng) -> tuple[int, dict]:
+    """K19 in every instantiated form and the generic template against
+    ``shard_vote_count_plain``, one process (a phase alone needs no
+    collective): each case of ``K19_CASES`` on up to four of its mesh's
+    ranks, telemetry off and on, at ``K19_SIZES`` (and the four sharded
+    meshes at window 2^20, block 2^15), boards of arbitrary vote bytes,
+    three drains from 0 and from 2^31 - 2; the partials, the vote board
+    and the commands equal after every drain (error 0). Returns the
+    error and the forms run."""
+    worst, forms = 0, {}
+    for (group, slot), spec in K19_CASES:
+        n = spec.num_nodes
+        pred = tq.make_predicate(*spec.as_arrays(), device=dev)
+        sizes = K19_SIZES
+        if (group, slot) in ((1, 4), (1, 3)) or n == 6 and group > 1 \
+                and spec.combine == ALL:
+            sizes = sizes + ((WINDOW, BLOCK),)
+        for rank in range(min(group * slot, 4)):
+            mesh = Mesh(group, slot, rank, dev)
+            for (window, block), telemetry in itertools.product(
+                    sizes, (False, True)):
+                states = [tp.make_sharded_state(mesh, window, block, n,
+                                                telemetry=telemetry)[0]
+                          for _ in range(2)]
+                votes = torch.from_numpy(rng.integers(
+                    0, 256, size=tuple(states[0].votes.shape),
+                    dtype=np.uint8)).to(dev)
+                for st in states:
+                    st.votes.copy_(votes)
+                plans = [tp.make_shard_plan(mesh, block, pred,
+                                            telemetry=telemetry)
+                         for _ in range(2)]
+                form = tp.shard_form(plans[0])
+                forms[str(form)] = forms.get(str(form), 0) + 1
+                for start in K19_STARTS:
+                    for k in range(K19_DRAINS):
+                        i = tp._wrap32(start + k)
+                        tp.shard_vote_count(states[0], i, plans[0])
+                        tp.shard_vote_count_plain(states[1], i, plans[1])
+                        err = max(max_abs_err(plans[0].parts, plans[1].parts),
+                                  max_abs_err(states[0].votes,
+                                              states[1].votes),
+                                  max_abs_err(states[0].commands,
+                                              states[1].commands))
+                        worst = max(worst, err)
+                        require(err == 0, f"K19 {form} differs from plain "
+                                          f"on ({group}, {slot}) rank "
+                                          f"{rank}, W={window} B={block} "
+                                          f"telemetry {telemetry}, drain "
+                                          f"{i}")
+    torch.cuda.synchronize(dev)
+    want = {str(("groups", k, 1)) for k in range(1, 17)} | {
+        str(("groups", 2, 2)), str(("rows", 3, 3))}
+    require(want <= set(forms) and any("generic" in f for f in forms),
+            f"K19's forms not all run: {sorted(forms)}")
+    return worst, forms
+
+
 def _shard_kernel_figures(dev, rng) -> dict:
     """K1, K2, K4 and K6 at the shapes one rank's shard of phase 26's
     (1, 4) meshes gives them: wrapper call time (CUDA events), device
@@ -2131,7 +2376,7 @@ def _shard_kernel_figures(dev, rng) -> dict:
         ("record_and_check",
          lambda: tq.record_and_check(k4_k, k4_lanes, pred),
          lambda: tq.record_and_check_plain(k4_p, k4_lanes, pred),
-         "record_and_check_kernel", 21 * chunk + 2 * (9 + n) * k4_cols,
+         "record_and_check_run_kernel", 21 * chunk + 2 * (9 + n) * k4_cols,
          (40 + 2 * g * n) * chunk, f"N={n} B={chunk} w_local={w_local}"),
         ("record_and_check_epochs",
          lambda: tq.record_and_check_epochs(k6_k, k6_lanes, bounds, planes),
@@ -2552,8 +2797,8 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     sharded_ref = "frankenpaxos_tpu/bench/pipeline.py"
     sh_shape = f"N={n} b_local={sh_b} w_local={WINDOW // sh_s}, mesh (1, 4)"
 
-    quorum, sparse, epoch = (f"frankenpaxos_tpu_torch/ops/csrc/{f}.cu"
-                             for f in ("quorum", "sparse", "epoch"))
+    quorum, epoch = (f"frankenpaxos_tpu_torch/ops/csrc/{f}.cu"
+                     for f in ("quorum", "epoch"))
     ref = "frankenpaxos_tpu/ops/quorum.py"
     cases = [
         # name, kernel fn, plain fn, device kernel name, bytes, int ops,
@@ -2583,8 +2828,10 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         ("record_and_check",
          lambda: tq.record_and_check(k4_k, k4_lanes, pred),
          lambda: tq.record_and_check_plain(k4_p, k4_lanes, pred),
-         "record_and_check_kernel", 21 * chunk + 2 * (9 + n) * k4_cols,
-         (40 + 2 * g * n) * chunk, sparse, f"{ref}:214",
+         "record_and_check_run_kernel", 21 * chunk + 2 * (9 + n) * k4_cols,
+         (40 + 2 * g * n) * chunk,
+         "frankenpaxos_tpu_torch/ops/csrc/sparse.cuh",
+         f"{ref}:214 (_apply_sparse_votes L170)",
          f"N={n} B={chunk} W={WINDOW}"),
         # K5's all-valid form (every checker's): the slots read, each
         # reset column's N + 9 bytes written.
@@ -2854,9 +3101,20 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     # and a drain's run; K5 at the leaders' widths (bench/launch_shapes.py
     # --parts board).
     board = launch_shapes.board_kernels(dev)
-    for name, fig in (("record_block", "k2"), ("release", "k5")):
+    for name, fig in (("record_block", "k2"), ("release", "k5"),
+                      ("record_and_check", "k4")):
         next(r for r in out if r["name"] == name)["at_launch_shapes"] = \
             board[fig]
+    # A pipelined drain's board updates whole (K2 and K4 in one staged
+    # call), and K19-K21 at rank 0 of each sharded mesh, telemetry off and
+    # on (--parts sharded).
+    next(r for r in out if r["name"] == "record_and_check")[
+        "drain_at_launch_shapes"] = board["drain"]
+    sharded = launch_shapes.sharded_kernels(dev)
+    for name in ("shard_vote_count", "shard_commit", "shard_fold"):
+        next(r for r in out if r["name"] == name)["at_launch_shapes"] = {
+            key: {"form": fig["form"], "b_local": fig["b_local"],
+                  **fig[name]} for key, fig in sharded.items()}
     # The staged entries (one call a decision): their error against the
     # plain versions in phase 13.
     for name, staged in (("union_reduce", "union_staged"),
@@ -2909,9 +3167,19 @@ def main() -> int:
             + "; ".join(f"{name} {list(c)} from {first}"
                         for name, runs in DRAIN_CHUNKS.items()
                         for first, c in runs.items()))
-        errors["record_and_check"] = phase_k4(dev, rng)
+        k4_drains_err, k4_drains = _k4_drains(dev)
+        errors["record_and_check"] = max(phase_k4(dev, rng),
+                                         _k4_runs(dev, rng), k4_drains_err)
         phase(6, f"K4 record_and_check == plain (64 calls of 64-4096 "
-            f"lanes x 2 specs, W={WINDOW})")
+            f"lanes x 2 specs, W={WINDOW}); its run == "
+            f"record_and_check_run_plain in {len(k1_predicates())} forms "
+            f"at {list(K4_RUNS)} chunks; the pipelined tracker's staged "
+            f"drain == a CPU tracker, one staged call a drain, K4 "
+            f"launches <= sparse segments: "
+            + ", ".join(f"{k}: {v['dispatches']} drains, staged calls "
+                        f"{v['staged_calls']}, {v['sparse_chunks']} chunks "
+                        f"in {v['sparse_segments']} segments, K4 launches "
+                        f"{v['k4_launches']}" for k, v in k4_drains.items()))
         errors["release"] = phase_k5(dev, rng)
         phase(7, f"K5 release == plain (16 calls of 4096 lanes, "
             f"W={WINDOW}); release_all == plain at {list(K5_ALL_WIDTHS)} "
@@ -3070,6 +3338,11 @@ def main() -> int:
 
         sharded, sharded_launches, sharded_errors = phase_sharded(dev)
         errors.update(sharded_errors)
+        k19_err, k19_forms = _k19_forms(dev, rng)
+        errors["shard_vote_count"] = max(errors["shard_vote_count"],
+                                         k19_err)
+        log(f"      K19 == shard_vote_count_plain in every form (runs per "
+            f"form): {k19_forms}")
         phase(25, f"sharded drain on {name} ({smi}): backend "
             f"{sharded['backend']}, {sharded['ranks']} ranks on one card "
             f"(spawned in {sharded['spawn_s']:.1f} s); K19-K21 == plain "
@@ -3148,7 +3421,9 @@ def main() -> int:
         next(r for r in kernels if r["name"] == "release")[
             "geo_host_ns_per_call"] = split["board"]["whole_ns_per_call"]
         shapes = {name: next(r for r in kernels if r["name"] == name)[
-            "at_launch_shapes"] for name in ("record_block", "release")}
+            "at_launch_shapes"] for name in ("record_block", "release",
+                                             "record_and_check",
+                                             "shard_vote_count")}
         phase(28, f"per-kernel figures on {name} ({smi}); in turns, ms "
             f"per call: "
             + "; ".join(f"{k} {row['ms']:.5f}"
@@ -3166,6 +3441,15 @@ def main() -> int:
             + ", ".join(f"{k} {v['call_ms'] * 1e3:.2f} / "
                         f"{(v['device_ms'] or 0) * 1e3:.3f}"
                         for k, v in shapes["release"].items())
+            + "; K4 on chunks and runs: "
+            + ", ".join(f"{k} {v['call_ms'] * 1e3:.2f} / "
+                        f"{(v['device_ms'] or 0) * 1e3:.3f} x "
+                        f"{v['launches_per_call']}"
+                        for k, v in shapes["record_and_check"].items())
+            + "; K19 at each mesh's rank 0 (call / device us): "
+            + ", ".join(f"{k} {v['call_ms'] * 1e3:.2f} / "
+                        f"{(v['device_ms'] or 0) * 1e3:.3f}"
+                        for k, v in shapes["shard_vote_count"].items())
             + "; whole calls (host ns): "
             + ", ".join(f"{k} {v['whole_ns']:.0f}"
                         for k, v in split["paths"].items())

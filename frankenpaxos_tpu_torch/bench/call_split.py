@@ -45,7 +45,13 @@ and release calls that a ``bench/geo_lt.py`` cuda run made (every arm,
 the reference's deployment), each leader's tracker replayed onto a
 fresh tracker of its own with the votes recorded between its calls
 (recording untimed); host ns per call of each kind, whole and split,
-and the histogram of the release calls' widths.
+and the histogram of the release calls' widths. Beside them the
+pipelined ``TpuQuorumTracker``'s ``drain()`` and ``collect()`` on
+``bench/tracker_lt.py``'s stream (``bench/launch_shapes.py``'s
+``board_drains``: whole and split, each dispatch collected right after
+its drain), and the parts its drains carry: dense blocks, scatter
+chunks, segments (runs of one kind, in order) and checker calls a
+drain, whatever form the tree dispatches them in.
 
 It times the calls, not copies of them, so it splits any checkout's
 wrappers alike: ``--tree ROOT`` imports ``frankenpaxos_tpu_torch`` from
@@ -471,6 +477,53 @@ def _geo_paths(dev) -> dict:
     }
 
 
+def _drain_parts(dev) -> dict:
+    """Per drain of the pipelined tracker on tracker_lt's stream: its
+    dense blocks, scatter chunks and segments, and the checker calls
+    that dispatch them (a board run, where the tree has it, is one; a
+    dense run and each chunk are one each otherwise); means and the
+    histogram of chunks a drain."""
+    from frankenpaxos_tpu_torch.bench import tracker_lt as lt
+    from frankenpaxos_tpu_torch.bench.launch_shapes import _feed
+    from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
+        TpuQuorumTracker,
+    )
+
+    tracker = TpuQuorumTracker(lt.make_config(), window=lt.WINDOW,
+                               pipelined=True, device=dev)
+    rows = []
+    for events in lt.make_stream(lt.SLOTS, 3, lt.DRAIN):
+        _feed(tracker, events, 3)
+        tracker.drain()
+        while (dispatch := tracker.take_dispatch()) is not None:
+            kinds, calls = [], 0
+            for part in dispatch:
+                if part[0] == "board":  # one board run: its items
+                    calls += 1
+                    kinds += [(item[0], len(item[1]) if item[0] == "run"
+                               else 1) for item in part[1]]
+                else:  # a dense run or a chunk, each a call
+                    calls += 1
+                    kinds.append((part[0], len(part[1]) if part[0] == "run"
+                                  else 1))
+            segments = sum(1 for k, (kind, _) in enumerate(kinds)
+                           if k == 0 or kinds[k - 1][0] != kind)
+            rows.append((sum(c for kind, c in kinds if kind == "run"),
+                         sum(c for kind, c in kinds if kind == "votes"),
+                         segments, calls))
+            tracker.collect(dispatch)
+    torch.cuda.synchronize()
+    arr = np.asarray(rows, dtype=np.int64).reshape(-1, 4)
+    chunks = arr[:, 1].tolist()
+    return {"drains": len(rows),
+            "mean_per_drain": dict(zip(
+                ("dense_blocks", "sparse_chunks", "segments",
+                 "checker_calls"), arr.mean(0).tolist())),
+            "drains_with_chunks": int((arr[:, 1] > 0).sum()),
+            "chunks_histogram": {str(k): chunks.count(k)
+                                 for k in sorted(set(chunks))}}
+
+
 def split(device=None, parts=PARTS) -> dict:
     """Every path's whole time and split on ``device`` (``cuda`` when
     None): the K12 / K18 paths (``k12_k18``) and the dependency-set
@@ -503,7 +556,11 @@ def split(device=None, parts=PARTS) -> dict:
         out["library_ns"] = _library_calls(dev, up, ids, frontiers)
         out["stream_and_wait_ns"] = _stream_and_wait(dev)
     if "board" in parts:
+        from frankenpaxos_tpu_torch.bench.launch_shapes import board_drains
+
         out["board"] = _geo_paths(dev)
+        out["pipelined"] = {**board_drains(dev),
+                            "parts": _drain_parts(dev)}
     if "depset" in parts:
         paths, out["depset_shapes"] = _depset_paths(dev)
         out["paths"].update(

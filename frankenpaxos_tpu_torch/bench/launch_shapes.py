@@ -1,5 +1,5 @@
-"""K1, K2, K5, K6 and K10 at the shapes the paths launch them, and the
-host split of the tracker drains that call them, on one GPU.
+"""K1, K2, K4-K6, K10 and K19-K21 at the shapes the paths launch them,
+and the host split of the tracker drains that call them, on one GPU.
 
 Two parts, each against whichever checkout ``--tree`` names (this one by
 default), so that one call can measure a parent and its change alike:
@@ -52,6 +52,18 @@ default), so that one call can measure a parent and its change alike:
       - K5 ``release`` at 1, 4, 16 and 256 lanes (the leaders' widths)
         and 4096 (the prewarm), and ``release_all`` (the all-valid form)
         where the tree has it;
+      - K4 ``record_and_check`` on one 256-lane scatter chunk of the
+        pipelined tracker (128 straggler slots, two votes each) and on
+        runs of 1, 4 and 48 such chunks: one launch of
+        ``record_and_check_run`` where the tree has it, else a call a
+        chunk;
+      - a pipelined drain's board updates whole, the tracker's calls on
+        its checker: a chunk of older-round votes, three 4096-column
+        dense blocks, three more chunks (leftovers and a newer round),
+        then the results on the host: ONE ``board_run`` dispatch where
+        the tree has it, else a ``dense_run`` dispatch between four
+        ``record_and_check_async`` calls and their fetches; host ns per
+        drain and the K2 / K4 launches and calls it makes;
       - the card's floor (PyTorch's fill of one element);
       - the host ns per pipelined ``drain()`` and per ``collect()`` on
         ``bench/tracker_lt.py``'s stream (window 2^20), whole and split
@@ -61,7 +73,14 @@ default), so that one call can measure a parent and its change alike:
 Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/launch_shapes.py [--tree ROOT] \\
-        [--parts drains,kernels|depset|board]
+        [--parts drains,kernels|depset|board|sharded]
+
+  * ``sharded`` (the sharded drain's kernels on one process, no ranks
+    spawned): K19 ``shard_vote_count`` at rank 0's shape of each of
+    ``chip_smoke.py`` phase 25's meshes ((1, 4) and (1, 3) majority-3,
+    (2, 2) and (3, 1) 2x3 grid; window 2^20, block 2^15), telemetry off
+    and on, by CUDA events and the profiler, with the form it runs; K20
+    and K21 beside it for context.
 
 It prints ONE JSON line, with the seconds the tree's kernels took to
 build (0 when they were built before). It raises without a CUDA device.
@@ -105,6 +124,13 @@ BOARD_WINDOW = 1 << 20
 SHARD_WINDOW = 1 << 18
 #: A block's first column: a member slot, off the 16-byte grid.
 K2_START = 4099
+#: K4's runs of the tracker's 256-lane chunks.
+K4_RUNS = (1, 4, 48)
+#: The sharded drain's meshes at rank 0 (chip_smoke.py phase 25's), and
+#: the block.
+SHARD_MESHES = ((1, 4, "majority3"), (1, 3, "majority3"),
+                (2, 2, "grid2x3"), (3, 1, "grid2x3"))
+SHARD_BLOCK = 1 << 15
 
 
 class DrainClock:
@@ -505,11 +531,11 @@ def _epoch_lanes(rng, b: int) -> np.ndarray:
 
 
 def board_kernels(device, rng=None) -> dict:
-    """K2 and K5 through their wrappers at the paths' launch shapes (see
-    the module docstring): CUDA-event ms per call, the profiler's device
-    ms per launch and the launches per call, and the bound (bytes: K2
-    moves (3N + 19) bytes a column, K5 4 bytes a lane read and N + 9 a
-    reset column written)."""
+    """K2, K5 and K4 through their wrappers at the paths' launch shapes,
+    and a drain's board updates whole (see the module docstring):
+    CUDA-event ms per call, the profiler's device ms per launch and the
+    launches per call, and the bound (bytes: K2 moves (3N + 19) bytes a
+    column, K5 4 bytes a lane read and N + 9 a reset column written)."""
     import torch
     from frankenpaxos_tpu_torch.ops import quorum as tq
     from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority
@@ -579,9 +605,189 @@ def board_kernels(device, rng=None) -> dict:
             out["k5"][f"release_all/B={r}"] = figures(
                 lambda: all_fn(board, slots), "release",
                 4 * r + (3 + 9) * r)
+    out["k4"] = _k4_runs(device, figures)
+    out["drain"] = _staged_drain(device, rng)
     one = torch.zeros(1, dtype=torch.int32, device=device)
     out["floor"] = {"fill_[1]": figures(lambda: one.fill_(1), "FillFunctor",
                                         4)}
+    return out
+
+
+def _straggler_lanes(first: int, b: int, window: int) -> np.ndarray:
+    """``b`` straggler votes as the tracker scatters them: slots from
+    ``first``, two acceptors' votes a slot, round 0, packed."""
+    from frankenpaxos_tpu_torch.ops import quorum as tq
+
+    slot = first + np.repeat(np.arange(b // 2), 2)
+    return tq.pack_lanes(slot % window, slot, np.tile([0, 1], b // 2),
+                         np.zeros(b, np.int32), np.ones(b, bool))
+
+
+def _k4_runs(device, figures) -> dict:
+    """K4 on one tracker chunk and on runs of chunks (the module
+    docstring); bytes: 21 a lane and (N + 9) read and written per
+    distinct column."""
+    import torch
+    from frankenpaxos_tpu_torch.ops import quorum as tq
+    from frankenpaxos_tpu_torch.quorums import SimpleMajority
+
+    pred = tq.make_predicate(*SimpleMajority(range(3)).write_spec()
+                             .as_arrays(), device=device)
+    board = tq.make_vote_board(BOARD_WINDOW, 3, device=device)
+    lanes = torch.from_numpy(_straggler_lanes(
+        K2_START, max(K4_RUNS) * CHUNK, BOARD_WINDOW)).to(device)
+    run_fn = getattr(tq, "record_and_check_run", None)
+    out = {}
+    one = lanes[:, :CHUNK].contiguous()
+    out[f"chunk/B={CHUNK}"] = figures(
+        lambda: tq.record_and_check(board, one, pred), "record_and_check",
+        21 * CHUNK + 2 * 12 * (CHUNK // 2))
+    for chunks in K4_RUNS:
+        b = chunks * CHUNK
+        sub = lanes[:, :b].contiguous()
+        if run_fn is not None:
+            bounds = tq.chunk_bounds([CHUNK] * chunks)
+
+            def call(sub=sub, bounds=bounds):
+                run_fn(board, sub, bounds, pred)
+        else:
+            views = [sub[:, k * CHUNK:(k + 1) * CHUNK].contiguous()
+                     for k in range(chunks)]
+
+            def call(views=views):
+                for view in views:
+                    tq.record_and_check(board, view, pred)
+        fig = figures(call, "record_and_check", 21 * b + 2 * 12 * (b // 2))
+        fig["form"] = "run" if run_fn is not None else "a call a chunk"
+        if fig["device_ms"] is not None:
+            fig["device_ms_per_call"] = fig["device_ms"] * fig[
+                "launches_per_call"]
+        out[f"run/{chunks}x{CHUNK}"] = fig
+    return out
+
+
+def _staged_drain(device, rng) -> dict:
+    """A pipelined drain's board updates through its checker, results on
+    the host (the module docstring): host ns per drain, and the K2 and
+    K4 launches and the checker calls a drain makes."""
+    import torch
+    from frankenpaxos_tpu_torch.ops import quorum as tq
+    from frankenpaxos_tpu_torch.quorums import SimpleMajority
+
+    checker = tq.TpuQuorumChecker(SimpleMajority(range(3)).write_spec(),
+                                  window=BOARD_WINDOW, device=device)
+    starts = [K2_START + 8192, K2_START + 8192 + 4096 + 5,
+              K2_START + 8192 + 2 * 4096 + 11]
+    spans = [(start, 4096, 1) for start in starts]
+    fills = [(rng.random((3, 4096)) < 0.6).astype(np.uint8) for _ in starts]
+
+    def chunk(first, rnd):
+        lanes = _straggler_lanes(first, CHUNK, BOARD_WINDOW)
+        return (lanes[1].astype(np.int64), lanes[2],
+                np.full(CHUNK, rnd, np.int32))
+
+    pre = [chunk(K2_START, 0)]
+    rest = [chunk(K2_START + 2048, 1), chunk(K2_START + 2048 + 128, 1),
+            chunk(K2_START + 8192 + 3 * 4096 + 64, 2)]
+    if hasattr(checker, "board_run"):
+        segments = [("sparse", [(*c, CHUNK) for c in pre]),
+                    ("dense", spans),
+                    ("sparse", [(*c, CHUNK) for c in rest])]
+
+        def drain():
+            run = checker.board_run(segments)
+            for off, fill in zip(run.offsets.tolist(), fills):
+                run.block[:, off:off + 4096] = fill
+            res = run.dispatch()
+            res.wait()
+            res.lanes()
+            res.free()
+        form = "one board_run dispatch"
+    else:
+        def drain():
+            masks = [checker.record_and_check_async(*c, pad_to=CHUNK)
+                     for c in pre]
+            run = checker.dense_run(spans)
+            for off, fill in zip(run.offsets.tolist(), fills):
+                run.block[:, off:off + 4096] = fill
+            res = run.dispatch()
+            masks += [checker.record_and_check_async(*c, pad_to=CHUNK)
+                      for c in rest]
+            res.wait()
+            for mask in masks:
+                mask.cpu()
+            res.free()
+        form = "dense_run between four record_and_check_async calls"
+    drain()
+    torch.cuda.synchronize()
+    before = (tq.record_block.launches, tq.record_and_check.launches)
+    drain()
+    torch.cuda.synchronize()
+    launches = {"record_block": tq.record_block.launches - before[0],
+                "record_and_check": tq.record_and_check.launches
+                - before[1]}
+    dev_ms, per_call = _device_ms(drain, "record_")
+    return {"form": form, "host_ns_per_drain": _host_ns(drain, calls=500),
+            "launches_per_drain": launches,
+            "device_ms_per_drain": (None if dev_ms is None
+                                    else dev_ms * per_call),
+            "votes": {"dense_blocks": len(spans),
+                      "sparse_chunks": len(pre) + len(rest),
+                      "lanes": CHUNK * (len(pre) + len(rest))}}
+
+
+def sharded_kernels(device) -> dict:
+    """K19 (with K20 and K21) at rank 0's shape of each phase-25 mesh,
+    telemetry off and on (the module docstring). Bytes: K19 (4N + 4 +
+    8R) a lane, K20 (8R + 13 + N) a lane and the slot words, K21 the
+    slot words and three scalars."""
+    import torch
+    from frankenpaxos_tpu_torch.bench import pipeline as tp
+    from frankenpaxos_tpu_torch.mesh import Mesh
+    from frankenpaxos_tpu_torch.ops.quorum import make_predicate
+    from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority
+
+    specs = {"majority3": SimpleMajority(range(3)).write_spec(),
+             "grid2x3": Grid([[0, 1, 2], [3, 4, 5]]).write_spec()}
+    out = {}
+    for group, slot, name in SHARD_MESHES:
+        spec = specs[name]
+        n = spec.num_nodes
+        pred = make_predicate(*spec.as_arrays(), device=device)
+        mesh = Mesh(group, slot, 0, device)
+        for telemetry in (False, True):
+            state, _ = tp.make_sharded_state(mesh, BOARD_WINDOW, SHARD_BLOCK,
+                                             n, telemetry=telemetry,
+                                             device=device)
+            plan = tp.make_shard_plan(mesh, SHARD_BLOCK, pred,
+                                      telemetry=telemetry)
+            at = [0]
+
+            def phase(fn):
+                def call():
+                    fn(state, at[0], plan)
+                    at[0] += 1
+                return call
+
+            b, r = plan.b_local, plan.parts.shape[1]
+            words = plan.slot.numel()
+            rows = {"shard_vote_count": (4 * plan.n_local + 4 + 8 * r) * b,
+                    "shard_commit": (8 * r + 13 + plan.n_local) * b
+                    + 8 * words,
+                    "shard_fold": 8 * words + 24}
+            fig = {"b_local": b, "n_local": plan.n_local,
+                   "w_local": state.votes.shape[1],
+                   "form": (list(tp.shard_form(plan))
+                            if hasattr(tp, "shard_form") else None)}
+            for kernel in ("shard_vote_count", "shard_commit", "shard_fold"):
+                call = phase(getattr(tp, kernel))
+                dev_ms, _ = _device_ms(call, kernel + "_kernel")
+                fig[kernel] = {"call_ms": _cuda_ms(call), "device_ms": dev_ms,
+                               "bound_ms": rows[kernel] / HBM_BYTES_PER_S
+                               * 1e3}
+            torch.cuda.synchronize()
+            out[f"{group}x{slot} {name} telemetry "
+                f"{'on' if telemetry else 'off'}"] = fig
     return out
 
 
@@ -676,6 +882,8 @@ def main(argv=None) -> int:
     if "board" in parts:
         result["board"] = {"kernels": board_kernels(device),
                            "drains": board_drains(device)}
+    if "sharded" in parts:
+        result["sharded"] = sharded_kernels(device)
     if "drains" in parts:
         result["drains"] = drains(device)
     print(json.dumps(result), flush=True)

@@ -816,71 +816,117 @@ def shard_fold_plain(state: PipelineState, i: int,
     return state
 
 
-def _shard_kernel(plan: ShardPlan, *tensors: torch.Tensor) -> bool:
-    return use_kernel(*tensors, plan.masks, plan.thresholds, plan.parts,
-                      plan.slot)
+#: K19's register forms (``csrc/pipeline_sharded.cu``), by shard
+#: structure: ``(kind, n_local, g)`` with one mask group for n_local
+#: 1-16 (a majority's shard), two groups over two acceptors (the 2x3
+#: grid's rows over three group shards), and whole rows of three over
+#: three acceptors (the 2x3 grid over two group shards, write or read).
+#: :func:`shard_form` chooses from it; the C entry launches the form it
+#: is handed and refuses one it does not instantiate.
+SHARD_FORMS = frozenset(
+    [(MATMUL, n, 1) for n in range(1, 17)] + [(MATMUL, 2, 2)]
+    + [(kind, 3, 3) for kind in (GRID_WRITE, GRID_READ)])
+
+
+def shard_form(plan: ShardPlan) -> tuple:
+    """The form K19 runs for ``plan``'s shard (the C entry launches
+    the one named here): ``("groups", n_local, g)`` (the mask-group counts in registers),
+    ``("rows", n_local, cols)`` (whole grid rows in registers) or
+    ``("generic", n_local, 0)`` (runtime sizes)."""
+    if plan.kind == MATMUL:
+        key = (MATMUL, plan.n_local, plan.masks.shape[0])
+        if key in SHARD_FORMS:
+            return ("groups", plan.n_local, plan.masks.shape[0])
+    elif (plan.kind, plan.n_local, plan.cols) in SHARD_FORMS:
+        return ("rows", plan.n_local, plan.cols)
+    return ("generic", plan.n_local, 0)
+
+
+#: The C entry's code of each kind of form (``VoteFormKind``).
+_FORM_CODES = {"generic": 0, "groups": 1, "rows": 2}
+
+#: The packed entries: K19's 18 int64 slots, K20's 21, K21's 11
+#: (``pipeline_sharded.cu``'s blocks).
+_K19 = _build.Entry("pipeline_sharded", "fpx_shard_vote_count", 18)
+_K20 = _build.Entry("pipeline_sharded", "fpx_shard_commit", 21)
+_K21 = _build.Entry("pipeline_sharded", "fpx_shard_fold", 11)
 
 
 def shard_vote_count(state: PipelineState, i: int,
                      plan: ShardPlan) -> torch.Tensor:
-    """K19 (``csrc/pipeline_sharded.cu::shard_vote_count_kernel``) on
-    CUDA state, counted in ``shard_vote_count.launches``;
-    :func:`shard_vote_count_plain` on CPU state. Never synchronises."""
+    """K19 (``csrc/pipeline_sharded.cu::shard_vote_count_kernel``, in
+    the form :func:`shard_form` names) on CUDA state through the lean
+    call path (one packed ``ctypes`` call), counted in
+    ``shard_vote_count.launches``; :func:`shard_vote_count_plain` on CPU
+    state. Never synchronises."""
     w_local = _check_shard(state, plan)
     i = int32(i)
-    if not _shard_kernel(plan, state.votes, state.commands):
+    if not use_kernel(state.votes, state.commands, plan.masks,
+                      plan.thresholds, plan.parts, plan.slot):
         return shard_vote_count_plain(state, i, plan)
-    rc = _build.library("pipeline_sharded").fpx_shard_vote_count(
+    index = state.votes.get_device()
+    fn = _K19.fn or _K19.resolve()
+    rc = fn(_K19.pack(
         state.votes.data_ptr(), state.commands.data_ptr(), w_local, i,
         plan.block_size, plan.b_local, plan.slot_idx, plan.group_idx,
         plan.n_local, plan.kind, plan.masks.shape[0], plan.cols,
         plan.masks.data_ptr(), int(plan.telemetry), plan.parts.data_ptr(),
-        *_build.stream_args(state.votes.device))
-    _build.check("pipeline_sharded", "fpx_shard_vote_count", rc)
+        _FORM_CODES[shard_form(plan)[0]], index,
+        _build.stream_handle(index)))
+    if rc:
+        _K19.check(rc)
     shard_vote_count.launches += 1
     return plan.parts
 
 
 def shard_commit(state: PipelineState, i: int,
                  plan: ShardPlan) -> torch.Tensor:
-    """K20 (``shard_commit_kernel``) on CUDA state, counted in
-    ``shard_commit.launches``; :func:`shard_commit_plain` on CPU state.
-    Never synchronises."""
+    """K20 (``shard_commit_kernel``) on CUDA state through the lean call
+    path, counted in ``shard_commit.launches``;
+    :func:`shard_commit_plain` on CPU state. Never synchronises."""
     w_local = _check_shard(state, plan)
     i = int32(i)
     tensors = state[:4]
-    if not _shard_kernel(plan, *tensors):
+    if not use_kernel(*tensors, plan.masks, plan.thresholds, plan.parts,
+                      plan.slot):
         return shard_commit_plain(state, i, plan)
-    rc = _build.library("pipeline_sharded").fpx_shard_commit(
+    index = state.votes.get_device()
+    fn = _K20.fn or _K20.resolve()
+    rc = fn(_K20.pack(
         *(t.data_ptr() for t in tensors), w_local, i, plan.block_size,
         plan.b_local, plan.slot_idx, plan.slot_shards, plan.n_local,
         plan.n_global, plan.kind, plan.masks.shape[0],
         plan.thresholds.data_ptr(), int(plan.combine_any),
         int(plan.telemetry), plan.parts.data_ptr(), plan.slot.data_ptr(),
-        *_build.stream_args(state.votes.device))
-    _build.check("pipeline_sharded", "fpx_shard_commit", rc)
+        index, _build.stream_handle(index)))
+    if rc:
+        _K20.check(rc)
     shard_commit.launches += 1
     return plan.slot
 
 
 def shard_fold(state: PipelineState, i: int,
                plan: ShardPlan) -> PipelineState:
-    """K21 (``shard_fold_kernel``) on CUDA state, counted in
-    ``shard_fold.launches``; :func:`shard_fold_plain` on CPU state.
-    Never synchronises."""
+    """K21 (``shard_fold_kernel``) on CUDA state through the lean call
+    path, counted in ``shard_fold.launches``; :func:`shard_fold_plain` on
+    CPU state. Never synchronises."""
     _check_shard(state, plan)
     i = int32(i)
     scalars = state[4:7]
     tel = state.telemetry
     extra = () if tel is None else (tel.buffer,)
-    if not _shard_kernel(plan, *scalars, *extra):
+    if not use_kernel(*scalars, *extra, plan.masks, plan.thresholds,
+                      plan.parts, plan.slot):
         return shard_fold_plain(state, i, plan)
-    rc = _build.library("pipeline_sharded").fpx_shard_fold(
+    index = state.votes.get_device()
+    fn = _K21.fn or _K21.resolve()
+    rc = fn(_K21.pack(
         *(t.data_ptr() for t in scalars), i, plan.block_size,
         plan.slot_shards, plan.n_global, plan.slot.data_ptr(),
-        None if tel is None else tel.buffer.data_ptr(),
-        *_build.stream_args(state.votes.device))
-    _build.check("pipeline_sharded", "fpx_shard_fold", rc)
+        0 if tel is None else tel.buffer.data_ptr(), index,
+        _build.stream_handle(index)))
+    if rc:
+        _K21.check(rc)
     shard_fold.launches += 1
     return state
 

@@ -23,6 +23,11 @@ usual damage, drain by drain:
     then every acceptor's round-1 votes arrive 1-3 drains late as
     ranged runs.
 
+``make_mixed_stream`` is a short stream for the checks, not a benchmark
+arm: its drains carry every kind of scatter part the pipelined tracker
+sends (chunks of an older, the drain's and a newer round, bursts of
+several chunks, remainders at the ring end of a window of 1000).
+
 Arms (full width: ``f = 1``, one acceptor group of 3, window 2^20, 2^20
 slots, i.e. about 3 * 2^20 votes):
 
@@ -167,6 +172,76 @@ def make_stream(num_slots: int, acceptors: int, drain: int = DRAIN,
         if events:
             drains.append(events)
     return drains
+
+
+#: The mixed stream's window: no multiple of 64, so the drains' dense
+#: runs meet the ring end with sub-bucket remainders on both sides; and
+#: the new slots a drain.
+MIXED_WINDOW = 1000
+MIXED_WIDTH = 300
+
+
+def make_mixed_stream(seed: int, drains: int = 24) -> list:
+    """Drains of ``MIXED_WIDTH`` new slots each (acceptor a in 0-2, one
+    group of three), the dominant round rising every third drain:
+      * the new slots as ranged votes, with some slots held back (their
+        second vote arrives one or two drains later, as a lone vote: a
+        leftover of the same round, or an older round's after a round
+        change);
+      * before each round change, acceptors 1 and 2 hold back all of the
+        drain's votes, which arrive in the next drain as lone votes of
+        the older round, shuffled, some twice (several scatter chunks,
+        duplicates inside and across them);
+      * a few slots of each drain voted only in the next round (newer
+        than the drain's), by two acceptors.
+    Every slot is voted in one round only, so the dict oracle and the
+    pipelined board agree. The pipelined tracker's drains of it (at
+    window ``MIXED_WINDOW``) carry every kind of scatter part: chunks of
+    an older round, of the drain's round (leftovers), of a newer round,
+    several chunks with duplicates, and remainders at the ring end
+    between two dense runs. Events as :func:`make_stream`'s."""
+    rng = np.random.default_rng(seed)
+    late: dict = {}
+    stream = []
+    for d in range(drains):
+        rnd = d // 3
+        base = d * MIXED_WIDTH
+        slots = np.arange(base, base + MIXED_WIDTH)
+        events = late.pop(d, [])
+        post = rng.choice(MIXED_WIDTH, size=6, replace=False)
+        held = rng.random(MIXED_WIDTH) < 0.1
+        held[post] = False
+        burst = d % 3 == 2
+        for acc in range(3):
+            skip = np.zeros(MIXED_WIDTH, bool)
+            skip[post] = True
+            if acc == 1:
+                skip |= held
+            if acc > 0 and burst:
+                skip[:] = True
+            edges = np.flatnonzero(np.diff(np.concatenate(
+                [[1], skip.astype(np.int8), [1]])))
+            for lo, hi in zip(edges[::2], edges[1::2]):
+                events.append(("range", base + int(lo), base + int(hi),
+                               rnd, acc))
+        for pos in np.flatnonzero(held):
+            due = d + int(rng.integers(1, 3))
+            late.setdefault(due, []).append(("vote", int(slots[pos]), rnd,
+                                             1))
+        if burst:
+            votes = [("vote", int(s), rnd, acc) for s in slots
+                     for acc in (1, 2) if not (acc == 1 and held[s - base])
+                     and s - base not in post]
+            votes += [votes[k] for k in rng.integers(0, len(votes), 40)]
+            order = rng.permutation(len(votes))
+            late.setdefault(d + 1, []).extend(votes[k] for k in order)
+        for pos in post:
+            for acc in (0, 2):
+                events.append(("vote", int(slots[pos]), rnd + 1, acc))
+        stream.append(events)
+    for d in sorted(late):
+        stream.append(late[d])
+    return stream
 
 
 def count_votes(stream: list) -> int:

@@ -14,12 +14,14 @@ launches on the caller's stream, never synchronises, and returns
 exceptions are the ``*_staged`` entry points, which run a
 transport-facing or tracker call whole (copy up, launch, copy down) and
 return after the stream has drained (:class:`Staging` says which
-stream), and K2's staged run, which records an event instead of waiting
-(its caller waits on the event when it collects).
+stream), and K2's staged run and the pipelined drain's staged run (K2
+and K4), which record an event instead of waiting (their caller waits on
+the event when it collects).
 
 The lean call path (:class:`Entry`, :func:`stream_handle`) serves the
-wrappers whose host cost is the call itself (K1, K2, K5, K6, K10, K11,
-K12, K18, and the drain runs of K3, K14 and the pinned copy): the entry point
+wrappers whose host cost is the call itself (K1, K2, K4, K5, K6, K10,
+K11, K12, K18, K19-K21, and the drain runs of K3, K14 and the pinned
+copy): the entry point
 is looked up once; its arguments cross as ONE packed block of int64
 (``struct`` bytes), which ctypes converts once instead of one argument
 at a time; a launch-only entry is called through a ``ctypes.PyDLL``
@@ -86,16 +88,23 @@ SIGNATURES = {
         # slots, block offset, stride, device newly, pinned newly, bytes
         # of newly, perm identity, the predicate, event, device, stream
         "fpx_record_block_run_staged": _B,
+        # packed: the board (6), lanes [5, stride] (device), stride, the
+        # host chunk bounds, nchunks, newly (device), perm identity, the
+        # predicate, device, stream
+        "fpx_record_and_check_run": _B,
+        # packed: the board (6), perm identity, the predicate, the host
+        # segment table, nseg, the host K2 table, nb, the host chunk
+        # bounds, nchunks, the pinned in-block, its device copy, held
+        # slots, dense offset, stride, lanes offset, lanes, device out,
+        # pinned out, the lanes' newly offset, bytes of out, event,
+        # device, stream
+        "fpx_board_run_staged": _B,
         # packed: device, the address of the int64 handle / the event
         "fpx_event_create": _B,
         "fpx_event_wait": _B,
         "fpx_event_destroy": _B,
     },
     "sparse": {
-        # votes, rounds, chosen, owner, window, lanes [5, b], b, newly,
-        # scratch [2, b], *pred
-        "fpx_record_and_check": [_P, _P, _P, _P, _L, _P, _I, _P, _P,
-                                 *_PRED, _I, _P],
         # packed: votes, rounds, chosen, owner, window, n, slots, valid,
         # b, device, stream
         "fpx_release": _B,
@@ -191,18 +200,19 @@ SIGNATURES = {
     },
     # The sharded drain on one shard of a (group, slot) mesh.
     "pipeline_sharded": {
-        # votes, commands, w_local, i, block_size, b_local, slot_idx,
-        # group_idx, n_local, kind, g, cols, local masks, telemetry, parts
-        "fpx_shard_vote_count": [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _P, _I, _P, _I, _P],
-        # votes, chosen, commands, results, w_local, i, block_size,
-        # b_local, slot_idx, slot_shards, n_local, n_global, kind, g,
-        # thresholds, combine_any, telemetry, parts, slot_buf
-        "fpx_shard_commit": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _P, _I, _I, _P, _P, _I, _P],
-        # sm_state, committed, exec_wm, i, block_size, slot_shards,
-        # n_global, slot_buf, telemetry buffer (or NULL)
-        "fpx_shard_fold": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+        # packed: votes, commands, w_local, i, block_size, b_local,
+        # slot_idx, group_idx, n_local, kind, g, cols, local masks,
+        # telemetry, parts, threads (0: the default), device, stream
+        "fpx_shard_vote_count": _B,
+        # packed: votes, chosen, commands, results, w_local, i,
+        # block_size, b_local, slot_idx, slot_shards, n_local, n_global,
+        # kind, g, thresholds, combine_any, telemetry, parts, slot_buf,
+        # device, stream
+        "fpx_shard_commit": _B,
+        # packed: sm_state, committed, exec_wm, i, block_size,
+        # slot_shards, n_global, slot_buf, telemetry buffer (or 0),
+        # device, stream
+        "fpx_shard_fold": _B,
     },
     # The pinned sharded drain (the telemetry-off K19-K21 copies).
     "pipeline_sharded_baseline": {

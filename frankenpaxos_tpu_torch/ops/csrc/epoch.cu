@@ -20,37 +20,14 @@
 //     sees the board the chunks before it left (their `chosen` bits). A
 //     single call is a run of one chunk.
 //
-// The chunk body. Every phase of the reference's scatter is per column
-// (a lane's result reads only its column's state), so a launch's blocks
-// split the COLUMNS: block p of P (one per 32 lanes of a chunk, at most
-// 8) takes the lanes whose column c has c % P == p, runs every chunk of
-// the run in order on them, and the blocks never meet. Inside a block
-// (the chunks are ordered, and a chunk's phases read what other lanes of
-// it wrote) a chunk's lanes are loaded once into the workspace (each
-// thread's first lane a chunk ahead, so that the load overlaps the chunk
-// before), and each DISTINCT column gets one entry of a table keyed by
-// column (open addressing on a shared-memory hash, twice the chunk's
-// size): every lane reads its column's owner, round, chosen byte and N
-// vote bytes from the board before it looks for the entry (one round trip
-// that overlaps the insert), the lane that inserts the entry stores them
-// there, every phase works on the entry, and the inserting lane writes it
-// back once (the entry phases run over the lanes). The reference's
-// scatter-max phases become atomicMax on the entries, a lane's column
-// state is the entry's, and a lane's epoch plane is
+// The chunk body is sparse.cuh's run_chunk, shared with K4 (its design
+// and its six barriers a chunk are set out there): the blocks of a launch
+// split the COLUMNS (block p of P, one per 32 lanes of a chunk, at most
+// 8, takes the columns c with c % P == p and runs every chunk in order on
+// them), each chunk's distinct columns get one entry each of a
+// shared-memory table, and a lane's epoch plane is
 // searchsorted(boundaries, true_slot, side="right") over the int32
-// boundaries. Six barriers a chunk, one per phase the order needs:
-//   1. lanes: read the column, insert it (its first lane stores it),
-//      owner max (valid ? true : -inf);
-//   2. lanes: `mine` (valid, and the column's owner after the max), round
-//      max;
-//   3. entries (by their inserting lanes): a newer owner reclaims the
-//      column (votes 0, round -1, chosen 0); the new round; a newer round
-//      preempts (votes 0);
-//   4. lanes: a live vote sets its byte to max(byte, 1);
-//   5. lanes: hit (mine, and the lane's epoch plane on the entry's votes),
-//      newly = hit & ~chosen0, and the entry's chosen;
-//   6. entries (by their inserting lanes): written back, and the table
-//      cleared for the next chunk.
+// boundaries, its predicate in phase 5.
 // JAX's index rules are kept: a negative slot counts from the end, one
 // still out of range reads the clamped column and writes nothing (its
 // scatters are dropped, and an entry no writing lane names is written
@@ -85,11 +62,11 @@
 
 #include "quorum.cuh"
 #include "release.cuh"
-
-// The reference's _NEG_INF32 = -(2**31) + 1.
-#define FPX_NEG_INF32 (-2147483647)
+#include "sparse.cuh"
 
 namespace {
+
+using namespace fpx_sparse;
 
 struct MultiPred {
   const int32_t* masks;       // [k, g, n]
@@ -147,171 +124,14 @@ __global__ void check_batch_multi_kernel(const int32_t* __restrict__ present,
   });
 }
 
-// The vote board, updated in place.
-struct Board {
-  uint8_t* votes;   // [n, window]
-  int32_t* rounds;  // [window]
-  uint8_t* chosen;  // [window] (bool)
-  int32_t* owner;   // [window]
-  long long window;
-  int n;
-};
-
 // Planes in shared memory when they fit this many bytes.
 constexpr int kPlaneSharedBytes = 16384;
-// A chunk's workspace in shared memory when it fits this many bytes.
-constexpr int kWorkSharedBytes = 160 * 1024;
-// Threads of each block of a K6 launch, at most (a chunk of more lanes
-// gives a thread several).
-constexpr int kRunThreads = 512;
-// A launch's blocks, each taking a share of the columns: one for each
-// kLanesPerPart lanes of a chunk, at most kMaxParts (a power of two).
-constexpr int kMaxParts = 8;
-constexpr int kLanesPerPart = 32;
-
-// A chunk's table: a power of two, at least twice the chunk (so a probe
-// ends soon) and at least 32.
-__host__ __device__ inline int table_size(int chunk) {
-  int h = 32;
-  while (h < 2 * chunk) h <<= 1;
-  return h;
-}
-
-// The workspace's bytes.
-inline long long work_bytes(int chunk, int n) {
-  const long long h = table_size(chunk);
-  return 4 * (5LL * chunk + 5 * h) + chunk + h * (2 + n);
-}
 
 inline int plane_bytes(const MultiPred& m, int nb) {
   const long long words =
       static_cast<long long>(m.k) * m.g * m.n + m.k * m.g + nb;
   const long long bytes = 4 * words + m.k;
   return bytes > kPlaneSharedBytes ? -1 : static_cast<int>((bytes + 15) & ~15);
-}
-
-// One chunk's lanes and its table of distinct columns.
-struct Work {
-  int32_t* col;      // [chunk] the column a lane reads (clamped)
-  int32_t* tslot;    // [chunk] true slot
-  int32_t* node;     // [chunk] normalised node
-  int32_t* round;    // [chunk]
-  int32_t* entry;    // [chunk] the lane's table entry
-  int32_t* key;      // [h] the entry's column, -1 when free
-  int32_t* owner;    // [h] owner max, then the column's owner
-  int32_t* board_owner;  // [h] the column's owner on the board
-  int32_t* round0;   // [h] the column's round (-1 after a reclaim)
-  int32_t* rnd;      // [h] round max, then the column's round
-  uint8_t* flags;    // [chunk] 1 valid, 2 writes, 4 mine, 8 inserted,
-                     // 16 this block's column (the other bits 0 else)
-  uint8_t* chosen0;  // [h] chosen (0 after a reclaim)
-  uint8_t* hit;      // [h] a writing lane hit
-  uint8_t* votes;    // [h, n]
-};
-
-__device__ __forceinline__ Work carve(uint8_t* base, int chunk, int h) {
-  Work w;
-  int32_t* p = reinterpret_cast<int32_t*>(base);
-  w.col = p;
-  w.tslot = p + chunk;
-  w.node = p + 2 * chunk;
-  w.round = p + 3 * chunk;
-  w.entry = p + 4 * chunk;
-  p += 5 * chunk;
-  w.key = p;
-  w.owner = p + h;
-  w.board_owner = p + 2 * h;
-  w.round0 = p + 3 * h;
-  w.rnd = p + 4 * h;
-  uint8_t* q = reinterpret_cast<uint8_t*>(p + 5 * h);
-  w.flags = q;
-  w.chosen0 = q + chunk;
-  w.hit = q + chunk + h;
-  w.votes = q + chunk + 2 * h;
-  return w;
-}
-
-// One lane as packed: slot, true slot, node, round, valid.
-struct Lane {
-  int32_t slot, tslot, node, round, valid;
-};
-
-__device__ __forceinline__ Lane load_lane(const int32_t* lanes, int b,
-                                          int j) {
-  return Lane{lanes[j], lanes[b + j], lanes[2 * b + j], lanes[3 * b + j],
-              lanes[4 * b + j]};
-}
-
-__device__ __forceinline__ void clear_entry(const Work& w, int e) {
-  w.key[e] = -1;
-  w.owner[e] = INT_MIN;
-  w.rnd[e] = INT_MIN;
-  w.hit[e] = 0;
-}
-
-// A column of the board as a lane reads it: every load is issued before
-// anything is stored (the table's pointers may alias the board's as far
-// as the compiler knows, so a load after a store would wait for it), so
-// the column costs one round trip to memory, not N + 3.
-constexpr int kHeld = 16;
-struct Column {
-  int32_t owner, round;
-  uint8_t chosen;
-  uint8_t v[kHeld];
-};
-
-__device__ __forceinline__ Column load_column(const Board& bd, int32_t col) {
-  Column c;
-  c.owner = bd.owner[col];
-  c.round = bd.rounds[col];
-  c.chosen = bd.chosen[col];
-#pragma unroll
-  for (int i = 0; i < kHeld; ++i) {
-    c.v[i] = i < bd.n ? bd.votes[i * bd.window + col] : 0;
-  }
-  return c;
-}
-
-// Column c into entry e (rows past kHeld read from the board here).
-__device__ __forceinline__ void store_column(const Board& bd, int32_t col,
-                                             const Column& c, const Work& w,
-                                             int e) {
-  const int n = bd.n;
-  w.board_owner[e] = c.owner;
-  w.round0[e] = c.round;
-  w.chosen0[e] = c.chosen;
-#pragma unroll
-  for (int i = 0; i < kHeld; ++i) {
-    if (i < n) w.votes[e * n + i] = c.v[i];
-  }
-  for (int i = kHeld; i < n; ++i) {
-    w.votes[e * n + i] = bd.votes[i * bd.window + col];
-  }
-}
-
-// Entry e back into the board's column `col`, and the entry cleared:
-// every load from the table first, then the stores.
-__device__ __forceinline__ void write_column(const Board& bd, int32_t col,
-                                             const Work& w, int e) {
-  const long long window = bd.window;
-  const int n = bd.n;
-  const int32_t owner = w.owner[e];
-  const int32_t round = w.rnd[e];
-  const uint8_t chosen = w.chosen0[e] | w.hit[e];
-  uint8_t v[kHeld];
-#pragma unroll
-  for (int i = 0; i < kHeld; ++i) v[i] = i < n ? w.votes[e * n + i] : 0;
-  for (int i = kHeld; i < n; ++i) {
-    bd.votes[i * window + col] = w.votes[e * n + i];
-  }
-  clear_entry(w, e);
-  bd.owner[col] = owner;
-  bd.rounds[col] = round;
-  bd.chosen[col] = chosen;
-#pragma unroll
-  for (int i = 0; i < kHeld; ++i) {
-    if (i < n) bd.votes[i * window + col] = v[i];
-  }
 }
 
 // kShared: the workspace in shared memory (after the planes, when those
@@ -321,9 +141,10 @@ __device__ __forceinline__ void write_column(const Board& bd, int32_t col,
 // each keeps the chunks' order on its own columns.
 template <bool kShared>
 __global__ void __launch_bounds__(kRunThreads)
-    record_and_check_epochs_run_kernel(Board bd, const int32_t* lanes, int b,
-                                       int chunk, const int32_t* boundaries,
-                                       int nb, MultiPred m, uint8_t* newly,
+    record_and_check_epochs_run_kernel(SparseBoard bd, const int32_t* lanes,
+                                       int b, int chunk,
+                                       const int32_t* boundaries, int nb,
+                                       MultiPred m, uint8_t* newly,
                                        uint8_t* global_work,
                                        long long work_stride,
                                        int planes_shared) {
@@ -367,117 +188,24 @@ __global__ void __launch_bounds__(kRunThreads)
   const int shift = 32 - __ffs(h) + 1;  // h = 2^(33 - shift)
   const Work w = carve(kShared ? base : global_work + part * work_stride,
                        chunk, h);
-  const int n = bd.n;
-  const long long window = bd.window;
   for (int e = tid; e < h; e += nt) clear_entry(w, e);
   __syncthreads();
 
   for (long long first = 0; first < b; first += chunk) {
     const int c0 = static_cast<int>(first);
-    const int lanes_here = min(chunk, b - c0);
     const Lane mine_first = ahead;
     if (first + chunk + tid < b) {
       ahead = load_lane(lanes, b, static_cast<int>(first + chunk + tid));
     }
-    // 1. Lanes: read the column, find its entry (the lane that inserts
-    // the entry stores the column there), owner max.
-    for (int l = tid; l < lanes_here; l += nt) {
-      const Lane in = l == tid ? mine_first : load_lane(lanes, b, c0 + l);
-      long long s = in.slot;
-      if (s < 0) s += window;
-      const bool writes = s >= 0 && s < window;
-      const int32_t col =
-          static_cast<int32_t>(min(max(s, 0LL), window - 1));
-      if ((col & parts_mask) != part) {  // another block's column
-        w.flags[l] = 0;
-        continue;
-      }
-      // Issued before the insert, so the read overlaps it.
-      const Column column = load_column(bd, col);
-      int32_t node = in.node;
-      if (node < 0) node += n;
-      uint32_t e = (static_cast<uint32_t>(col) * 0x9E3779B1u) >> shift;
-      int32_t prev;
-      while ((prev = atomicCAS(&w.key[e], -1, col)) != -1 && prev != col) {
-        e = (e + 1) & (h - 1);
-      }
-      uint8_t f = 16 | (in.valid != 0 ? 1 : 0) | (writes ? 2 : 0);
-      if (prev == -1) {
-        store_column(bd, col, column, w, e);
-        f |= 8;
-      }
-      w.col[l] = col;
-      w.tslot[l] = in.tslot;
-      w.node[l] = node;
-      w.round[l] = in.round;
-      w.entry[l] = static_cast<int32_t>(e);
-      w.flags[l] = f;
-      if (writes) {
-        atomicMax(&w.owner[e], in.valid != 0 ? in.tslot : FPX_NEG_INF32);
-      }
-    }
-    __syncthreads();
-    // 2. Lanes: `mine` (valid, and the column's owner after the max),
-    // round max.
-    for (int l = tid; l < lanes_here; l += nt) {
-      const uint8_t f = w.flags[l];
-      const int e = w.entry[l];  // read only where f is not 0
-      const bool mine = (f & 1) &&
-                        w.tslot[l] == max(w.board_owner[e], w.owner[e]);
-      if (mine) w.flags[l] = f | 4;
-      if (f & 2) atomicMax(&w.rnd[e], mine ? w.round[l] : FPX_NEG_INF32);
-    }
-    __syncthreads();
-    // 3. Entries, each by the lane that inserted it: a newer owner
-    // reclaims the column (round -1, chosen 0, votes 0); the column's new
-    // round; a newer round preempts (votes 0).
-    for (int l = tid; l < lanes_here; l += nt) {
-      if (!(w.flags[l] & 8)) continue;
-      const int e = w.entry[l];
-      const int32_t owner = max(w.board_owner[e], w.owner[e]);
-      const bool reclaimed = owner > w.board_owner[e];
-      const int32_t round0 = reclaimed ? -1 : w.round0[e];
-      const int32_t r = max(round0, w.rnd[e]);
-      w.owner[e] = owner;
-      w.rnd[e] = r;
-      if (reclaimed) w.chosen0[e] = 0;
-      if (reclaimed || r > round0) {
-        for (int i = 0; i < n; ++i) w.votes[e * n + i] = 0;
-      }
-    }
-    __syncthreads();
-    // 4. Lanes: votes.at[nodes, slots].max(live).
-    for (int l = tid; l < lanes_here; l += nt) {
-      const int e = w.entry[l];
-      const uint8_t f = w.flags[l];
-      const int32_t node = w.node[l];
-      if ((f & 4) && (f & 2) && w.round[l] == w.rnd[e] && node >= 0 &&
-          node < n && w.votes[e * n + node] == 0) {
-        w.votes[e * n + node] = 1;
-      }
-    }
-    __syncthreads();
-    // 5. Lanes: hit under the lane's epoch plane, newly, chosen.
-    for (int l = tid; l < lanes_here; l += nt) {
-      const uint8_t f = w.flags[l];
-      if (!(f & 16)) continue;  // another block reports it
-      const int e = w.entry[l];
-      const uint8_t* v = w.votes + e * n;
-      const bool hit =
-          (f & 4) && multi_hit(m, epoch_of(boundaries, nb, w.tslot[l]),
-                               [&](int i) {
-                                 return static_cast<int32_t>(v[i]);
-                               });
-      newly[c0 + l] = hit && w.chosen0[e] == 0;
-      if (hit && (f & 2)) w.hit[e] = 1;
-    }
-    __syncthreads();
-    // 6. Entries, each by the lane that inserted it: written back once;
-    // the table cleared.
-    for (int l = tid; l < lanes_here; l += nt) {
-      if (w.flags[l] & 8) write_column(bd, w.col[l], w, w.entry[l]);
-    }
-    __syncthreads();
+    // The chunk (sparse.cuh); a lane's hit is its epoch plane's
+    // predicate on the entry's votes.
+    run_chunk<0>(bd, w, h, shift, lanes, b, c0, min(chunk, b - c0),
+                 mine_first, part, parts_mask, newly,
+                 [&](int l, const uint8_t* v) {
+                   return multi_hit(
+                       m, epoch_of(boundaries, nb, w.tslot[l]),
+                       [&](int i) { return static_cast<int32_t>(v[i]); });
+                 });
   }
 }
 
@@ -551,8 +279,9 @@ cudaError_t run_epochs(const long long* a) {
     return cudaErrorInvalidValue;
   }
   const int c = static_cast<int>(std::min(chunk, b));
-  const Board bd{pointer<uint8_t>(a[0]), pointer<int32_t>(a[1]),
-                 pointer<uint8_t>(a[2]), pointer<int32_t>(a[3]), window, n};
+  const SparseBoard bd{pointer<uint8_t>(a[0]), pointer<int32_t>(a[1]),
+                       pointer<uint8_t>(a[2]), pointer<int32_t>(a[3]), window,
+                       n};
   const MultiPred m = make_multi(pointer<const void>(a[12]),
                                  pointer<const void>(a[13]),
                                  pointer<const void>(a[14]),

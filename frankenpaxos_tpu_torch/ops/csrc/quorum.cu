@@ -1,4 +1,5 @@
-// K1 quorum_hit and K2 record_block: the dense half of TpuQuorumChecker.
+// K1 quorum_hit, K2 record_block and K4 record_and_check: the board
+// kernels of TpuQuorumChecker.
 //
 // K1 replaces frankenpaxos_tpu/ops/quorum.py::_check_block (L348) and
 // _check_batch (L342), i.e. _predicate_hit (L156) over a vote block
@@ -35,18 +36,27 @@
 // chosen), the new column is built in registers and the predicate runs
 // in its register form on those registers (quorum_regs.cuh, as K1; the
 // runtime loop past 16 acceptors), and each array is stored once.
-// fpx_record_block_run_staged runs a pipelined drain's dense blocks
-// whole: the pinned in-block up, K5's all-valid form on the releases the
-// checker held (release.cuh), the run, newly down into pinned memory and
-// an event recorded, without waiting; fpx_event_wait waits for the event
-// with the GIL released.
+// fpx_record_block_run_staged runs a run of dense blocks whole: the
+// pinned in-block up, K5's all-valid form on the releases the checker
+// held (release.cuh), the run, newly down into pinned memory and an event
+// recorded, without waiting; fpx_event_wait waits for the event with the
+// GIL released.
+//
+// K4 replaces _record_and_check (L214) over _apply_sparse_votes (L170):
+// sparse.cuh's run kernel, a run of chunks a launch (see there).
+// fpx_record_and_check_run takes device lanes; fpx_board_run_staged runs
+// a pipelined drain whole in ONE call: an ordered list of segments, each
+// a K2 run of dense blocks or a K4 run of sparse chunks, after one copy
+// up of the pinned in-block (held releases, the staged dense block, the
+// sparse lanes) and K5 on the held releases, then one copy down of both
+// kinds of `newly` and an event, without waiting.
 //
 // Bound on the H100: bytes. K1 moves N + 1 bytes per column, K2 about
 // 3N + 19, with a few integer operations per byte; at the trackers'
 // B = 64 .. 4096 that is under 100 KB, so the launch and the chain of
 // dependent memory round trips set the time (about 1.3 us a launch on
 // the card): K1's vector path gives a bucket of 4096 columns 256
-// threads; K2 keeps a thread a column (see run_column).
+// threads; K2 keeps a thread a column (see run_column). K4: sparse.cuh.
 
 #include <algorithm>
 #include <climits>
@@ -55,6 +65,7 @@
 #include "quorum.cuh"
 #include "quorum_regs.cuh"
 #include "release.cuh"
+#include "sparse.cuh"
 
 namespace {
 
@@ -414,6 +425,93 @@ Run make_run(const long long* a, const uint8_t* blocks, long long stride,
   return r;
 }
 
+// A staged run's call: the board, the predicate, the segments (kind 0 a
+// K2 run of table rows [first, last), kind 1 a K4 run of chunks [first,
+// last)), and the pinned in-block / out-block with their device copies.
+struct Staged {
+  long long a[6];  // votes, rounds, chosen, owner, window, n
+  long long perm_identity;
+  QuorumPred q;
+  const int32_t* segs;
+  long long nseg;
+  const int32_t* table;
+  long long nb;
+  const int32_t* bounds;
+  long long nchunks;
+  const void* host_in;
+  uint8_t* dev_in;
+  long long held, dense_off, stride, lanes_off, lanes;
+  uint8_t* dev_out;
+  void* host_out;
+  long long newly_off, out_bytes;
+  long long event;
+  cudaStream_t stream;
+};
+
+// The in-block up, K5's all-valid form on the held slots, each segment's
+// launch in order, `out_bytes` of newly down into pinned memory, then the
+// event (if any) is recorded; it does not wait.
+cudaError_t run_staged(const Staged& st) {
+  const long long n = st.a[5];
+  if (st.a[4] <= 0 || st.a[4] > INT_MAX || n != st.q.n || st.nseg < 0 ||
+      st.nb < 0 || st.nchunks < 0 || st.held < 0 || st.held > INT_MAX ||
+      st.stride < 0 || st.stride > INT_MAX || st.lanes < 0 ||
+      st.lanes > INT_MAX || st.dense_off < 4 * st.held ||
+      st.dense_off % 16 != 0 ||
+      (st.lanes > 0 && (st.lanes_off < st.dense_off + n * st.stride ||
+                        st.lanes_off % 16 != 0)) ||
+      st.newly_off < st.stride ||
+      (st.lanes > 0 && st.newly_off + st.lanes > st.out_bytes)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = st.stream;
+  const size_t in_bytes = static_cast<size_t>(
+      st.lanes > 0 ? st.lanes_off + 20 * st.lanes
+                   : (st.nb > 0 ? st.dense_off + n * st.stride
+                                : 4 * st.held));
+  cudaError_t err = cudaSuccess;
+  if (in_bytes) {
+    err = cudaMemcpyAsync(st.dev_in, st.host_in, in_bytes,
+                          cudaMemcpyHostToDevice, s);
+    if (err != cudaSuccess) return err;
+  }
+  const ReleaseBoard rb{pointer<uint8_t>(st.a[0]), pointer<int32_t>(st.a[1]),
+                        pointer<uint8_t>(st.a[2]), pointer<int32_t>(st.a[3]),
+                        st.a[4], static_cast<int>(n)};
+  err = launch_release_all(rb, reinterpret_cast<const int32_t*>(st.dev_in),
+                           st.held, s);
+  if (err != cudaSuccess) return err;
+  Run r = make_run(st.a, st.dev_in + st.dense_off, st.stride, st.dev_out,
+                   st.perm_identity);
+  const fpx_sparse::SparseBoard bd{rb.votes, rb.rounds, rb.chosen, rb.owner,
+                                   rb.window, rb.n};
+  for (long long k = 0; k < st.nseg; ++k) {
+    const int32_t kind = st.segs[3 * k], first = st.segs[3 * k + 1],
+                  last = st.segs[3 * k + 2];
+    if (kind == 0 && 0 <= first && first <= last && last <= st.nb) {
+      err = launch_run(r, st.table + first * kRunFields, last - first, st.q,
+                       s);
+    } else if (kind == 1 && 0 <= first && first <= last &&
+               last <= st.nchunks) {
+      err = fpx_sparse::launch_sparse_run(
+          bd, reinterpret_cast<const int32_t*>(st.dev_in + st.lanes_off),
+          st.lanes, st.dev_out + st.newly_off, st.bounds, first, last,
+          static_cast<int>(st.perm_identity), st.q, s);
+    } else {
+      err = cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return err;
+  }
+  if (st.out_bytes > 0) {
+    err = cudaMemcpyAsync(st.host_out, st.dev_out,
+                          static_cast<size_t>(st.out_bytes),
+                          cudaMemcpyDeviceToHost, s);
+    if (err != cudaSuccess) return err;
+  }
+  if (st.event) return cudaEventRecord(pointer<CUevent_st>(st.event), s);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // block: votes, row stride, column stride, b, out, the predicate (9),
@@ -478,55 +576,43 @@ extern "C" int fpx_record_block_run(const void* block) {
                     packed_pred(a + 12), pointer<CUstream_st>(a[22]));
 }
 
-// The pipelined tracker's dense blocks of one drain in one call, with the
-// releases the checker held since its last board call: board (6), the
-// host table, nb, the pinned in-block and its device copy (the r held
-// slots as int32 at offset 0, the staged [n, stride] block at `blocks
-// offset`), r, blocks offset, stride, device newly, pinned newly, the
-// bytes of newly to copy down, perm identity, the predicate (9), an event
-// (0: none), device, stream. The in-block up, K5's all-valid form on the
-// held slots, K2's run, newly down into pinned memory, then the event is
-// recorded; it does not wait. All on the caller's current stream, behind
-// the work queued there (K4's parts of the same drain, K7's reshapes).
+// A run of dense blocks in one call, with the releases the checker held
+// since its last board call: board (6), the host table, nb, the pinned
+// in-block and its device copy (the r held slots as int32 at offset 0,
+// the staged [n, stride] block at `blocks offset`), r, blocks offset,
+// stride, device newly, pinned newly, the bytes of newly to copy down,
+// perm identity, the predicate (9), an event (0: none), device, stream.
+// The drain's run (run_staged) with one dense segment: the in-block up,
+// K5's all-valid form on the held slots, K2's run, newly down into pinned
+// memory, then the event is recorded; it does not wait. All on the
+// caller's current stream, behind the work queued there (K7's reshapes).
 extern "C" int fpx_record_block_run_staged(const void* block) {
   long long a[29];
   std::memcpy(a, block, sizeof a);
-  const long long n = a[5], nb = a[7], held = a[10], off = a[11],
-                  stride = a[12];
-  if (a[4] <= 0 || a[4] > INT_MAX || stride < 0 || stride > INT_MAX ||
-      held < 0 || held > INT_MAX || off < 4 * held || off % 16 != 0 ||
-      n != a[20]) {
-    return cudaErrorInvalidValue;
-  }
-  const cudaStream_t s = pointer<CUstream_st>(a[28]);
   cudaError_t err = select_device(static_cast<int>(a[27]));
   if (err != cudaSuccess) return err;
-  uint8_t* dev_in = pointer<uint8_t>(a[9]);
-  const size_t in_bytes =
-      static_cast<size_t>(nb > 0 ? off + n * stride : 4 * held);
-  if (in_bytes) {
-    err = cudaMemcpyAsync(dev_in, pointer<const void>(a[8]), in_bytes,
-                          cudaMemcpyHostToDevice, s);
-    if (err != cudaSuccess) return err;
-  }
-  const ReleaseBoard bd{pointer<uint8_t>(a[0]), pointer<int32_t>(a[1]),
-                        pointer<uint8_t>(a[2]), pointer<int32_t>(a[3]), a[4],
-                        static_cast<int>(n)};
-  err = launch_release_all(bd, reinterpret_cast<const int32_t*>(dev_in),
-                           held, s);
-  if (err != cudaSuccess) return err;
-  Run r = make_run(a, dev_in + off, stride, pointer<uint8_t>(a[13]), a[16]);
-  err = launch_run(r, pointer<const int32_t>(a[6]), nb, packed_pred(a + 17),
-                   s);
-  if (err != cudaSuccess) return err;
-  if (a[15] > 0) {
-    err = cudaMemcpyAsync(pointer<void>(a[14]), pointer<const void>(a[13]),
-                          static_cast<size_t>(a[15]), cudaMemcpyDeviceToHost,
-                          s);
-    if (err != cudaSuccess) return err;
-  }
-  if (a[26]) return cudaEventRecord(pointer<CUevent_st>(a[26]), s);
-  return cudaSuccess;
+  const int32_t seg[3] = {0, 0, static_cast<int32_t>(
+      std::min<long long>(std::max<long long>(a[7], 0), INT_MAX))};
+  Staged st{};
+  std::memcpy(st.a, a, sizeof st.a);
+  st.perm_identity = a[16];
+  st.q = packed_pred(a + 17);
+  st.segs = seg;
+  st.nseg = a[7] > 0 ? 1 : 0;
+  st.table = pointer<const int32_t>(a[6]);
+  st.nb = a[7];
+  st.host_in = pointer<const void>(a[8]);
+  st.dev_in = pointer<uint8_t>(a[9]);
+  st.held = a[10];
+  st.dense_off = a[11];
+  st.stride = a[12];
+  st.dev_out = pointer<uint8_t>(a[13]);
+  st.host_out = pointer<void>(a[14]);
+  st.newly_off = a[12];
+  st.out_bytes = a[15];
+  st.event = a[26];
+  st.stream = pointer<CUstream_st>(a[28]);
+  return run_staged(st);
 }
 
 // An event for a staged run: a[0] device, a[1] the address of an int64
@@ -556,4 +642,71 @@ extern "C" int fpx_event_destroy(const void* block) {
   long long a[1];
   std::memcpy(a, block, sizeof a);
   return cudaEventDestroy(pointer<CUevent_st>(a[0]));
+}
+
+// K4 on device lanes: votes, rounds, chosen, owner, window, n, lanes
+// [5, stride], stride, the host chunk bounds [nchunks + 1] (lane offsets,
+// nondecreasing), nchunks, newly [stride] (device), perm identity, the
+// predicate (9), device, stream. A single record_and_check call is a run
+// of one chunk.
+extern "C" int fpx_record_and_check_run(const void* block) {
+  long long a[23];
+  std::memcpy(a, block, sizeof a);
+  if (a[7] < 0 || a[7] > INT_MAX || a[9] < 0 || a[5] != a[15]) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = select_device(static_cast<int>(a[21]));
+  if (err != cudaSuccess) return err;
+  const fpx_sparse::SparseBoard bd{
+      pointer<uint8_t>(a[0]), pointer<int32_t>(a[1]), pointer<uint8_t>(a[2]),
+      pointer<int32_t>(a[3]), a[4], static_cast<int>(a[5])};
+  return fpx_sparse::launch_sparse_run(
+      bd, pointer<const int32_t>(a[6]), a[7], pointer<uint8_t>(a[10]),
+      pointer<const int32_t>(a[8]), 0, a[9], static_cast<int>(a[11]),
+      packed_pred(a + 12), pointer<CUstream_st>(a[22]));
+}
+
+// A pipelined drain in one call. block: the board (6), perm identity, the
+// predicate (9), the host segment table [nseg, 3] (kind: 0 a K2 run of
+// table rows [first, last), 1 a K4 run of chunks [first, last)), nseg,
+// K2's host table [nb, 6] (see launch_run), nb, the host chunk bounds
+// [nchunks + 1] (lane offsets), nchunks, the pinned in-block and its
+// device copy (the r held slots as int32 at offset 0, the staged
+// [n, stride] block at `dense offset`, the lanes [5, lanes] at `lanes
+// offset`), r, dense offset, stride, lanes offset, lanes, the device out
+// and the pinned out (the dense newly [stride] at 0, the lanes' newly at
+// `newly offset`), newly offset, the bytes of out to copy down, an event
+// (0: none), device, stream. run_staged: the in-block up, K5's all-valid
+// form on the held slots, each segment's launch in order, both newly
+// down into pinned memory, then the event is recorded; it does not wait.
+// All on the caller's current stream, behind the work queued there.
+extern "C" int fpx_board_run_staged(const void* block) {
+  long long a[36];
+  std::memcpy(a, block, sizeof a);
+  cudaError_t err = select_device(static_cast<int>(a[34]));
+  if (err != cudaSuccess) return err;
+  Staged st{};
+  std::memcpy(st.a, a, sizeof st.a);
+  st.perm_identity = a[6];
+  st.q = packed_pred(a + 7);
+  st.segs = pointer<const int32_t>(a[16]);
+  st.nseg = a[17];
+  st.table = pointer<const int32_t>(a[18]);
+  st.nb = a[19];
+  st.bounds = pointer<const int32_t>(a[20]);
+  st.nchunks = a[21];
+  st.host_in = pointer<const void>(a[22]);
+  st.dev_in = pointer<uint8_t>(a[23]);
+  st.held = a[24];
+  st.dense_off = a[25];
+  st.stride = a[26];
+  st.lanes_off = a[27];
+  st.lanes = a[28];
+  st.dev_out = pointer<uint8_t>(a[29]);
+  st.host_out = pointer<void>(a[30]);
+  st.newly_off = a[31];
+  st.out_bytes = a[32];
+  st.event = a[33];
+  st.stream = pointer<CUstream_st>(a[35]);
+  return run_staged(st);
 }

@@ -1,57 +1,37 @@
-// K4 record_and_check and K5 release: the sparse half of
-// TpuQuorumChecker.
+// K5 release: the column reset of GC'd slots, the sparse half of
+// TpuQuorumChecker besides K4 (whose run kernel, sparse.cuh, quorum.cu
+// builds: the pipelined drain's staged entry launches it between K2's
+// runs).
 //
-// K4 replaces frankenpaxos_tpu/ops/quorum.py::_record_and_check (L214)
-// over _apply_sparse_votes (L170): the straggler / out-of-order votes of
-// one drain, as lanes (slot % window, true slot, node, round, valid),
-// scattered into the vote board IN PLACE, then the quorum predicate of
-// quorum.cuh (both branches, as K1) on each touched column and the
-// per-lane "slot newly has quorum" mask. The ordered phases run in one
-// thread block (sparse.cuh explains why).
-//
-// K5 replaces _release (L327): reset the column of each released slot to
-// votes 0, round -1, chosen false, owner -1. Two forms. The general one
-// (release_kernel, fpx_release), one thread per lane, reads a `valid`
-// array: every writer of a column stores the same reset values, so
-// duplicate lanes need no order; JAX's `.set` leaves the order of a
-// duplicate slot's lanes unspecified when their valid flags differ, and
-// here the column is reset when ANY of its lanes is valid. The all-valid
-// one (release.cuh's release_all_kernel, four lanes a thread, no `valid`
-// array) is every checker's: the checkers hold released slots on the host
-// until their next board call, whose staged entry (K2's run, K6's run)
-// launches it ahead of its own launch; every other board call first
-// flushes them through fpx_release_staged (the slots up from pinned
+// K5 replaces frankenpaxos_tpu/ops/quorum.py::_release (L327): reset the
+// column of each released slot to votes 0, round -1, chosen false, owner
+// -1. Two forms. The general one (release_kernel, fpx_release), one
+// thread per lane, reads a `valid` array: every writer of a column stores
+// the same reset values, so duplicate lanes need no order; JAX's `.set`
+// leaves the order of a duplicate slot's lanes unspecified when their
+// valid flags differ, and here the column is reset when ANY of its lanes
+// is valid. The all-valid one (release.cuh's release_all_kernel, a group
+// of threads a lane, no `valid` array) is every checker's: the checkers
+// hold released slots on the host until their next board call, whose
+// staged entry (K2's run and the drain's run in quorum.cu, K6's run in
+// epoch.cu) launches it ahead of its own launch; every other board call
+// first flushes them through fpx_release_staged (the slots up from pinned
 // memory, the launch, a wait on the caller's stream), and fpx_release_all
 // takes device tensors.
 //
-// Bound on the H100: neither. At the tracker's 256-lane chunks K4 moves
-// about 20 bytes of lanes plus ~(2N + 18) bytes per touched column, a
-// few kilobytes, and K5 (a few slots a watermark advance, 4096 lanes in
-// the prewarm) at most about 100 KB: both are far below a microsecond of
-// memory time, so the launch and K4's nine block-wide barriers set their
-// time. Moving the lanes in one packed int32 [5, B] array keeps it to one
-// host-to-device copy per call.
+// Bound on the H100: neither. A few slots a watermark advance, 4096 lanes
+// in the prewarm: at most about 100 KB, far below a microsecond of memory
+// time, so the launch sets its time.
 
 #include <climits>
 #include <cstring>
 
+#include "quorum.cuh"
 #include "release.cuh"
-#include "sparse.cuh"
 
 namespace {
 
-__global__ void record_and_check_kernel(Board bd, Lanes ln, uint8_t* newly,
-                                        int32_t* scratch, QuorumPred q) {
-  sparse_update(bd, ln, scratch);
-  choose(bd, ln, newly, scratch, [&](int j) {
-    const long long s = ln.col(j);
-    return lane_mine(bd, ln, j) && quorum_hit(q, [&](int i) {
-             return bd.votes[i * bd.window + s];
-           });
-  });
-}
-
-__global__ void release_kernel(Board bd, const int32_t* slots,
+__global__ void release_kernel(ReleaseBoard bd, const int32_t* slots,
                                const uint8_t* valid, int b) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= b || !valid[j]) return;
@@ -64,37 +44,6 @@ __global__ void release_kernel(Board bd, const int32_t* slots,
   bd.chosen[s] = 0;
   bd.owner[s] = -1;
 }
-
-Board make_board(void* votes, void* rounds, void* chosen, void* owner,
-                 long long window, int n) {
-  return Board{static_cast<uint8_t*>(votes), static_cast<int32_t*>(rounds),
-               static_cast<uint8_t*>(chosen), static_cast<int32_t*>(owner),
-               window, n};
-}
-
-}  // namespace
-
-extern "C" int fpx_record_and_check(void* votes, void* rounds, void* chosen,
-                                    void* owner, long long window,
-                                    const void* lanes, int b, void* newly,
-                                    void* scratch, const void* masks,
-                                    const void* thresholds, const void* perm,
-                                    int n, int g, int combine_any,
-                                    int grid_kind, int rows, int cols,
-                                    int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  record_and_check_kernel<<<1, FPX_SPARSE_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      make_board(votes, rounds, chosen, owner, window, n),
-      Lanes{static_cast<const int32_t*>(lanes), b, window},
-      static_cast<uint8_t*>(newly), static_cast<int32_t*>(scratch),
-      make_pred(masks, thresholds, perm, n, g, combine_any, grid_kind, rows,
-                cols));
-  return cudaGetLastError();
-}
-
-namespace {
 
 template <typename T>
 T* pointer(long long slot) {
@@ -129,11 +78,8 @@ extern "C" int fpx_release(const void* block) {
   release_kernel<<<static_cast<unsigned>((b + FPX_THREADS - 1) /
                                          FPX_THREADS),
                    FPX_THREADS, 0, pointer<CUstream_st>(a[10])>>>(
-      make_board(pointer<void>(a[0]), pointer<void>(a[1]),
-                 pointer<void>(a[2]), pointer<void>(a[3]), a[4],
-                 static_cast<int>(a[5])),
-      pointer<const int32_t>(a[6]), pointer<const uint8_t>(a[7]),
-      static_cast<int>(b));
+      release_board(a), pointer<const int32_t>(a[6]),
+      pointer<const uint8_t>(a[7]), static_cast<int>(b));
   return cudaGetLastError();
 }
 

@@ -16,10 +16,14 @@ Seven kernels live here, each beside its plain PyTorch version:
   * K2 :func:`record_block` -- the dense board update for one
     contiguous slot block (``_record_block``); :func:`record_block_run`
     takes a run of blocks in one launch, and
-    :meth:`TpuQuorumChecker.dense_run` is the pipelined tracker's dense
-    blocks of a drain in one staged call that does not wait;
+    :meth:`TpuQuorumChecker.dense_run` a run of dense blocks in one
+    staged call that does not wait;
   * K4 :func:`record_and_check` -- the sparse scatter of straggler
     votes (``_apply_sparse_votes`` + ``_record_and_check``);
+    :func:`record_and_check_run` takes a run of chunks in one launch,
+    and :meth:`TpuQuorumChecker.board_run` is the pipelined tracker's
+    whole drain (its dense blocks and its sparse chunks, in order) in
+    one staged call that does not wait;
   * K5 :func:`release` -- the column reset of GC'd slots (``_release``),
     and :func:`release_all`, its all-valid form, which the checkers run
     on the releases they hold until their next board call
@@ -35,7 +39,8 @@ Seven kernels live here, each beside its plain PyTorch version:
     acceptor axis (``_reshape_columns``).
 
 (K3, the fused drain, is in ``bench/pipeline.py``.) A wrapper launches
-its CUDA kernel (``csrc/quorum.cu``, ``sparse.cu``, ``epoch.cu``) for
+its CUDA kernel (``csrc/quorum.cu`` with ``sparse.cuh``, ``sparse.cu``,
+``epoch.cu``) for
 CUDA tensors and runs the plain version only for CPU tensors; it never
 falls back. The JAX reference donates the board; here the board tensors
 are updated IN PLACE (K7 alone writes a new tensor).
@@ -54,6 +59,7 @@ all-reduce of the per-lane result per call (the sharded section below).
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple, Optional, Sequence
 import weakref
 
@@ -462,6 +468,8 @@ def _board_ptrs(board: VoteBoard) -> tuple:
 
 _K2 = _build.Entry("quorum", "fpx_record_block_run", 23)
 _K2_STAGED = _build.Entry("quorum", "fpx_record_block_run_staged", 29)
+#: A drain's run of dense and sparse segments in one call (K2, K4).
+_BOARD_STAGED = _build.Entry("quorum", "fpx_board_run_staged", 36)
 
 
 def record_block_run(board: VoteBoard, table: np.ndarray,
@@ -688,19 +696,25 @@ def _card_alloc(device: torch.device):
 
 
 class RunResult:
-    """A dispatched run's ``newly`` mask (``[stride]`` bool at the staged
-    columns). :meth:`wait` blocks until it is on the host (on the card:
-    a wait on the run's event with the GIL released) and returns it, a
-    view of the run's pinned slot; :meth:`free` gives the slot back once
-    the caller has read it."""
+    """A dispatched run's results: :meth:`wait` blocks until they are on
+    the host (on the card: a wait on the run's event with the GIL
+    released) and returns the dense blocks' ``newly`` (``[stride]`` bool
+    at the staged columns), :meth:`lanes` the sparse chunks' (``[B]``
+    bool at lane index), each a view of the run's pinned slot on the
+    card; :meth:`free` gives the slot back once the caller has read
+    them."""
 
-    __slots__ = ("_newly", "_slot", "_events", "_parts", "_stride",
-                 "_waited")
+    __slots__ = ("_newly", "_lanes", "_slot", "_events", "_parts",
+                 "_lane_parts", "_stride", "_lane_at", "_nlanes", "_waited")
 
     def __init__(self, newly=None, slot=None, events=None, parts=None,
-                 stride: int = 0):
+                 stride: int = 0, lane_parts=None, lane_at: int = 0,
+                 nlanes: int = 0):
         self._newly, self._slot, self._events = newly, slot, events
         self._parts, self._stride = parts, stride
+        self._lane_parts, self._lane_at, self._nlanes = (lane_parts,
+                                                         lane_at, nlanes)
+        self._lanes = None
         self._waited = False
 
     def wait(self) -> np.ndarray:
@@ -714,11 +728,26 @@ class RunResult:
             for at, width, part in self._parts:
                 newly[at:at + width] = part.cpu().numpy()[:width]
             self._newly, self._parts = newly, None
+        if self._newly is None:
+            self._newly = np.zeros(self._stride, dtype=bool)
         return self._newly
 
+    def lanes(self) -> np.ndarray:
+        """The sparse chunks' per-lane ``newly`` (``[B]`` bool)."""
+        if self._slot is not None:
+            self.wait()
+            at = self._lane_at
+            return self._slot.host_out[at:at + self._nlanes].view(bool)
+        if self._lanes is None:
+            lanes = np.zeros(self._nlanes, dtype=bool)
+            for at, width, part in self._lane_parts or ():
+                lanes[at:at + width] = part.cpu().numpy()[:width]
+            self._lanes, self._lane_parts = lanes, None
+        return self._lanes
+
     def free(self) -> None:
-        """Give the pinned slot back (after :meth:`wait`; the view it
-        returned must not be read after this)."""
+        """Give the pinned slot back (after :meth:`wait`; the views it
+        and :meth:`lanes` returned must not be read after this)."""
         slot, self._slot = self._slot, None
         if slot is not None:
             if not self._waited:
@@ -726,70 +755,202 @@ class RunResult:
             slot.busy = False
 
 
-class DenseRun:
-    """A run of dense blocks being staged for one K2 dispatch (see
-    :meth:`TpuQuorumChecker.dense_run`): ``block`` is the zeroed
-    ``[N, stride]`` uint8 host block (on a card a view of a pinned ring
-    slot), block ``k`` at columns ``offsets[k]``; the caller writes its
-    votes (0/1) there, then calls :meth:`dispatch` before its next call
-    to the checker."""
+class BoardRun:
+    """A drain's board updates being staged for ONE dispatch (see
+    :meth:`TpuQuorumChecker.board_run`): an ordered list of segments,
+    each a run of dense blocks (K2) or a run of sparse chunks (K4).
+    ``block`` is the zeroed ``[N, stride]`` uint8 host block of the dense
+    blocks (on a card a view of a pinned ring slot), block ``k`` (in
+    order over every dense segment) at columns ``offsets[k]``; the caller
+    writes its votes (0/1) there, then calls :meth:`dispatch` before its
+    next call to the checker. The sparse chunks' lanes are packed at
+    construction, chunk ``k`` at lanes ``[bounds[k], bounds[k + 1])``."""
 
-    __slots__ = ("checker", "table", "stride", "block", "offsets", "_slot",
-                 "_held", "_off")
+    __slots__ = ("checker", "segments", "table", "stride", "block",
+                 "offsets", "chunks", "bounds", "seg_table", "_slot",
+                 "_held", "_off", "_lanes_off", "_newly_off")
 
-    def __init__(self, checker, table: np.ndarray, stride: int):
-        self.checker, self.table, self.stride = checker, table, stride
-        self.offsets = table[:, 3]
-        n = checker.num_nodes
+    def __init__(self, checker, segments):
+        self.checker, self.segments = checker, []
+        n, window = checker.num_nodes, checker.window
+        tables, chunks, seg_rows, stride, rows = [], [], [], 0, 0
+        for kind, items in segments:
+            if not items:
+                continue
+            if kind == "dense":
+                starts, widths, rounds = [], [], []
+                for start_slot, width, vote_round in items:
+                    start = start_slot % window
+                    if start + width > window:
+                        raise ValueError(
+                            f"block [{start}, {start + width}) straddles "
+                            f"the ring end (window {window}); split it")
+                    starts.append(int32(start_slot))
+                    widths.append(width)
+                    rounds.append(int32(vote_round))
+                table, width = run_table(starts, widths, rounds, window)
+                if stride:
+                    table[:, 3] += stride
+                stride += width
+                tables.append(table)
+                seg_rows.append((0, rows, rows + len(table)))
+                rows += len(table)
+            elif kind == "sparse":
+                items = [(np.asarray(sl, dtype=np.int32), cl, rl, pad)
+                         for sl, cl, rl, pad in items]
+                seg_rows.append((1, len(chunks), len(chunks) + len(items)))
+                chunks.extend(items)
+            else:
+                raise ValueError(f"a segment is 'dense' or 'sparse', got "
+                                 f"{kind!r}")
+            self.segments.append((kind, items))
+        self.table = tables[0] if len(tables) == 1 else np.concatenate(
+            tables) if tables else np.zeros((0, RUN_FIELDS), dtype=np.int32)
+        self.stride = stride
+        self.offsets = self.table[:, 3]
+        self.chunks = chunks
+        self.bounds = chunk_bounds([c[0].shape[0] for c in chunks]) \
+            if chunks else _NO_BOUNDS
+        self.seg_table = np.asarray(seg_rows, dtype=np.int32)
+        b = int(self.bounds[-1])
         self._slot = None
-        if checker._staged:
+        if checker._staged and (not chunks or checker._drain_staged):
             self._held = checker._take_held()
             r = self._held.size
             self._off = _align16(4 * r)
-            slot = checker._run_ring().take(self._off + n * stride, stride)
+            self._lanes_off = _align16(self._off + n * stride)
+            self._newly_off = _align16(stride)
+            in_bytes = self._lanes_off + 4 * LANE_FIELDS * b if b \
+                else self._off + n * stride
+            slot = checker._run_ring().take(
+                in_bytes, self._newly_off + b if b else stride)
             if r:
                 slot.host_in[:4 * r].view(np.int32)[:] = self._held
             self.block = slot.host_in[self._off:self._off + n * stride] \
                 .reshape(n, stride)
             self.block.fill(0)
+            if b:
+                # Every chunk's lanes side by side, packed in one pass.
+                sl = np.concatenate([c[0] for c in chunks])
+                cl = np.concatenate([np.asarray(c[1], dtype=np.int32)
+                                     for c in chunks])
+                rl = np.concatenate([
+                    np.zeros(c[0].shape[0], np.int32) if c[2] is None
+                    else np.asarray(c[2], dtype=np.int32) for c in chunks])
+                _checker_lanes(sl, cl, rl, window, b, out=slot.host_in[
+                    self._lanes_off:self._lanes_off + 4 * LANE_FIELDS * b]
+                    .view(np.int32).reshape(LANE_FIELDS, b))
             self._slot = slot
         else:
             self.block = np.zeros((n, stride), dtype=np.uint8)
 
-    def dispatch(self) -> RunResult:
-        """Record the run on the board: on a card ONE staged C call that
-        does not wait (the in-block up, K5 on the held releases, the K2
-        launch, ``newly`` down, an event), on PyTorch's current stream;
-        on the CPU the plain versions; on a mesh each block's
-        :func:`record_block_sharded` (one all-reduce a block)."""
+    def _note_spans(self) -> None:
+        """The checker's window surveillance, in the reference's order:
+        each dense block, then each chunk's slots, segment by segment."""
         c = self.checker
-        if c.mesh is not None:
-            parts = [(at, width, record_block_sharded(
-                c.board, c.mesh, col, true_start,
-                self.block[:, at:at + width], rnd, c._pred, async_op=True))
-                for col, true_start, width, at, rnd, _ in self.table.tolist()]
-            return RunResult(parts=parts, stride=self.stride)
+        for kind, items in self.segments:
+            if kind == "dense":
+                for start_slot, width, _ in items:
+                    c._note_slot_span(start_slot, start_slot + width - 1)
+            else:
+                for sl, _, _, _ in items:
+                    if sl.size:
+                        c._note_slot_span(int(sl.min()), int(sl.max()))
+
+    def dispatch(self) -> RunResult:
+        """Record the run on the board, segment by segment in order: on a
+        card ONE staged C call that does not wait (the in-block up, K5 on
+        the held releases, each segment's launch, both ``newly`` down, an
+        event), on PyTorch's current stream; on the CPU the plain
+        versions (each chunk through the checker's
+        :meth:`~TpuQuorumChecker.record_and_check_async`); on a mesh
+        each block's :func:`record_block_sharded` and each chunk's
+        :func:`record_and_check_sharded` (one all-reduce each)."""
+        c = self.checker
+        b = int(self.bounds[-1])
         if self._slot is None:
-            return RunResult(newly=record_block_run_plain(
-                c.board, self.table, torch.from_numpy(self.block),
-                c._pred).numpy(), stride=self.stride)
+            return self._unstaged(b)
+        self._note_spans()
         slot, board, pred = self._slot, c._board, c._pred
         r = self._held.size
         index = c._ring_index
-        fn = _K2_STAGED.fn or _K2_STAGED.resolve()
-        rc = fn(_K2_STAGED.pack(
-            *_board_ptrs(board), self.table.ctypes.data, len(self.table),
-            slot.host_in_ptr, slot.dev_in_ptr, r, self._off, self.stride,
-            slot.dev_out_ptr, slot.host_out_ptr, self.stride,
-            pred.perm_identity, *pred.c_args(), slot.event, index,
-            _build.stream_handle(index)))
-        if rc:
-            _K2_STAGED.check(rc)
-        record_block.launches += _launch_count(self.table)
+        if not self.chunks:
+            fn = _K2_STAGED.fn or _K2_STAGED.resolve()
+            rc = fn(_K2_STAGED.pack(
+                *_board_ptrs(board), self.table.ctypes.data,
+                len(self.table), slot.host_in_ptr, slot.dev_in_ptr, r,
+                self._off, self.stride, slot.dev_out_ptr, slot.host_out_ptr,
+                self.stride, pred.perm_identity, *pred.c_args(), slot.event,
+                index, _build.stream_handle(index)))
+            if rc:
+                _K2_STAGED.check(rc)
+        else:
+            fn = _BOARD_STAGED.fn or _BOARD_STAGED.resolve()
+            rc = fn(_BOARD_STAGED.pack(
+                *_board_ptrs(board), pred.perm_identity, *pred.c_args(),
+                self.seg_table.ctypes.data, len(self.seg_table),
+                self.table.ctypes.data, len(self.table),
+                self.bounds.ctypes.data, len(self.chunks), slot.host_in_ptr,
+                slot.dev_in_ptr, r, self._off, self.stride, self._lanes_off,
+                b, slot.dev_out_ptr, slot.host_out_ptr, self._newly_off,
+                self._newly_off + b, slot.event, index,
+                _build.stream_handle(index)))
+            if rc:
+                _BOARD_STAGED.check(rc)
+        for (kind, first, last) in self.seg_table.tolist():
+            if kind == 0:
+                record_block.launches += _launch_count(
+                    self.table[first:last])
+            else:
+                record_and_check.launches += _sparse_launches(
+                    self.bounds[first:last + 1])
         if r:
             release.launches += 1
         return RunResult(slot=slot, events=c._ring.events,
-                         stride=self.stride)
+                         stride=self.stride, lane_at=self._newly_off,
+                         nlanes=b)
+
+    def _unstaged(self, b: int) -> RunResult:
+        """The run off the staged path, segment by segment: the plain
+        versions on the CPU, the sharded calls on a mesh. A card's board
+        without a mesh raises: its runs take the staged entries."""
+        c = self.checker
+        mesh = c.mesh
+        if mesh is None and c.device.type == "cuda":
+            raise RuntimeError(
+                "a board run on a card without a mesh takes its staged "
+                "entry; the plain versions never run on card tensors")
+        newly = None if mesh is not None else np.zeros(self.stride, bool)
+        parts, lane_parts = [], []
+        for (kind, items), (_, first, last) in zip(self.segments,
+                                                   self.seg_table.tolist()):
+            if kind == "dense":
+                for start_slot, width, _ in items:
+                    c._note_slot_span(start_slot, start_slot + width - 1)
+                rows = self.table[first:last]
+                if mesh is not None:
+                    parts.extend((at, width, record_block_sharded(
+                        c.board, mesh, col, true_start,
+                        self.block[:, at:at + width], rnd, c._pred,
+                        async_op=True))
+                        for col, true_start, width, at, rnd, _
+                        in rows.tolist())
+                    continue
+                got = record_block_run_plain(
+                    c.board, rows, torch.from_numpy(self.block), c._pred)
+                for _, _, width, at, _, _ in rows.tolist():
+                    newly[at:at + width] = got[at:at + width].numpy()
+            else:
+                for j, (sl, cl, rl, pad) in enumerate(items):
+                    lo = int(self.bounds[first + j])
+                    lane_parts.append((lo, sl.shape[0],
+                                       c.record_and_check_async(
+                                           sl, cl, rl, pad_to=pad)))
+        if mesh is not None:
+            return RunResult(parts=parts, stride=self.stride,
+                             lane_parts=lane_parts, nlanes=b)
+        return RunResult(newly=newly, stride=self.stride,
+                         lane_parts=lane_parts, nlanes=b)
 
 
 # --- K4 / K6 shared: the sparse board update --------------------------------
@@ -844,28 +1005,6 @@ def _check_lanes(board: VoteBoard, lanes: torch.Tensor) -> int:
             or any(t.shape != board.rounds.shape for t in board[2:]):
         raise ValueError("board tensors do not match make_vote_board's")
     return lanes.shape[1]
-
-
-def _launch_sparse(board: VoteBoard, lanes: torch.Tensor,
-                   pred: QuorumPredicate) -> torch.Tensor:
-    """Launch K4, the single-block sparse kernel: the board, the lanes,
-    the ``newly`` output and a scratch buffer, then the predicate.
-    Returns ``newly``; the caller, which has made sure ``B > 0``, counts
-    the launch."""
-    if not all(t.is_contiguous() for t in (lanes, *board)):
-        raise ValueError("fpx_record_and_check needs contiguous tensors")
-    b = lanes.shape[1]
-    newly = torch.empty((b,), dtype=torch.bool, device=lanes.device)
-    scratch = torch.empty((2 * b,), dtype=torch.int32, device=lanes.device)
-    n, window = board.votes.shape
-    lib = _build.library("sparse")
-    rc = lib.fpx_record_and_check(
-        board.votes.data_ptr(), board.rounds.data_ptr(),
-        board.chosen.data_ptr(), board.owner.data_ptr(), window,
-        lanes.data_ptr(), b, newly.data_ptr(), scratch.data_ptr(),
-        *pred.c_args(), *_build.stream_args(lanes.device))
-    _build.check("sparse", "fpx_record_and_check", rc)
-    return newly
 
 
 _INT32_MIN = -(2**31)
@@ -952,6 +1091,11 @@ def _finish_sparse_plain(board: VoteBoard, cols, inv, mine, votes, rounds,
 
 # --- K4: the sparse scatter ---------------------------------------------------
 
+#: Chunks of one K4 launch at most (their lane offsets travel in the
+#: kernel's parameters, ``csrc/sparse.cuh``); a longer run takes more
+#: launches, in order.
+MAX_RUN_CHUNKS = 256
+
 
 def record_and_check_plain(board: VoteBoard, lanes: torch.Tensor,
                            pred: QuorumPredicate) -> torch.Tensor:
@@ -964,6 +1108,107 @@ def record_and_check_plain(board: VoteBoard, lanes: torch.Tensor,
     return _finish_sparse_plain(board, *state, hit)
 
 
+def chunk_bounds(sizes) -> np.ndarray:
+    """The ``[len(sizes) + 1]`` int32 lane offsets of a run of chunks of
+    ``sizes`` lanes laid side by side (what :func:`record_and_check_run`
+    takes)."""
+    return np.fromiter(itertools.accumulate(sizes, initial=0),
+                       dtype=np.int32, count=len(sizes) + 1)
+
+
+#: The bounds of a run of no chunk.
+_NO_BOUNDS = chunk_bounds([])
+
+
+def record_and_check_run_plain(board: VoteBoard, lanes: torch.Tensor,
+                               bounds,
+                               pred: QuorumPredicate) -> torch.Tensor:
+    """Plain PyTorch version of K4's run: :func:`record_and_check_plain`
+    on each chunk ``lanes[:, bounds[k]:bounds[k + 1]]`` in order. Returns
+    the ``[B]`` newly mask (False on lanes outside every chunk)."""
+    newly = torch.zeros((lanes.shape[1],), dtype=torch.bool,
+                        device=lanes.device)
+    for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        if hi > lo:
+            newly[lo:hi] = record_and_check_plain(board, lanes[:, lo:hi],
+                                                  pred)
+    return newly
+
+
+def _sparse_launches(bounds: np.ndarray) -> int:
+    """The launches of a run's chunks, as the C entry splits them: one
+    per :data:`MAX_RUN_CHUNKS` chunks that hold a lane."""
+    n = bounds.size - 1
+    return sum(int(bounds[min(k + MAX_RUN_CHUNKS, n)] > bounds[k])
+               for k in range(0, n, MAX_RUN_CHUNKS))
+
+
+def _run_bounds(bounds, b: int) -> np.ndarray:
+    bounds = np.ascontiguousarray(bounds, dtype=np.int32)
+    if bounds.ndim != 1 or bounds.size < 1 or bounds[0] < 0 \
+            or bounds[-1] > b or (bounds[1:] < bounds[:-1]).any():
+        raise ValueError(f"bounds must be nondecreasing lane offsets in "
+                         f"[0, {b}]")
+    return bounds
+
+
+_K4 = _build.Entry("quorum", "fpx_record_and_check_run", 23)
+
+
+def _launch_run(board: VoteBoard, lanes: torch.Tensor, bounds: np.ndarray,
+                newly: torch.Tensor, pred: QuorumPredicate) -> None:
+    """One packed call of K4's run on checked tensors."""
+    if not all(t.is_contiguous() for t in (lanes, *board)):
+        raise ValueError("record_and_check needs contiguous tensors")
+    index = lanes.get_device()
+    fn = _K4.fn or _K4.resolve()
+    rc = fn(_K4.pack(*_board_ptrs(board), lanes.data_ptr(), lanes.shape[1],
+                     bounds.ctypes.data, bounds.size - 1, newly.data_ptr(),
+                     pred.perm_identity, *pred.c_args(), index,
+                     _build.stream_handle(index)))
+    if rc:
+        _K4.check(rc)
+
+
+def _check_sparse(board: VoteBoard, lanes: torch.Tensor,
+                  pred: QuorumPredicate) -> int:
+    n = board.votes.shape[0]
+    b = _check_lanes(board, lanes)
+    if n != pred.num_nodes:
+        raise ValueError(f"board has {n} rows, predicate has "
+                         f"{pred.num_nodes} nodes")
+    return b
+
+
+def record_and_check_run(board: VoteBoard, lanes: torch.Tensor, bounds,
+                         pred: QuorumPredicate) -> torch.Tensor:
+    """K4 on a RUN of chunks, IN PLACE: chunk ``k`` is the lanes
+    ``[bounds[k], bounds[k + 1])`` of the ``[5, B]`` int32 ``lanes``
+    (:func:`pack_lanes`; ``bounds`` a host array of nondecreasing lane
+    offsets, :func:`chunk_bounds`), each chunk one call of
+    :func:`record_and_check`, in order: duplicates inside a chunk each
+    report, a chunk sees the ``chosen`` bits of the chunks before it.
+    Returns the ``[B]`` newly mask (False outside every chunk). Padding
+    lanes change nothing, so a run takes its lanes unpadded. CUDA tensors
+    launch ``csrc/sparse.cuh::record_and_check_run_kernel`` through the
+    lean call path (one packed ``ctypes`` call; one launch per
+    :data:`MAX_RUN_CHUNKS` chunks); CPU tensors take
+    :func:`record_and_check_run_plain`."""
+    b = _check_sparse(board, lanes, pred)
+    bounds = _run_bounds(bounds, b)
+    if not use_kernel(lanes, *board, pred.masks):
+        return record_and_check_run_plain(board, lanes, bounds, pred)
+    # Lanes outside every chunk read False; the kernel writes the rest.
+    covered = bounds[0] == 0 and bounds[-1] == b
+    newly = (torch.empty if covered else torch.zeros)(
+        (b,), dtype=torch.bool, device=lanes.device)
+    launches = _sparse_launches(bounds)
+    if launches:
+        _launch_run(board, lanes, bounds, newly, pred)
+        record_and_check.launches += launches
+    return newly
+
+
 def record_and_check(board: VoteBoard, lanes: torch.Tensor,
                      pred: QuorumPredicate) -> torch.Tensor:
     """K4: the sparse scatter of one batch of votes, IN PLACE.
@@ -972,20 +1217,17 @@ def record_and_check(board: VoteBoard, lanes: torch.Tensor,
     and nodes out of range follow JAX's index rules: a negative one
     counts from the end; a slot still outside ``[0, window)`` reads the
     clamped column and writes nothing, a node outside ``[-N, N)``
-    records nothing. Duplicate slots each report quorum.
-    CUDA tensors launch ``csrc/sparse.cu::record_and_check_kernel`` (one
-    thread block, ordered phases); CPU tensors take
+    records nothing. Duplicate slots each report quorum. CUDA tensors
+    launch ``csrc/sparse.cuh::record_and_check_run_kernel`` on a run of
+    one chunk (one packed ``ctypes`` call); CPU tensors take
     :func:`record_and_check_plain`."""
-    n = board.votes.shape[0]
-    b = _check_lanes(board, lanes)
-    if n != pred.num_nodes:
-        raise ValueError(f"board has {n} rows, predicate has "
-                         f"{pred.num_nodes} nodes")
+    b = _check_sparse(board, lanes, pred)
     if not use_kernel(lanes, *board, pred.masks):
         return record_and_check_plain(board, lanes, pred)
+    newly = torch.empty((b,), dtype=torch.bool, device=lanes.device)
     if b == 0:
-        return torch.empty((0,), dtype=torch.bool, device=lanes.device)
-    newly = _launch_sparse(board, lanes, pred)
+        return newly
+    _launch_run(board, lanes, np.array([0, b], dtype=np.int32), newly, pred)
     record_and_check.launches += 1
     return newly
 
@@ -1638,7 +1880,7 @@ class _HeldReleases:
 
     The reference's ``release`` resets the columns at once. A checker
     without a mesh keeps the released slots (% window) in a host list
-    until its next board call instead: K2's run (:class:`DenseRun`) and
+    until its next board call instead: K2's run (:class:`BoardRun`) and
     K6's run (``EpochSegmentedChecker.record_and_check_run``) apply them on
     the card ahead of their own launch, in the same staged call and on the
     same stream; every other access to the board (K4, a single K2 call,
@@ -1746,6 +1988,10 @@ class TpuQuorumChecker(_HeldReleases):
         # slots in pinned staging made at the first call, K2's runs in a
         # ring of pinned slots (RunRing).
         self._staged = self.device.type == "cuda" and mesh is None
+        # A board run with sparse segments takes the drain's staged
+        # entry (fpx_board_run_staged) where this is set (on a card, with
+        # _staged); a CPU checker runs the plain versions chunk by chunk.
+        self._drain_staged = self._staged
         self._staging = None
         self._host_block = None
         self._ring = None
@@ -1813,28 +2059,30 @@ class TpuQuorumChecker(_HeldReleases):
         result.free()
         return newly
 
-    def dense_run(self, spans) -> DenseRun:
+    def dense_run(self, spans) -> BoardRun:
         """A run of dense blocks for ONE K2 dispatch: ``spans`` is
         ``[(start_slot, width, vote_round)]``, each block within the ring
-        (no straddle), applied in order. Returns a :class:`DenseRun`
+        (no straddle), applied in order. Returns a :class:`BoardRun`
         whose zeroed ``block`` the caller fills, block ``k`` at columns
-        ``offsets[k]``, then dispatches it (:meth:`DenseRun.dispatch`):
-        on a card one staged call and (where blocks overlap modulo the window, which
-        only a window violation brings) more than one launch, with the
-        held releases applied ahead of them."""
-        starts, widths, rounds = [], [], []
-        for start_slot, width, vote_round in spans:
-            start = start_slot % self.window
-            if start + width > self.window:
-                raise ValueError(
-                    f"block [{start}, {start + width}) straddles the ring "
-                    f"end (window {self.window}); split it")
-            self._note_slot_span(start_slot, start_slot + width - 1)
-            starts.append(int32(start_slot))
-            widths.append(width)
-            rounds.append(int32(vote_round))
-        table, stride = run_table(starts, widths, rounds, self.window)
-        return DenseRun(self, table, stride)
+        ``offsets[k]``, then dispatches it (:meth:`BoardRun.dispatch`):
+        on a card one staged call and (where blocks overlap modulo the
+        window, which only a window violation brings) more than one
+        launch, with the held releases applied ahead of them."""
+        return BoardRun(self, [("dense", spans)])
+
+    def board_run(self, segments) -> BoardRun:
+        """A drain's board updates for ONE dispatch, in order: each of
+        ``segments`` is ``("dense", [(start_slot, width, vote_round)])``
+        (a run of dense blocks, as :meth:`dense_run`'s spans) or
+        ``("sparse", [(slots, node_cols, rounds, pad_to)])`` (a run of
+        sparse chunks, each one :meth:`record_and_check_async` call of
+        its votes, ``pad_to`` its padded width there). Returns a
+        :class:`BoardRun` whose ``block`` the caller fills, then
+        dispatches: on a card ONE staged call (a K2 launch per dense
+        segment, a K4 launch per sparse one, the held releases ahead),
+        whose result gives the dense ``newly`` and the chunks' per-lane
+        ``newly`` (:class:`RunResult`)."""
+        return BoardRun(self, segments)
 
     def check_block_async(self, block: np.ndarray) -> torch.Tensor:
         """Stateless drain-local quorum over a ``[n, B]`` vote block:

@@ -8,13 +8,13 @@ it is a strategy interface with two implementations:
 
   * ``DictQuorumTracker`` -- the reference's semantics verbatim: a dict
     keyed (slot, round) accumulating (group, acceptor) votes. The oracle.
-  * ``TpuQuorumTracker`` -- votes buffered per event-loop drain, then a
-    few calls of the port's ``TpuQuorumChecker`` per drain: the
+  * ``TpuQuorumTracker`` -- votes buffered per event-loop drain, then
+    one call of the port's ``TpuQuorumChecker`` per drain: the
     stateless predicate (K1, one staged call) in the synchronous mode;
-    in the pipelined mode the drain's dense blocks as one run of the
-    board update (K2: one staged call and one launch, the held
-    ``release`` s (K5) ahead of it), and the sparse scatter (K4) for
-    stragglers. It keeps the reference's name; it runs on ``cuda``
+    in the pipelined mode the drain's dense blocks (K2) and its sparse
+    scatter chunks for stragglers (K4), in order, as one board run (one
+    staged call, the held ``release`` s (K5) ahead of it). It keeps the
+    reference's name; it runs on ``cuda``
     unless given ``device="cpu"``, where the kernels' plain versions run.
     Acceptor coordinates flatten to columns ``group * group_size + index``.
     In non-flexible mode only a slot's own group is ever messaged, so a
@@ -55,13 +55,6 @@ CUDA_MIN_DEVICE_SLOTS = 128
 #: The same threshold for the plain versions on the CPU: the reference's
 #: value for a host backend, so CPU runs route as the JAX package's do.
 CPU_MIN_DEVICE_SLOTS = 1024
-
-
-def _fetch(mask) -> np.ndarray:
-    """A device mask on the host. Blocks only until this mask's copy is
-    done (everything queued before it on its stream; on a mesh, its
-    all-reduce too); safe to call from a collector thread."""
-    return mask.cpu().numpy()
 
 
 class QuorumTracker(abc.ABC):
@@ -148,13 +141,13 @@ class TpuQuorumTracker(QuorumTracker):
     **Pipelined.** Every dense run goes through the stateful on-device
     vote board (K2; stragglers and off-round votes through the scatter,
     K4): the drain DISPATCHES asynchronously (returning []) and enqueues
-    an in-flight record. Its dense blocks are written straight into a
-    pinned slot of the checker's ring and go up as ONE run
-    (``TpuQuorumChecker.dense_run``: one staged call, one K2 launch,
+    an in-flight record. Its parts -- runs of dense blocks and runs of
+    scatter chunks, in the reference's order -- are written straight
+    into a pinned slot of the checker's ring and go up as ONE board run
+    (``TpuQuorumChecker.board_run``: one staged call, a K2 launch per
+    dense segment and a K4 launch per sparse one, both kinds of
     ``newly`` copied down into the slot and an event recorded, nothing
-    waited on), in order with the K4 parts around it on PyTorch's
-    current stream; a K4 part's lanes go up through pinned buffers too,
-    so the drain never waits on the device. The caller
+    waited on), so the drain never waits on the device. The caller
     collects completed dispatches via :meth:`take_dispatch` +
     :meth:`collect` -- from a worker thread (ProxyLeader posts results
     back onto the event loop) or a flush timer. This hides the
@@ -594,8 +587,10 @@ class TpuQuorumTracker(QuorumTracker):
         scatter path; votes in rounds OLDER than the dominant round
         dispatch BEFORE the dense block so an old-round quorum
         completing in this drain is reported before the newer round's
-        preemption clears it."""
-        parts: list[tuple] = []
+        preemption clears it. The drain's parts, in that order, are the
+        segments of ONE board run (``TpuQuorumChecker.board_run``: on a
+        card one staged call)."""
+        segs: list = []
         slots = np.asarray(self._slots, dtype=np.int64)
         cols = np.asarray(self._cols, dtype=np.int32)
         rounds = np.asarray(self._rounds, dtype=np.int32)
@@ -620,7 +615,6 @@ class TpuQuorumTracker(QuorumTracker):
             rounds = np.concatenate(parts_r)
 
         # The drain's dominant round (fast path: single-round drain).
-        run: list = []
         if rounds[0] == rounds[-1] and (rounds == rounds[0]).all():
             dom = int(rounds[0])
             # Single-round drain within one dense bucket: one block.
@@ -631,13 +625,8 @@ class TpuQuorumTracker(QuorumTracker):
                           None) if width <= self.max_dense else None
             if (bucket is not None
                     and slots.shape[0] >= width * self.min_fill):
-                self._add_dense(parts, run, lo, bucket, dom, cols,
-                                slots - lo)
-                self._flush_run(parts, run)
-                self._slots, self._cols, self._rounds = [], [], []
-                self._ranges = []
-                self._array_votes = []
-                self._inflight.append(parts)
+                self._add_dense(segs, lo, bucket, dom, cols, slots - lo)
+                self._dispatch(segs)
                 return []
             dense_idx = np.arange(slots.shape[0])
             pre = post = None
@@ -649,7 +638,7 @@ class TpuQuorumTracker(QuorumTracker):
             pre = np.flatnonzero(rounds < dom)
             post = np.flatnonzero(rounds > dom)
         if pre is not None and pre.size:
-            self._dispatch_sparse(parts, run, slots, cols, rounds, pre)
+            self._add_sparse(segs, slots, cols, rounds, pre)
 
         # Cluster the dominant round's slots into contiguous runs.
         ds = slots[dense_idx]
@@ -681,43 +670,38 @@ class TpuQuorumTracker(QuorumTracker):
                                if b >= min(remaining, self.max_dense)))
                 j = int(np.searchsorted(cs, start + bucket))
                 members = cl[i:j]
-                self._add_dense(parts, run, start, bucket, dom,
-                                cols[members], slots[members] - start)
+                self._add_dense(segs, start, bucket, dom, cols[members],
+                                slots[members] - start)
                 i = j
 
         for cl in sparse_leftover:
-            self._dispatch_sparse(parts, run, slots, cols, rounds, cl)
+            self._add_sparse(segs, slots, cols, rounds, cl)
         if post is not None and post.size:
-            self._dispatch_sparse(parts, run, slots, cols, rounds, post)
-        self._flush_run(parts, run)
-
-        self._slots, self._cols, self._rounds = [], [], []
-        self._ranges = []
-        self._array_votes = []
-        self._inflight.append(parts)
+            self._add_sparse(segs, slots, cols, rounds, post)
+        self._dispatch(segs)
         return []
 
-    def _add_dense(self, parts: list, run: list, start: int, bucket: int,
-                   rnd: int, rows: np.ndarray, pos: np.ndarray) -> None:
+    def _add_dense(self, segs: list, start: int, bucket: int, rnd: int,
+                   rows: np.ndarray, pos: np.ndarray) -> None:
         """Add a dense block of ``bucket`` slots from ``start`` (votes of
         acceptor columns ``rows`` at offsets ``pos``) to the drain's
-        pending run, split at the ring end (record_block's no-straddle
+        segments, split at the ring end (record_block's no-straddle
         contract)."""
         room = self.checker.window - start % self.checker.window
         if bucket <= room:
-            run.append((start, bucket, rnd, rows, pos))
+            self._segment(segs, "dense").append((start, bucket, rnd, rows,
+                                                 pos))
             return
         # Straddling the ring end: each side decomposed into the bucket
         # widths, sub-bucket remainders through the scatter path.
         first = pos < room
-        self._add_bucketed(parts, run, start, room, rnd, rows[first],
-                           pos[first])
+        self._add_bucketed(segs, start, room, rnd, rows[first], pos[first])
         if not first.all():
-            self._add_bucketed(parts, run, start + room, bucket - room, rnd,
+            self._add_bucketed(segs, start + room, bucket - room, rnd,
                                rows[~first], pos[~first] - room)
 
-    def _add_bucketed(self, parts: list, run: list, start: int, width: int,
-                      rnd: int, rows: np.ndarray, pos: np.ndarray) -> None:
+    def _add_bucketed(self, segs: list, start: int, width: int, rnd: int,
+                      rows: np.ndarray, pos: np.ndarray) -> None:
         i = 0
         while i < width:
             bucket = next((b for b in reversed(self.dense_buckets)
@@ -729,47 +713,68 @@ class TpuQuorumTracker(QuorumTracker):
                 key = np.unique(rows[rest].astype(np.int64) * width
                                 + pos[rest])
                 if key.size:
-                    self._dispatch_sparse(
-                        parts, run, start + key % width,
+                    self._add_sparse(
+                        segs, start + key % width,
                         (key // width).astype(np.int32),
                         np.full(key.size, rnd, dtype=np.int32),
                         np.arange(key.size))
                 return
             inside = (pos >= i) & (pos < i + bucket)
             if inside.any():
-                run.append((start + i, bucket, rnd, rows[inside],
-                            pos[inside] - i))
+                self._segment(segs, "dense").append(
+                    (start + i, bucket, rnd, rows[inside], pos[inside] - i))
             i += bucket
 
-    def _flush_run(self, parts: list, run: list) -> None:
-        """The drain's pending dense blocks as ONE dispatch of the
-        checker's dense run (on a card one staged call and one K2 launch,
-        with the held releases ahead of it): each block's votes written
-        straight into the run's (pinned) staged block."""
-        if not run:
-            return
-        dense = self.checker.dense_run([(s, w, r) for s, w, r, _, _ in run])
-        blocks = []
-        for (start, width, rnd, rows, pos), at in zip(run, dense.offsets):
-            at = int(at)
-            dense.block[rows, at + pos] = 1
-            blocks.append((start, width, rnd, at))
-        parts.append(("run", blocks, dense.dispatch()))
-        run.clear()
+    @staticmethod
+    def _segment(segs: list, kind: str) -> list:
+        """The drain's current segment of ``kind`` (``"dense"`` blocks or
+        ``"sparse"`` chunks), a new one where the last is of the other."""
+        if not segs or segs[-1][0] != kind:
+            segs.append((kind, []))
+        return segs[-1][1]
 
-    def _dispatch_sparse(self, parts, run, slots, cols, rounds, idx) -> None:
-        """Scatter-path dispatch, chunked so only prewarmed widths run,
-        after the pending dense run (the order the reference applies
-        them in)."""
-        self._flush_run(parts, run)
+    def _add_sparse(self, segs: list, slots, cols, rounds, idx) -> None:
+        """Scatter-path votes, after the dense blocks before them (the
+        order the reference applies them in), chunked as the reference
+        dispatches them: at most ``max_chunk`` votes a chunk, each chunk
+        padded to 64 or ``max_chunk`` lanes there."""
+        chunks = self._segment(segs, "sparse")
         for at in range(0, idx.size, self.max_chunk):
             chunk = idx[at:at + self.max_chunk]
-            parts.append(("votes", slots[chunk], rounds[chunk],
-                          self.checker.record_and_check_async(
-                              slots[chunk], cols[chunk], rounds[chunk],
-                              pad_to=(64 if chunk.size <= 64
-                                      else self.max_chunk)),
-                          chunk.size))
+            chunks.append((slots[chunk], cols[chunk], rounds[chunk],
+                           64 if chunk.size <= 64 else self.max_chunk))
+
+    def _dispatch(self, segs: list) -> None:
+        """The drain's segments as ONE dispatch of the checker's board
+        run (on a card one staged call: a K2 launch per dense segment, a
+        K4 launch per sparse one, the held releases ahead of them): each
+        dense block's votes written straight into the run's (pinned)
+        staged block. Enqueues the in-flight record and clears the
+        drain's buffers."""
+        self._slots, self._cols, self._rounds = [], [], []
+        self._ranges = []
+        self._array_votes = []
+        if not segs:
+            return
+        run = self.checker.board_run(
+            [(kind, [(s, w, r) for s, w, r, _, _ in items]
+              if kind == "dense" else items) for kind, items in segs])
+        offsets = iter(run.offsets.tolist())
+        bounds = iter(run.bounds.tolist())
+        items = []
+        for kind, parts in segs:
+            if kind == "dense":
+                blocks = []
+                for start, width, rnd, rows, pos in parts:
+                    at = next(offsets)
+                    run.block[rows, at + pos] = 1
+                    blocks.append((start, width, rnd, at))
+                items.append(("run", blocks))
+            else:
+                for slots, _, rounds, _ in parts:
+                    items.append(("votes", slots, rounds, next(bounds),
+                                  slots.size))
+        self._inflight.append([("board", items, run.dispatch())])
 
     def has_pending(self) -> bool:
         return bool(self._inflight)
@@ -788,44 +793,46 @@ class TpuQuorumTracker(QuorumTracker):
         keeping each slot's first reporting round in part order (as the
         dict oracle's arrival-order reporting does).
 
-        Parts come in two shapes: ``("run", [(start, width, round,
-        at)], result)`` -- the dense blocks of a run, each block's
-        per-slot newly-chosen mask at staged columns ``[at, at + width)``
-        of ``result`` (a ``RunResult``: on a card a wait on the run's
+        A dispatch is ``[("board", items, result)]``: ``result`` is the
+        drain's board run (a ``RunResult``: on a card a wait on the run's
         event with the GIL released, then its pinned ``newly``, no
-        ``.cpu()``); ``("votes", slots, rounds, device_mask, n)`` -- a
-        per-vote mask from the scatter path."""
+        ``.cpu()``), and ``items`` its parts in order: ``("run",
+        [(start, width, round, at)])`` -- the dense blocks of a segment,
+        each block's per-slot newly-chosen mask at staged columns ``[at,
+        at + width)`` of ``result.wait()``; ``("votes", slots, rounds,
+        at, n)`` -- a scatter chunk's per-vote mask at lanes ``[at, at +
+        n)`` of ``result.lanes()``."""
         out: list[tuple[int, int]] = []
-        for part in dispatch:
-            kind = part[0]
-            if kind == "run":
-                _, blocks, result = part
-                try:
-                    m = result.wait()
-                    for start, width, rnd, at in blocks:
-                        slots = start + np.flatnonzero(
-                            m[at:at + width]).astype(np.int64)
-                        if slots.size:
-                            fresh = self._fresh_mask(slots, rnd)
-                            out.extend(zip(slots[fresh].tolist(),
-                                           (rnd,) * int(fresh.sum())))
-                finally:
-                    result.free()
-            else:  # "votes"
-                _, vslots, vrounds, mask, n = part
-                m = _fetch(mask)[:n]
-                hit = np.flatnonzero(m)
-                if hit.size:
-                    # Dedup duplicate slots within the part (keep the
-                    # first, as the per-vote mask reports per vote).
-                    hslots = np.asarray(vslots, dtype=np.int64)[hit]
-                    _, first = np.unique(hslots, return_index=True)
-                    sel = hit[np.sort(first)]
-                    slots = np.asarray(vslots, dtype=np.int64)[sel]
-                    rounds = np.asarray(vrounds, dtype=np.int64)[sel]
-                    fresh = self._fresh_mask(slots, rounds)
-                    out.extend(zip(slots[fresh].tolist(),
-                                   rounds[fresh].tolist()))
+        for _, items, result in dispatch:
+            try:
+                m = result.wait()
+                lanes = result.lanes() if any(
+                    item[0] == "votes" for item in items) else None
+                for item in items:
+                    if item[0] == "run":
+                        for start, width, rnd, at in item[1]:
+                            slots = start + np.flatnonzero(
+                                m[at:at + width]).astype(np.int64)
+                            if slots.size:
+                                fresh = self._fresh_mask(slots, rnd)
+                                out.extend(zip(slots[fresh].tolist(),
+                                               (rnd,) * int(fresh.sum())))
+                        continue
+                    _, vslots, vrounds, at, n = item
+                    hit = np.flatnonzero(lanes[at:at + n])
+                    if hit.size:
+                        # Dedup duplicate slots within the chunk (keep the
+                        # first, as the per-vote mask reports per vote).
+                        hslots = np.asarray(vslots, dtype=np.int64)[hit]
+                        _, first = np.unique(hslots, return_index=True)
+                        sel = hit[np.sort(first)]
+                        slots = np.asarray(vslots, dtype=np.int64)[sel]
+                        rounds = np.asarray(vrounds, dtype=np.int64)[sel]
+                        fresh = self._fresh_mask(slots, rounds)
+                        out.extend(zip(slots[fresh].tolist(),
+                                       rounds[fresh].tolist()))
+            finally:
+                result.free()
         return out
 
     def _fresh_mask(self, slots: np.ndarray, rounds) -> np.ndarray:
