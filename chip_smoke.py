@@ -221,19 +221,26 @@ Phases, in order (any failure exits nonzero and prints no result):
      matmul), each telemetry off and on: K19 ``shard_vote_count``, K20
      ``shard_commit`` and K21 ``shard_fold`` against their plain versions
      phase by phase for 3 drains and ``sharded_step`` against
-     ``sharded_step_plain`` for 2 more (error 0); then 40 drains through
-     ``make_sharded_step`` (the 32-block ring wraps), the launch counts
-     read, and the gathered state equal bit for bit to the unsharded
-     drain's (K3, K14 with telemetry) after the same 40 drains; then the
-     per-drain split (K19, K20, K21 device time, the two all-reduces'
-     host time); with two or more cards, the same on one rank per card
-     over NCCL; then, in this process, K19 against
-     ``shard_vote_count_plain`` in every instantiated form (majorities of
-     1-16 acceptors, two groups over two acceptors, whole rows of three,
-     write and read) and the generic template, telemetry off and on, on
-     up to four ranks of each mesh, boards of arbitrary bytes, rings of
-     16, 1 and 2 blocks (and the four meshes at 2^20 / 2^15), drains from
-     0 and across the int32 wrap (error 0);
+     ``sharded_step_plain`` for 2 more and ``sharded_run`` against
+     ``sharded_run_plain`` for a run of 8 (error 0); then 40 drains
+     through ``make_sharded_step`` (the 32-block ring wraps) and, from a
+     fresh state, 40 through ``make_sharded_runner`` in runs of 8 (one
+     slot all-reduce and one K21 a run), the launch counts read (K21's
+     equal to the runs), and each gathered state equal bit for bit to the
+     unsharded drain's (K3, K14 with telemetry) after the same 40
+     drains; then the per-drain split (K19, K20, K21 device time, the two
+     all-reduces' host time) and a run's (host ms of a run of 8, its
+     phases, its all-reduces); with two or more cards, the same on one
+     rank per card over NCCL; then, in this process, K19 against
+     ``shard_vote_count_plain`` and K20 against ``shard_commit_plain``
+     (into random rows of the slot table) in every instantiated form
+     (majorities of 1-16 acceptors, two groups over two acceptors, whole
+     rows of three, write and read) and the generic template, telemetry
+     off and on, on up to four ranks of each mesh, boards of arbitrary
+     bytes, rings of 16, 1 and 2 blocks (and the four meshes at 2^20 /
+     2^15), drains from 0 and across the int32 wrap; and K21's run fold
+     against ``shard_fold_plain`` over 1, 8, 64 and 256 rows from drain
+     0 and across the wrap, telemetry off and on (error 0);
   26. the sharded vote board's path (``bench/multichip_board.py``'s
      ``check_board``), on four ranks that share the card over gloo (and,
      with two or more cards, one rank per card over NCCL): first each
@@ -296,7 +303,8 @@ Phases, in order (any failure exits nonzero and prints no result):
      drain's run of three blocks; K5 at the leaders' 1-16 lanes, 256 and
      4096, both forms; K4 on a 256-lane chunk and runs of 1, 4 and 48,
      and a drain's board updates whole; K19-K21 at rank 0 of each
-     sharded mesh, telemetry off and on), and the K10 / K11 rows the
+     sharded mesh, telemetry off and on, with K19's and K20's forms, and
+     K21 folding runs of 1, 8, 64 and 256 drains), and the K10 / K11 rows the
      staged entries' error and each decision's host time.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -1643,6 +1651,8 @@ SHARDED_PATH = multichip.SHARDED_KERNELS
 SHARDED_MESHES = multichip.CHECK_MESHES
 #: Drains per mesh: the 32-block ring wraps.
 SHARDED_DRAINS = 40
+#: Drains per run of the runner's arm (multichip_lt's runs).
+SHARDED_RUN = 8
 
 
 def _rows(batch: td.DepSetBatch) -> int:
@@ -2209,12 +2219,14 @@ def phase_sharded(dev) -> tuple[dict, dict, dict]:
         try:
             ranks = multichip.check(world, group, slot, spec, telemetry,
                                     window=WINDOW, block=BLOCK,
-                                    drains=SHARDED_DRAINS)
+                                    drains=SHARDED_DRAINS,
+                                    run_drains=SHARDED_RUN)
         except multichip.WorldFailure as exc:
             raise SmokeFailure(f"sharded: {exc}") from exc
         for r in ranks:
             for name in SHARDED_PATH:
-                launches[name] += r["launches"][name]
+                launches[name] += r["launches"][name] \
+                    + r["run_launches"][name]
                 errors[name] = max(errors[name], r["errors"][name])
         cases[key] = multichip.check_summary(ranks)
 
@@ -2331,6 +2343,129 @@ def _k19_forms(dev, rng) -> tuple[int, dict]:
     require(want <= set(forms) and any("generic" in f for f in forms),
             f"K19's forms not all run: {sorted(forms)}")
     return worst, forms
+
+
+def _k20_forms(dev, rng) -> tuple[int, dict]:
+    """K20 in every instantiated form and the generic template against
+    ``shard_commit_plain``, one process: each case of ``K19_CASES`` on up
+    to four of its mesh's ranks, telemetry off and on, at ``K19_SIZES``
+    (rings of 16, 1 and 2 blocks; and the sharded meshes at window 2^20,
+    block 2^15), boards of arbitrary vote bytes, chosen flags and
+    commands, group-reduced partials of arbitrary counts (the occupancy
+    clamps below 0 and past n included), three drains from 0 and from
+    2^31 - 2, each into a random row of the slot table; the board, the
+    slot columns and the whole table equal after every drain (error 0).
+    Returns the error and the forms run."""
+    worst, forms = 0, {}
+    for (group, slot), spec in K19_CASES:
+        n = spec.num_nodes
+        pred = tq.make_predicate(*spec.as_arrays(), device=dev)
+        sizes = K19_SIZES
+        if (group, slot) in ((1, 4), (1, 3)) or n == 6 and group > 1 \
+                and spec.combine == ALL:
+            sizes = sizes + ((WINDOW, BLOCK),)
+        for rank in range(min(group * slot, 4)):
+            mesh = Mesh(group, slot, rank, dev)
+            for (window, block), telemetry in itertools.product(
+                    sizes, (False, True)):
+                states = [tp.make_sharded_state(mesh, window, block, n,
+                                                telemetry=telemetry)[0]
+                          for _ in range(2)]
+                w_local = states[0].votes.shape[1]
+                fill = {"votes": rng.integers(0, 256, size=tuple(
+                            states[0].votes.shape), dtype=np.uint8),
+                        "chosen": rng.random(w_local) < 0.3,
+                        "commands": rng.integers(-2**31, 2**31, size=w_local,
+                                                 dtype=np.int64
+                                                 ).astype(np.int32)}
+                for st in states:
+                    for name, values in fill.items():
+                        getattr(st, name).copy_(torch.from_numpy(values))
+                plans = [tp.make_shard_plan(mesh, block, pred,
+                                            telemetry=telemetry)
+                         for _ in range(2)]
+                form = tp.commit_form(plans[0])
+                forms[str(form)] = forms.get(str(form), 0) + 1
+                for start in K19_STARTS:
+                    for k in range(K19_DRAINS):
+                        i = tp._wrap32(start + k)
+                        parts = torch.from_numpy(rng.integers(
+                            -1, n + 3, size=tuple(plans[0].parts.shape),
+                            dtype=np.int64).astype(np.int32)).to(dev)
+                        row = int(rng.integers(0, tp.RUN_ROWS))
+                        for plan in plans:
+                            plan.parts.copy_(parts)
+                        tp.shard_commit(states[0], i, plans[0], row)
+                        tp.shard_commit_plain(states[1], i, plans[1], row)
+                        err = max([max_abs_err(plans[0].slot, plans[1].slot)]
+                                  + [max_abs_err(getattr(states[0], f),
+                                                 getattr(states[1], f))
+                                     for f in ("votes", "chosen",
+                                               "commands", "results")])
+                        worst = max(worst, err)
+                        require(err == 0, f"K20 {form} differs from plain "
+                                          f"on ({group}, {slot}) rank "
+                                          f"{rank}, W={window} B={block} "
+                                          f"telemetry {telemetry}, drain "
+                                          f"{i}, row {row}")
+    torch.cuda.synchronize(dev)
+    want = {str(("groups", k, 1)) for k in range(1, 17)} | {
+        str(("groups", 2, 2)), str(("rows", 3, 3))}
+    require(want <= set(forms) and any("generic" in f for f in forms),
+            f"K20's forms not all run: {sorted(forms)}")
+    return worst, forms
+
+
+#: K21's runs in phase 25: a drain, runs of 8 and 64, the table's cap.
+K21_RUNS = (1, 8, 64, tp.RUN_ROWS)
+
+
+def _k21_runs(dev, rng) -> tuple[int, dict]:
+    """K21's run fold against ``shard_fold_plain`` over ``K21_RUNS``
+    rows, telemetry off and on, on rank 1 of a (1, 4) mesh of five
+    acceptors: tables of random words (half of them anywhere in int32),
+    committed, sm_state and the counters random, the run starting at
+    drain 0 and at 2^31 - 20 (the index wraps inside the longer runs);
+    the scalars, the telemetry buffer and the whole table (the folded
+    rows zeroed) equal (error 0). Returns the error and the runs."""
+    spec = SimpleMajority(range(5)).write_spec()
+    pred = tq.make_predicate(*spec.as_arrays(), device=dev)
+    mesh = Mesh(1, 4, 1, dev)
+    worst, runs = 0, {}
+    for telemetry, k, start in itertools.product(
+            (False, True), K21_RUNS, (0, 2**31 - 20)):
+        pairs = []
+        plan0 = tp.make_shard_plan(mesh, BLOCK, pred, telemetry=telemetry)
+        shape = tuple(plan0.slot.shape)
+        table = np.where(rng.random(shape) < 0.5,
+                         rng.integers(-2**31, 2**31, size=shape),
+                         rng.integers(0, 4096, size=shape)).astype(np.int32)
+        scalars = rng.integers(-2**31, 2**31, size=3).astype(np.int32)
+        tel = rng.integers(0, 1 << 20, size=64).astype(np.int32)
+        for _ in range(2):
+            state, _ = tp.make_sharded_state(mesh, 1 << 16, BLOCK, 5,
+                                             telemetry=telemetry)
+            plan = tp.make_shard_plan(mesh, BLOCK, pred, telemetry=telemetry)
+            plan.slot.copy_(torch.from_numpy(table))
+            for t, v in zip(state[4:7], scalars):
+                t.fill_(int(v))
+            if telemetry:
+                buf = state.telemetry.buffer
+                buf.copy_(torch.from_numpy(tel[:buf.numel()]))
+            pairs.append((state, plan))
+        tp.shard_fold(pairs[0][0], start, pairs[0][1], k)
+        tp.shard_fold_plain(pairs[1][0], start, pairs[1][1], k)
+        (a, pa), (b, pb) = pairs
+        err = max([max_abs_err(x, y) for x, y in zip(a[4:7], b[4:7])]
+                  + [max_abs_err(pa.slot, pb.slot)]
+                  + ([max_abs_err(a.telemetry.buffer, b.telemetry.buffer)]
+                     if telemetry else []))
+        worst = max(worst, err)
+        require(err == 0, f"K21 over {k} rows from drain {start}, telemetry "
+                          f"{telemetry}, differs from plain")
+        runs[k] = runs.get(k, 0) + 1
+    torch.cuda.synchronize(dev)
+    return worst, runs
 
 
 def _shard_kernel_figures(dev, rng) -> dict:
@@ -3107,14 +3242,19 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
             board[fig]
     # A pipelined drain's board updates whole (K2 and K4 in one staged
     # call), and K19-K21 at rank 0 of each sharded mesh, telemetry off and
-    # on (--parts sharded).
+    # on, K21 also over runs (--parts sharded).
     next(r for r in out if r["name"] == "record_and_check")[
         "drain_at_launch_shapes"] = board["drain"]
     sharded = launch_shapes.sharded_kernels(dev)
-    for name in ("shard_vote_count", "shard_commit", "shard_fold"):
+    for name, form in (("shard_vote_count", "form"),
+                       ("shard_commit", "commit_form"),
+                       ("shard_fold", None)):
         next(r for r in out if r["name"] == name)["at_launch_shapes"] = {
-            key: {"form": fig["form"], "b_local": fig["b_local"],
+            key: {"form": fig.get(form), "b_local": fig["b_local"],
                   **fig[name]} for key, fig in sharded.items()}
+    # K21 folding runs of 1, 8, 64 and 256 drains in one launch each.
+    next(r for r in out if r["name"] == "shard_fold")["runs_at_launch_shapes"] \
+        = {key: fig["shard_fold_run"] for key, fig in sharded.items()}
     # The staged entries (one call a decision): their error against the
     # plain versions in phase 13.
     for name, staged in (("union_reduce", "union_staged"),
@@ -3343,18 +3483,30 @@ def main() -> int:
                                          k19_err)
         log(f"      K19 == shard_vote_count_plain in every form (runs per "
             f"form): {k19_forms}")
+        k20_err, k20_forms = _k20_forms(dev, rng)
+        errors["shard_commit"] = max(errors["shard_commit"], k20_err)
+        log(f"      K20 == shard_commit_plain in every form (runs per "
+            f"form): {k20_forms}")
+        k21_err, k21_runs = _k21_runs(dev, rng)
+        errors["shard_fold"] = max(errors["shard_fold"], k21_err)
+        log(f"      K21 == shard_fold_plain on runs of {list(k21_runs)} "
+            f"rows")
         phase(25, f"sharded drain on {name} ({smi}): backend "
             f"{sharded['backend']}, {sharded['ranks']} ranks on one card "
             f"(spawned in {sharded['spawn_s']:.1f} s); K19-K21 == plain "
             f"(error 0), the gathered state == the unsharded drain's after "
-            f"{SHARDED_DRAINS} drains at W={WINDOW}, B={BLOCK}; per-drain "
-            f"ms (rank 0: K19, K20, K21 device; the all-reduces host): "
+            f"{SHARDED_DRAINS} drains at W={WINDOW}, B={BLOCK}, by step "
+            f"and by runs of {SHARDED_RUN} (one K21 a run); per-drain "
+            f"ms (rank 0: K19, K20, K21 device; the all-reduces host), "
+            f"then a run's host ms a drain and its all-reduces: "
             + "; ".join(
                 f"{key}: " + ", ".join(
                     f"{k} {v:.4g}" for k, v in
                     (fig["device_ms_rank0"] or {}).items())
                 + f", psum_group {fig['split_ms_rank0']['psum_group']:.4g}"
                 f", psum_slot {fig['split_ms_rank0']['psum_slot']:.4g}"
+                f"; run {fig['run_ms_per_drain_rank0']:.4g} a drain, "
+                f"{fig['run_allreduces']} all-reduces a run"
                 for key, fig in sharded["cases"].items())
             + f"; {sharded['nccl']}; launches "
             + str({k: sharded_launches[k] for k in SHARDED_PATH}))
@@ -3423,7 +3575,10 @@ def main() -> int:
         shapes = {name: next(r for r in kernels if r["name"] == name)[
             "at_launch_shapes"] for name in ("record_block", "release",
                                              "record_and_check",
-                                             "shard_vote_count")}
+                                             "shard_vote_count",
+                                             "shard_commit")}
+        fold_runs = next(r for r in kernels if r["name"] == "shard_fold")[
+            "runs_at_launch_shapes"]
         phase(28, f"per-kernel figures on {name} ({smi}); in turns, ms "
             f"per call: "
             + "; ".join(f"{k} {row['ms']:.5f}"
@@ -3450,6 +3605,15 @@ def main() -> int:
             + ", ".join(f"{k} {v['call_ms'] * 1e3:.2f} / "
                         f"{(v['device_ms'] or 0) * 1e3:.3f}"
                         for k, v in shapes["shard_vote_count"].items())
+            + "; K20 likewise: "
+            + ", ".join(f"{k} {v['call_ms'] * 1e3:.2f} / "
+                        f"{(v['device_ms'] or 0) * 1e3:.3f}"
+                        for k, v in shapes["shard_commit"].items())
+            + "; K21 a run of 1 / 8 / 64 / 256 drains (device us, (1, 4)): "
+            + ", ".join(f"{t} " + " / ".join(
+                f"{(r['device_ms_per_run'] or 0) * 1e3:.3f}"
+                for r in fold_runs[f"1x4 majority3 telemetry {t}"].values())
+                for t in ("off", "on"))
             + "; whole calls (host ns): "
             + ", ".join(f"{k} {v['whole_ns']:.0f}"
                         for k, v in split["paths"].items())

@@ -76,11 +76,13 @@ Run from the root of a checkout::
         [--parts drains,kernels|depset|board|sharded]
 
   * ``sharded`` (the sharded drain's kernels on one process, no ranks
-    spawned): K19 ``shard_vote_count`` at rank 0's shape of each of
-    ``chip_smoke.py`` phase 25's meshes ((1, 4) and (1, 3) majority-3,
-    (2, 2) and (3, 1) 2x3 grid; window 2^20, block 2^15), telemetry off
-    and on, by CUDA events and the profiler, with the form it runs; K20
-    and K21 beside it for context.
+    spawned): K19 ``shard_vote_count`` and K20 ``shard_commit`` at rank
+    0's shape of each of ``chip_smoke.py`` phase 25's meshes ((1, 4) and
+    (1, 3) majority-3, (2, 2) and (3, 1) 2x3 grid; window 2^20, block
+    2^15), telemetry off and on, by CUDA events and the profiler, with
+    the form each runs; K21 ``shard_fold`` on one drain and on runs of
+    1, 8, 64 and 256 drains (one launch a run where the tree's K21 folds
+    a run, else a launch a drain).
 
 It prints ONE JSON line, with the seconds the tree's kernels took to
 build (0 when they were built before). It raises without a CUDA device.
@@ -131,6 +133,9 @@ K4_RUNS = (1, 4, 48)
 SHARD_MESHES = ((1, 4, "majority3"), (1, 3, "majority3"),
                 (2, 2, "grid2x3"), (3, 1, "grid2x3"))
 SHARD_BLOCK = 1 << 15
+#: The runs K21 folds: a drain, multichip_lt's and phase 25's runs of 8,
+#: and 64 and 256 (the slot table's rows).
+FOLD_ROWS = (1, 8, 64, 256)
 
 
 class DrainClock:
@@ -737,10 +742,16 @@ def _staged_drain(device, rng) -> dict:
 
 
 def sharded_kernels(device) -> dict:
-    """K19 (with K20 and K21) at rank 0's shape of each phase-25 mesh,
-    telemetry off and on (the module docstring). Bytes: K19 (4N + 4 +
-    8R) a lane, K20 (8R + 13 + N) a lane and the slot words, K21 the
-    slot words and three scalars."""
+    """K19, K20 and K21 at rank 0's shape of each phase-25 mesh,
+    telemetry off and on (the module docstring), with the form each of
+    K19 and K20 runs; and K21 folding a run of each of ``FOLD_ROWS``
+    drains: ONE launch over the run's rows where the tree's K21 takes a
+    row count, else a launch a drain (the fold the tree makes for such a
+    run). Bytes: K19 (4N + 4 + 8R) a lane, K20 (8R + 13 + N) a lane and
+    the slot words, K21 the run's slot words read and zeroed, three
+    scalars, and the telemetry buffer read and written."""
+    import inspect
+
     import torch
     from frankenpaxos_tpu_torch.bench import pipeline as tp
     from frankenpaxos_tpu_torch.mesh import Mesh
@@ -749,6 +760,7 @@ def sharded_kernels(device) -> dict:
 
     specs = {"majority3": SimpleMajority(range(3)).write_spec(),
              "grid2x3": Grid([[0, 1, 2], [3, 4, 5]]).write_spec()}
+    run_fold = "k" in inspect.signature(tp.shard_fold).parameters
     out = {}
     for group, slot, name in SHARD_MESHES:
         spec = specs[name]
@@ -770,21 +782,45 @@ def sharded_kernels(device) -> dict:
                 return call
 
             b, r = plan.b_local, plan.parts.shape[1]
-            words = plan.slot.numel()
+            words = plan.slot.shape[-1]
+            tel_bytes = 8 * state.telemetry.buffer.numel() if telemetry \
+                else 0
             rows = {"shard_vote_count": (4 * plan.n_local + 4 + 8 * r) * b,
                     "shard_commit": (8 * r + 13 + plan.n_local) * b
                     + 8 * words,
-                    "shard_fold": 8 * words + 24}
+                    "shard_fold": 8 * words + 24 + tel_bytes}
             fig = {"b_local": b, "n_local": plan.n_local,
                    "w_local": state.votes.shape[1],
                    "form": (list(tp.shard_form(plan))
-                            if hasattr(tp, "shard_form") else None)}
+                            if hasattr(tp, "shard_form") else None),
+                   "commit_form": (list(tp.commit_form(plan))
+                                   if hasattr(tp, "commit_form") else None)}
             for kernel in ("shard_vote_count", "shard_commit", "shard_fold"):
                 call = phase(getattr(tp, kernel))
                 dev_ms, _ = _device_ms(call, kernel + "_kernel")
                 fig[kernel] = {"call_ms": _cuda_ms(call), "device_ms": dev_ms,
                                "bound_ms": rows[kernel] / HBM_BYTES_PER_S
                                * 1e3}
+            fig["shard_fold_run"] = {}
+            for k in FOLD_ROWS:
+                if run_fold:
+                    def call(k=k):
+                        tp.shard_fold(state, at[0], plan, k)
+                        at[0] += k
+                else:
+                    def call(k=k):
+                        for d in range(k):
+                            tp.shard_fold(state, at[0] + d, plan)
+                        at[0] += k
+                dev_ms, per_call = _device_ms(call, "shard_fold_kernel",
+                                              iters=max(4, 200 // k))
+                fig["shard_fold_run"][str(k)] = {
+                    "call_ms": _cuda_ms(call, calls=max(20, CALLS // k)),
+                    "device_ms": dev_ms, "launches_per_call": per_call,
+                    "device_ms_per_run": (None if dev_ms is None
+                                          else dev_ms * per_call),
+                    "bound_ms": (8 * words * k + 24 + tel_bytes)
+                    / HBM_BYTES_PER_S * 1e3}
             torch.cuda.synchronize()
             out[f"{group}x{slot} {name} telemetry "
                 f"{'on' if telemetry else 'off'}"] = fig

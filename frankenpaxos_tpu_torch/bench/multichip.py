@@ -21,8 +21,10 @@ world, every rank taking part in the subgroups' creation):
   * ``telemetry_updates`` -- the telemetry updates over the slot axis;
   * ``dryrun`` -- the body of :func:`dryrun`;
   * ``check_drain`` -- on the card: K19-K21 held against their plain
-    versions, the gathered state against the unsharded drain (K3 or
-    K14), and the per-phase time split (``chip_smoke.py``);
+    versions, the gathered state of ``make_sharded_step`` and of
+    ``make_sharded_runner`` against the unsharded drain (K3 or K14), and
+    the per-phase time split of a drain and of a run
+    (``chip_smoke.py``);
   * ``modules`` -- which top-level modules a worker has loaded;
   * the sharded vote board's cases (``bench/multichip_board.py``, merged
     into :data:`CASES`).
@@ -271,7 +273,7 @@ def case_drain(ctx: WorkerContext, *, group: int, slot: int, window: int,
         else:
             runner = tp.make_sharded_runner(mesh, iters=chunk, **kw)
             for at in range(start, start + iters, chunk):
-                runner(state, at)
+                runner(state, tp._wrap32(at))
         gathered = convert.sharded_state_to_numpy(mesh, state)
         snapshots = [None] * mesh.size
         if telemetry:
@@ -425,20 +427,46 @@ def unsharded_mismatches(gathered, host, slot: int, window: int,
     return bad
 
 
+def _drain_device_ms(prof, names) -> dict:
+    """Mean device ms per launch of each kernel in ``names`` in a
+    profile."""
+    out = {}
+    for evt in prof.key_averages():
+        for name in names:
+            if f"{name}_kernel" in evt.key and evt.count:
+                total = getattr(evt, "device_time_total", None) \
+                    or getattr(evt, "cuda_time_total", 0)
+                out[name] = total / evt.count / 1e3
+    return out
+
+
+def _mesh_allreduces(mesh, drains: int) -> int:
+    """The all-reduces of one run of ``drains`` drains on ``mesh``: the
+    group's a drain, the slot's a run (none over an axis of one shard)."""
+    return (drains if mesh.group_shards > 1 else 0) + int(
+        mesh.slot_shards > 1)
+
+
 def case_check_drain(ctx: WorkerContext, *, group: int, slot: int,
                      spec: str, window: int, block: int, drains: int,
                      compare_drains: int, time_drains: int,
-                     telemetry: bool) -> Optional[dict]:
+                     telemetry: bool, run_drains: int = 8) -> Optional[dict]:
     """On the card: (1) K19, K20 and K21 held against their plain
     versions on identical shards, phase by phase, for
     ``compare_drains`` drains, then :func:`sharded_step` against
-    :func:`sharded_step_plain` for two more (the largest difference per
-    kernel); (2) with the launch counts at 0, ``drains`` drains through
-    ``make_sharded_step``, the counts read, the state gathered and, on
-    rank 0, held against the unsharded drain (K3, or K14 with
-    telemetry) over the same drains; (3) ``time_drains`` drains with
-    every phase synchronised: host milliseconds of each kernel and each
-    all-reduce, and on rank 0 the kernels' device time (profiler)."""
+    :func:`sharded_step_plain` for two more and :func:`sharded_run`
+    against :func:`sharded_run_plain` for a run of ``run_drains`` (K20
+    into rows past 0, K21 over the run's rows; the largest difference
+    per kernel); (2) with the launch counts at 0, ``drains`` drains
+    through ``make_sharded_step`` and, from a fresh state, through
+    ``make_sharded_runner`` in runs of ``run_drains``, the counts read,
+    each state gathered and, on rank 0, held against the unsharded drain
+    (K3, or K14 with telemetry) over the same drains; (3) ``time_drains``
+    drains with every phase synchronised: host milliseconds of each
+    kernel and each all-reduce, and on rank 0 the kernels' device time
+    (profiler); then a run's split: host ms of a whole run of
+    ``run_drains`` (synchronised at its end), each of its phases
+    synchronised, and its all-reduces."""
     spec = _named_spec(spec)
     n = spec.num_nodes
     kernels = (tp.shard_vote_count, tp.shard_commit, tp.shard_fold)
@@ -463,7 +491,7 @@ def case_check_drain(ctx: WorkerContext, *, group: int, slot: int,
         (sk, pk), (sp, pp) = fresh(), fresh()
         errors = dict.fromkeys(names, 0)
         reduce = (lambda p: mesh.psum_group(p.parts),
-                  lambda p: mesh.psum_slot(p.slot), lambda p: None)
+                  lambda p: mesh.psum_slot(p.slot[:1]), lambda p: None)
         for i in range(compare_drains):
             for name, kernel, plain, after in zip(names, kernels, plains,
                                                   reduce):
@@ -474,23 +502,29 @@ def case_check_drain(ctx: WorkerContext, *, group: int, slot: int,
                                    _err(pk.slot, pp.slot))
                 after(pk)
                 after(pp)
-        for i in range(compare_drains, compare_drains + 2):
+        at = compare_drains
+        for i in range(at, at + 2):
             tp.sharded_step(mesh, sk, i, pk)
             tp.sharded_step_plain(mesh, sp, i, pp)
             err = _state_err(sk, sp)
             for name in names:
                 errors[name] = max(errors[name], err)
+        tp.sharded_run(mesh, sk, at + 2, run_drains, pk)
+        tp.sharded_run_plain(mesh, sp, at + 2, run_drains, pp)
+        err = max(_state_err(sk, sp), _err(pk.slot, pp.slot))
+        for name in names[1:]:
+            errors[name] = max(errors[name], err)
         _sync(dev)
 
-        # (2) The main path through the entry point, counts from 0.
+        # (2) The main path through the entry points, counts from 0.
+        masks, thresholds, combine_any = spec.as_arrays()
+        kw = dict(block_size=block, masks=masks, thresholds=thresholds,
+                  combine_any=combine_any, telemetry=telemetry)
         for kernel in kernels:
             kernel.launches = 0
         state, _ = tp.make_sharded_state(mesh, window, block, n,
                                          telemetry=telemetry)
-        masks, thresholds, combine_any = spec.as_arrays()
-        step = tp.make_sharded_step(
-            mesh, block_size=block, masks=masks, thresholds=thresholds,
-            combine_any=combine_any, telemetry=telemetry)
+        step = tp.make_sharded_step(mesh, **kw)
         t0 = time.perf_counter()
         for i in range(drains):
             step(state, i)
@@ -498,33 +532,45 @@ def case_check_drain(ctx: WorkerContext, *, group: int, slot: int,
         run_s = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in kernels}
         gathered = tp.gather_state(mesh, state)
-        bad = None
+        for kernel in kernels:
+            kernel.launches = 0
+        run_state, _ = tp.make_sharded_state(mesh, window, block, n,
+                                             telemetry=telemetry)
+        runner = tp.make_sharded_runner(mesh, iters=run_drains, **kw)
+        for at in range(0, drains, run_drains):
+            runner(run_state, at)
+        _sync(dev)
+        run_launches = {k.__name__: k.launches for k in kernels}
+        run_gathered = tp.gather_state(mesh, run_state)
+        bad = bad_run = None
         if mesh.rank == 0:
             host = tp.make_state(window, n, telemetry=telemetry,
                                  device=dev)
             for i in range(drains):
                 tp.steady_state_step(host, i, block_size=block,
                                      predicate=pred)
-            bad = unsharded_mismatches(
-                gathered, convert.pipeline_state_to_numpy(host), slot, window,
-                block)
+            host = convert.pipeline_state_to_numpy(host)
+            bad = unsharded_mismatches(gathered, host, slot, window, block)
+            bad_run = unsharded_mismatches(run_gathered, host, slot, window,
+                                           block)
 
-        # (3) The per-phase split, every phase synchronised.
+        # (3) The per-phase split of a drain, every phase synchronised.
+        plan = step.plan
         split = {key: [] for key in ("shard_vote_count", "psum_group",
                                      "shard_commit", "psum_slot",
                                      "shard_fold")}
-        phases = ((names[0], lambda i: kernels[0](state, i, step.plan)),
-                  ("psum_group", lambda i: mesh.psum_group(step.plan.parts)),
-                  (names[1], lambda i: kernels[1](state, i, step.plan)),
-                  ("psum_slot", lambda i: mesh.psum_slot(step.plan.slot)),
-                  (names[2], lambda i: kernels[2](state, i, step.plan)))
+        phases = ((names[0], lambda i: kernels[0](state, i, plan)),
+                  ("psum_group", lambda i: mesh.psum_group(plan.parts)),
+                  (names[1], lambda i: kernels[1](state, i, plan)),
+                  ("psum_slot", lambda i: mesh.psum_slot(plan.slot[:1])),
+                  (names[2], lambda i: kernels[2](state, i, plan)))
         for i in range(drains, drains + time_drains):
             for key, run in phases:
                 t0 = time.perf_counter()
                 run(i)
                 _sync(dev)
                 split[key].append((time.perf_counter() - t0) * 1e3)
-        device_ms = None
+        device_ms = run_device_ms = None
         at = drains + time_drains
         if mesh.rank == 0 and dev.type == "cuda":
             from torch.profiler import profile, ProfilerActivity
@@ -534,24 +580,74 @@ def case_check_drain(ctx: WorkerContext, *, group: int, slot: int,
                 for i in range(at, at + time_drains):
                     step(state, i)
                 _sync(dev)
-            device_ms = {}
-            for evt in prof.key_averages():
-                for name in names:
-                    if f"{name}_kernel" in evt.key and evt.count:
-                        total = getattr(evt, "device_time_total", None) \
-                            or getattr(evt, "cuda_time_total", 0)
-                        device_ms[name] = total / evt.count / 1e3
+            device_ms = _drain_device_ms(prof, names)
         else:
             for i in range(at, at + time_drains):
                 step(state, i)
         _sync(dev)
+
+        # A run's split on the runner's state: whole runs, synchronised
+        # at their end, then one run with every phase synchronised.
+        at, runs = drains, max(5, time_drains // run_drains)
+        whole = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            runner(run_state, at)
+            _sync(dev)
+            whole.append((time.perf_counter() - t0) * 1e3)
+            at += run_drains
+        rplan = runner.plan
+        run_split = {key: 0.0 for key in split}
+        for row in range(run_drains):
+            for key, fn in (
+                    (names[0], lambda: kernels[0](run_state, at + row,
+                                                  rplan)),
+                    ("psum_group", lambda: mesh.psum_group(rplan.parts)),
+                    (names[1], lambda: kernels[1](run_state, at + row,
+                                                  rplan, row))):
+                t0 = time.perf_counter()
+                fn()
+                _sync(dev)
+                run_split[key] += (time.perf_counter() - t0) * 1e3
+        for key, fn in (
+                ("psum_slot", lambda: mesh.psum_slot(
+                    rplan.slot[:run_drains])),
+                (names[2], lambda: kernels[2](run_state, at, rplan,
+                                              run_drains))):
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            run_split[key] = (time.perf_counter() - t0) * 1e3
+        at += run_drains
+        if mesh.rank == 0 and dev.type == "cuda":
+            from torch.profiler import profile, ProfilerActivity
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(runs):
+                    runner(run_state, at)
+                    at += run_drains
+                _sync(dev)
+            run_device_ms = _drain_device_ms(prof, names)
+        else:
+            for _ in range(runs):
+                runner(run_state, at)
+                at += run_drains
+        _sync(dev)
         return {
             "rank": mesh.rank, "backend": mesh.backend,
             "device": str(dev), "errors": errors, "launches": launches,
-            "unsharded_mismatch": bad, "run_s": run_s,
+            "run_launches": run_launches, "run_drains": run_drains,
+            "unsharded_mismatch": bad, "run_unsharded_mismatch": bad_run,
+            "run_s": run_s,
             "committed": int(state.committed),
             "split_ms": {k: float(np.median(v)) for k, v in split.items()},
             "device_ms": device_ms,
+            "run_ms": float(np.median(whole)),
+            "run_split_ms": run_split,
+            "run_allreduces": _mesh_allreduces(mesh, run_drains),
+            "step_allreduces": _mesh_allreduces(mesh, 1),
+            "run_device_ms": run_device_ms,
         }
 
 
@@ -568,18 +664,23 @@ SHARDED_KERNELS = ("shard_vote_count", "shard_commit", "shard_fold")
 def check(world: RankWorld, group: int, slot: int, spec: str,
           telemetry: bool, *, window: int = 1 << 20, block: int = 1 << 15,
           drains: int = 40, compare_drains: int = 3,
-          time_drains: int = 20) -> list:
+          time_drains: int = 20, run_drains: int = 8) -> list:
     """``check_drain`` on every rank of ``world`` (defaults: the
     headline's full width, 40 drains so the 32-block ring wraps); the
     mesh ranks' results. Raises ``WorldFailure`` when a kernel differs
     from its plain version, a rank did not launch each kernel once per
-    drain, or the gathered state differs from the unsharded drain's."""
+    drain, or the gathered state differs from the unsharded drain's;
+    likewise for the runner in runs of ``run_drains``, whose K21 must
+    launch once a run."""
     ranks = [r for r in world.call(
         "check_drain", deadline_s=300, group=group, slot=slot, spec=spec,
         window=window, block=block, drains=drains,
         compare_drains=compare_drains, time_drains=time_drains,
-        telemetry=telemetry) if r is not None]
+        telemetry=telemetry, run_drains=run_drains) if r is not None]
     case = f"{group}x{slot} {spec}, telemetry {telemetry}"
+    runs = -(-drains // run_drains)
+    want_run = {"shard_vote_count": drains, "shard_commit": drains,
+                "shard_fold": runs}
     for r in ranks:
         if any(r["errors"].values()):
             raise WorldFailure(f"{case}: a kernel differs from its plain "
@@ -587,10 +688,18 @@ def check(world: RankWorld, group: int, slot: int, spec: str,
         if any(r["launches"][k] != drains for k in SHARDED_KERNELS):
             raise WorldFailure(f"{case}: rank {r['rank']} launched "
                                f"{r['launches']} in {drains} drains")
-    if len(ranks) != group * slot or ranks[0]["unsharded_mismatch"]:
-        raise WorldFailure(f"{case}: the gathered state differs from the "
-                           f"unsharded drain's in "
-                           f"{ranks[0]['unsharded_mismatch']}")
+        if r["run_launches"] != want_run:
+            raise WorldFailure(f"{case}: rank {r['rank']} launched "
+                               f"{r['run_launches']} in {runs} runs of "
+                               f"{run_drains} drains")
+    if len(ranks) != group * slot:
+        raise WorldFailure(f"{case}: {len(ranks)} ranks answered")
+    for key in ("unsharded_mismatch", "run_unsharded_mismatch"):
+        if ranks[0][key]:
+            raise WorldFailure(f"{case}: the gathered state "
+                               f"({key.split('unsharded')[0] or 'step '}"
+                               f"path) differs from the unsharded drain's "
+                               f"in {ranks[0][key]}")
     return ranks
 
 
@@ -605,7 +714,15 @@ def check_summary(ranks: list) -> dict:
         "split_ms_rank0": lead["split_ms"],
         "split_ms_max": {k: max(r["split_ms"][k] for r in ranks)
                          for k in lead["split_ms"]},
-        "device_ms_rank0": lead["device_ms"]}
+        "device_ms_rank0": lead["device_ms"],
+        "step_allreduces": lead["step_allreduces"],
+        "run_drains": lead["run_drains"],
+        "run_ms_rank0": lead["run_ms"],
+        "run_ms_per_drain_rank0": lead["run_ms"] / lead["run_drains"],
+        "run_ms_max": max(r["run_ms"] for r in ranks),
+        "run_split_ms_rank0": lead["run_split_ms"],
+        "run_allreduces": lead["run_allreduces"],
+        "run_device_ms_rank0": lead["run_device_ms"]}
 
 
 def case_modules(ctx: WorkerContext) -> list:

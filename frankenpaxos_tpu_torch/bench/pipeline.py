@@ -19,16 +19,22 @@ The sharded drain (the reference's ``make_sharded_step`` /
 ``make_sharded_runner``) runs the same drain over a ``(group, slot)``
 mesh of ``torch.distributed`` ranks (``frankenpaxos_tpu_torch.mesh``):
 each rank holds one shard of the board -- acceptor rows over ``group``,
-the slot window over ``slot`` -- and a drain is three kernels split at
-the reference's psums (``ops/csrc/pipeline_sharded.cu``): K19
-:func:`shard_vote_count` writes this shard's quorum partials, one
-all-reduce over the group subgroup sums them, K20 :func:`shard_commit`
-decides, executes and collects the slot partials, one all-reduce over
-the slot subgroup sums those, and K21 :func:`shard_fold` folds them into
-the replicated scalars and counters. A block that does not divide over
-the slot shards pads every block (:func:`local_block`); the pad lanes
-are masked out of every effect, so the gathered state equals the
-unsharded one through :func:`gathered_layout`.
+the slot window over ``slot`` -- and a drain is split at the reference's
+psums (``ops/csrc/pipeline_sharded.cu``): K19 :func:`shard_vote_count`
+writes this shard's quorum partials, one all-reduce over the group
+subgroup sums them, and K20 :func:`shard_commit` decides, executes and
+adds the slot partials into the drain's row of the plan's slot table. A
+RUN of drains (:func:`sharded_run`, the runner of
+:func:`make_sharded_runner`) does that for each drain, then ONE
+all-reduce of the used rows over the slot subgroup and ONE K21
+:func:`shard_fold`, which folds the rows in drain order into the
+replicated scalars and counters: nothing inside a run reads what the
+slot all-reduce produces, so the state after a run is the reference's
+after its per-drain psums. A single drain (:func:`sharded_step`) is the
+run of one. A block that does not divide over the slot shards pads
+every block (:func:`local_block`); the pad lanes are masked out of every
+effect, so the gathered state equals the unsharded one through
+:func:`gathered_layout`.
 """
 
 from __future__ import annotations
@@ -580,6 +586,11 @@ def unshard_leaf(pieces: list, axes: tuple, mesh: Mesh,
 #: (write grid) / full (read grid) row counts of the fused grid path.
 MATMUL, GRID_WRITE, GRID_READ = 0, 1, 2
 
+#: Rows of a run's slot table, one a drain (``csrc/pipeline_sharded.cu``'s
+#: ``kFoldThreads``: K21 folds a row a thread); a longer run flushes the
+#: table (one slot all-reduce, one K21) each time it is full.
+RUN_ROWS = 256
+
 
 class ShardPlan(NamedTuple):
     """What one rank's drain needs besides its state: its place in the
@@ -601,7 +612,8 @@ class ShardPlan(NamedTuple):
     combine_any: bool
     telemetry: bool
     parts: torch.Tensor      # [2, R, b_local] int32: per pass, R rows
-    slot: torch.Tensor       # [S + 1 (+ n + 3)] int32, 0 between drains
+    slot: torch.Tensor       # [RUN_ROWS, S + 1 (+ n + 3)] int32: a row a
+    #                          drain of a run, 0 between runs
 
 
 def make_shard_plan(mesh: Mesh, block_size: int, predicate: QuorumPredicate,
@@ -614,8 +626,9 @@ def make_shard_plan(mesh: Mesh, block_size: int, predicate: QuorumPredicate,
 
     Partials: ``parts[p]`` is pass ``p``'s ``[R, b_local]``: the G mask
     counts (matmul) or one row count (grid), then the vote-byte sums when
-    ``telemetry``. ``slot``: ``[S]`` newly counts (each shard its own
-    entry), the ``cmds_old`` sum, then with telemetry ``[n + 1]``
+    ``telemetry``. ``slot``: the run's table of :data:`RUN_ROWS` rows,
+    drain ``d`` of a run in row ``d``: ``[S]`` newly counts (each shard
+    its own entry), the ``cmds_old`` sum, then with telemetry ``[n + 1]``
     occupancy bins, valid proposals and pad lanes."""
     g_sh, s_sh = mesh.group_shards, mesh.slot_shards
     n_global = predicate.num_nodes
@@ -640,7 +653,8 @@ def make_shard_plan(mesh: Mesh, block_size: int, predicate: QuorumPredicate,
         combine_any=predicate.combine_any, telemetry=telemetry,
         parts=torch.zeros((2, rows, b_local), dtype=torch.int32,
                           device=dev),
-        slot=torch.zeros(s_sh + 1 + (n_global + 3 if telemetry else 0),
+        slot=torch.zeros((RUN_ROWS, s_sh + 1 + (n_global + 3 if telemetry
+                                                else 0)),
                          dtype=torch.int32, device=dev))
 
 
@@ -752,19 +766,20 @@ def _shard_hit(part: torch.Tensor, plan: ShardPlan) -> torch.Tensor:
     return part[0] == 0 if plan.kind == GRID_WRITE else part[0] > 0
 
 
-def shard_commit_plain(state: PipelineState, i: int,
-                       plan: ShardPlan) -> torch.Tensor:
+def shard_commit_plain(state: PipelineState, i: int, plan: ShardPlan,
+                       row: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K20: from the group-reduced
     ``plan.parts``, each pass's hits (never on a pad lane), ``chosen``
     and newly-chosen lanes, then execution of the old block and GC; the
-    slot partials are added into ``plan.slot``, which it returns."""
+    slot partials are added into row ``row`` of ``plan.slot`` (the
+    drain's row of its run), which it returns."""
     votes, chosen, commands, results = state[:4]
     dev = votes.device
     w_local = votes.shape[1]
     b, s_sh, n = plan.b_local, plan.slot_shards, plan.n_global
     start_new, start_old, start_gc = _ring(i, w_local, b)
     lanes, valid = _shard_lanes(plan, dev)
-    slot = plan.slot
+    slot = plan.slot[_row(row)]
     for p, start in enumerate((start_new, start_old)):
         part = plan.parts[p]
         hit = _shard_hit(part, plan) & valid
@@ -792,27 +807,44 @@ def shard_commit_plain(state: PipelineState, i: int,
     return slot
 
 
-def shard_fold_plain(state: PipelineState, i: int,
-                     plan: ShardPlan) -> PipelineState:
-    """Plain PyTorch version of K21: fold the slot-reduced ``plan.slot``
-    into committed, sm_state, exec_wm (the GLOBAL block) and the
-    telemetry counters (the lag from the end-of-drain committed), then
-    zero ``plan.slot``."""
+def _row(row: int) -> int:
+    if not 0 <= row < RUN_ROWS:
+        raise ValueError(f"row {row} is not a row of the {RUN_ROWS}-row "
+                         f"slot table")
+    return row
+
+
+def _rows(k: int) -> int:
+    if not 1 <= k <= RUN_ROWS:
+        raise ValueError(f"a fold takes 1 to {RUN_ROWS} rows, not {k}")
+    return k
+
+
+def shard_fold_plain(state: PipelineState, i: int, plan: ShardPlan,
+                     k: int = 1) -> PipelineState:
+    """Plain PyTorch version of K21: fold the first ``k`` slot-reduced
+    rows of ``plan.slot`` (drains ``i .. i + k - 1`` of a run, the index
+    wrapping as int32) into committed and sm_state (their sums), exec_wm
+    (the last drain's ``i`` times the GLOBAL block) and the telemetry
+    counters (the column sums, and each drain's lag from its
+    end-of-drain committed by :func:`fold_lag_plain`), then zero those
+    rows."""
     s_sh, n = plan.slot_shards, plan.n_global
-    slot = plan.slot
-    i_t = torch.tensor(i, dtype=torch.int32, device=slot.device)
-    state.committed.add_(slot[:s_sh].sum(dtype=torch.int32))
-    state.sm_state.add_(slot[s_sh])
-    state.exec_wm.copy_(i_t * plan.block_size if i >= 1
-                        else torch.zeros_like(i_t))
+    rows = plan.slot[:_rows(k)]
+    newly = rows[:, :s_sh].sum(1, dtype=torch.int32)
+    state.committed.add_(newly.sum(dtype=torch.int32))
+    state.sm_state.add_(rows[:, s_sh].sum(dtype=torch.int32))
+    last = _wrap32(i + k - 1)
+    state.exec_wm.fill_(_wrap32(last * plan.block_size) if last >= 1 else 0)
     tel = state.telemetry
     if tel is not None:
-        tel.shard_committed.add_(slot[:s_sh])
-        tel.proposed.add_(slot[s_sh + n + 2])
-        tel.occupancy.add_(slot[s_sh + 1:s_sh + n + 2])
-        tel.pad_lanes.add_(slot[s_sh + n + 3])
-        close_drain(tel, (i_t + 1) * plan.block_size - state.committed)
-    slot.zero_()
+        totals = rows.sum(0, dtype=torch.int32)
+        tel.shard_committed.add_(totals[:s_sh])
+        tel.proposed.add_(totals[s_sh + n + 2])
+        tel.occupancy.add_(totals[s_sh + 1:s_sh + n + 2])
+        tel.pad_lanes.add_(totals[s_sh + n + 3])
+        fold_lag_plain(tel, state.committed, newly, i, plan.block_size)
+    rows.zero_()
     return state
 
 
@@ -845,11 +877,22 @@ def shard_form(plan: ShardPlan) -> tuple:
 #: The C entry's code of each kind of form (``VoteFormKind``).
 _FORM_CODES = {"generic": 0, "groups": 1, "rows": 2}
 
-#: The packed entries: K19's 18 int64 slots, K20's 21, K21's 11
+def commit_form(plan: ShardPlan) -> tuple:
+    """The form K20 runs for ``plan``'s shard (its C entry chooses it from
+    the kind, the group count and ``n_local``): the mask groups of
+    :func:`shard_form`'s ``groups`` forms, whole grid rows over three
+    acceptors (``("rows", 3, cols)``), or the generic template."""
+    if plan.kind != MATMUL and plan.n_local == 3:
+        return ("rows", 3, plan.cols)
+    form = shard_form(plan)
+    return form if form[0] == "groups" else ("generic", plan.n_local, 0)
+
+
+#: The packed entries: K19's 18 int64 slots, K20's 21, K21's 12
 #: (``pipeline_sharded.cu``'s blocks).
 _K19 = _build.Entry("pipeline_sharded", "fpx_shard_vote_count", 18)
 _K20 = _build.Entry("pipeline_sharded", "fpx_shard_commit", 21)
-_K21 = _build.Entry("pipeline_sharded", "fpx_shard_fold", 11)
+_K21 = _build.Entry("pipeline_sharded", "fpx_shard_fold", 12)
 
 
 def shard_vote_count(state: PipelineState, i: int,
@@ -879,37 +922,44 @@ def shard_vote_count(state: PipelineState, i: int,
     return plan.parts
 
 
-def shard_commit(state: PipelineState, i: int,
-                 plan: ShardPlan) -> torch.Tensor:
-    """K20 (``shard_commit_kernel``) on CUDA state through the lean call
-    path, counted in ``shard_commit.launches``;
-    :func:`shard_commit_plain` on CPU state. Never synchronises."""
+def shard_commit(state: PipelineState, i: int, plan: ShardPlan,
+                 row: int = 0) -> torch.Tensor:
+    """K20 (``shard_commit_kernel``, in the form :func:`commit_form`
+    names) on CUDA state through the lean call path, its slot partials
+    added into row ``row`` of ``plan.slot`` (the row's address in the
+    packed block), counted in ``shard_commit.launches``;
+    :func:`shard_commit_plain` on CPU state. Returns the row. Never
+    synchronises."""
     w_local = _check_shard(state, plan)
     i = int32(i)
     tensors = state[:4]
     if not use_kernel(*tensors, plan.masks, plan.thresholds, plan.parts,
                       plan.slot):
-        return shard_commit_plain(state, i, plan)
+        return shard_commit_plain(state, i, plan, row)
     index = state.votes.get_device()
     fn = _K20.fn or _K20.resolve()
+    slot = plan.slot
     rc = fn(_K20.pack(
         *(t.data_ptr() for t in tensors), w_local, i, plan.block_size,
         plan.b_local, plan.slot_idx, plan.slot_shards, plan.n_local,
         plan.n_global, plan.kind, plan.masks.shape[0],
         plan.thresholds.data_ptr(), int(plan.combine_any),
-        int(plan.telemetry), plan.parts.data_ptr(), plan.slot.data_ptr(),
-        index, _build.stream_handle(index)))
+        int(plan.telemetry), plan.parts.data_ptr(),
+        slot.data_ptr() + 4 * slot.shape[1] * _row(row), index,
+        _build.stream_handle(index)))
     if rc:
         _K20.check(rc)
     shard_commit.launches += 1
-    return plan.slot
+    return slot[row]
 
 
-def shard_fold(state: PipelineState, i: int,
-               plan: ShardPlan) -> PipelineState:
+def shard_fold(state: PipelineState, i: int, plan: ShardPlan,
+               k: int = 1) -> PipelineState:
     """K21 (``shard_fold_kernel``) on CUDA state through the lean call
-    path, counted in ``shard_fold.launches``; :func:`shard_fold_plain` on
-    CPU state. Never synchronises."""
+    path: the first ``k`` rows of ``plan.slot``, drains ``i .. i + k -
+    1`` of a run, folded and zeroed in one launch, counted in
+    ``shard_fold.launches``; :func:`shard_fold_plain` on CPU state.
+    Never synchronises."""
     _check_shard(state, plan)
     i = int32(i)
     scalars = state[4:7]
@@ -917,11 +967,11 @@ def shard_fold(state: PipelineState, i: int,
     extra = () if tel is None else (tel.buffer,)
     if not use_kernel(*scalars, *extra, plan.masks, plan.thresholds,
                       plan.parts, plan.slot):
-        return shard_fold_plain(state, i, plan)
+        return shard_fold_plain(state, i, plan, k)
     index = state.votes.get_device()
     fn = _K21.fn or _K21.resolve()
     rc = fn(_K21.pack(
-        *(t.data_ptr() for t in scalars), i, plan.block_size,
+        *(t.data_ptr() for t in scalars), i, _rows(k), plan.block_size,
         plan.slot_shards, plan.n_global, plan.slot.data_ptr(),
         0 if tel is None else tel.buffer.data_ptr(), index,
         _build.stream_handle(index)))
@@ -936,36 +986,69 @@ shard_commit.launches = 0
 shard_fold.launches = 0
 
 
-def _sharded(mesh: Mesh, state: PipelineState, i: int, plan: ShardPlan,
-             phases: tuple) -> PipelineState:
+#: The phases of the sharded drain, and their plain versions.
+_KERNELS = (shard_vote_count, shard_commit, shard_fold)
+_PLAINS = (shard_vote_count_plain, shard_commit_plain, shard_fold_plain)
+
+
+def _sharded(mesh: Mesh, state: PipelineState, start: int, iters: int,
+             plan: ShardPlan, phases: tuple) -> PipelineState:
+    """Drains ``start .. start + iters - 1`` (the index wrapping as
+    int32): for each, K19, the group all-reduce of the partials and K20
+    into the drain's row; per :data:`RUN_ROWS` drains (and at the end)
+    the slot all-reduce of the used rows and one K21 over them."""
+    _check_shard(state, plan)
+    start = int32(start)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
     vote_count, commit, fold = phases
-    vote_count(state, i, plan)
-    mesh.psum_group(plan.parts)
-    commit(state, i, plan)
-    mesh.psum_slot(plan.slot)
-    fold(state, i, plan)
+    while iters > 0:
+        k = min(iters, RUN_ROWS)
+        for row in range(k):
+            i = _wrap32(start + row)
+            vote_count(state, i, plan)
+            mesh.psum_group(plan.parts)
+            commit(state, i, plan, row)
+        mesh.psum_slot(plan.slot[:k])
+        fold(state, start, plan, k)
+        start, iters = _wrap32(start + k), iters - k
     return state
 
 
 def sharded_step(mesh: Mesh, state: PipelineState, i: int,
                  plan: ShardPlan) -> PipelineState:
-    """One drain on this rank's shard, IN PLACE: K19, the group
-    all-reduce of the partials, K20, the slot all-reduce of the slot
-    partials, K21 (each phase's plain version on CPU state). Every rank
-    of the mesh calls it with the same ``i``."""
-    _check_shard(state, plan)
-    return _sharded(mesh, state, int32(i), plan,
-                    (shard_vote_count, shard_commit, shard_fold))
+    """One drain on this rank's shard, IN PLACE, the run of one: K19,
+    the group all-reduce of the partials, K20, the slot all-reduce of
+    the slot partials, K21 (each phase's plain version on CPU state); the
+    state is complete after the call. Every rank of the mesh calls it
+    with the same ``i``."""
+    return _sharded(mesh, state, i, 1, plan, _KERNELS)
 
 
 def sharded_step_plain(mesh: Mesh, state: PipelineState, i: int,
                        plan: ShardPlan) -> PipelineState:
     """Plain PyTorch version of :func:`sharded_step` on any device: the
     three phases' plain versions around the same two all-reduces."""
-    _check_shard(state, plan)
-    return _sharded(mesh, state, int32(i), plan,
-                    (shard_vote_count_plain, shard_commit_plain,
-                     shard_fold_plain))
+    return _sharded(mesh, state, i, 1, plan, _PLAINS)
+
+
+def sharded_run(mesh: Mesh, state: PipelineState, start: int, iters: int,
+                plan: ShardPlan) -> PipelineState:
+    """Drains ``start .. start + iters - 1`` on this rank's shard, IN
+    PLACE: per drain K19, the group all-reduce and K20 into the drain's
+    row of ``plan.slot``; per run of up to :data:`RUN_ROWS` drains ONE
+    slot all-reduce of the used rows and ONE K21 (each phase's plain
+    version on CPU state). The state is complete after the call. Every
+    rank of the mesh calls it with the same arguments. Never
+    synchronises beyond the all-reduces."""
+    return _sharded(mesh, state, start, iters, plan, _KERNELS)
+
+
+def sharded_run_plain(mesh: Mesh, state: PipelineState, start: int,
+                      iters: int, plan: ShardPlan) -> PipelineState:
+    """Plain PyTorch version of :func:`sharded_run` on any device: the
+    plain phases on the same all-reduce schedule."""
+    return _sharded(mesh, state, start, iters, plan, _PLAINS)
 
 
 def make_sharded_state(mesh: Mesh, window: int, block_size: int,
@@ -1017,18 +1100,18 @@ def make_sharded_runner(mesh: Mesh, *, block_size: int, masks, thresholds,
                         combine_any: bool, iters: int,
                         telemetry: bool = False) -> Callable:
     """``runner(state, start)``: drains ``start .. start + iters - 1`` on
-    this rank's shard, in place, without synchronising beyond the
-    all-reduces (the reference's ``make_sharded_runner``)."""
-    step = make_sharded_step(mesh, block_size=block_size, masks=masks,
+    this rank's shard, in place, by :func:`sharded_run` -- one slot
+    all-reduce and one K21 a run (a table of :data:`RUN_ROWS` drains) --
+    without synchronising beyond the all-reduces (the reference's
+    ``make_sharded_runner``); the runner's plan is ``runner.plan``."""
+    plan = make_sharded_step(mesh, block_size=block_size, masks=masks,
                              thresholds=thresholds, combine_any=combine_any,
-                             telemetry=telemetry)
+                             telemetry=telemetry).plan
 
     def runner(state: PipelineState, start: int) -> PipelineState:
-        for i in range(start, start + iters):
-            step(state, i)
-        return state
+        return sharded_run(mesh, state, start, iters, plan)
 
-    runner.plan = step.plan
+    runner.plan = plan
     return runner
 
 

@@ -35,10 +35,16 @@ Measurements:
     crossover's ``measured_min_device_slots`` (lower is better);
   * ``geo``: ``bench/geo_lt.py`` at the reference's deployment, the host
     seconds of its cuda run and of its dict run (every gate of the bench
-    holds, and the cuda run equals the dict run).
+    holds, and the cuda run equals the dict run);
+  * ``mesh``: ``bench/multichip_lt.py`` on four ranks that share the card
+    (gloo): its (1, 4) arm at the full width (window 2^20, block 2^15)
+    with the bench's smoke knobs (mesh and 1-device cmds/s; the arms'
+    registers must agree), then its per-rank drain latency (p50 / p99 a
+    drain of host-timed runs of its ``LAT_ITERS`` drains, rank 0's and
+    the worst rank's).
 
 ``--kinds`` picks some of them
-(``split,storm,bpaxos,epaxos,headline,telemetry,tracker,geo`` on a
+(``split,storm,bpaxos,epaxos,headline,telemetry,tracker,geo,mesh`` on a
 card, all by default).
 
 Unpack the parent into a directory the checkout ignores, then run from
@@ -48,8 +54,9 @@ the root of this checkout::
     python frankenpaxos_tpu_torch/bench/tree_ab.py --parent _chipcheck/parent
 
 (``--device cpu --bpaxos-commands 256`` rehearses it on the CPU, without
-the split and the headline, the telemetry arm at 2^12/2^8 with tiny
-knobs.) It prints ONE JSON line (the medians per tree, a verdict
+the split, the headline and the mesh, the telemetry arm at 2^12/2^8 with
+tiny knobs; ``--worker mesh --tree . --device cpu`` runs one mesh reading
+on CPU ranks at the bench's smoke width.) It prints ONE JSON line (the medians per tree, a verdict
 per metric, then every reading) and, with ``--out FILE``, writes it
 there too. A verdict is a gain or a loss only when one tree wins at
 least nine pairs in ten and the medians differ by more than the
@@ -72,11 +79,11 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 #: and BPaxos arms by more than a host-side change gains.
 ORDER = ("parent", "change", "change", "parent") * 5
 BPAXOS_COMMANDS = 1 << 13
-#: Every measurement, in the order they run; ``split`` and ``headline``
-#: time CUDA calls only.
+#: Every measurement, in the order they run; ``split``, ``headline`` and
+#: ``mesh`` time CUDA calls only.
 KINDS = ("split", "storm", "bpaxos", "epaxos", "headline", "telemetry",
-         "tracker", "geo")
-CUDA_ONLY = ("split", "headline")
+         "tracker", "geo", "mesh")
+CUDA_ONLY = ("split", "headline", "mesh")
 #: The headline arm's latency-distribution budget (the bench's 20 s,
 #: cut: ten runs a tree).
 HEADLINE_LATENCY_S = 5.0
@@ -144,6 +151,8 @@ def _worker(kind: str, tree: str, commands: int, device=None) -> dict:
         out = geo_lt.run(device)
         return {f"{b}_seconds": out["backends"][b]["seconds"]
                 for b in ("cuda", "dict")}
+    if kind == "mesh":
+        return _mesh_arms(device)
     raise ValueError(f"unknown measurement {kind!r}")
 
 
@@ -208,6 +217,43 @@ def _tracker_arms(device) -> dict:
             "grid_votes_per_s": lt.count_votes(grid_stream) / grid_s,
             "epoch_votes_per_s": votes / reported["cuda"][1],
             "measured_min_device_slots": threshold,
+            "nvidia_smi": nvidia_smi_line() if dev.type == "cuda"
+            else None}
+
+
+def _mesh_arms(device) -> dict:
+    """``bench/multichip_lt.py``'s (1, 4) arm and per-rank latency on a
+    world of four ranks sharing the card, through the functions every
+    tree's copy of it has (its smoke width on the CPU); raises when the
+    arms' registers disagree."""
+    from frankenpaxos_tpu_torch.bench import multichip, multichip_lt as mlt
+    from frankenpaxos_tpu_torch.device import nvidia_smi_line, \
+        resolve_device
+    from frankenpaxos_tpu_torch.ops import _build
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        _build.build()  # once, before the ranks start
+        window, block = mlt.ARMS_FULL[0][1], mlt.BLOCK
+    else:
+        window, block = mlt.ARMS_SMOKE[0][1], mlt.SMOKE_BLOCK
+    with multichip.RankWorld(4, device_type=dev.type) as world:
+        arm = mlt.measure_arm(world, 4, window, block, mlt.SMOKE_CHUNKS,
+                              True)
+        world.call(mlt._here("lt_setup"), deadline_s=600, slot=4,
+                   window=window, block=block, iters=mlt.LAT_ITERS)
+        lat = [r for r in world.call(
+            mlt._here("lt_latency"), deadline_s=600, start=mlt.LAT_ITERS,
+            samples=mlt.LAT_SAMPLES_FULL) if r is not None]
+        world.call(mlt._here("lt_finish"))
+    if not arm.get("arms_agree"):
+        raise RuntimeError(f"the multichip_lt arms disagree: {arm}")
+    return {"mesh_cmds_per_s": arm["mesh_cmds_per_sec"],
+            "onechip_cmds_per_s": arm["onechip_cmds_per_sec"],
+            "rank0_p50_drain_us": lat[0]["p50_us"],
+            "rank0_p99_drain_us": lat[0]["p99_us"],
+            "worst_p50_drain_us": max(r["p50_us"] for r in lat),
+            "worst_p99_drain_us": max(r["p99_us"] for r in lat),
             "nvidia_smi": nvidia_smi_line() if dev.type == "cuda"
             else None}
 
@@ -322,7 +368,7 @@ def run(parent: str, commands: int = BPAXOS_COMMANDS, device=None,
             raise RuntimeError(f"the storm's deliveries differ across "
                                f"trees: {digests}")
     smi = next((readings[kind]["change"][0]["nvidia_smi"]
-                for kind in ("split", "headline", "tracker")
+                for kind in ("split", "headline", "tracker", "mesh")
                 if kind in readings), None)
     return {"benchmark": "tree_ab", "trees": trees, "order": list(ORDER),
             "kinds": kinds, "bpaxos_commands": commands,

@@ -202,15 +202,15 @@ SIGNATURES = {
     "pipeline_sharded": {
         # packed: votes, commands, w_local, i, block_size, b_local,
         # slot_idx, group_idx, n_local, kind, g, cols, local masks,
-        # telemetry, parts, threads (0: the default), device, stream
+        # telemetry, parts, form, device, stream
         "fpx_shard_vote_count": _B,
         # packed: votes, chosen, commands, results, w_local, i,
         # block_size, b_local, slot_idx, slot_shards, n_local, n_global,
-        # kind, g, thresholds, combine_any, telemetry, parts, slot_buf,
-        # device, stream
+        # kind, g, thresholds, combine_any, telemetry, parts, the drain's
+        # row of the slot table, device, stream
         "fpx_shard_commit": _B,
-        # packed: sm_state, committed, exec_wm, i, block_size,
-        # slot_shards, n_global, slot_buf, telemetry buffer (or 0),
+        # packed: sm_state, committed, exec_wm, i, k, block_size,
+        # slot_shards, n_global, the slot table, telemetry buffer (or 0),
         # device, stream
         "fpx_shard_fold": _B,
     },

@@ -683,8 +683,10 @@ def test_sharded_phases_pack_the_c_block(monkeypatch, telemetry):
     w_local, i, block_size, b_local, slot_idx, group_idx, n_local, kind,
     g, cols, masks, telemetry, parts, form, device, stream: the 2x2
     mesh's shard takes the rows form, code 2), K20
-    ``fpx_shard_commit`` its 21 and K21 ``fpx_shard_fold`` its 11 (the
-    telemetry buffer or 0), each counting one launch; ``i`` as int32."""
+    ``fpx_shard_commit`` its 21 (the drain's row of the slot table by
+    its address) and K21 ``fpx_shard_fold`` its 12 (the run's first
+    drain and row count, the table, the telemetry buffer or 0), each
+    counting one launch; ``i`` as int32."""
     recorder = _PackedRecorder()
     monkeypatch.setattr(tp, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(tp._build, "packed_library",
@@ -706,21 +708,25 @@ def test_sharded_phases_pack_the_c_block(monkeypatch, telemetry):
                      -(2**31) + 5, 128, 64, 1, 1, 3, tp.GRID_WRITE, 2, 3,
                      plan.masks.data_ptr(), int(telemetry),
                      plan.parts.data_ptr(), 2, -1, 0)
-    tp.shard_commit(state, 7, plan)
-    entry, slots = recorder.calls[-1]
-    assert entry == "fpx_shard_commit" and len(slots) == 21
-    assert slots == (*(t.data_ptr() for t in state[:4]), 256, 7, 128, 64, 1,
-                     2, 3, 6, tp.GRID_WRITE, 2, plan.thresholds.data_ptr(),
-                     0, int(telemetry), plan.parts.data_ptr(),
-                     plan.slot.data_ptr(), -1, 0)
-    tp.shard_fold(state, 7, plan)
-    entry, slots = recorder.calls[-1]
-    assert entry == "fpx_shard_fold" and len(slots) == 11
+    for row in (0, 5):
+        assert tp.shard_commit(state, 7, plan, row).data_ptr() \
+            == plan.slot[row].data_ptr()
+        entry, slots = recorder.calls[-1]
+        assert entry == "fpx_shard_commit" and len(slots) == 21
+        assert slots == (*(t.data_ptr() for t in state[:4]), 256, 7, 128, 64,
+                         1, 2, 3, 6, tp.GRID_WRITE, 2,
+                         plan.thresholds.data_ptr(), 0, int(telemetry),
+                         plan.parts.data_ptr(), plan.slot[row].data_ptr(),
+                         -1, 0)
     tel = state.telemetry.buffer.data_ptr() if telemetry else 0
-    assert slots == (*(t.data_ptr() for t in state[4:7]), 7, 128, 2, 6,
-                     plan.slot.data_ptr(), tel, -1, 0)
+    for k in (1, 6):
+        tp.shard_fold(state, 7, plan, k)
+        entry, slots = recorder.calls[-1]
+        assert entry == "fpx_shard_fold" and len(slots) == 12
+        assert slots == (*(t.data_ptr() for t in state[4:7]), 7, k, 128, 2,
+                         6, plan.slot.data_ptr(), tel, -1, 0)
     assert (tp.shard_vote_count.launches, tp.shard_commit.launches,
-            tp.shard_fold.launches) == (1, 1, 1)
+            tp.shard_fold.launches) == (1, 2, 2)
 
 
 #: ((group, slot), spec, n, the form K19 runs): the meshes of
