@@ -140,7 +140,16 @@ Phases, in order (any failure exits nonzero and prints no result):
      shrink between calls. K13
      on libbench's [4096] (one False in the middle), [4096, 3] rows,
      arbitrary bytes and signed types, all-true rows long enough for
-     many passes, and an empty last axis;
+     many tiles, and an empty last axis; then in every form and element
+     type: the first zero at each byte of a 16-byte word and at each
+     side of the CTA form's tile boundaries, values outside {0, 1}
+     before and after it (-1, products that wrap to 0, int64 high bits),
+     rows 1-15 elements off the 16-byte grid, strided and transposed
+     rows, the switch-over shapes (L 16 / 17, 512 / 513, 511 words / one
+     more element, rows about the CTA grid of 528), ``out=`` written and
+     returned, a launch inside a
+     side stream's context ordered on that stream, and the form the C
+     entry launches equal to ``prefix_form``'s;
   16. the BPaxos path, with every count set to 0 again first:
      ``bench/bpaxos_sim.py`` at full width (f = 1, 64 pairs; arms
      simple-conflict2, simple-conflict25 and gc, each on the host and
@@ -180,7 +189,11 @@ Phases, in order (any failure exits nonzero and prints no result):
      libbench's [4096, 3, 64] and the shapes of phase 13, window bases
      near 2^31 - 1 and below 0, 0/1 and arbitrary bytes, aliased
      inputs, every broadcast shape of ``executed``, leaders -1 and >= L
-     and ids on both sides of the window;
+     and ids on both sides of the window; then K16's union at W in {1,
+     15, 16, 17, 37, 64, 2048} and [B, L] in {[33, 3], [64, 4]},
+     watermarks near +-2^31, aliased and distinct inputs, views 1-15
+     bytes off the 16-byte grid, ``out=`` with its own tail base and
+     into ``a`` itself;
   21. the libbench path, with every count set to 0 first: the libbench
      twin (``bench/libbench.py``) at the reference's sizes; K10, K12,
      K13 and K16's ``union`` must each have launched;
@@ -287,7 +300,8 @@ Phases, in order (any failure exits nonzero and prints no result):
      drain run's bytes are its state's, read and written once, with the
      reference's (5N+17)·B bytes a drain beside it as
      ``reference_bytes``) and the launches of phases 11, 12, 14, 16, 18,
-     21, 23-24, 25 and 26 (K3, K14 and the pinned copy with their drains
+     21, 23-24, 25 and 26 (K13's and K16 union's rows with the form
+     they run; K3, K14 and the pinned copy with their drains
      beside their launches, each figure per drain too, and the device µs
      a drain of every form of phases 5 and 17), printed as one
      ``{"kernels": [...]}`` line; before it, each headline arm's timed
@@ -1588,8 +1602,145 @@ def phase_watermark(dev, rng) -> dict:
     require(int(tw.contiguous_prefix_length(
         torch.from_numpy(present).to(dev))) == 2048,
         "K13 misses libbench's prefix of 2048")
+    _k13_forms(dev, rng, check)
     torch.cuda.synchronize(dev)
     return worst
+
+
+#: K13's element types, and the elements a CTA tile of each takes in the
+#: vector form (512 threads x 4 words of 16 bytes) and the scalar form
+#: (512 x 8 elements): ``csrc/watermark.cu``.
+K13_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32,
+              torch.int64)
+K13_SCALAR_TILE = 4096
+#: Row counts about the CTA form's grid of 528 CTAs (more rows loop).
+K13_CTA_ROWS = (1, 3, 528, 529)
+
+
+def _k13_vector_tile(dtype) -> int:
+    size = torch.empty(0, dtype=dtype).element_size()
+    return 512 * 4 * (16 // size)
+
+
+def _k13_rows(rng, dtype, length: int, tile: int) -> np.ndarray:
+    """All-ones rows of ``length`` elements with the first zero at each
+    byte of a 16-byte word, at each side of the first two tile
+    boundaries, and nowhere; for integer types also values outside {0,
+    1} before and after the first zero (-1 for signed types), products
+    that wrap to 0, int64 values whose low 32 bits are 0 or 1, and
+    random rows."""
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    at = [2048 + k for k in range(16)]
+    at += [t + d for t in (tile, 2 * tile) for d in (-1, 0, 1)
+           if 0 <= t + d < length]
+    rows = []
+    for a in at + [None]:
+        r = np.ones(length, np_dtype)
+        if a is not None:
+            r[a] = 0
+        rows.append(r)
+    if dtype is not torch.bool:
+        for other, zero in ((5, 40), (50, 7), (tile + 3, tile + 9),
+                            (tile - 1, tile + 2), (length - 2, None)):
+            if other < length and (zero is None or zero < length):
+                r = np.ones(length, np_dtype)
+                r[other] = 3
+                if zero is not None:
+                    r[zero] = 0
+                rows.append(r)
+        if np_dtype.kind == "i":
+            r = np.ones(length, np_dtype)
+            r[min(tile + 5, length - 2)] = -1
+            r[length - 1] = 0
+            rows.append(r)
+        if np_dtype.itemsize >= 4:
+            r = np.ones(length, np_dtype)
+            r[3] = r[min(tile + 4, length - 1)] = 1 << 16
+            rows.append(r)
+        if np_dtype == np.int64:
+            r = np.full(length, (1 << 32) + 1, np_dtype)
+            r[min(tile + 11, length - 1)] = 1 << 32
+            rows.append(r)
+        lo = -2 if np_dtype.kind == "i" else 0
+        rows.append(rng.integers(lo, 3, size=length).astype(np_dtype))
+        r = rng.integers(1, 3, size=length).astype(np_dtype)
+        r[: min(tile + 20, length - 1)] = 1
+        rows.append(r)
+    else:
+        rows.append(rng.random(length) < 0.9999)
+    return np.stack(rows)
+
+
+def _k13_forms(dev, rng, check) -> None:
+    """K13 in every form against its plain version, exact: the first
+    zero at each byte of a 16-byte word and at each side of the tiles'
+    boundaries, values outside {0, 1} before and after it, in every
+    element type; rows that start 1-15 bytes off the 16-byte grid (the
+    vector form's head word) and strided rows (the scalar form); every
+    form's switch-over shapes (L 16 / 17, 512 / 513, rows about the
+    CTA grid); ``out=`` written and returned; a launch inside a side
+    stream's context ordered on that stream. The form the C entry
+    launches equals ``prefix_form`` on every input."""
+    def run(xt, what):
+        form = tw.prefix_form(xt)
+        require(tw.prefix_form_launched(xt) == form,
+                f"K13's C form {tw.prefix_form_launched(xt)} is not "
+                f"prefix_form's {form} at {what}")
+        check("contiguous_prefix_length", tw.contiguous_prefix_length(xt),
+              tw.contiguous_prefix_length_plain(xt), f"{what} ({form})")
+        return form
+
+    seen = set()
+    for dtype in K13_DTYPES:
+        tile = _k13_vector_tile(dtype)
+        # Two tiles and a ragged third, rows 37 elements longer than a
+        # multiple of 16 bytes apart: every row's head word differs.
+        x = torch.from_numpy(_k13_rows(rng, dtype, 2 * tile + 37,
+                                       tile)).to(dev)
+        seen.add(run(x, f"{dtype} rows of two tiles"))
+        flat = x.reshape(-1)
+        for off in range(1, 16):
+            seen.add(run(flat[off:off + 2 * tile + 37],
+                         f"{dtype} row {off} elements off"))
+        # Strided rows: the scalar form's tiles.
+        xs = torch.from_numpy(_k13_rows(rng, dtype, 2 * K13_SCALAR_TILE + 37,
+                                        K13_SCALAR_TILE)).to(dev)
+        wide = torch.zeros((xs.shape[0], 2 * xs.shape[1]), dtype=dtype,
+                           device=dev)
+        wide[:, ::2] = xs
+        seen.add(run(wide[:, ::2], f"{dtype} strided rows"))
+        seen.add(run(xs.t().contiguous().t(), f"{dtype} transposed rows"))
+        # The switch-overs: L 16 / 17 (thread / warp), 512 / 513 (warp /
+        # CTA), 528 (a multiple of 16 bytes), a tile of one word a thread
+        # or four (511 words / one more element), rows about the CTA grid.
+        words = 511 * (16 // torch.empty(0, dtype=dtype).element_size())
+        for length in (1, 16, 17, 40, 512, 513, 528, words, words + 1):
+            for rows in K13_CTA_ROWS:
+                xr = rng.integers(0, 2, size=(rows, length)).astype(
+                    torch.empty(0, dtype=dtype).numpy().dtype)
+                xr[:, : length - length // 8] = 1
+                if dtype is not torch.bool:
+                    xr[rows // 2, length // 3] = 2
+                seen.add(run(torch.from_numpy(xr).to(dev),
+                             f"{dtype} [{rows}, {length}]"))
+    require(seen == set(tw.PREFIX_FORMS),
+            f"K13's forms run: {sorted(seen)}")
+    # out=: written and returned itself, in every form.
+    for shape in ((4096, 3), (1024, 40), (64, 600), (600,)):
+        xt = torch.from_numpy(rng.random(shape) < 0.998).to(dev)
+        out = torch.full(shape[:-1], 7, dtype=torch.int32, device=dev)
+        got = tw.contiguous_prefix_length(xt, out=out)
+        require(got is out, "contiguous_prefix_length(out=) returned "
+                "another tensor")
+        check("contiguous_prefix_length", out,
+              tw.contiguous_prefix_length_plain(xt), f"{shape} out=")
+    # libbench's row rewritten on a side stream just before the launch.
+    stale = torch.ones(4096, dtype=torch.bool, device=dev)
+    fresh = stale.clone()
+    fresh[2048] = False
+    side_stream_check(dev, "contiguous_prefix_length", stale, fresh,
+                      lambda: tw.contiguous_prefix_length(stale),
+                      tw.contiguous_prefix_length_plain(fresh))
 
 
 #: Every kernel wrapper, by the name of its row in the kernels line.
@@ -2050,8 +2201,76 @@ def phase_depset_rest(dev, rng) -> dict:
                     check("contains", td.contains(x, lead, v),
                           td.contains_plain(x, lead, v), f"{what} scalar")
     require(all(seen.values()), f"K17 equal lacks an outcome: {seen}")
+    _union_cases(dev, rng, check)
     torch.cuda.synchronize(dev)
     return worst
+
+
+#: K16 union's tail widths (a byte, around one 16-byte word, a prime,
+#: libbench's 64 and the cap 2048) and its ``[B, L]`` (B * L not a
+#: multiple of 4, and one that is).
+UNION_WIDTHS = (1, 15, 16, 17, 37, 64, 2048)
+UNION_ROWS = ((33, 3), (64, 4))
+
+
+def _offset_batch(batch: td.DepSetBatch, wm_off: int, tail_off: int
+                  ) -> td.DepSetBatch:
+    """The same batch in contiguous views whose watermarks start
+    ``wm_off`` int32s and tails ``tail_off`` bytes past an allocation
+    (off the 16-byte grid unless 0)."""
+    wm, tails, base = batch
+    w_store = torch.empty(wm.numel() + wm_off, dtype=torch.int32,
+                          device=wm.device)
+    t_store = torch.empty(tails.numel() + tail_off, dtype=torch.uint8,
+                          device=tails.device)
+    w_view = w_store[wm_off:].view(wm.shape)
+    t_view = t_store[tail_off:].view(tails.shape)
+    w_view.copy_(wm)
+    t_view.copy_(tails)
+    return td.DepSetBatch(w_view, t_view, base)
+
+
+def _union_cases(dev, rng, check) -> None:
+    """K16's union against its plain version, exact: every width of
+    ``UNION_WIDTHS`` at both ``UNION_ROWS``, watermarks near +-2^31,
+    0/1 and arbitrary bytes; aliased (one batch on both sides: read
+    once) and distinct inputs; views 1-15 bytes off the 16-byte grid
+    (the scalar path), a and b apart and alike; ``out=`` with its own
+    tail base (written with a's), and into a itself."""
+    for b, l in UNION_ROWS:
+        for w in UNION_WIDTHS:
+            for kind in ("bits", "bytes"):
+                what = f"union [{b}, {l}, {w}] ({kind})"
+                x = _depset_batch(rng, (b, l, w), 1 << 16, kind, dev)
+                y = _depset_batch(rng, (b, l, w), 1 << 16, kind, dev)
+                for batch in (x, y):
+                    ext = torch.from_numpy(rng.choice(
+                        INT32_EXTREMES, size=(b, l // 2 + 1))).to(dev)
+                    batch.watermarks[:, : l // 2 + 1] = ext
+                for p, q in ((x, x), (x, y)):
+                    check("union", td.union(p, q), td.union_plain(p, q),
+                          what)
+                for wm_off, tail_off in ((1, 1), (0, 7), (3, 15), (2, 0)):
+                    xo = _offset_batch(x, wm_off, tail_off)
+                    yo = _offset_batch(y, (wm_off + 1) % 4, tail_off)
+                    for p, q in ((xo, xo), (xo, yo), (xo, y)):
+                        check("union", td.union(p, q),
+                              td.union_plain(p, q),
+                              f"{what} views off by {wm_off} int32s, "
+                              f"{tail_off} bytes")
+                want = td.union_plain(x, y)
+                out = td.DepSetBatch(
+                    torch.full_like(x.watermarks, 7),
+                    torch.full_like(x.tails, 7),
+                    torch.tensor(-1, dtype=torch.int32, device=dev))
+                require(td.union(x, y, out=out) is out,
+                        "union(out=) returned another batch")
+                check("union", out, want, f"{what} out=")
+                inplace = td.DepSetBatch(x.watermarks.clone(),
+                                         x.tails.clone(), x.tail_base)
+                require(td.union(inplace, y, out=inplace) is inplace,
+                        "union(out=a) returned another batch")
+                check("union", inplace, want, f"{what} into a")
 
 
 def phase_libbench(dev) -> tuple[dict, dict]:
@@ -3036,7 +3255,7 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         ("contiguous_prefix_length",
          lambda: tw.contiguous_prefix_length(k13),
          lambda: tw.contiguous_prefix_length_plain(k13),
-         "contiguous_prefix_kernel", 2049 + 4, 2 * 2049, watermark_cu,
+         "prefix_cta_kernel", 2049 + 4, 2 * 2049, watermark_cu,
          f"{watermark_ref}:38", "[4096] bool, first False at 2048"),
         # K14: K3's bytes and operations, the counters read and written
         # once, a vote sum and a bin add per newly-chosen lane.
@@ -3069,7 +3288,7 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         # written per row; contains reads a watermark, a byte, a leader
         # and a vid per row.
         ("union", lambda: td.union(lib_a, lib_a),
-         lambda: td.union_plain(lib_a, lib_a), "depset_pair_kernel",
+         lambda: td.union_plain(lib_a, lib_a), "depset_union_kernel",
          2 * _rows(lib_a) + 4, 2 * lib_cells, depset_cu,
          f"{depset_ref}:49", _shape(lib_a) + " (libbench's, aliased)"),
         ("intersect", lambda: td.intersect(lib_a, lib_b),
@@ -3255,6 +3474,11 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     # K21 folding runs of 1, 8, 64 and 256 drains in one launch each.
     next(r for r in out if r["name"] == "shard_fold")["runs_at_launch_shapes"] \
         = {key: fig["shard_fold_run"] for key, fig in sharded.items()}
+    # The forms K13 and K16's union run at their rows' shapes.
+    next(r for r in out if r["name"] == "contiguous_prefix_length")[
+        "form"] = tw.prefix_form(k13)
+    next(r for r in out if r["name"] == "union")["form"] = (
+        "aliased: the batch read once, 16-byte words")
     # The staged entries (one call a decision): their error against the
     # plain versions in phase 13.
     for name, staged in (("union_reduce", "union_staged"),
@@ -3393,7 +3617,9 @@ def main() -> int:
             f"{list(WATERMARK_TILED_ROWS)} (tiled), every "
             f"quorum size, per-row and out-of-range sizes, int64 that "
             f"wraps; K13 contiguous_prefix_length == plain on bool, byte "
-            f"and signed rows")
+            f"and signed rows, in its forms {list(tw.PREFIX_FORMS)} at "
+            f"their switch-overs, tile edges, views off the 16-byte grid, "
+            f"strided rows, out= and a side stream")
 
         bpaxos, bpaxos_launches = phase_bpaxos(dev)
         phase(16, f"BPaxos on {name} ({smi}): committed commands/s "
@@ -3432,7 +3658,8 @@ def main() -> int:
 
         errors.update(phase_depset_rest(dev, rng))
         phase(20, f"K16 union / intersect / compact, K17 equal / size / "
-            f"contains == plain at {list(PAIR_SHAPES)}")
+            f"contains == plain at {list(PAIR_SHAPES)}; union at W in "
+            f"{list(UNION_WIDTHS)}, aliased, off the 16-byte grid, out=")
 
         lib, lib_launches = phase_libbench(dev)
         phase(21, f"libbench on {name} ({smi}): launches {lib_launches}")

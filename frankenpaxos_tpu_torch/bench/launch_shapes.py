@@ -1,7 +1,8 @@
-"""K1, K2, K4-K6, K10 and K19-K21 at the shapes the paths launch them,
-and the host split of the tracker drains that call them, on one GPU.
+"""K1, K2, K4-K6, K10, K13, K16's union and K19-K21 at the shapes the
+paths launch them, and the host split of the tracker drains that call
+them, on one GPU.
 
-Two parts, each against whichever checkout ``--tree`` names (this one by
+Parts, each against whichever checkout ``--tree`` names (this one by
 default), so that one call can measure a parent and its change alike:
 
   * ``drains``: the host ns per ``drain()`` and each function's own ns
@@ -73,7 +74,7 @@ default), so that one call can measure a parent and its change alike:
 Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/launch_shapes.py [--tree ROOT] \\
-        [--parts drains,kernels|depset|board|sharded]
+        [--parts drains,kernels|depset|board|sharded|libbench]
 
   * ``sharded`` (the sharded drain's kernels on one process, no ranks
     spawned): K19 ``shard_vote_count`` and K20 ``shard_commit`` at rank
@@ -83,6 +84,15 @@ Run from the root of a checkout::
     the form each runs; K21 ``shard_fold`` on one drain and on runs of
     1, 8, 64 and 256 drains (one launch a run where the tree's K21 folds
     a run, else a launch a drain).
+
+  * ``libbench`` (the libbench path's kernels): K13
+    ``contiguous_prefix_length`` at ``[4096]`` (first False at 2048),
+    ``[4096, 3]`` and the all-true ``[64, 100003]``; K16 ``union`` at
+    ``[4096, 3, 64]`` aliased (libbench's ``union(deps, deps)``) and
+    distinct, and at the sharded board's rank shape ``[1024, 3, 64]``;
+    each by CUDA events, the profiler and the host clock, with the form
+    it runs (None where the tree names none) and its bound, and the union
+    beside the two-call PyTorch composite (``torch.maximum`` and ``|``).
 
 It prints ONE JSON line, with the seconds the tree's kernels took to
 build (0 when they were built before). It raises without a CUDA device.
@@ -308,10 +318,11 @@ def _host_ns(fn, calls: int = CALLS, warm: int = 20) -> float:
     return (time.perf_counter_ns() - t0) / calls
 
 
-def _device_ms(fn, kernel: str, iters: int = 200):
+def _device_ms(fn, kernel, iters: int = 200):
     """Mean device ms per launch of kernels whose name holds ``kernel``
-    (the profiler's CUDA trace), and the launches per call of ``fn``; None
-    when the trace shows no device time."""
+    (a string, or a tuple of them: any) in the profiler's CUDA trace, and
+    the launches per call of ``fn``; None when the trace shows no device
+    time."""
     import torch
     from torch.profiler import profile, ProfilerActivity
 
@@ -323,8 +334,9 @@ def _device_ms(fn, kernel: str, iters: int = 200):
             fn()
         torch.cuda.synchronize()
     total, count = 0.0, 0
+    names = (kernel,) if isinstance(kernel, str) else kernel
     for evt in prof.key_averages():
-        if kernel in evt.key and evt.count:
+        if any(k in evt.key for k in names) and evt.count:
             total += getattr(evt, "device_time_total", 0) or 0
             count += evt.count
     if not count or not total:
@@ -516,6 +528,78 @@ def depset_kernels(device, rng=None) -> dict:
                            batch.tail_base)
     out["k11"][str(list(K11_SHAPE))] = figures(
         lambda: td.all_equal(batch), "all_equal", b * l * (4 + w) + 4, 1)
+    return out
+
+
+def libbench_kernels(device, rng=None) -> dict:
+    """K13 and K16's union through their wrappers at the libbench path's
+    launch shapes (the module docstring): per shape the CUDA-event ms per
+    call, the profiler's device ms per launch, the host ns per call (2000
+    calls chained, one synchronize), the form the tree runs (None where
+    it names none) and the bound (bytes: K13 each row through its first
+    zero and an int32 out; the union B·L·(4+W) read per distinct input
+    and written once); beside the union, the two-call PyTorch composite
+    ``torch.maximum`` and ``|`` (not a one-call library equivalent)."""
+    import torch
+    from frankenpaxos_tpu_torch.bench import multichip_board
+    from frankenpaxos_tpu_torch.ops import depset as td
+    from frankenpaxos_tpu_torch.ops import watermark as tw
+
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    prefix_form = getattr(tw, "prefix_form", None)
+    out: dict = {"k13": {}, "union": {}}
+
+    def figures(fn, kernel, nbytes):
+        dev_ms, per_call = _device_ms(fn, kernel)
+        return {"call_ms": _cuda_ms(fn), "device_ms": dev_ms,
+                "launches_per_call": per_call, "host_ns": _host_ns(fn),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+    present = np.ones(4096, dtype=bool)
+    present[2048] = False
+    rows = np.ones((4096, 3), dtype=bool)
+    rows[rng.integers(0, 4096, size=600), rng.integers(0, 3, size=600)] = 0
+    for what, x in (("[4096] first False at 2048", present),
+                    ("[4096, 3]", rows),
+                    ("[64, 100003] all true",
+                     np.ones((64, 100003), dtype=bool))):
+        xt = torch.from_numpy(x).to(device)
+        flat = x.reshape(-1, x.shape[-1])
+        zero = np.where(flat.all(axis=1), flat.shape[1],
+                        np.argmin(flat, axis=1) + 1)
+        out["k13"][what] = {
+            "form": None if prefix_form is None else prefix_form(xt),
+            **figures(lambda xt=xt: tw.contiguous_prefix_length(xt),
+                      "prefix", int(zero.sum()) + 4 * flat.shape[0])}
+    lib_shape = (4096, 3, 64)
+    b, l, w = multichip_board.DEPSET_SHAPE
+    rank_shape = (b // 4, l, w)  # rank 0 of phase 26's (1, 4) mesh
+    kernels = ("depset_union_kernel", "depset_pair_kernel")
+    for what, shape, aliased in (
+            ("[4096, 3, 64] aliased (libbench's)", lib_shape, True),
+            ("[4096, 3, 64] distinct", lib_shape, False),
+            (f"{list(rank_shape)} distinct (the sharded board's rank)",
+             rank_shape, False)):
+        x = _bits_batch(rng, shape, device)
+        y = x if aliased else _bits_batch(rng, shape, device)
+        cells = x.tails.numel() + 4 * x.watermarks.numel()
+        out["union"][what] = {
+            # The tree's own union kernel reads 16-byte words (its
+            # tensors are fresh allocations) and an aliased batch once.
+            "form": (("aliased: read once" if aliased else "distinct")
+                     + ", 16-byte words"
+                     if hasattr(td, "_K16_UNION") else None),
+            **figures(lambda x=x, y=y: td.union(x, y), kernels,
+                      (2 if aliased else 3) * cells)}
+        out["union"][what]["composite"] = {
+            "note": "torch.maximum of the watermarks and | of the tails: "
+                    "two PyTorch calls, not a one-call equivalent",
+            **figures(lambda x=x, y=y: (torch.maximum(x.watermarks,
+                                                      y.watermarks),
+                                        x.tails | y.tails),
+                      "elementwise_kernel",
+                      (2 if aliased else 3) * cells)}
+    torch.cuda.synchronize()
     return out
 
 
@@ -920,6 +1004,8 @@ def main(argv=None) -> int:
                            "drains": board_drains(device)}
     if "sharded" in parts:
         result["sharded"] = sharded_kernels(device)
+    if "libbench" in parts:
+        result["libbench"] = libbench_kernels(device)
     if "drains" in parts:
         result["drains"] = drains(device)
     print(json.dumps(result), flush=True)

@@ -41,11 +41,14 @@ Measurements:
     with the bench's smoke knobs (mesh and 1-device cmds/s; the arms'
     registers must agree), then its per-rank drain latency (p50 / p99 a
     drain of host-timed runs of its ``LAT_ITERS`` drains, rank 0's and
-    the worst rank's).
+    the worst rank's);
+  * ``libbench``: ``bench/libbench.py``'s ``bench_device_ops`` (K12, K13,
+    and K16's union then K10, each 50 calls chained with one synchronize,
+    best of three): its three slots/s and deps/s rates.
 
 ``--kinds`` picks some of them
-(``split,storm,bpaxos,epaxos,headline,telemetry,tracker,geo,mesh`` on a
-card, all by default).
+(``split,storm,bpaxos,epaxos,headline,telemetry,tracker,geo,mesh,libbench``
+on a card, all by default).
 
 Unpack the parent into a directory the checkout ignores, then run from
 the root of this checkout::
@@ -54,7 +57,7 @@ the root of this checkout::
     python frankenpaxos_tpu_torch/bench/tree_ab.py --parent _chipcheck/parent
 
 (``--device cpu --bpaxos-commands 256`` rehearses it on the CPU, without
-the split, the headline and the mesh, the telemetry arm at 2^12/2^8 with
+the split, the headline, the mesh and libbench, the telemetry arm at 2^12/2^8 with
 tiny knobs; ``--worker mesh --tree . --device cpu`` runs one mesh reading
 on CPU ranks at the bench's smoke width.) It prints ONE JSON line (the medians per tree, a verdict
 per metric, then every reading) and, with ``--out FILE``, writes it
@@ -79,11 +82,11 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 #: and BPaxos arms by more than a host-side change gains.
 ORDER = ("parent", "change", "change", "parent") * 5
 BPAXOS_COMMANDS = 1 << 13
-#: Every measurement, in the order they run; ``split``, ``headline`` and
-#: ``mesh`` time CUDA calls only.
+#: Every measurement, in the order they run; ``split``, ``headline``,
+#: ``mesh`` and ``libbench`` time CUDA calls only.
 KINDS = ("split", "storm", "bpaxos", "epaxos", "headline", "telemetry",
-         "tracker", "geo", "mesh")
-CUDA_ONLY = ("split", "headline", "mesh")
+         "tracker", "geo", "mesh", "libbench")
+CUDA_ONLY = ("split", "headline", "mesh", "libbench")
 #: The headline arm's latency-distribution budget (the bench's 20 s,
 #: cut: ten runs a tree).
 HEADLINE_LATENCY_S = 5.0
@@ -153,6 +156,12 @@ def _worker(kind: str, tree: str, commands: int, device=None) -> dict:
                 for b in ("cuda", "dict")}
     if kind == "mesh":
         return _mesh_arms(device)
+    if kind == "libbench":
+        from frankenpaxos_tpu_torch.bench import libbench
+        from frankenpaxos_tpu_torch.device import nvidia_smi_line
+
+        return {**libbench.bench_device_ops(device=device),
+                "nvidia_smi": nvidia_smi_line()}
     raise ValueError(f"unknown measurement {kind!r}")
 
 
@@ -368,7 +377,8 @@ def run(parent: str, commands: int = BPAXOS_COMMANDS, device=None,
             raise RuntimeError(f"the storm's deliveries differ across "
                                f"trees: {digests}")
     smi = next((readings[kind]["change"][0]["nvidia_smi"]
-                for kind in ("split", "headline", "tracker", "mesh")
+                for kind in ("split", "headline", "tracker", "mesh",
+                             "libbench")
                 if kind in readings), None)
     return {"benchmark": "tree_ab", "trees": trees, "order": list(ORDER),
             "kinds": kinds, "bpaxos_commands": commands,

@@ -20,8 +20,8 @@ the event when it collects).
 
 The lean call path (:class:`Entry`, :func:`stream_handle`) serves the
 wrappers whose host cost is the call itself (K1, K2, K4, K5, K6, K10,
-K11, K12, K18, K19-K21, and the drain runs of K3, K14 and the pinned
-copy): the entry point
+K11, K12, K13, K16's union, K18, K19-K21, and the drain runs of K3, K14
+and the pinned copy): the entry point
 is looked up once; its arguments cross as ONE packed block of int64
 (``struct`` bytes), which ctypes converts once instead of one argument
 at a time; a launch-only entry is called through a ``ctypes.PyDLL``
@@ -154,7 +154,11 @@ SIGNATURES = {
         # answer byte, its device copy, b, l, width, the input offsets of
         # watermarks, base and tails, device, stream
         "fpx_depset_all_equal_staged": _B,
-        # mode (0 union, 1 intersect, 2 compact), a watermarks, a tails,
+        # packed: a watermarks, a tails, b watermarks, b tails, out
+        # watermarks, out tails, a's tail_base, out's tail_base (or 0),
+        # rows (B * L), width, aliased, device, stream
+        "fpx_depset_union": _B,
+        # mode (1 intersect, 2 compact), a watermarks, a tails,
         # b watermarks, b tails (or NULL), executed (or NULL), its two
         # strides, tail_base, b, l, width, out_wm, out_tails
         "fpx_depset_pair": [_I, _P, _P, _P, _P, _P, _L, _L, _P, _I, _I, _I,
@@ -173,9 +177,11 @@ SIGNATURES = {
         # quorum size, device out [depth], pinned out [depth], device,
         # stream
         "fpx_quorum_watermark_staged": _B,
-        # present, elem_kind, rows, length, row_stride, elem_stride, out
-        "fpx_contiguous_prefix_length": [_P, _I, _L, _L, _L, _L, _P, _I,
-                                         _P],
+        # packed: present, elem_kind, rows, length, row_stride,
+        # elem_stride, out, device, stream; the form query reads the
+        # same block and launches nothing
+        "fpx_contiguous_prefix_length": _B,
+        "fpx_contiguous_prefix_form": _B,
     },
     "pipeline": {
         # packed: votes, chosen, commands, results, sm_state, committed,

@@ -60,12 +60,25 @@
 // K11's answer byte) back to pinned memory, and a wait on the stream.
 // Every K10 / K11 entry point takes one packed block of int64 arguments.
 //
-// K16 depset_pair (union L49, intersect L181, compact L213) and K17
-// depset_query (equal L129, size L161, _contains_kernel L137 under
-// contains L148) are the rest of the algebra, rowwise over [B, L, W]:
-//   K16 union     max of the watermarks, OR of the tail bytes, NOT
-//                 normalized (as the reference);
-//       intersect ids below both watermarks stay prefix (min); an id is
+// K16 union (L49) is its own kernel, elementwise over the flat batch:
+// max of the watermarks, OR of the tail bytes, NOT normalized (as the
+// reference), a's tail base. Thread i takes tail bytes [16 i, 16 i + 16)
+// (one 16-byte word where the three tail pointers are 16-byte aligned,
+// byte loads at the ragged end or where they are not) and watermarks
+// [4 i, 4 i + 4) (one int4 likewise), and issues every load before its
+// first store, so one round trip to memory and one of stores set the
+// time. When a and b are the same tensors (libbench's union(deps, deps))
+// the kernel reads them once: the union is the batch itself. The output
+// may be a or b themselves (each thread reads its own elements before it
+// writes them), so nothing is __restrict__. With an out= batch whose
+// tail base is another tensor, thread 0 copies a's base into it. Bound:
+// bytes, 2 * B * L * (4 + W) read (once when aliased) and B * L * (4 + W)
+// written. fpx_depset_union takes one packed block of int64.
+//
+// K16 depset_pair (intersect L181, compact L213) and K17 depset_query
+// (equal L129, size L161, _contains_kernel L137 under contains L148) are
+// the rest of the algebra, rowwise over [B, L, W]:
+//   K16 intersect ids below both watermarks stay prefix (min); an id is
 //                 in a set if below its watermark or its byte is > 0;
 //                 the 0/1 bytes of `in both and >= min` are written, then
 //                 normalized in place (K9's scan over the written row);
@@ -73,7 +86,7 @@
 //                 [B, L] through strides (0 for a broadcast axis) --
 //                 then normalized, as K9 with the raised watermark.
 //     One warp per (b, l) row, the lanes striding over the W bytes. The
-//     inputs may alias (union(deps, deps)): nothing is __restrict__.
+//     inputs may alias (intersect(deps, deps)): nothing is __restrict__.
 //     Bound: bytes, 2 * B * L * (4 + W) read (compact: one batch and
 //     `executed`) and B * L * (4 + W) written.
 //   K17 equal     every watermark and byte of row b equal (bytes, not
@@ -91,6 +104,7 @@
 //     read (2x for equal; contains reads one watermark and one byte a
 //     row), 1 or 4 bytes written per row.
 
+#include <algorithm>
 #include <climits>
 #include <cstring>
 
@@ -743,7 +757,92 @@ unsigned warp_blocks(long long rows) {
   return static_cast<unsigned>((rows * 32 + FPX_THREADS - 1) / FPX_THREADS);
 }
 
-enum PairMode { kUnion = 0, kIntersect = 1, kCompact = 2 };
+// K16 union: thread i takes tail word i and watermark quad i.
+template <bool kAlias>
+__global__ void depset_union_kernel(const int32_t* a_wm,
+                                    const uint8_t* a_tails,
+                                    const int32_t* b_wm,
+                                    const uint8_t* b_tails, int32_t* out_wm,
+                                    uint8_t* out_tails, const int32_t* a_base,
+                                    int32_t* out_base, long long n_wm,
+                                    long long n_bytes, bool vec_wm,
+                                    bool vec_tails) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
+                      + threadIdx.x;
+  const long long t0 = 16 * i, w0 = 4 * i;
+  const bool full_t = vec_tails && t0 + 16 <= n_bytes;
+  const bool full_w = vec_wm && w0 + 4 <= n_wm;
+  // Loads: every one before the first store.
+  uint4 ta = make_uint4(0, 0, 0, 0), tb = ta;
+  int4 wa = make_int4(0, 0, 0, 0), wb = wa;
+  if (full_t) {
+    ta = *reinterpret_cast<const uint4*>(a_tails + t0);
+    if (!kAlias) tb = *reinterpret_cast<const uint4*>(b_tails + t0);
+  } else if (t0 < n_bytes) {
+    uint8_t xa[16], xb[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      xa[k] = t0 + k < n_bytes ? a_tails[t0 + k] : 0;
+      xb[k] = !kAlias && t0 + k < n_bytes ? b_tails[t0 + k] : 0;
+    }
+    memcpy(&ta, xa, 16);
+    memcpy(&tb, xb, 16);
+  }
+  if (full_w) {
+    wa = *reinterpret_cast<const int4*>(a_wm + w0);
+    if (!kAlias) wb = *reinterpret_cast<const int4*>(b_wm + w0);
+  } else if (w0 < n_wm) {
+    int32_t ya[4], yb[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ya[k] = w0 + k < n_wm ? a_wm[w0 + k] : 0;
+      yb[k] = !kAlias && w0 + k < n_wm ? b_wm[w0 + k] : 0;
+    }
+    memcpy(&wa, ya, 16);
+    memcpy(&wb, yb, 16);
+  }
+  const bool copy_base = i == 0 && out_base != nullptr;
+  const int32_t base = copy_base ? *a_base : 0;
+  if (!kAlias) {
+    ta.x |= tb.x;
+    ta.y |= tb.y;
+    ta.z |= tb.z;
+    ta.w |= tb.w;
+    wa.x = max(wa.x, wb.x);
+    wa.y = max(wa.y, wb.y);
+    wa.z = max(wa.z, wb.z);
+    wa.w = max(wa.w, wb.w);
+  }
+  // Stores.
+  if (full_t) {
+    *reinterpret_cast<uint4*>(out_tails + t0) = ta;
+  } else if (t0 < n_bytes) {
+    uint8_t xo[16];
+    memcpy(xo, &ta, 16);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      if (t0 + k < n_bytes) out_tails[t0 + k] = xo[k];
+    }
+  }
+  if (full_w) {
+    *reinterpret_cast<int4*>(out_wm + w0) = wa;
+  } else if (w0 < n_wm) {
+    int32_t yo[4];
+    memcpy(yo, &wa, 16);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (w0 + k < n_wm) out_wm[w0 + k] = yo[k];
+    }
+  }
+  if (copy_base) *out_base = base;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Mode 0 was union, now depset_union_kernel.
+enum PairMode { kIntersect = 1, kCompact = 2 };
 
 __global__ void depset_pair_kernel(int mode, const int32_t* a_wm,
                                    const uint8_t* a_tails,
@@ -763,12 +862,6 @@ __global__ void depset_pair_kernel(int mode, const int32_t* a_wm,
   const uint8_t* ta = a_tails + row * width;
   uint8_t* o = out_tails + row * width;
   const int32_t wa = a_wm[row];
-  if (mode == kUnion) {
-    const uint8_t* tb = b_tails + row * width;
-    for (int w = lane; w < width; w += 32) o[w] = ta[w] | tb[w];
-    if (lane == 0) out_wm[row] = max(wa, b_wm[row]);
-    return;
-  }
   if (mode == kCompact) {
     const long long b = row / l_count, l = row % l_count;
     const int32_t raised =
@@ -958,12 +1051,50 @@ extern "C" int fpx_depset_all_equal_staged(const void* block) {
   return cudaStreamSynchronize(stream);
 }
 
+// K16 union. block: a watermarks, a tails, b watermarks, b tails, out
+// watermarks, out tails, a's tail_base, out's tail_base (or 0: not
+// copied), rows (B * L), width, aliased (a and b the same tensors),
+// device, stream.
+extern "C" int fpx_depset_union(const void* block) {
+  long long a[13];
+  std::memcpy(a, block, sizeof a);
+  const long long rows = a[8];
+  if (rows <= 0) return cudaSuccess;
+  const cudaError_t err = select_device(static_cast<int>(a[11]));
+  if (err != cudaSuccess) return err;
+  const auto* aw = pointer<const int32_t>(a[0]);
+  const auto* at = pointer<const uint8_t>(a[1]);
+  const auto* bw = pointer<const int32_t>(a[2]);
+  const auto* bt = pointer<const uint8_t>(a[3]);
+  auto* ow = pointer<int32_t>(a[4]);
+  auto* ot = pointer<uint8_t>(a[5]);
+  const long long n_bytes = rows * a[9];
+  const bool aliased = a[10] != 0;
+  const bool vec_wm = aligned16(aw) && aligned16(bw) && aligned16(ow);
+  const bool vec_tails = aligned16(at) && aligned16(bt) && aligned16(ot);
+  const long long threads = std::max((n_bytes + 15) / 16, (rows + 3) / 4);
+  const unsigned blocks =
+      static_cast<unsigned>((threads + FPX_THREADS - 1) / FPX_THREADS);
+  const cudaStream_t s = pointer<CUstream_st>(a[12]);
+  if (aliased) {
+    depset_union_kernel<true><<<blocks, FPX_THREADS, 0, s>>>(
+        aw, at, bw, bt, ow, ot, pointer<const int32_t>(a[6]),
+        pointer<int32_t>(a[7]), rows, n_bytes, vec_wm, vec_tails);
+  } else {
+    depset_union_kernel<false><<<blocks, FPX_THREADS, 0, s>>>(
+        aw, at, bw, bt, ow, ot, pointer<const int32_t>(a[6]),
+        pointer<int32_t>(a[7]), rows, n_bytes, vec_wm, vec_tails);
+  }
+  return cudaGetLastError();
+}
+
 extern "C" int fpx_depset_pair(int mode, const void* a_wm, const void* a_tails,
                                const void* b_wm, const void* b_tails,
                                const void* executed, long long ex_stride_b,
                                long long ex_stride_l, const void* base,
                                int b, int l, int width, void* out_wm,
                                void* out_tails, int device, void* stream) {
+  if (mode != kIntersect && mode != kCompact) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(b) * l;

@@ -34,26 +34,51 @@
 // than 0/1 enter the product as they are ([2, 3, 1, 0] gives 2+6+6 = 14),
 // signed types sign-extend and int64 keeps its low 32 bits, as
 // astype(int32) does; products and sum wrap as int32 (computed in
-// uint32). One warp per row, a running product, and a stop at the first
-// zero: each pass takes 32 * kPerLane elements, each lane kPerLane
-// consecutive ones, which it folds into (product, sum of running
-// products); a shuffle scan combines the lanes' pairs in order ((P, S)
-// before (p, s) is (P p, S + P s), associative mod 2^32), and the pass's
-// pair carries into the row's. A zero product stays zero, so the loop
-// stops after the pass that holds the first zero: the work is the
-// prefix's length, not L. A lane's kPerLane loads are independent, so
-// one pass waits for one round of memory, not kPerLane. Bound: bytes,
-// the prefix read once and one int32 written per row.
+// uint32). An empty last axis gives 0. Bound: bytes, the prefix through
+// its first zero read once and one int32 written per row; at the paths'
+// shapes one launch and one round trip to memory set the time. The form
+// is chosen in C (prefix_form, named in Python by
+// ops/watermark.py::prefix_form) from the row length and the element
+// stride:
+//   * thread (L <= 16: the smoke's [4096, 3]): a thread a row, every
+//     load issued at once, then the (product, sum) fold in registers;
+//   * warp (16 < L <= 512: [1024, 40]): a warp a row, each lane 16
+//     consecutive elements folded into (product, sum), a shuffle scan
+//     combines the lanes' pairs in order ((P, S) before (p, s) is
+//     (P p, S + P s), associative mod 2^32);
+//   * cta (L > 512: libbench's [4096], the all-true [64, 100003]): a
+//     512-thread CTA a row (a run of rows past kCtaGridMax), tile by tile.
+//     Where the element stride is 1 the tiles are aligned 16-byte words,
+//     one load each (a row that starts off the 16-byte grid reads its
+//     head word, and every row its tail word, element by element): one
+//     word a thread where the row fits (libbench's [4096]: one tile),
+//     else four (32 KB of a byte row); strided rows take scalar loads,
+//     eight elements a thread. Every thread issues its loads for the
+//     tile first (and the next tile's before the barrier), then reduces
+//     its elements to two indices: its first zero and its first element
+//     outside {0, 1} (one SIMD compare a 32-bit word of bytes or
+//     halves). A __reduce_min_sync per warp, one barrier and a second
+//     __reduce_min_sync over the warps' minima give the tile's.
+//     Where no element outside {0, 1} comes before the first zero (every
+//     0/1 row, libbench's bool row), the answer is the first zero's
+//     index, or L: the loop stops at the tile that holds the first zero.
+//     Otherwise the same launch scans (product, sum) pairs from that tile
+//     on (a warp reduction in order, then the warps' totals in order
+//     through shared memory) and stops once the product is 0.
+// fpx_contiguous_prefix_length takes one packed block of int64, as K12's
+// entries; fpx_contiguous_prefix_form returns the form its block would
+// launch, without launching.
 
+#include <algorithm>
 #include <climits>
 #include <cstring>
+#include <type_traits>
 
 #include "quorum.cuh"
 
 namespace {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
-constexpr int kPerLane = 8;
 
 constexpr int kRowsPerBlock = FPX_THREADS / 32;
 
@@ -188,58 +213,379 @@ T* pointer(long long slot) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(slot));
 }
 
+// K13's forms (prefix_form) and their sizes.
+enum PrefixForm {
+  kPrefixThread = 0,
+  kPrefixWarp = 1,
+  kPrefixCtaScalar = 2,
+  kPrefixCtaVector = 3
+};
+constexpr int kThreadMaxLength = 16;
+constexpr int kWarpPerLane = 16;
+constexpr int kWarpMaxLength = 32 * kWarpPerLane;
+constexpr int kCtaThreads = 512;
+constexpr int kCtaWarps = kCtaThreads / 32;
+// 16-byte chunks (vector) or elements (scalar) a thread loads a tile; a
+// row that fits one tile of one chunk a thread takes that tile.
+constexpr int kCtaVectorChunks = 4;
+constexpr int kCtaScalarChunks = 8;
+// CTAs of a launch: four per SM of the H100; more rows loop.
+constexpr long long kCtaGridMax = 4 * 132;
+constexpr int kNoIndex = INT_MAX;
+
+int prefix_form(long long length, long long elem_stride) {
+  if (length <= kThreadMaxLength) return kPrefixThread;
+  if (length <= kWarpMaxLength) return kPrefixWarp;
+  return elem_stride == 1 ? kPrefixCtaVector : kPrefixCtaScalar;
+}
+
+// astype(int32): sign- or zero-extend, keep the low 32 bits.
 template <typename T>
-__global__ void contiguous_prefix_kernel(const T* __restrict__ x,
-                                         long long rows, long long length,
-                                         long long row_stride,
-                                         long long elem_stride,
-                                         int32_t* __restrict__ out) {
+__device__ __forceinline__ uint32_t as_u32(T v) {
+  return static_cast<uint32_t>(static_cast<long long>(v));
+}
+
+template <typename T>
+__global__ void prefix_thread_kernel(const T* __restrict__ x, long long rows,
+                                     int length, long long row_stride,
+                                     long long elem_stride,
+                                     int32_t* __restrict__ out) {
+  const long long row = blockIdx.x * static_cast<long long>(blockDim.x)
+                        + threadIdx.x;
+  if (row >= rows) return;
+  const T* r = x + row * row_stride;
+  uint32_t v[kThreadMaxLength];
+#pragma unroll
+  for (int e = 0; e < kThreadMaxLength; ++e) {
+    v[e] = e < length ? as_u32(r[e * elem_stride]) : 0u;
+  }
+  uint32_t p = 1, s = 0;
+#pragma unroll
+  for (int e = 0; e < kThreadMaxLength; ++e) {
+    p *= v[e];  // past the row: 0, which adds nothing
+    s += p;
+  }
+  out[row] = static_cast<int32_t>(s);
+}
+
+template <typename T>
+__global__ void prefix_warp_kernel(const T* __restrict__ x, long long rows,
+                                   int length, long long row_stride,
+                                   long long elem_stride,
+                                   int32_t* __restrict__ out) {
   const long long warp = (blockIdx.x * static_cast<long long>(blockDim.x)
                           + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= rows) return;  // uniform over the warp
   const T* r = x + warp * row_stride;
-  uint32_t sum = 0;
-  uint32_t carry = 1;
-  for (long long w0 = 0; w0 < length; w0 += 32 * kPerLane) {
-    const long long first = w0 + static_cast<long long>(lane) * kPerLane;
-    uint32_t p = 1, s = 0;
+  const int first = lane * kWarpPerLane;
+  uint32_t v[kWarpPerLane];
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const long long w = first + j;
-      if (w < length) {
-        // astype(int32): sign- or zero-extend, keep the low 32 bits.
-        p *= static_cast<uint32_t>(
-            static_cast<long long>(r[w * elem_stride]));
-        s += p;
-      }
-    }
-    for (int off = 1; off < 32; off <<= 1) {
-      const uint32_t p_up = __shfl_up_sync(kFullWarp, p, off);
-      const uint32_t s_up = __shfl_up_sync(kFullWarp, s, off);
-      if (lane >= off) {
-        s = s_up + p_up * s;
-        p = p_up * p;
-      }
-    }
-    sum += carry * __shfl_sync(kFullWarp, s, 31);
-    carry *= __shfl_sync(kFullWarp, p, 31);
-    if (carry == 0) break;
+  for (int j = 0; j < kWarpPerLane; ++j) {
+    v[j] = first + j < length ? as_u32(r[(first + j) * elem_stride]) : 0u;
   }
-  if (lane == 0) out[warp] = static_cast<int32_t>(sum);
+  uint32_t p = 1, s = 0;
+#pragma unroll
+  for (int j = 0; j < kWarpPerLane; ++j) {
+    p *= v[j];
+    s += p;
+  }
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t p_up = __shfl_up_sync(kFullWarp, p, off);
+    const uint32_t s_up = __shfl_up_sync(kFullWarp, s, off);
+    if (lane >= off) {
+      s = s_up + p_up * s;
+      p = p_up * p;
+    }
+  }
+  if (lane == 31) out[warp] = static_cast<int32_t>(s);
+}
+
+// The offsets of the first zero and the first element outside {0, 1}
+// among the elements of one 32-bit word of kSize-byte elements (the
+// element at offset `at` first; kSize 4 is one element, or the low word
+// of an int64), written where the word holds one: called on a chunk's
+// words from the last to the first, the offsets end as the chunk's
+// first. One SIMD compare per word for bytes and halves: a byte or half
+// outside {0, 1} compares above 1 unsigned, as its sign-extended int32
+// does.
+template <int kSize>
+__device__ __forceinline__ void word_firsts(uint32_t w, int at, int& zero,
+                                            int& other) {
+  if constexpr (kSize == 1) {
+    const uint32_t z = __vcmpeq4(w, 0u), o = __vcmpgtu4(w, 0x01010101u);
+    if (z) zero = at + ((__ffs(z) - 1) >> 3);
+    if (o) other = at + ((__ffs(o) - 1) >> 3);
+  } else if constexpr (kSize == 2) {
+    const uint32_t z = __vcmpeq2(w, 0u), o = __vcmpgtu2(w, 0x00010001u);
+    if (z) zero = at + ((__ffs(z) - 1) >> 4);
+    if (o) other = at + ((__ffs(o) - 1) >> 4);
+  } else {
+    if (w == 0) zero = at;
+    if (w > 1) other = at;
+  }
+}
+
+// A tile of the CTA form: kChunks chunks a thread of kPer elements, chunk
+// j of thread t at offset o = (j * kCtaThreads + t) * kPer of the tile. A
+// tile starts at element `lo` of the row; in the vector form lo = base -
+// h, where the row starts h elements past a 16-byte boundary, so that
+// every chunk is one aligned 16-byte word: a word wholly inside the row
+// is one load, the head and tail words element by element. A scalar
+// chunk is one element (lo = base). Elements outside the row hold 1,
+// which is neither a zero nor outside {0, 1}.
+template <typename T, bool kVector, int kChunkCount>
+struct Tile {
+  static constexpr int kSize = static_cast<int>(sizeof(T));
+  static constexpr int kPer = kVector ? 16 / kSize : 1;
+  static constexpr int kChunks = kChunkCount;
+  static constexpr long long kElems =
+      static_cast<long long>(kCtaThreads) * kChunks * kPer;
+  using Raw = typename std::conditional<kVector, uint4, T>::type;
+  Raw raw[kChunks];
+
+  // Element e of chunk j, as astype(int32) gives it.
+  __device__ __forceinline__ uint32_t at(int j, int e) const {
+    if constexpr (kVector) {
+      const uint4 c = raw[j];
+      const int k = kSize == 8 ? 2 * e : e * kSize / 4;
+      const uint32_t w = k == 0 ? c.x : k == 1 ? c.y : k == 2 ? c.z : c.w;
+      if constexpr (kSize >= 4) {
+        return w;
+      } else {
+        const int shift = 8 * ((e * kSize) & 3);
+        const uint32_t bits = (w >> shift) & ((1u << (8 * kSize)) - 1);
+        return as_u32(static_cast<T>(bits));
+      }
+    } else {
+      return as_u32(raw[j]);
+    }
+  }
+
+  // A 16-byte word of ones of T.
+  static __device__ __forceinline__ uint4 ones() {
+    constexpr uint32_t w = kSize == 1 ? 0x01010101u
+                           : kSize == 2 ? 0x00010001u : 1u;
+    return kSize == 8 ? make_uint4(1, 0, 1, 0) : make_uint4(w, w, w, w);
+  }
+
+  // The tile at element `lo` of row r; elements outside [0, length) are
+  // never read.
+  __device__ __forceinline__ void load(const T* r, long long lo,
+                                       long long length,
+                                       long long elem_stride) {
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const long long first =
+          lo + static_cast<long long>(j * kCtaThreads + t) * kPer;
+      if constexpr (kVector) {
+        if (first >= 0 && first + kPer <= length) {
+          raw[j] = *reinterpret_cast<const uint4*>(r + first);
+        } else if (first >= length || first + kPer <= 0) {
+          raw[j] = ones();
+        } else {
+          T elems[kPer];
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) {
+            const long long i = first + e;
+            elems[e] = i >= 0 && i < length ? r[i] : T(1);
+          }
+          memcpy(&raw[j], elems, 16);
+        }
+      } else {
+        raw[j] = first < length ? r[first * elem_stride] : T(1);
+      }
+    }
+  }
+
+  // This thread's tile offsets of its first zero and its first element
+  // outside {0, 1} (kNoIndex where it holds none).
+  __device__ __forceinline__ void firsts(int& zero, int& other) const {
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int j = kChunks - 1; j >= 0; --j) {
+      const int o = (j * kCtaThreads + t) * kPer;
+      if constexpr (kVector) {
+        const uint4 c = raw[j];
+        if constexpr (kSize == 8) {
+          word_firsts<4>(c.z, o + 1, zero, other);
+          word_firsts<4>(c.x, o, zero, other);
+        } else {
+          constexpr int kWord = 4 / kSize;  // elements a word
+          word_firsts<kSize>(c.w, o + 3 * kWord, zero, other);
+          word_firsts<kSize>(c.z, o + 2 * kWord, zero, other);
+          word_firsts<kSize>(c.y, o + kWord, zero, other);
+          word_firsts<kSize>(c.x, o, zero, other);
+        }
+      } else {
+        word_firsts<4>(as_u32(raw[j]), o, zero, other);
+      }
+    }
+  }
+};
+
+// The ordered (product, sum) pair of a row from the tile in `tile` (at
+// element lo) on: folded chunk by chunk (chunk j of every thread, in
+// thread order, before chunk j + 1) into the row's carry, tile after
+// tile, until the product is 0 or the row ends. The elements before the
+// tile are ones (the caller's tiles held no zero and nothing outside
+// {0, 1}). Uniform over the CTA.
+template <typename Tl, typename T>
+__device__ uint32_t prefix_scan_rest(Tl& tile, const T* r, long long lo,
+                                     long long length, long long elem_stride,
+                                     uint32_t (&scan)[2][kCtaWarps]) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  uint32_t p_row = 1, s_row = static_cast<uint32_t>(lo > 0 ? lo : 0);
+  for (;;) {
+#pragma unroll
+    for (int j = 0; j < Tl::kChunks; ++j) {
+      const long long first =
+          lo + static_cast<long long>(j * kCtaThreads + t) * Tl::kPer;
+      // The chunk's elements inside the row: [e_lo, e_hi).
+      const int e_lo = static_cast<int>(min(max(-first, 0LL),
+                                            static_cast<long long>(Tl::kPer)));
+      const int e_hi = static_cast<int>(min(max(length - first, 0LL),
+                                            static_cast<long long>(Tl::kPer)));
+      uint32_t p = 1, s = 0;
+#pragma unroll
+      for (int e = 0; e < Tl::kPer; ++e) {
+        if (e >= e_lo && e < e_hi) {
+          p *= tile.at(j, e);
+          s += p;
+        }
+      }
+      // The warp's lanes in order: lane i's span [i, i + off) before
+      // [i + off, i + 2 off); lane 0 ends with the warp's pair.
+      for (int off = 1; off < 32; off <<= 1) {
+        const uint32_t p_dn = __shfl_down_sync(kFullWarp, p, off);
+        const uint32_t s_dn = __shfl_down_sync(kFullWarp, s, off);
+        s += p * s_dn;
+        p *= p_dn;
+      }
+      if (lane == 0) {
+        scan[0][warp] = p;
+        scan[1][warp] = s;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < kCtaWarps; ++w) {
+        s_row += p_row * scan[1][w];
+        p_row *= scan[0][w];
+      }
+      __syncthreads();  // read before the next chunk writes
+      if (p_row == 0) return s_row;
+    }
+    lo += Tl::kElems;
+    if (lo >= length) return s_row;
+    tile.load(r, lo, length, elem_stride);
+  }
+}
+
+template <typename T, bool kVector, int kChunks>
+__global__ void __launch_bounds__(kCtaThreads)
+prefix_cta_kernel(const T* __restrict__ x, long long rows, long long length,
+                  long long row_stride, long long elem_stride,
+                  int32_t* __restrict__ out) {
+  using Tl = Tile<T, kVector, kChunks>;
+  // [parity][first zero, first other][warp]: a tile writes one parity,
+  // so one barrier a tile suffices.
+  __shared__ int first[2][2][kCtaWarps];
+  __shared__ uint32_t scan[2][kCtaWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int parity = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* r = x + row * row_stride;
+    long long lo = 0;
+    if constexpr (kVector) {
+      lo = -static_cast<long long>((reinterpret_cast<uintptr_t>(r) & 15)
+                                   / sizeof(T));
+    }
+    Tl cur, next;
+    cur.load(r, lo, length, elem_stride);
+    long long answer = -1;
+    for (;;) {
+      // Tile offsets of the first zero and the first element outside
+      // {0, 1} (row index lo + offset).
+      int zero = kNoIndex, other = kNoIndex;
+      cur.firsts(zero, other);
+      const bool more = lo + Tl::kElems < length;
+      if (more) next.load(r, lo + Tl::kElems, length, elem_stride);
+      zero = __reduce_min_sync(kFullWarp, zero);
+      other = __reduce_min_sync(kFullWarp, other);
+      if (lane == 0) {
+        first[parity][0][warp] = zero;
+        first[parity][1][warp] = other;
+      }
+      __syncthreads();
+      // Every warp takes the minima over the warps' (lane l reads warp
+      // l mod kCtaWarps's).
+      zero = __reduce_min_sync(kFullWarp, first[parity][0][lane % kCtaWarps]);
+      other = __reduce_min_sync(kFullWarp,
+                                first[parity][1][lane % kCtaWarps]);
+      parity ^= 1;
+      if (other < zero) break;  // the scan, from this tile on
+      if (zero != kNoIndex) {
+        answer = lo + zero;
+        break;
+      }
+      if (!more) {
+        answer = length;
+        break;
+      }
+      lo += Tl::kElems;
+      cur = next;
+    }
+    const uint32_t got =
+        answer >= 0 ? static_cast<uint32_t>(answer)
+                    : prefix_scan_rest(cur, r, lo, length, elem_stride,
+                                       scan);
+    if (t == 0) out[row] = static_cast<int32_t>(got);
+  }
 }
 
 template <typename T>
-void launch_prefix(const void* x, long long rows, long long length,
-                   long long row_stride, long long elem_stride, void* out,
-                   cudaStream_t stream) {
-  const long long blocks = (rows * 32 + FPX_THREADS - 1) / FPX_THREADS;
-  contiguous_prefix_kernel<T><<<static_cast<unsigned>(blocks), FPX_THREADS,
-                                0, stream>>>(
-      static_cast<const T*>(x), rows, length, row_stride, elem_stride,
-      static_cast<int32_t*>(out));
+cudaError_t launch_prefix(int form, const void* x, long long rows,
+                          long long length, long long row_stride,
+                          long long elem_stride, void* out,
+                          cudaStream_t stream) {
+  const auto* xt = static_cast<const T*>(x);
+  auto* o = static_cast<int32_t*>(out);
+  // The thread and warp forms' rows are at most 512 long.
+  const int len = static_cast<int>(length);
+  const unsigned grid = static_cast<unsigned>(std::min(rows, kCtaGridMax));
+  switch (form) {
+    case kPrefixThread:
+      prefix_thread_kernel<T><<<static_cast<unsigned>(
+          (rows + FPX_THREADS - 1) / FPX_THREADS), FPX_THREADS, 0, stream>>>(
+          xt, rows, len, row_stride, elem_stride, o);
+      break;
+    case kPrefixWarp:
+      prefix_warp_kernel<T><<<static_cast<unsigned>(
+          (rows * 32 + FPX_THREADS - 1) / FPX_THREADS), FPX_THREADS, 0,
+          stream>>>(xt, rows, len, row_stride, elem_stride, o);
+      break;
+    case kPrefixCtaScalar:
+      prefix_cta_kernel<T, false, kCtaScalarChunks><<<grid, kCtaThreads, 0,
+                                                      stream>>>(
+          xt, rows, length, row_stride, elem_stride, o);
+      break;
+    default:
+      // A row of up to (kCtaThreads - 1) words fits one tile of one word
+      // a thread, whatever its head.
+      if (length <= static_cast<long long>(kCtaThreads - 1)
+                        * (16 / static_cast<int>(sizeof(T)))) {
+        prefix_cta_kernel<T, true, 1><<<grid, kCtaThreads, 0, stream>>>(
+            xt, rows, length, row_stride, elem_stride, o);
+      } else {
+        prefix_cta_kernel<T, true, kCtaVectorChunks><<<grid, kCtaThreads, 0,
+                                                       stream>>>(
+            xt, rows, length, row_stride, elem_stride, o);
+      }
+      break;
+  }
+  return cudaGetLastError();
 }
-
 }  // namespace
 
 // block: watermarks, rows, n, row_stride, elem_stride, quorum sizes (or
@@ -284,38 +630,38 @@ extern "C" int fpx_quorum_watermark_staged(const void* block) {
   return cudaStreamSynchronize(s);
 }
 
-// elem_kind: 0 uint8 (and bool), 1 int8, 2 int16, 3 int32, 4 int64.
-extern "C" int fpx_contiguous_prefix_length(const void* x, int elem_kind,
-                                            long long rows, long long length,
-                                            long long row_stride,
-                                            long long elem_stride, void* out,
-                                            int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (elem_kind) {
+// block: present, elem_kind (0 uint8 and bool, 1 int8, 2 int16, 3 int32,
+// 4 int64), rows, length, row_stride, elem_stride, out, device, stream.
+extern "C" int fpx_contiguous_prefix_length(const void* block) {
+  long long a[9];
+  std::memcpy(a, block, sizeof a);
+  if (a[1] < 0 || a[1] > 4) return cudaErrorInvalidValue;
+  const cudaError_t err = select_device(static_cast<int>(a[7]));
+  if (err != cudaSuccess || a[2] <= 0) return err;
+  const void* x = pointer<const void>(a[0]);
+  const int form = prefix_form(a[3], a[5]);
+  void* out = pointer<void>(a[6]);
+  const cudaStream_t s = pointer<CUstream_st>(a[8]);
+  switch (a[1]) {
     case 0:
-      launch_prefix<uint8_t>(x, rows, length, row_stride, elem_stride, out,
-                             s);
-      break;
+      return launch_prefix<uint8_t>(form, x, a[2], a[3], a[4], a[5], out, s);
     case 1:
-      launch_prefix<int8_t>(x, rows, length, row_stride, elem_stride, out,
-                            s);
-      break;
+      return launch_prefix<int8_t>(form, x, a[2], a[3], a[4], a[5], out, s);
     case 2:
-      launch_prefix<int16_t>(x, rows, length, row_stride, elem_stride, out,
-                             s);
-      break;
+      return launch_prefix<int16_t>(form, x, a[2], a[3], a[4], a[5], out, s);
     case 3:
-      launch_prefix<int32_t>(x, rows, length, row_stride, elem_stride, out,
-                             s);
-      break;
-    case 4:
-      launch_prefix<long long>(x, rows, length, row_stride, elem_stride,
-                               out, s);
-      break;
+      return launch_prefix<int32_t>(form, x, a[2], a[3], a[4], a[5], out, s);
     default:
-      return cudaErrorInvalidValue;
+      return launch_prefix<long long>(form, x, a[2], a[3], a[4], a[5], out,
+                                      s);
   }
-  return cudaGetLastError();
+}
+
+// The form fpx_contiguous_prefix_length launches for the same block
+// (PrefixForm), or -1 for an unknown element kind. Launches nothing.
+extern "C" int fpx_contiguous_prefix_form(const void* block) {
+  long long a[9];
+  std::memcpy(a, block, sizeof a);
+  if (a[1] < 0 || a[1] > 4) return -1;
+  return prefix_form(a[3], a[5]);
 }

@@ -19,9 +19,10 @@ version beside it:
     two entry modes (:func:`union_reduce_plain`,
     :func:`conflict_max_plain`): the EPaxos slow path;
   * K11 :func:`all_equal` (:func:`all_equal_plain`): the fast path;
-  * K16, a row-pair transform with three modes: :func:`union` (max and
-    OR, NOT normalized), :func:`intersect` and :func:`compact` (both
-    normalized), with :func:`union_plain`, :func:`intersect_plain` and
+  * K16: :func:`union` (max and OR, NOT normalized; an elementwise
+    kernel of its own) and a row-pair transform with two modes,
+    :func:`intersect` and :func:`compact` (both normalized), with
+    :func:`union_plain`, :func:`intersect_plain` and
     :func:`compact_plain`;
   * K17, a row query with three modes: :func:`equal`, :func:`size` and
     :func:`contains`, with :func:`equal_plain`, :func:`size_plain` and
@@ -521,9 +522,9 @@ def compact_plain(d: DepSetBatch, executed) -> DepSetBatch:
 
 
 def _pair_launch(mode: int, a: DepSetBatch, b, executed) -> tuple:
-    """One launch of ``csrc/depset.cu::depset_pair_kernel`` into new
-    tensors; returns ``(launched, out)`` (an empty batch launches
-    nothing)."""
+    """One launch of ``csrc/depset.cu::depset_pair_kernel`` (intersect or
+    compact) into new tensors; returns ``(launched, out)`` (an empty
+    batch launches nothing)."""
     _contiguous(a)
     if b is not None:
         _contiguous(b)
@@ -546,19 +547,91 @@ def _pair_launch(mode: int, a: DepSetBatch, b, executed) -> tuple:
     return True, DepSetBatch(wm, tails, a.tail_base)
 
 
-def union(a: DepSetBatch, b: DepSetBatch) -> DepSetBatch:
+#: K16 union's packed entry: 13 int64 (``csrc/depset.cu``'s block).
+_K16_UNION = _build.Entry("depset", "fpx_depset_union", 13)
+_INT32, _UINT8 = torch.int32, torch.uint8
+
+
+def _check_union_out(out: DepSetBatch, a: DepSetBatch) -> None:
+    """``out`` must be a batch of ``a``'s shape, contiguous, on its
+    device."""
+    _check(out)
+    if (out.tails.shape != a.tails.shape
+            or not all(t.is_contiguous() for t in out)
+            or any(t.device != a.tails.device for t in out)):
+        raise ValueError(
+            f"out must be a contiguous {list(a.tails.shape)} batch on "
+            f"{a.tails.device}, got {tuple(out.tails.shape)} on "
+            f"{out.tails.device}")
+
+
+def union(a: DepSetBatch, b: DepSetBatch,
+          out: DepSetBatch | None = None) -> DepSetBatch:
     """K16 union: rowwise max of watermarks and OR of tail bytes, NOT
-    normalized (the reference's ``union``), into new tensors.
+    normalized (the reference's ``union``), with ``a``'s tail base, into
+    new tensors or into ``out`` (a contiguous batch of the same shape on
+    the same device, which may be ``a`` or ``b`` itself), which is
+    returned with ``a``'s base copied into its ``tail_base``.
 
     PRECONDITION: ``a.tail_base == b.tail_base`` (use
     :func:`union_checked` from host code to enforce it). The batches may
-    be the same. CUDA tensors launch the kernel (one warp per row); CPU
-    tensors take :func:`union_plain`."""
-    _check_pair(a, b, "union")
-    if not use_kernel(*a, *b):
-        return union_plain(a, b)
-    launched, out = _pair_launch(0, a, b, None)
-    union.launches += launched
+    be the same: the kernel then reads them once. CUDA tensors launch
+    ``csrc/depset.cu::depset_union_kernel`` (elementwise, 16 tail bytes
+    and 4 watermarks a thread) through one packed ``ctypes`` call, after
+    checking only what it reads (dtypes, one shape, one device,
+    contiguity); CPU tensors take :func:`union_plain`."""
+    wa, ta, ba = a
+    wb, tb, _ = b
+    index = ta.get_device()
+    if index < 0:
+        _check_pair(a, b, "union")
+        if not use_kernel(*a, *b, *(() if out is None else out)):
+            got = union_plain(a, b)
+            if out is None:
+                return got
+            _check_union_out(out, a)
+            out.watermarks.copy_(got.watermarks)
+            out.tails.copy_(got.tails)
+            if out.tail_base is not ba:
+                out.tail_base.copy_(ba)
+            return out
+    shape, rows_shape = ta.shape, wa.shape
+    if (wa.dtype is not _INT32 or ta.dtype is not _UINT8
+            or wb.dtype is not _INT32 or tb.dtype is not _UINT8
+            or len(shape) != 3 or tb.shape != shape
+            or wb.shape != rows_shape or len(rows_shape) != 2
+            or rows_shape[0] != shape[0] or rows_shape[1] != shape[1]):
+        _check_pair(a, b, "union")
+    if wa.get_device() != index or wb.get_device() != index \
+            or tb.get_device() != index:
+        raise ValueError("union: the batches span several devices")
+    if not (wa.is_contiguous() and ta.is_contiguous()
+            and wb.is_contiguous() and tb.is_contiguous()):
+        raise ValueError("the depset kernels need contiguous tensors")
+    if out is None:
+        out = DepSetBatch(torch.empty_like(wa), torch.empty_like(ta), ba)
+        out_base = 0
+    else:
+        _check_union_out(out, a)
+        out_base = 0 if out.tail_base is ba else out.tail_base.data_ptr()
+        if out_base and (ba.dtype is not _INT32 or ba.dim() != 0
+                         or ba.get_device() != index):
+            _check(a)
+            raise ValueError("union: a's tail_base is not on its card")
+    rows = wa.numel()
+    if rows == 0:
+        return out
+    a_wm, a_tails = wa.data_ptr(), ta.data_ptr()
+    b_wm, b_tails = wb.data_ptr(), tb.data_ptr()
+    fn = _K16_UNION.fn or _K16_UNION.resolve()
+    rc = fn(_K16_UNION.pack(
+        a_wm, a_tails, b_wm, b_tails, out.watermarks.data_ptr(),
+        out.tails.data_ptr(), ba.data_ptr() if out_base else 0, out_base,
+        rows, shape[2], a_wm == b_wm and a_tails == b_tails, index,
+        _build.stream_handle(index)))
+    if rc:
+        _K16_UNION.check(rc)
+    union.launches += 1
     return out
 
 

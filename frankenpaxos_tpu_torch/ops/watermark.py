@@ -236,26 +236,104 @@ def contiguous_prefix_length_plain(present: torch.Tensor) -> torch.Tensor:
     return products.sum(dim=-1, dtype=torch.int32)
 
 
-def contiguous_prefix_length(present: torch.Tensor) -> torch.Tensor:
+#: K13's packed entry (9 int64: present, element kind, rows, length,
+#: row stride, element stride, out, device, stream) and its form query.
+_K13 = _build.Entry("watermark", "fpx_contiguous_prefix_length", 9)
+_K13_FORM = _build.Entry("watermark", "fpx_contiguous_prefix_form", 9)
+#: K13's forms (``csrc/watermark.cu::PrefixForm``, in code order) and
+#: the row lengths up to which the thread and warp forms run.
+PREFIX_FORMS = ("thread", "warp", "cta_scalar", "cta_vector")
+PREFIX_THREAD_MAX, PREFIX_WARP_MAX = 16, 512
+
+
+def _prefix_rows(present: torch.Tensor) -> tuple:
+    """``(lead, rows, length, row stride, element stride)`` of K13's
+    input read as ``[rows, length]``; a 1-D or 2-D input by its shape
+    and strides alone."""
+    dim = present.dim()
+    if dim == 1:
+        return (), 1, present.shape[0], 0, present.stride(0)
+    if dim == 2:
+        rows, length = present.shape
+        return (rows,), rows, length, *present.stride()
+    _check_present(present)
+    rows, row_stride, elem_stride = _rows(present,
+                                          "contiguous_prefix_length")
+    return (tuple(present.shape[:-1]), rows, present.shape[-1], row_stride,
+            elem_stride)
+
+
+def prefix_form(present: torch.Tensor) -> str:
+    """The form K13 runs for ``present`` (``csrc/watermark.cu::
+    prefix_form`` chooses it from the row length and the element stride;
+    this is its rule in Python): ``"thread"`` (a thread a row, L <= 16),
+    ``"warp"`` (a warp a row, L <= 512), else a CTA a row with 16-byte
+    loads (``"cta_vector"``: element stride 1, any alignment) or scalar
+    loads (``"cta_scalar"``: strided rows)."""
+    _check_present(present)
+    _, _, length, _, elem_stride = _prefix_rows(present)
+    if length <= PREFIX_THREAD_MAX:
+        return "thread"
+    if length <= PREFIX_WARP_MAX:
+        return "warp"
+    return "cta_vector" if elem_stride == 1 else "cta_scalar"
+
+
+def prefix_form_launched(present: torch.Tensor) -> str:
+    """The form K13's C entry would launch for ``present`` on its card
+    (``fpx_contiguous_prefix_form``, which launches nothing), to hold
+    :func:`prefix_form` against."""
+    _check_present(present)
+    _, rows, length, row_stride, elem_stride = _prefix_rows(present)
+    index = present.get_device()
+    fn = _K13_FORM.fn or _K13_FORM.resolve()
+    code = fn(_K13_FORM.pack(present.data_ptr(),
+                             _PREFIX_KINDS[present.dtype], rows, length,
+                             row_stride, elem_stride, 0, index,
+                             _build.stream_handle(index)))
+    if not 0 <= code < len(PREFIX_FORMS):
+        raise ValueError(f"fpx_contiguous_prefix_form returned {code}")
+    return PREFIX_FORMS[code]
+
+
+def contiguous_prefix_length(present: torch.Tensor,
+                             out: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """K13: the length of the all-true prefix along the last axis of a
     ``[..., L]`` bool tensor, i.e. ``sum(cumprod(present))`` as int32
     (integer inputs count their products, as the reference's do);
-    ``[...]`` int32."""
-    _check_present(present)
-    if not use_kernel(present):
-        return contiguous_prefix_length_plain(present)
-    lead, length = tuple(present.shape[:-1]), present.shape[-1]
-    rows, row_stride, elem_stride = _rows(present,
-                                          "contiguous_prefix_length")
-    out = torch.empty(lead, dtype=torch.int32, device=present.device)
+    ``[...]`` int32. ``out``, a contiguous ``[...]`` int32 tensor on the
+    input's device, receives the result and is returned.
+
+    On a card the call path is lean (one packed ``ctypes`` call, the
+    element kind from one dict lookup, the form chosen in C:
+    :func:`prefix_form`); CPU tensors take
+    :func:`contiguous_prefix_length_plain`."""
+    index = present.get_device()
+    if index < 0 or (out is not None and out.get_device() != index):
+        _check_present(present)
+        if not use_kernel(present, *(() if out is None else (out,))):
+            got = contiguous_prefix_length_plain(present)
+            if out is None:
+                return got
+            _check_out(out, tuple(present.shape[:-1]))
+            return out.copy_(got)
+    kind = _PREFIX_KINDS.get(present.dtype)
+    if kind is None:
+        _check_present(present)
+    lead, rows, length, row_stride, elem_stride = _prefix_rows(present)
+    if out is None:
+        out = present.new_empty(lead, dtype=torch.int32)
+    else:
+        _check_out(out, lead)
     if rows == 0:
         return out
-    lib = _build.library("watermark")
-    rc = lib.fpx_contiguous_prefix_length(
-        present.data_ptr(), _PREFIX_KINDS[present.dtype], rows, length,
-        row_stride, elem_stride, out.data_ptr(),
-        *_build.stream_args(present.device))
-    _build.check("watermark", "fpx_contiguous_prefix_length", rc)
+    fn = _K13.fn or _K13.resolve()
+    rc = fn(_K13.pack(present.data_ptr(), kind, rows, length, row_stride,
+                      elem_stride, out.data_ptr(), index,
+                      _build.stream_handle(index)))
+    if rc:
+        _K13.check(rc)
     contiguous_prefix_length.launches += 1
     return out
 

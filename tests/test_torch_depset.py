@@ -20,6 +20,7 @@ the H100 by ``chip_smoke.py``.
 """
 
 import random
+import struct
 
 from frankenpaxos_tpu_torch.compact import IntPrefixSet
 from frankenpaxos_tpu_torch.convert import depset_from_jax, depset_to_numpy
@@ -807,16 +808,22 @@ class _Recorder:
 
 def test_pair_and_query_kernel_path_arguments(monkeypatch):
     """With the kernel path forced on CPU tensors: K16 and K17 pass as
-    many arguments as their C signatures, the mode, the broadcast
-    strides of ``executed`` / ``leader`` / ``vid`` (0 on a broadcast
-    axis), no ``b`` batch for compact, size and contains; one launch
-    counts once; an empty batch launches and counts nothing."""
+    many arguments as their C signatures (union's packed block of 13
+    int64: the six tensors, a's base and out's base when out= has its
+    own, rows, width, the aliased flag, device, stream), the mode, the
+    broadcast strides of ``executed`` / ``leader`` / ``vid`` (0 on a
+    broadcast axis), no ``b`` batch for compact, size and contains; one
+    launch counts once; an empty batch launches and counts nothing."""
     from frankenpaxos_tpu_torch.ops import _build
 
     recorder = _Recorder()
     monkeypatch.setattr(depset, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(_build, "library", lambda name: recorder)
     monkeypatch.setattr(_build, "stream_args", lambda device: (0, None))
+    monkeypatch.setattr(_build, "packed_library",
+                        lambda name, keep_gil: recorder)
+    monkeypatch.setattr(_build, "stream_handle", lambda index: 0)
+    monkeypatch.setattr(depset._K16_UNION, "fn", None)
     wrappers = (depset.union, depset.intersect, depset.compact,
                 depset.equal, depset.size, depset.contains)
     for w in wrappers:
@@ -830,9 +837,22 @@ def test_pair_and_query_kernel_path_arguments(monkeypatch):
         assert args[0] == mode
         return args
 
-    depset.union(t, t)
-    args = last("fpx_depset_pair", 0)
-    assert args[3] is not None and args[5] is None and args[9:12] == (4, 3, 8)
+    got = depset.union(t, t)
+    entry, args = recorder.calls[-1]
+    args = struct.unpack("=13q", args[0])
+    assert entry == "fpx_depset_union" and sig[entry] is _build._B
+    assert args[2] == args[0] and args[3] == args[1]
+    assert args[4:6] == (got.watermarks.data_ptr(), got.tails.data_ptr())
+    assert args[6:11] == (0, 0, 12, 8, 1) and got.tail_base is t.tail_base
+    _, u = both(*random_batch(np.random.default_rng(3), 4, 3, 8))
+    out = depset.DepSetBatch(torch.empty_like(t.watermarks),
+                             torch.empty_like(t.tails),
+                             torch.zeros((), dtype=torch.int32))
+    assert depset.union(t, u, out=out) is out
+    args = struct.unpack("=13q", recorder.calls[-1][1][0])
+    assert args[2:4] == (u.watermarks.data_ptr(), u.tails.data_ptr())
+    assert args[6:8] == (t.tail_base.data_ptr(), out.tail_base.data_ptr())
+    assert args[8:11] == (12, 8, 0)
     depset.intersect(t, t)
     last("fpx_depset_pair", 1)
     for executed, strides in ((np.int32(3), (0, 0)),
@@ -852,11 +872,11 @@ def test_pair_and_query_kernel_path_arguments(monkeypatch):
     depset.contains(t, 1, np.arange(4, dtype=np.int32))
     args = last("fpx_depset_query", 2)
     assert args[6] == 0 and args[8] == 1
-    assert [w.launches for w in wrappers] == [1, 1, 4, 1, 1, 1]
+    assert [w.launches for w in wrappers] == [2, 1, 4, 1, 1, 1]
     calls = len(recorder.calls)
     _, empty = both(*random_batch(np.random.default_rng(2), 0, 3, 8))
     depset.union(empty, empty)
     depset.size(empty)
     depset.contains(empty, 0, 0)
     assert len(recorder.calls) == calls
-    assert [w.launches for w in wrappers] == [1, 1, 4, 1, 1, 1]
+    assert [w.launches for w in wrappers] == [2, 1, 4, 1, 1, 1]

@@ -442,7 +442,7 @@ def _force_kernel_path(monkeypatch):
     monkeypatch.setattr(_build, "packed_library",
                         lambda name, keep_gil: recorder)
     monkeypatch.setattr(_build, "stream_handle", lambda index: 0)
-    for entry in (tw._K12, tw._K12_STAGED):
+    for entry in (tw._K12, tw._K12_STAGED, tw._K13, tw._K13_FORM):
         monkeypatch.setattr(entry, "fn", None)
     for wrapper in (tw.quorum_watermark, tw.contiguous_prefix_length):
         monkeypatch.setattr(wrapper, "launches", 0)
@@ -453,9 +453,10 @@ def test_kernel_path_arguments_and_launch_counts(monkeypatch):
     """With the kernel path forced on CPU tensors: each wrapper passes
     as many arguments as its C entry reads (K12's packed block of 10
     int64: watermarks, rows, n, the two strides, per-row sizes, scalar,
-    out, device, stream), the strides of the rows it was given, the
-    per-row quorum sizes or the scalar, and the element kind; an empty
-    batch launches and counts nothing."""
+    out, device, stream; K13's of 9: present, element kind, rows,
+    length, the two strides, out, device, stream), the strides of the
+    rows it was given, the per-row quorum sizes or the scalar, and the
+    element kind; an empty batch launches and counts nothing."""
     recorder = _force_kernel_path(monkeypatch)
     sig = _build.SIGNATURES["watermark"]
     m = torch.zeros((3, 5), dtype=torch.int32)
@@ -467,10 +468,11 @@ def test_kernel_path_arguments_and_launch_counts(monkeypatch):
                         torch.ones((2, 1), dtype=torch.int32))
     entry, args = recorder.calls[-1]
     assert args[1:5] == (8, 3, 3, 1) and args[5] != 0
-    tw.contiguous_prefix_length(torch.zeros((6, 7), dtype=torch.int8))
+    got = tw.contiguous_prefix_length(torch.zeros((6, 7), dtype=torch.int8))
     entry, args = recorder.calls[-1]
     assert entry == "fpx_contiguous_prefix_length"
-    assert len(args) == len(sig[entry]) and args[1:6] == (1, 6, 7, 7, 1)
+    assert sig[entry] is _build._B and len(args) == 9
+    assert args[1:6] == (1, 6, 7, 7, 1) and args[6] == got.data_ptr()
     assert tw.quorum_watermark.launches == 2
     assert tw.contiguous_prefix_length.launches == 1
     tw.quorum_watermark(torch.zeros((0, 3), dtype=torch.int32), 1)
