@@ -79,11 +79,21 @@ Phases, in order (any failure exits nonzero and prints no result):
      (``EpochSegmentedChecker.record_and_check_run``, 48 chunks a call)
      against a checker on the CPU, also right behind a release (K5) and
      an epoch reshape (K7) queued on the current stream behind a sleep;
-  9. K7 ``reshape_columns`` against its plain version: a [3, 2^20]
-     board to [4, 2^20] and to [2, 2^20];
-  10. K8 ``safe_values`` against its plain version: [2^16, 3] and
-     [2^16, 6] rounds with forced ties, all-NO_VOTE rows and the
-     Leader's pow2 padding rows: exact;
+  9. K7 ``reshape_columns`` against its plain version, exact: the
+     [3, 2^14] (tracker_lt's handover) and [3, 2^20] boards and rows of
+     1000 and 2^14 + 5 bytes to widened, permuted and shrunk universes,
+     through maps past N_old (clamped), below -1 and longer than the 64
+     rows that cross in the call's packed block; each map in the call
+     (numpy), on the card and into ``out=``; a block off the 16-byte
+     grid; a launch inside a side stream's context;
+  10. K8 ``safe_values`` against its plain version, exact, at [2^13, 3],
+     [2^16, 3], [2^16, 6], a ragged last tile ([2^13 + 77, 3]) and
+     N = 1, 2, 5, 9 (the generic form) and 17 (the wide form), with
+     forced ties, all-NO_VOTE rows, INT32_MIN / INT32_MAX rounds and the
+     Leader's padding rows: the lean wrapper, into ``out=`` and on
+     matrices off the 16-byte grid; the Leader's staged entry (the
+     kernel reading and writing pinned blocks in place), on
+     ``recovery_matrices``'s prefilled views and on other arrays;
   11. the main path, with every kernel's launch count set to 0 first:
      the headline (``frankenpaxos_tpu_torch.bench.headline``) at full
      size for both arms (2^30 commits each, commit count checked; each
@@ -319,7 +329,12 @@ Phases, in order (any failure exits nonzero and prints no result):
      and a drain's board updates whole; K19-K21 at rank 0 of each
      sharded mesh, telemetry off and on, with K19's and K20's forms, and
      K21 folding runs of 1, 8, 64 and 256 drains), and the K10 / K11 rows the
-     staged entries' error and each decision's host time.
+     staged entries' error and each decision's host time. K8's row is
+     the Leader's staged call at [2^13, 3] (the kernel reading and
+     writing pinned host memory, so its bound is the bytes over the host
+     link at 64 GB/s each way; its plain version takes the same numpy in
+     and out), with the lean tensor wrapper at [2^16, 3] in device
+     memory as its ``lean_wrapper`` figures.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -374,6 +389,9 @@ import torch
 WINDOW = 1 << 20
 BLOCK = 1 << 15
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+#: H100 SXM host link, PCIe Gen5 x16: 64 GB/s each way (NVIDIA's data
+#: sheet: 128 GB/s both ways), for a kernel that reads pinned host memory.
+PCIE_BYTES_PER_S = 64e9
 INT_OPS_PER_S = 67e12       # H100 non-tensor float32 peak, used for int ops
 SEED = 20261017
 #: Slice 3's steady and failover arms, cut from the bench's 2^16 writes
@@ -1279,53 +1297,150 @@ def _k6_runs(dev, rng, planes, boundaries) -> int:
     return worst
 
 
+#: K7's boards: the epoch board's [3, 2^14] (tracker_lt's handover) and
+#: [3, 2^20]; rows that are not a multiple of 16 bytes.
+K7_WIDTHS = (EPOCH_WINDOW, WINDOW)
+K7_ODD_WIDTHS = (1000, EPOCH_WINDOW + 5)
+#: (old universe, new universe): widened and permuted, shrunk, permuted.
+K7_UNIVERSES = (((0, 1, 2), (2, 0, 3, 1)), ((0, 1, 2), (1, 2)),
+                ((5, 9, 2), (2, 5, 9)))
+#: Maps past N_old (clamped), below -1, and past the 64 rows that cross
+#: in K7's packed block.
+K7_MAPS = ((7, 0, -3, 2, 3), tuple(range(-2, 62)),
+           tuple(range(-1, 99)), tuple(np.arange(300) % 7 - 2))
+
+
 def phase_k7(dev, rng) -> int:
-    """K7 against its plain version on a [3, 2^20] board, to [4, 2^20]
-    (a member added, rows permuted) and to [2, 2^20] (one dropped)."""
+    """K7 against its plain version, exact: the [3, 2^14] and [3, 2^20]
+    boards to widened, permuted and shrunk universes and through maps
+    past N_old, below -1 and longer than 64 rows, each map in the call
+    (numpy), on the card (a tensor) and into ``out=``; rows of 1000 and
+    2^14 + 5 bytes and a block off the 16-byte grid (the byte form); a
+    launch inside a side stream's context."""
     worst = 0
-    block = torch.from_numpy(rng.integers(0, 256, size=(3, WINDOW),
+
+    def check(block, cmap, what):
+        nonlocal worst
+        cmap_np = np.asarray(cmap, dtype=np.int32)
+        cmap_t = torch.from_numpy(cmap_np).to(dev)
+        want = tq.reshape_columns_plain(block, cmap_t)
+        out = torch.full_like(want, 77)
+        for form, got in (("host map", tq.reshape_columns(block, cmap_np)),
+                          ("device map", tq.reshape_columns(block, cmap_t)),
+                          ("out=", tq.reshape_columns(block, cmap_np,
+                                                      out=out))):
+            err = max_abs_err(got, want)
+            worst = max(worst, err)
+            require(err == 0, f"K7 differs from plain ({form}) for {what}")
+        require(tq.reshape_columns(block, cmap_np, out=out) is out,
+                "K7 did not return its out= tensor")
+
+    for width in K7_WIDTHS + K7_ODD_WIDTHS:
+        block = torch.from_numpy(rng.integers(
+            0, 256, size=(3, width), dtype=np.uint8)).to(dev)
+        for old, new in K7_UNIVERSES:
+            check(block, tq.epoch_column_map(old, new),
+                  f"[3, {width}]: {old} -> {new}")
+        for cmap in K7_MAPS:
+            check(block, cmap, f"[3, {width}]: a map of {len(cmap)} rows")
+    flat = torch.from_numpy(rng.integers(0, 256, size=3 * 4096 + 3,
+                                         dtype=np.uint8)).to(dev)
+    for cmap in K7_MAPS[:2]:
+        check(flat[3:].view(3, 4096), cmap, "a block off the 16-byte grid")
+    # The handover's block rewritten on a side stream just before the
+    # launch.
+    stale = torch.zeros((3, EPOCH_WINDOW), dtype=torch.uint8, device=dev)
+    fresh = torch.from_numpy(rng.integers(0, 256, size=(3, EPOCH_WINDOW),
                                           dtype=np.uint8)).to(dev)
-    for old, new in (((0, 1, 2), (2, 0, 3, 1)), ((0, 1, 2), (1, 2)),
-                     ((5, 9, 2), (2, 9, 7, 5))):
-        cmap = torch.from_numpy(tq.epoch_column_map(old, new)).to(dev)
-        err = max_abs_err(tq.reshape_columns(block, cmap),
-                          tq.reshape_columns_plain(block, cmap))
-        worst = max(worst, err)
-        require(err == 0, f"K7 differs from plain for {old} -> {new}")
+    cmap = tq.epoch_column_map((0, 1, 2), (0, 1, 2, 3))
+    side_stream_check(dev, "reshape_columns", stale, fresh,
+                      lambda: tq.reshape_columns(stale, cmap),
+                      tq.reshape_columns_plain(fresh,
+                                               torch.from_numpy(cmap)
+                                               .to(dev)))
     torch.cuda.synchronize(dev)
     return worst
 
 
 RECOVERY_ROWS = 1 << 16  # the cluster bench's recovery window
+FAILOVER_ROWS = 1 << 13  # the smoke's failover window (phase 12)
+#: K8's shapes: the smoke's and the bench's failover windows, the 2x3
+#: grid's columns, a ragged last tile, and the generic and wide forms.
+K8_CASES = ((1 << 13, 3), (RECOVERY_ROWS, 3), (RECOVERY_ROWS, 6),
+            ((1 << 13) + 77, 3), (5000, 1), (4097, 2), (3001, 5), (2999, 9),
+            (1031, 17))
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
 
 
-def _k8_inputs(rng, n: int, dev, pad: int = 4096):
-    """[2^16, n] rounds in [-1, 3] (ties everywhere, 1/8 all-NO_VOTE
-    rows, 1/8 rows at one round) and ids, with the last ``pad`` rows
-    the Leader's padding (NO_VOTE, id 0)."""
-    s = RECOVERY_ROWS
+def _k8_inputs(rng, n: int, dev, pad: int = 4096, rows: int = RECOVERY_ROWS):
+    """[rows, n] rounds in [-1, 3] (ties everywhere, 1/8 all-NO_VOTE
+    rows, 1/8 rows at one round, 1/16 of the rounds at INT32_MIN or
+    INT32_MAX) and ids, with the last ``pad`` rows the Leader's padding
+    (NO_VOTE, id 0)."""
+    s = rows
     rounds = rng.integers(-1, 4, size=(s, n)).astype(np.int32)
     ids = rng.integers(0, 1 << 20, size=(s, n)).astype(np.int32)
     rounds[rng.random(s) < 0.125] = tv.NO_VOTE
     same = rng.random(s) < 0.125
     rounds[same] = rng.integers(0, 4, size=(int(same.sum()), 1))
+    extreme = rng.random((s, n)) < 1 / 16
+    rounds[extreme] = np.where(rng.random(int(extreme.sum())) < 0.5,
+                               INT32_MIN, INT32_MAX)
     rounds[-pad:] = tv.NO_VOTE
     ids[-pad:] = 0
     return (torch.from_numpy(rounds).to(dev),
             torch.from_numpy(ids).to(dev))
 
 
-def phase_k8(dev, rng) -> int:
-    """K8 against its plain version on [2^16, 3] and [2^16, 6]."""
-    worst = 0
-    for n in (3, 6):
-        rounds, ids = _k8_inputs(rng, n, dev)
-        got = tv.safe_values(rounds, ids)
-        want = tv.safe_values_plain(rounds, ids)
+def phase_k8(dev, rng) -> dict:
+    """K8 against its plain version, exact, at every shape of
+    ``K8_CASES``: the lean wrapper (also into ``out=``, and on matrices
+    off the 16-byte grid: the scalar loads), and the Leader's staged
+    entry (the kernel reading and writing the pinned blocks in place) on
+    ``recovery_matrices``'s views and on other arrays; returns
+    ``{"safe_values": worst wrapper error, "safe_values_staged": worst
+    staged error}``."""
+    worst = {"safe_values": 0, "safe_values_staged": 0}
+
+    def note(key, got, want, what):
         err = max(max_abs_err(a, b) for a, b in zip(got, want))
-        worst = max(worst, err)
-        require(err == 0, f"K8 differs from plain at N={n}")
-        require(not got[0][-4096:].any(), "K8 voted on a padding row")
+        worst[key] = max(worst[key], err)
+        require(err == 0, f"K8 differs from plain: {what}")
+
+    for rows, n in K8_CASES:
+        pad = min(4096, rows // 4)
+        rounds, ids = _k8_inputs(rng, n, dev, pad=pad, rows=rows)
+        want = tv.safe_values_plain(rounds, ids)
+        what = f"[{rows}, {n}]"
+        got = tv.safe_values(rounds, ids)
+        note("safe_values", got, want, what)
+        require(not got[0][-pad:].any(), "K8 voted on a padding row")
+        out = (torch.ones(rows, dtype=torch.bool, device=dev),
+               torch.full((rows,), 7, dtype=torch.int32, device=dev))
+        got = tv.safe_values(rounds, ids, out=out)
+        require(got[0] is out[0] and got[1] is out[1],
+                "K8 did not return its out= tensors")
+        note("safe_values", got, want, what + " out=")
+        flat = torch.empty(2 * rows * n + 2, dtype=torch.int32,
+                           device=dev)
+        r_off = flat[1:1 + rows * n].view(rows, n)
+        i_off = flat[1 + rows * n:1 + 2 * rows * n].view(rows, n)
+        r_off.copy_(rounds)
+        i_off.copy_(ids)
+        note("safe_values", tv.safe_values(r_off, i_off), want,
+             what + " off the 16-byte grid")
+        r_np, i_np = rounds.cpu().numpy(), ids.cpu().numpy()
+        want_np = tuple(t.cpu() for t in want)
+        views = tv.recovery_matrices(rows, n, dev)
+        require(all((v == fill).all() for v, fill in
+                    zip(views, (tv.NO_VOTE, 0))),
+                "recovery_matrices did not prefill its views")
+        views[0][...], views[1][...] = r_np, i_np
+        for arrays in (views, (r_np, i_np)):
+            got = tv.safe_values_staged(*arrays, device=dev)
+            note("safe_values_staged",
+                 tuple(torch.from_numpy(a) for a in got), want_np,
+                 f"{what} staged")
     torch.cuda.synchronize(dev)
     return worst
 
@@ -3019,10 +3134,23 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     # K7: the epoch board's reshape at the handover, [3, W] -> [4, W].
     k7_block = torch.from_numpy((rng.random((3, EPOCH_WINDOW)) < 0.5)
                                 .astype(np.uint8)).to(dev)
-    k7_cmap = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=dev)
+    k7_cmap_np = np.asarray([0, 1, 2, -1], dtype=np.int32)
+    k7_cmap = torch.from_numpy(k7_cmap_np).to(dev)
 
-    # K8: the recovery window of the cluster's failover, [2^16, 3].
+    # K8: the Leader's staged call on the smoke's failover window,
+    # [2^13, 3], written into recovery_matrices' pinned views as the
+    # Leader writes them (its row); the lean wrapper on the bench's
+    # window, [2^16, 3] (the row's secondary figures).
     k8_rounds, k8_ids = _k8_inputs(rng, n, dev)
+    k8_np = tuple(t.cpu().numpy() for t in _k8_inputs(
+        rng, n, dev, pad=FAILOVER_ROWS // 4, rows=FAILOVER_ROWS))
+    k8_views = tv.recovery_matrices(FAILOVER_ROWS, n, dev)
+    k8_views[0][...], k8_views[1][...] = k8_np
+
+    def k8_plain():
+        got = tv.safe_values_plain(*(torch.from_numpy(a).to(dev)
+                                     for a in k8_np))
+        return tuple(t.cpu().numpy() for t in got)
 
     # K9/K10: depset_lt's drain batch, [4096, 3, 32]; K10 in seq mode:
     # the cluster's slow-path quorum, [4, 5, 8]; K11: the fast path's
@@ -3208,18 +3336,22 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          "check_batch_multi_kernel", (4 * kn + 5) * chunk + plane_bytes,
          (2 * kg * kn + kg) * chunk, epoch, f"{ref}:359",
          f"N={kn} K={kk} B={chunk}"),
-        ("reshape_columns", lambda: tq.reshape_columns(k7_block, k7_cmap),
+        ("reshape_columns",
+         lambda: tq.reshape_columns(k7_block, k7_cmap_np),
          lambda: tq.reshape_columns_plain(k7_block, k7_cmap),
-         "reshape_columns_kernel", (3 + 4) * EPOCH_WINDOW + 16,
+         "reshape_columns_kernel", (3 + 4) * EPOCH_WINDOW,
          4 * EPOCH_WINDOW, epoch, f"{ref}:441",
          f"[3, {EPOCH_WINDOW}] -> [4, {EPOCH_WINDOW}]"),
-        # Both matrices read once, a bool and an int32 written per row;
-        # N - 1 compares and a select per row.
-        ("safe_values", lambda: tv.safe_values(k8_rounds, k8_ids),
-         lambda: tv.safe_values_plain(k8_rounds, k8_ids),
-         "safe_values_kernel", (8 * n + 5) * RECOVERY_ROWS,
-         2 * n * RECOVERY_ROWS, "frankenpaxos_tpu_torch/ops/csrc/value.cu",
-         "frankenpaxos_tpu/ops/value.py:19", f"S={RECOVERY_ROWS} N={n}"),
+        # The Leader's staged call: both matrices read once from pinned
+        # host memory, a bool and an int32 a row written back there
+        # (bound: the link, ``over_pcie``); N - 1 compares and a select
+        # per row. Its plain version takes the same numpy in and out.
+        ("safe_values",
+         lambda: tv.safe_values_staged(*k8_views, device=dev), k8_plain,
+         "safe_values_kernel", (8 * n + 5) * FAILOVER_ROWS,
+         2 * n * FAILOVER_ROWS, "frankenpaxos_tpu_torch/ops/csrc/value.cu",
+         "frankenpaxos_tpu/ops/value.py:19",
+         f"S={FAILOVER_ROWS} N={n}, the Leader's staged call"),
         # K9-K11: the batch read once (B*L*(4+W) bytes), the output
         # written once; a few integer operations per tail byte.
         ("normalized", lambda: td.normalized(lt_batch),
@@ -3363,6 +3495,9 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
          f"{pinned_ref}:76 (L169, L185 after the slot psum)",
          f"S={sh_s}"),
     ]
+    # Rows whose kernel reads and writes pinned host memory: the bytes
+    # that cross the host link each way, which bound them.
+    over_pcie = {"safe_values": (8 * n * FAILOVER_ROWS, 5 * FAILOVER_ROWS)}
     out = []
     for (name, fn, plain, kname, nbytes, ops, source, replaces,
          shape) in cases:
@@ -3384,7 +3519,9 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         else:
             plain_ms = time_ms(plain, 200)
             dev_ms = device_ms(fn, kname)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = (max(over_pcie[name]) / PCIE_BYTES_PER_S
+                    if name in over_pcie
+                    else nbytes / HBM_BYTES_PER_S) * 1e3
         ops_ms = ops / INT_OPS_PER_S * 1e3
         by_path = {path: counts.get(name, 0)
                    for path, counts in paths.items()}
@@ -3418,6 +3555,11 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
                 "bound_us_per_drain": max(bytes_ms, ops_ms) * 1e3 / per,
                 "plain_ms_per_drain": plain_ms / per,
             })
+        if name in over_pcie:
+            out[-1]["bound_rate"] = (
+                f"the host link, {PCIE_BYTES_PER_S / 1e9:g} GB/s each way "
+                f"(PCIe Gen5 x16): {over_pcie[name][0]} bytes up, "
+                f"{over_pcie[name][1]} down")
         if turns is not None:
             out[-1]["in_turns_ms_blocks"] = {k: b for k, (_, b) in
                                             turns.items()}
@@ -3474,6 +3616,30 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
     # K21 folding runs of 1, 8, 64 and 256 drains in one launch each.
     next(r for r in out if r["name"] == "shard_fold")["runs_at_launch_shapes"] \
         = {key: fig["shard_fold_run"] for key, fig in sharded.items()}
+    # The forms K7 and K8 run at their rows' shapes, and where the
+    # Leader's staged K8 call reads its inputs.
+    next(r for r in out if r["name"] == "reshape_columns")["form"] = (
+        "16-byte words, the map in the call's block")
+    k8_row = next(r for r in out if r["name"] == "safe_values")
+    k8_row["form"] = (f"a CTA a tile of 256 rows, N = {n} form, 16-byte "
+                      f"loads of the pinned block in place (the staged "
+                      f"call: no copy)")
+    require(all(np.array_equal(a, b) for a, b in zip(
+        tv.safe_values_staged(*k8_views, device=dev), k8_plain())),
+            "K8's staged call differs from plain at its row's inputs")
+    # The lean tensor wrapper at the bench's window, in device memory
+    # (tests, benches and the smoke call it; the path does not).
+    lean = (lambda: tv.safe_values(k8_rounds, k8_ids))
+    lean_bytes = (8 * n + 5) * RECOVERY_ROWS
+    k8_row["lean_wrapper"] = {
+        "shape": f"S={RECOVERY_ROWS} N={n}", "ms": time_ms(lean, 2000),
+        "plain_ms": time_ms(lambda: tv.safe_values_plain(k8_rounds,
+                                                         k8_ids), 200),
+        "device_ms": device_ms(lean, "safe_values_kernel"),
+        "bound_ms": max(lean_bytes / HBM_BYTES_PER_S,
+                        2 * n * RECOVERY_ROWS / INT_OPS_PER_S) * 1e3,
+        "bound_by": "bytes", "bytes": lean_bytes,
+        "max_abs_err": errors["safe_values"]}
     # The forms K13 and K16's union run at their rows' shapes.
     next(r for r in out if r["name"] == "contiguous_prefix_length")[
         "form"] = tw.prefix_form(k13)
@@ -3486,6 +3652,7 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
                          ("all_equal", "all_equal_staged")):
         next(r for r in out if r["name"] == name)["staged_max_abs_err"] = \
             errors[staged]
+    k8_row["max_abs_err"] = errors["safe_values_staged"]
     return out
 
 
@@ -3555,11 +3722,15 @@ def main() -> int:
             f"== plain chunk calls, the int32 wrap, pad lanes; the staged "
             f"entry)")
         errors["reshape_columns"] = phase_k7(dev, rng)
-        phase(9, f"K7 reshape_columns == plain ([3, {WINDOW}] -> "
-            f"[4, {WINDOW}] and [2, {WINDOW}])")
-        errors["safe_values"] = phase_k8(dev, rng)
-        phase(10, f"K8 safe_values == plain ([{RECOVERY_ROWS}, 3] and "
-            f"[{RECOVERY_ROWS}, 6])")
+        phase(9, f"K7 reshape_columns == plain ([3, B] for B in "
+            f"{list(K7_WIDTHS + K7_ODD_WIDTHS)} to {len(K7_UNIVERSES)} "
+            f"universes and maps of {[len(m) for m in K7_MAPS]} rows, the "
+            f"map in the call, on the card and into out=; off the grid; a "
+            f"side stream)")
+        errors.update(phase_k8(dev, rng))
+        phase(10, f"K8 safe_values == plain at {list(K8_CASES)} (ties, "
+            f"NO_VOTE rows, INT32_MIN / INT32_MAX, out=, off the grid), "
+            f"the staged entry (the pinned blocks in place) too")
 
         result, votes, launches = phase_main_path(dev, rng)
         phase(11, f"main path on {name} ({smi}): headline "
@@ -3773,7 +3944,7 @@ def main() -> int:
         log(json.dumps({"block_sweep": sweep}))
 
         log(json.dumps({"drain_breakdown": result["timed_run"]}))
-        split = call_split.split(dev)
+        split = call_split.split(dev, parts=("k12_k18", "depset", "board"))
         log(json.dumps({"call_split": split}))
         kernels = phase_figures(dev, rng, {
             "headline_and_tracker": launches, "cluster": cluster_launches,

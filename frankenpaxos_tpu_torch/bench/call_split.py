@@ -1,5 +1,5 @@
-"""Host time of the K18, K12, K10, K11, K5 and K6 call paths, split by
-function, on one GPU.
+"""Host time of the K18, K12, K10, K11, K5, K6, K8 and K7 call paths,
+split by function, on one GPU.
 
 Each path is the real wrapper or entry, called ``CALLS`` times:
 
@@ -53,13 +53,32 @@ its drain), and the parts its drains carry: dense blocks, scatter
 chunks, segments (runs of one kind, in order) and checker calls a
 drain, whatever form the tree dispatches them in.
 
+The recovery and handover paths (``recovery``): the MultiPaxos
+Leader's ``_recover_values`` with ``phase1_backend="cuda"`` on the
+failover arm's recovery window (``bench/multipaxos_sim.py``: f = 1, one
+group; the two Phase1bs of a quorum, each reporting a round-0 vote of
+its own command batch for every slot of ``[0, rows)``) at 2^13 rows (the
+smoke's window) and 2^16 (the bench's), ``RECOVERY_ROWS`` times
+each on one Leader: the host seconds of its parts (``last_recovery``:
+building the matrices, the K8 call, mapping ids back), medians and
+minima, and the values checked against the host path's; and
+``EpochSegmentedChecker.add_epoch`` (K7's reshape of the live board and
+the host work around it) on tracker_lt's epoch checker (window 2^14, the
+universe widened from three acceptors to four), host ns per call over
+``HANDOVERS`` fresh checkers, each synchronised before the next.
+
 It times the calls, not copies of them, so it splits any checkout's
 wrappers alike: ``--tree ROOT`` imports ``frankenpaxos_tpu_torch`` from
 ``ROOT`` (another commit, for an A/B in one call), else from this
 checkout. Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/call_split.py [--tree ROOT] \\
-        [--paths k12_k18,depset,board]
+        [--paths k12_k18,depset,board,recovery]
+
+``--first-recovery ROWS`` instead times the FIRST recovery of a
+process (:func:`first_recovery`; run it in a fresh one), which pays
+what later ones reuse: the staging, the pinned blocks, the device
+buffers. Run it in turns, a fresh process each, to compare two trees.
 
 It prints ONE JSON line; ``chip_smoke.py``'s phase 28 calls
 :func:`split` on its own tree. It raises without a CUDA device.
@@ -94,7 +113,10 @@ CAPTURE_COMMANDS = 2048
 #: they are timed over fewer calls.
 COALESCED_WIDTHS = (256, 1024, 4096)
 COALESCED_CALLS = 200
-PARTS = ("k12_k18", "depset", "board")
+PARTS = ("k12_k18", "depset", "board", "recovery")
+#: The failover arm's recovery windows, and the replays of each.
+RECOVERY_ROWS = {1 << 13: 40, 1 << 16: 12}
+HANDOVERS = 400
 
 
 def _whole(fn, calls: int = CALLS) -> float:
@@ -524,6 +546,119 @@ def _drain_parts(dev) -> dict:
                                  for k in sorted(set(chunks))}}
 
 
+def _failover_phase1(rows: int):
+    """The Phase1 a new Leader of the failover arm gathers: the Phase1bs
+    of acceptors 0 and 1 (a quorum of f = 1), each a round-0 vote of
+    its own command batch for every slot of ``[0, rows)``."""
+    from frankenpaxos_tpu_torch.protocols.multipaxos import messages as tm
+    from frankenpaxos_tpu_torch.protocols.multipaxos.leader import _Phase1
+
+    values = [tm.CommandBatch((tm.Command(tm.CommandId("c", 0, slot),
+                                          b"f%d" % slot),))
+              for slot in range(rows)]
+    phase1bs = [{
+        acceptor: tm.Phase1b(group_index=0, acceptor_index=acceptor,
+                             round=1, info=tuple(
+                                 tm.Phase1bSlotInfo(slot=slot, vote_round=0,
+                                                    vote_value=values[slot])
+                                 for slot in range(rows)))
+        for acceptor in (0, 1)}]
+    return _Phase1(phase1bs=phase1bs, phase1b_acceptors=set(),
+                   pending_batches=[], resend_phase1as=None)
+
+
+def _recovery_paths(dev) -> dict:
+    """The Leader's recovery at each window and the epoch handover (the
+    module docstring)."""
+    import statistics
+
+    from frankenpaxos_tpu_torch.ops import quorum as tq
+    from frankenpaxos_tpu_torch.protocols.multipaxos.harness import (
+        make_multipaxos,
+    )
+    from frankenpaxos_tpu_torch.quorums import SimpleMajority
+
+    out: dict = {}
+    host = make_multipaxos(f=1, phase1_backend="host").leaders[0]
+    leader = make_multipaxos(f=1, phase1_backend="cuda",
+                             device=dev).leaders[0]
+    host.chosen_watermark = leader.chosen_watermark = 0
+    for rows, replays in RECOVERY_ROWS.items():
+        phase1 = _failover_phase1(rows)
+        want = host._recover_values(phase1, rows - 1)
+        parts = {"build_s": [], "call_s": [], "map_s": []}
+        for _ in range(replays):
+            if leader._recover_values(phase1, rows - 1) != want:
+                raise RuntimeError(f"the recovery of {rows} rows differs "
+                                   f"from the host path's")
+            for key, v in parts.items():
+                v.append(leader.last_recovery[key])
+        out[f"recovery/rows={rows}"] = {
+            "shape": leader.last_recovery["shape"], "replays": replays,
+            **{f"{key}_median": statistics.median(v)
+               for key, v in parts.items()},
+            **{f"{key}_min": min(v) for key, v in parts.items()}}
+    members = ((0, 1, 2), (0, 1, 3))
+    times = []
+    for _ in range(HANDOVERS):
+        checker = tq.EpochSegmentedChecker(
+            [SimpleMajority(members[0]).write_spec()], [0],
+            window=1 << 14, device=dev)
+        checker.board  # the board made and flushed, untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        checker.add_epoch(SimpleMajority(members[1]).write_spec(), 1 << 13)
+        times.append(time.perf_counter_ns() - t0)
+        torch.cuda.synchronize()
+    out["handover/add_epoch"] = {
+        "calls": HANDOVERS, "host_ns_median": statistics.median(times),
+        "host_ns_min": min(times), "universe": list(checker.universe)}
+    return out
+
+
+def first_recovery(rows: int, device=None) -> dict:
+    """The first and the second recovery of a cuda Leader in this
+    process on the failover arm's window of ``rows`` rows, each checked
+    against the host path: ``last_recovery``'s host seconds and their
+    sum, and the seconds the cuda cluster took to build (what a Leader
+    prepares for K8 at construction falls there). Before the Leader is
+    made, the CUDA context exists and K8's
+    library is loaded (a cluster's card has both by its first failover,
+    the library's load aside); nothing else of K8 is."""
+    from frankenpaxos_tpu_torch.device import nvidia_smi_line, \
+        resolve_device
+    from frankenpaxos_tpu_torch.ops import _build
+    from frankenpaxos_tpu_torch.protocols.multipaxos.harness import (
+        make_multipaxos,
+    )
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the first recovery is timed on a card; got "
+                           f"device {dev}")
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    _build.library("value")
+    host = make_multipaxos(f=1, phase1_backend="host").leaders[0]
+    t0 = time.perf_counter()
+    leader = make_multipaxos(f=1, phase1_backend="cuda",
+                             device=dev).leaders[0]
+    cluster_s = time.perf_counter() - t0
+    host.chosen_watermark = leader.chosen_watermark = 0
+    phase1 = _failover_phase1(rows)
+    want = host._recover_values(phase1, rows - 1)
+    out = {"rows": rows, "device": torch.cuda.get_device_name(dev),
+           "nvidia_smi": nvidia_smi_line(), "cluster_build_s": cluster_s}
+    for which in ("first", "second"):
+        if leader._recover_values(phase1, rows - 1) != want:
+            raise RuntimeError(f"the {which} recovery of {rows} rows "
+                               f"differs from the host path's")
+        got = dict(leader.last_recovery)
+        got["build_plus_call_s"] = got["build_s"] + got["call_s"]
+        out[which] = got
+    return out
+
+
 def split(device=None, parts=PARTS) -> dict:
     """Every path's whole time and split on ``device`` (``cuda`` when
     None): the K12 / K18 paths (``k12_k18``) and the dependency-set
@@ -561,6 +696,8 @@ def split(device=None, parts=PARTS) -> dict:
         out["board"] = _geo_paths(dev)
         out["pipelined"] = {**board_drains(dev),
                             "parts": _drain_parts(dev)}
+    if "recovery" in parts:
+        out["recovery"] = _recovery_paths(dev)
     if "depset" in parts:
         paths, out["depset_shapes"] = _depset_paths(dev)
         out["paths"].update(
@@ -577,10 +714,17 @@ def main(argv=None) -> int:
                              "checkout (default: this one)")
     parser.add_argument("--paths", default=",".join(PARTS),
                         help="comma-separated, of " + ",".join(PARTS))
+    parser.add_argument("--first-recovery", type=int, default=None,
+                        metavar="ROWS",
+                        help="time this process's first recovery of ROWS "
+                             "rows instead (first_recovery)")
     args = parser.parse_args(argv)
     root = args.tree or os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     sys.path.insert(0, os.path.abspath(root))
+    if args.first_recovery is not None:
+        print(json.dumps(first_recovery(args.first_recovery)), flush=True)
+        return 0
     print(json.dumps(split(parts=args.paths.split(","))), flush=True)
     return 0
 

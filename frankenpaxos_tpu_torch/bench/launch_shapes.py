@@ -1,4 +1,4 @@
-"""K1, K2, K4-K6, K10, K13, K16's union and K19-K21 at the shapes the
+"""K1, K2, K4-K8, K10, K13, K16's union and K19-K21 at the shapes the
 paths launch them, and the host split of the tracker drains that call
 them, on one GPU.
 
@@ -74,7 +74,7 @@ default), so that one call can measure a parent and its change alike:
 Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/launch_shapes.py [--tree ROOT] \\
-        [--parts drains,kernels|depset|board|sharded|libbench]
+        [--parts drains,kernels|depset|board|sharded|libbench|recovery]
 
   * ``sharded`` (the sharded drain's kernels on one process, no ranks
     spawned): K19 ``shard_vote_count`` and K20 ``shard_commit`` at rank
@@ -93,6 +93,22 @@ Run from the root of a checkout::
     each by CUDA events, the profiler and the host clock, with the form
     it runs (None where the tree names none) and its bound, and the union
     beside the two-call PyTorch composite (``torch.maximum`` and ``|``).
+
+  * ``recovery`` (the Leader's recovery and the epoch handover): K8
+    ``safe_values`` through its tensor wrapper at ``[2^13, 3]`` (the
+    smoke's failover window), ``[2^16, 3]`` (the bench's) and
+    ``[2^16, 6]``, beside the PyTorch composite ``torch.max(dim=1)``,
+    ``>`` and ``torch.gather``; the Leader's K8 call whole at 2^13 and
+    2^16 rows, host ns: the tree's ``safe_values_staged`` on the matrices
+    of ``recovery_matrices`` where the tree has it, else the parent's
+    sequence (two pageable copies up, the wrapper, two ``.cpu()``
+    reads), back to back and one call at a time after 20 ms of host
+    sleep (the card idle, as while the Leader builds the matrices); K7
+    ``reshape_columns`` at
+    ``[3, 2^14] -> [4, 2^14]`` (tracker_lt's handover) and ``[3, 2^20]
+    -> [4, 2^20]``, with the map on the card and (where the tree takes
+    one) the numpy map in the call, beside ``index_select`` on a
+    zero-padded block (the padding made once, outside the timing).
 
 It prints ONE JSON line, with the seconds the tree's kernels took to
 build (0 when they were built before). It raises without a CUDA device.
@@ -603,6 +619,131 @@ def libbench_kernels(device, rng=None) -> dict:
     return out
 
 
+#: K8's recovery windows (rows, acceptor columns) and K7's boards.
+K8_SHAPES = ((1 << 13, 3), (1 << 16, 3), (1 << 16, 6))
+K8_STAGED_ROWS = (1 << 13, 1 << 16)
+K7_WIDTHS = (1 << 14, 1 << 20)
+#: Rounds of the Leader's K8 call, and of single calls after
+#: ``K8_IDLE_S`` of host sleep.
+K8_TURNS = 3
+K8_IDLE_CALLS = 8
+K8_IDLE_S = 0.02
+
+
+def _recovery_inputs(rng, rows: int, n: int) -> tuple:
+    """``[rows, n]`` rounds in [-1, 3] (ties, 1/8 all-NO_VOTE rows) and
+    ids, as numpy int32."""
+    rounds = rng.integers(-1, 4, size=(rows, n)).astype(np.int32)
+    rounds[rng.random(rows) < 0.125] = -1
+    ids = rng.integers(0, 1 << 20, size=(rows, n)).astype(np.int32)
+    return rounds, ids
+
+
+def recovery_kernels(device, rng=None) -> dict:
+    """K8 and K7 at the recovery's and the handover's launch shapes, the
+    Leader's K8 call whole, and the PyTorch composites (the module
+    docstring): CUDA-event ms per call, the profiler's device ms per
+    launch, host ns per call and the bound (bytes: K8 (8N + 5) a row,
+    K7 N_old + N_new a column)."""
+    import torch
+    from frankenpaxos_tpu_torch.ops import quorum as tq
+    from frankenpaxos_tpu_torch.ops import value as tv
+
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    out: dict = {"k8": {}, "k8_call": {}, "k7": {}}
+
+    def figures(fn, kernel, nbytes):
+        dev_ms, per_call = _device_ms(fn, kernel)
+        return {"call_ms": _cuda_ms(fn), "device_ms": dev_ms,
+                "launches_per_call": per_call, "host_ns": _host_ns(fn),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+    for rows, n in K8_SHAPES:
+        r_np, i_np = _recovery_inputs(rng, rows, n)
+        r, i = (torch.from_numpy(a).to(device) for a in (r_np, i_np))
+        what = f"[{rows}, {n}]"
+        out["k8"][what] = figures(lambda r=r, i=i: tv.safe_values(r, i),
+                                  "safe_values_kernel",
+                                  (8 * n + 5) * rows)
+
+        def composite(r=r, i=i):
+            best, col = torch.max(r, dim=1)
+            return best > -1, torch.gather(i, 1, col[:, None])[:, 0]
+        out["k8"][what]["composite"] = {
+            "note": "torch.max(dim=1), > and torch.gather: three PyTorch "
+                    "calls, not a one-call equivalent",
+            **figures(composite, ("reduce_kernel", "elementwise_kernel"),
+                      (8 * n + 5) * rows)}
+    staged = getattr(tv, "safe_values_staged", None)
+    for rows in K8_STAGED_ROWS:
+        r_np, i_np = _recovery_inputs(rng, rows, 3)
+        if staged is None:
+            def call(r_np=r_np, i_np=i_np):
+                has_vote, chosen = tv.safe_values(
+                    torch.from_numpy(r_np).to(device),
+                    torch.from_numpy(i_np).to(device))
+                return has_vote.cpu().numpy(), chosen.cpu().numpy()
+            forms = {"parent_sequence": call}
+        else:
+            rounds, ids = tv.recovery_matrices(rows, 3, device)
+            rounds[...], ids[...] = r_np, i_np
+            forms = {"staged": lambda rounds=rounds, ids=ids: staged(
+                rounds, ids, device)}
+        want = tv.safe_values_plain(torch.from_numpy(r_np),
+                                    torch.from_numpy(i_np))
+        figs = {name: {"host_ns": []} for name in forms}
+        order = list(forms) + list(forms)[::-1]
+        for _ in range(K8_TURNS):
+            for name in order:
+                got = forms[name]()
+                if not (np.array_equal(got[0], want[0].numpy())
+                        and np.array_equal(got[1], want[1].numpy())):
+                    raise RuntimeError(f"K8 {name} at {rows} rows differs "
+                                       f"from the plain version")
+                figs[name]["host_ns"].append(_host_ns(forms[name], 200))
+        for name, fn in forms.items():
+            dev_ms, per_call = _device_ms(fn, "safe_values_kernel", 50)
+            figs[name].update(device_ms=dev_ms, launches_per_call=per_call)
+        # One call after the host has left the card idle for as long as
+        # the Leader's build of the matrices takes (tens of ms).
+        for _ in range(K8_IDLE_CALLS):
+            for name in order:
+                time.sleep(K8_IDLE_S)
+                t0 = time.perf_counter_ns()
+                forms[name]()
+                figs[name].setdefault("after_idle_host_ns", []).append(
+                    time.perf_counter_ns() - t0)
+        out["k8_call"][f"[{rows}, 3]"] = figs
+    block_maps = ((0, 1, 2, -1),)
+    has_host_map = hasattr(tq, "_K7")
+    for width in K7_WIDTHS:
+        block = torch.from_numpy(rng.integers(0, 256, size=(3, width),
+                                              dtype=np.uint8)).to(device)
+        padded = torch.cat([block, torch.zeros_like(block[:1])])
+        for cmap in block_maps:
+            cmap_np = np.asarray(cmap, dtype=np.int32)
+            cmap_t = torch.from_numpy(cmap_np).to(device)
+            index = torch.from_numpy(np.where(cmap_np < 0, 3, np.minimum(
+                cmap_np, 2)).astype(np.int64)).to(device)
+            what = f"[3, {width}] -> [{len(cmap)}, {width}]"
+            nbytes = (3 + len(cmap)) * width
+            fig = {"device_map": figures(
+                lambda b=block, m=cmap_t: tq.reshape_columns(b, m),
+                "reshape_columns_kernel", nbytes)}
+            if has_host_map:
+                fig["host_map"] = figures(
+                    lambda b=block, m=cmap_np: tq.reshape_columns(b, m),
+                    "reshape_columns_kernel", nbytes)
+            fig["composite"] = {
+                "note": "index_select on the block padded with a zero row "
+                        "(made once): one PyTorch call",
+                **figures(lambda p=padded, x=index: p.index_select(0, x),
+                          "indexSelect", nbytes)}
+            out["k7"][what] = fig
+    torch.cuda.synchronize()
+    return out
+
+
 def _epoch_lanes(rng, b: int) -> np.ndarray:
     """``b`` votes of the epoch arm's shape: 4096-slot runs of three
     acceptors (each slot voted by three of four nodes), with 10% of the
@@ -1006,6 +1147,8 @@ def main(argv=None) -> int:
         result["sharded"] = sharded_kernels(device)
     if "libbench" in parts:
         result["libbench"] = libbench_kernels(device)
+    if "recovery" in parts:
+        result["recovery"] = recovery_kernels(device)
     if "drains" in parts:
         result["drains"] = drains(device)
     print(json.dumps(result), flush=True)

@@ -19,9 +19,10 @@ and K4), which record an event instead of waiting (their caller waits on
 the event when it collects).
 
 The lean call path (:class:`Entry`, :func:`stream_handle`) serves the
-wrappers whose host cost is the call itself (K1, K2, K4, K5, K6, K10,
-K11, K12, K13, K16's union, K18, K19-K21, and the drain runs of K3, K14
-and the pinned copy): the entry point
+wrappers whose host cost is the call itself (K1, K2, K4-K8, K10, K11,
+K12, K13, K16's union, K18, K19-K21, and the drain runs of K3, K14 and
+the pinned copy; K6's stateless ``check_batch_multi`` is not one): the
+entry point
 is looked up once; its arguments cross as ONE packed block of int64
 (``struct`` bytes), which ctypes converts once instead of one argument
 at a time; a launch-only entry is called through a ``ctypes.PyDLL``
@@ -126,12 +127,20 @@ SIGNATURES = {
         # packed: the same, then the pinned lanes (and the held released
         # slots after them), the pinned newly, the held slots' count
         "fpx_record_and_check_epochs_staged": _B,
-        # block, n_old, b, cmap, n_new, out
-        "fpx_reshape_columns": [_P, _I, _L, _P, _I, _P, _I, _P],
+        # packed: block, n_old, b, n_new, out, the map on the card (or 0:
+        # the map's n_new int32 follow the block), device, stream
+        "fpx_reshape_columns": _B,
+        # the longest map the packed block may carry
+        "fpx_reshape_columns_map_max": [],
     },
     "value": {
-        # vote_rounds, value_ids, s, n, has_vote, value_id
-        "fpx_safe_values": [_P, _P, _L, _I, _P, _P, _I, _P],
+        # packed: vote_rounds, value_ids, s, n, has_vote, value_id,
+        # device, stream
+        "fpx_safe_values": _B,
+        # packed: the pinned block (rounds, ids, then value_id and
+        # has_vote), rows, n, device, stream; the kernel reads and
+        # writes it in place
+        "fpx_safe_values_staged": _B,
         # reply ids, valid, s, n, modal id, count
         "fpx_count_matching_replies": [_P, _P, _L, _I, _P, _P, _I, _P],
     },
@@ -386,7 +395,8 @@ class Entry:
 
 class Pair(NamedTuple):
     """A pinned host buffer and a device buffer of ``cap`` elements, the
-    host one's numpy view, and both pointers."""
+    host one's numpy view, and both pointers (``device_ptr`` 0 for a
+    pinned buffer alone, which a kernel reads and writes in place)."""
 
     cap: int
     host: np.ndarray
@@ -400,9 +410,9 @@ class Staging:
     named pinned-host / device buffer pairs, each grown to a power of two
     on demand, and a stream of its own. A staged C call drains the stream
     it ran on before it returns, so a buffer is free again when the next
-    call writes it. The transport-facing calls (K12, K18) and the EPaxos
-    / BPaxos decisions (K10, K11), whose inputs all come from the host,
-    run on this stream and so wait for their own work only, not for a
+    call writes it. The transport-facing calls (K12, K18), the EPaxos
+    / BPaxos decisions (K10, K11) and the Leader's recovery (K8), whose
+    inputs all come from the host, run on this stream and so wait for their own work only, not for a
     caller's queued work; the tracker calls (K1,
     K6), which read state on the card, run on PyTorch's current stream,
     behind the work that made that state."""
@@ -415,14 +425,19 @@ class Staging:
         self.stream_handle = self.stream.cuda_stream
         self.pairs: dict = {}
 
-    def pair(self, name: str, n: int, dtype: torch.dtype) -> Pair:
+    def pair(self, name: str, n: int, dtype: torch.dtype,
+             on_card: bool = True) -> Pair:
+        """The pair ``name`` of at least ``n`` elements; with
+        ``on_card=False``, its pinned buffer alone."""
         got = self.pairs.get(name)
         if got is None or got.cap < n:
             cap = 1 << max(5, (n - 1).bit_length())
             host = torch.empty(cap, dtype=dtype, pin_memory=True)
-            device = torch.empty(cap, dtype=dtype, device=self.device)
-            got = self.pairs[name] = Pair(cap, host.numpy(), host.data_ptr(),
-                                          device.data_ptr(), (host, device))
+            device = (torch.empty(cap, dtype=dtype, device=self.device)
+                      if on_card else None)
+            got = self.pairs[name] = Pair(
+                cap, host.numpy(), host.data_ptr(),
+                0 if device is None else device.data_ptr(), (host, device))
         return got
 
 

@@ -43,18 +43,27 @@
 //
 // K7 replaces _reshape_columns (L441): out[i, :] = block[cmap[i], :], or
 // a zero row where cmap[i] < 0 (an index past the end is clamped, as
-// jnp.clip does). It writes a NEW tensor: a permutation in place could
-// read a row another thread has already overwritten.
+// jnp.clip does). It writes a NEW tensor (or the caller's out, which may
+// not overlap the block): a permutation in place could read a row
+// another thread has already overwritten.
 //
 // Bound on the H100: K6 moves 20 bytes of lanes and one `newly` byte per
 // lane, the planes, and each distinct column's N + 9 bytes read and
 // written (about 1.2 KB of columns for a 256-lane chunk): a few
 // nanoseconds at 3.35 TB/s, so the launch and the chunks' barriers set
 // its time; a run of 48 chunks is one launch, not 48.
-// check_batch_multi moves (4N + 5) bytes per row; K7 moves (N_new +
-// N_old') bytes per column plus the map, bytes-bound at 3.35 TB/s
-// (about 2 us for a [3, 2^20] -> [4, 2^20] board). One thread per output
-// byte keeps each warp's loads and stores on neighbouring addresses.
+// check_batch_multi moves (4N + 5) bytes per row. K7 moves N_old' + N_new
+// bytes a column (N_old' the distinct source rows read), bytes-bound at
+// 3.35 TB/s: 2.19 us for a [3, 2^20] -> [4, 2^20] board, 0.034 us for the
+// epoch board's [3, 2^14], where one launch sets the time. So a thread
+// moves a 16-byte word of one output row (a zero row only stores), where
+// every row starts on the 16-byte grid (B a multiple of 16, both tensors
+// aligned; every board), else 16 bytes one at a time (any B, its tail
+// included); a row of the grid's y axis reads its source row from the
+// map. The map of up to kMapMax rows (far past any acceptor universe)
+// crosses in the call's packed block and reaches the kernel as a
+// parameter, so a handover queues no copy ahead of the launch; a longer
+// map, or a map already on the card, is read from device memory.
 
 #include <algorithm>
 #include <climits>
@@ -209,18 +218,48 @@ __global__ void __launch_bounds__(kRunThreads)
   }
 }
 
-__global__ void reshape_columns_kernel(const uint8_t* __restrict__ block,
-                                       int n_old, long long b,
-                                       const int32_t* __restrict__ cmap,
-                                       uint8_t* __restrict__ out) {
-  const long long col = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-  if (col >= b) return;
-  const int i = blockIdx.y;
-  const int32_t src = cmap[i];
-  out[i * b + col] =
-      src < 0 ? 0 : block[static_cast<long long>(min(src, n_old - 1)) * b +
-                          col];
+// The longest map K7's packed block carries (ops/quorum.py asks it of
+// fpx_reshape_columns_map_max).
+constexpr int kMapMax = 64;
+constexpr int kReshapeThreads = 256;
+
+struct ColumnMap {
+  int32_t src[kMapMax];
+};
+
+// kVec: 16-byte words (every row on the grid); kInParams: the map is
+// `map`, else `dmap` on the card.
+template <bool kVec, bool kInParams>
+__global__ void __launch_bounds__(kReshapeThreads)
+    reshape_columns_kernel(const uint8_t* __restrict__ block, int n_old,
+                           long long b, int n_new, const ColumnMap map,
+                           const int32_t* __restrict__ dmap,
+                           uint8_t* __restrict__ out) {
+  const long long first = (static_cast<long long>(blockIdx.x) *
+                           kReshapeThreads + threadIdx.x) * 16;
+  if (first >= b) return;
+  for (int i = blockIdx.y; i < n_new; i += gridDim.y) {
+    const int32_t src = kInParams ? map.src[i] : dmap[i];
+    const uint8_t* from =
+        block + static_cast<long long>(min(src, n_old - 1)) * b + first;
+    uint8_t* to = out + static_cast<long long>(i) * b + first;
+    if constexpr (kVec) {
+      const uint4 word = src < 0 ? make_uint4(0, 0, 0, 0)
+                                 : *reinterpret_cast<const uint4*>(from);
+      *reinterpret_cast<uint4*>(to) = word;
+    } else {
+      const int len = static_cast<int>(min(16LL, b - first));
+      uint8_t bytes[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        bytes[k] = src >= 0 && k < len ? from[k] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        if (k < len) to[k] = bytes[k];
+      }
+    }
+  }
 }
 
 MultiPred make_multi(const void* masks, const void* thresholds,
@@ -369,16 +408,49 @@ extern "C" int fpx_record_and_check_epochs_staged(const void* block) {
   return cudaStreamSynchronize(s);
 }
 
-extern "C" int fpx_reshape_columns(const void* block, int n_old,
-                                   long long b, const void* cmap, int n_new,
-                                   void* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+extern "C" int fpx_reshape_columns_map_max() { return kMapMax; }
+
+// K7. block: the board's votes [n_old, b], n_old, b, n_new, out
+// [n_new, b], the map on the card (0: the map follows the block as n_new
+// int32, n_new <= kMapMax), device, stream.
+extern "C" int fpx_reshape_columns(const void* packed) {
+  long long a[8];
+  std::memcpy(a, packed, sizeof a);
+  const long long b = a[2], n_new = a[3];
+  const int n_old = static_cast<int>(a[1]);
+  if (b <= 0 || n_new <= 0) return cudaSuccess;
+  if (n_old <= 0 || n_new > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = select_device(static_cast<int>(a[6]));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((b + FPX_THREADS - 1) / FPX_THREADS),
-                  static_cast<unsigned>(n_new));
-  reshape_columns_kernel<<<grid, FPX_THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(block), n_old, b,
-      static_cast<const int32_t*>(cmap), static_cast<uint8_t*>(out));
+  const auto* block = pointer<const uint8_t>(a[0]);
+  auto* out = pointer<uint8_t>(a[4]);
+  const auto* dmap = pointer<const int32_t>(a[5]);
+  ColumnMap map{};
+  if (dmap == nullptr) {
+    if (n_new > kMapMax) return cudaErrorInvalidValue;
+    std::memcpy(map.src, static_cast<const char*>(packed) + sizeof a,
+                static_cast<size_t>(n_new) * 4);
+  }
+  const long long words = (b + 15) / 16;
+  const long long blocks = (words + kReshapeThreads - 1) / kReshapeThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(std::min(n_new, 65535LL)));
+  const bool vec = b % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(block) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const cudaStream_t s = pointer<CUstream_st>(a[7]);
+  const int nn = static_cast<int>(n_new);
+  auto go = [&](auto kernel) {
+    kernel<<<grid, kReshapeThreads, 0, s>>>(block, n_old, b, nn, map, dmap,
+                                            out);
+  };
+  if (vec) {
+    dmap == nullptr ? go(reshape_columns_kernel<true, true>)
+                    : go(reshape_columns_kernel<true, false>);
+  } else {
+    dmap == nullptr ? go(reshape_columns_kernel<false, true>)
+                    : go(reshape_columns_kernel<false, false>);
+  }
   return cudaGetLastError();
 }

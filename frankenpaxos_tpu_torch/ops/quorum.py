@@ -59,6 +59,7 @@ all-reduce of the per-lane result per call (the sharded section below).
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import NamedTuple, Optional, Sequence
 import weakref
@@ -1580,31 +1581,96 @@ def reshape_columns_plain(block: torch.Tensor,
                        torch.zeros((), dtype=block.dtype))
 
 
-def reshape_columns(block: torch.Tensor, cmap: torch.Tensor) -> torch.Tensor:
-    """K7: gather the acceptor rows of a ``[N_old, B]`` uint8 block by the
-    ``[N_new]`` int32 map into a NEW ``[N_new, B]`` tensor. CUDA tensors
-    launch ``csrc/epoch.cu::reshape_columns_kernel``; CPU tensors take
-    :func:`reshape_columns_plain`."""
+#: K7's packed entry: 8 int64 (block, n_old, b, n_new, out, the map on
+#: the card or 0, device, stream), then the map's int32 when it crosses
+#: in the block (up to :func:`reshape_map_max` rows).
+_K7 = _build.Entry("epoch", "fpx_reshape_columns", 8)
+
+
+@functools.cache
+def reshape_map_max() -> int:
+    """The longest map K7's packed block carries: the C entry's
+    ``kMapMax``, asked of the library at the first launch."""
+    return _build.library("epoch").fpx_reshape_columns_map_max()
+
+
+def _check_reshape(block: torch.Tensor, cmap) -> None:
     if block.dtype != torch.uint8 or block.dim() != 2 \
             or block.shape[0] < 1:
         raise ValueError(f"block must be [N_old >= 1, B] uint8, got "
                          f"{block.dtype} {tuple(block.shape)}")
-    if cmap.dtype != torch.int32 or cmap.dim() != 1:
+    if not _int32_map(cmap) or cmap.ndim != 1:
         raise ValueError("cmap must be [N_new] int32")
-    if not use_kernel(block, cmap):
-        return reshape_columns_plain(block, cmap)
-    if not (block.is_contiguous() and cmap.is_contiguous()):
+
+
+def _int32_map(cmap) -> bool:
+    return cmap.dtype == (np.int32 if isinstance(cmap, np.ndarray)
+                          else torch.int32)
+
+
+def _check_reshape_out(out: torch.Tensor, block: torch.Tensor,
+                       n_new: int) -> torch.Tensor:
+    b = block.shape[1]
+    if out.dtype is not torch.uint8 or tuple(out.shape) != (n_new, b) \
+            or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous [{n_new}, {b}] uint8 "
+                         f"tensor, got {out.dtype} {tuple(out.shape)}")
+    lo, hi = out.data_ptr(), out.data_ptr() + out.numel()
+    if out.numel() and block.numel() and lo < block.data_ptr() \
+            + block.numel() and block.data_ptr() < hi:
+        raise ValueError("reshape_columns: out overlaps the block")
+    return out
+
+
+def reshape_columns(block: torch.Tensor, cmap,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """K7: gather the acceptor rows of a ``[N_old, B]`` uint8 block by the
+    ``[N_new]`` int32 map into a NEW ``[N_new, B]`` tensor, or into
+    ``out`` (a contiguous ``[N_new, B]`` uint8 tensor on the block's
+    device that does not overlap it), which is returned. ``cmap`` is a
+    host map (a numpy array or a CPU tensor) or a tensor on the block's
+    card. CUDA blocks launch ``csrc/epoch.cu::reshape_columns_kernel``
+    through the lean call path: a host map of up to
+    :func:`reshape_map_max` rows crosses in the call's packed block (no
+    copy is queued ahead of the launch), a longer one is staged to the
+    card first, and a map on the card is read there. CPU blocks take
+    :func:`reshape_columns_plain`."""
+    _check_reshape(block, cmap)
+    host = cmap if isinstance(cmap, np.ndarray) \
+        else cmap.numpy() if cmap.device.type == "cpu" else None
+    index = block.get_device()
+    if index < 0 or (host is None and cmap.get_device() != index) \
+            or (out is not None and out.get_device() != index):
+        if not use_kernel(block, *(() if host is not None else (cmap,)),
+                          *(() if out is None else (out,))):
+            got = reshape_columns_plain(
+                block, torch.from_numpy(host) if host is not None else cmap)
+            return got if out is None else \
+                _check_reshape_out(out, block, got.shape[0]).copy_(got)
+    if not block.is_contiguous() or (host is None
+                                     and not cmap.is_contiguous()):
         raise ValueError("reshape_columns needs contiguous tensors")
     n_old, b = block.shape
     n_new = cmap.shape[0]
-    out = torch.empty((n_new, b), dtype=torch.uint8, device=block.device)
+    if out is None:
+        out = block.new_empty((n_new, b))
+    else:
+        _check_reshape_out(out, block, n_new)
     if n_new == 0 or b == 0:
         return out
-    lib = _build.library("epoch")
-    rc = lib.fpx_reshape_columns(block.data_ptr(), n_old, b, cmap.data_ptr(),
-                                 n_new, out.data_ptr(),
-                                 *_build.stream_args(block.device))
-    _build.check("epoch", "fpx_reshape_columns", rc)
+    tail = b""
+    if host is None:
+        dmap = cmap.data_ptr()
+    elif n_new <= reshape_map_max():
+        dmap, tail = 0, np.ascontiguousarray(host).tobytes()
+    else:
+        staged = stage(host, block.device)
+        dmap = staged.data_ptr()
+    fn = _K7.fn or _K7.resolve()
+    rc = fn(_K7.pack(block.data_ptr(), n_old, b, n_new, out.data_ptr(),
+                     dmap, index, _build.stream_handle(index)) + tail)
+    if rc:
+        _K7.check(rc)
     reshape_columns.launches += 1
     return out
 
@@ -1619,9 +1685,8 @@ def reshape_block(block: np.ndarray, old_universe, new_universe,
     run on ``device`` (``cuda`` when None)."""
     device = resolve_device(device)
     cmap = epoch_column_map(old_universe, new_universe)
-    return reshape_columns(
-        stage(np.asarray(block, dtype=np.uint8), device),
-        stage(cmap, device)).cpu().numpy()
+    return reshape_columns(stage(np.asarray(block, dtype=np.uint8), device),
+                           cmap).cpu().numpy()
 
 
 # --- the sharded board: the slot axis over a mesh -------------------------------
@@ -2212,10 +2277,9 @@ def _reshape_board(board: VoteBoard, old_universe,
     """The board with its acceptor rows gathered onto ``new_universe``
     by K7; the slot-axis state is kept. A sharded board's reshape is the
     same call on its local columns (the acceptor axis is whole on every
-    rank), with no collective."""
-    cmap = epoch_column_map(old_universe, new_universe)
+    rank), with no collective. The map crosses in K7's call itself."""
     return board._replace(votes=reshape_columns(
-        board.votes, stage(cmap, board.votes.device)))
+        board.votes, epoch_column_map(old_universe, new_universe)))
 
 
 class EpochSegmentedChecker(_HeldReleases):

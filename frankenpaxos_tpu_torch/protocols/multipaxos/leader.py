@@ -21,10 +21,11 @@ Reference behavior: multipaxos/Leader.scala:95-723. A state machine over
 Phase-1 recovery runs on the host (``phase1_backend="host"``, the
 reference's per-slot scan) or as one K8 reduction on the GPU
 (``"cuda"``, ``ops/value.py``); the reference's ``"tpu"`` is refused.
-Not ported yet (ROADMAP.md, the next slice), and refused: admission
-control (the ``admission_*`` options), epoch-tagged proposals and the
-reconfiguration messages, and the ingest fabric (IngestRun and the
-client wire sinks; no such message exists in the port).
+Not ported yet, and refused: admission control (the ``admission_*``
+options; ROADMAP.md, queue 1 item 8.1), epoch-tagged proposals and the
+reconfiguration messages (queue 1 item 4), and the ingest fabric
+(IngestRun and the client wire sinks, queue 1 item 8.2; no such message
+exists in the port).
 """
 
 from __future__ import annotations
@@ -68,8 +69,6 @@ from frankenpaxos_tpu_torch.reconfig import RECONFIG_MESSAGES
 from frankenpaxos_tpu_torch.roundsystem import ClassicRoundRobin
 from frankenpaxos_tpu_torch.runtime import Actor, Collectors, FakeCollectors, Logger
 from frankenpaxos_tpu_torch.runtime.transport import Address, Transport
-import numpy as np
-import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +88,8 @@ class LeaderOptions:
     election_options: ElectionOptions = ElectionOptions()
     measure_latencies: bool = True
     # "host": the reference's per-slot safeValue scan. "cuda": one
-    # batched K8 (ops/value.safe_values) over the whole recovery window.
+    # batched K8 (ops/value.safe_values_staged) over the whole recovery
+    # window.
     phase1_backend: str = "host"
     # Epoch-tagged proposals (reconfiguration): not ported yet; True is
     # refused.
@@ -146,16 +146,20 @@ class Leader(Actor):
                 f"{options.phase1_backend!r}")
         if options.admission_armed():
             raise NotImplementedError(
-                "admission control is not ported yet (ROADMAP.md, the "
-                "next slice: admission)")
+                "admission control is not ported yet (ROADMAP.md, queue "
+                "1 item 8.1: admission)")
         if options.epoch_tag_runs:
             raise NotImplementedError(
                 "epoch-tagged proposals are not ported yet (ROADMAP.md, "
-                "the next slice: reconfiguration)")
+                "queue 1 item 4: reconfiguration)")
         # K8's device: resolved now, so that "cuda" without a GPU (and
         # no device named) fails at construction, not at a failover.
         self.device = (resolve_device(device)
                        if options.phase1_backend == "cuda" else None)
+        if self.device is not None:
+            # K8's staging (its stream) and C entry made now, not at
+            # the first failover.
+            value_ops.recovery_staging(self.device)
         super().__init__(address, transport, logger)
         config.check_valid()
         logger.check(address in config.leader_addresses)
@@ -215,10 +219,11 @@ class Leader(Actor):
 
         The host path replays the reference's per-slot scan; the cuda path
         lifts the whole recovery window into one ``[S, N]`` reduction
-        (K8, ops/value.safe_values) -- votes become (round, value-id)
-        matrices, the device returns each slot's highest-round value id,
-        and the host maps ids back to values (Leader.scala:504-576's
-        scan as a single reduction).
+        (K8, ops/value.safe_values_staged) -- votes are written straight
+        into the (round, value-id) matrices of K8's pinned block, ONE
+        staged call returns each slot's highest-round value id, and the
+        host maps ids back to values (Leader.scala:504-576's scan as a
+        single reduction); on ``device="cpu"`` the plain version.
         """
         # Non-flexible mode partitions slots over acceptor groups
         # (slot % G owns the slot); in FLEXIBLE mode the "groups" are
@@ -239,9 +244,9 @@ class Leader(Actor):
         padded = 1
         while padded < num_slots:
             padded *= 2
-        vote_rounds = np.full((padded, n_cols), value_ops.NO_VOTE,
-                              dtype=np.int32)
-        value_ids = np.zeros((padded, n_cols), dtype=np.int32)
+        # NO_VOTE / 0 prefilled; on a card, views of K8's pinned block.
+        vote_rounds, value_ids = value_ops.recovery_matrices(
+            padded, n_cols, self.device)
         values_by_id: list = []
         id_by_value: dict = {}
         for group_index, group in enumerate(phase1.phase1bs):
@@ -264,11 +269,10 @@ class Leader(Actor):
                     vote_rounds[row, col] = info.vote_round
                     value_ids[row, col] = vid
         t1 = time.perf_counter()
-        has_vote, chosen = value_ops.safe_values(
-            torch.from_numpy(vote_rounds).to(self.device),
-            torch.from_numpy(value_ids).to(self.device))
-        has_vote = has_vote.cpu().numpy()[:num_slots]
-        chosen = chosen.cpu().numpy()[:num_slots]
+        has_vote, chosen = value_ops.safe_values_staged(
+            vote_rounds, value_ids, self.device)
+        has_vote = has_vote[:num_slots]
+        chosen = chosen[:num_slots]
         t2 = time.perf_counter()
         values = [values_by_id[vid] if hit else NOOP
                   for hit, vid in zip(has_vote.tolist(), chosen.tolist())]
@@ -447,7 +451,7 @@ class Leader(Actor):
         if isinstance(message, RECONFIG_MESSAGES):
             raise NotImplementedError(
                 f"{type(message).__name__}: actor-side reconfiguration is "
-                f"not ported yet (ROADMAP.md, the next slice: "
+                f"not ported yet (ROADMAP.md, queue 1 item 4: "
                 f"reconfiguration)")
         self.logger.fatal(f"unexpected leader message {message!r}")
 
@@ -465,7 +469,7 @@ class Leader(Actor):
         if phase1b.epochs:
             raise NotImplementedError(
                 "Phase1b reports epochs: actor-side reconfiguration is "
-                "not ported yet (ROADMAP.md, the next slice: "
+                "not ported yet (ROADMAP.md, queue 1 item 4: "
                 "reconfiguration)")
         phase1.by_addr[src] = phase1b
         phase1.phase1bs[phase1b.group_index][phase1b.acceptor_index] \

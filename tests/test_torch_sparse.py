@@ -264,7 +264,7 @@ def test_launch_counts_only_launches(index, monkeypatch):
     monkeypatch.setattr(tq._build, "library", _no_library)
     monkeypatch.setattr(tq._build, "packed_library",
                         lambda name, keep_gil: _no_library(name))
-    for entry in (tq._K1, tq._K6):
+    for entry in (tq._K1, tq._K6, tq._K7):
         monkeypatch.setattr(entry, "fn", None)
     monkeypatch.setattr(wrapper, "launches", 0)
     call(0)
