@@ -310,7 +310,7 @@ Phases, in order (any failure exits nonzero and prints no result):
      drain run's bytes are its state's, read and written once, with the
      reference's (5N+17)·B bytes a drain beside it as
      ``reference_bytes``) and the launches of phases 11, 12, 14, 16, 18,
-     21, 23-24, 25 and 26 (K13's and K16 union's rows with the form
+     21, 23-24, 25, 26 and 29 (K13's and K16 union's rows with the form
      they run; K3, K14 and the pinned copy with their drains
      beside their launches, each figure per drain too, and the device µs
      a drain of every form of phases 5 and 17), printed as one
@@ -334,7 +334,30 @@ Phases, in order (any failure exits nonzero and prints no result):
      writing pinned host memory, so its bound is the bytes over the host
      link at 64 GB/s each way; its plain version takes the same numpy in
      and out), with the lean tensor wrapper at [2^16, 3] in device
-     memory as its ``lean_wrapper`` figures.
+     memory as its ``lean_wrapper`` figures;
+  29. MultiPaxos over real loopback TCP
+     (``protocols/multipaxos/supernode.py``), with every count set to 0
+     first and the native wire codec loaded (else it fails): first, a
+     checker built on this thread records one vote behind a long sleep
+     queued on this thread's stream, then a TcpTransport's event-loop
+     thread records a second vote for the same slot, which must choose
+     it (the two threads' calls ordered on one stream); then f = 1 in
+     ``deploy.py``'s ``cluster(1, ...)`` layout (2 leaders, 2 proxy
+     leaders, 3 acceptors, 2 replicas on one TcpTransport; 4 clients on
+     another), 2^12 closed-loop writes an arm (64 in flight a client),
+     the Leaders on ``phase1_backend="cuda"``, the ProxyLeaders on the
+     ``"dict"`` tracker, the ``"cuda"`` tracker synchronous and the
+     ``"cuda"`` tracker pipelined (its collector thread); in every arm
+     each write answered once with its AppendLog index, the replicas'
+     executed logs equal and complete, no error and no collector error
+     logged; each cuda arm's executed set equal to the dict arm's, K1
+     launched on the synchronous arm's traffic and K2 on the pipelined
+     arm's; writes/s and p50 / p99 write latency per arm; its launches
+     join the kernels line's rows (path ``tcp_cluster``);
+  30. the transport_lt twin (``bench/transport_lt.py``) at widths 16, 256
+     and 1024, one rep: per_frame against batched cmds/s, syscalls/cmd,
+     frames/cmd and bytes/drain; a lost or wrong reply or a logged error
+     fails it; the reference's two gates printed, not enforced.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -349,6 +372,7 @@ import time
 import warnings
 
 import frankenpaxos_tpu_torch
+from frankenpaxos_tpu_torch import native
 from frankenpaxos_tpu_torch.bench import (
     block_sweep,
     bpaxos_sim,
@@ -367,6 +391,7 @@ from frankenpaxos_tpu_torch.bench import (
     sim_core_ab,
     telemetry_overhead,
     tracker_lt,
+    transport_lt,
 )
 from frankenpaxos_tpu_torch.device import nvidia_smi_line
 from frankenpaxos_tpu_torch.geo import GeoTopology
@@ -380,9 +405,14 @@ from frankenpaxos_tpu_torch.ops import (
     value as tv,
     watermark as tw,
 )
-from frankenpaxos_tpu_torch.protocols.multipaxos import quorum_tracker as qt
+from frankenpaxos_tpu_torch.protocols.multipaxos import (
+    quorum_tracker as qt,
+    supernode,
+)
 from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority, ZoneGrid
 from frankenpaxos_tpu_torch.quorums.spec import ALL, ANY, pad_specs, QuorumSpec
+from frankenpaxos_tpu_torch.runtime import FakeLogger
+from frankenpaxos_tpu_torch.runtime.tcp_transport import TcpTransport
 import numpy as np
 import torch
 
@@ -414,7 +444,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/28] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/30] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1898,10 +1928,11 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
 
 
 #: The runs whose launches the kernels line counts: phases 11, 12, 14,
-#: 16, 18, 21, 23-24, 25 and 26 (``*_traffic`` entries of
+#: 16, 18, 21, 23-24, 25, 26 and 29 (``*_traffic`` entries of
 #: ``launches_by_path`` are subsets of these).
 MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
-              "telemetry", "libbench", "geo", "sharded", "sharded_board")
+              "telemetry", "libbench", "geo", "sharded", "sharded_board",
+              "tcp_cluster")
 #: The kernels of the telemetry path (phase 18) and of the libbench path
 #: (phase 21).
 TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
@@ -3528,7 +3559,7 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(by_path[path] for path in MAIN_PATHS),
+            "launches": sum(by_path.get(path, 0) for path in MAIN_PATHS),
             "launches_by_path": by_path,
             "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -3654,6 +3685,126 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
             errors[staged]
     k8_row["max_abs_err"] = errors["safe_values_staged"]
     return out
+
+
+#: Phase 29's load: the supernode's ``CLIENTS`` closed-loop clients, each
+#: with TCP_PSEUDONYMS writes in flight, TCP_WRITES writes an arm.
+TCP_WRITES = 1 << 12
+TCP_PSEUDONYMS = 64
+TCP_ARMS = {
+    "dict": dict(quorum_backend="dict", phase1_backend="cuda"),
+    "cuda_sync": dict(quorum_backend="cuda", phase1_backend="cuda"),
+    "cuda_pipelined": dict(quorum_backend="cuda", tpu_pipelined=True,
+                           phase1_backend="cuda"),
+}
+#: The kernel each cuda arm must launch on its traffic.
+TCP_ARM_KERNEL = {"cuda_sync": "quorum_hit", "cuda_pipelined": "record_block"}
+#: Phase 29's queued sleep: long enough that a board call left unordered
+#: behind it would run first.
+TCP_QUEUED_SLEEP_CYCLES = 200_000_000
+
+
+def _tcp_stream_order(dev) -> dict:
+    """A tracker's board is used from two host threads under TCP: built
+    (and prewarmed) where the roles are built, drained on the transport's
+    event-loop thread. Both threads' current stream must be one stream,
+    so that every board call is ordered: a checker built here records
+    acceptor 0's vote for slot 5 behind a long sleep on this thread's
+    stream, and then, on a TcpTransport's loop thread, acceptor 1's vote
+    for the same slot. Ordered, the loop thread's call chooses the slot
+    (it sees both votes) and this thread's does not; unordered, the loop
+    thread's call would run first and choose nothing."""
+    spec = specs()["majority3"]
+    checker = tq.TpuQuorumChecker(spec, window=4096, device=dev)
+    transport = TcpTransport(logger=FakeLogger())
+    transport.start()
+    try:
+        index = dev.index or 0
+        here = _build.stream_handle(index)
+        there = supernode.on_loop(transport,
+                                   lambda: _build.stream_handle(index))
+        require(here == there, f"the event-loop thread's current stream "
+                f"{there} is not this thread's {here}")
+
+        def vote(node: int):
+            run = checker.board_run([("dense", [(0, 64, 0)])])
+            run.block[node, int(run.offsets[0]) + 5] = 1
+            return run.dispatch()
+
+        torch.cuda._sleep(TCP_QUEUED_SLEEP_CYCLES)
+        first = vote(0)
+        second = supernode.on_loop(transport, lambda: vote(1))
+        loop_chose = bool(supernode.on_loop(
+            transport, lambda: second.wait()[5]))
+        main_chose = bool(first.wait()[5])
+        first.free()
+        second.free()
+    finally:
+        transport.stop()
+    require(loop_chose and not main_chose,
+            f"board calls from two threads were not ordered: the loop "
+            f"thread's call chose {loop_chose}, this thread's {main_chose}")
+    return {"stream": here, "loop_thread_chose": loop_chose,
+            "main_thread_chose": main_chose}
+
+
+def phase_tcp(dev) -> tuple[dict, dict, dict]:
+    """MultiPaxos over real loopback TCP on the card
+    (``protocols/multipaxos/supernode.py``): f = 1 in ``deploy.py``'s
+    ``cluster(1, ...)`` layout, the native codec loaded, TCP_WRITES
+    closed-loop writes an arm. ``supernode.run_arm`` checks each arm
+    (every write answered once, the replicas' logs equal and complete, no
+    error and no collector error logged); here each cuda arm's executed
+    set must equal the dict arm's and launch its kernel. The launch counts
+    are set to 0 first and read after the three arms."""
+    require(native.load() is not None,
+            f"the native codec did not load: {native.load_error()}")
+    stream = _tcp_stream_order(dev)
+    reset_launches()
+    arms: dict = {}
+    executed: dict = {}
+    for arm, options in TCP_ARMS.items():
+        before = {name: w.launches for name, w in WRAPPERS.items()}
+        try:
+            result = supernode.run_arm(TCP_WRITES, TCP_PSEUDONYMS,
+                                       device=dev, **options)
+        except supernode.GateFailure as exc:
+            raise SmokeFailure(f"tcp {arm}: {exc}") from exc
+        executed[arm] = result.pop("executed")
+        result["launches"] = {name: w.launches - before[name]
+                              for name, w in WRAPPERS.items()
+                              if w.launches - before[name]}
+        arms[arm] = result
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    for arm, kernel in TCP_ARM_KERNEL.items():
+        require(executed[arm] == executed["dict"],
+                f"tcp {arm}: the executed commands differ from the dict "
+                f"arm's")
+        require(arms[arm]["launches"].get(kernel, 0) > 0,
+                f"tcp {arm}: {kernel} never launched on the arm's traffic: "
+                f"{arms[arm]['launches']}")
+    return {"arms": arms, "writes": TCP_WRITES,
+            "native_codec": native.library_path(),
+            "stream_order": stream}, launches, executed
+
+
+def phase_transport(dev) -> dict:
+    """The transport_lt twin, short: widths 16, 256 and 1024, one rep;
+    a lost reply, a wrong reply or a logged error fails it inside
+    ``run``."""
+    try:
+        return transport_lt.run(transport_lt.SMOKE_WIDTHS, reps=1,
+                                smoke=True)
+    except transport_lt.GateFailure as exc:
+        raise SmokeFailure(f"transport_lt: {exc}") from exc
+
+
+def add_path_launches(kernels: list, path: str, counts: dict) -> None:
+    """Count a path run after the per-kernel figures into their rows."""
+    for row in kernels:
+        row["launches_by_path"][path] = counts.get(row["name"], 0)
+        row["launches"] = sum(row["launches_by_path"][p]
+                              for p in MAIN_PATHS)
 
 
 def main() -> int:
@@ -4015,7 +4166,41 @@ def main() -> int:
             + "; whole calls (host ns): "
             + ", ".join(f"{k} {v['whole_ns']:.0f}"
                         for k, v in split["paths"].items())
-            + f"; {time.perf_counter() - T0:.1f} s in all")
+            + f"; {time.perf_counter() - T0:.1f} s so far")
+
+        tcp, tcp_launches, _ = phase_tcp(dev)
+        add_path_launches(kernels, "tcp_cluster", tcp_launches)
+        phase(29, f"MultiPaxos over TCP on {name} ({smi}), native codec "
+            f"{tcp['native_codec']}: {TCP_WRITES} writes an arm, "
+            f"{supernode.CLIENTS} clients x {TCP_PSEUDONYMS} in flight; "
+            + "; ".join(f"{arm} {fig['writes_per_sec']:.0f} writes/s, p50 "
+                        f"{fig['latency_p50_ms']:.3f} ms, p99 "
+                        f"{fig['latency_p99_ms']:.3f} ms, launches "
+                        f"{fig['launches']}"
+                        for arm, fig in tcp["arms"].items())
+            + f"; each cuda arm's executed set == the dict arm's; board "
+            f"calls from the main and the event-loop thread ordered on "
+            f"one stream; launches "
+            + str({k: v for k, v in tcp_launches.items() if v}))
+        log(json.dumps({"tcp_cluster": tcp}))
+        lt = phase_transport(dev)
+        phase(30, f"transport_lt on {name} ({smi}): "
+            + "; ".join(f"{w}: per_frame {p['per_frame']['cmds_per_s']:.0f}"
+                        f" / batched {p['batched']['cmds_per_s']:.0f} "
+                        f"cmds/s ({p['throughput_ratio']:.2f}x), "
+                        f"syscalls/cmd "
+                        f"{p['per_frame']['syscalls_per_cmd']:.4f} -> "
+                        f"{p['batched']['syscalls_per_cmd']:.4f} "
+                        f"({p['syscall_reduction']:.1f}x), frames/cmd "
+                        f"{p['batched']['frames_per_cmd']:.4f}, bytes/drain "
+                        f"{p['batched']['bytes_per_drain']:.0f}"
+                        for w, p in lt["pairs"].items())
+            + f"; the reference's gates (measured, not enforced): "
+            f"batched >= 2x at >= 256 {lt['gates']['throughput_2x_passed']}"
+            f", syscalls/cmd 10x lower at 1024 "
+            f"{lt['gates']['syscalls_10x_passed']}; "
+            f"{time.perf_counter() - T0:.1f} s in all")
+        log(json.dumps({"transport_lt": lt}))
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -20,10 +20,10 @@ aggregated by two leader-edge arms in one process:
     fetch, as ONE staged call (``depset.union_packed``), then
     ``from_row``.
 
-The port has no wire codecs yet (ROADMAP.md item 3), so both arms start
-from decoded data: the reference's per-message ``PreAcceptOkCodec``
-decode and run-frame decode are left out of both, and the output says
-so. Both arms'
+Both arms start from decoded data: the reference's per-message
+``PreAcceptOkCodec`` decode and run-frame decode (ported since, in
+``protocols/epaxos/wire.py`` and ``runs/wire.py``) are left out of both,
+and the output says so. Both arms'
 ``(sequence number, dependency set)`` aggregates must be equal on every
 drain before any timing counts (``GateFailure`` otherwise). Blocks
 alternate the arm order with GC off; the per-arm figure is the median
@@ -58,8 +58,7 @@ WIDTHS = (256, 1024, 4096)
 NUM_LEADERS = 3  # f=1 EPaxos: n = 3 dependency columns per set
 TAIL_SPAN = 24  # sparse ids live within this window above the base
 LEFT_OUT = ("the per-message PreAcceptOkCodec decode and the run-frame "
-            "decode: the port has no wire codecs yet, so both arms start "
-            "from decoded data")
+            "decode: both arms start from decoded data")
 
 
 class GateFailure(AssertionError):

@@ -16,10 +16,8 @@ host modules), and the device kernels at a realistic batch width: K12
 q = 3, K13 ``contiguous_prefix_length`` on ``[4096]`` with one False at
 2048, and K16 ``union`` followed by K10 ``union_reduce`` on
 ``[4096, 3, 64]`` with tail base 2^16 -- each 50 calls chained, one
-synchronize at the end.
-
-The wire-serializer rows wait for the port's codecs (ROADMAP.md queue 1
-item 3): :func:`bench_serializer` raises, and the artifact says so.
+synchronize at the end -- and the wire serializer: a Phase2b's round
+trips per second through the binary codec and through pickle.
 Unlike the reference, which drops to CPU XLA when no accelerator
 answers, this bench refuses to run off CUDA unless a device is named.
 """
@@ -34,10 +32,6 @@ import time
 from frankenpaxos_tpu_torch.device import nvidia_smi_line, resolve_device
 import numpy as np
 import torch
-
-SERIALIZER_NOTE = ("not ported: the wire codecs are ROADMAP.md queue 1 "
-                   "item 3")
-
 
 def _rate(n: int, f) -> float:
     """ops/s of f() (which performs n operations), best of 3."""
@@ -212,11 +206,35 @@ def bench_device_ops(batch: int = 4096, iters: int = 50,
 
 
 def bench_serializer(n: int = 50_000) -> dict:
-    raise NotImplementedError(f"bench_serializer: {SERIALIZER_NOTE}")
+    """Phase2b round trips (encode then decode) per second, through the
+    registered binary codec and through pickle, best of 3."""
+    import frankenpaxos_tpu_torch.protocols.multipaxos  # noqa: F401 - codecs
+    from frankenpaxos_tpu_torch.protocols.multipaxos.messages import Phase2b
+    from frankenpaxos_tpu_torch.runtime.serializer import (
+        DEFAULT_SERIALIZER,
+        PickleSerializer,
+    )
+
+    message = Phase2b(group_index=1, acceptor_index=2, slot=123456,
+                      round=3)
+
+    def binary():
+        s = DEFAULT_SERIALIZER
+        for _ in range(n):
+            s.from_bytes(s.to_bytes(message))
+
+    def pickled():
+        s = PickleSerializer()
+        for _ in range(n):
+            s.from_bytes(s.to_bytes(message))
+
+    return {"phase2b_binary_roundtrips_per_s": round(_rate(n, binary)),
+            "phase2b_pickle_roundtrips_per_s": round(_rate(n, pickled))}
 
 
 def run(device=None, *, map_ops: int = 200_000, set_ops: int = 200_000,
-        graph_ops: int = 20_000, batch: int = 4096, iters: int = 50) -> dict:
+        graph_ops: int = 20_000, batch: int = 4096, iters: int = 50,
+        serializer_ops: int = 50_000) -> dict:
     """The artifact on ``device`` (``cuda`` when None; raises without a
     GPU unless a device is named), with the reference's keys; the sizes
     are the reference's by default."""
@@ -232,7 +250,7 @@ def run(device=None, *, map_ops: int = 200_000, set_ops: int = 200_000,
         "int_prefix_set": bench_int_prefix_set(set_ops),
         "depgraph": bench_depgraphs(graph_ops),
         "device_ops": device_ops,
-        "serializer": {"note": SERIALIZER_NOTE},
+        "serializer": bench_serializer(serializer_ops),
     }
 
 

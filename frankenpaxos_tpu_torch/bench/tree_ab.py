@@ -13,6 +13,10 @@ Measurements:
     ``cProfile``);
   * ``storm``: ``bench/sim_core_ab.py``'s arms (jittered and jitter-free
     storm, FIFO backlog), events/s with the numpy mask and with K18;
+  * ``multipaxos``: ``bench/multipaxos_sim.py``'s steady arm (the
+    synchronous tracker, K1) and pipelined arm (K2, K4) at
+    ``--bpaxos-commands`` writes each in waves of 4096, committed
+    writes/s; every gate of the bench holds in every run;
   * ``bpaxos``: ``bench/bpaxos_sim.py`` (simple-conflict2/25 and gc) on
     the host and the cuda backends, commands/s, at ``--bpaxos-commands``
     per arm; every gate of both benches holds in every run;
@@ -47,7 +51,7 @@ Measurements:
     best of three): its three slots/s and deps/s rates.
 
 ``--kinds`` picks some of them
-(``split,storm,bpaxos,epaxos,headline,telemetry,tracker,geo,mesh,libbench``
+(``split,storm,multipaxos,bpaxos,epaxos,headline,telemetry,tracker,geo,mesh,libbench``
 on a card, all by default).
 
 Unpack the parent into a directory the checkout ignores, then run from
@@ -84,8 +88,8 @@ ORDER = ("parent", "change", "change", "parent") * 5
 BPAXOS_COMMANDS = 1 << 13
 #: Every measurement, in the order they run; ``split``, ``headline``,
 #: ``mesh`` and ``libbench`` time CUDA calls only.
-KINDS = ("split", "storm", "bpaxos", "epaxos", "headline", "telemetry",
-         "tracker", "geo", "mesh", "libbench")
+KINDS = ("split", "storm", "multipaxos", "bpaxos", "epaxos", "headline",
+         "telemetry", "tracker", "geo", "mesh", "libbench")
 CUDA_ONLY = ("split", "headline", "mesh", "libbench")
 #: The headline arm's latency-distribution budget (the bench's 20 s,
 #: cut: ten runs a tree).
@@ -104,6 +108,16 @@ def _worker(kind: str, tree: str, commands: int, device=None) -> dict:
                           fig["k18_launches_per_block"],
                       "projection_sha256": fig["projection_sha256"]}
                 for arm, fig in out["arms"].items()}
+    if kind == "multipaxos":
+        from frankenpaxos_tpu_torch.bench import multipaxos_sim
+        from frankenpaxos_tpu_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        wave = min(4096, commands)
+        return {"steady": multipaxos_sim.steady(
+                    dev, commands, wave)["writes_per_sec"],
+                "pipelined": multipaxos_sim.pipelined(
+                    dev, commands, wave)["writes_per_sec"]}
     if kind == "bpaxos":
         from frankenpaxos_tpu_torch.bench import bpaxos_sim
 

@@ -40,8 +40,8 @@ class ElectionOptions:
     ping_period_s: float = 30.0
     no_ping_timeout_min_s: float = 60.0
     no_ping_timeout_max_s: float = 120.0
-    # The reference's RTT-adaptive no-ping deadline (geo.RttEstimator)
-    # is not ported yet; True is refused.
+    # The reference's RTT-adaptive no-ping deadline (on the port's
+    # geo.RttEstimator) is not ported yet; True is refused.
     adaptive: bool = False
 
 
@@ -58,8 +58,9 @@ class ElectionParticipant(Actor):
                  seed: int = 0):
         if options.adaptive:
             raise NotImplementedError(
-                "adaptive no-ping deadlines need geo.RttEstimator, which "
-                "is not ported yet (ROADMAP.md, queue 1 item 12)")
+                "adaptive no-ping deadlines (on geo.RttEstimator, which "
+                "geo/rtt.py has) are not ported yet (ROADMAP.md queue 1 "
+                "item 8.4)")
         super().__init__(address, transport, logger)
         logger.check(address in addresses)
         logger.check_le(options.no_ping_timeout_min_s,

@@ -29,3 +29,7 @@ __all__ = [
     "Instance",
     "InstancePrefixSet",
 ]
+
+# Importing registers the EPaxos binary codecs with the hybrid
+# serializer (see wire.py for the layout).
+from frankenpaxos_tpu_torch.protocols.epaxos import wire  # noqa: E402,F401

@@ -3,12 +3,18 @@
 
 Roles: Batcher -> Leader -> ProxyLeader -> Acceptor (groups or grid) ->
 ProxyLeader -> Replica -> ProxyReplica -> Client, over the port's
-``SimTransport``. The ProxyLeader's Phase2b vote collection runs on a
-pluggable quorum tracker (``quorum_tracker``; backend ``"cuda"`` batches
-votes onto the GPU vote board once per event-loop drain), and the
-Leader's Phase-1 recovery on K8 (``phase1_backend="cuda"``).
-``harness.make_multipaxos`` wires a whole deployment.
+``SimTransport`` or ``TcpTransport``. The ProxyLeader's Phase2b vote
+collection runs on a pluggable quorum tracker (``quorum_tracker``;
+backend ``"cuda"`` batches votes onto the GPU vote board once per
+event-loop drain), and the Leader's Phase-1 recovery on K8
+(``phase1_backend="cuda"``).
+``harness.make_multipaxos`` wires a whole deployment over the simulated
+transport, ``supernode.Supernode`` one over real TCP.
 """
+
+# Importing registers the hot-path binary codecs with the hybrid
+# serializer (its module docstring explains the wire schema).
+from frankenpaxos_tpu_torch.protocols.multipaxos import wire  # noqa: F401
 
 from frankenpaxos_tpu_torch.protocols.multipaxos.acceptor import (
     Acceptor,

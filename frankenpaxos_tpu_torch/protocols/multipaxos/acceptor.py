@@ -6,8 +6,9 @@ Reference behavior: multipaxos/Acceptor.scala:59-255. Per-slot
 stale rounds (Phase2a nacks go to the round's *leader*, not the proxy
 leader that forwarded it), ``max_voted_slot`` serving quorum reads.
 
-Not ported yet (ROADMAP.md, the next slice): the WAL (``wal=``) and the
-EpochCommit matchmaker branch of reconfiguration; both are refused.
+Not ported yet, and refused: the WAL (``wal=``) and the EpochCommit
+matchmaker branch of reconfiguration (ROADMAP.md queue 1 item 4), and the
+read batchers' BatchMaxSlotRequest (item 8.3).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ try:
 except ImportError:  # stripped environments: pure-Python fallback
     from frankenpaxos_tpu_torch.utils.sorted_compat import SortedDict
 
+from frankenpaxos_tpu_torch import native
 from frankenpaxos_tpu_torch.protocols.multipaxos.config import MultiPaxosConfig
 from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
     BatchMaxSlotRequest,
@@ -33,7 +35,6 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
     Phase2b,
     Phase2bRange,
     Phase2bVotes,
-    pack_votes2,
 )
 from frankenpaxos_tpu_torch.reconfig import RECONFIG_MESSAGES
 from frankenpaxos_tpu_torch.roundsystem import ClassicRoundRobin
@@ -66,7 +67,7 @@ class Acceptor(Actor):
                  collectors: Collectors | None = None, wal=None):
         if wal is not None:
             raise NotImplementedError(
-                "the WAL is not ported yet (ROADMAP.md, the next slice: "
+                "the WAL is not ported yet (ROADMAP.md queue 1 item 4: "
                 "WAL)")
         super().__init__(address, transport, logger)
         config.check_valid()
@@ -122,11 +123,11 @@ class Acceptor(Actor):
         elif isinstance(message, BatchMaxSlotRequest):
             raise NotImplementedError(
                 "BatchMaxSlotRequest: read batchers are not ported yet "
-                "(ROADMAP.md, the next slice: read batchers)")
+                "(ROADMAP.md queue 1 item 8.3: read batchers)")
         elif isinstance(message, RECONFIG_MESSAGES):
             raise NotImplementedError(
                 f"{type(message).__name__}: actor-side reconfiguration is "
-                f"not ported yet (ROADMAP.md, the next slice: "
+                f"not ported yet (ROADMAP.md queue 1 item 4: "
                 f"reconfiguration)")
         else:
             self.logger.fatal(f"unexpected acceptor message {message!r}")
@@ -260,7 +261,7 @@ class Acceptor(Actor):
                 self.send(dst, Phase2bVotes(
                     group_index=self.group_index,
                     acceptor_index=self.index,
-                    packed=pack_votes2(slots, rounds)))
+                    packed=native.pack_votes2(slots, rounds)))
                 continue
             for run in runs:
                 if len(run) == 1:

@@ -16,8 +16,9 @@ pending-operation state machines with resend timers:
     pseudonym has seen.
   * eventual reads (Client.scala:739+): straight to a random replica.
 
-Not ported yet (ROADMAP.md, the next slice), and refused: reads through
-read batchers, and the ingest fabric's consistent ring of batchers.
+Not ported yet, and refused: reads through read batchers (ROADMAP.md
+queue 1 item 8.3), and the ingest fabric's consistent ring of batchers
+(item 8.2).
 """
 
 from __future__ import annotations
@@ -207,7 +208,7 @@ class Client(RetryAdmissionMixin, StagedWriteMixin, Actor):
         if self.config.num_read_batchers > 0:
             raise NotImplementedError(
                 "reads through read batchers are not ported yet "
-                "(ROADMAP.md, the next slice: read batchers)")
+                "(ROADMAP.md queue 1 item 8.3: read batchers)")
         request = MaxSlotRequest(CommandId(self.address, pseudonym, id))
         if not self.config.flexible:
             group_index = self.rng.randrange(self.config.num_acceptor_groups)

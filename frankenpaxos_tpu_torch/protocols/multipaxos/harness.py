@@ -8,7 +8,7 @@ the same addresses, options and per-role seeds, so that the same writes
 give the same message order, logs and replies in both packages. The
 reference harness's WAL, ingest batchers, read batchers, admission and
 epoch options are not offered: those paths are not ported yet
-(ROADMAP.md, the next slice).
+(ROADMAP.md queue 1 items 4, 8.1, 8.2 and 8.3).
 
 ``device`` reaches the roles that hold one (the ProxyLeaders' trackers
 with ``quorum_backend="cuda"``, the Leaders with

@@ -5,7 +5,8 @@ Reference behavior: multipaxos/MultiPaxos.proto (one dataclass per
 message; the per-role ``<Role>Inbound`` oneof envelopes are unnecessary
 in Python -- receive() dispatches on type). Also the Phase2bVotes
 payload packing, the reference's ``native.pack_votes2`` /
-``unpack_votes2`` in their numpy form (no shared library).
+``unpack_votes2`` in their numpy form; the roles pack and unpack through
+the port's ``native`` module, and the tests hold the two equal.
 """
 
 from __future__ import annotations

@@ -12,22 +12,29 @@ The vote-collection loop is delegated to a
 the host-dict oracle (``quorum_backend="dict"``) or the GPU vote board
 (``"cuda"``: K1 in the synchronous mode, K2, K4 and K5 in the pipelined
 mode) flushed once per transport drain (``on_drain``). The reference's
-``"tpu"`` is refused.
+``"tpu"`` is refused. A pipelined board's dispatches are collected by a
+flush timer on the simulated transport, and on a threaded one (TCP) by
+one daemon collector thread that posts the results back onto the event
+loop.
 
-Not ported yet (ROADMAP.md, the next slice): the epoch-segmented vote
-counting of a reconfiguration (``epoch_backend``, ``epoch_quorums``,
-EpochPhase2aRun, EpochCommit), the ingest fabric's wire sink, and the
-collector thread of a threaded (TCP) transport; each is refused.
+Not ported yet: the epoch-segmented vote counting of a reconfiguration
+(``epoch_backend``, ``epoch_quorums``, EpochPhase2aRun, EpochCommit;
+ROADMAP.md queue 1 item 4), refused, and the ingest fabric's wire sink
+(item 8.2), so vote-ack batch frames are expanded per message.
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import queue
 import random
+import threading
 
 import numpy as np
+import torch
 
+from frankenpaxos_tpu_torch import native
 from frankenpaxos_tpu_torch.protocols.multipaxos.config import MultiPaxosConfig
 from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
     Chosen,
@@ -37,7 +44,6 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
     Phase2b,
     Phase2bRange,
     Phase2bVotes,
-    unpack_votes2,
 )
 from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
     DictQuorumTracker,
@@ -84,13 +90,7 @@ class ProxyLeader(Actor):
         if options.epoch_backend or options.epoch_quorums:
             raise NotImplementedError(
                 "epoch-segmented vote counting on the ProxyLeader is not "
-                "ported yet (ROADMAP.md, the next slice: reconfiguration)")
-        if options.quorum_backend == "cuda" and options.tpu_pipelined \
-                and transport.threaded:
-            raise NotImplementedError(
-                "the pipelined tracker's collector thread for a threaded "
-                "transport is not ported yet (ROADMAP.md, the next slice: "
-                "TCP transport)")
+                "ported yet (ROADMAP.md queue 1 item 4: reconfiguration)")
         super().__init__(address, transport, logger)
         config.check_valid()
         self.config = config
@@ -101,6 +101,12 @@ class ProxyLeader(Actor):
             "multipaxos_proxy_leader_requests_latency_seconds", labels=("type",))
         self.metrics_requests = collectors.counter(
             "multipaxos_proxy_leader_requests_total", labels=("type",))
+        self.metrics_tpu_dispatches = collectors.counter(
+            "multipaxos_proxy_leader_tpu_dispatches_total")
+        self.metrics_tpu_inflight = collectors.summary(
+            "multipaxos_proxy_leader_tpu_inflight_at_dispatch")
+        self.metrics_tpu_collect = collectors.summary(
+            "multipaxos_proxy_leader_tpu_collect_seconds")
         self.grid = config.quorum_grid() if config.flexible else None
         self._row_size = len(config.acceptor_addresses[0])
         # (slot, round) -> pending value; moved to _done once chosen.
@@ -130,17 +136,43 @@ class ProxyLeader(Actor):
         else:
             self.tracker = DictQuorumTracker(config)
         self._flush_timer = None
+        self._collector = None
+        #: Every error the collector thread logged (a dispatch whose
+        #: Chosen broadcasts were lost with it); empty on a healthy run.
+        self.collector_errors: list[str] = []
         if options.quorum_backend == "cuda" and options.tpu_pipelined:
-            # SimTransport: a flush timer collects synchronously
-            # (tests fire it explicitly).
-            def flush_pending():
-                self._collect_all()
-                if self.tracker.has_pending():
-                    self._flush_timer.start()
+            # Branch on the transport's CAPABILITY (threaded event loop),
+            # not on whether its loop happens to exist yet: a TcpTransport
+            # actor constructed before start() must still get the
+            # collector thread, and a SimTransport must never (its actors
+            # run inline on the caller's thread).
+            if transport.threaded:
+                # Real transport: fetch device results on ONE daemon
+                # worker thread (preserving dispatch order) and post
+                # each completion back onto the event loop, so the loop
+                # never blocks on the device. A daemon thread cannot
+                # wedge process shutdown on a stuck device wait.
+                self._collector = queue.Queue()
+                # 1 while the collector thread is inside a collect (that
+                # dispatch has left the queue but is still in flight);
+                # single writer, read for metrics.
+                self._collecting = 0
+                self._collector_thread = threading.Thread(
+                    target=self._collect_loop,
+                    args=(self._collect_device(),), daemon=True,
+                    name="cuda-collect")
+                self._collector_thread.start()
+            else:
+                # SimTransport: a flush timer collects synchronously
+                # (tests fire it explicitly).
+                def flush_pending():
+                    self._collect_all()
+                    if self.tracker.has_pending():
+                        self._flush_timer.start()
 
-            self._flush_timer = self.timer(
-                "tpuDrainFlush", options.tpu_flush_period_s,
-                flush_pending)
+                self._flush_timer = self.timer(
+                    "tpuDrainFlush", options.tpu_flush_period_s,
+                    flush_pending)
 
     def receive(self, src: Address, message) -> None:
         # timed(label) handler latency summaries (Leader.scala:281-293).
@@ -170,8 +202,7 @@ class ProxyLeader(Actor):
         elif isinstance(message, RECONFIG_MESSAGES):
             raise NotImplementedError(
                 f"{type(message).__name__}: actor-side reconfiguration is "
-                f"not ported yet (ROADMAP.md, the next slice: "
-                f"reconfiguration)")
+                f"not ported yet (ROADMAP.md queue 1 item 4)")
         else:
             self.logger.fatal(f"unexpected proxy leader message {message!r}")
 
@@ -302,10 +333,11 @@ class ProxyLeader(Actor):
                                   r.group_index, r.acceptor_index)
 
     def _handle_phase2b_votes(self, src: Address, m) -> None:
-        """A packed fragmented-drain ack (Phase2bVotes): unpack straight
-        into the tracker's arrays -- no per-vote Python on either side
-        (same no-pending-check rationale as ranges)."""
-        slots, rounds = unpack_votes2(m.packed)
+        """A packed fragmented-drain ack (Phase2bVotes): unpack with the
+        native codec straight into the tracker's arrays -- no per-vote
+        Python on either side (same no-pending-check rationale as
+        ranges)."""
+        slots, rounds = native.unpack_votes2(m.packed)
         self.votes_by_shape["Phase2bVotes"] += len(slots)
         self.tracker.record_votes(slots, rounds, m.group_index,
                                   m.acceptor_index)
@@ -315,12 +347,90 @@ class ProxyLeader(Actor):
         # plus the Chosen emission it unlocks.
         with self.trace_stage("quorum-kernel"):
             self._emit_chosen(self.tracker.drain())
-        if self._flush_timer is not None:
+        if self._collector is not None:
+            while True:
+                dispatch = self.tracker.take_dispatch()
+                if dispatch is None:
+                    break
+                self.metrics_tpu_dispatches.inc()
+                # Depth includes the dispatch the collector thread is
+                # currently blocked on (it left the queue but is in
+                # flight): a healthy one-deep pipeline reads 1, not 0 --
+                # 0 means the device wait is serialized.
+                self.metrics_tpu_inflight.observe(
+                    self._collector.qsize() + self._collecting)
+                self._collector.put(dispatch)
+        elif self._flush_timer is not None:
             # (Re)arm the quiescence flush while a dispatch is in
             # flight; the timer collects it if no further messages come.
             self._flush_timer.stop()
             if self.tracker.has_pending():
                 self._flush_timer.start()
+
+    def _collect_device(self) -> torch.device:
+        """The tracker's device with an explicit index: a card named
+        without one (``"cuda"``) is the current card of the thread that
+        builds this ProxyLeader, where the tracker's board was made."""
+        device = self.tracker.checker.device
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
+
+    def _collect_loop(self, device) -> None:
+        """The collector thread's body: collect each dispatch in order
+        until :meth:`close` queues None. The card's current device is per
+        host thread, so this thread selects the tracker's card before its
+        first wait; if it cannot, the error is kept in
+        ``collector_errors`` and every dispatch is still collected and
+        posted (each one's own failure kept too)."""
+        if device.type == "cuda":
+            try:
+                torch.cuda.set_device(device)
+            except Exception as e:  # noqa: BLE001 - surface, don't swallow
+                self._collector_failed(e)
+        while True:
+            dispatch = self._collector.get()
+            if dispatch is None:
+                return
+            self._collecting = 1
+            try:
+                self._collect_and_post(dispatch)
+            finally:
+                self._collecting = 0
+
+    def _collect_and_post(self, dispatch) -> None:
+        """Runs on the collector thread: block on the device fetch, then
+        hand the results back to the single-threaded event loop."""
+        try:
+            with self.metrics_tpu_collect.time():
+                results = self.tracker.collect(dispatch)
+            if results:
+                self.transport.loop.call_soon_threadsafe(
+                    self._emit_chosen, results)
+        except RuntimeError as e:
+            if self.transport.loop is not None \
+                    and self.transport.loop.is_closed():
+                # Loop closed during teardown: dropping in-flight
+                # results is expected, but say so.
+                self.logger.debug(f"cuda collect post skipped: {e!r}")
+                return
+            self._collector_failed(e)
+        except Exception as e:  # noqa: BLE001 - surface, don't swallow
+            self._collector_failed(e)
+
+    def _collector_failed(self, e: Exception) -> None:
+        # A swallowed collector error would silently drop this
+        # dispatch's Chosen broadcasts and wedge its clients: log it and
+        # keep it where a caller can check.
+        self.collector_errors.append(repr(e))
+        self.logger.error(f"cuda collect failed: {e!r}")
+
+    def close(self) -> None:
+        """Stop the collector thread (after the dispatches queued ahead
+        of the stop); a no-op without one."""
+        if self._collector is not None:
+            self._collector.put(None)
+            self._collector_thread.join(timeout=10)
 
     def _collect_all(self) -> None:
         while True:

@@ -9,9 +9,9 @@ responsibility round-robin'd across replicas (Replica.scala:421-447), a
 randomized hole-recovery timer (Replica.scala:238-260), and deferred
 reads parked until their slot executes (Replica.scala:203-211,455-530).
 
-Not ported yet (ROADMAP.md, the next slice), and refused: the WAL
-(``wal=``), read admission (the ``admission_*`` options) and the batched
-reads of read batchers.
+Not ported yet, and refused: the WAL (``wal=``; ROADMAP.md queue 1 item
+4), read admission (the ``admission_*`` options; item 8.1) and the
+batched reads of read batchers (item 8.3).
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ class Replica(Actor):
                  wal=None):
         if wal is not None:
             raise NotImplementedError(
-                "the WAL is not ported yet (ROADMAP.md, the next slice: "
+                "the WAL is not ported yet (ROADMAP.md queue 1 item 4: "
                 "WAL)")
         if any((options.admission_token_rate, options.admission_token_burst,
                 options.admission_inflight_limit,
@@ -89,8 +89,8 @@ class Replica(Actor):
                 options.admission_codel_target_s,
                 options.admission_retry_after_ms)):
             raise NotImplementedError(
-                "read admission is not ported yet (ROADMAP.md, the next "
-                "slice: admission)")
+                "read admission is not ported yet (ROADMAP.md queue 1 "
+                "item 8.1: admission)")
         super().__init__(address, transport, logger)
         config.check_valid()
         logger.check(address in config.replica_addresses)
@@ -268,7 +268,7 @@ class Replica(Actor):
                                   EventualReadRequestBatch)):
             raise NotImplementedError(
                 f"{type(message).__name__}: read batchers are not ported "
-                f"yet (ROADMAP.md, the next slice: read batchers)")
+                f"yet (ROADMAP.md queue 1 item 8.3: read batchers)")
         else:
             self.logger.fatal(f"unexpected replica message {message!r}")
 

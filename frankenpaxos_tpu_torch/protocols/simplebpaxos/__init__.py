@@ -38,3 +38,7 @@ __all__ = [
     "VertexId",
     "VertexIdPrefixSet",
 ]
+
+# Importing registers the BPaxos binary codecs with the hybrid
+# serializer (shared by SimpleGcBPaxos; see wire.py for the layout).
+from frankenpaxos_tpu_torch.protocols.simplebpaxos import wire  # noqa: E402,F401

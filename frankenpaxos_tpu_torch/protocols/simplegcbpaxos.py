@@ -452,3 +452,8 @@ class GcBPaxosReplica(BPaxosReplica):
         self.dependency_graph.update_executed(newly_executed)
         self._execute_graph()
 
+
+
+# Register the snapshot cold-path codecs (tags 206-207). At the bottom
+# to dodge the import cycle: the codec module imports our dataclasses.
+from frankenpaxos_tpu_torch.protocols import simplegcbpaxos_wire  # noqa: E402,F401

@@ -11,11 +11,12 @@ Phase1.
 
 The leaders count votes on the card with ``quorum_backend="cuda"``
 (``geo.GeoQuorumTracker``: K6 per drain chunk, K5 on every watermark
-advance). Not ported yet: the WAL (``wal=`` is refused; ROADMAP.md
-queue 1 item 4), the codecs of ``wire.py`` (item 3; messages pickle)
-and admission control (item 8.1).
+advance). Every message rides ``wire.py``'s codecs. Not ported yet: the
+WAL (``wal=`` is refused; ROADMAP.md queue 1 item 4) and admission
+control (item 8.1).
 """
 
+from frankenpaxos_tpu_torch.protocols.wpaxos import wire  # noqa: F401  - registers codecs
 from frankenpaxos_tpu_torch.protocols.wpaxos.acceptor import WPaxosAcceptor
 from frankenpaxos_tpu_torch.protocols.wpaxos.client import (
     WPaxosClient,

@@ -15,9 +15,8 @@ Ballot space is partitioned by ZONE: zone ``z``'s leader owns ballots
 collide on a ballot. ``Command``/``CommandId``/value shapes are shared
 with multipaxos (one value codec family serves both).
 
-The reference gives every message here a fixed-layout codec
-(``wire.py``); the port has no codecs yet (ROADMAP.md queue 1 item 3),
-so they pickle, as every message of the port does.
+Every message here has a fixed-layout codec (``wire.py``, extended tags
+160-172), the reference's bytes.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Live reconfiguration in the port: the epoch store (``epoch``),
 epoch-segmented vote counting (``tracker``) and the messages
 (``messages``), the counterparts of ``frankenpaxos_tpu/reconfig/``. The
-wire codecs wait for the TCP slice."""
+wire codecs (``reconfig/wire.py``) come with actor-side reconfiguration
+(ROADMAP.md queue 1 item 4); until then these messages pickle."""
 
 from frankenpaxos_tpu_torch.reconfig.epoch import EpochConfig, EpochStore
 from frankenpaxos_tpu_torch.reconfig.messages import (

@@ -1,7 +1,7 @@
 """Reconfiguration messages (the port's copy of
 ``frankenpaxos_tpu/reconfig/messages.py``). The port's MultiPaxos roles
 recognise these and refuse them: actor-side reconfiguration comes with
-the WAL (ROADMAP.md, the next slice).
+the WAL (ROADMAP.md queue 1 item 4).
 
 The config-change command flow (leader-driven, docs/RECONFIG.md):
 

@@ -121,9 +121,10 @@ class StagedWriteMixin:
 
     Writes staged in one event-loop pass ship as ONE array message (each
     command still gets its own slot -- transport-level coalescing, not
-    slot sharing). ``on_drain`` or an explicit ``flush_writes()`` ships
-    them (the reference's deferred flush on a threaded event loop comes
-    with the TCP transport).
+    slot sharing). On a real event-loop transport (TCP) the flush is
+    deferred to the END of the pass via ``call_soon_threadsafe`` (write()
+    may be driven from off-loop threads); SimTransport has no loop --
+    there ``on_drain`` / an explicit ``flush_writes()`` ships them.
 
     Subclass contract: call ``_init_staging()`` in ``__init__`` and
     implement ``_flush_staged(staged)`` (destination pick + the array
@@ -132,9 +133,14 @@ class StagedWriteMixin:
 
     def _init_staging(self) -> None:
         self._staged_writes: list = []
+        self._flush_scheduled = False
 
     def _stage_write(self, command) -> None:
         self._staged_writes.append(command)
+        loop = getattr(self.transport, "loop", None)
+        if loop is not None and not self._flush_scheduled:
+            self._flush_scheduled = True
+            loop.call_soon_threadsafe(self._deferred_flush)
 
     def flush_writes(self) -> None:
         """Ship the staged writes as one array via ``_flush_staged``."""
@@ -142,6 +148,10 @@ class StagedWriteMixin:
             return
         staged, self._staged_writes = self._staged_writes, []
         self._flush_staged(staged)
+
+    def _deferred_flush(self) -> None:
+        self._flush_scheduled = False
+        self.flush_writes()
 
     def on_drain(self) -> None:
         self.flush_writes()

@@ -3,8 +3,8 @@
 The port's copy of ``frankenpaxos_tpu/runs/depruns.py``: the columns
 scatter into a ``DepSetBatch`` of the port's ``ops/depset.py`` on an
 explicit device (or into a packed staging block, ``out=``), and
-:func:`drain_union` reduces it with K10. The DepRun codecs
-(``runs/wire.py``, tags 208/209) are not ported yet (ROADMAP.md item 3).
+:func:`drain_union` reduces it with K10. The DepRun codecs are
+``runs/wire.py``'s (tags 208/209).
 
 A drain's dependency-carrying replies (EPaxos PreAcceptOk, BPaxos
 DependencyReply) coalesce on the wire into ONE run message whose

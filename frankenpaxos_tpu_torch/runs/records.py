@@ -4,7 +4,7 @@ The run pipeline delivers decided values as (start_slot, stride,
 values) runs. Logging a run into a BufferMap log is identical across
 protocols (multipaxos: stride 1; mencius: stride = num leader groups).
 The reference's WAL half (``wal_log_chosen_run``) comes with the WAL
-(ROADMAP.md, the next slice).
+(ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ absorb client fan-in when the config deploys them, and the protocol's
 own leader-selection rule (``leader_fallback``) is the fallback. The
 reference's first rung, the ingest disseminators and their consistent
 ring (``ingest/``), is not ported yet: a config that deploys ingest
-batchers is refused (ROADMAP.md, the next slice: ingest fabric).
+batchers is refused (ROADMAP.md queue 1 item 8.2: ingest fabric).
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from typing import Callable
 def _refuse_ingest(config) -> None:
     if getattr(config, "num_ingest_batchers", 0) > 0:
         raise NotImplementedError(
-            "ingest batchers are not ported yet (ROADMAP.md, the next "
-            "slice: ingest fabric)")
+            "ingest batchers are not ported yet (ROADMAP.md queue 1 "
+            "item 8.2: ingest fabric)")
 
 
 def pick_request_destination(config, rng: random.Random,

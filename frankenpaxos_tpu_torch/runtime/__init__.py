@@ -1,6 +1,8 @@
 """The port's host runtime: actors, the simulated transport, timers,
 loggers, serializers and metrics collectors (the counterpart of
-``frankenpaxos_tpu/runtime/``; the TCP transport is not ported yet).
+``frankenpaxos_tpu/runtime/``). The TCP transport and paxwire's batch
+layer are ``runtime.tcp_transport`` and ``runtime.paxwire``, imported by
+name (they pull in the serving lanes and the native codec).
 
 The load-bearing invariant (Transport.scala:37-40): every transport is a
 single-threaded event loop -- ``receive`` and timer callbacks run

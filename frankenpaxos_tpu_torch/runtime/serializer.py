@@ -1,7 +1,7 @@
 """Message serialization (the port's copy of
-``frankenpaxos_tpu/runtime/serializer.py``). No binary codec is
-registered in the port yet -- the MultiPaxos codecs of ``wire.py`` come
-with the TCP slice -- so every message pickles.
+``frankenpaxos_tpu/runtime/serializer.py``). The binary codecs register
+when their protocol package is imported (``protocols/multipaxos/wire.py``
+and its relatives); a message type without one pickles.
 
 Reference behavior: Serializer.scala:5-10 / ProtoSerializer.scala:3-11 --
 every inbound message type has a serializer with ``to_bytes`` /
@@ -69,7 +69,8 @@ class MessageCodec(abc.ABC):
     #: start with 0x80, so one byte discriminates binary-coded from
     #: pickled messages). Tags 128..255 live on the EXTENDED PAGE:
     #: byte 0x00 -- never a primary tag, never a pickle opcode -- is the
-    #: escape prefix, and the second byte carries ``tag - 128``. New
+    #: escape prefix, and the second byte carries ``tag - 128``. The
+    #: primary page is full (every protocol family carries codecs); new
     #: subsystems allocate from the extended page.
     tag: int
 
@@ -102,6 +103,35 @@ def set_pickle_fallback(enabled: bool) -> None:
 
 def pickle_fallback_enabled() -> bool:
     return _PICKLE_FALLBACK
+
+
+def guarded_pickle_loads(raw: bytes, what: str):
+    """The ONE entry point for pickle escape hatches inside binary
+    codecs (exotic addresses/values/commands): every hatch must decode
+    through here so ``set_pickle_fallback(False)`` covers it."""
+    if not _PICKLE_FALLBACK:
+        raise ValueError(
+            f"pickle fallback disabled: refusing pickled {what} inside "
+            f"binary frame")
+    try:
+        return pickle.loads(raw)
+    except Exception as e:
+        # A corrupt frame can route arbitrary bytes into this hatch (a
+        # flipped address-kind byte -- found by the registry-wide
+        # containment fuzz), and pickle.loads raises open-ended
+        # exception types on garbage. Normalize to the ValueError
+        # containment channel like every other decode failure.
+        raise ValueError(f"corrupt pickled {what}: {e!r}") from e
+
+
+def guarded_pickle_dumps(obj, what: str) -> bytes:
+    """Encode-side twin of :func:`guarded_pickle_loads`: fail at the
+    sender instead of emitting a frame the receiver must refuse."""
+    if not _PICKLE_FALLBACK:
+        raise ValueError(
+            f"pickle fallback disabled: cannot encode {what} {obj!r} in "
+            f"a binary frame")
+    return pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
 
 
 def register_codec(codec: MessageCodec) -> None:

@@ -57,10 +57,10 @@ class Transport(abc.ABC):
     """Asynchronous, unordered, at-most-once message delivery between
     registered actors, plus timers -- all on one event loop."""
 
-    # True for transports that run a real event-loop thread (the
-    # reference's TcpTransport, not ported yet): actors may then offload
-    # blocking work to worker threads. SimTransport runs inline on the
-    # caller's thread, so everything must stay synchronous.
+    # True for transports that run a real event-loop thread
+    # (TcpTransport): actors may then offload blocking work to worker
+    # threads. SimTransport runs inline on the caller's thread, so
+    # everything must stay synchronous.
     threaded: bool = False
 
     # An attached runtime-metrics sink (any object with
