@@ -310,7 +310,7 @@ Phases, in order (any failure exits nonzero and prints no result):
      drain run's bytes are its state's, read and written once, with the
      reference's (5N+17)·B bytes a drain beside it as
      ``reference_bytes``) and the launches of phases 11, 12, 14, 16, 18,
-     21, 23-24, 25, 26 and 29 (K13's and K16 union's rows with the form
+     21, 23-24, 25, 26, 29 and 31 (K13's and K16 union's rows with the form
      they run; K3, K14 and the pinned copy with their drains
      beside their launches, each figure per drain too, and the device µs
      a drain of every form of phases 5 and 17), printed as one
@@ -357,7 +357,23 @@ Phases, in order (any failure exits nonzero and prints no result):
   30. the transport_lt twin (``bench/transport_lt.py``) at widths 16, 256
      and 1024, one rep: per_frame against batched cmds/s, syscalls/cmd,
      frames/cmd and bytes/drain; a lost or wrong reply or a logged error
-     fails it; the reference's two gates printed, not enforced.
+     fails it; the reference's two gates printed, not enforced;
+  31. the reconfigured MultiPaxos cluster (``bench/reconfig_sim.py``),
+     with every count set to 0 first: f = 1, every acceptor and replica
+     on a FileStorage WAL in a temporary directory (real fsyncs), the
+     ProxyLeaders' main board at 2^20 and the epoch board at 2^14; 5
+     writes, a replacement acceptor, acceptor 2 crashed, ``Reconfigure``,
+     20 writes, acceptor 1 crashed, 5 writes, a failover whose leader
+     must discover epoch 1 from the Phase1bs, 5 writes; a dict run and
+     three arms on the card (the synchronous tracker, the pipelined one,
+     ``epoch_quorums`` with ``epoch_tag_runs``): every write answered
+     once and executed exactly once, both replicas' logs equal, the
+     synchronous and epoch_quorums arms' logs equal to the dict run's,
+     and K6 (the epoch tracker's staged drains) and K7 (epoch 1's
+     reshape of the epoch board, [3, 2^14] -> [4, 2^14]) each launched
+     in every arm; writes/s, K6's host µs a drain and the fsync ms per
+     sync per arm; its launches join the kernels line's rows (path
+     ``reconfig_cluster``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -388,6 +404,7 @@ from frankenpaxos_tpu_torch.bench import (
     multipaxos_sim,
     pipeline as tp,
     pipeline_baseline as tpin,
+    reconfig_sim,
     sim_core_ab,
     telemetry_overhead,
     tracker_lt,
@@ -444,7 +461,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/30] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/31] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1932,7 +1949,7 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
 #: ``launches_by_path`` are subsets of these).
 MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
               "telemetry", "libbench", "geo", "sharded", "sharded_board",
-              "tcp_cluster")
+              "tcp_cluster", "reconfig_cluster")
 #: The kernels of the telemetry path (phase 18) and of the libbench path
 #: (phase 21).
 TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
@@ -3799,11 +3816,32 @@ def phase_transport(dev) -> dict:
         raise SmokeFailure(f"transport_lt: {exc}") from exc
 
 
+def phase_reconfig(dev) -> tuple[dict, dict]:
+    """The reconfigured cluster (``bench/reconfig_sim.py``) on the card:
+    its gates raise inside ``run`` (K6 and K7 launched in every arm among
+    them). The launch counts are set to 0 first and read after the dict
+    run and the three arms."""
+    reset_launches()
+    try:
+        result = reconfig_sim.run(dev)
+    except reconfig_sim.GateFailure as exc:
+        raise SmokeFailure(f"reconfig_sim: {exc}") from exc
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    for arm, figures in result["arms"].items():
+        if arm == "dict":
+            continue
+        require(all(figures["launches"][k] > 0
+                    for k in reconfig_sim.PATH_KERNELS),
+                f"reconfig {arm}: K6 or K7 never launched: "
+                f"{figures['launches']}")
+    return result, launches
+
+
 def add_path_launches(kernels: list, path: str, counts: dict) -> None:
     """Count a path run after the per-kernel figures into their rows."""
     for row in kernels:
         row["launches_by_path"][path] = counts.get(row["name"], 0)
-        row["launches"] = sum(row["launches_by_path"][p]
+        row["launches"] = sum(row["launches_by_path"].get(p, 0)
                               for p in MAIN_PATHS)
 
 
@@ -4201,6 +4239,25 @@ def main() -> int:
             f"{lt['gates']['syscalls_10x_passed']}; "
             f"{time.perf_counter() - T0:.1f} s in all")
         log(json.dumps({"transport_lt": lt}))
+        reconfig, reconfig_launches = phase_reconfig(dev)
+        add_path_launches(kernels, "reconfig_cluster", reconfig_launches)
+        phase(31, f"the reconfigured MultiPaxos cluster on {name} ({smi}):"
+            f" {reconfig['writes']} writes an arm over FileStorage WALs, "
+            f"epoch 1 through a replacement, a second crash and a failover "
+            f"that discovers it; "
+            + "; ".join(f"{arm} {fig['writes_per_sec']:.1f} writes/s, "
+                        f"K6 {fig['epoch_tracker_drains']} staged drains "
+                        + (f"at {fig['epoch_drain_host_us']:.1f} us host"
+                           if fig["epoch_drain_host_us"] is not None
+                           else "")
+                        + f", {fig['fsyncs']} fsyncs at "
+                        f"{fig['fsync_ms_per_sync']:.3f} ms, launches "
+                        f"{fig['launches']}"
+                        for arm, fig in reconfig["arms"].items())
+            + f"; logs equal the dict run's in "
+            f"{reconfig['logs_equal_the_dict_run']}; launches "
+            + str({k: v for k, v in reconfig_launches.items() if v}))
+        log(json.dumps({"reconfig_cluster": reconfig}))
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

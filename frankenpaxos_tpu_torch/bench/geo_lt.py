@@ -22,13 +22,15 @@ releases chosen columns by K5 (``release``) through
     object's group;
   * ``hot_objects``: Zipf-skewed keys from zone 1, its hot groups
     stolen to zone 1;
+  * ``zone_outage``: zone 0 dies outright (leader, acceptor row,
+    replica); a remote client's write to a zone-0 group waits, its
+    steal blocked on the dead row, until the zone's acceptors restart
+    from their WALs (MemStorage) after 2 s of virtual downtime; then the
+    steal completes and the write commits;
   * ``flat``: every link at 0 s; the same protocol over
     ``GeoSimTransport`` vs plain ``SimTransport`` vs the port's
     MultiPaxos, alternated in chunks of 25 writes with GC off, on the
     host clock.
-
-The reference's ``zone_outage`` arm restarts a zone from its WALs; the
-WAL is not ported (ROADMAP.md queue 1 item 4), so it is not run.
 
 Gates (a failed gate raises ``GateFailure``): the reference's four
 (home-zone p50 below 0.25 x the WAN RTT, steal latency at most 3 x the
@@ -70,7 +72,9 @@ from frankenpaxos_tpu_torch.geo import (
 from frankenpaxos_tpu_torch.ops import quorum as tq, simwave
 from frankenpaxos_tpu_torch.protocols.multipaxos.harness import make_multipaxos
 from frankenpaxos_tpu_torch.protocols.wpaxos.harness import (
+    crash_zone,
     make_wpaxos,
+    restart_zone,
     settle,
 )
 from frankenpaxos_tpu_torch.protocols.wpaxos.messages import Steal
@@ -167,10 +171,11 @@ class Run:
     acks: list = dataclasses.field(default_factory=list)
 
     def make(self, topology=None, num_groups: int = 6,
-             num_clients: int = 3, initial_home=None, seed: int = 0):
+             num_clients: int = 3, initial_home=None, seed: int = 0,
+             wal: bool = False):
         sim = make_wpaxos(num_zones=3, row_width=3, num_groups=num_groups,
                           num_clients=num_clients, topology=topology,
-                          seed=seed, quorum_backend=self.backend,
+                          wal=wal, seed=seed, quorum_backend=self.backend,
                           device=self.device)
         if initial_home is not None:
             config = dataclasses.replace(sim.config,
@@ -502,11 +507,50 @@ def evaluate_gates(result: dict, backend: str) -> dict:
     return gates
 
 
+def zone_outage_arm(run: Run, writes: int, seed: int = 0,
+                    dwell_s: float = 2.0) -> dict:
+    """Kill zone 0 outright (leader + row + replica), relaunch its
+    acceptors from their WALs after ``dwell_s`` of virtual downtime, and
+    measure kill -> first post-outage commit for a zone-0-homed group
+    (the steal completes only once a majority of the old row is back).
+    ``writes`` is unused: the arm's writes are the reference's."""
+    topo = _topology(seed)
+    sim = run.make(topology=topo, wal=True, seed=seed)
+    key = _keys_for_zone(sim.config, 0, 1)[0]
+    group = sim.config.group_of_key(key)
+    counter = 0
+    for _ in range(4):
+        run.write(0, key, b"zo-%d" % counter)
+        counter += 1
+    t_kill = sim.transport.now
+    crash_zone(sim, 0)
+    # A remote client keeps trying (its failover budget will ask zone 1
+    # to steal; the steal blocks on the dead row).
+    done: list = []
+    sim.clients[1].write(0, b"zo-%d" % counter, done.append, key=key)
+    sim.transport.run_for(dwell_s, max_steps=200_000)
+    restart_zone(sim, 0)
+    settle(sim, lambda: bool(done), max_waves=800)
+    run.acks.extend(done)
+    t_recovered = sim.transport.now
+    return {
+        "arm": "zone_outage",
+        "wan_rtt_s": topo.wan_rtt(),
+        "downtime_dwell_s": dwell_s,
+        "kill_to_first_commit_s": t_recovered - t_kill,
+        "repair_after_relaunch_s": (t_recovered - t_kill) - dwell_s,
+        "stolen_to_zone": next(
+            (sim.leaders[z].zone for z in range(3)
+             if group in sim.leaders[z].active), None),
+    }
+
+
 LATENCY_ARMS = {
     "home_zone": home_zone_arm,
     "static_single_leader": static_single_leader_arm,
     "steal": steal_arm,
     "hot_objects": hot_object_arm,
+    "zone_outage": zone_outage_arm,
 }
 
 
@@ -572,8 +616,6 @@ def run(device=None, writes: int = WRITES,
                      "wan_rtt_s": 2 * 0.040, "jitter": 0.05},
         "writes": writes, "flat_commands": flat_commands,
         "flat_reps": flat_reps, "seed": seed,
-        "zone_outage": "not run: it restarts a zone from its WALs "
-                       "(ROADMAP.md queue 1 item 4)",
         "backends": backends,
         "exact_across_backends": True,
         "launches": traffic,

@@ -6,9 +6,14 @@ Reference behavior: multipaxos/Acceptor.scala:59-255. Per-slot
 stale rounds (Phase2a nacks go to the round's *leader*, not the proxy
 leader that forwarded it), ``max_voted_slot`` serving quorum reads.
 
-Not ported yet, and refused: the WAL (``wal=``) and the EpochCommit
-matchmaker branch of reconfiguration (ROADMAP.md queue 1 item 4), and the
-read batchers' BatchMaxSlotRequest (item 8.3).
+With ``wal=`` (a ``wal.Wal``) promises, votes, runs and epochs are
+logged and every ack that depends on one leaves after the drain's
+group-commit fsync (``wal.DurableRole``); a restart recovers them. The
+acceptor is the matchmaker of reconfiguration: it logs each EpochCommit
+before it acks it and reports the epochs it holds in every Phase1b.
+
+Not ported yet, and refused: the read batchers' BatchMaxSlotRequest
+(ROADMAP.md queue 1 item 8.3).
 """
 
 from __future__ import annotations
@@ -36,10 +41,29 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
     Phase2bRange,
     Phase2bVotes,
 )
-from frankenpaxos_tpu_torch.reconfig import RECONFIG_MESSAGES
+from frankenpaxos_tpu_torch.protocols.multipaxos.wire import (
+    decode_value,
+    decode_value_array,
+    encode_value,
+    encode_value_array,
+)
+from frankenpaxos_tpu_torch.reconfig import (
+    decode_epoch_config,
+    encode_epoch_config,
+    EpochAck,
+    EpochCommit,
+)
 from frankenpaxos_tpu_torch.roundsystem import ClassicRoundRobin
 from frankenpaxos_tpu_torch.runtime import Actor, Collectors, FakeCollectors, Logger
 from frankenpaxos_tpu_torch.runtime.transport import Address, Transport
+from frankenpaxos_tpu_torch.wal import (
+    DurableRole,
+    WalEpoch,
+    WalPromise,
+    WalSnapshot,
+    WalVote,
+    WalVoteRun,
+)
 import numpy as np
 
 
@@ -60,15 +84,11 @@ class _VoteState:
     vote_value: CommandBatchOrNoop
 
 
-class Acceptor(Actor):
+class Acceptor(Actor, DurableRole):
     def __init__(self, address: Address, transport: Transport,
                  logger: Logger, config: MultiPaxosConfig,
                  options: AcceptorOptions = AcceptorOptions(),
                  collectors: Collectors | None = None, wal=None):
-        if wal is not None:
-            raise NotImplementedError(
-                "the WAL is not ported yet (ROADMAP.md queue 1 item 4: "
-                "WAL)")
         super().__init__(address, transport, logger)
         config.check_valid()
         self.config = config
@@ -86,6 +106,13 @@ class Acceptor(Actor):
         self.round_system = ClassicRoundRobin(config.num_leaders)
         self.round = -1
         self.states: SortedDict = SortedDict()  # slot -> _VoteState
+        # Committed reconfiguration epochs (reconfig/):
+        # epoch id -> EpochCommit, round-monotone per id. The acceptor
+        # is a MATCHMAKER for the epoch map: entries are WAL'd before
+        # the EpochAck leaves (group commit), and every Phase1b reports
+        # them so a new leader's read quorum always discovers activated
+        # epochs (the Flexible-Paxos intersection condition).
+        self._epoch_commits: dict[int, EpochCommit] = {}
         # Run-voted state (Phase2aRun): start -> (end, round, values) --
         # one O(1) record per run instead of per-slot _VoteStates. A
         # slot's authoritative vote is the HIGHEST round across both
@@ -97,6 +124,67 @@ class Acceptor(Actor):
         self.max_voted_slot = -1
         # Phase2b acks staged during this drain: dst -> [(slot, round)].
         self._pending_phase2bs: dict[Address, list] = {}
+        # Durability (wal/): promises and votes append to the WAL as
+        # they are handled, and every ack that DEPENDS on one is held
+        # back until on_drain's single group-commit fsync releases it
+        # (DurableRole) -- a crashed acceptor can therefore never have
+        # acked state it will not recover. wal=None (the default) is
+        # the reference's in-memory behavior.
+        self._wal_init(wal)
+        if wal is not None:
+            self._recover_from_wal()
+
+    # --- durability -------------------------------------------------------
+    def _recover_from_wal(self) -> None:
+        for record in self.wal.recover(self.logger):
+            if isinstance(record, WalSnapshot):
+                # A compaction base: everything replayed so far is
+                # superseded state re-logged after this marker.
+                self.round = -1
+                self.states.clear()
+                self._voted_runs.clear()
+                self.max_voted_slot = -1
+            elif isinstance(record, WalPromise):
+                self.round = max(self.round, record.round)
+            elif isinstance(record, WalVote):
+                self.round = max(self.round, record.round)
+                self.states[record.slot] = _VoteState(
+                    record.round, decode_value(record.value))
+                self.max_voted_slot = max(self.max_voted_slot,
+                                          record.slot)
+            elif isinstance(record, WalVoteRun):
+                self.round = max(self.round, record.round)
+                self._store_run(record.start_slot, record.round,
+                                decode_value_array(record.values))
+            elif isinstance(record, WalEpoch):
+                epoch, start, f, rnd, members = decode_epoch_config(
+                    record.payload)
+                known = self._epoch_commits.get(epoch)
+                if known is None or rnd > known.round:
+                    self._epoch_commits[epoch] = EpochCommit(
+                        epoch=epoch, start_slot=start, f=f, round=rnd,
+                        members=members)
+            else:
+                self.logger.fatal(
+                    f"unexpected acceptor WAL record {record!r}")
+
+    def _wal_compact(self) -> None:
+        """Rewrite the log as one snapshot marker + the live voted
+        state (one fsync), reclaiming every older segment."""
+        records = [WalPromise(round=self.round)]
+        for epoch in sorted(self._epoch_commits):
+            c = self._epoch_commits[epoch]
+            records.append(WalEpoch(payload=encode_epoch_config(
+                c.epoch, c.start_slot, c.f, c.round, c.members)))
+        for start, (end, rnd, values) in self._voted_runs.items():
+            records.append(WalVoteRun(
+                start_slot=start, stride=1, round=rnd,
+                values=encode_value_array(values)))
+        for slot, vs in self.states.items():
+            records.append(WalVote(
+                slot=slot, round=vs.vote_round,
+                value=encode_value(vs.vote_value)))
+        self.wal.compact(WalSnapshot(payload=b""), records)
 
     def receive(self, src: Address, message) -> None:
         # timed(label) handler latency summaries (Leader.scala:281-293).
@@ -124,13 +212,38 @@ class Acceptor(Actor):
             raise NotImplementedError(
                 "BatchMaxSlotRequest: read batchers are not ported yet "
                 "(ROADMAP.md queue 1 item 8.3: read batchers)")
-        elif isinstance(message, RECONFIG_MESSAGES):
-            raise NotImplementedError(
-                f"{type(message).__name__}: actor-side reconfiguration is "
-                f"not ported yet (ROADMAP.md queue 1 item 4: "
-                f"reconfiguration)")
+        elif isinstance(message, EpochCommit):
+            self.metrics_requests.labels("EpochCommit").inc()
+            self._handle_epoch_commit(src, message)
         else:
             self.logger.fatal(f"unexpected acceptor message {message!r}")
+
+    def _handle_epoch_commit(self, src: Address,
+                             commit: EpochCommit) -> None:
+        """Store one epoch map entry (round-monotone per epoch id),
+        WAL it, and ack only after the drain's group commit -- the
+        matchmaker write: f+1 of these durable acks IS the epoch's
+        commit point."""
+        if commit.round < self.round:
+            # A stale leader defining epochs: nack so it re-runs Phase1
+            # (mirroring the Phase2a round check).
+            self.send(src, Nack(round=self.round))
+            return
+        known = self._epoch_commits.get(commit.epoch)
+        if known is None or commit.round > known.round:
+            self._epoch_commits[commit.epoch] = commit
+            if self.wal is not None and known != commit:
+                self.wal.append(WalEpoch(payload=encode_epoch_config(
+                    commit.epoch, commit.start_slot, commit.f,
+                    commit.round, commit.members)))
+        elif known is not None and commit.round == known.round \
+                and known != commit:
+            self.logger.fatal(
+                f"conflicting EpochCommits at one round: {known!r} "
+                f"vs {commit!r}")
+        # Duplicate commits re-ack (the leader's resend protocol).
+        self._wal_send(src, EpochAck(epoch=commit.epoch,
+                                     round=commit.round))
 
     def _handle_phase1a(self, src: Address, phase1a: Phase1a) -> None:
         if phase1a.round < self.round:
@@ -139,11 +252,19 @@ class Acceptor(Actor):
                 f"round {self.round}")
             self.send(src, Nack(round=self.round))
             return
+        if self.wal is not None and phase1a.round > self.round:
+            self.wal.append(WalPromise(round=phase1a.round))
         self.round = phase1a.round
-        self.send(src, Phase1b(
+        # The promise must be durable before the leader may trust it
+        # (a crashed acceptor re-promising a lower round would let two
+        # leaders both believe they own a round): held for group
+        # commit.
+        self._wal_send(src, Phase1b(
             group_index=self.group_index, acceptor_index=self.index,
             round=self.round,
-            info=self._voted_info(phase1a.chosen_watermark)))
+            info=self._voted_info(phase1a.chosen_watermark),
+            epochs=tuple(self._epoch_commits[e]
+                         for e in sorted(self._epoch_commits))))
 
     def _voted_info(self, minimum: int) -> tuple:
         """Every voted slot >= ``minimum`` with its HIGHEST-round vote,
@@ -181,13 +302,18 @@ class Acceptor(Actor):
         self.states[phase2a.slot] = _VoteState(vote_round=self.round,
                                                vote_value=phase2a.value)
         self.max_voted_slot = max(self.max_voted_slot, phase2a.slot)
+        if self.wal is not None:
+            self.wal.append(WalVote(
+                slot=phase2a.slot, round=self.round,
+                value=encode_value(phase2a.value)))
         if self.options.range_phase2bs:
             # Stage the ack; on_drain coalesces contiguous runs per
-            # destination into Phase2bRanges.
+            # destination into Phase2bRanges (and, durable, releases
+            # them only after the drain's group commit).
             self._pending_phase2bs.setdefault(src, []).append(
                 (phase2a.slot, self.round))
         else:
-            self.send(src, Phase2b(group_index=self.group_index,
+            self._wal_send(src, Phase2b(group_index=self.group_index,
                                         acceptor_index=self.index,
                                         slot=phase2a.slot,
                                         round=self.round))
@@ -203,10 +329,17 @@ class Acceptor(Actor):
             return
         self.round = run.round
         end = self._store_run(run.start_slot, run.round, run.values)
+        if self.wal is not None:
+            # Logging the run re-encodes its value array -- a RAW COPY
+            # of the inbound lazy segment, never a re-materialization.
+            self.wal.append(WalVoteRun(
+                start_slot=run.start_slot, stride=1, round=run.round,
+                values=encode_value_array(run.values)))
         # Ack immediately as one range: the run is already a contiguous
         # same-round block, so drain-end staging (whose merge loop is
-        # per-slot) would cost Python without saving messages.
-        self.send(src, Phase2bRange(group_index=self.group_index,
+        # per-slot) would cost Python without saving messages. Durable
+        # mode holds it for the drain's group commit instead.
+        self._wal_send(src, Phase2bRange(group_index=self.group_index,
                                          acceptor_index=self.index,
                                          slot_start_inclusive=run.start_slot,
                                          slot_end_exclusive=end,
@@ -214,7 +347,8 @@ class Acceptor(Actor):
 
     def _store_run(self, start_slot: int, round: int, values) -> int:
         """Merge one contiguous voted run into the run store; returns
-        the run's exclusive end."""
+        the run's exclusive end. Shared by the live Phase2aRun handler
+        and WAL replay so truncation-tail semantics cannot drift."""
         end = start_slot + len(values)
         old = self._voted_runs.get(start_slot)
         self._voted_runs[start_slot] = (end, round, values)
@@ -258,24 +392,28 @@ class Acceptor(Actor):
                                     count=len(acks))
                 rounds = np.fromiter((r for _, r in acks), dtype=np.int32,
                                      count=len(acks))
-                self.send(dst, Phase2bVotes(
+                self._wal_send(dst, Phase2bVotes(
                     group_index=self.group_index,
                     acceptor_index=self.index,
                     packed=native.pack_votes2(slots, rounds)))
                 continue
             for run in runs:
                 if len(run) == 1:
-                    self.send(dst, Phase2b(
+                    self._wal_send(dst, Phase2b(
                         group_index=self.group_index,
                         acceptor_index=self.index,
                         slot=run[0][0], round=run[0][1]))
                 else:
-                    self.send(dst, Phase2bRange(
+                    self._wal_send(dst, Phase2bRange(
                         group_index=self.group_index,
                         acceptor_index=self.index,
                         slot_start_inclusive=run[0][0],
                         slot_end_exclusive=run[-1][0] + 1,
                         round=run[0][1]))
+        # GROUP COMMIT (DurableRole): one fsync covers every record
+        # this drain appended, then -- and only then -- the acks it
+        # produced go out.
+        self._wal_drain()
 
     @staticmethod
     def _runs_of(acks: list) -> list:

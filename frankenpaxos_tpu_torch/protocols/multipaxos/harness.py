@@ -5,10 +5,15 @@ lives in the package because ``chip_smoke.py`` and
 ``bench/multipaxos_sim.py`` build clusters with it): every role in one
 process, driven by explicit message deliveries and timer firings, with
 the same addresses, options and per-role seeds, so that the same writes
-give the same message order, logs and replies in both packages. The
-reference harness's WAL, ingest batchers, read batchers, admission and
-epoch options are not offered: those paths are not ported yet
-(ROADMAP.md queue 1 items 4, 8.1, 8.2 and 8.3).
+give the same message order, logs and replies in both packages. Its
+durability half is the reference's too: ``wal=`` (MemStorage WALs that
+survive ``crash_restart_acceptor`` / ``crash_restart_replica``, or
+FileStorage WALs with real fsyncs under a directory),
+``add_replacement_acceptor`` for a reconfiguration, and the
+``epoch_tag_runs`` / ``epoch_quorums`` options. The reference harness's
+ingest batchers (and their crash-restart), read batchers and admission
+are not offered: those paths are not ported yet (ROADMAP.md queue 1
+items 8.1, 8.2 and 8.3).
 
 ``device`` reaches the roles that hold one (the ProxyLeaders' trackers
 with ``quorum_backend="cuda"``, the Leaders with
@@ -18,6 +23,7 @@ with ``quorum_backend="cuda"``, the Leaders with
 from __future__ import annotations
 
 import dataclasses
+import os
 
 from frankenpaxos_tpu_torch.protocols.multipaxos.acceptor import Acceptor
 from frankenpaxos_tpu_torch.protocols.multipaxos.batcher import (
@@ -49,6 +55,7 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.replica import (
 )
 from frankenpaxos_tpu_torch.runtime import FakeLogger, LogLevel, SimTransport
 from frankenpaxos_tpu_torch.statemachine import AppendLog
+from frankenpaxos_tpu_torch.wal import FileStorage, MemStorage, Wal
 
 
 @dataclasses.dataclass
@@ -62,6 +69,78 @@ class MultiPaxosSim:
     replicas: list
     proxy_replicas: list
     clients: list
+    # wal= extras: address -> storage (survives crash_restart), plus
+    # what a restart needs to rebuild the actor.
+    wal_storages: dict = dataclasses.field(default_factory=dict)
+    state_machine_factory: object = None
+    seed: int = 0
+    #: The directory of FileStorage WALs, or None (MemStorage).
+    wal_root: "str | None" = None
+    #: Replacement acceptors' own configs (address -> config).
+    acceptor_configs: dict = dataclasses.field(default_factory=dict)
+
+
+#: Small segment/compaction thresholds so sim runs exercise rotation
+#: and snapshot GC, not just appends (the reference harness's values).
+_SIM_WAL_SEGMENT_BYTES = 2048
+_SIM_WAL_COMPACT_BYTES = 8192
+
+
+def _sim_wal(storages: dict, address, root=None) -> Wal:
+    """A Wal over the (surviving) MemStorage for ``address`` -- or, with
+    ``root`` set, over FileStorage at <root>/<address> with the Wal's
+    own thresholds, as the reference harness does."""
+    if root is not None:
+        storage = storages.setdefault(
+            address, FileStorage(os.path.join(root, str(address))))
+        return Wal(storage)
+    storage = storages.setdefault(address, MemStorage())
+    return Wal(storage, segment_bytes=_SIM_WAL_SEGMENT_BYTES,
+               compact_every_bytes=_SIM_WAL_COMPACT_BYTES)
+
+
+def crash_restart_acceptor(sim: MultiPaxosSim, i: int) -> None:
+    """kill -9 acceptor ``i`` and restart it from its WAL: volatile
+    state (staged acks, the unsynced group-commit buffer) dies; synced
+    promises/votes/runs/epochs recover. Replacement acceptors relaunch
+    with THEIR recorded config."""
+    old = sim.acceptors[i]
+    config = sim.acceptor_configs.get(old.address, sim.config)
+    sim.transport.crash(old.address)
+    sim.acceptors[i] = Acceptor(
+        old.address, sim.transport, sim.transport.logger, config,
+        old.options, wal=_sim_wal(sim.wal_storages, old.address,
+                                  sim.wal_root))
+
+
+def add_replacement_acceptor(sim: MultiPaxosSim, members: tuple,
+                             new_address) -> None:
+    """Construct a reconfiguration replacement: a NEW acceptor at
+    ``new_address`` whose config lists exactly ``members`` as the
+    acceptor group. The caller then sends ``Reconfigure(members)`` to
+    the leader."""
+    if new_address not in members:
+        raise ValueError(f"{new_address!r} is not one of {members!r}")
+    config = dataclasses.replace(sim.config,
+                                 acceptor_addresses=[list(members)])
+    sim.acceptor_configs[new_address] = config
+    sim.acceptors.append(Acceptor(
+        new_address, sim.transport, sim.transport.logger, config,
+        wal=_sim_wal(sim.wal_storages, new_address, sim.wal_root)))
+
+
+def crash_restart_replica(sim: MultiPaxosSim, i: int) -> None:
+    """kill -9 replica ``i`` and restart it: the SM rebuilds from the
+    WAL snapshot + chosen-record replay; unsynced executions (never
+    acked, by the group-commit rule) are re-learned or re-requested."""
+    old = sim.replicas[i]
+    sim.transport.crash(old.address)
+    sim.replicas[i] = Replica(
+        old.address, sim.transport, sim.transport.logger,
+        sim.state_machine_factory(), sim.config, old.options,
+        seed=sim.seed + 20 + i,
+        wal=_sim_wal(sim.wal_storages, old.address, sim.wal_root))
+
 
 
 def make_multipaxos(
@@ -82,6 +161,9 @@ def make_multipaxos(
     state_machine_factory=AppendLog,
     seed: int = 0,
     log_level: LogLevel = LogLevel.FATAL,
+    wal: "bool | str" = False,
+    epoch_tag_runs: bool = False,
+    epoch_quorums: bool = False,
     device=None,
 ) -> MultiPaxosSim:
     """``coalesced``: False (every client sends per-message
@@ -89,9 +171,20 @@ def make_multipaxos(
     arrays) or "mixed" (even-indexed clients coalesce, odd ones do not).
     ``tpu_window`` is the ProxyLeaders' vote-board window: the
     reference harness's 2^12 by default, the role's own 2^20 for the
-    full-width bench."""
+    full-width bench (the epoch board takes ``min(tpu_window, 2^14)``).
+    ``wal``: False (no WAL), True (MemStorage WALs, the crash-restart
+    sims) or a directory path (FileStorage WALs with real fsyncs, one
+    subdirectory per role, written nowhere else)."""
     logger = FakeLogger(log_level)
     transport = SimTransport(logger)
+    wal_storages: dict = {}
+    wal_root = None if isinstance(wal, bool) else wal
+    if wal is False:
+        def wal_for(address):
+            return None
+    else:
+        def wal_for(address):
+            return _sim_wal(wal_storages, address, wal_root)
     if flexible:
         rows, cols = grid_shape or (f + 1, f + 1)
         acceptor_addresses = [[f"acceptor-{g}-{i}" for i in range(cols)]
@@ -123,7 +216,8 @@ def make_multipaxos(
     leaders = [
         Leader(a, transport, logger, config,
                LeaderOptions(resend_phase1as_period_s=5.0,
-                             phase1_backend=phase1_backend),
+                             phase1_backend=phase1_backend,
+                             epoch_tag_runs=epoch_tag_runs),
                seed=seed + i, device=device)
         for i, a in enumerate(config.leader_addresses)]
     proxy_leaders = [
@@ -132,15 +226,16 @@ def make_multipaxos(
                         quorum_backend=quorum_backend,
                         tpu_window=tpu_window,
                         tpu_pipelined=tpu_pipelined,
-                        tpu_min_device_slots=tpu_min_device_slots),
+                        tpu_min_device_slots=tpu_min_device_slots,
+                        epoch_quorums=epoch_quorums),
                     seed=seed + 10 + i, device=device)
         for i, a in enumerate(config.proxy_leader_addresses)]
-    acceptors = [Acceptor(a, transport, logger, config)
+    acceptors = [Acceptor(a, transport, logger, config, wal=wal_for(a))
                  for group in config.acceptor_addresses for a in group]
     replicas = [
         Replica(a, transport, logger, state_machine_factory(), config,
                 ReplicaOptions(send_chosen_watermark_every_n_entries=10),
-                seed=seed + 20 + i)
+                seed=seed + 20 + i, wal=wal_for(a))
         for i, a in enumerate(config.replica_addresses)]
     proxy_replicas = [ProxyReplica(a, transport, logger, config)
                       for a in config.proxy_replica_addresses]
@@ -156,7 +251,9 @@ def make_multipaxos(
         for i in range(num_clients)]
     return MultiPaxosSim(transport, config, batchers, leaders,
                          proxy_leaders, acceptors, replicas, proxy_replicas,
-                         clients)
+                         clients, wal_storages=wal_storages,
+                         state_machine_factory=state_machine_factory,
+                         seed=seed, wal_root=wal_root)
 
 
 def executed_prefix(replica: Replica) -> list:

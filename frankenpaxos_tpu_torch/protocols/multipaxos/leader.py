@@ -21,11 +21,22 @@ Reference behavior: multipaxos/Leader.scala:95-723. A state machine over
 Phase-1 recovery runs on the host (``phase1_backend="host"``, the
 reference's per-slot scan) or as one K8 reduction on the GPU
 (``"cuda"``, ``ops/value.py``); the reference's ``"tpu"`` is refused.
+A recovery across several epochs takes the host scan on either backend,
+as the reference's does.
+
+Live reconfiguration (reconfig/): ``Reconfigure`` defines epoch e+1 at
+``next_slot``; the leader broadcasts the round-tagged EpochCommit
+(resent by the ``resendEpochCommit`` timer) and buffers proposals until
+f+1 acceptors of the old epoch have durably acked it; then proposals go
+out as epoch-tagged runs (EpochPhase2aRun), split at epoch boundaries.
+A new leader discovers epochs from the Phase1bs, runs Phase 1 with a
+read quorum in every epoch still covering undecided slots, and re-sends
+the epoch map to the proxy leaders.
+
 Not ported yet, and refused: admission control (the ``admission_*``
-options; ROADMAP.md, queue 1 item 8.1), epoch-tagged proposals and the
-reconfiguration messages (queue 1 item 4), and the ingest fabric
-(IngestRun and the client wire sinks, queue 1 item 8.2; no such message
-exists in the port).
+options; ROADMAP.md, queue 1 item 8.1) and the ingest fabric (IngestRun
+and the client wire sinks, queue 1 item 8.2; no such message exists in
+the port).
 """
 
 from __future__ import annotations
@@ -65,7 +76,14 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
 )
 from frankenpaxos_tpu_torch.device import resolve_device
 from frankenpaxos_tpu_torch.ops import value as value_ops
-from frankenpaxos_tpu_torch.reconfig import RECONFIG_MESSAGES
+from frankenpaxos_tpu_torch.reconfig import (
+    EpochAck,
+    EpochCommit,
+    EpochConfig,
+    EpochPhase2aRun,
+    EpochStore,
+    Reconfigure,
+)
 from frankenpaxos_tpu_torch.roundsystem import ClassicRoundRobin
 from frankenpaxos_tpu_torch.runtime import Actor, Collectors, FakeCollectors, Logger
 from frankenpaxos_tpu_torch.runtime.transport import Address, Transport
@@ -91,9 +109,12 @@ class LeaderOptions:
     # batched K8 (ops/value.safe_values_staged) over the whole recovery
     # window.
     phase1_backend: str = "host"
-    # Epoch-tagged proposals (reconfiguration): not ported yet; True is
-    # refused.
+    # Tag every run proposal with its epoch (EpochPhase2aRun) even while
+    # the store holds a single epoch. Off by default -- the single-epoch
+    # steady state pays no reconfiguration overhead. Once a real
+    # reconfiguration commits, tagging engages regardless.
     epoch_tag_runs: bool = False
+    resend_epoch_commit_period_s: float = 1.0
     # Admission control: not ported yet; anything but the all-zero
     # default is refused.
     admission_token_rate: float = 0.0
@@ -125,13 +146,42 @@ class _Phase1:
     pending_batches: list[ClientRequestBatch]
     resend_phase1as: object  # Timer
     # Every Phase1b by sender address (the recovery window's max slot
-    # is taken over all of them).
+    # is taken over all of them). Across epochs, (group, index)
+    # coordinates can collide -- a replacement reuses a dead member's
+    # config slot -- but addresses cannot.
     by_addr: dict = dataclasses.field(default_factory=dict)
+    # The Phase1a in flight, for epoch-discovery extension sends.
+    phase1a: Optional[Phase1a] = None
 
 
 @dataclasses.dataclass
 class _Phase2:
     noop_flush: Optional[object] = None  # Timer
+
+
+@dataclasses.dataclass
+class _EpochChange:
+    """An epoch change in flight (the reconfiguration state machine):
+    PENDING until a write quorum of OLD-epoch acceptors durably acked
+    the EpochCommit (proposals buffer -- the handover window), then
+    ACTIVE (buffered proposals open the new epoch's slots) while
+    resends keep chasing the stragglers' acks."""
+
+    config: EpochConfig
+    commit: EpochCommit
+    targets: set
+    acks: set
+    resend: object  # Timer
+    pending: list   # buffered CommandBatchOrNoop values
+    activated: bool = False
+    # True when RE-driving an adopted epoch (post-failover, or a
+    # Phase2 leader learning one from a peer broadcast): same gate --
+    # an epoch may be proposed into only once f+1 of its PREDECESSOR's
+    # acceptors durably hold its commit, because that is what makes
+    # every future leader's Phase1 discover it (chaos-found: an
+    # adopted-but-undurable epoch let a later leader re-propose its
+    # slots under the old quorums -- a second chosen value).
+    recommit: bool = False
 
 
 class Leader(Actor):
@@ -148,10 +198,6 @@ class Leader(Actor):
             raise NotImplementedError(
                 "admission control is not ported yet (ROADMAP.md, queue "
                 "1 item 8.1: admission)")
-        if options.epoch_tag_runs:
-            raise NotImplementedError(
-                "epoch-tagged proposals are not ported yet (ROADMAP.md, "
-                "queue 1 item 4: reconfiguration)")
         # K8's device: resolved now, so that "cuda" without a GPU (and
         # no device named) fails at construction, not at a failover.
         self.device = (resolve_device(device)
@@ -175,6 +221,18 @@ class Leader(Actor):
         self.grid = config.quorum_grid() if config.flexible else None
         self._row_size = len(config.acceptor_addresses[0])
         self.round_system = ClassicRoundRobin(config.num_leaders)
+        # Live reconfiguration (reconfig/): the epoch store is THE
+        # authority for acceptor-set reads on this role. Supported for
+        # the workhorse shape -- one non-flexible 2f+1 group; grids and
+        # slot-striped multi-group configs stay epoch-frozen.
+        self.epochs: Optional[EpochStore] = None
+        if not config.flexible and config.num_acceptor_groups == 1:
+            self.epochs = EpochStore.from_members(
+                tuple(config.acceptor_addresses[0]), config.f)
+        self._epoch_change: Optional[_EpochChange] = None
+        # Post-failover epoch re-broadcast state: {"epoch", "commits",
+        # "pending" (proxies yet to ack), "timer"} or None.
+        self._epoch_sync: Optional[dict] = None
         # Active leader's round, or the largest known active round.
         self.round = self.round_system.next_classic_round(0, -1)
         self.next_slot = 0
@@ -233,6 +291,18 @@ class Leader(Actor):
         # acceptor sat in the "wrong" row and recovered Noop over a
         # chosen value (found by the reference's 500x250 soak,
         # multipaxos/f1-grid seed 493: replica logs diverged).
+        # Multi-epoch recovery: every answering acceptor's votes are
+        # scanned for every slot. Non-members of a slot's epoch can
+        # hold no votes for it (proposals only ever fan to the epoch's
+        # members), so the scan is a superset of the epoch's read
+        # quorum -- the safe-value rule over exactly the right config.
+        # K8's matrices index votes by (group, index) coordinates,
+        # which collide across epochs, so the host scan is the
+        # multi-epoch path on both backends, as in the reference.
+        if self.epochs is not None and self.epochs.multi_epoch:
+            return self._safe_values(
+                (info for phase1b in phase1.by_addr.values()
+                 for info in phase1b.info), max_slot)
         if self.options.phase1_backend != "cuda":
             return self._recover_values_host(phase1, max_slot)
         t0 = time.perf_counter()
@@ -285,26 +355,71 @@ class Leader(Actor):
     def _recover_values_host(self, phase1: "_Phase1", max_slot: int
                              ) -> list:
         """The reference's per-slot ``safeValue`` scan
-        (Leader.scala:318-330): for each slot, the first vote with the
-        strictly highest round over the slot's Phase1bs in arrival
-        order, else Noop. One pass over the votes instead of one pass
-        per slot; the choices are the same."""
-        lo = self.chosen_watermark
+        (Leader.scala:318-330) over each slot's own group's Phase1bs."""
         num_groups = self.config.num_acceptor_groups
+        flexible = self.config.flexible
+        return self._safe_values(
+            (info for group_index, group in enumerate(phase1.phase1bs)
+             for phase1b in group.values() for info in phase1b.info
+             if flexible or info.slot % num_groups == group_index),
+            max_slot)
+
+    def _safe_values(self, infos, max_slot: int) -> list:
+        """``safeValue`` for every slot of ``[chosen_watermark,
+        max_slot]`` over the votes ``infos`` in their order: the first
+        vote with the strictly highest round, else Noop. One pass over
+        the votes instead of one pass per slot; the choices are the
+        reference's."""
+        lo = self.chosen_watermark
         best: dict = {}  # slot -> (vote_round, vote_value)
-        for group_index, group in enumerate(phase1.phase1bs):
-            for phase1b in group.values():
-                for info in phase1b.info:
-                    slot = info.slot
-                    if not lo <= slot <= max_slot or (
-                            not self.config.flexible
-                            and slot % num_groups != group_index):
-                        continue
-                    cur = best.get(slot)
-                    if info.vote_round > (-1 if cur is None else cur[0]):
-                        best[slot] = (info.vote_round, info.vote_value)
+        for info in infos:
+            slot = info.slot
+            if not lo <= slot <= max_slot:
+                continue
+            cur = best.get(slot)
+            if info.vote_round > (-1 if cur is None else cur[0]):
+                best[slot] = (info.vote_round, info.vote_value)
         return [best[s][1] if s in best else NOOP
                 for s in range(lo, max_slot + 1)]
+
+    @property
+    def _epoch_tagging(self) -> bool:
+        """Whether proposals carry epoch tags: always once a real
+        reconfiguration committed (the proxy must never mis-route a
+        run across the handover), or forced by ``epoch_tag_runs`` for
+        the steady-state overhead A/B."""
+        return self.epochs is not None and (
+            self.epochs.multi_epoch or self.options.epoch_tag_runs)
+
+    def _epoch_buffering(self) -> "Optional[list]":
+        """The pending-change buffer while an epoch change awaits its
+        activation quorum (the handover window), else None."""
+        change = self._epoch_change
+        if change is not None and not change.activated:
+            return change.pending
+        return None
+
+    def _send_epoch_runs(self, values: tuple) -> None:
+        """Propose ``values`` at contiguous slots from ``next_slot`` as
+        epoch-tagged runs, SPLIT at epoch activation boundaries -- a
+        proposal run never spans two acceptor sets (each segment's
+        quorum is one epoch's)."""
+        k = len(values)
+        at = 0
+        while at < k:
+            slot = self.next_slot + at
+            config = self.epochs.epoch_of_slot(slot)
+            end = k
+            nxt = self.epochs.config(config.epoch + 1)
+            if nxt is not None:
+                end = min(k, nxt.start_slot - self.next_slot)
+            dst = self._proxy_leader_address()
+            self.send(dst, EpochPhase2aRun(
+                epoch=config.epoch, start_slot=slot, round=self.round,
+                values=tuple(values[at:end])))
+            self._account_sent_slots(dst, end - at)
+            at = end
+        self.next_slot += k
 
     def _account_sent_slots(self, dst: Address, k: int) -> None:
         """Rotate proxy leaders every `chunk` slots (>= the flush batch,
@@ -342,17 +457,42 @@ class Leader(Actor):
         if not isinstance(self.state, _Phase2):
             self.logger.fatal(
                 f"leader processing a batch outside Phase2: {self.state}")
+        pending = self._epoch_buffering()
+        if pending is not None:
+            pending.append(batch.batch)
+            return
+        if self._epoch_tagging:
+            self._send_epoch_runs((batch.batch,))
+            return
         self._send_phase2a(Phase2a(slot=self.next_slot, round=self.round,
                                    value=batch.batch))
         self.next_slot += 1
 
     # --- phase 1 ----------------------------------------------------------
+    def _phase1_epochs(self) -> list:
+        """The epochs a Phase1 recovering ``[chosen_watermark, inf)``
+        must hold a read quorum in -- Phase1-with-both-configs across a
+        handover (the Flexible-Paxos intersection condition)."""
+        return self.epochs.epochs_covering(self.chosen_watermark)
+
     def _start_phase1(self, round: int, chosen_watermark: int) -> _Phase1:
         phase1a = Phase1a(round=round, chosen_watermark=chosen_watermark)
-        if not self.config.flexible:
-            # A thrifty f+1 sample per group (a majority is both the
-            # read and the write quorum); the resend widens to every
-            # acceptor.
+        if self.epochs is not None:
+            # Thrifty f+1 sample per covered epoch (a majority is both
+            # the read and write quorum); resend widens to every member.
+            # dict.fromkeys, not a set: iteration must stay
+            # deterministic (sim replay, golden traces) under string
+            # hash randomization.
+            targets: dict = {}
+            for config in self._phase1_epochs():
+                targets.update(dict.fromkeys(self.rng.sample(
+                    list(config.members), config.quorum_size)))
+            for acceptor in targets:
+                self.send(acceptor, phase1a)
+        elif not self.config.flexible:
+            # self.epochs is None on this path: multi-group striping
+            # is epoch-frozen. A thrifty f+1 sample per group (a
+            # majority is both the read and the write quorum).
             for group in self.config.acceptor_addresses:
                 for acceptor in self.rng.sample(list(group),
                                                 self.config.f + 1):
@@ -362,9 +502,16 @@ class Leader(Actor):
                 self.send(self._acceptor_address(flat), phase1a)
 
         def resend():
-            for group in self.config.acceptor_addresses:
-                for acceptor in group:
+            if self.epochs is not None:
+                targets: dict = {}
+                for config in self._phase1_epochs():
+                    targets.update(dict.fromkeys(config.members))
+                for acceptor in targets:
                     self.send(acceptor, phase1a)
+            else:
+                for group in self.config.acceptor_addresses:
+                    for acceptor in group:
+                        self.send(acceptor, phase1a)
             timer.start()
 
         timer = self.timer("resendPhase1as",
@@ -374,7 +521,8 @@ class Leader(Actor):
             phase1bs=[{} for _ in range(self.config.num_acceptor_groups)],
             phase1b_acceptors=set(),
             pending_batches=[],
-            resend_phase1as=timer)
+            resend_phase1as=timer,
+            phase1a=phase1a)
 
     def _make_noop_flush_timer(self) -> Optional[object]:
         """In non-flexible mode with multiple groups, periodically propose
@@ -406,9 +554,27 @@ class Leader(Actor):
         elif isinstance(self.state, _Phase2) and self.state.noop_flush:
             self.state.noop_flush.stop()
 
+    def _abort_epoch_change(self) -> None:
+        """Round churn aborts an in-flight change: the commit was
+        round-tagged, so its acks are dead; a successor leader adopting
+        the (possibly partially acked) entry from Phase1bs supersedes
+        or re-drives it. Buffered proposals are dropped -- clients
+        resend, and the replica client table keeps that exactly-once."""
+        change = self._epoch_change
+        if change is None:
+            return
+        change.resend.stop()
+        if change.pending:
+            self.logger.debug(
+                f"epoch change aborted with {len(change.pending)} "
+                f"buffered proposals (clients will resend)")
+        self._epoch_change = None
+
     def leader_change(self, is_new_leader: bool) -> None:
         """Election callback (Leader.scala:432-459)."""
         self._stop_state_timers()
+        self._abort_epoch_change()
+        self._stop_epoch_sync()
         if not is_new_leader:
             self.state = _Inactive()
             return
@@ -442,18 +608,34 @@ class Leader(Actor):
             (ChosenWatermark, "ChosenWatermark",
              self._handle_chosen_watermark),
             (Recover, "Recover", self._handle_recover),
+            (Reconfigure, "Reconfigure", self._handle_reconfigure),
+            (EpochAck, "EpochAck", self._handle_epoch_ack),
+            (EpochCommit, "EpochCommit", self._handle_epoch_commit),
         ]
         for klass, label, handler in handlers:
             if isinstance(message, klass):
                 self.metrics_requests.labels(label).inc()
                 handler(src, message)
                 return
-        if isinstance(message, RECONFIG_MESSAGES):
-            raise NotImplementedError(
-                f"{type(message).__name__}: actor-side reconfiguration is "
-                f"not ported yet (ROADMAP.md, queue 1 item 4: "
-                f"reconfiguration)")
         self.logger.fatal(f"unexpected leader message {message!r}")
+
+    def _adopt_epochs(self, commits) -> bool:
+        """Merge epoch entries discovered in a Phase1b into the store
+        (highest round per epoch id wins); returns True when coverage
+        changed (the caller extends Phase1a to the new members)."""
+        changed = False
+        for commit in sorted(commits, key=lambda c: (c.epoch, c.round)):
+            try:
+                outcome = self.epochs.offer(
+                    EpochConfig(epoch=commit.epoch,
+                                start_slot=commit.start_slot,
+                                f=commit.f, members=commit.members),
+                    commit.round)
+            except ValueError as e:
+                self.logger.warn(f"discovered epoch rejected: {e}")
+                continue
+            changed = changed or outcome in ("new", "replaced")
+        return changed
 
     def _handle_phase1b(self, src: Address, phase1b: Phase1b) -> None:
         if not isinstance(self.state, _Phase1):
@@ -466,25 +648,39 @@ class Leader(Actor):
             self.logger.check_lt(phase1b.round, self.round)
             return
 
-        if phase1b.epochs:
-            raise NotImplementedError(
-                "Phase1b reports epochs: actor-side reconfiguration is "
-                "not ported yet (ROADMAP.md, queue 1 item 4: "
-                "reconfiguration)")
         phase1.by_addr[src] = phase1b
-        phase1.phase1bs[phase1b.group_index][phase1b.acceptor_index] \
-            = phase1b
-        if not self.config.flexible:
-            if any(len(group) < self.config.f + 1
-                   for group in phase1.phase1bs):
-                return
+        if self.epochs is not None and phase1b.epochs \
+                and self._adopt_epochs(phase1b.epochs):
+            # Coverage grew mid-Phase1: the newly discovered epochs'
+            # members must answer too before recovery may finish.
+            members: dict = {}
+            for config in self._phase1_epochs():
+                members.update(dict.fromkeys(config.members))
+            for acceptor in members:
+                if acceptor not in phase1.by_addr:
+                    self.send(acceptor, phase1.phase1a)
+        if self.epochs is not None and self.epochs.multi_epoch:
+            # Phase1-with-both-configs: a read quorum in EVERY epoch
+            # still covering undecided slots (quorum intersection per
+            # epoch is what makes crossing the handover safe).
+            answered = set(phase1.by_addr)
+            for config in self._phase1_epochs():
+                if not config.has_read_quorum(answered):
+                    return
         else:
-            phase1.phase1b_acceptors.add(
-                (phase1b.group_index, phase1b.acceptor_index))
-            flat = {g * self._row_size + i
-                    for g, i in phase1.phase1b_acceptors}
-            if not self.grid.is_superset_of_read_quorum(flat):
-                return
+            phase1.phase1bs[phase1b.group_index][phase1b.acceptor_index] \
+                = phase1b
+            if not self.config.flexible:
+                if any(len(group) < self.config.f + 1
+                       for group in phase1.phase1bs):
+                    return
+            else:
+                phase1.phase1b_acceptors.add(
+                    (phase1b.group_index, phase1b.acceptor_index))
+                flat = {g * self._row_size + i
+                        for g, i in phase1.phase1b_acceptors}
+                if not self.grid.is_superset_of_read_quorum(flat):
+                    return
 
         max_slot = max(
             (info.slot
@@ -494,8 +690,18 @@ class Leader(Actor):
         values = self._recover_values(phase1, max_slot)
         for slot, value in zip(range(self.chosen_watermark, max_slot + 1),
                                values):
-            self._send_phase2a(Phase2a(slot=slot, round=self.round,
-                                       value=value))
+            if self._epoch_tagging:
+                # Route recovery proposals by their slot's epoch so the
+                # proxy fans each to the right acceptor set.
+                config = self.epochs.epoch_of_slot(slot)
+                dst = self._proxy_leader_address()
+                self.send(dst, EpochPhase2aRun(
+                    epoch=config.epoch, start_slot=slot,
+                    round=self.round, values=(value,)))
+                self._account_sent_slots(dst, 1)
+            else:
+                self._send_phase2a(Phase2a(slot=slot, round=self.round,
+                                           value=value))
         # next_slot must clear the chosen watermark, not just the voted
         # max: Phase1bs report nothing below the watermark (every slot
         # there is already chosen), so with no votes ABOVE it,
@@ -509,6 +715,12 @@ class Leader(Actor):
 
         phase1.resend_phase1as.stop()
         self.state = _Phase2(self._make_noop_flush_timer())
+        if self.epochs is not None and self.epochs.multi_epoch:
+            newest_epoch = self.epochs.current().epoch
+            reporters = {
+                addr for addr, p1b in phase1.by_addr.items()
+                if any(c.epoch == newest_epoch for c in p1b.epochs)}
+            self._ensure_epoch_durability(reporters)
         for batch in phase1.pending_batches:
             self._process_client_request_batch(batch)
 
@@ -554,6 +766,17 @@ class Leader(Actor):
                                            round=self.round,
                                            value=value))
                 self.next_slot += 1
+            return
+        pending = self._epoch_buffering()
+        if pending is not None:
+            # Handover window: the epoch change has not reached its
+            # activation quorum yet, and these commands' slots belong
+            # to the NEW epoch -- hold them so in-flight runs drain in
+            # the old epoch while the commit settles.
+            pending.extend(values)
+            return
+        if self._epoch_tagging:
+            self._send_epoch_runs(tuple(values))
             return
         run = Phase2aRun(
             start_slot=self.next_slot, round=self.round, values=values)
@@ -604,3 +827,218 @@ class Leader(Actor):
         # one (Leader.scala:698-722).
         if not isinstance(self.state, _Inactive):
             self.leader_change(is_new_leader=True)
+
+    # --- reconfiguration (reconfig/) ------------------------------------
+    def _handle_reconfigure(self, src: Address,
+                            msg: Reconfigure) -> None:
+        """Start the leader-driven config-change flow: define epoch
+        e+1 over ``msg.members`` with activation watermark ``next_slot``
+        (in-flight runs below it drain in the old epoch), broadcast the
+        round-tagged EpochCommit, and buffer new proposals until a
+        write quorum of OLD-epoch acceptors has durably acked it."""
+        if self.epochs is None:
+            self.logger.warn(
+                "Reconfigure ignored: epochs need a single non-flexible "
+                "acceptor group")
+            return
+        if not isinstance(self.state, _Phase2):
+            self.logger.debug("Reconfigure ignored outside Phase2 "
+                              "(admin should retry at the leader)")
+            return
+        if self._epoch_change is not None:
+            if not self._epoch_change.activated:
+                self.logger.debug(
+                    "Reconfigure ignored: a change is mid-activation")
+                return
+            # The previous change is ACTIVE and only chasing straggler
+            # acks (possibly of dead members); the new change's commit
+            # flow supersedes those resends.
+            self._abort_epoch_change()
+        current = self.epochs.current()
+        members = tuple(msg.members)
+        if members == current.members:
+            return
+        if self.next_slot < current.start_slot:
+            # This leader adopted the current epoch but has not
+            # proposed up to its activation watermark yet; a successor
+            # epoch must start at or above it (epoch starts are
+            # monotone). Let the admin retry once caught up.
+            self.logger.debug("Reconfigure ignored: next_slot below "
+                              "the current epoch's start")
+            return
+        try:
+            config = EpochConfig(epoch=current.epoch + 1,
+                                 start_slot=self.next_slot,
+                                 f=self.config.f, members=members)
+        except ValueError as e:
+            self.logger.warn(f"Reconfigure rejected: {e}")
+            return
+        self._drive_epoch_change(config, predecessor=current,
+                                 recommit=False)
+
+    def _drive_epoch_change(self, config: EpochConfig,
+                            predecessor: "EpochConfig | None",
+                            recommit: bool) -> None:
+        """Broadcast + resend one epoch's commit until the activation
+        gate (f+1 of the PREDECESSOR's acceptors durably acked) opens;
+        proposals buffer meanwhile (the handover window). Targets:
+        both acceptor sets (old = the matchmakers, new = the set that
+        must know its own era), every proxy leader (they route and
+        count -- and their acks release stashed epoch-tagged runs),
+        every peer leader (so a failover has the map before its Phase1
+        even asks)."""
+        commit = EpochCommit(epoch=config.epoch,
+                             start_slot=config.start_slot,
+                             f=config.f, round=self.round,
+                             members=config.members)
+        targets: dict = dict.fromkeys(
+            predecessor.members if predecessor else ())
+        targets.update(dict.fromkeys(config.members))
+        targets.update(dict.fromkeys(self.config.proxy_leader_addresses))
+        targets.update(dict.fromkeys(
+            a for a in self.config.leader_addresses if a != self.address))
+
+        def resend():
+            change = self._epoch_change
+            if change is None or change.config is not config:
+                return
+            for dst in change.targets:
+                if dst not in change.acks:
+                    self.send(dst, change.commit)
+            timer.start()
+
+        timer = self.timer("resendEpochCommit",
+                           self.options.resend_epoch_commit_period_s,
+                           resend)
+        timer.start()
+        self._epoch_change = _EpochChange(
+            config=config, commit=commit, targets=set(targets),
+            acks=set(), resend=timer, pending=[], recommit=recommit)
+        for dst in targets:
+            self.send(dst, commit)
+
+    def _ensure_epoch_durability(self, reporters) -> None:
+        """Before this leader proposes into an ADOPTED newest epoch,
+        its commit must be provably durable at f+1 of its
+        predecessor's acceptors (else a future Phase1 could miss it
+        and re-propose its slots under the old quorums). ``reporters``
+        are the acceptors whose Phase1bs carried the epoch. Two proofs
+        stand: the reporters already form the predecessor write quorum,
+        or the chosen watermark is STRICTLY past the epoch's activation
+        slot -- a slot chosen UNDER the epoch implies, inductively,
+        that some gate-compliant leader activated it with the durable
+        quorum (whose WALs outlive any crash). Proven: only the proxies
+        need a gateless resync. Unproven: drive a GATED re-commit that
+        buffers proposals until the predecessor quorum acks."""
+        newest = self.epochs.current()
+        pred = self.epochs.config(newest.epoch - 1)
+        if pred is None or pred.has_write_quorum(reporters) \
+                or self.chosen_watermark > newest.start_slot:
+            self._start_epoch_sync()
+            return
+        self._drive_epoch_change(newest, predecessor=pred,
+                                 recommit=True)
+
+    def _start_epoch_sync(self) -> None:
+        sync_commits = [
+            EpochCommit(epoch=c.epoch, start_slot=c.start_slot, f=c.f,
+                        round=self.round, members=c.members)
+            for c in self.epochs.known()[1:]]
+        pending = set(self.config.proxy_leader_addresses)
+
+        def resend():
+            sync = self._epoch_sync
+            if sync is None or sync["commits"] is not sync_commits:
+                return
+            for dst in sync["pending"]:
+                for commit in sync_commits:
+                    self.send(dst, commit)
+            timer.start()
+
+        timer = self.timer("resendEpochSync",
+                           self.options.resend_epoch_commit_period_s,
+                           resend)
+        timer.start()
+        self._epoch_sync = {"epoch": sync_commits[-1].epoch,
+                            "commits": sync_commits,
+                            "pending": pending, "timer": timer}
+        for dst in self.config.proxy_leader_addresses:
+            for commit in sync_commits:
+                self.send(dst, commit)
+
+    def _stop_epoch_sync(self) -> None:
+        if self._epoch_sync is not None:
+            self._epoch_sync["timer"].stop()
+            self._epoch_sync = None
+
+    def _handle_epoch_ack(self, src: Address, ack: EpochAck) -> None:
+        sync = self._epoch_sync
+        if sync is not None and ack.epoch == sync["epoch"] \
+                and ack.round == self.round:
+            sync["pending"].discard(src)
+            if not sync["pending"]:
+                self._stop_epoch_sync()
+        change = self._epoch_change
+        if change is None or ack.epoch != change.config.epoch \
+                or ack.round != self.round:
+            return
+        change.acks.add(src)
+        if not change.activated:
+            pred = self.epochs.config(change.config.epoch - 1)
+            if pred is None or pred.has_write_quorum(change.acks):
+                # COMMIT POINT: f+1 predecessor-epoch acceptors hold
+                # the epoch WAL-durably -- any future leader's
+                # old-epoch read quorum will discover it. Activate:
+                # the buffered proposals open the new epoch's slots.
+                try:
+                    self.epochs.offer(change.config, self.round)
+                except ValueError as e:
+                    # The store moved under the change (a concurrent
+                    # adoption): abort; clients resend the buffer.
+                    self.logger.warn(f"epoch activation aborted: {e}")
+                    self._abort_epoch_change()
+                    return
+                change.activated = True
+                # Post-activation the resends only need to reach the
+                # parties that ROUTE by the epoch (proxies) and the
+                # new members; stop chasing old-epoch/peer-leader
+                # stragglers -- in the canonical repair the
+                # reconfigured-OUT member is dead and would be pinged
+                # forever.
+                change.targets &= (
+                    set(self.config.proxy_leader_addresses)
+                    | set(change.config.members))
+                pending, change.pending = change.pending, []
+                if pending:
+                    self._send_epoch_runs(tuple(pending))
+        if change.activated and change.targets <= change.acks:
+            change.resend.stop()
+            self._epoch_change = None
+
+    def _handle_epoch_commit(self, src: Address,
+                             commit: EpochCommit) -> None:
+        """A peer leader's commit broadcast: adopt the entry (so this
+        leader's next Phase1 covers it without discovery) and ack so
+        the committer's resends stop."""
+        if self.epochs is None:
+            return
+        try:
+            outcome = self.epochs.offer(
+                EpochConfig(epoch=commit.epoch,
+                            start_slot=commit.start_slot,
+                            f=commit.f, members=commit.members),
+                commit.round)
+        except ValueError as e:
+            self.logger.warn(f"peer EpochCommit rejected: {e}")
+            return
+        if outcome in ("new", "replaced", "dup"):
+            self.send(src, EpochAck(epoch=commit.epoch,
+                                    round=commit.round))
+        if outcome in ("new", "replaced") \
+                and isinstance(self.state, _Phase2) \
+                and self._epoch_change is None:
+            # An ACTIVE leader adopting a peer's epoch mid-Phase2: it
+            # must not propose into the adopted epoch on the peer's
+            # word alone -- gate on its own durable predecessor-quorum
+            # proof exactly like the post-Phase1 path.
+            self._ensure_epoch_durability(reporters=())

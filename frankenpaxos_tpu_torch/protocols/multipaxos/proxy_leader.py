@@ -17,10 +17,15 @@ flush timer on the simulated transport, and on a threaded one (TCP) by
 one daemon collector thread that posts the results back onto the event
 loop.
 
-Not ported yet: the epoch-segmented vote counting of a reconfiguration
-(``epoch_backend``, ``epoch_quorums``, EpochPhase2aRun, EpochCommit;
-ROADMAP.md queue 1 item 4), refused, and the ingest fabric's wire sink
-(item 8.2), so vote-ack batch frames are expanded per message.
+Reconfiguration: an epoch store routes each run to its slot's acceptor
+set, and once an epoch change (or an epoch-tagged run) reaches this proxy
+its votes are counted by voter address on an ``EpochQuorumTracker``
+(``epoch_backend``: the dict oracle, or ``"cuda"``: K6 counts a drain's
+votes in one staged call and K7 reshapes the board when an epoch is
+added; ``""`` follows ``quorum_backend``).
+
+Not ported yet: the ingest fabric's wire sink (ROADMAP.md queue 1 item
+8.2), so vote-ack batch frames are expanded per message.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from frankenpaxos_tpu_torch import native
+from frankenpaxos_tpu_torch.device import resolve_device
 from frankenpaxos_tpu_torch.protocols.multipaxos.config import MultiPaxosConfig
 from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
     Chosen,
@@ -50,7 +56,14 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.quorum_tracker import (
     QuorumTracker,
     TpuQuorumTracker,
 )
-from frankenpaxos_tpu_torch.reconfig import RECONFIG_MESSAGES
+from frankenpaxos_tpu_torch.reconfig import (
+    EpochAck,
+    EpochCommit,
+    EpochConfig,
+    EpochPhase2aRun,
+    EpochQuorumTracker,
+    EpochStore,
+)
 from frankenpaxos_tpu_torch.runtime import Actor, Collectors, FakeCollectors, Logger
 from frankenpaxos_tpu_torch.runtime.transport import Address, Transport
 
@@ -71,9 +84,13 @@ class ProxyLeaderOptions:
     # waits on the device.
     tpu_pipelined: bool = False
     tpu_flush_period_s: float = 0.005
-    # Reconfiguration's epoch-segmented counting: not ported yet; any
-    # value other than the defaults is refused.
+    # Reconfiguration: backend for the epoch-segmented tracker once
+    # epoch counting engages ("dict" or "cuda"; "" follows
+    # quorum_backend).
     epoch_backend: str = ""
+    # Engage the epoch tracker from construction even in a single
+    # epoch; otherwise it engages on the first committed epoch change /
+    # epoch-tagged run.
     epoch_quorums: bool = False
 
 
@@ -87,10 +104,17 @@ class ProxyLeader(Actor):
             raise ValueError(
                 f"quorum_backend must be 'dict' or 'cuda', got "
                 f"{options.quorum_backend!r}")
-        if options.epoch_backend or options.epoch_quorums:
-            raise NotImplementedError(
-                "epoch-segmented vote counting on the ProxyLeader is not "
-                "ported yet (ROADMAP.md queue 1 item 4: reconfiguration)")
+        self._epoch_backend = options.epoch_backend or (
+            "cuda" if options.quorum_backend == "cuda" else "dict")
+        if self._epoch_backend not in ("dict", "cuda"):
+            raise ValueError(
+                f"epoch_backend must be '', 'dict' or 'cuda', got "
+                f"{options.epoch_backend!r}")
+        # The epoch board's device, resolved now: "cuda" without a GPU
+        # (and no device named) fails at construction, not at the first
+        # reconfiguration.
+        self._epoch_device = (resolve_device(device)
+                              if self._epoch_backend == "cuda" else None)
         super().__init__(address, transport, logger)
         config.check_valid()
         self.config = config
@@ -135,6 +159,22 @@ class ProxyLeader(Actor):
                 min_device_slots=options.tpu_min_device_slots)
         else:
             self.tracker = DictQuorumTracker(config)
+        # Reconfiguration (reconfig/): the epoch store resolves
+        # acceptor sets per SLOT once epochs exist; the epoch tracker
+        # counts votes by ADDRESS under each slot's epoch spec. Both
+        # stay dormant (None tracker, single-epoch store) until a
+        # reconfiguration touches this proxy, so the epoch-frozen hot
+        # path is byte-identical to the pre-reconfig one.
+        self.epochs: "EpochStore | None" = None
+        if not config.flexible and config.num_acceptor_groups == 1:
+            self.epochs = EpochStore.from_members(
+                tuple(config.acceptor_addresses[0]), config.f)
+        self._epoch_tracker: "EpochQuorumTracker | None" = None
+        # EpochPhase2aRuns for epochs this proxy has not seen the
+        # commit for yet: epoch -> [run]; replayed when it arrives.
+        self._stashed_epoch_runs: dict[int, list] = {}
+        if options.epoch_quorums and self.epochs is not None:
+            self._ensure_epoch_tracker()
         self._flush_timer = None
         self._collector = None
         #: Every error the collector thread logged (a dispatch whose
@@ -199,10 +239,12 @@ class ProxyLeader(Actor):
         elif isinstance(message, Phase2bVotes):
             self.metrics_requests.labels("Phase2bVotes").inc()
             self._handle_phase2b_votes(src, message)
-        elif isinstance(message, RECONFIG_MESSAGES):
-            raise NotImplementedError(
-                f"{type(message).__name__}: actor-side reconfiguration is "
-                f"not ported yet (ROADMAP.md queue 1 item 4)")
+        elif isinstance(message, EpochPhase2aRun):
+            self.metrics_requests.labels("EpochPhase2aRun").inc()
+            self._handle_epoch_phase2a_run(src, message)
+        elif isinstance(message, EpochCommit):
+            self.metrics_requests.labels("EpochCommit").inc()
+            self._handle_epoch_commit(src, message)
         else:
             self.logger.fatal(f"unexpected proxy leader message {message!r}")
 
@@ -211,7 +253,12 @@ class ProxyLeader(Actor):
         if key in self.pending:
             self.logger.debug(f"duplicate Phase2a for {key}; ignoring")
             return
-        if not self.config.flexible:
+        if self.epochs is not None:
+            config = self.epochs.epoch_of_slot(phase2a.slot)
+            quorum = self.rng.sample(list(config.members),
+                                     config.quorum_size)
+        elif not self.config.flexible:
+            # Multi-group striping is epoch-frozen (no store).
             group = list(self.config.acceptor_addresses[
                 phase2a.slot % self.config.num_acceptor_groups])
             quorum = self.rng.sample(group, self.config.f + 1)
@@ -229,8 +276,13 @@ class ProxyLeader(Actor):
                 self.send_no_flush(acceptor, phase2a)
             self._unflushed_phase2as += 1
             if self._unflushed_phase2as >= self.options.flush_phase2as_every_n:
+                # Flushing is connection upkeep, not membership: cover
+                # every address ever buffered to.
                 for group_addresses in self.config.acceptor_addresses:
                     for acceptor in group_addresses:
+                        self.flush(acceptor)
+                if self.epochs is not None:
+                    for acceptor in self.epochs.all_members():
                         self.flush(acceptor)
                 self._unflushed_phase2as = 0
         self.pending[key] = phase2a.value
@@ -268,7 +320,15 @@ class ProxyLeader(Actor):
             return
         if not self._admit_run(run.start_slot, run.round, run.values):
             return
-        if not self.config.flexible:
+        if self.epochs is not None:
+            # The epoch store is the acceptor-set authority: for a plain
+            # run the set is the start slot's epoch's (a run never spans
+            # epochs -- the leader splits at boundaries).
+            config = self.epochs.epoch_of_slot(run.start_slot)
+            quorum = self.rng.sample(list(config.members),
+                                     config.quorum_size)
+        elif not self.config.flexible:
+            # Multi-group striping is epoch-frozen (no store).
             group = list(self.config.acceptor_addresses[0])
             quorum = self.rng.sample(group, self.config.f + 1)
         else:
@@ -277,6 +337,95 @@ class ProxyLeader(Actor):
                 self.config.acceptor_addresses[flat // self._row_size]
                 [flat % self._row_size] for flat in write_quorum]
         self.broadcast(quorum, run)  # encode the values ONCE
+
+    def _handle_epoch_phase2a_run(self, src: Address,
+                                  run: EpochPhase2aRun) -> None:
+        """An epoch-tagged run: fan it to ITS epoch's acceptors (as a
+        plain Phase2aRun -- acceptors are epoch-agnostic voters) and
+        count the acks under that epoch's spec. Unknown epoch: stash
+        until the leader's EpochCommit resend lands -- never mis-route
+        a new-epoch run to the old set."""
+        if self.epochs is None:
+            self.logger.fatal(
+                "EpochPhase2aRun on a non-reconfigurable config")
+        if len(run.values) == 0:
+            return
+        config = self.epochs.config(run.epoch)
+        if config is None:
+            self._stashed_epoch_runs.setdefault(run.epoch,
+                                                []).append(run)
+            return
+        self._ensure_epoch_tracker()
+        if not self._admit_run(run.start_slot, run.round, run.values):
+            return
+        quorum = self.rng.sample(list(config.members),
+                                 config.quorum_size)
+        self.broadcast(quorum, Phase2aRun(
+            start_slot=run.start_slot, round=run.round,
+            values=run.values))
+
+    def _handle_epoch_commit(self, src: Address,
+                             commit: EpochCommit) -> None:
+        """Adopt the epoch map entry, switch vote counting onto the
+        epoch-segmented tracker, ack the committing leader, and replay
+        any runs stashed for this epoch."""
+        if self.epochs is None:
+            return
+        try:
+            config = EpochConfig(epoch=commit.epoch,
+                                 start_slot=commit.start_slot,
+                                 f=commit.f, members=commit.members)
+            current = self.epochs.current()
+            if config.epoch == current.epoch + 1 \
+                    and config.start_slot >= current.start_slot:
+                # The offer below appends this epoch. The tracker is
+                # engaged over the store as it stands first, so the new
+                # epoch reaches the board through note_epochs -- the
+                # handover reshape (K7), [old members, W] -> [union, W]
+                # -- where the reference builds its tracker after the
+                # offer, with the epoch already in it. The counting is
+                # the same either way.
+                self._ensure_epoch_tracker()
+            outcome = self.epochs.offer(config, commit.round)
+        except ValueError as e:
+            self.logger.warn(f"EpochCommit rejected: {e}")
+            return
+        if outcome == "stale":
+            return  # lower-round or non-contiguous: no ack
+        self._ensure_epoch_tracker()
+        self._epoch_tracker.note_epochs()
+        self.send(src, EpochAck(epoch=commit.epoch, round=commit.round))
+        for run in self._stashed_epoch_runs.pop(commit.epoch, []):
+            self._handle_epoch_phase2a_run(src, run)
+
+    def _ensure_epoch_tracker(self) -> None:
+        """Engage epoch-segmented vote counting, on this ProxyLeader's
+        device (``"cpu"`` reaches the plain versions; None is the card).
+        Pre-switch state in a dict tracker migrates (its (group, index)
+        votes map to addresses through the epoch-0 config); the cuda
+        tracker's board state is not extracted, as the reference's tpu
+        board's is not -- quorums straddling that switch complete
+        through protocol-level resends (warned)."""
+        if self._epoch_tracker is not None or self.epochs is None:
+            return
+        self._epoch_tracker = EpochQuorumTracker(
+            self.epochs, backend=self._epoch_backend,
+            window=min(self.options.tpu_window, 1 << 14),
+            device=self._epoch_device)
+        if isinstance(self.tracker, DictQuorumTracker):
+            for (slot, rnd), votes in self.tracker.states.items():
+                if not votes:
+                    continue  # Done: the chosen report already left
+                for g, i in votes:
+                    # One-shot migration of pre-epoch vote state; the
+                    # epoch-0 members ARE the config group.
+                    addr = self.config.acceptor_addresses[g][i]
+                    self._epoch_tracker.record(slot, rnd, addr)
+            self.tracker.states = {}
+        elif not self.options.epoch_quorums:
+            self.logger.warn(
+                "cuda quorum tracker state not migrated to the epoch "
+                "tracker; in-flight quorums complete via resends")
 
     def _run_for(self, slot: int, round: int):
         """The pending run covering (slot, round), else None."""
@@ -316,6 +465,12 @@ class ProxyLeader(Actor):
                     f"ProxyLeader got Phase2b for {key} but never sent a "
                     f"Phase2a there")
             return
+        if self._epoch_tracker is not None:
+            # Epoch mode counts by voter ADDRESS: carried (group,
+            # index) coordinates collide across epochs when a
+            # replacement reuses a dead member's config slot.
+            self._epoch_tracker.record(phase2b.slot, phase2b.round, src)
+            return
         self.tracker.record(phase2b.slot, phase2b.round,
                             phase2b.group_index, phase2b.acceptor_index)
 
@@ -328,6 +483,11 @@ class ProxyLeader(Actor):
         already ``_done``; ``_emit_chosen`` dedups either way."""
         self.votes_by_shape["Phase2bRange"] += max(
             0, r.slot_end_exclusive - r.slot_start_inclusive)
+        if self._epoch_tracker is not None:
+            self._epoch_tracker.record_range(
+                r.slot_start_inclusive, r.slot_end_exclusive, r.round,
+                src)
+            return
         self.tracker.record_range(r.slot_start_inclusive,
                                   r.slot_end_exclusive, r.round,
                                   r.group_index, r.acceptor_index)
@@ -339,14 +499,22 @@ class ProxyLeader(Actor):
         ranges)."""
         slots, rounds = native.unpack_votes2(m.packed)
         self.votes_by_shape["Phase2bVotes"] += len(slots)
+        if self._epoch_tracker is not None:
+            self._epoch_tracker.record_votes(slots, rounds, src)
+            return
         self.tracker.record_votes(slots, rounds, m.group_index,
                                   m.acceptor_index)
 
     def on_drain(self) -> None:
         # The batched quorum check (dict tracker or GPU kernel dispatch)
-        # plus the Chosen emission it unlocks.
+        # plus the Chosen emission it unlocks. Both trackers drain: votes
+        # recorded before the epoch tracker engaged still complete on
+        # the main one, and a pipelined board's dispatches still go to
+        # the collector below.
         with self.trace_stage("quorum-kernel"):
             self._emit_chosen(self.tracker.drain())
+            if self._epoch_tracker is not None:
+                self._emit_chosen(self._epoch_tracker.drain())
         if self._collector is not None:
             while True:
                 dispatch = self.tracker.take_dispatch()

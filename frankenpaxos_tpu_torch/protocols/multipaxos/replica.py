@@ -9,15 +9,21 @@ responsibility round-robin'd across replicas (Replica.scala:421-447), a
 randomized hole-recovery timer (Replica.scala:238-260), and deferred
 reads parked until their slot executes (Replica.scala:203-211,455-530).
 
-Not ported yet, and refused: the WAL (``wal=``; ROADMAP.md queue 1 item
-4), read admission (the ``admission_*`` options; item 8.1) and the
-batched reads of read batchers (item 8.3).
+With ``wal=`` (a ``wal.Wal``) chosen entries are logged, client replies
+leave after the drain's group-commit fsync (``wal.DurableRole``), and a
+restart rebuilds the state machine from the latest snapshot plus the
+chosen runs logged after it.
+
+Not ported yet, and refused: read admission (the ``admission_*``
+options; ROADMAP.md queue 1 item 8.1) and the batched reads of read
+batchers (item 8.3).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
+import struct
 from typing import Optional
 
 from frankenpaxos_tpu_torch.protocols.multipaxos.config import (
@@ -44,11 +50,20 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
     SequentialReadRequest,
     SequentialReadRequestBatch,
 )
-from frankenpaxos_tpu_torch.runs.records import log_chosen_values
+from frankenpaxos_tpu_torch.protocols.multipaxos.wire import (
+    _put_address,
+    _put_bytes,
+    _take_address,
+    _take_bytes,
+    decode_value_array,
+    encode_value_array,
+)
+from frankenpaxos_tpu_torch.runs.records import log_chosen_values, wal_log_chosen_run
 from frankenpaxos_tpu_torch.runtime import Actor, Collectors, FakeCollectors, Logger
 from frankenpaxos_tpu_torch.runtime.transport import Address, Transport
 from frankenpaxos_tpu_torch.statemachine import StateMachine
 from frankenpaxos_tpu_torch.utils import BufferMap
+from frankenpaxos_tpu_torch.wal import DurableRole, WalChosenRun, WalSnapshot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,17 +87,13 @@ class ReplicaOptions:
     admission_retry_after_ms: int = 0
 
 
-class Replica(Actor):
+class Replica(Actor, DurableRole):
     def __init__(self, address: Address, transport: Transport,
                  logger: Logger, state_machine: StateMachine,
                  config: MultiPaxosConfig,
                  options: ReplicaOptions = ReplicaOptions(),
                  collectors: Collectors | None = None, seed: int = 0,
                  wal=None):
-        if wal is not None:
-            raise NotImplementedError(
-                "the WAL is not ported yet (ROADMAP.md queue 1 item 4: "
-                "WAL)")
         if any((options.admission_token_rate, options.admission_token_burst,
                 options.admission_inflight_limit,
                 options.admission_inbox_capacity,
@@ -114,22 +125,113 @@ class Replica(Actor):
         self.num_chosen = 0
         # (client address, pseudonym) -> (largest executed id, its reply).
         self.client_table: dict[tuple, tuple[int, bytes]] = {}
+        # Durability (wal/): chosen entries append to the WAL as they
+        # arrive and client replies are held back until on_drain's
+        # group-commit fsync releases them (DurableRole), so an
+        # acknowledged write is always recoverable from this replica's
+        # own log. Compaction snapshots the SM at the executed
+        # watermark and reclaims every segment behind it (the
+        # watermark GC extended to disk). wal=None is the reference's
+        # in-memory behavior.
+        self._wal_init(wal)
         self._wm_dirty = False  # executed advanced since last drain
         self.recover_timer = None
+        if wal is not None:
+            self._recover_from_wal()
         if not options.unsafe_dont_recover:
             self.recover_timer = self.timer(
                 "recover",
                 self.rng.uniform(options.recover_log_entry_min_period_s,
                                  options.recover_log_entry_max_period_s),
                 self._recover)
+            if wal is not None and self.executed_watermark < self.num_chosen:
+                # Recovered with holes (chosen records above a gap):
+                # start hole recovery immediately on rejoin.
+                self.recover_timer.start()
+
+    # --- durability -------------------------------------------------------
+    def _snapshot_payload(self) -> bytes:
+        """SM snapshot + executed watermark + client table, encoded
+        with the wire helpers (no code execution on decode except the
+        addresses' own escape hatch)."""
+        out = bytearray()
+        out += struct.pack("<q", self.executed_watermark)
+        _put_bytes(out, self.state_machine.to_bytes())
+        out += struct.pack("<i", len(self.client_table))
+        for (address, pseudonym), (client_id, result) in \
+                self.client_table.items():
+            _put_address(out, address)
+            out += struct.pack("<qq", pseudonym, client_id)
+            _put_bytes(out, result)
+        return bytes(out)
+
+    def _restore_snapshot(self, payload: bytes) -> None:
+        (watermark,) = struct.unpack_from("<q", payload, 0)
+        sm_bytes, at = _take_bytes(payload, 8)
+        (n,) = struct.unpack_from("<i", payload, at)
+        at += 4
+        table: dict = {}
+        for _ in range(n):
+            address, at = _take_address(payload, at)
+            pseudonym, client_id = struct.unpack_from("<qq", payload, at)
+            result, at = _take_bytes(payload, at + 16)
+            table[(address, pseudonym)] = (client_id, result)
+        self.state_machine.from_bytes(sm_bytes)
+        self.executed_watermark = watermark
+        # Every slot below the watermark is chosen and executed; the
+        # log is GC'd to the watermark, so replayed/late entries below
+        # it read as duplicates (see _log_chosen).
+        self.num_chosen = watermark
+        self.client_table = table
+        self.log.garbage_collect(watermark)
+        self.deferred_reads.garbage_collect(watermark)
+
+    def _recover_from_wal(self) -> None:
+        for record in self.wal.recover(self.logger):
+            if isinstance(record, WalSnapshot):
+                # Compaction base: reset, then restore.
+                self.log = BufferMap(self.options.log_grow_size)
+                self.executed_watermark = 0
+                self.num_chosen = 0
+                self.client_table = {}
+                self._restore_snapshot(record.payload)
+            elif isinstance(record, WalChosenRun):
+                self._log_chosen(
+                    record.start_slot,
+                    decode_value_array(record.values))
+            else:
+                self.logger.fatal(
+                    f"unexpected replica WAL record {record!r}")
+        # Re-execute the recovered contiguous prefix (deterministic:
+        # same entries, same order). Replies are DISCARDED -- every
+        # reply the pre-crash replica sent was covered by a synced
+        # record, and unacked clients resend (the client table keeps
+        # re-execution exactly-once).
+        self._execute_log()
 
     def _log_chosen(self, start_slot: int, values) -> int:
         """Put a contiguous run of chosen values into the log
-        (runs/records.py); returns how many were new."""
+        (runs/records.py); returns how many were new. Shared by the
+        live handlers and WAL replay."""
         new, _ = log_chosen_values(self.log, self.executed_watermark,
                                    start_slot, 1, values)
         self.num_chosen += new
         return new
+
+    def _wal_compact(self) -> None:
+        """Snapshot the SM at the executed watermark and reclaim every
+        segment behind it -- the in-memory watermark GC extended to
+        disk. Chosen-but-unexecuted entries above the watermark (holes
+        pending) are re-logged after the snapshot marker."""
+        records = []
+        for slot, value in self.log.items(start=self.executed_watermark):
+            records.append(WalChosenRun(
+                start_slot=slot, stride=1,
+                values=encode_value_array((value,))))
+        self.wal.compact(WalSnapshot(payload=self._snapshot_payload()),
+                         records)
+        self.log.garbage_collect(self.executed_watermark)
+        self.deferred_reads.garbage_collect(self.executed_watermark)
 
     def on_drain(self) -> None:
         # Drain-granular watermark tail: the every-N notification
@@ -143,15 +245,19 @@ class Replica(Actor):
                 == self.index):
             self._send_chosen_watermark()
         self._wm_dirty = False
+        # GROUP COMMIT (DurableRole): one fsync covers every chosen
+        # entry this drain logged; only then do the replies it
+        # produced go out.
+        self._wal_drain()
 
     def _send_chosen_watermark(self) -> None:
         watermark = ChosenWatermark(slot=self.executed_watermark)
         proxy = self._proxy_replica_address()
         if proxy is not None:
-            self.send(proxy, watermark)
+            self._wal_send(proxy, watermark)
         else:
             for leader in self.config.leader_addresses:
-                self.send(leader, watermark)
+                self._wal_send(leader, watermark)
 
     # --- helpers ----------------------------------------------------------
     def _proxy_replica_address(self) -> Optional[Address]:
@@ -272,31 +378,49 @@ class Replica(Actor):
         else:
             self.logger.fatal(f"unexpected replica message {message!r}")
 
+    def _wal_log_chosen_run(self, start_slot: int, values,
+                            all_new: bool) -> None:
+        """Append the run's NEW entries to the WAL (runs/records.py):
+        all-new runs log the inbound lazy value array as ONE raw copy;
+        a partially-duplicate run falls back to per-new-slot records
+        (rare: a resend or post-failover overlap)."""
+        wal_log_chosen_run(self.wal, self.log.get, start_slot, 1, values,
+                           all_new=all_new, encode=encode_value_array)
+
     def _handle_chosen(self, src: Address, chosen: Chosen) -> None:
         """(Replica.scala:572-628)."""
         if self._log_chosen(chosen.slot, (chosen.value,)) == 0:
             return  # duplicate Chosen
+        if self.wal is not None:
+            self._wal_log_chosen_run(chosen.slot, (chosen.value,),
+                                     all_new=True)
         replies = self._execute_log()
         if replies:
             proxy = self._proxy_replica_address()
             if proxy is not None:
-                self.send(proxy, ClientReplyBatch(batch=tuple(replies)))
+                self._wal_send(proxy,
+                               ClientReplyBatch(batch=tuple(replies)))
             else:
                 for reply in replies:
-                    self.send(reply.command_id.client_address, reply)
+                    self._wal_send(reply.command_id.client_address, reply)
         self._restart_recover_timer()
 
     def _handle_chosen_run(self, src: Address, run: ChosenRun) -> None:
         """A contiguous drain of chosen values in one message: log the
         whole run, execute once, and ship each client ONE reply array
         for the drain instead of one ClientReply per command."""
-        if self._log_chosen(run.start_slot, run.values) == 0:
+        new = self._log_chosen(run.start_slot, run.values)
+        if new == 0:
             return
+        if self.wal is not None:
+            self._wal_log_chosen_run(run.start_slot, run.values,
+                                     all_new=(new == len(run.values)))
         replies = self._execute_log()
         if replies:
             proxy = self._proxy_replica_address()
             if proxy is not None:
-                self.send(proxy, ClientReplyBatch(batch=tuple(replies)))
+                self._wal_send(proxy,
+                               ClientReplyBatch(batch=tuple(replies)))
             else:
                 by_client: dict = {}
                 for r in replies:
@@ -305,8 +429,8 @@ class Replica(Actor):
                         (cid.client_pseudonym, cid.client_id, r.slot,
                          r.result))
                 for address, entries in by_client.items():
-                    self.send(address,
-                              ClientReplyArray(entries=tuple(entries)))
+                    self._wal_send(address,
+                                   ClientReplyArray(entries=tuple(entries)))
         self._restart_recover_timer()
 
     def _restart_recover_timer(self) -> None:

@@ -18,7 +18,11 @@ The roles' options are their defaults apart from those named here:
 ``"cuda"`` and ``tpu_pipelined`` the collector thread collects the
 board's dispatches),
 ``phase1_backend`` for the Leaders, and ``device`` for both (None means
-``cuda``; the tests pass ``"cpu"``, which runs the plain versions). The
+``cuda``; the tests pass ``"cpu"``, which runs the plain versions).
+``wal_dir`` gives each acceptor and replica a FileStorage WAL under
+``<wal_dir>/<role>_<index>``, as the reference's ``--wal_dir`` does: one
+group commit (one fsync) per role per event-loop pass, since the
+transport runs each actor's ``on_drain`` once at the end of a pass. The
 state machine is an ``AppendLog``. :meth:`Supernode.write_closed_loop`
 drives closed-loop writes and :func:`run_arm` adds the checks::
 
@@ -28,6 +32,7 @@ drives closed-loop writes and :func:`run_arm` adds the checks::
 
 from __future__ import annotations
 
+import os
 import socket
 import statistics
 import threading
@@ -58,6 +63,7 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.replica import Replica
 from frankenpaxos_tpu_torch.runtime import FakeLogger, LogLevel
 from frankenpaxos_tpu_torch.runtime.tcp_transport import TcpTransport
 from frankenpaxos_tpu_torch.statemachine import AppendLog
+from frankenpaxos_tpu_torch.wal import FileStorage, Wal
 
 #: How long a build on the loop or a closed loop of writes may take.
 BUILD_TIMEOUT_S = 60.0
@@ -154,8 +160,10 @@ class Supernode:
 
     def __init__(self, f: int = 1, *, quorum_backend: str = "dict",
                  tpu_pipelined: bool = False, phase1_backend: str = "host",
-                 device=None, seed: int = 0, host: str = "127.0.0.1"):
+                 device=None, seed: int = 0, host: str = "127.0.0.1",
+                 wal_dir: "str | None" = None):
         self.f = f
+        self.wal_dir = wal_dir
         self.host = host
         self.seed = seed
         self.device = device
@@ -218,13 +226,21 @@ class Supernode:
             count += 1
         for group in config.acceptor_addresses:
             for a in group:
-                self.acceptors.append(Acceptor(a, t, log, config))
+                self.acceptors.append(Acceptor(
+                    a, t, log, config,
+                    wal=self._wal(f"acceptor_{len(self.acceptors)}")))
                 count += 1
-        for a in config.replica_addresses:
+        for i, a in enumerate(config.replica_addresses):
             self.replicas.append(Replica(a, t, log, AppendLog(), config,
-                                         seed=self.seed + count))
+                                         seed=self.seed + count,
+                                         wal=self._wal(f"replica_{i}")))
             count += 1
         self._count = count
+
+    def _wal(self, label: str) -> "Wal | None":
+        if self.wal_dir is None:
+            return None
+        return Wal(FileStorage(os.path.join(self.wal_dir, label)))
 
     def stop(self) -> None:
         for proxy_leader in self.proxy_leaders:

@@ -11,9 +11,9 @@ Phase1.
 
 The leaders count votes on the card with ``quorum_backend="cuda"``
 (``geo.GeoQuorumTracker``: K6 per drain chunk, K5 on every watermark
-advance). Every message rides ``wire.py``'s codecs. Not ported yet: the
-WAL (``wal=`` is refused; ROADMAP.md queue 1 item 4) and admission
-control (item 8.1).
+advance). Every message rides ``wire.py``'s codecs, and the acceptors
+log promises, votes and epochs to a WAL with ``wal=``. Not ported yet:
+admission control (ROADMAP.md queue 1 item 8.1).
 """
 
 from frankenpaxos_tpu_torch.protocols.wpaxos import wire  # noqa: F401  - registers codecs

@@ -12,8 +12,8 @@ placed in the zone of its index.
 
 ``quorum_backend="cuda"`` puts the leaders' vote counting on the card
 (``device``, ``cuda`` when None; ``"cpu"`` runs the plain versions).
-The WAL is not ported yet (ROADMAP.md queue 1 item 4): ``wal=True`` is
-refused, and so are the helpers that restart an acceptor from its WAL.
+``wal=True`` gives every acceptor a MemStorage WAL that survives
+:func:`crash_restart_acceptor` and :func:`restart_zone`.
 """
 
 from __future__ import annotations
@@ -31,8 +31,7 @@ from frankenpaxos_tpu_torch.protocols.wpaxos import (
     WPaxosReplica,
 )
 from frankenpaxos_tpu_torch.runtime import FakeLogger, LogLevel, SimTransport
-
-_NO_WAL = "the WAL is not ported yet (ROADMAP.md queue 1 item 4)"
+from frankenpaxos_tpu_torch.wal import MemStorage, Wal
 
 
 @dataclasses.dataclass
@@ -44,8 +43,16 @@ class WPaxosSim:
     replicas: list
     clients: list
     topology: "GeoTopology | None" = None
+    wal_storages: dict = dataclasses.field(default_factory=dict)
     seed: int = 0
     device: object = None
+
+
+def _sim_wal(storages: dict, address) -> Wal:
+    """A Wal over the (surviving) MemStorage for ``address``, at the
+    reference harness's small segment and compaction thresholds."""
+    storage = storages.setdefault(address, MemStorage())
+    return Wal(storage, segment_bytes=2048, compact_every_bytes=8192)
 
 
 def make_wpaxos(
@@ -62,8 +69,6 @@ def make_wpaxos(
     log_level: LogLevel = LogLevel.FATAL,
     device=None,
 ) -> WPaxosSim:
-    if wal:
-        raise NotImplementedError(_NO_WAL)
     logger = FakeLogger(log_level)
     if topology is not None:
         if len(topology.zones) != num_zones:
@@ -93,6 +98,7 @@ def make_wpaxos(
             topology.place(config.replica_addresses[z], zone)
             topology.place_all(config.acceptor_addresses[z], zone)
 
+    wal_storages: dict = {}
     leaders = [
         WPaxosLeader(a, transport, logger, config,
                      leader_options or WPaxosLeaderOptions(
@@ -100,7 +106,8 @@ def make_wpaxos(
                      device=device)
         for a in config.leader_addresses]
     acceptors = [
-        WPaxosAcceptor(a, transport, logger, config)
+        WPaxosAcceptor(a, transport, logger, config,
+                       wal=_sim_wal(wal_storages, a) if wal else None)
         for row in config.acceptor_addresses for a in row]
     replicas = [
         WPaxosReplica(a, transport, logger, config)
@@ -121,18 +128,18 @@ def make_wpaxos(
             seed=seed + i))
 
     return WPaxosSim(transport, config, leaders, acceptors, replicas,
-                     clients, topology=topology, seed=seed, device=device)
+                     clients, topology=topology,
+                     wal_storages=wal_storages, seed=seed, device=device)
 
 
 def crash_restart_acceptor(sim: WPaxosSim, i: int) -> None:
-    """The reference restarts an acceptor from its WAL; refused."""
-    raise NotImplementedError(_NO_WAL)
-
-
-def restart_zone(sim: WPaxosSim, zone: int) -> None:
-    """The reference relaunches a zone's acceptors from their WALs;
-    refused."""
-    raise NotImplementedError(_NO_WAL)
+    """kill -9 acceptor ``i`` and restart it from its WAL (volatile
+    state dies; synced promises/votes/epochs recover)."""
+    old = sim.acceptors[i]
+    sim.transport.crash(old.address)
+    sim.acceptors[i] = WPaxosAcceptor(
+        old.address, sim.transport, sim.transport.logger, sim.config,
+        wal=_sim_wal(sim.wal_storages, old.address))
 
 
 def crash_restart_replica(sim: WPaxosSim, i: int) -> None:
@@ -157,13 +164,23 @@ def crash_restart_leader(sim: WPaxosSim, zone: int) -> None:
 
 
 def crash_zone(sim: WPaxosSim, zone: int) -> None:
-    """Crash EVERY role in a zone (an outage); its acceptors come back
-    only from their WALs (:func:`restart_zone`, not ported yet)."""
+    """Crash EVERY role in a zone (an outage); restart with
+    :func:`restart_zone`."""
     sim.transport.crash(sim.leaders[zone].address)
     for acceptor in sim.acceptors:
         if acceptor.zone == zone:
             sim.transport.crash(acceptor.address)
     sim.transport.crash(sim.replicas[zone].address)
+
+
+def restart_zone(sim: WPaxosSim, zone: int) -> None:
+    """Relaunch every role of a crashed zone: acceptors from their
+    WALs, leader/replica fresh."""
+    for i, acceptor in enumerate(sim.acceptors):
+        if acceptor.zone == zone:
+            crash_restart_acceptor(sim, i)
+    crash_restart_leader(sim, zone)
+    crash_restart_replica(sim, zone)
 
 
 def drive(sim: WPaxosSim, writes: int, pseudonym: int = 0,

@@ -9,8 +9,7 @@ containment contract.
 
 Address/command/value layouts are shared with multipaxos (one value
 codec family serves both protocols), and ``encode_geo_epoch`` /
-``decode_geo_epoch`` are the reference's WAL payload codec for
-``WalGeoEpoch`` too (the port's WAL is ROADMAP.md queue 1 item 4).
+``decode_geo_epoch`` are the WAL payload codec for ``WalGeoEpoch`` too.
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
 """Reconfiguration messages (the port's copy of
-``frankenpaxos_tpu/reconfig/messages.py``). The port's MultiPaxos roles
-recognise these and refuse them: actor-side reconfiguration comes with
-the WAL (ROADMAP.md queue 1 item 4).
+``frankenpaxos_tpu/reconfig/messages.py``), with their codecs on the
+wire's extended tag page (``reconfig/wire.py``, tags 128-131).
 
 The config-change command flow (leader-driven, docs/RECONFIG.md):
 

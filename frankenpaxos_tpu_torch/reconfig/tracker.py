@@ -27,6 +27,8 @@ sentinel; the board's chosen bitmap).
 
 from __future__ import annotations
 
+import time
+
 from frankenpaxos_tpu_torch.ops.quorum import (
     EpochSegmentedChecker,
     newly_pairs,
@@ -55,6 +57,10 @@ class EpochQuorumTracker:
         self._cols: list = []
         self._rounds: list = []
         self._chunk = 256
+        #: cuda backend: drains that carried votes, and the host seconds
+        #: their staged K6 calls took (transfers and the wait included).
+        self.drain_calls = 0
+        self.drain_seconds = 0.0
         if backend == "cuda":
             specs, starts = store.specs_and_boundaries()
             self._checker = EpochSegmentedChecker(specs, starts,
@@ -164,8 +170,11 @@ class EpochQuorumTracker:
         self._slots, self._cols, self._rounds = [], [], []
         # One call for the whole drain: K6 over the votes 256 at a time,
         # each chunk one batch of the reference's scatter.
+        t0 = time.perf_counter()
         newly = self._checker.record_and_check_run(slots, cols, rounds,
                                                    chunk=self._chunk)
+        self.drain_seconds += time.perf_counter() - t0
+        self.drain_calls += 1
         return newly_pairs(slots, rounds, newly)
 
     def release(self, slots) -> None:

@@ -2,12 +2,15 @@
 
 The run pipeline delivers decided values as (start_slot, stride,
 values) runs. Logging a run into a BufferMap log is identical across
-protocols (multipaxos: stride 1; mencius: stride = num leader groups).
-The reference's WAL half (``wal_log_chosen_run``) comes with the WAL
-(ROADMAP.md queue 1 item 4).
+protocols (multipaxos: stride 1; a striped log: stride = num leader
+groups). ``wal_log_chosen_run`` is the WAL half.
 """
 
 from __future__ import annotations
+
+from typing import Callable
+
+from frankenpaxos_tpu_torch.wal.records import WalChosenRun
 
 
 def log_chosen_values(log, executed_watermark: int, start_slot: int,
@@ -30,3 +33,25 @@ def log_chosen_values(log, executed_watermark: int, start_slot: int,
             high = slot
         slot += stride
     return new, high
+
+
+def wal_log_chosen_run(wal, log_get: Callable, start_slot: int,
+                       stride: int, values, all_new: bool,
+                       encode: Callable) -> None:
+    """Append a freshly-logged run's NEW entries to ``wal``.
+
+    The common case -- every slot new -- logs the inbound lazy value
+    array as ONE raw-copy record; a partially-duplicate run (rare: a
+    resend or post-failover overlap) falls back to per-new-slot records,
+    identified by the entry this run put (``log_get(slot) is value``).
+    ``encode`` is the protocol's value-array encoder.
+    """
+    if all_new:
+        wal.append(WalChosenRun(start_slot=start_slot, stride=stride,
+                                values=encode(values)))
+        return
+    for i, value in enumerate(values):
+        slot = start_slot + i * stride
+        if log_get(slot) is value:
+            wal.append(WalChosenRun(start_slot=slot, stride=1,
+                                    values=encode((value,))))

@@ -25,6 +25,7 @@ from frankenpaxos_tpu_torch.bench import (
     multipaxos_sim,
     pipeline as tp,
     pipeline_baseline as tpin,
+    reconfig_sim,
     sim_core_ab,
     telemetry_overhead,
     tracker_lt,
@@ -105,8 +106,9 @@ def test_imports_with_jax_and_reference_blocked():
 #: of the EPaxos dependency-set plane, of the BPaxos watermark plane, of
 #: the telemetry plane and its benches, of WPaxos over the geo simulator,
 #: of the sharded drain (the mesh, the rank worker that spawned ranks
-#: import, its bench and the lane router) and of the sharded vote board
-#: (its rank cases); each must import with JAX and the JAX package
+#: import, its bench and the lane router), of the sharded vote board
+#: (its rank cases) and of the WAL and the reconfiguration wire codecs
+#: with the reconfigured cluster's bench; each must import with JAX and the JAX package
 #: blocked (test above) and name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
@@ -135,6 +137,9 @@ PATH_MODULES = (
     "protocols.wpaxos.client", "protocols.wpaxos.harness",
     "bench.geo_lt", "bench.sim_core_ab", "mesh", "bench.multichip",
     "bench.multichip_lt", "ingest", "ingest.shard", "bench.multichip_board",
+    "wal", "wal.records", "wal.log", "wal.faults", "wal.role", "reconfig",
+    "reconfig.messages", "reconfig.wire", "runs.records",
+    "bench.reconfig_sim",
 )
 
 
@@ -214,6 +219,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             make_multipaxos(f=1, **backends)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         multipaxos_sim.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_multipaxos(f=1, epoch_quorums=True, wal=True,
+                        quorum_backend="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reconfig_sim.run()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_epaxos(f=2, dep_backend="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):

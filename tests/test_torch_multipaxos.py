@@ -10,11 +10,15 @@ harness and the port's give equal executed logs on every replica and
 equal reply lists, through a failover.
 (c) ``Leader._recover_values`` on the same Phase1bs returns identical
 lists in both packages, ties included, on both backends.
+(d) The reference's ``MultiPaxosSimulated`` property on the port's
+``Simulator``, at its eight parametrisations and sizes, and its tpu case
+on the cuda backend with ``device="cpu"``.
 Plus the refusals of what is not ported, and the cluster bench end to
 end at a small size.
 """
 
 import random
+from typing import Optional
 
 from frankenpaxos_tpu_torch.bench import multipaxos_sim
 from frankenpaxos_tpu_torch.election.basic import (
@@ -43,6 +47,7 @@ from frankenpaxos_tpu_torch.reconfig import (
     Reconfigure,
 )
 from frankenpaxos_tpu_torch.runtime import FakeLogger, PickleSerializer
+from frankenpaxos_tpu_torch.sim import SimulatedSystem, Simulator
 from frankenpaxos_tpu_torch.statemachine import (
     GetRequest,
     KeyValueStore,
@@ -744,6 +749,147 @@ def test_recover_values_matches_the_reference(backend, num_groups):
         assert len(got) == max_slot + 1 - watermark
 
 
+# --- the property simulation of tests/protocols/test_multipaxos.py ----------
+
+
+class WriteCmd:
+    def __init__(self, client, pseudonym, payload):
+        self.client = client
+        self.pseudonym = pseudonym
+        self.payload = payload
+
+    def __repr__(self):
+        return f"Write({self.client}, {self.pseudonym}, {self.payload!r})"
+
+
+class TransportCmd:
+    def __init__(self, command):
+        self.command = command
+
+    def __repr__(self):
+        return f"Transport({self.command!r})"
+
+
+class FlushCmd:
+    """Ship one coalescing client's staged writes (flush_writes).
+
+    Flushing is its OWN random command -- several writes stage before a
+    flush, so request arrays (and the Phase2aRuns they become) carry
+    k > 1 commands INTO the adversarial interleaving of drops,
+    partitions, and leader changes, instead of degenerating to k=1
+    arrays that never exercise run-store edge paths."""
+
+    def __init__(self, client):
+        self.client = client
+
+    def __repr__(self):
+        return f"Flush({self.client})"
+
+
+def prefixes_compatible(a: list, b: list) -> bool:
+    n = min(len(a), len(b))
+    return a[:n] == b[:n]
+
+
+class MultiPaxosSimulated(SimulatedSystem):
+    """Random writes interleaved with arbitrary deliveries/timer firings
+    (the reference interleaves the same way,
+    multipaxos/MultiPaxos.scala:229-268)."""
+
+    def __init__(self, **harness_kwargs):
+        self.harness_kwargs = harness_kwargs
+
+    def new_system(self, seed):
+        sim = make_multipaxos(seed=seed, num_clients=2,
+                              **self.harness_kwargs)
+        sim._counter = 0
+        return sim
+
+    def generate_command(self, sim, rng: random.Random):
+        choices = []
+        # Writes are only possible for idle pseudonyms. More pseudonyms
+        # than a coalescing client can flush at once, so k > 1 writes
+        # stage between flushes.
+        idle = [(c, p) for c, client in enumerate(sim.clients)
+                for p in range(4) if p not in client.states]
+        if idle:
+            choices.extend(["write"] * 2)
+        staged = [c for c, client in enumerate(sim.clients)
+                  if getattr(client, "_staged_writes", None)]
+        if staged:
+            choices.append("flush")
+        transport_cmd = sim.transport.generate_command(rng)
+        if transport_cmd is not None:
+            # Weight transport activity higher: most steps move messages.
+            choices.extend(["transport"] * 6)
+        if not choices:
+            return None
+        kind = rng.choice(choices)
+        if kind == "write":
+            client, pseudonym = rng.choice(idle)
+            sim._counter += 1
+            return WriteCmd(client, pseudonym,
+                            b"w%d" % sim._counter)
+        if kind == "flush":
+            return FlushCmd(rng.choice(staged))
+        return TransportCmd(transport_cmd)
+
+    def run_command(self, sim, command):
+        if isinstance(command, WriteCmd):
+            client = sim.clients[command.client]
+            if command.pseudonym not in client.states:
+                client.write(command.pseudonym, command.payload)
+        elif isinstance(command, FlushCmd):
+            sim.clients[command.client].flush_writes()
+        else:
+            sim.transport.run_command(command.command)
+        return sim
+
+    def get_state(self, sim):
+        return tuple(tuple(executed_prefix(r)) for r in sim.replicas)
+
+    def state_invariant(self, sim) -> Optional[str]:
+        logs = [executed_prefix(r) for r in sim.replicas]
+        for i in range(len(logs)):
+            for j in range(i + 1, len(logs)):
+                if not prefixes_compatible(logs[i], logs[j]):
+                    return (f"replica logs diverge: {logs[i]!r} vs "
+                            f"{logs[j]!r}")
+        return None
+
+    def step_invariant(self, old_state, new_state) -> Optional[str]:
+        for old_log, new_log in zip(old_state, new_state):
+            if list(new_log[:len(old_log)]) != list(old_log):
+                return f"replica log shrank/rewrote: {old_log} -> {new_log}"
+        return None
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(f=1),
+    dict(f=1, num_acceptor_groups=2),
+    dict(f=1, flexible=True, grid_shape=(2, 2)),
+    dict(f=1, num_batchers=2, batch_size=2),
+    dict(f=2),
+    dict(f=1, coalesced=True),
+    dict(f=1, coalesced=True, flexible=True, grid_shape=(2, 2)),
+    dict(f=1, coalesced="mixed"),
+], ids=["f1", "groups2", "grid", "batched", "f2", "coalesced",
+        "coalesced-grid", "coalesced-mixed"])
+def test_simulation_no_divergence(kwargs):
+    simulated = MultiPaxosSimulated(**kwargs)
+    failure = Simulator(simulated, run_length=150, num_runs=20).run(seed=0)
+    assert failure is None, str(failure)
+
+
+def test_simulation_with_cuda_backend():
+    """The reference's tpu-backend case on the port's cuda tracker and
+    K8 recovery, on their plain versions."""
+    simulated = MultiPaxosSimulated(f=1, **CUDA)
+    failure = Simulator(simulated, run_length=60, num_runs=3).run(seed=0)
+    assert failure is None, str(failure)
+
+
+
 # --- refusals -----------------------------------------------------------------
 
 
@@ -765,27 +911,53 @@ def test_cuda_backends_raise_without_a_gpu(monkeypatch):
 
 
 def test_unported_options_are_refused():
+    """Admission and the geo election stay refused; the WAL and the
+    reconfiguration options build (each role on a transport of its
+    own)."""
+    from frankenpaxos_tpu_torch.runtime import SimTransport
+    from frankenpaxos_tpu_torch.wal import MemStorage, Wal
+
     sim = make_multipaxos(f=1)
     t, log, cfg = sim.transport, FakeLogger(), sim.config
-    with pytest.raises(NotImplementedError, match="WAL"):
-        Acceptor("acceptor-x", t, log, cfg, wal=object())
-    with pytest.raises(NotImplementedError, match="WAL"):
-        Replica("replica-0", t, log, None, cfg, wal=object())
+    acceptor = Acceptor("acceptor-0-0", SimTransport(log), log, cfg,
+                        wal=Wal(MemStorage()))
+    assert acceptor.wal is not None
+    replica = Replica("replica-0", SimTransport(log), log, None, cfg,
+                      wal=Wal(MemStorage()))
+    assert replica.wal is not None
     with pytest.raises(NotImplementedError, match="admission"):
         Replica("replica-0", t, log, None, cfg,
                 ReplicaOptions(admission_inflight_limit=4))
     with pytest.raises(NotImplementedError, match="admission"):
         Leader("leader-0", t, log, cfg,
                LeaderOptions(admission_token_rate=10.0))
-    with pytest.raises(NotImplementedError, match="reconfiguration"):
-        Leader("leader-0", t, log, cfg, LeaderOptions(epoch_tag_runs=True))
+    leader = Leader("leader-0", SimTransport(log), log, cfg,
+                    LeaderOptions(epoch_tag_runs=True))
+    assert leader._epoch_tagging
     for options in (ProxyLeaderOptions(epoch_quorums=True),
                     ProxyLeaderOptions(epoch_backend="dict")):
-        with pytest.raises(NotImplementedError, match="reconfiguration"):
-            ProxyLeader("proxy-leader-0", t, log, cfg, options)
+        proxy = ProxyLeader("proxy-leader-0", SimTransport(log), log, cfg,
+                            options)
+        assert (proxy._epoch_tracker is not None) == options.epoch_quorums
+    with pytest.raises(ValueError, match="epoch_backend"):
+        ProxyLeader("proxy-leader-0", t, log, cfg,
+                    ProxyLeaderOptions(epoch_backend="tpu"))
     with pytest.raises(NotImplementedError, match="geo"):
         ElectionParticipant("election-x", t, log, ["election-x"],
                             options=ElectionOptions(adaptive=True))
+
+
+def _outcome(role, message):
+    """What ``role`` does with ``message``: ("fatal",) or ("ok", the
+    types and destinations of what it sent, in order)."""
+    transport = role.transport
+    transport.messages.clear()
+    try:
+        role.receive("admin", message)
+    except Exception as e:  # noqa: BLE001 - the outcome is compared
+        return ("raised", type(e).__name__)
+    return ("ok", [(m.dst, type(role.serializer.from_bytes(m.data))
+                    .__name__) for m in transport.messages])
 
 
 @pytest.mark.parametrize("message", [
@@ -794,11 +966,24 @@ def test_unported_options_are_refused():
     EpochAck(epoch=1, round=0),
     EpochPhase2aRun(epoch=1, start_slot=0, round=0, values=()),
 ])
-def test_reconfiguration_messages_are_refused(message):
-    sim = make_multipaxos(f=1)
-    for role in (sim.leaders[0], sim.proxy_leaders[0], sim.acceptors[0]):
-        with pytest.raises(NotImplementedError, match="reconfiguration"):
-            role.receive("admin", message)
+def test_reconfiguration_messages_are_handled_as_the_reference(message):
+    """The leader, a proxy leader and an acceptor each do with a
+    reconfiguration message what the JAX package's do: the same raise
+    (a message a role never receives is fatal in both) or the same
+    sends, and at least one of the three handles it."""
+    from frankenpaxos_tpu import reconfig as jreconfig
+
+    jmessage = getattr(jreconfig, type(message).__name__)(
+        **message.__dict__)
+    sims = [make_multipaxos(f=1), jh.make_multipaxos(f=1)]
+    outcomes = []
+    for sim, msg in zip(sims, (message, jmessage)):
+        sim.transport.deliver_all()
+        outcomes.append([
+            _outcome(role, msg) for role in (
+                sim.leaders[0], sim.proxy_leaders[0], sim.acceptors[0])])
+    assert outcomes[0] == outcomes[1]
+    assert any(o[0] == "ok" for o in outcomes[0])
 
 
 def test_read_batcher_paths_are_refused():

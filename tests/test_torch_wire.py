@@ -2,17 +2,17 @@
 (``protocols/multipaxos/wire.py``), the dependency-run codecs
 (``runs/wire.py``, tags 208/209), the EPaxos, SimpleBPaxos,
 SimpleGcBPaxos and WPaxos codecs, the ``Rejected`` codec
-(``serve/wire.py``),
-paxwire's batch envelopes and its coalescers, and the frame lanes.
+(``serve/wire.py``), the reconfiguration codecs on the extended page
+(``reconfig/wire.py``, tags 128-131, and a Phase1b that carries epochs
+through tag 129), paxwire's batch envelopes and its coalescers, and the
+frame lanes.
 
 The same messages, built in each package from the same seed, encode to
 EQUAL bytes through each package's ``DEFAULT_SERIALIZER``, and the port
-decodes the JAX bytes to an equal message. Two kinds of sample carry no
+decodes the JAX bytes to an equal message. One kind of sample carries no
 cross-package case: a value that rides a pickled escape hatch as a
 class of its own package (the SimpleGcBPaxos ``SnapshotMarker``; its
-pickle names its module), and a Phase1b that carries reconfiguration
-epochs (their codec, tag 129, waits for ROADMAP.md queue 1 item 4, so
-the port pickles them). The cases of ``tests/test_wire_codecs.py`` and
+pickle names its module). The cases of ``tests/test_wire_codecs.py`` and
 the pickle-fallback cases of ``tests/test_runtime.py`` for the ported
 codecs are repeated against the port: round trips, the pickle fallback
 for unregistered types, a fuzz sample for every registered codec, the
@@ -71,6 +71,7 @@ def _ns(pkg: str) -> types.SimpleNamespace:
         runs=mod("runs.wire"),
         native=mod("native"),
         ser=mod("runtime.serializer"),
+        rc=mod("reconfig"),
     )
 
 
@@ -202,6 +203,22 @@ def codec_samples(ns, cross: bool = True) -> list:
         ns.runs.DepReplyRun(
             num_leaders=2, headers=((0, 3, 1), (1, 5, 2)),
             watermarks=(2, 1, 0, 0), counts=(0, 1, 1, 0), values=(4, 2)),
+    ]
+    rc = ns.rc
+    commit = rc.EpochCommit(epoch=3, start_slot=999, f=1, round=7,
+                            members=("m0", ("10.0.0.7", 80), "m2"))
+    samples += [
+        rc.Reconfigure(members=("x", ("10.0.0.7", 80), "z")),
+        commit,
+        rc.EpochAck(epoch=3, round=7),
+        rc.EpochPhase2aRun(epoch=2, start_slot=17, round=1,
+                           values=(batch, mp.NOOP)),
+        mp.Phase1b(group_index=0, acceptor_index=2, round=7,
+                   info=(mp.Phase1bSlotInfo(slot=1000, vote_round=7,
+                                            vote_value=batch),),
+                   epochs=(commit, rc.EpochCommit(
+                       epoch=4, start_slot=2000, f=1, round=7,
+                       members=("m0", "m2", "m3")))),
     ]
     wp = ns.wp
     wentry = ns.geo.GeoEpoch(group=2, epoch=3, start_slot=17, home_zone=1,

@@ -1,11 +1,10 @@
 """The port's WPaxos over the geo simulator vs the JAX package's.
 
-(a) Every ``tests/protocols/test_wpaxos.py`` integration case that does
-not take ``wal=True``, on the port's harness, on the dict quorum backend
-and on ``"cuda"`` at ``device="cpu"`` (K6's and K5's plain versions)
-where the reference used ``"tpu"``. The WAL cases (steal durability, the
-zone outage, client failover after a zone restart) wait for the WAL
-(ROADMAP.md queue 1 item 4).
+(a) Every ``tests/protocols/test_wpaxos.py`` integration case, on the
+port's harness, on the dict quorum backend and on ``"cuda"`` at
+``device="cpu"`` (K6's and K5's plain versions) where the reference used
+``"tpu"``, the WAL cases (steal durability, the zone outage, client
+failover after a zone restart) included.
 (b) Cross-package: writes from two zones, a steal and a link partition
 on ``geo3()`` (``tests/test_sim_core.py``'s WPaxos scenario) through the
 JAX harness and the port's give equal delivery projections ``(id, src,
@@ -14,9 +13,9 @@ dst)``, virtual clocks, acks, client latencies and replicas'
 on the numpy kernel and on K18's plain version.
 (c) The ``WPaxosGeoSimulated`` chaos property on the port's ``Simulator``
 for the reference's three parametrisations, and the first again on the
-cuda backend, without the acceptor crash-restarts and zone kills, which
-restart from the WAL (replica crash-restarts stay: replicas keep no
-WAL).
+cuda backend: once without acceptor state (replica crash-restarts
+only), and once as the reference runs it, on WALs, with acceptor
+crash-restarts and zone kills that restart a zone from its WALs.
 (d) The refusals, and the geo_lt and storm twins small on the CPU.
 """
 
@@ -225,6 +224,100 @@ def test_leader_and_replica_restarts_recover(backend):
     seqs = [r.group_sequences()[group] for r in sim.replicas]
     assert seqs[0] == seqs[1] == seqs[2]
 
+
+
+def test_steal_is_wal_durable_before_ack(backend):
+    """An acceptor's WPhase1b leaves only after its promise is
+    group-commit-fsynced, so a crash-restarted old-home acceptor still
+    refuses the old ballot."""
+    sim = make_wpaxos(wal=True, **backend)
+    group = sim.config.group_of_key(b"obj1")
+    home = sim.config.initial_home[group]
+    drive(sim, 2, key_prefix=b"obj1")
+    thief = sim.leaders[(home + 1) % 3]
+    thief.receive("admin", Steal(group))
+    settle(sim, lambda: group in thief.active)
+    stolen_ballot = thief.active[group].ballot
+    for i, acceptor in enumerate(sim.acceptors):
+        if acceptor.zone == home:
+            crash_restart_acceptor(sim, i)
+    for acceptor in sim.acceptors:
+        if acceptor.zone == home:
+            assert acceptor.promised.get(group, -1) >= stolen_ballot
+            assert acceptor.epochs.current(group).home_zone == thief.zone
+
+
+def test_zone_outage_wal_restart_then_steal_repairs(backend):
+    """Groups homed in a dead zone stall, the zone restarts from its
+    WALs, and a steal then moves the groups with every acked write
+    intact."""
+    sim = make_wpaxos(wal=True, num_clients=3, **backend)
+    group = sim.config.group_of_key(b"obj1")
+    home = sim.config.initial_home[group]
+    drive(sim, 4, client=home, key_prefix=b"obj1")
+
+    crash_zone(sim, home)
+    thief = sim.leaders[(home + 1) % 3]
+    thief.receive("admin", Steal(group))
+    sim.transport.deliver_all_coalesced(max_steps=2000)
+    assert group not in thief.active  # blocked: dead row
+
+    restart_zone(sim, home)
+    settle(sim, lambda: group in thief.active)
+    got = drive(sim, 3, client=(home + 1) % 3, key_prefix=b"obj1")
+    assert len(got) == 3
+    seqs = [r.group_sequences()[group] for r in sim.replicas]
+    live = [s for i, s in enumerate(seqs) if i != home]
+    assert live[0] == live[1]
+    for n in range(4):
+        assert live[0].count(b"obj1-%d" % n) == 1
+
+
+def test_client_failover_steals_after_home_zone_death(backend):
+    """The client's resend/failover budget rotates zones with
+    steal=True after the home zone dies and restarts (acceptors from
+    their WALs, the leader amnesiac)."""
+    sim = make_wpaxos(wal=True, **backend)
+    group = sim.config.group_of_key(b"obj1")
+    home = sim.config.initial_home[group]
+    drive(sim, 2, key_prefix=b"obj1")
+    crash_zone(sim, home)
+    restart_zone(sim, home)
+    got: list = []
+    sim.clients[0].write(0, b"obj1-post", got.append, key=b"obj1")
+    settle(sim, lambda: bool(got), max_waves=400)
+    assert got == [b"obj1-post"]
+
+
+def _wal_outage(h, steal, **kwargs) -> tuple:
+    """The zone outage on harness module ``h``: acks, every replica's
+    group sequences and every acceptor's WAL segments."""
+    sim = h.make_wpaxos(wal=True, num_clients=3, **kwargs)
+    group = sim.config.group_of_key(b"obj1")
+    home = sim.config.initial_home[group]
+    acks = h.drive(sim, 4, client=home, key_prefix=b"obj1")
+    h.crash_zone(sim, home)
+    h.restart_zone(sim, home)
+    thief = sim.leaders[(home + 1) % 3]
+    thief.receive("admin", steal(group))
+    h.settle(sim, lambda: group in thief.active)
+    acks += h.drive(sim, 3, client=(home + 1) % 3, key_prefix=b"obj1")
+    return (acks, [r.group_sequences() for r in sim.replicas],
+            {a: {n: st.read(n) for n in st.segments()}
+             for a, st in sim.wal_storages.items()})
+
+
+@pytest.mark.parametrize("backend_name", sorted(BACKENDS))
+def test_wal_outage_matches_the_reference(backend_name):
+    """The zone outage through both harnesses: equal acks, group
+    sequences and acceptor WAL bytes (exact)."""
+    from frankenpaxos_tpu_torch.protocols.wpaxos import harness as th
+
+    ref = _wal_outage(jharness, JSteal, **(
+        {"quorum_backend": "tpu"} if backend_name == "cuda" else {}))
+    got = _wal_outage(th, Steal, **BACKENDS[backend_name])
+    assert got == ref
+    assert len(got[2]) == 9 and len(got[0]) == 7
 
 # --- (b) cross-package -------------------------------------------------------
 
@@ -577,18 +670,144 @@ def test_simulation_geo_chaos_no_divergence(kwargs):
     assert failure is None, str(failure)
 
 
+
+class CrashAcceptorCmd:
+    def __init__(self, index):
+        self.index = index
+
+    def __repr__(self):
+        return f"CrashAcceptor({self.index})"
+
+
+class ZoneCmd:
+    def __init__(self, zone, restart):
+        self.zone = zone
+        self.restart = restart
+
+    def __repr__(self):
+        return f"{'Restart' if self.restart else 'Kill'}Zone({self.zone})"
+
+
+class WPaxosGeoWalSimulated(WPaxosGeoSimulated):
+    """The reference's chaos system as it runs it: every acceptor on a
+    WAL, and besides the steals, link cuts and replica crash-restarts,
+    acceptor crash-restarts from the WAL and zone kills (every role of
+    a zone down) that restart the zone from its WALs, at the
+    reference's rates, under the same oracle."""
+
+    def new_system(self, seed: int):
+        regions = {f"r{z}": [f"zone-{z}"] for z in range(self.num_zones)}
+        topo = GeoTopology(regions, seed=seed, jitter=self.jitter)
+        sim = make_wpaxos(num_zones=self.num_zones,
+                          row_width=self.row_width,
+                          num_groups=self.num_groups,
+                          num_clients=self.num_zones, topology=topo,
+                          wal=True, seed=seed,
+                          quorum_backend=self.quorum_backend,
+                          device="cpu")
+        sim._counter = 0
+        sim._dead_zone = None
+        sim._crash_epochs = [0] * len(sim.replicas)
+        return sim
+
+    def generate_command(self, sim, rng: random.Random):
+        choices: list = []
+        idle = [(c, p) for c, client in enumerate(sim.clients)
+                for p in range(2) if p not in client.pending]
+        if idle:
+            choices.extend(["write"] * 2)
+        transport_cmd = sim.transport.generate_command(rng)
+        if transport_cmd is not None:
+            choices.extend(["transport"] * 6)
+        if rng.random() < 0.12:
+            choices.append("steal")
+        if rng.random() < 0.12:
+            choices.append("link")
+        if rng.random() < 0.15:
+            choices.append("crash")
+        if sim._dead_zone is None:
+            if rng.random() < 0.05:
+                choices.append("kill_zone")
+        elif rng.random() < 0.5:
+            choices.append("restart_zone")
+        if rng.random() < 0.08:
+            choices.append("settle")
+        if not choices:
+            return None
+        kind = rng.choice(choices)
+        if kind == "write":
+            client, pseudonym = rng.choice(idle)
+            sim._counter += 1
+            return WriteCmd(client, pseudonym, b"w%d" % sim._counter)
+        if kind == "steal":
+            return StealCmd(rng.randrange(self.num_groups),
+                            rng.randrange(self.num_zones))
+        if kind == "link":
+            zones = rng.sample(range(self.num_zones), 2)
+            partitioned = not sim.topology.link(
+                f"zone-{zones[0]}", f"zone-{zones[1]}").up
+            return LinkCmd(zones[0], zones[1], heal=partitioned)
+        if kind == "crash":
+            if rng.random() < 0.5:
+                return CrashAcceptorCmd(rng.randrange(len(sim.acceptors)))
+            return CrashReplicaCmd(rng.randrange(len(sim.replicas)))
+        if kind == "kill_zone":
+            return ZoneCmd(rng.randrange(self.num_zones), restart=False)
+        if kind == "restart_zone":
+            return ZoneCmd(sim._dead_zone, restart=True)
+        if kind == "settle":
+            return SettleCmd()
+        return TransportCmd(transport_cmd)
+
+    def run_command(self, sim, command):
+        if isinstance(command, CrashAcceptorCmd):
+            index = command.index % len(sim.acceptors)
+            if sim.acceptors[index].zone != sim._dead_zone:
+                crash_restart_acceptor(sim, index)
+        elif isinstance(command, CrashReplicaCmd):
+            index = command.index % len(sim.replicas)
+            if index != sim._dead_zone:
+                crash_restart_replica(sim, index)
+                sim._crash_epochs[index] += 1
+        elif isinstance(command, ZoneCmd):
+            if command.restart:
+                if sim._dead_zone is not None:
+                    restart_zone(sim, sim._dead_zone)
+                    sim._crash_epochs[sim._dead_zone] += 1
+                    sim._dead_zone = None
+            elif sim._dead_zone is None:
+                crash_zone(sim, command.zone)
+                sim._dead_zone = command.zone
+        else:
+            return super().run_command(sim, command)
+        return sim
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(),
+    dict(num_zones=2, row_width=3, num_groups=2),
+    dict(jitter=4.0),
+    dict(quorum_backend="cuda"),
+], ids=["z3", "z2", "high-jitter", "z3-cuda"])
+def test_simulation_geo_wal_chaos_no_divergence(kwargs):
+    failure = Simulator(WPaxosGeoWalSimulated(**kwargs), run_length=150,
+                        num_runs=10).run(seed=0)
+    assert failure is None, str(failure)
+
 # --- (d) refusals and the benches --------------------------------------------
 
 
 def test_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_wpaxos(wal=True)
-    sim = make_wpaxos()
-    for helper in (crash_restart_acceptor, restart_zone):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            helper(sim, 0)
+    """Admission and the reference's backend names stay refused; the WAL
+    options and the helpers that restart from it now run."""
+    sim = make_wpaxos(wal=True)
+    assert all(a.wal is not None for a in sim.acceptors)
+    crash_restart_acceptor(sim, 0)
+    assert sim.acceptors[0].wal is not None
     crash_zone(sim, 0)
     assert "leader-0" not in sim.transport.actors
+    restart_zone(sim, 0)
+    assert "leader-0" in sim.transport.actors
     with pytest.raises(ValueError, match="quorum_backend"):
         make_wpaxos(quorum_backend="tpu")
     with pytest.raises(NotImplementedError, match="item 8.1"):
@@ -598,10 +817,13 @@ def test_refusals(monkeypatch):
     from frankenpaxos_tpu_torch.protocols.wpaxos.acceptor import (
         WPaxosAcceptor,
     )
+    from frankenpaxos_tpu_torch.runtime import FakeLogger, SimTransport
+    from frankenpaxos_tpu_torch.wal import MemStorage, Wal
 
-    with pytest.raises(NotImplementedError, match="item 4"):
-        WPaxosAcceptor("acceptor-0-0", sim.transport, sim.transport.logger,
-                       sim.config, wal=object())
+    log = FakeLogger()
+    acceptor = WPaxosAcceptor("acceptor-0-0", SimTransport(log), log,
+                              sim.config, wal=Wal(MemStorage()))
+    assert acceptor.wal.recover() == []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_wpaxos(quorum_backend="cuda")
@@ -632,6 +854,21 @@ def test_geo_lt_twin_small_on_the_cpu(monkeypatch):
         assert run["latency_arms_waves"]["waves_at_least_vector_min"] == 0
     assert out["backends"]["dict"]["home_zone"] == \
         out["backends"]["cuda"]["home_zone"]
+
+
+@pytest.mark.parametrize("backend_name", sorted(BACKENDS))
+def test_zone_outage_arm_matches_the_reference(backend_name):
+    """geo_lt's zone outage (zone 0 killed, its acceptors relaunched
+    from their WALs after 2 s of virtual downtime) gives the JAX
+    package's figures exactly: virtual time is deterministic per seed."""
+    from frankenpaxos_tpu.bench import geo_lt as jgeo_lt
+
+    dev = torch.device("cpu")
+    run = geo_lt.Run(backend_name, dev)
+    with geo_lt.link_mask(backend_name, dev):
+        got = geo_lt.zone_outage_arm(run, 0)
+    assert got == jgeo_lt.zone_outage_arm(seed=0)
+    assert got["stolen_to_zone"] == 1 and len(run.acks) == 5
 
 
 def test_geo_lt_exactness_gate_fires(monkeypatch):
