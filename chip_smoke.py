@@ -373,7 +373,28 @@ Phases, in order (any failure exits nonzero and prints no result):
      reshape of the epoch board, [3, 2^14] -> [4, 2^14]) each launched
      in every arm; writes/s, K6's host µs a drain and the fsync ms per
      sync per arm; its launches join the kernels line's rows (path
-     ``reconfig_cluster``).
+     ``reconfig_cluster``);
+  32. Fast Paxos and Fast MultiPaxos on K6's stateless check: first K6's
+     stateless form against ``check_batch_multi_plain``, exact, at
+     [1, 3] and [1, 5] (K = 1, the fast_flexible classic spec: every
+     0/1 row through ``MultiCheck.check_word``, the staged one-row
+     call), [256, 4] (K = 2, also with weighted masks) and [2^16, 5]
+     (K = 3): through ``MultiCheck.check`` (0/1 rows, bools, weighted
+     int32 rows, a Fortran-order strided view, config indices below,
+     inside and past [0, K)) and the tensor wrapper on the card
+     (contiguous and strided), with each shape's call, device, plain and
+     bound figures; then Fast Paxos f = 1 on
+     ``quorum_backend="cuda"`` (the fast path, a two-client conflict
+     race, and random interleavings), its chosen values and replies
+     equal to the ``"host"`` run of the same seed; then, with every count
+     set to 0 first, ``bench/fast_sim.py``: f = 1 (3 acceptors, 2
+     leaders) and f = 2 (5 acceptors, fast quorum 4), FAST_CLIENTS
+     closed-loop clients, FAST_COMMANDS commands an arm on ``"host"``
+     and ``"cuda"`` (every command answered once, every leader's log
+     equal and complete, the cuda logs and replies equal the host run's,
+     K6's stateless launches equal the cuda checks and above 0);
+     commands/s and the median host µs a check per arm; its launches
+     join the kernels line's rows (path ``fast_cluster``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -381,6 +402,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 import itertools
 import json
 import os
+import random
 import re
 import statistics
 import sys
@@ -395,6 +417,7 @@ from frankenpaxos_tpu_torch.bench import (
     call_split,
     depset_lt,
     epaxos_sim,
+    fast_sim,
     geo_lt,
     headline,
     launch_shapes,
@@ -422,12 +445,14 @@ from frankenpaxos_tpu_torch.ops import (
     value as tv,
     watermark as tw,
 )
+from frankenpaxos_tpu_torch.protocols import fast_harness
 from frankenpaxos_tpu_torch.protocols.multipaxos import (
     quorum_tracker as qt,
     supernode,
 )
 from frankenpaxos_tpu_torch.quorums import Grid, SimpleMajority, ZoneGrid
 from frankenpaxos_tpu_torch.quorums.spec import ALL, ANY, pad_specs, QuorumSpec
+from frankenpaxos_tpu_torch.runs.quorums import fast_flexible_specs
 from frankenpaxos_tpu_torch.runtime import FakeLogger
 from frankenpaxos_tpu_torch.runtime.tcp_transport import TcpTransport
 import numpy as np
@@ -461,7 +486,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/31] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/32] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1938,18 +1963,18 @@ WRAPPERS = {
     **multichip_board.PINNED_KERNELS,
 }
 #: The kernels of the main path, K1-K7 (check_batch_multi, K6's
-#: stateless predicate, is not on it).
+#: stateless predicate, is not on it: it runs on the fast path).
 MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
              "record_and_check", "release", "record_and_check_epochs",
              "reshape_columns")
 
 
 #: The runs whose launches the kernels line counts: phases 11, 12, 14,
-#: 16, 18, 21, 23-24, 25, 26 and 29 (``*_traffic`` entries of
+#: 16, 18, 21, 23-24, 25, 26, 29, 31 and 32 (``*_traffic`` entries of
 #: ``launches_by_path`` are subsets of these).
 MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
               "telemetry", "libbench", "geo", "sharded", "sharded_board",
-              "tcp_cluster", "reconfig_cluster")
+              "tcp_cluster", "reconfig_cluster", "fast_cluster")
 #: The kernels of the telemetry path (phase 18) and of the libbench path
 #: (phase 21).
 TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
@@ -3381,7 +3406,7 @@ def phase_figures(dev, rng, paths: dict, errors: dict) -> list:
         ("check_batch_multi",
          lambda: tq.check_batch_multi(present, cfg, planes),
          lambda: tq.check_batch_multi_plain(present, cfg, planes),
-         "check_batch_multi_kernel", (4 * kn + 5) * chunk + plane_bytes,
+         "multi_row_kernel", (4 * kn + 5) * chunk + plane_bytes,
          (2 * kg * kn + kg) * chunk, epoch, f"{ref}:359",
          f"N={kn} K={kk} B={chunk}"),
         ("reshape_columns",
@@ -3837,6 +3862,189 @@ def phase_reconfig(dev) -> tuple[dict, dict]:
     return result, launches
 
 
+#: Phase 32's Fast MultiPaxos load: closed-loop clients and commands an
+#: arm (the bench's own, not cut).
+FAST_CLIENTS = fast_sim.CLIENTS
+FAST_COMMANDS = fast_sim.COMMANDS
+#: K6's stateless shapes: ``(rows, nodes, planes, weighted masks)``.
+K6S_SHAPES = ((1, 3, 1, False), (1, 5, 1, False), (256, 4, 2, False),
+              (256, 4, 2, True), (1 << 16, 5, 3, False))
+
+
+def _k6s_planes(n: int, k: int, weighted: bool) -> tuple:
+    """The planes of one of ``K6S_SHAPES``: the Fast Paxos classic spec
+    (K = 1), else ``launch_shapes.fast_planes``, weighted 1-3."""
+    if k == 1:
+        spec = fast_flexible_specs(n, n // 2 + 1, n).classic
+        return pad_specs([spec])
+    masks, thresholds, combine_any = pad_specs(launch_shapes.fast_planes(
+        n, k))
+    if weighted:
+        masks = masks.astype(np.int32) * np.arange(1, n + 1) % 4
+    return masks, thresholds, combine_any
+
+
+def _k6_stateless(dev, rng) -> tuple[int, dict]:
+    """K6's stateless form against ``check_batch_multi_plain`` (on the
+    CPU), exact, at ``K6S_SHAPES``; the worst error and each shape's
+    figures."""
+    worst, figures = 0, {}
+    for b, n, k, weighted in K6S_SHAPES:
+        planes_np = _k6s_planes(n, k, weighted)
+        multi = tq.MultiCheck(*planes_np, device=dev)
+        cpu = tq.make_multi_predicate(*planes_np, device="cpu")
+        require(multi.bits == (not weighted),
+                f"K6 stateless planes {n, k, weighted}: bits {multi.bits}")
+
+        def plain(rows, idx):
+            return tq.check_batch_multi_plain(
+                torch.from_numpy(np.asarray(rows).astype(np.int32)),
+                torch.from_numpy(np.asarray(idx).astype(np.int32)),
+                cpu).numpy()
+
+        def err(got, rows, idx, what):
+            e = int((np.asarray(got) != plain(rows, idx)).sum())
+            require(e == 0, f"K6 stateless differs at [{b}, {n}] K={k} "
+                            f"weighted={weighted}: {what}")
+            return e
+
+        rows01 = (rng.random((b, n)) < 0.5).astype(np.int32)
+        rowsw = rng.integers(-2**31, 2**31 - 1, size=(b, n)).astype(np.int32)
+        rowsw[: b // 2] = rng.integers(-2, 4, size=(b // 2, n))
+        idx = rng.integers(-k - 1, k + 2, size=b).astype(np.int32)
+        cases = {"0/1": rows01, "bool": rows01.astype(bool),
+                 "weighted": rowsw, "strided": np.asfortranarray(rows01)}
+        for what, rows in cases.items():
+            worst = max(worst, err(multi.check(rows, idx), rows, idx,
+                                   f"staged {what}"))
+            p = torch.from_numpy(np.asarray(rows).astype(np.int32)).to(dev)
+            i = torch.from_numpy(idx).to(dev)
+            for view in (p, p.t().contiguous().t()):
+                worst = max(worst, err(
+                    tq.check_batch_multi(view, i, multi.planes).cpu(),
+                    rows, idx, f"tensor {what}"))
+        if b == 1 and multi.bits:
+            for word in range(1 << n):
+                row = np.array([[(word >> j) & 1 for j in range(n)]])
+                worst = max(worst, err([multi.check_word(word)], row,
+                                       [0], f"check_word {word}"))
+        # Figures: the staged call (one row: check_word, the SpecChecker's
+        # call; else a batch of 0/1 rows), the tensor wrapper, the plain
+        # version on the card, the bound.
+        if b == 1:
+            words = [int(w) for w in rng.integers(0, 1 << n, size=64)]
+            at = [0]
+
+            def staged():
+                at[0] = (at[0] + 1) & 63
+                return multi.check_word(words[at[0]])
+        else:
+            def staged():
+                return multi.check(rows01, idx)
+        calls = 2000 if b < 1024 else 200
+        staged()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            staged()
+        staged_ms = (time.perf_counter() - t0) / calls * 1e3
+        p = torch.from_numpy(rows01).to(dev)
+        i = torch.from_numpy(idx).to(dev)
+        planes_dev = multi.planes
+        tensor = (lambda: tq.check_batch_multi(p, i, planes_dev))
+        figures[f"[{b}, {n}] K={k}" + (" weighted" if weighted else "")] = {
+            "staged_ms": staged_ms,
+            "staged_device_ms": device_ms(staged, "multi_", 200),
+            "staged_form": ("check_word: the word and planes in the "
+                            "launch's parameters" if b == 1 else
+                            "MultiCheck.check on the pinned block"),
+            "tensor_ms": time_ms(tensor, 2000),
+            "tensor_device_ms": device_ms(tensor, "multi_", 200),
+            "plain_ms": time_ms(lambda: tq.check_batch_multi_plain(
+                p, i, planes_dev), 200),
+            "bound_ms": (4 * n + 5) * b / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": (4 * n + 5) * b,
+            "bits": multi.bits}
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    figures["floor"] = {"fill_[1]_device_ms": device_ms(
+        lambda: one.fill_(1), "FillFunctor", 200)}
+    return worst, figures
+
+
+def _fast_paxos_runs(dev) -> dict:
+    """Fast Paxos f = 1 on the host backend and on the card, the same
+    drives: the fast path, a two-client conflict race (the timers fired
+    until both are answered), and random interleavings; each card run's
+    chosen values and replies equal the host run's."""
+    def drive(backend, device, kind, seed=0):
+        transport, leaders, _, clients = fast_harness.make_fastpaxos(
+            quorum_backend=backend, device=device, num_clients=3)
+        got = []
+        if kind == "fast_path":
+            transport.deliver_all()
+            clients[0].propose("fast", got.append)
+            transport.deliver_all()
+        elif kind == "race":
+            transport.deliver_all()
+            clients[0].propose("a", got.append)
+            clients[1].propose("b", got.append)
+            transport.deliver_all()
+            for _ in range(10):
+                if len(got) == 2:
+                    break
+                for timer in transport.running_timers():
+                    transport.trigger_timer(timer.id)
+                transport.deliver_all()
+        else:
+            rng = random.Random(seed)
+            for c, client in enumerate(clients):
+                client.propose(f"v{c}", got.append)
+            for _ in range(600):
+                cmd = transport.generate_command(rng)
+                if cmd is None:
+                    break
+                transport.run_command(cmd)
+        return {"replies": got,
+                "leaders": [l.chosen_value for l in leaders],
+                "clients": [c.chosen_value for c in clients]}
+
+    out = {}
+    for kind, seeds in (("fast_path", [0]), ("race", [0]),
+                        ("interleaved", range(8))):
+        for seed in seeds:
+            host = drive("host", None, kind, seed)
+            card = drive("cuda", dev, kind, seed)
+            require(card == host, f"Fast Paxos {kind} seed {seed}: the "
+                                  f"card's run {card} != the host's {host}")
+            chosen = {v for v in host["leaders"] + host["clients"]
+                      if v is not None}
+            require(len(chosen) <= 1, f"Fast Paxos {kind}: {chosen}")
+            out[f"{kind}/{seed}"] = host["replies"]
+    require(out["fast_path/0"] == ["fast"], "Fast Paxos fast path")
+    require(len(out["race/0"]) == 2 and len(set(out["race/0"])) == 1,
+            f"Fast Paxos race: {out['race/0']}")
+    return out
+
+
+def phase_fast(dev, rng) -> tuple[dict, dict, int]:
+    """Phase 32: K6's stateless form at its shapes, Fast Paxos on the
+    card, then the Fast MultiPaxos closed loop (``bench/fast_sim.py``)
+    with every count set to 0 first; its gates raise inside ``run``."""
+    worst, figures = _k6_stateless(dev, rng)
+    paxos = _fast_paxos_runs(dev)
+    reset_launches()
+    try:
+        result = fast_sim.run(dev, commands=FAST_COMMANDS,
+                              clients=FAST_CLIENTS)
+    except fast_sim.GateFailure as exc:
+        raise SmokeFailure(f"fast_sim: {exc}") from exc
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    require(launches["check_batch_multi"] > 0,
+            "K6's stateless check never launched on the fast path")
+    result["k6_stateless"] = figures
+    result["fast_paxos"] = paxos
+    return result, launches, worst
+
+
 def add_path_launches(kernels: list, path: str, counts: dict) -> None:
     """Count a path run after the per-kernel figures into their rows."""
     for row in kernels:
@@ -4258,6 +4466,48 @@ def main() -> int:
             f"{reconfig['logs_equal_the_dict_run']}; launches "
             + str({k: v for k, v in reconfig_launches.items() if v}))
         log(json.dumps({"reconfig_cluster": reconfig}))
+        fast, fast_launches, k6s_err = phase_fast(dev, rng)
+        add_path_launches(kernels, "fast_cluster", fast_launches)
+        k6s = fast["k6_stateless"]
+        row = next(r for r in kernels if r["name"] == "check_batch_multi")
+        at13 = k6s["[1, 3] K=1"]
+        row.update({
+            # The fast path's launch shape: a leader's check at f = 1,
+            # one staged call (the tensor wrapper's [256, 4] figures of
+            # phase 28 stay under "tensor_256x4").
+            "tensor_256x4": {k: row[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "shape")},
+            "ms": at13["staged_ms"], "device_ms": at13["staged_device_ms"],
+            "plain_ms": at13["plain_ms"], "bound_ms": at13["bound_ms"],
+            "bound_by": "bytes", "bytes": at13["bytes"],
+            "shape": "[1, 3] K=1 G=1 (SpecChecker.check: one staged call)",
+            "max_abs_err": max(row["max_abs_err"], k6s_err),
+            "at_shapes": k6s,
+            "check_host_us_p50": {
+                arm: runs["cuda"]["check_host_us_p50"]
+                for arm, runs in fast["arms"].items()}})
+        phase(32, f"Fast Paxos and Fast MultiPaxos on {name} ({smi}): K6 "
+            f"stateless == plain at "
+            + ", ".join(f"{key} (staged {fig['staged_ms'] * 1e3:.2f} us, "
+                        f"device {(fig['staged_device_ms'] or 0) * 1e3:.3f}"
+                        f" us; tensor {fig['tensor_ms'] * 1e3:.2f} us, "
+                        f"device {(fig['tensor_device_ms'] or 0) * 1e3:.3f}"
+                        f" us; bound {fig['bound_ms'] * 1e3:.4f} us)"
+                        for key, fig in k6s.items() if key != "floor")
+            + f"; floor {(k6s['floor']['fill_[1]_device_ms'] or 0) * 1e3:.3f}"
+            f" us; Fast Paxos on the card == host "
+            f"({len(fast['fast_paxos'])} drives); fast_sim "
+            f"{FAST_COMMANDS} commands x {FAST_CLIENTS} clients: "
+            + "; ".join(f"{arm} {b} {fig['commands_per_sec']:.0f} cmds/s, "
+                        f"checks {fig['checks']}, K6 "
+                        f"{fig['check_batch_multi_launches']}, host "
+                        f"{fig['check_host_us_p50']:.2f} us a check (p50)"
+                        for arm, runs in fast["arms"].items()
+                        for b, fig in runs.items())
+            + f"; the cuda logs and replies == the host runs'; launches "
+            + str({k: v for k, v in fast_launches.items() if v})
+            + f"; {time.perf_counter() - T0:.1f} s in all")
+        log(json.dumps({"fast_cluster": fast}))
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

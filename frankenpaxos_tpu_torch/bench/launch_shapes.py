@@ -74,7 +74,7 @@ default), so that one call can measure a parent and its change alike:
 Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/launch_shapes.py [--tree ROOT] \\
-        [--parts drains,kernels|depset|board|sharded|libbench|recovery]
+        [--parts drains,kernels|depset|board|sharded|libbench|recovery|fast]
 
   * ``sharded`` (the sharded drain's kernels on one process, no ranks
     spawned): K19 ``shard_vote_count`` and K20 ``shard_commit`` at rank
@@ -109,6 +109,19 @@ Run from the root of a checkout::
     -> [4, 2^20]``, with the map on the card and (where the tree takes
     one) the numpy map in the call, beside ``index_select`` on a
     zero-padded block (the padding made once, outside the timing).
+
+  * ``fast`` (K6's stateless ``check_batch_multi`` on the Fast Paxos
+    path): one quorum check of a Fast MultiPaxos leader at f = 1 and
+    f = 2 (``[1, 3]`` and ``[1, 5]``, K = 1, the classic spec), host ns a
+    call: the tree's ``runs.quorums.SpecChecker("cuda").check`` where the
+    tree has it, else the reference's ``"tpu"`` check body on the tree's
+    ``MultiConfigQuorumChecker`` (``present_vector``, then
+    ``check_batch`` of one row); host batches through
+    ``MultiConfigQuorumChecker.check_batch`` at ``[256, 4]`` (K = 2) and
+    ``[2^16, 5]`` (K = 3), host ns; the tensor wrapper on the card at
+    the same two shapes, CUDA-event ms; each with the profiler's device
+    ms and launches a call, its bound ((4N + 5) bytes a row over
+    3.35 TB/s) and the card's floor (a one-element fill).
 
 It prints ONE JSON line, with the seconds the tree's kernels took to
 build (0 when they were built before). It raises without a CUDA device.
@@ -496,6 +509,98 @@ def _bits_batch(rng, shape, device):
     return td.DepSetBatch(torch.from_numpy(wm).to(device),
                           torch.from_numpy(tails).to(device),
                           torch.tensor(base, dtype=torch.int32).to(device))
+
+
+#: K6's stateless kernels, by the names of each tree's forms.
+K6_STATELESS_KERNELS = ("check_batch_multi_kernel", "multi_row_kernel",
+                        "multi_tile_kernel")
+#: The host batches of the ``fast`` part: ``(rows, nodes, planes)``.
+FAST_BATCHES = ((256, 4, 2), (1 << 16, 5, 3))
+
+
+def fast_planes(n: int, k: int) -> list:
+    """``k`` specs over ``n`` nodes, each a majority of a different
+    ``n - 1`` of them (plane 0 of ``n = 4, k = 2``: nodes 0-2)."""
+    from frankenpaxos_tpu_torch.quorums.spec import ANY, QuorumSpec
+
+    specs = []
+    for i in range(k):
+        masks = np.ones((1, n), dtype=np.uint8)
+        masks[0, (n - 1 - i) % n] = 0
+        specs.append(QuorumSpec(masks=masks,
+                                thresholds=np.asarray([(n - 1) // 2 + 1],
+                                                      np.int32),
+                                combine=ANY, universe=tuple(range(n))))
+    return specs
+
+
+def fast_kernels(device, rng=None) -> dict:
+    """The ``fast`` part (see the module's docstring)."""
+    import torch
+    from frankenpaxos_tpu_torch.ops import quorum as tq
+    from frankenpaxos_tpu_torch.quorums.spec import ANY, QuorumSpec
+
+    try:
+        from frankenpaxos_tpu_torch.runs.quorums import SpecChecker
+    except ImportError:
+        SpecChecker = None
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    out: dict = {"checks": {}, "batches": {}, "tensor": {}}
+
+    def device_figures(fn):
+        dev_ms, per_call = _device_ms(fn, K6_STATELESS_KERNELS)
+        return {"device_ms": dev_ms, "launches_per_call": per_call}
+
+    for f in (1, 2):
+        n = 2 * f + 1
+        spec = QuorumSpec(masks=np.ones((1, n), dtype=np.uint8),
+                          thresholds=np.asarray([f + 1], np.int32),
+                          combine=ANY, universe=tuple(range(n)))
+        sets = [sorted(rng.choice(n, size=int(rng.integers(0, n + 1)),
+                                  replace=False).tolist())
+                for _ in range(64)]
+        at = [0]
+
+        def nodes():
+            at[0] = (at[0] + 1) % len(sets)
+            return sets[at[0]]
+
+        if SpecChecker is not None:
+            checker = SpecChecker(spec, "cuda", device=device)
+            call, form = (lambda: checker.check(nodes()),
+                          "SpecChecker.check")
+        else:
+            multi = tq.MultiConfigQuorumChecker([spec], device=device)
+            zeros = np.zeros(1, dtype=np.int32)
+
+            def call():
+                present = spec.present_vector(nodes())
+                return bool(multi.check_batch(present[None, :], zeros)[0])
+
+            form = "the reference's tpu check on MultiConfigQuorumChecker"
+        out["checks"][f"[1, {n}]"] = {
+            "form": form, "host_ns": _host_ns(call), **device_figures(call),
+            "bound_ms": (4 * n + 5) / HBM_BYTES_PER_S * 1e3}
+    for b, n, k in FAST_BATCHES:
+        multi = tq.MultiConfigQuorumChecker(fast_planes(n, k), device=device)
+        rows = (rng.random((b, n)) < 0.6).astype(np.int32)
+        idx = rng.integers(0, k, size=b).astype(np.int32)
+        key = f"[{b}, {n}] K={k}"
+        host = (lambda multi=multi, rows=rows, idx=idx:
+                multi.check_batch(rows, idx))
+        out["batches"][key] = {
+            "host_ns": _host_ns(host, calls=200), **device_figures(host),
+            "bound_ms": (4 * n + 5) * b / HBM_BYTES_PER_S * 1e3}
+        p, i = (torch.from_numpy(x).to(device) for x in (rows, idx))
+        tensor = (lambda multi=multi, p=p, i=i:
+                  tq.check_batch_multi(p, i, multi.planes))
+        out["tensor"][key] = {
+            "call_ms": _cuda_ms(tensor), **device_figures(tensor),
+            "bound_ms": (4 * n + 5) * b / HBM_BYTES_PER_S * 1e3}
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    dev_ms, _ = _device_ms(lambda: one.fill_(1), "FillFunctor")
+    out["floor"] = {"fill_[1]": {"device_ms": dev_ms}}
+    return out
 
 
 def depset_kernels(device, rng=None) -> dict:
@@ -1149,6 +1254,8 @@ def main(argv=None) -> int:
         result["libbench"] = libbench_kernels(device)
     if "recovery" in parts:
         result["recovery"] = recovery_kernels(device)
+    if "fast" in parts:
+        result["fast"] = fast_kernels(device)
     if "drains" in parts:
         result["drains"] = drains(device)
     print(json.dumps(result), flush=True)

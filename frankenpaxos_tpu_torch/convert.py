@@ -20,7 +20,9 @@ arrays, and a GC role's ``QuorumWatermarkVector`` as its
 ``ObjectEpochStore`` crosses as its epoch chains, and a
 ``GeoQuorumTracker`` as its store, its board (through the
 ``EpochSegmentedChecker`` conversion, the planes rebuilt from the
-chain) and its buffered votes.
+chain) and its buffered votes. A Fast Paxos ``SpecChecker`` carries only
+its spec (its planes are made from it), so it crosses as that spec and a
+backend.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from frankenpaxos_tpu_torch.ops.telemetry import (
     TelemetryState,
 )
 from frankenpaxos_tpu_torch.quorums.spec import QuorumSpec
+from frankenpaxos_tpu_torch.runs.quorums import SpecChecker
 from frankenpaxos_tpu_torch.utils.watermark import QuorumWatermarkVector
 import numpy as np
 import torch
@@ -209,6 +212,16 @@ def quorum_spec_from(spec) -> QuorumSpec:
                       thresholds=np.asarray(spec.thresholds, dtype=np.int32),
                       combine=str(spec.combine),
                       universe=tuple(spec.universe))
+
+
+def spec_checker_from(checker, backend: str = "cuda",
+                      device=None) -> SpecChecker:
+    """The port's ``SpecChecker`` for the spec of ``checker`` (e.g. the JAX
+    package's ``runs.quorums.SpecChecker``) on ``backend`` (``"cuda"``:
+    K6's planes made from the spec on ``device``; ``"host"``: the numpy
+    oracle)."""
+    return SpecChecker(quorum_spec_from(checker.spec), backend,
+                       device=device)
 
 
 def epoch_checker_from_numpy(specs, boundaries, window: int, board,

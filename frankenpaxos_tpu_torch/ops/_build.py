@@ -19,10 +19,10 @@ and K4), which record an event instead of waiting (their caller waits on
 the event when it collects).
 
 The lean call path (:class:`Entry`, :func:`stream_handle`) serves the
-wrappers whose host cost is the call itself (K1, K2, K4-K8, K10, K11,
-K12, K13, K16's union, K18, K19-K21, and the drain runs of K3, K14 and
-the pinned copy; K6's stateless ``check_batch_multi`` is not one): the
-entry point
+wrappers whose host cost is the call itself (K1, K2, K4-K8 with K6's
+stateless ``check_batch_multi``, K10, K11, K12, K13, K16's union, K18,
+K19-K21, and the drain runs of K3, K14 and the pinned copy): the entry
+point
 is looked up once; its arguments cross as ONE packed block of int64
 (``struct`` bytes), which ctypes converts once instead of one argument
 at a time; a launch-only entry is called through a ``ctypes.PyDLL``
@@ -116,10 +116,12 @@ SIGNATURES = {
         "fpx_release_staged": _B,
     },
     "epoch": {
-        # present, row_stride, col_stride, b, config_idx, out, masks,
-        # thresholds, combine_any, k, g, n
-        "fpx_check_batch_multi": [_P, _L, _L, _I, _P, _P, _P, _P, _P, _I,
-                                  _I, _I, _I, _P],
+        # packed: rows, row stride, col stride, b, n, config indices (or
+        # 0), out, flags (1 packed words, 2 mapped), the planes' host
+        # cells (or 0) and their count, the planes on the card (masks,
+        # thresholds, any), k, g, the pinned block (mapped), device,
+        # stream
+        "fpx_check_batch_multi_staged": _B,
         # packed: votes, rounds, chosen, owner, window, n, lanes [5, b],
         # b, chunk, boundaries, nb, newly, masks, thresholds, combine_any,
         # k, g, device, stream

@@ -6,13 +6,13 @@
 // and the tracker's loop over 256-vote chunks that calls it
 // (frankenpaxos_tpu/reconfig/tracker.py:161-165):
 //
-//   * check_batch_multi_kernel, one thread per row: select plane
-//     config_idx[b] of the [K, G, N] masks (a negative index counts from
-//     the end, one still out of range is clamped, as JAX's gather does),
-//     take the int32 weighted count of the row against each group,
-//     compare with that plane's thresholds and apply its any/all. There
-//     is NO grid branch: the reference's multi-config predicate always
-//     counts, so a grid plane is counted too (the uint8 OR/AND chain of
+//   * the stateless check (check_batch_multi, below): each row selects
+//     plane config_idx[b] of the [K, G, N] masks (a negative index counts
+//     from the end, one still out of range is clamped, as JAX's gather
+//     does), takes the int32 weighted count against each group, compares
+//     with that plane's thresholds and applies its any/all. There is NO
+//     grid branch: the reference's multi-config predicate always counts,
+//     so a grid plane is counted too (the uint8 OR/AND chain of
 //     quorum.cuh would differ on bytes other than 0/1);
 //   * record_and_check_epochs_run_kernel: a RUN of chunks of lanes in one
 //     launch, each chunk one call of the reference's scatter, strictly in
@@ -117,20 +117,6 @@ __device__ __forceinline__ int epoch_of(const int32_t* boundaries, int nb,
     if (boundaries[mid] <= x) lo = mid + 1; else hi = mid;
   }
   return lo;
-}
-
-__global__ void check_batch_multi_kernel(const int32_t* __restrict__ present,
-                                         long long row_stride,
-                                         long long col_stride, int b,
-                                         const int32_t* __restrict__ idx,
-                                         uint8_t* __restrict__ out,
-                                         MultiPred m) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= b) return;
-  const int32_t* row = present + static_cast<long long>(j) * row_stride;
-  out[j] = multi_hit(m, idx[j], [&](int i) {
-    return row[static_cast<long long>(i) * col_stride];
-  });
 }
 
 // Planes in shared memory when they fit this many bytes.
@@ -271,25 +257,6 @@ MultiPred make_multi(const void* masks, const void* thresholds,
 
 }  // namespace
 
-extern "C" int fpx_check_batch_multi(const void* present,
-                                     long long row_stride,
-                                     long long col_stride, int b,
-                                     const void* config_idx, void* out,
-                                     const void* masks,
-                                     const void* thresholds,
-                                     const void* combine_any, int k, int g,
-                                     int n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  check_batch_multi_kernel<<<(b + FPX_THREADS - 1) / FPX_THREADS,
-                             FPX_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(present), row_stride, col_stride, b,
-      static_cast<const int32_t*>(config_idx), static_cast<uint8_t*>(out),
-      make_multi(masks, thresholds, combine_any, k, g, n));
-  return cudaGetLastError();
-}
-
 namespace {
 
 cudaError_t select_device(int device) {
@@ -362,7 +329,274 @@ cudaError_t run_epochs(const long long* a) {
   return err != cudaSuccess ? err : freed;
 }
 
+// --- K6 stateless: check_batch_multi ------------------------------------
+//
+// The reference's _check_batch_multi (L359) on the Fast Paxos and Fast
+// MultiPaxos quorum checks (runs/quorums.py's SpecChecker over a
+// MultiConfigQuorumChecker): ONE row a check, [1, 3] at f = 1 and [1, 5]
+// at f = 2, one plane of one group. Its bound there is ~20 bytes, so a
+// call is the launch plus whatever the kernel waits on; the design takes
+// every wait it can off the kernel's path:
+//
+//   * the planes ride in the launch's parameters (MultiArgs::cells) where
+//     they fit, as K7's map does: no global load before the first count;
+//   * a host batch (the checkers' rows, written into one reused pinned
+//     block by ops/quorum.py::MultiCheck) is read in place through mapped
+//     memory, and the answer bytes are written back into the same block;
+//     a batch small enough rides in the parameters too (this entry copies
+//     it out of the pinned block on the host), so the kernel reads nothing
+//     across the host link and only posts its answer bytes there; the
+//     call then waits on the staging's own stream, which holds only this
+//     call's work (the same as an event at its end), with the GIL
+//     released;
+//   * a SpecChecker's one 0/1 row (N <= 32) arrives packed, a 32-bit word,
+//     and counts as __popc(row & mask) against a plane whose masks are all
+//     0 or 1; batches keep int32 rows and the multiply-add, whose wrap
+//     stays bit-identical to the reference's (packing a batch's 0/1 rows
+//     into words on the host, after a numpy min / max, measured slower
+//     than the int32 copy at 256 and 2^16 rows on an H100's host);
+//   * every batch takes a thread a row (planes from the parameters, or
+//     from the card through the read-only path). A tile form that read a
+//     CTA's 256 contiguous rows into shared memory in 16-byte words before
+//     the first count was built and measured: at [2^16, 5] it read
+//     2.50-2.58 us where a thread a row read 2.24-2.36, in turns, on an
+//     H100, so it went.
+//
+// The form is chosen here, by the packing and by whether the planes and
+// the batch fit the parameters. A tensor caller (rows on the card)
+// launches on its current stream and does not wait.
+
+// int32 cells a launch carries (a 4 KB parameter block measured ~28 us
+// more host time a call on an H100 than mapped reads of the same rows).
+constexpr int kParamCells = 32;
+constexpr int kMultiThreads = 256;
+
+// `rows`, `cfg` and the planes' three pointers are null where their values
+// ride in `cells` (the planes' masks, thresholds and any bytes from cell
+// 0, a batch's rows at rows_at and its config indices at cfg_at).
+struct MultiArgs {
+  const int32_t* rows;
+  long long row_stride, col_stride;  // cells
+  const int32_t* cfg;
+  uint8_t* out;
+  const int32_t* masks;
+  const int32_t* thr;
+  const uint8_t* any;
+  int b, n, k, g, rows_at, cfg_at;
+  int32_t cells[kParamCells];
+};
+
+struct PlaneView {
+  const int32_t* masks;
+  const int32_t* thr;
+  const uint8_t* any;
+};
+
+template <bool kBits>
+__device__ __forceinline__ PlaneView planes_of(const MultiArgs& a) {
+  if (a.masks != nullptr) return PlaneView{a.masks, a.thr, a.any};
+  const int kg = a.k * a.g, mcells = kBits ? kg : kg * a.n;
+  return PlaneView{a.cells, a.cells + mcells,
+                   reinterpret_cast<const uint8_t*>(a.cells + mcells + kg)};
+}
+
+__device__ __forceinline__ int plane_index(const MultiArgs& a,
+                                           long long j) {
+  if (a.k == 1) return 0;  // every index clamps to the one plane
+  int idx = a.cfg != nullptr ? a.cfg[j]
+                             : a.cells[a.cfg_at + static_cast<int>(j)];
+  if (idx < 0) idx += a.k;
+  return min(max(idx, 0), a.k - 1);
+}
+
+// A plane's value: kCard, the planes on the card, read through the
+// read-only path; else from the parameters.
+template <bool kCard, typename T>
+__device__ __forceinline__ T plane_value(const T* ptr) {
+  if constexpr (kCard) {
+    return __ldg(ptr);
+  } else {
+    return *ptr;
+  }
+}
+
+// One row under plane idx: a 32-bit word (kBits) or `vote(i)` for node i.
+template <bool kBits, bool kCard = false, typename Vote>
+__device__ __forceinline__ bool plane_hit(const PlaneView& p, int g, int n,
+                                          int idx, uint32_t word,
+                                          Vote vote) {
+  const bool any = plane_value<kCard>(p.any + idx) != 0;
+  bool out = !any;
+  for (int gi = 0; gi < g; ++gi) {
+    const int at = idx * g + gi;
+    uint32_t count = 0;  // int32 arithmetic, wrapping like XLA's
+    if constexpr (kBits) {
+      count = __popc(word &
+                     static_cast<uint32_t>(plane_value<kCard>(p.masks + at)));
+    } else {
+      const int32_t* mask = p.masks + static_cast<long long>(at) * n;
+      for (int i = 0; i < n; ++i) {
+        count += static_cast<uint32_t>(plane_value<kCard>(mask + i)) *
+                 static_cast<uint32_t>(vote(i));
+      }
+    }
+    const bool sat =
+        static_cast<int32_t>(count) >= plane_value<kCard>(p.thr + at);
+    out = any ? (out || sat) : (out && sat);
+  }
+  return out;
+}
+
+// A thread a row, from memory (any strides) or from the parameters;
+// kCard: the planes on the card (else in the parameters).
+template <bool kBits, bool kCard>
+__global__ void __launch_bounds__(kMultiThreads)
+    multi_row_kernel(const __grid_constant__ MultiArgs a) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= a.b) return;
+  const PlaneView p = planes_of<kBits>(a);
+  const int idx = plane_index(a, j);
+  bool hit;
+  if constexpr (kBits) {
+    const uint32_t word = static_cast<uint32_t>(
+        a.rows != nullptr ? a.rows[j * a.row_stride]
+                          : a.cells[a.rows_at + j]);
+    hit = plane_hit<true, kCard>(p, a.g, a.n, idx, word,
+                                 [](int) { return 0; });
+  } else if (a.rows != nullptr) {
+    const int32_t* row = a.rows + j * a.row_stride;
+    const long long cs = a.col_stride;
+    hit = plane_hit<false, kCard>(p, a.g, a.n, idx, 0u,
+                                  [&](int i) { return row[i * cs]; });
+  } else {
+    const int32_t* row = a.cells + a.rows_at + j * a.n;
+    hit = plane_hit<false, kCard>(p, a.g, a.n, idx, 0u,
+                                  [&](int i) { return row[i]; });
+  }
+  a.out[j] = hit;
+}
+
+// The call's fields, every value read from memory: `rows`, `cfg` and
+// `out` moved by `delta` (mapped memory), the planes on the card.
+void fields(MultiArgs& m, const long long* a, long long delta) {
+  m.rows = pointer<const int32_t>(a[0] + delta);
+  m.row_stride = a[1];
+  m.col_stride = a[2];
+  m.cfg = a[5] == 0 ? nullptr : pointer<const int32_t>(a[5] + delta);
+  m.out = pointer<uint8_t>(a[6] + delta);
+  m.masks = pointer<const int32_t>(a[10]);
+  m.thr = pointer<const int32_t>(a[11]);
+  m.any = pointer<const uint8_t>(a[12]);
+  m.b = static_cast<int>(a[3]);
+  m.n = static_cast<int>(a[4]);
+  m.k = static_cast<int>(a[13]);
+  m.g = static_cast<int>(a[14]);
+  m.rows_at = m.cfg_at = 0;
+}
+
+// Carry the planes' host cells, and with `host_rows` the batch (its rows
+// at any strides, then its indices), in `m`'s parameters; false, `m`
+// unchanged, where there are no host cells or they do not fit.
+bool carry(MultiArgs& m, const int32_t* host_cells,
+           long long ncells, const int32_t* host_rows, long long rs,
+           long long cs, const int32_t* host_cfg, bool bits) {
+  const long long rc = bits ? 1 : m.n;
+  const long long need =
+      ncells + (host_rows != nullptr
+                    ? m.b * rc + (host_cfg != nullptr ? m.b : 0) : 0);
+  if (host_cells == nullptr || ncells < 0 || need > kParamCells) {
+    return false;
+  }
+  std::memcpy(m.cells, host_cells, static_cast<size_t>(ncells) * 4);
+  m.masks = m.thr = nullptr;
+  m.any = nullptr;
+  if (host_rows == nullptr) return true;
+  m.rows = nullptr;
+  m.rows_at = static_cast<int>(ncells);
+  for (long long j = 0; j < m.b; ++j) {
+    for (long long i = 0; i < rc; ++i) {
+      m.cells[ncells + j * rc + i] = host_rows[j * rs + i * cs];
+    }
+  }
+  if (host_cfg != nullptr) {
+    m.cfg = nullptr;
+    m.cfg_at = static_cast<int>(ncells + m.b * rc);
+    std::memcpy(m.cells + m.cfg_at, host_cfg, static_cast<size_t>(m.b) * 4);
+  }
+  return true;
+}
+
+template <bool kBits>
+cudaError_t launch_rows(const MultiArgs& m, cudaStream_t s) {
+  const int threads = m.b < kMultiThreads ? ((m.b + 31) & ~31)
+                                          : kMultiThreads;
+  const int ctas = (m.b + threads - 1) / threads;
+  if (m.masks != nullptr) {
+    multi_row_kernel<kBits, true><<<ctas, threads, 0, s>>>(m);
+  } else {
+    multi_row_kernel<kBits, false><<<ctas, threads, 0, s>>>(m);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// K6 stateless, every caller's one entry. block: rows (in the pinned
+// block when mapped, else on the card), row stride and col stride
+// (cells), b, n, config indices (0 where k == 1), out, flags (1: the rows
+// are packed 32-bit words; 2: mapped: rows, indices and out lie in the
+// pinned block at `base`, read and written in place, and the call waits
+// on `stream`), the planes' host cells (0: none) and their count, the
+// planes on the card in the same form (masks, thresholds, any), k, g,
+// base, device, stream.
+extern "C" int fpx_check_batch_multi_staged(const void* block) {
+  long long a[18];
+  std::memcpy(a, block, sizeof a);
+  const long long b = a[3], n = a[4], k = a[13], g = a[14];
+  const bool bits = (a[7] & 1) != 0, mapped = (a[7] & 2) != 0;
+  if (b < 0 || b > INT_MAX || n <= 0 || n > INT_MAX || k <= 0 ||
+      k > INT_MAX || g < 0 || k * g > INT_MAX || (bits && n > 32) ||
+      (mapped && a[15] == 0)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = select_device(static_cast<int>(a[16]));
+  if (err != cudaSuccess || b == 0) return err;
+  const cudaStream_t s = pointer<CUstream_st>(a[17]);
+  long long delta = 0;
+  if (mapped) {
+    void* dev = nullptr;
+    err = cudaHostGetDevicePointer(&dev, pointer<void>(a[15]), 0);
+    if (err != cudaSuccess) return err;
+    delta = static_cast<long long>(reinterpret_cast<uintptr_t>(dev)) - a[15];
+  }
+  const auto* host_cells = pointer<const int32_t>(a[8]);
+  const long long ncells = a[9];
+  auto finish = [&](cudaError_t e) {
+    if (e != cudaSuccess || !mapped) return e;
+    return cudaStreamSynchronize(s);
+  };
+  // A thread a row: the planes and, for a mapped batch, its rows and
+  // indices ride in the parameters where they fit.
+  const auto* host_rows = mapped ? pointer<const int32_t>(a[0]) : nullptr;
+  const auto* host_cfg =
+      mapped && a[5] != 0 ? pointer<const int32_t>(a[5]) : nullptr;
+  auto launch = [&](const MultiArgs& m) {
+    return finish(bits ? launch_rows<true>(m, s) : launch_rows<false>(m, s));
+  };
+  {
+    MultiArgs m;
+    fields(m, a, delta);
+    if (carry(m, host_cells, ncells, host_rows, a[1], a[2], host_cfg,
+              bits) ||
+        host_rows == nullptr) {
+      return launch(m);
+    }
+  }
+  MultiArgs m;
+  fields(m, a, delta);
+  carry(m, host_cells, ncells, nullptr, 0, 0, nullptr, bits);
+  return launch(m);
+}
 
 // K6, a run of chunks in one launch (a single call: chunk = b); the
 // packed block of run_epochs.

@@ -1400,12 +1400,28 @@ def check_batch_multi_plain(present: torch.Tensor, config_idx: torch.Tensor,
                        satisfied.all(-1))
 
 
+#: K6's stateless entry (18 int64; ``csrc/epoch.cu``): every caller's, the
+#: tensor wrapper's launch (rows on the card, the current stream, no wait)
+#: and :class:`MultiCheck`'s staged call (rows in a pinned block read in
+#: place, the planes and a small batch in the kernel's parameters, a wait
+#: with the GIL released).
+_K6_MULTI = _build.Entry("epoch", "fpx_check_batch_multi_staged", 18,
+                         keep_gil=False)
+#: The flags of its packed block: the rows are packed 32-bit words; the
+#: rows, indices and answers lie in a pinned block (mapped memory).
+_MULTI_BITS, _MULTI_MAPPED = 1, 2
+#: ``{card index, or the device named: _build.Staging}``: the stream of
+#: the staged checks (their inputs all come from the host).
+_MULTI_STAGING: dict = {}
+
+
 def check_batch_multi(present: torch.Tensor, config_idx: torch.Tensor,
                       planes: MultiPredicate) -> torch.Tensor:
     """K6 (stateless): ``[B, N]`` int32 responder rows (any strides) ->
     ``[B]`` bool, each row under its own configuration plane. CUDA
-    tensors launch ``csrc/epoch.cu::check_batch_multi_kernel``; CPU
-    tensors take :func:`check_batch_multi_plain`."""
+    tensors launch ``csrc/epoch.cu``'s check (the planes read from the
+    card) on the current stream; CPU tensors take
+    :func:`check_batch_multi_plain`. Host rows take :class:`MultiCheck`."""
     if present.dtype != torch.int32 or present.dim() != 2 \
             or present.shape[1] != planes.num_nodes:
         raise ValueError(f"present must be [B, {planes.num_nodes}] int32, "
@@ -1421,17 +1437,182 @@ def check_batch_multi(present: torch.Tensor, config_idx: torch.Tensor,
     out = torch.empty((b,), dtype=torch.bool, device=present.device)
     if b == 0:
         return out
-    lib = _build.library("epoch")
-    rc = lib.fpx_check_batch_multi(
-        present.data_ptr(), present.stride(0), present.stride(1), b,
-        config_idx.data_ptr(), out.data_ptr(), *planes.c_args(),
-        *_build.stream_args(present.device))
-    _build.check("epoch", "fpx_check_batch_multi", rc)
+    k, g, n = planes.masks.shape
+    index = present.get_device()
+    fn = _K6_MULTI.fn or _K6_MULTI.resolve()
+    rc = fn(_K6_MULTI.pack(
+        present.data_ptr(), present.stride(0), present.stride(1), b, n,
+        config_idx.data_ptr() if k > 1 else 0, out.data_ptr(), 0, 0, 0,
+        planes.masks.data_ptr(), planes.thresholds.data_ptr(),
+        planes.combine_any.data_ptr(), k, g, 0, index,
+        _build.stream_handle(index)))
+    if rc:
+        _K6_MULTI.check(rc)
     check_batch_multi.launches += 1
     return out
 
 
 check_batch_multi.launches = 0
+
+
+def _ceil4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _pinned_cells(cells: int) -> torch.Tensor:
+    """A pinned host block of ``cells`` int32 (:class:`MultiCheck`'s)."""
+    return torch.empty(cells, dtype=torch.int32, pin_memory=True)
+
+
+class MultiCheck:
+    """K6's stateless check of HOST rows, one staged call a check.
+
+    The planes (``pad_specs``' ``[K, G, N]`` masks, ``[K, G]`` thresholds
+    and ``[K]`` any flags) are made once: on the card, and as host cells
+    that ride in the kernel's parameters where they fit (the masks as one
+    32-bit word a group when every mask is 0 or 1 and N <= 32). A check
+    writes its rows (int32) and config indices into this checker's reused
+    pinned block; ONE ``ctypes`` call with the GIL released launches the
+    check on them in place (a small batch carried in the parameters) and
+    waits on the staging's stream; the answer bytes come back in the same
+    block. :meth:`check_word` is the one-row form of a 0/1 row given as a
+    word, counted by popcount (packing a batch's 0/1 rows into words on
+    the host measured slower than the int32 copy). ``device="cpu"`` runs
+    :func:`check_batch_multi_plain`."""
+
+    #: int32 cells at the front of the block for :meth:`check_word`: the
+    #: word at 0, its config index at ``ONE_CFG``, its answer byte at cell
+    #: ``ONE_OUT``; a batch's rows start at ``ONE_CELLS``.
+    ONE_CFG, ONE_OUT, ONE_CELLS = 4, 8, 16
+
+    def __init__(self, masks, thresholds, combine_any, device=None):
+        masks = np.asarray(masks)
+        thresholds = np.asarray(thresholds)
+        combine_any = np.asarray(combine_any, dtype=bool)
+        self.planes = make_multi_predicate(masks, thresholds, combine_any,
+                                           device=device)
+        self.device = self.planes.masks.device
+        self.k, self.g, self.n = self.planes.masks.shape
+        kg = self.k * self.g
+        any_cells = np.zeros(_ceil4(self.k), dtype=np.uint8)
+        any_cells[:self.k] = combine_any
+        tail = [thresholds.astype(np.int32).ravel(), any_cells.view(np.int32)]
+        #: The planes' host cells, int32 form: masks, thresholds, any.
+        self.cells_int = np.concatenate(
+            [masks.astype(np.int32).ravel()] + tail)
+        #: True where the masks are all 0 or 1 and N <= 32: a 0/1 row then
+        #: packs into a word (:meth:`check_word`) and counts by popcount.
+        self.bits = self.n <= 32 and bool(np.isin(masks, (0, 1)).all())
+        self.cells_bits = None
+        if self.bits:
+            words = (masks.reshape(kg, self.n).astype(np.int64)
+                     << np.arange(self.n)).sum(1).astype(np.uint32)
+            self.cells_bits = np.concatenate([words.view(np.int32)] + tail)
+        self._staging = _build.staging(_MULTI_STAGING, self.device) \
+            if self.device.type == "cuda" else None
+        if self._staging is None:
+            return
+        # The bits form's planes on the card (read when they do not fit
+        # the parameters), then wait once for every upload to land: the
+        # checks run on the staging's own stream.
+        self._bits_card = torch.from_numpy(self.cells_bits).to(self.device) \
+            if self.bits else None
+        torch.cuda.synchronize(self.device)
+        self._cap = 0
+        self._grow(64)
+        _K6_MULTI.fn or _K6_MULTI.resolve()
+
+    def _grow(self, cells: int) -> None:
+        """A pinned block of at least ``cells`` int32 cells, and the packed
+        call of :meth:`check_word` on it."""
+        if cells <= self._cap:
+            return
+        self._cap = 1 << max(6, (cells - 1).bit_length())
+        self._block = _pinned_cells(self._cap)
+        self._host = self._block.numpy()
+        self._host[:self.ONE_CELLS] = 0
+        self._u8 = self._host.view(np.uint8)
+        self._u32 = self._host.view(np.uint32)
+        self._base = self._block.data_ptr()
+        if self.bits:
+            self._one = self._pack(self._base, 1, 1, 1, self._base
+                                   + 4 * self.ONE_CFG, self._base
+                                   + 4 * self.ONE_OUT, True)
+
+    def _pack(self, rows: int, row_stride: int, col_stride: int, b: int,
+              cfg: int, out: int, bits: bool) -> bytes:
+        cells = self.cells_bits if bits else self.cells_int
+        if bits:
+            kg = self.k * self.g
+            ptr = self._bits_card.data_ptr()
+            masks, thr, anys = ptr, ptr + 4 * kg, ptr + 8 * kg
+        else:
+            masks, thr, anys = (self.planes.masks.data_ptr(),
+                                self.planes.thresholds.data_ptr(),
+                                self.planes.combine_any.data_ptr())
+        st = self._staging
+        return _K6_MULTI.pack(
+            rows, row_stride, col_stride, b, self.n,
+            cfg if self.k > 1 else 0, out,
+            (_MULTI_BITS if bits else 0) | _MULTI_MAPPED,
+            cells.ctypes.data, cells.size, masks, thr, anys, self.k, self.g,
+            self._base, st.index, st.stream_handle)
+
+    def check_word(self, word: int, config: int = 0) -> bool:
+        """One 0/1 row given as a word (bit ``i``: universe node ``i``
+        voted) under plane ``config``; needs :attr:`bits`."""
+        if self._staging is None:
+            row = torch.tensor([[(word >> i) & 1 for i in range(self.n)]],
+                               dtype=torch.int32)
+            return bool(check_batch_multi_plain(
+                row, torch.tensor([config], dtype=torch.int32),
+                self.planes)[0])
+        if not self.bits:
+            raise ValueError("check_word needs 0/1 masks and N <= 32")
+        self._u32[0] = word
+        if self.k > 1:
+            self._host[self.ONE_CFG] = config
+        rc = _K6_MULTI.fn(self._one)
+        if rc:
+            _K6_MULTI.check(rc)
+        check_batch_multi.launches += 1
+        return bool(self._u8[4 * self.ONE_OUT])
+
+    def check(self, present, config_idx=None) -> np.ndarray:
+        """``[B, N]`` rows (integers or bools, taken as int32 as the
+        reference's ``astype`` takes them) under ``config_idx[b]`` (all 0
+        when None) -> ``[B]`` bool, a fresh array."""
+        present = np.asarray(present)
+        if present.ndim != 2 or present.shape[1] != self.n:
+            raise ValueError(f"present must be [B, {self.n}], got "
+                             f"{present.shape}")
+        b = present.shape[0]
+        cfg = np.zeros(b, dtype=np.int32) if config_idx is None \
+            else np.asarray(config_idx)
+        if cfg.shape != (b,):
+            raise ValueError(f"config_idx must be [{b}], got {cfg.shape}")
+        if self._staging is None:
+            return check_batch_multi_plain(
+                torch.from_numpy(present.astype(np.int32)),
+                torch.from_numpy(cfg.astype(np.int32)), self.planes).numpy()
+        if b == 0:
+            return np.zeros(0, dtype=bool)
+        rows_at = self.ONE_CELLS
+        cfg_at = rows_at + _ceil4(b * self.n)
+        out_at = cfg_at + (_ceil4(b) if self.k > 1 else 0)
+        self._grow(out_at + _ceil4(b) // 4)
+        self._host[rows_at:rows_at + b * self.n].reshape(
+            b, self.n)[...] = present
+        if self.k > 1:
+            self._host[cfg_at:cfg_at + b] = cfg
+        base = self._base
+        rc = _K6_MULTI.fn(self._pack(base + 4 * rows_at, self.n, 1, b,
+                                     base + 4 * cfg_at, base + 4 * out_at,
+                                     False))
+        if rc:
+            _K6_MULTI.check(rc)
+        check_batch_multi.launches += 1
+        return self._u8[4 * out_at:4 * out_at + b].view(np.bool_).copy()
 
 
 def record_and_check_epochs_plain(board: VoteBoard, lanes: torch.Tensor,
@@ -2333,8 +2514,9 @@ class EpochSegmentedChecker(_HeldReleases):
                 seen.setdefault(node, len(seen))
         self.universe = tuple(seen)
         specs = [s.reindexed(self.universe) for s in self._own_specs]
-        self.planes = make_multi_predicate(*pad_specs(specs),
-                                           device=self.device)
+        self._padded = pad_specs(specs)
+        self.planes = make_multi_predicate(*self._padded, device=self.device)
+        self._multi = None
         # boundaries[k-1] = first slot of epoch k, int32 like the board's
         # slot state (as the reference keeps it on the device).
         self._boundaries = stage(np.asarray(self._starts[1:],
@@ -2367,12 +2549,14 @@ class EpochSegmentedChecker(_HeldReleases):
 
     def check_batch(self, present, slots) -> np.ndarray:
         """Stateless: ``[B, N]`` union-universe responder rows (taken as
-        uint8) checked under each row's slot's epoch (K6)."""
-        present = np.asarray(present, dtype=np.uint8).astype(np.int32)
+        uint8) checked under each row's slot's epoch (K6, one staged call:
+        :class:`MultiCheck`, made at the first call after a change of the
+        epochs)."""
+        present = np.asarray(present, dtype=np.uint8)
         config_idx = self.config_indices(slots).astype(np.int32)
-        return check_batch_multi(stage(present, self.device),
-                                 stage(config_idx, self.device),
-                                 self.planes).cpu().numpy()
+        if self._multi is None:
+            self._multi = MultiCheck(*self._padded, device=self.device)
+        return self._multi.check(present, config_idx)
 
     def check_block(self, start_slot: int, block) -> np.ndarray:
         """Stateless dense form: ``block[N, B]`` covers slots
@@ -2472,14 +2656,12 @@ class MultiConfigQuorumChecker:
     def __init__(self, specs: Sequence[QuorumSpec], device=None):
         self.device = resolve_device(device)
         self.universe = specs[0].universe
-        self.planes = make_multi_predicate(*pad_specs(specs),
-                                           device=self.device)
+        self.multi = MultiCheck(*pad_specs(specs), device=self.device)
+        self.planes = self.multi.planes
 
     def check_batch(self, present, config_idx) -> np.ndarray:
         """``[B, N]`` rows (integers or bools, taken as int32 as the
-        reference's ``astype`` takes them) under ``config_idx[b]``."""
-        present = np.asarray(present).astype(np.int32)
-        config_idx = np.asarray(config_idx).astype(np.int32)
-        return check_batch_multi(stage(present, self.device),
-                                 stage(config_idx, self.device),
-                                 self.planes).cpu().numpy()
+        reference's ``astype`` takes them) under ``config_idx[b]``: one
+        staged call (:class:`MultiCheck`)."""
+        return self.multi.check(present,
+                                np.asarray(config_idx).astype(np.int32))

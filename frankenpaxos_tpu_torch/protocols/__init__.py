@@ -1,2 +1,3 @@
-"""Protocol modules of the port. Only the MultiPaxos quorum tracking and
-configuration are ported so far."""
+"""Protocol modules of the port: MultiPaxos, EPaxos, SimpleBPaxos,
+SimpleGcBPaxos, WPaxos, Fast Paxos and Fast MultiPaxos (``ROADMAP.md``
+queue 1 lists the rest)."""

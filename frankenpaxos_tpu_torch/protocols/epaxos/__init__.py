@@ -5,9 +5,9 @@ behavior: epaxos/ (~2,400 LoC Scala; SURVEY.md section 2.2). One Replica
 role holding every sub-role; dependency sets as InstancePrefixSets
 (per-replica watermark columns -- the device twin is ``ops/depset.py``,
 whose K10 and K11 the replica runs with ``dep_backend="cuda"``);
-execution via Tarjan SCC ordering. The port's ``SimTransport`` pickles
-messages, so the binary codecs of the reference's ``wire.py`` are not
-ported yet (ROADMAP.md: with paxwire).
+execution via Tarjan SCC ordering. Its messages travel through the
+binary codecs of ``wire.py`` (the reference's tags and bytes),
+registered when this package is imported.
 """
 
 from frankenpaxos_tpu_torch.protocols.epaxos.client import EPaxosClient

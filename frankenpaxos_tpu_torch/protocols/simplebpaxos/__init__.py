@@ -1,9 +1,9 @@
 """Simple BPaxos: disaggregated generalized consensus.
 
 The port's copy of ``frankenpaxos_tpu/protocols/simplebpaxos/``, with
-the Leader's ``dep_backend="cuda"`` (K10) in place of ``"tpu"``. The
-port's ``SimTransport`` pickles messages, so the binary codecs of the
-reference's ``wire.py`` are not ported yet (ROADMAP.md queue 1).
+the Leader's ``dep_backend="cuda"`` (K10) in place of ``"tpu"``. Its
+messages travel through the binary codecs of ``wire.py`` (the
+reference's tags and bytes), registered when this package is imported.
 
 Reference behavior: simplebpaxos/ (~2,200 LoC Scala; SURVEY.md section
 2.2). Leaders assign vertices and ask a dependency-service quorum for

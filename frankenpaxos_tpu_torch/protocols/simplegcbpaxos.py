@@ -3,9 +3,9 @@
 The port's copy of ``frankenpaxos_tpu/protocols/simplegcbpaxos.py``,
 with ``gc_backend="cuda"`` in place of the reference's ``"tpu"``: every
 GC-bearing role folds the replicas' frontiers by K12
-(``ops/csrc/watermark.cu``) on its ``device``. The snapshot codecs of
-the reference's ``simplegcbpaxos_wire.py`` are not ported yet (the
-port's ``SimTransport`` pickles messages; ROADMAP.md queue 1).
+(``ops/csrc/watermark.cu``) on its ``device``. Its messages travel
+through the binary codecs of ``simplegcbpaxos_wire.py`` (the
+reference's tags and bytes), registered when this module is imported.
 
 Reference behavior: simplegcbpaxos/ (GarbageCollector.scala:56-180,
 Proposer.scala:599-626, Acceptor.scala:269-287, Replica.scala:500-600,

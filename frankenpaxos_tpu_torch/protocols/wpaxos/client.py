@@ -256,10 +256,9 @@ class WPaxosClient(Actor):
         steal, no failover rotation).
 
         (Known accepted duplication: this budget/backoff_pending/
-        RETRY_EXHAUSTED state machine mirrors protocols/craq.py and
-        the multipaxos/mencius retry discipline, pending the
-        protocol-neutral client-layer refactor on the ROADMAP --
-        change one, check the others.)"""
+        RETRY_EXHAUSTED state machine mirrors the reference's
+        protocols/craq.py and the multipaxos/mencius retry discipline
+        -- change one, check the others.)"""
         for pseudonym, client_id in m.entries:
             op = self.pending.get(pseudonym)
             if op is None or op.command_id.client_id != client_id:

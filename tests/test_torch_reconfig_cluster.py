@@ -563,18 +563,23 @@ def _wal_bytes(sim) -> dict:
             for address, storage in sim.wal_storages.items()}
 
 
-@pytest.mark.parametrize("arm", ["dict", "sync", "epoch_quorums"])
+@pytest.mark.parametrize("arm", ["dict", "sync", "epoch_quorums",
+                                 "pipelined"])
 def test_reconfiguration_scenario_matches_the_reference(arm):
     """The reconfiguration bench's scenario (replace, reconfigure, crash
     a second original, fail over with epoch discovery) through both
     harnesses on MemStorage WALs: equal replica logs, equal epoch maps
     on every leader and acceptor, and byte-equal WAL segments on every
-    durable role."""
+    durable role. The pipelined arm runs ``tpu_pipelined=True`` on both
+    harnesses."""
     port = dict(BACKENDS["dict" if arm == "dict" else "cuda"])
     ref = dict(JAX_BACKENDS["dict" if arm == "dict" else "cuda"])
     if arm == "epoch_quorums":
         for kwargs in (port, ref):
             kwargs.update(epoch_quorums=True, epoch_tag_runs=True)
+    if arm == "pipelined":
+        for kwargs in (port, ref):
+            kwargs.update(tpu_pipelined=True)
     got = reconfig_sim.scenario(wal=True, **port)
     want = reconfig_sim.scenario(_jax_package(), wal=True, **ref)
     reconfig_sim.check(got)

@@ -72,6 +72,8 @@ def _ns(pkg: str) -> types.SimpleNamespace:
         native=mod("native"),
         ser=mod("runtime.serializer"),
         rc=mod("reconfig"),
+        fp=mod("protocols.fastpaxos"),
+        fmp=mod("protocols.fastmultipaxos"),
     )
 
 
@@ -580,9 +582,29 @@ def test_run_pipeline_codecs_round_trip_and_reject_hostile_counts():
         list(decoded.values)
 
 
+def fast_codec_samples(ns) -> list:
+    """One message of every Fast Paxos and Fast MultiPaxos codec (their
+    cross-package bytes are held in ``tests/test_torch_fast_wire.py``)."""
+    fp, fmp = ns.fp, ns.fmp
+    command = fmp.Command(fmp.CommandId(("h", 5), 3), b"x")
+    return [
+        fp.ProposeRequest("v"), fp.ProposeReply("chosen"), fp.Phase1a(4),
+        fp.Phase1b(4, 0, 0, "fast"), fp.Phase2a(4, "v"), fp.Phase2b(2, 4),
+        fmp.ProposeRequest(command),
+        fmp.ProposeReply(command.command_id, b"r", round=2),
+        fmp.Phase2a(slot=5, round=1, value=command),
+        fmp.Phase2b(acceptor_id=0, slot=5, round=1, vote=command),
+        fmp.Phase2bBuffer((fmp.Phase2b(acceptor_id=0, slot=5, round=1,
+                                       vote=fmp.NOOP),)),
+        fmp.ValueChosen(slot=5, value=command),
+        fmp.Phase1bNack(acceptor_id=1, round=3),
+    ]
+
+
 def _by_tag() -> dict:
     by_tag: dict = {}
-    for message in codec_samples(PORT, cross=False):
+    for message in codec_samples(PORT, cross=False) + \
+            fast_codec_samples(PORT):
         data = DEFAULT_SERIALIZER.to_bytes(message)
         tag = data[0] if data[0] else 128 + data[1]
         by_tag.setdefault(tag, message)
