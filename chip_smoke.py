@@ -394,7 +394,28 @@ Phases, in order (any failure exits nonzero and prints no result):
      equal and complete, the cuda logs and replies equal the host run's,
      K6's stateless launches equal the cuda checks and above 0);
      commands/s and the median host µs a check per arm; its launches
-     join the kernels line's rows (path ``fast_cluster``).
+     join the kernels line's rows (path ``fast_cluster``);
+  33. Matchmaker MultiPaxos on K6's stateless check: first K6's stateless
+     form against ``check_batch_multi_plain``, exact, at the leader's
+     phase-1 shapes [K, N] = [1, 6], [3, 6], [2, 10] and [4, 10]
+     (``launch_shapes.matchmaker_specs``: the read specs of
+     SimpleMajority, Grid and UnanimousWrites reindexed over the pool),
+     and at [8, 10] and [3, 40], whose planes the staged calls read from
+     the card, for every responder set of the pool (512 random ones over
+     40), through
+     ``MultiConfigQuorumChecker.check_all`` (one word under every plane,
+     one staged call) and ``check_batch`` of the K equal rows (the
+     reference's body), each shape's call (in turns), device, plain and
+     bound figures; then, with every count set to 0 first,
+     ``bench/matchmaker_sim.py`` at f = 1 (6 acceptors, 3 matchmakers)
+     and f = 2 (10 acceptors, 5 matchmakers), MATCHMAKER_WRITES writes
+     an arm on ``"dict"`` and ``"cuda"`` through repeated acceptor
+     reconfigurations and a matchmaker epoch change (every write
+     answered once, the replicas' logs equal, the cuda logs and replies
+     equal the dict run's, K6's stateless launches equal the cuda
+     phase-1 checks and above 0); writes/s, the host µs a check and the
+     checker set-up µs a phase 1 per arm; its launches join the kernels
+     line's rows (path ``mmp_cluster``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -422,6 +443,7 @@ from frankenpaxos_tpu_torch.bench import (
     headline,
     launch_shapes,
     libbench,
+    matchmaker_sim,
     multichip,
     multichip_board,
     multipaxos_sim,
@@ -486,7 +508,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/32] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/33] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1974,7 +1996,8 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
 #: ``launches_by_path`` are subsets of these).
 MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
               "telemetry", "libbench", "geo", "sharded", "sharded_board",
-              "tcp_cluster", "reconfig_cluster", "fast_cluster")
+              "tcp_cluster", "reconfig_cluster", "fast_cluster",
+              "mmp_cluster")
 #: The kernels of the telemetry path (phase 18) and of the libbench path
 #: (phase 21).
 TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
@@ -4045,6 +4068,123 @@ def phase_fast(dev, rng) -> tuple[dict, dict, int]:
     return result, launches, worst
 
 
+#: Phase 33's K6 shapes, ``(K prior configurations, N acceptors)``: a
+#: Matchmaker MultiPaxos leader's phase-1 check at the vldb20 pools.
+MATCHMAKER_SHAPES = launch_shapes.MATCHMAKER_SHAPES
+#: Two more shapes whose planes' cells do not fit the kernel's parameters,
+#: so the staged calls read the planes from the card: K = 8 over the
+#: 10-acceptor pool (word form), K = 3 over 40 (no word form, the batch of
+#: equal rows); 512 random responder sets for the second.
+MATCHMAKER_CARD_PLANES = ((8, 10), (3, 40))
+#: matchmaker_sim's writes an arm and backend (its default: depth only,
+#: the widths are the bench's).
+MATCHMAKER_WRITES = matchmaker_sim.WRITES
+
+
+def _k6_matchmaker(dev, rng) -> tuple[int, dict]:
+    """K6's stateless check at the Matchmaker leader's shapes, against
+    ``check_batch_multi_plain`` on the CPU, exact: for every responder set
+    of the pool, ``MultiConfigQuorumChecker.check_all`` (one word under
+    every plane) and ``check_batch`` of the K equal rows under
+    ``arange(K)`` (the reference's body); the worst error and each
+    shape's figures."""
+    worst, figures = 0, {}
+    for k, n in MATCHMAKER_SHAPES + MATCHMAKER_CARD_PLANES:
+        specs = launch_shapes.matchmaker_specs(k, n)
+        checker = tq.MultiConfigQuorumChecker(specs, device=dev)
+        require(checker.multi.bits == (n <= 32),
+                f"K6 matchmaker planes [{k}, {n}]: bits {checker.multi.bits}")
+        cpu = tq.make_multi_predicate(*pad_specs(specs), device="cpu")
+        idx = np.arange(k, dtype=np.int32)
+        words = range(1 << n) if n <= 10 else [
+            int(w) for w in rng.integers(0, 1 << n, size=512,
+                                         dtype=np.int64)]
+        for word in words:
+            nodes = [i for i in range(n) if word >> i & 1]
+            rows = np.zeros((k, n), dtype=np.int32)
+            rows[:, nodes] = 1
+            want = tq.check_batch_multi_plain(
+                torch.from_numpy(rows), torch.from_numpy(idx), cpu).numpy()
+            for what, got in (("check_all", checker.check_all(nodes)),
+                              ("check_batch", checker.check_batch(rows,
+                                                                  idx))):
+                e = int((np.asarray(got) != want).sum())
+                require(e == 0, f"K6 stateless differs at [{k}, {n}]: "
+                                f"{what} of {nodes}")
+                worst = max(worst, e)
+        sets = [[i for i in range(n) if w >> i & 1]
+                for w in rng.integers(0, 1 << n, size=64, dtype=np.int64)]
+        at = [0]
+
+        def nodes():
+            at[0] = (at[0] + 1) & 63
+            return sets[at[0]]
+
+        def one_word():
+            return checker.check_all(nodes())
+
+        def reference():
+            present = np.zeros((k, n), dtype=np.uint8)
+            present[:, nodes()] = 1
+            return checker.check_batch(present, idx)
+
+        host = {}
+        for name, fn in (("check_all", one_word), ("check_batch", reference),
+                         ("check_batch", reference), ("check_all", one_word)):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            host.setdefault(name, []).append(
+                (time.perf_counter() - t0) / 2000 * 1e3)
+        p = torch.ones((k, n), dtype=torch.int32, device=dev)
+        i = torch.from_numpy(idx).to(dev)
+        planes_dev = checker.planes
+        figures[f"[{k}, {n}]"] = {
+            "staged_ms": min(host["check_all"]),
+            "staged_ms_turns": host["check_all"],
+            "staged_device_ms": device_ms(one_word, "multi_", 200),
+            "staged_form": "check_all: one word under every plane, the "
+                           "word, indices and planes in the launch's "
+                           "parameters",
+            "check_batch_ms": min(host["check_batch"]),
+            "check_batch_ms_turns": host["check_batch"],
+            "check_batch_device_ms": device_ms(reference, "multi_", 200),
+            "plain_ms": time_ms(lambda: tq.check_batch_multi_plain(
+                p, i, planes_dev), 200),
+            # The word (or the K rows) and K indices read, K answer
+            # bytes written.
+            "bound_ms": ((4 if n <= 32 else 4 * n * k) + 5 * k)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "bytes": (4 if n <= 32 else 4 * n * k) + 5 * k,
+            "planes": [type(qs).__name__ for qs in
+                       launch_shapes.matchmaker_systems(k, n)],
+            "groups": checker.multi.g}
+    return worst, figures
+
+
+def phase_matchmaker(dev, rng) -> tuple[dict, dict, int]:
+    """Phase 33: K6's stateless check at the Matchmaker leader's shapes,
+    then the Matchmaker MultiPaxos closed loop
+    (``bench/matchmaker_sim.py``) with every count set to 0 first; its
+    gates raise inside ``run``."""
+    worst, figures = _k6_matchmaker(dev, rng)
+    reset_launches()
+    try:
+        result = matchmaker_sim.run(dev, writes=MATCHMAKER_WRITES)
+    except matchmaker_sim.GateFailure as exc:
+        raise SmokeFailure(f"matchmaker_sim: {exc}") from exc
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    checks = sum(runs["cuda"]["phase1_checks"]
+                 for runs in result["arms"].values())
+    require(launches["check_batch_multi"] == checks > 0,
+            f"K6's stateless launches {launches['check_batch_multi']} on "
+            f"the matchmaker path != its {checks} phase-1 checks")
+    result["k6_stateless"] = figures
+    return result, launches, worst
+
+
 def add_path_launches(kernels: list, path: str, counts: dict) -> None:
     """Count a path run after the per-kernel figures into their rows."""
     for row in kernels:
@@ -4508,6 +4648,46 @@ def main() -> int:
             + str({k: v for k, v in fast_launches.items() if v})
             + f"; {time.perf_counter() - T0:.1f} s in all")
         log(json.dumps({"fast_cluster": fast}))
+        t33 = time.perf_counter()
+        mmp, mmp_launches, k6m_err = phase_matchmaker(dev, rng)
+        add_path_launches(kernels, "mmp_cluster", mmp_launches)
+        k6m = mmp["k6_stateless"]
+        row["max_abs_err"] = max(row["max_abs_err"], k6m_err)
+        row["at_matchmaker_shapes"] = k6m
+        row["check_host_us_p50"].update({
+            f"mmp_{arm}": runs["cuda"]["check_host_us"]["p50"]
+            for arm, runs in mmp["arms"].items()})
+        phase(33, f"Matchmaker MultiPaxos on {name} ({smi}): K6 stateless "
+            f"== plain at "
+            + ", ".join(f"{key} {'/'.join(fig['planes'])} (check_all "
+                        f"{fig['staged_ms'] * 1e3:.2f} us, device "
+                        f"{(fig['staged_device_ms'] or 0) * 1e3:.3f} us; "
+                        f"check_batch {fig['check_batch_ms'] * 1e3:.2f} us, "
+                        f"device "
+                        f"{(fig['check_batch_device_ms'] or 0) * 1e3:.3f} "
+                        f"us; plain {fig['plain_ms'] * 1e3:.2f} us; bound "
+                        f"{fig['bound_ms'] * 1e3:.4f} us)"
+                        for key, fig in k6m.items())
+            + f", every responder set; matchmaker_sim {MATCHMAKER_WRITES} "
+            f"writes an arm: "
+            + "; ".join(f"{arm} {b} {fig['writes_per_sec']:.0f} writes/s, "
+                        f"{fig['configurations']} configurations, epoch "
+                        f"{fig['matchmaker_epoch']}, phase-1 checks "
+                        f"{fig['phase1_checks']}, K6 "
+                        f"{fig['check_batch_multi_launches']}, host "
+                        f"{fig['check_host_us']['p50']:.2f} us a check "
+                        f"(p50)"
+                        + (f", set-up {fig['setup_host_us']['mean']:.1f} "
+                           f"us a phase 1, {fig['checker_builds']} builds "
+                           f"at {fig['build_host_us']['p50']:.1f} us, K "
+                           f"{fig['k_counts']}" if b == "cuda" else "")
+                        for arm, runs in mmp["arms"].items()
+                        for b, fig in runs.items())
+            + f"; the cuda logs and replies == the dict runs'; launches "
+            + str({k: v for k, v in mmp_launches.items() if v})
+            + f"; phase 33 {time.perf_counter() - t33:.1f} s; "
+            f"{time.perf_counter() - T0:.1f} s in all")
+        log(json.dumps({"mmp_cluster": mmp}))
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

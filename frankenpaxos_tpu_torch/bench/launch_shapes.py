@@ -74,7 +74,8 @@ default), so that one call can measure a parent and its change alike:
 Run from the root of a checkout::
 
     python frankenpaxos_tpu_torch/bench/launch_shapes.py [--tree ROOT] \\
-        [--parts drains,kernels|depset|board|sharded|libbench|recovery|fast]
+        [--parts drains,kernels|depset|board|sharded|libbench|recovery|fast
+         |matchmaker]
 
   * ``sharded`` (the sharded drain's kernels on one process, no ranks
     spawned): K19 ``shard_vote_count`` and K20 ``shard_commit`` at rank
@@ -122,6 +123,19 @@ Run from the root of a checkout::
     the same two shapes, CUDA-event ms; each with the profiler's device
     ms and launches a call, its bound ((4N + 5) bytes a row over
     3.35 TB/s) and the card's floor (a one-element fill).
+
+  * ``matchmaker`` (K6's stateless check on the Matchmaker MultiPaxos
+    leader's phase 1): at ``[K, N]`` = ``[1, 6]``, ``[3, 6]``, ``[2, 10]``
+    and ``[4, 10]`` (``MATCHMAKER_SHAPES``: K prior configurations over
+    the vldb20 pools, ``matchmaker_specs``' read specs), one Phase1b's
+    check, host ns a call measured in turns (A, B, B, A, three times,
+    2000 calls each): the reference's ``"tpu"`` body (a ``[K, N]`` uint8
+    batch of equal rows, then ``check_batch`` under ``arange(K)``) and,
+    where the tree has it, ``MultiConfigQuorumChecker.check_all`` (one
+    word under every plane); each with the profiler's device ms and
+    launches a call and its bound; and the host ns of building a phase
+    1's checker, with its parts (the planes' uploads, a pinned block, a
+    ``torch.cuda.synchronize``).
 
 It prints ONE JSON line, with the seconds the tree's kernels took to
 build (0 when they were built before). It raises without a CUDA device.
@@ -600,6 +614,117 @@ def fast_kernels(device, rng=None) -> dict:
     one = torch.zeros(1, dtype=torch.int32, device=device)
     dev_ms, _ = _device_ms(lambda: one.fill_(1), "FillFunctor")
     out["floor"] = {"fill_[1]": {"device_ms": dev_ms}}
+    return out
+
+
+#: The ``matchmaker`` part's shapes: ``(K prior configurations, N
+#: acceptors)``, the vldb20 widths' pools (6 and 10 acceptors).
+MATCHMAKER_SHAPES = ((1, 6), (3, 6), (2, 10), (4, 10))
+
+
+def matchmaker_systems(k: int, n: int) -> list:
+    """``k`` configurations over ``n`` acceptors, cycling through
+    ``SimpleMajority`` and ``UnanimousWrites`` of ``n // 2`` acceptors and
+    a ``Grid`` of 2 rows of ``n // 3`` (each over a shifted window of the
+    pool): the kinds ``bench/matchmaker_sim.py`` draws."""
+    from frankenpaxos_tpu_torch.quorums import (
+        Grid,
+        SimpleMajority,
+        UnanimousWrites,
+    )
+
+    size, row = n // 2, n // 3
+    systems = []
+    for i in range(k):
+        nodes = [(i + j) % n for j in range(n)]
+        systems.append(
+            SimpleMajority(nodes[:size]) if i % 3 == 0 else
+            Grid([nodes[:row], nodes[row:2 * row]]) if i % 3 == 1 else
+            UnanimousWrites(nodes[:size]))
+    return systems
+
+
+def matchmaker_specs(k: int, n: int) -> list:
+    """The read specs of :func:`matchmaker_systems`, reindexed over the
+    pool (a phase 1's planes)."""
+    return [qs.read_spec().reindexed(tuple(range(n)))
+            for qs in matchmaker_systems(k, n)]
+
+
+def matchmaker_kernels(device, rng=None, turns: int = 3) -> dict:
+    """The ``matchmaker`` part (see the module's docstring)."""
+    import torch
+    from frankenpaxos_tpu_torch.ops import quorum as tq
+
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    out: dict = {"checks": {}, "builds": {}}
+    for k, n in MATCHMAKER_SHAPES:
+        specs = matchmaker_specs(k, n)
+        checker = tq.MultiConfigQuorumChecker(specs, device=device)
+        sets = [sorted(rng.choice(n, size=int(rng.integers(0, n + 1)),
+                                  replace=False).tolist())
+                for _ in range(64)]
+        at = [0]
+
+        def nodes():
+            at[0] = (at[0] + 1) % len(sets)
+            return sets[at[0]]
+
+        def reference(checker=checker, k=k, n=n):
+            # The reference leader's "tpu" body (matchmakermultipaxos.py
+            # :538-543) on the checker's check_batch.
+            present = np.zeros((k, n), dtype=np.uint8)
+            present[:, nodes()] = 1
+            return checker.check_batch(present,
+                                       np.arange(k, dtype=np.int32))
+
+        forms = {"reference_check_batch": reference}
+        if hasattr(checker, "check_all"):
+            forms["check_all"] = lambda checker=checker: \
+                checker.check_all(nodes())
+        # In turns (A, B, B, A, ...) so a drift of the host hits both.
+        host = {name: [] for name in forms}
+        order = list(forms) + list(forms)[::-1]
+        for _ in range(turns):
+            for name in order:
+                host[name].append(_host_ns(forms[name], calls=2000))
+        shape = f"[{k}, {n}]"
+        out["checks"][shape] = {}
+        for name, fn in forms.items():
+            dev_ms, per_call = _device_ms(fn, K6_STATELESS_KERNELS)
+            word = name == "check_all" and checker.multi.bits
+            out["checks"][shape][name] = {
+                "host_ns": host[name], "host_ns_median":
+                float(np.median(host[name])), "device_ms": dev_ms,
+                "launches_per_call": per_call,
+                # The word (or the K rows) and K indices read, K answers
+                # written.
+                "bound_ms": ((4 if word else 4 * n * k) + 5 * k)
+                / HBM_BYTES_PER_S * 1e3}
+        # A phase 1's checker built from its specs, and its parts: the
+        # planes' uploads, the wait, the pinned block (the checkers made
+        # are kept alive, as a leader's cache keeps them).
+        kept: list = []
+
+        def build(specs=specs):
+            kept.append(tq.MultiConfigQuorumChecker(specs, device=device))
+
+        masks, thresholds, anys = tq.pad_specs(specs)
+
+        def uploads(masks=masks, thresholds=thresholds, anys=anys):
+            kept.append(tq.make_multi_predicate(masks, thresholds, anys,
+                                                device=device))
+
+        def pinned():
+            kept.append(torch.empty(64, dtype=torch.int32,
+                                    pin_memory=True))
+
+        out["builds"][shape] = {
+            "build_ns": _host_ns(build, calls=200),
+            "planes_upload_ns": _host_ns(uploads, calls=200),
+            "pinned_block_ns": _host_ns(pinned, calls=200),
+            "synchronize_ns": _host_ns(torch.cuda.synchronize, calls=200)}
+        kept.clear()
     return out
 
 
@@ -1256,6 +1381,8 @@ def main(argv=None) -> int:
         result["recovery"] = recovery_kernels(device)
     if "fast" in parts:
         result["fast"] = fast_kernels(device)
+    if "matchmaker" in parts:
+        result["matchmaker"] = matchmaker_kernels(device)
     if "drains" in parts:
         result["drains"] = drains(device)
     print(json.dumps(result), flush=True)

@@ -22,7 +22,8 @@ arrays, and a GC role's ``QuorumWatermarkVector`` as its
 ``EpochSegmentedChecker`` conversion, the planes rebuilt from the
 chain) and its buffered votes. A Fast Paxos ``SpecChecker`` carries only
 its spec (its planes are made from it), so it crosses as that spec and a
-backend.
+backend. A Matchmaker leader's ``MultiConfigQuorumChecker`` crosses as its
+padded planes and universe.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from frankenpaxos_tpu_torch.geo.quorum import GeoQuorumTracker
 from frankenpaxos_tpu_torch.ops.depset import DepSetBatch
 from frankenpaxos_tpu_torch.ops.quorum import (
     EpochSegmentedChecker,
+    MultiConfigQuorumChecker,
     shard_board,
     VoteBoard,
 )
@@ -222,6 +224,22 @@ def spec_checker_from(checker, backend: str = "cuda",
     oracle)."""
     return SpecChecker(quorum_spec_from(checker.spec), backend,
                        device=device)
+
+
+def multi_config_checker_from(checker,
+                              device=None) -> MultiConfigQuorumChecker:
+    """The port's ``MultiConfigQuorumChecker`` over the padded planes of
+    ``checker`` (the JAX package's: ``_masks [K, G, N]`` uint8,
+    ``_thresholds [K, G]`` int32, ``_combine_any [K]`` bool, fetched as
+    numpy) and its universe, on ``device`` (``cuda`` when None)."""
+    planes = [np.array(getattr(checker, name))
+              for name in ("_masks", "_thresholds", "_combine_any")]
+    for array, dtype in zip(planes, (np.uint8, np.int32, np.bool_)):
+        if array.dtype != dtype:
+            raise ValueError(f"planes of dtype {array.dtype}, expected "
+                             f"{np.dtype(dtype)}")
+    return MultiConfigQuorumChecker.from_planes(*planes, checker.universe,
+                                                device=device)
 
 
 def epoch_checker_from_numpy(specs, boundaries, window: int, board,

@@ -1366,10 +1366,9 @@ class MultiPredicate(NamedTuple):
                 self.combine_any.data_ptr(), k, g, n)
 
 
-def make_multi_predicate(masks, thresholds, combine_any,
-                         device=None) -> MultiPredicate:
-    """The planes of ``pad_specs`` output on ``device``."""
-    device = resolve_device(device)
+def _multi_planes_np(masks, thresholds, combine_any) -> tuple:
+    """``pad_specs`` output as contiguous int32 / int32 / bool arrays;
+    raises where the shapes are not ``[K, G, N]``, ``[K, G]``, ``[K]``."""
     masks = np.ascontiguousarray(masks, dtype=np.int32)
     thresholds = np.ascontiguousarray(thresholds, dtype=np.int32)
     combine_any = np.ascontiguousarray(combine_any, dtype=bool)
@@ -1379,8 +1378,15 @@ def make_multi_predicate(masks, thresholds, combine_any,
         raise ValueError(f"planes {masks.shape}, {thresholds.shape}, "
                          f"{combine_any.shape} are not [K, G, N], [K, G], "
                          f"[K] with K >= 1")
-    return MultiPredicate(*(torch.from_numpy(a).to(device)
-                            for a in (masks, thresholds, combine_any)))
+    return masks, thresholds, combine_any
+
+
+def make_multi_predicate(masks, thresholds, combine_any,
+                         device=None) -> MultiPredicate:
+    """The planes of ``pad_specs`` output on ``device``."""
+    device = resolve_device(device)
+    return MultiPredicate(*(torch.from_numpy(a).to(device) for a in
+                            _multi_planes_np(masks, thresholds, combine_any)))
 
 
 def check_batch_multi_plain(present: torch.Tensor, config_idx: torch.Tensor,
@@ -1410,6 +1416,10 @@ _K6_MULTI = _build.Entry("epoch", "fpx_check_batch_multi_staged", 18,
 #: The flags of its packed block: the rows are packed 32-bit words; the
 #: rows, indices and answers lie in a pinned block (mapped memory).
 _MULTI_BITS, _MULTI_MAPPED = 1, 2
+#: The int32 cells the entry carries in the kernel's parameters
+#: (``kParamCells``): planes' host cells up to this many are never read
+#: from the card.
+_MULTI_PARAM_CELLS = 32
 #: ``{card index, or the device named: _build.Staging}``: the stream of
 #: the staged checks (their inputs all come from the host).
 _MULTI_STAGING: dict = {}
@@ -1477,79 +1487,116 @@ class MultiCheck:
     waits on the staging's stream; the answer bytes come back in the same
     block. :meth:`check_word` is the one-row form of a 0/1 row given as a
     word, counted by popcount (packing a batch's 0/1 rows into words on
-    the host measured slower than the int32 copy). ``device="cpu"`` runs
+    the host measured slower than the int32 copy); :meth:`check_word_all`
+    checks one word under every plane in one call. ``device="cpu"`` runs
     :func:`check_batch_multi_plain`."""
 
     #: int32 cells at the front of the block for :meth:`check_word`: the
     #: word at 0, its config index at ``ONE_CFG``, its answer byte at cell
-    #: ``ONE_OUT``; a batch's rows start at ``ONE_CELLS``.
+    #: ``ONE_OUT``; :meth:`check_word_all`'s indices ``0..K-1`` start at
+    #: ``ONE_CELLS`` and its K answer bytes at :attr:`all_out`; a batch's
+    #: rows start at :attr:`rows_at`.
     ONE_CFG, ONE_OUT, ONE_CELLS = 4, 8, 16
 
     def __init__(self, masks, thresholds, combine_any, device=None):
-        masks = np.asarray(masks)
-        thresholds = np.asarray(thresholds)
-        combine_any = np.asarray(combine_any, dtype=bool)
-        self.planes = make_multi_predicate(masks, thresholds, combine_any,
-                                           device=device)
-        self.device = self.planes.masks.device
-        self.k, self.g, self.n = self.planes.masks.shape
+        masks, thresholds, combine_any = self._planes_np = _multi_planes_np(
+            masks, thresholds, combine_any)
+        self.device = resolve_device(device)
+        self.k, self.g, self.n = masks.shape
         kg = self.k * self.g
         any_cells = np.zeros(_ceil4(self.k), dtype=np.uint8)
         any_cells[:self.k] = combine_any
-        tail = [thresholds.astype(np.int32).ravel(), any_cells.view(np.int32)]
+        tail = [thresholds.ravel(), any_cells.view(np.int32)]
         #: The planes' host cells, int32 form: masks, thresholds, any.
-        self.cells_int = np.concatenate(
-            [masks.astype(np.int32).ravel()] + tail)
+        self.cells_int = np.concatenate([masks.ravel()] + tail)
         #: True where the masks are all 0 or 1 and N <= 32: a 0/1 row then
         #: packs into a word (:meth:`check_word`) and counts by popcount.
-        self.bits = self.n <= 32 and bool(np.isin(masks, (0, 1)).all())
+        self.bits = self.n <= 32 and bool(((masks == 0) | (masks == 1)).all())
         self.cells_bits = None
         if self.bits:
             words = (masks.reshape(kg, self.n).astype(np.int64)
                      << np.arange(self.n)).sum(1).astype(np.uint32)
             self.cells_bits = np.concatenate([words.view(np.int32)] + tail)
+        #: The cells of :meth:`check_word_all`'s answers, and of a batch's
+        #: rows after them (on the 16-byte grid).
+        self.all_out = self.ONE_CELLS + _ceil4(self.k)
+        self.rows_at = self.all_out + _ceil4(_ceil4(self.k) // 4)
+        # The planes go up to the card only where a staged call reads
+        # them there (their host cells do not fit the parameters): see
+        # _card_planes.
+        self._planes = self._bits_card = None
+        self._card_ready = self.device.type != "cuda"
         self._staging = _build.staging(_MULTI_STAGING, self.device) \
             if self.device.type == "cuda" else None
         if self._staging is None:
             return
-        # The bits form's planes on the card (read when they do not fit
-        # the parameters), then wait once for every upload to land: the
-        # checks run on the staging's own stream.
-        self._bits_card = torch.from_numpy(self.cells_bits).to(self.device) \
-            if self.bits else None
-        torch.cuda.synchronize(self.device)
         self._cap = 0
-        self._grow(64)
+        self._grow(self.rows_at + 48)
         _K6_MULTI.fn or _K6_MULTI.resolve()
+
+    @property
+    def planes(self) -> MultiPredicate:
+        """The planes on :attr:`device` (made at the first use: the
+        tensor wrapper's argument, and the plain version's)."""
+        if self._planes is None:
+            self._planes = MultiPredicate(*(
+                torch.from_numpy(a).to(self.device) for a in self._planes_np))
+            self._card_ready = self.device.type != "cuda"
+        return self._planes
+
+    def _card_planes(self, bits: bool) -> tuple:
+        """The card pointers a staged call in ``bits`` form passes for the
+        planes: 0s where the host cells fit the parameters (the entry
+        carries them there and never reads the card), else the planes on
+        the card, waited for once after each upload (the staged calls run
+        on the staging's own stream, the uploads on the current one)."""
+        cells = self.cells_bits if bits else self.cells_int
+        if cells.size <= _MULTI_PARAM_CELLS:
+            return 0, 0, 0
+        if bits:
+            if self._bits_card is None:
+                self._bits_card = torch.from_numpy(cells).to(self.device)
+                self._card_ready = self.device.type != "cuda"
+            kg = self.k * self.g
+            ptr = self._bits_card.data_ptr()
+            ptrs = ptr, ptr + 4 * kg, ptr + 8 * kg
+        else:
+            planes = self.planes
+            ptrs = (planes.masks.data_ptr(), planes.thresholds.data_ptr(),
+                    planes.combine_any.data_ptr())
+        if not self._card_ready:
+            torch.cuda.synchronize(self.device)
+            self._card_ready = True
+        return ptrs
 
     def _grow(self, cells: int) -> None:
         """A pinned block of at least ``cells`` int32 cells, and the packed
-        call of :meth:`check_word` on it."""
+        calls of :meth:`check_word` and :meth:`check_word_all` on it."""
         if cells <= self._cap:
             return
+        cells = max(cells, self.rows_at)
         self._cap = 1 << max(6, (cells - 1).bit_length())
         self._block = _pinned_cells(self._cap)
         self._host = self._block.numpy()
-        self._host[:self.ONE_CELLS] = 0
+        self._host[:self.rows_at] = 0
+        self._host[self.ONE_CELLS:self.ONE_CELLS + self.k] = np.arange(self.k)
         self._u8 = self._host.view(np.uint8)
         self._u32 = self._host.view(np.uint32)
         self._base = self._block.data_ptr()
         if self.bits:
-            self._one = self._pack(self._base, 1, 1, 1, self._base
-                                   + 4 * self.ONE_CFG, self._base
-                                   + 4 * self.ONE_OUT, True)
+            base = self._base
+            self._one = self._pack(base, 1, 1, 1, base + 4 * self.ONE_CFG,
+                                   base + 4 * self.ONE_OUT, True)
+            # The word at cell 0 read K times (row stride 0), each time
+            # under the preset index of its row.
+            self._all = self._pack(base, 0, 1, self.k,
+                                   base + 4 * self.ONE_CELLS,
+                                   base + 4 * self.all_out, True)
 
     def _pack(self, rows: int, row_stride: int, col_stride: int, b: int,
               cfg: int, out: int, bits: bool) -> bytes:
         cells = self.cells_bits if bits else self.cells_int
-        if bits:
-            kg = self.k * self.g
-            ptr = self._bits_card.data_ptr()
-            masks, thr, anys = ptr, ptr + 4 * kg, ptr + 8 * kg
-        else:
-            masks, thr, anys = (self.planes.masks.data_ptr(),
-                                self.planes.thresholds.data_ptr(),
-                                self.planes.combine_any.data_ptr())
+        masks, thr, anys = self._card_planes(bits)
         st = self._staging
         return _K6_MULTI.pack(
             rows, row_stride, col_stride, b, self.n,
@@ -1578,6 +1625,27 @@ class MultiCheck:
         check_batch_multi.launches += 1
         return bool(self._u8[4 * self.ONE_OUT])
 
+    def check_word_all(self, word: int) -> np.ndarray:
+        """One 0/1 row given as a word under EVERY plane -> ``[K]`` bool, a
+        fresh array: :meth:`check` of K equal rows under ``arange(K)`` in
+        one staged call (the word read K times, the indices preset in the
+        block); needs :attr:`bits`."""
+        if not self.bits:
+            raise ValueError("check_word_all needs 0/1 masks and N <= 32")
+        if self._staging is None:
+            row = torch.tensor([(word >> i) & 1 for i in range(self.n)],
+                               dtype=torch.int32)
+            return check_batch_multi_plain(
+                row.expand(self.k, self.n),
+                torch.arange(self.k, dtype=torch.int32), self.planes).numpy()
+        self._u32[0] = word
+        rc = _K6_MULTI.fn(self._all)
+        if rc:
+            _K6_MULTI.check(rc)
+        check_batch_multi.launches += 1
+        at = 4 * self.all_out
+        return self._u8[at:at + self.k].view(np.bool_).copy()
+
     def check(self, present, config_idx=None) -> np.ndarray:
         """``[B, N]`` rows (integers or bools, taken as int32 as the
         reference's ``astype`` takes them) under ``config_idx[b]`` (all 0
@@ -1597,7 +1665,7 @@ class MultiCheck:
                 torch.from_numpy(cfg.astype(np.int32)), self.planes).numpy()
         if b == 0:
             return np.zeros(0, dtype=bool)
-        rows_at = self.ONE_CELLS
+        rows_at = self.rows_at
         cfg_at = rows_at + _ceil4(b * self.n)
         out_at = cfg_at + (_ceil4(b) if self.k > 1 else 0)
         self._grow(out_at + _ceil4(b) // 4)
@@ -2654,10 +2722,28 @@ class MultiConfigQuorumChecker:
     ``pad_specs``; ``device`` defaults to ``cuda``."""
 
     def __init__(self, specs: Sequence[QuorumSpec], device=None):
+        self._init(pad_specs(specs), specs[0].universe, device)
+
+    @classmethod
+    def from_planes(cls, masks, thresholds, combine_any, universe,
+                    device=None) -> "MultiConfigQuorumChecker":
+        """A checker over given padded planes (``[K, G, N]`` masks, ``[K,
+        G]`` thresholds, ``[K]`` any flags) on ``universe``."""
+        checker = cls.__new__(cls)
+        checker._init((masks, thresholds, combine_any), universe, device)
+        return checker
+
+    def _init(self, planes, universe, device) -> None:
         self.device = resolve_device(device)
-        self.universe = specs[0].universe
-        self.multi = MultiCheck(*pad_specs(specs), device=self.device)
-        self.planes = self.multi.planes
+        self.universe = tuple(universe)
+        self.multi = MultiCheck(*planes, device=self.device)
+        # Universe node -> its column, and its bit of a responder word.
+        self._col = {node: i for i, node in enumerate(self.universe)}
+        self._bit = {node: 1 << i for node, i in self._col.items()}
+
+    @property
+    def planes(self) -> MultiPredicate:
+        return self.multi.planes
 
     def check_batch(self, present, config_idx) -> np.ndarray:
         """``[B, N]`` rows (integers or bools, taken as int32 as the
@@ -2665,3 +2751,20 @@ class MultiConfigQuorumChecker:
         staged call (:class:`MultiCheck`)."""
         return self.multi.check(present,
                                 np.asarray(config_idx).astype(np.int32))
+
+    def check_all(self, nodes) -> np.ndarray:
+        """``[K]`` bool: does ``nodes`` (universe node ids; others are
+        ignored) satisfy each configuration? The reference's
+        ``check_batch`` of K equal 0/1 rows under ``arange(K)``: one
+        word under every plane in one staged call where
+        :attr:`MultiCheck.bits` holds, else that batch."""
+        if self.multi.bits:
+            bit, word = self._bit, 0
+            for node in nodes:
+                word |= bit.get(node, 0)
+            return self.multi.check_word_all(word)
+        col = self._col
+        present = np.zeros((self.multi.k, self.multi.n), dtype=np.uint8)
+        present[:, [col[node] for node in nodes if node in col]] = 1
+        return self.check_batch(present,
+                                np.arange(self.multi.k, dtype=np.int32))

@@ -16,7 +16,8 @@ pickle names its module). The cases of ``tests/test_wire_codecs.py`` and
 the pickle-fallback cases of ``tests/test_runtime.py`` for the ported
 codecs are repeated against the port: round trips, the pickle fallback
 for unregistered types, a fuzz sample for every registered codec, the
-registry-wide corrupt-frame containment, and
+registry-wide corrupt-frame containment (with the Fast Paxos, Fast
+MultiPaxos, Matchmaker MultiPaxos and Matchmaker Paxos samples), and
 ``set_pickle_fallback(False)``."""
 
 import dataclasses
@@ -602,9 +603,11 @@ def fast_codec_samples(ns) -> list:
 
 
 def _by_tag() -> dict:
+    from tests import test_torch_matchmaker_wire as mw
+
     by_tag: dict = {}
     for message in codec_samples(PORT, cross=False) + \
-            fast_codec_samples(PORT):
+            fast_codec_samples(PORT) + mw.samples(mw.PORT):
         data = DEFAULT_SERIALIZER.to_bytes(message)
         tag = data[0] if data[0] else 128 + data[1]
         by_tag.setdefault(tag, message)
