@@ -353,11 +353,14 @@ Phases, in order (any failure exits nonzero and prints no result):
      logged; each cuda arm's executed set equal to the dict arm's, K1
      launched on the synchronous arm's traffic and K2 on the pipelined
      arm's; writes/s and p50 / p99 write latency per arm; its launches
-     join the kernels line's rows (path ``tcp_cluster``);
+     join the kernels line's rows (path ``tcp_cluster``). The clients'
+     frames reach the Leaders' wire sinks as columns, and the
+     ProxyLeaders' batch frames of acks their ack-columns sink;
   30. the transport_lt twin (``bench/transport_lt.py``) at widths 16, 256
-     and 1024, one rep: per_frame against batched cmds/s, syscalls/cmd,
-     frames/cmd and bytes/drain; a lost or wrong reply or a logged error
-     fails it; the reference's two gates printed, not enforced;
+     and 1024, one rep: per_frame against batched against ingest (the
+     wire sink's columns) cmds/s, syscalls/cmd, frames/cmd and
+     bytes/drain; a lost or wrong reply or a logged error fails it; the
+     reference's two gates printed, not enforced;
   31. the reconfigured MultiPaxos cluster (``bench/reconfig_sim.py``),
      with every count set to 0 first: f = 1, every acceptor and replica
      on a FileStorage WAL in a temporary directory (real fsyncs), the
@@ -415,7 +418,23 @@ Phases, in order (any failure exits nonzero and prints no result):
      equal the dict run's, K6's stateless launches equal the cuda
      phase-1 checks and above 0); writes/s, the host µs a check and the
      checker set-up µs a phase 1 per arm; its launches join the kernels
-     line's rows (path ``mmp_cluster``).
+     line's rows (path ``mmp_cluster``);
+  34. the ingest fabric and admission over TCP on the card, with every
+     count set to 0 first: phase 29's supernode and arms with
+     INGEST_BATCHERS ingest batchers in front of the leaders (the
+     clients on their consistent ring) and the Leaders'
+     ``admission_inflight_limit`` at half the writes in flight
+     (INGEST_INFLIGHT_LIMIT); the clients retry without limit on their
+     default backoff. In every arm phase 29's checks (each write
+     answered once with its AppendLog index, the replicas' logs equal
+     and complete, no error and no collector error), and Rejected > 0,
+     IngestRuns received by the leaders > 0 and vote-ack rows through
+     the ProxyLeaders' wire sink > 0; each cuda arm's executed set
+     equal to the dict arm's and K1 / K2 launched on its traffic;
+     writes/s, p50 / p99, the Rejected count, the ack rows by sink
+     against per message, and K1 / K2 launches a write beside phase
+     29's; its launches join the kernels line's rows (path
+     ``ingest_tcp``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -508,7 +527,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/33] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/34] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1992,12 +2011,12 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
 
 
 #: The runs whose launches the kernels line counts: phases 11, 12, 14,
-#: 16, 18, 21, 23-24, 25, 26, 29, 31 and 32 (``*_traffic`` entries of
-#: ``launches_by_path`` are subsets of these).
+#: 16, 18, 21, 23-24, 25, 26, 29, 31, 32, 33 and 34 (``*_traffic``
+#: entries of ``launches_by_path`` are subsets of these).
 MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
               "telemetry", "libbench", "geo", "sharded", "sharded_board",
               "tcp_cluster", "reconfig_cluster", "fast_cluster",
-              "mmp_cluster")
+              "mmp_cluster", "ingest_tcp")
 #: The kernels of the telemetry path (phase 18) and of the libbench path
 #: (phase 21).
 TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
@@ -3853,6 +3872,69 @@ def phase_tcp(dev) -> tuple[dict, dict, dict]:
             "stream_order": stream}, launches, executed
 
 
+#: Phase 34: phase 29's supernode with ingest batchers in front of the
+#: leaders and the leaders' in-flight budget at half the writes in
+#: flight.
+INGEST_BATCHERS = 2
+INGEST_INFLIGHT_LIMIT = supernode.CLIENTS * TCP_PSEUDONYMS // 2
+
+
+def phase_ingest(dev, tcp: dict) -> tuple[dict, dict]:
+    """Phase 34: the ingest fabric and admission over TCP on the card
+    (``protocols/multipaxos/supernode.py`` with ``ingest_batchers`` and
+    ``leader_admission``). ``supernode.run_arm`` checks each arm as in
+    phase 29; here every arm must also draw Rejected replies, deliver
+    IngestRuns to the leaders and feed vote-ack rows through the
+    ProxyLeaders' wire sink, and each cuda arm must equal the dict arm's
+    executed set and launch its kernel. ``tcp`` is phase 29's result,
+    for the launches a write beside it. The launch counts are set to 0
+    first and read after the three arms."""
+    reset_launches()
+    arms: dict = {}
+    executed: dict = {}
+    for arm, options in TCP_ARMS.items():
+        before = {name: w.launches for name, w in WRAPPERS.items()}
+        try:
+            result = supernode.run_arm(
+                TCP_WRITES, TCP_PSEUDONYMS, device=dev,
+                ingest_batchers=INGEST_BATCHERS,
+                leader_admission={
+                    "admission_inflight_limit": INGEST_INFLIGHT_LIMIT},
+                **options)
+        except supernode.GateFailure as exc:
+            raise SmokeFailure(f"ingest {arm}: {exc}") from exc
+        executed[arm] = result.pop("executed")
+        result["launches"] = {name: w.launches - before[name]
+                              for name, w in WRAPPERS.items()
+                              if w.launches - before[name]}
+        serving = result["serving"]
+        result["rejected_commands"] = sum(serving["rejected"].values())
+        require(result["rejected_commands"] > 0,
+                f"ingest {arm}: no write was Rejected: {serving}")
+        require(serving["ingest_counts"].get("IngestRun", 0) > 0,
+                f"ingest {arm}: the leaders received no IngestRun: "
+                f"{serving}")
+        require(serving["ack_rows"]["sink"] > 0,
+                f"ingest {arm}: no vote-ack row went through the "
+                f"ProxyLeaders' wire sink: {serving}")
+        arms[arm] = result
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    for arm, kernel in TCP_ARM_KERNEL.items():
+        require(executed[arm] == executed["dict"],
+                f"ingest {arm}: the executed commands differ from the "
+                f"dict arm's")
+        got = arms[arm]["launches"].get(kernel, 0)
+        require(got > 0, f"ingest {arm}: {kernel} never launched on the "
+                         f"arm's traffic: {arms[arm]['launches']}")
+        was = tcp["arms"][arm]["launches"].get(kernel, 0)
+        arms[arm]["kernel_launches_per_write"] = {
+            "kernel": kernel, "phase_34": got / TCP_WRITES,
+            "phase_29": was / TCP_WRITES}
+    return {"arms": arms, "writes": TCP_WRITES,
+            "ingest_batchers": INGEST_BATCHERS,
+            "admission_inflight_limit": INGEST_INFLIGHT_LIMIT}, launches
+
+
 def phase_transport(dev) -> dict:
     """The transport_lt twin, short: widths 16, 256 and 1024, one rep;
     a lost reply, a wrong reply or a logged error fails it inside
@@ -4573,7 +4655,9 @@ def main() -> int:
         phase(30, f"transport_lt on {name} ({smi}): "
             + "; ".join(f"{w}: per_frame {p['per_frame']['cmds_per_s']:.0f}"
                         f" / batched {p['batched']['cmds_per_s']:.0f} "
-                        f"cmds/s ({p['throughput_ratio']:.2f}x), "
+                        f"cmds/s ({p['throughput_ratio']:.2f}x) / ingest "
+                        f"{p['ingest']['cmds_per_s']:.0f} "
+                        f"({p['ingest_ratio']:.2f}x), "
                         f"syscalls/cmd "
                         f"{p['per_frame']['syscalls_per_cmd']:.4f} -> "
                         f"{p['batched']['syscalls_per_cmd']:.4f} "
@@ -4688,6 +4772,36 @@ def main() -> int:
             + f"; phase 33 {time.perf_counter() - t33:.1f} s; "
             f"{time.perf_counter() - T0:.1f} s in all")
         log(json.dumps({"mmp_cluster": mmp}))
+        t34 = time.perf_counter()
+        ingest, ingest_launches = phase_ingest(dev, tcp)
+        add_path_launches(kernels, "ingest_tcp", ingest_launches)
+        phase(34, f"the ingest fabric and admission over TCP on {name} "
+            f"({smi}): {TCP_WRITES} writes an arm, {supernode.CLIENTS} "
+            f"clients x {TCP_PSEUDONYMS} in flight through "
+            f"{INGEST_BATCHERS} ingest batchers, the leaders' in-flight "
+            f"limit {INGEST_INFLIGHT_LIMIT}; "
+            + "; ".join(
+                f"{arm} {fig['writes_per_sec']:.0f} writes/s (phase 29 "
+                f"{tcp['arms'][arm]['writes_per_sec']:.0f}), p50 "
+                f"{fig['latency_p50_ms']:.3f} ms, p99 "
+                f"{fig['latency_p99_ms']:.3f} ms, Rejected "
+                f"{fig['rejected_commands']} commands, IngestRuns "
+                f"{fig['serving']['ingest_counts'].get('IngestRun', 0)}, "
+                f"ack rows by sink / per message "
+                f"{fig['serving']['ack_rows']['sink']} / "
+                f"{fig['serving']['ack_rows']['message']}, votes "
+                f"{fig['votes_by_shape']}, launches {fig['launches']}"
+                + (f", {fig['kernel_launches_per_write']['kernel']} a "
+                   f"write {fig['kernel_launches_per_write']['phase_34']:.4f}"
+                   f" (phase 29 "
+                   f"{fig['kernel_launches_per_write']['phase_29']:.4f})"
+                   if "kernel_launches_per_write" in fig else "")
+                for arm, fig in ingest["arms"].items())
+            + f"; each cuda arm's executed set == the dict arm's; launches "
+            + str({k: v for k, v in ingest_launches.items() if v})
+            + f"; phase 34 {time.perf_counter() - t34:.1f} s; "
+            f"{time.perf_counter() - T0:.1f} s in all")
+        log(json.dumps({"ingest_tcp": ingest}))
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

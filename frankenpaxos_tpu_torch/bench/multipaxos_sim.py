@@ -135,7 +135,7 @@ def _check_cluster(sim, got: dict, payloads: list, what: str) -> None:
 
 
 def _shares(sim) -> dict:
-    votes = {"Phase2b": 0, "Phase2bRange": 0, "Phase2bVotes": 0}
+    votes = dict.fromkeys(sim.proxy_leaders[0].votes_by_shape, 0)
     for proxy in sim.proxy_leaders:
         for shape, n in proxy.votes_by_shape.items():
             votes[shape] += n

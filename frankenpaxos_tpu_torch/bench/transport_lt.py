@@ -23,8 +23,11 @@ arm: end-to-end cmds/s on the host clock, syscalls/cmd (the transports'
 own counters: one per writev or write call; asyncio issues one ``send``
 per uncongested write), wire frames/cmd, and bytes/drain (batched bytes
 per flush). Each pair is best-of-``reps`` on fresh transports, the arm
-order alternated. The reference's third arm (``ingest``, the wire-sink
-column path) waits for the ingest fabric (ROADMAP.md queue 1 item 8.2).
+order alternated. A third arm, ``ingest``, rides along as the reference's
+does: the batched transport with a server whose wire sinks take each
+client batch frame whole as columns (``ingest/columns.py``) and answer
+it with ONE ``ClientReplyArray`` (no per-message decode); its replies
+carry no results, so only their ids are checked.
 
 A run fails (raises) when any reply is lost (a closed loop that does not
 finish within its deadline), when a reply answers no outstanding
@@ -47,6 +50,7 @@ import time
 
 from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
     ClientReply,
+    ClientReplyArray,
     ClientRequest,
     Command,
     CommandId,
@@ -58,7 +62,7 @@ from frankenpaxos_tpu_torch.runtime.tcp_transport import TcpTransport
 
 WIDTHS = (16, 64, 256, 1024, 4096)
 SMOKE_WIDTHS = (16, 256, 1024)
-ARMS = ("per_frame", "batched")
+ARMS = ("per_frame", "batched", "ingest")
 #: A closed loop that has not finished by then lost a reply.
 DEADLINE_S = 120.0
 
@@ -81,6 +85,36 @@ class _EchoServer(Actor):
         self.send(src, ClientReply(
             command_id=message.command.command_id, slot=0,
             result=message.command.command))
+
+
+class _ColumnEchoServer(Actor):
+    """The ingest arm's server: whole client batch frames land as SoA
+    columns through the wire sink (ingest/columns.py) and each frame
+    draws ONE ClientReplyArray -- no per-message decode, no Command
+    objects."""
+
+    def __init__(self, address, transport, logger):
+        super().__init__(address, transport, logger)
+        from frankenpaxos_tpu_torch.ingest.columns import (
+            parse_client_array,
+            parse_client_batch,
+        )
+
+        self.wire_sinks = {
+            151: (parse_client_batch, self._handle_columns),
+            115: (parse_client_array, self._handle_columns),
+            4: (parse_client_array, self._handle_columns),
+        }
+
+    def _handle_columns(self, src, colrun) -> None:
+        cols = colrun.cols
+        self.send(src, ClientReplyArray(entries=tuple(
+            (int(p), int(c), 0, b"")
+            for p, c in zip(cols[:, 1], cols[:, 2]))))
+
+    def receive(self, src, message):
+        # Fallback for shapes the sink declines.
+        _EchoServer.receive(self, src, message)
 
 
 class _LoadClient(Actor):
@@ -118,16 +152,25 @@ class _LoadClient(Actor):
             CommandId(self.address, 0, i), b"w%010d" % i)))
 
     def receive(self, src, message) -> None:
-        i = message.command_id.client_id
-        if i not in self.outstanding or message.result != b"w%010d" % i:
-            self.wrong += 1
-        self.outstanding.discard(i)
-        self.acked += 1
+        if isinstance(message, ClientReplyArray):
+            # The ingest arm acks a whole frame in one array, without
+            # results.
+            ids = [entry[1] for entry in message.entries]
+        else:
+            ids = [message.command_id.client_id]
+            if message.result != b"w%010d" % ids[0]:
+                self.wrong += 1
+        for i in ids:
+            if i not in self.outstanding:
+                self.wrong += 1
+            self.outstanding.discard(i)
+        self.acked += len(ids)
         if self.acked >= self.total:
             self.t1 = time.perf_counter()
             self.done.set()
-        elif self.sent < self.total:
-            self._send_next()
+        else:
+            for _ in range(min(len(ids), self.total - self.sent)):
+                self._send_next()
 
 
 def run_arm(arm: str, width: int, total: int) -> dict:
@@ -140,7 +183,8 @@ def run_arm(arm: str, width: int, total: int) -> dict:
     server_t.start()
     try:
         client_t.start()
-        _EchoServer(server_addr, server_t, logger)
+        (_ColumnEchoServer if arm == "ingest" else _EchoServer)(
+            server_addr, server_t, logger)
         client = _LoadClient(client_addr, client_t, logger,
                              server_addr, width, total)
         client.start()
@@ -184,7 +228,7 @@ def run_arm(arm: str, width: int, total: int) -> dict:
 
 def run_pair(width: int, total: int, reps: int) -> dict:
     """Best-of-``reps`` for each arm on fresh transports, the order
-    alternated so drift lands on both arms alike."""
+    alternated so drift lands on every arm alike."""
     best: dict = {}
     for rep in range(reps):
         arms = ARMS if rep % 2 == 0 else tuple(reversed(ARMS))
@@ -196,6 +240,8 @@ def run_pair(width: int, total: int, reps: int) -> dict:
     pair = dict(best)
     pair["throughput_ratio"] = (best["batched"]["cmds_per_s"]
                                 / best["per_frame"]["cmds_per_s"])
+    pair["ingest_ratio"] = (best["ingest"]["cmds_per_s"]
+                            / best["per_frame"]["cmds_per_s"])
     pair["syscall_reduction"] = (
         best["per_frame"]["syscalls_per_cmd"]
         / max(best["batched"]["syscalls_per_cmd"], 1e-12))
@@ -244,7 +290,9 @@ def run(widths=WIDTHS, reps: int = 3, smoke: bool = False) -> dict:
             "paired real-TCP closed-loop A/B in one process: per width, "
             "the same ClientRequest->ClientReply workload over "
             "TcpTransport(batching=False) vs the paxwire batched "
-            "default; best-of-reps per arm on fresh transports, arm "
+            "default, and the ingest arm (the batched transport, the "
+            "server's wire sinks taking each client batch frame as "
+            "columns, one ClientReplyArray a frame); best-of-reps per arm on fresh transports, arm "
             "order alternated; syscalls = the transports' writev/write "
             "counters; bytes_per_drain = batched bytes per flush pass"),
         "host_nvidia_smi": smi,

@@ -48,10 +48,16 @@ Measurements:
     the worst rank's);
   * ``libbench``: ``bench/libbench.py``'s ``bench_device_ops`` (K12, K13,
     and K16's union then K10, each 50 calls chained with one synchronize,
-    best of three): its three slots/s and deps/s rates.
+    best of three): its three slots/s and deps/s rates;
+  * ``tcp``: ``chip_smoke.py``'s phase 29, MultiPaxos over loopback TCP
+    (``protocols/multipaxos/supernode.py::run_arm``: f = 1, 4 clients x
+    64 writes in flight, 2^12 writes an arm; the dict, cuda sync and
+    cuda pipelined arms, the Leaders' recovery on K8): each arm's
+    writes/s and p50 / p99 latency; every gate of ``run_arm`` holds in
+    every run.
 
 ``--kinds`` picks some of them
-(``split,storm,multipaxos,bpaxos,epaxos,headline,telemetry,tracker,geo,mesh,libbench``
+(``split,storm,multipaxos,bpaxos,epaxos,headline,telemetry,tracker,geo,mesh,libbench,tcp``
 on a card, all by default).
 
 Unpack the parent into a directory the checkout ignores, then run from
@@ -89,11 +95,21 @@ BPAXOS_COMMANDS = 1 << 13
 #: Every measurement, in the order they run; ``split``, ``headline``,
 #: ``mesh`` and ``libbench`` time CUDA calls only.
 KINDS = ("split", "storm", "multipaxos", "bpaxos", "epaxos", "headline",
-         "telemetry", "tracker", "geo", "mesh", "libbench")
+         "telemetry", "tracker", "geo", "mesh", "libbench", "tcp")
 CUDA_ONLY = ("split", "headline", "mesh", "libbench")
 #: The headline arm's latency-distribution budget (the bench's 20 s,
 #: cut: ten runs a tree).
 HEADLINE_LATENCY_S = 5.0
+#: The ``tcp`` measurement: chip_smoke.py's phase 29 (its writes, its
+#: in-flight writes a client and its three arms).
+TCP_WRITES = 1 << 12
+TCP_PSEUDONYMS = 64
+TCP_ARMS = {
+    "dict": dict(quorum_backend="dict", phase1_backend="cuda"),
+    "cuda_sync": dict(quorum_backend="cuda", phase1_backend="cuda"),
+    "cuda_pipelined": dict(quorum_backend="cuda", tpu_pipelined=True,
+                           phase1_backend="cuda"),
+}
 
 
 def _worker(kind: str, tree: str, commands: int, device=None) -> dict:
@@ -176,6 +192,28 @@ def _worker(kind: str, tree: str, commands: int, device=None) -> dict:
 
         return {**libbench.bench_device_ops(device=device),
                 "nvidia_smi": nvidia_smi_line()}
+    if kind == "tcp":
+        from frankenpaxos_tpu_torch.device import nvidia_smi_line, \
+            resolve_device
+        from frankenpaxos_tpu_torch.protocols.multipaxos import supernode
+
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            # Before the roles: a Leader on K8 would otherwise build the
+            # kernels inside the supernode's time-limited role build.
+            from frankenpaxos_tpu_torch.ops import _build
+
+            _build.build()
+        out = {}
+        for arm, options in TCP_ARMS.items():
+            fig = supernode.run_arm(TCP_WRITES, TCP_PSEUDONYMS, device=dev,
+                                    **options)
+            out[arm] = {"writes_per_sec": fig["writes_per_sec"],
+                        "p50_us": 1e3 * fig["latency_p50_ms"],
+                        "p99_us": 1e3 * fig["latency_p99_ms"]}
+        out["nvidia_smi"] = (nvidia_smi_line() if dev.type == "cuda"
+                             else None)
+        return out
     raise ValueError(f"unknown measurement {kind!r}")
 
 
@@ -392,7 +430,7 @@ def run(parent: str, commands: int = BPAXOS_COMMANDS, device=None,
                                f"trees: {digests}")
     smi = next((readings[kind]["change"][0]["nvidia_smi"]
                 for kind in ("split", "headline", "tracker", "mesh",
-                             "libbench")
+                             "libbench", "tcp")
                 if kind in readings), None)
     return {"benchmark": "tree_ab", "trees": trees, "order": list(ORDER),
             "kinds": kinds, "bpaxos_commands": commands,

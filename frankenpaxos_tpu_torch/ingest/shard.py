@@ -9,8 +9,8 @@ slot)`` mesh the block's lanes are OWNED by slot shards (lane ``l`` of a
 segment on its device with ONE copy (:func:`place_block`): every byte
 lands on the rank that owns it and no shuffle follows.
 
-:func:`command_ids` reads ids off a parsed paxwire batch's columns,
-which are not ported yet (ROADMAP.md queue 1 item 8.2): it raises.
+:func:`command_ids` reads the ids straight off a parsed paxwire batch's
+columns (``ingest/columns.py``), with no value decode.
 """
 
 from __future__ import annotations
@@ -18,13 +18,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from frankenpaxos_tpu_torch.ingest.columns import (
+    COL_ID,
+    COL_PSEUDONYM,
+    ColumnRun,
+)
 
-def command_ids(colrun) -> np.ndarray:
-    """The reference's ids off a ``ColumnRun``'s descriptor columns; the
-    column scan is not ported yet, so this raises."""
-    raise NotImplementedError(
-        "command_ids reads a parsed paxwire batch (ingest/columns.py), "
-        "which is not ported yet (ROADMAP.md queue 1 item 8.2)")
+
+def command_ids(colrun: ColumnRun) -> np.ndarray:
+    """``[k]`` int32 pipeline command ids straight off a ColumnRun's
+    descriptor columns (no value decode): the same
+    (pseudonym, client-id) identity ``CommandId`` carries, folded to
+    the int32 id the drain pipeline's command window holds."""
+    cols = colrun.cols
+    return (cols[:, COL_PSEUDONYM].astype(np.int64) * 1_000_003
+            + cols[:, COL_ID].astype(np.int64)).astype(np.int32)
 
 
 def route_block(ids: np.ndarray, block_size: int,

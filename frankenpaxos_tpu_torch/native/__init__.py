@@ -281,9 +281,11 @@ def scan_batch(buf, at: int, max_segs: int = 1 << 20
     payload, trailing garbage)."""
     lib = load()
     n_left = len(buf) - at
+    if n_left < 4:
+        # Before the native call too: a payload shorter than ``at``
+        # would reach C as a huge unsigned length.
+        raise ValueError("malformed batch frame: short count header")
     if lib is None:
-        if n_left < 4:
-            raise ValueError("malformed batch frame: short count header")
         (n,) = _U32LE.unpack_from(buf, at)
         if n > max_segs or 4 + 4 * n > n_left:
             raise ValueError(

@@ -8,12 +8,18 @@ collection runs on a pluggable quorum tracker (``quorum_tracker``;
 backend ``"cuda"`` batches votes onto the GPU vote board once per
 event-loop drain), and the Leader's Phase-1 recovery on K8
 (``phase1_backend="cuda"``).
-``harness.make_multipaxos`` wires a whole deployment over the simulated
-transport, ``supernode.Supernode`` one over real TCP.
+Client frames reach the Leader (or an ingest batcher, ``ingest/``) as
+columns, and the ProxyLeaders take whole batch frames of vote acks as
+range rows. ``harness.make_multipaxos`` wires a whole deployment over
+the simulated transport, ``supernode.Supernode`` one over real TCP.
 """
 
+from frankenpaxos_tpu_torch.ingest import wire as _ingest_wire  # noqa: F401
 # Importing registers the hot-path binary codecs with the hybrid
-# serializer (its module docstring explains the wire schema).
+# serializer (its module docstring explains the wire schema) -- the
+# protocol's own page plus the ingest plane's IngestRun/NotLeaderIngest/
+# IngestCredit descriptors (ingest/wire.py; an unregistered IngestRun
+# would silently pickle).
 from frankenpaxos_tpu_torch.protocols.multipaxos import wire  # noqa: F401
 
 from frankenpaxos_tpu_torch.protocols.multipaxos.acceptor import (

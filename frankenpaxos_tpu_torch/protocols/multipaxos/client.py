@@ -16,9 +16,13 @@ pending-operation state machines with resend timers:
     pseudonym has seen.
   * eventual reads (Client.scala:739+): straight to a random replica.
 
+With ingest batchers deployed, writes go through them on a consistent
+ring (``ingest/fan.py``): a session pins to one batcher, a timeout
+suspects that batcher only, and a ``Rejected`` from one batcher floors
+the backoff against that batcher only.
+
 Not ported yet, and refused: reads through read batchers (ROADMAP.md
-queue 1 item 8.3), and the ingest fabric's consistent ring of batchers
-(item 8.2).
+queue 1 item 8.3).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
 from frankenpaxos_tpu_torch.roundsystem import ClassicRoundRobin
 from frankenpaxos_tpu_torch.runs.client import RetryAdmissionMixin, StagedWriteMixin
 from frankenpaxos_tpu_torch.runs.routing import (
+    make_fan_router,
     pick_array_destination,
     pick_request_destination,
 )
@@ -149,6 +154,14 @@ class Client(RetryAdmissionMixin, StagedWriteMixin, Actor):
         self._retry_budget = options.retry_budget
         self._retry_backoff = options.backoff
         self._init_staging()
+        # paxfan: consistent ring over the ingest-batcher tier -- a
+        # session key (this client, pseudonym) pins to one shard; a
+        # resend timeout suspects THAT shard (its keys fail over to
+        # the clockwise survivors, everyone else stays pinned); a
+        # Rejected floors backoff against the shedding shard only.
+        self._fan = make_fan_router(
+            config,
+            revive_after_s=options.resend_client_request_period_s)
         # One reusable resend timer per pseudonym (vs a fresh Timer per
         # write): timer construction was a measurable per-command cost
         # at drain widths in the thousands.
@@ -188,6 +201,11 @@ class Client(RetryAdmissionMixin, StagedWriteMixin, Actor):
                     if not self._consume_retry(pseudonym, state,
                                                "failover"):
                         return
+                    if self._fan is not None:
+                        # paxfan: the timeout suspects THIS key's
+                        # shard, so the resend below routes past it
+                        # while every other key stays pinned.
+                        self._fan.suspect_key(self.address, pseudonym)
                     self._send_client_request(ClientRequest(Command(
                         CommandId(self.address, pseudonym, state.id),
                         state.command)))
@@ -292,17 +310,38 @@ class Client(RetryAdmissionMixin, StagedWriteMixin, Actor):
             self.round_system.leader(self.round)]
 
     def _send_client_request(self, request: ClientRequest) -> None:
-        # runs/routing: batchers, else the round's leader.
-        dst = pick_request_destination(self.config, self.rng,
-                                       self._round_leader)
+        # runs/routing ladder: ingest disseminators absorb the fan-in
+        # (ring-pinned per session -- a dead batcher costs a retry
+        # plus a failover to its clockwise survivor, not a wedge) >
+        # batchers > the round's leader.
+        dst = pick_request_destination(
+            self.config, self.rng, self._round_leader, fan=self._fan,
+            key=(self.address, request.command.command_id.client_pseudonym))
         self.send(dst, request)
 
     def _flush_staged(self, staged: list) -> None:
-        """Ship writes staged by ``coalesce_writes`` as one array,
-        straight to the round's leader."""
+        """Ship writes staged by ``coalesce_writes`` as one array (to
+        an ingest disseminator when the config deploys them, else
+        straight to the round's leader). The array spans many of this
+        client's pseudonyms, so it rides the client-scoped ring key
+        (pseudonym -1)."""
         dst = pick_array_destination(self.config, self.rng,
-                                     self._round_leader)
+                                     self._round_leader, fan=self._fan,
+                                     key=(self.address, -1))
         self.send(dst, ClientRequestArray(commands=tuple(staged)))
+
+    def _note_shed_source(self, src: Address, rejected) -> float:
+        """Attribute a Rejected to its ingest shard: floor reissue
+        backoff against THAT shard only (runs/client.py hook)."""
+        if self._fan is None:
+            return 0.0
+        from frankenpaxos_tpu_torch.ingest.fan import shard_of_address
+
+        shard = shard_of_address(self.config, src)
+        if shard < 0:
+            return 0.0
+        self._fan.note_shed(shard, rejected.retry_after_ms)
+        return self._fan.floor_delay_s(shard)
 
     def _make_read_resend_timer(self, pseudonym: int, replica: Address,
                                 request) -> object:

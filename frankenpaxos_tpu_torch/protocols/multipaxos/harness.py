@@ -10,10 +10,13 @@ durability half is the reference's too: ``wal=`` (MemStorage WALs that
 survive ``crash_restart_acceptor`` / ``crash_restart_replica``, or
 FileStorage WALs with real fsyncs under a directory),
 ``add_replacement_acceptor`` for a reconfiguration, and the
-``epoch_tag_runs`` / ``epoch_quorums`` options. The reference harness's
-ingest batchers (and their crash-restart), read batchers and admission
-are not offered: those paths are not ported yet (ROADMAP.md queue 1
-items 8.1, 8.2 and 8.3).
+``epoch_tag_runs`` / ``epoch_quorums`` options. The serving half is the
+reference's too: ``num_ingest_batchers`` (WAL-free ``IngestBatcher``s,
+``crash_restart_ingest_batcher``), ``ingest_pipeline_window``,
+``leader_admission`` (the Leaders' ``admission_*`` options) and the
+clients' ``client_retry_budget`` / ``client_backoff``. The reference
+harness's read batchers are not offered: they are not ported yet
+(ROADMAP.md queue 1 item 8.3).
 
 ``device`` reaches the roles that hold one (the ProxyLeaders' trackers
 with ``quorum_backend="cuda"``, the Leaders with
@@ -25,6 +28,11 @@ from __future__ import annotations
 import dataclasses
 import os
 
+from frankenpaxos_tpu_torch.ingest import (
+    IngestBatcher,
+    IngestBatcherOptions,
+    MultiPaxosIngestRouter,
+)
 from frankenpaxos_tpu_torch.protocols.multipaxos.acceptor import Acceptor
 from frankenpaxos_tpu_torch.protocols.multipaxos.batcher import (
     Batcher,
@@ -69,6 +77,9 @@ class MultiPaxosSim:
     replicas: list
     proxy_replicas: list
     clients: list
+    # paxingest disseminators (ingest/): WAL-free, rebuilt empty on
+    # crash_restart_ingest_batcher.
+    ingest_batchers: list = dataclasses.field(default_factory=list)
     # wal= extras: address -> storage (survives crash_restart), plus
     # what a restart needs to rebuild the actor.
     wal_storages: dict = dataclasses.field(default_factory=dict)
@@ -129,6 +140,20 @@ def add_replacement_acceptor(sim: MultiPaxosSim, members: tuple,
         wal=_sim_wal(sim.wal_storages, new_address, sim.wal_root)))
 
 
+def crash_restart_ingest_batcher(sim: MultiPaxosSim, i: int) -> None:
+    """kill -9 ingest batcher ``i`` and restart it EMPTY: batchers are
+    WAL-free by design -- staged-but-unshipped commands die with the
+    process and the owning clients' resend timers cover them (retries,
+    never acked-write loss; the replica client table keeps resends
+    exactly-once)."""
+    old = sim.ingest_batchers[i]
+    sim.transport.crash(old.address)
+    sim.ingest_batchers[i] = IngestBatcher(
+        old.address, sim.transport, sim.transport.logger,
+        MultiPaxosIngestRouter(sim.config), index=i, options=old.options,
+        seed=sim.seed + 50 + i)
+
+
 def crash_restart_replica(sim: MultiPaxosSim, i: int) -> None:
     """kill -9 replica ``i`` and restart it: the SM rebuilds from the
     WAL snapshot + chosen-record replay; unsynced executions (never
@@ -148,6 +173,7 @@ def make_multipaxos(
     num_clients: int = 1,
     num_acceptor_groups: int = 1,
     num_batchers: int = 0,
+    num_ingest_batchers: int = 0,
     num_proxy_replicas: int = 0,
     flexible: bool = False,
     grid_shape: "tuple[int, int] | None" = None,
@@ -164,6 +190,10 @@ def make_multipaxos(
     wal: "bool | str" = False,
     epoch_tag_runs: bool = False,
     epoch_quorums: bool = False,
+    leader_admission: "dict | None" = None,
+    client_retry_budget: int = 0,
+    client_backoff=None,
+    ingest_pipeline_window: "int | None" = None,
     device=None,
 ) -> MultiPaxosSim:
     """``coalesced``: False (every client sends per-message
@@ -174,7 +204,11 @@ def make_multipaxos(
     full-width bench (the epoch board takes ``min(tpu_window, 2^14)``).
     ``wal``: False (no WAL), True (MemStorage WALs, the crash-restart
     sims) or a directory path (FileStorage WALs with real fsyncs, one
-    subdirectory per role, written nowhere else)."""
+    subdirectory per role, written nowhere else).
+    ``leader_admission``: the Leaders' ``admission_*`` options as a dict
+    (e.g. ``{"admission_inflight_limit": 8}``);
+    ``ingest_pipeline_window`` the ingest batchers' descriptor window
+    (None keeps ``IngestBatcherOptions``' default)."""
     logger = FakeLogger(log_level)
     transport = SimTransport(logger)
     wal_storages: dict = {}
@@ -196,6 +230,8 @@ def make_multipaxos(
     config = MultiPaxosConfig(
         f=f,
         batcher_addresses=[f"batcher-{i}" for i in range(num_batchers)],
+        ingest_batcher_addresses=[f"ingest-batcher-{i}"
+                                  for i in range(num_ingest_batchers)],
         read_batcher_addresses=[],
         leader_addresses=[f"leader-{i}" for i in range(f + 1)],
         leader_election_addresses=[f"election-{i}" for i in range(f + 1)],
@@ -213,11 +249,23 @@ def make_multipaxos(
         Batcher(a, transport, logger, config,
                 BatcherOptions(batch_size=batch_size))
         for a in config.batcher_addresses]
+    ingest_options = IngestBatcherOptions()
+    if ingest_pipeline_window is not None:
+        # Chaos rows pin tight descriptor windows so IngestCredit
+        # watermarks are load-bearing under kill/partition, not slack.
+        ingest_options = IngestBatcherOptions(
+            pipeline_window=ingest_pipeline_window)
+    ingest_batchers = [
+        IngestBatcher(a, transport, logger,
+                      MultiPaxosIngestRouter(config), index=i,
+                      options=ingest_options, seed=seed + 50 + i)
+        for i, a in enumerate(config.ingest_batcher_addresses)]
     leaders = [
         Leader(a, transport, logger, config,
                LeaderOptions(resend_phase1as_period_s=5.0,
                              phase1_backend=phase1_backend,
-                             epoch_tag_runs=epoch_tag_runs),
+                             epoch_tag_runs=epoch_tag_runs,
+                             **(leader_admission or {})),
                seed=seed + i, device=device)
         for i, a in enumerate(config.leader_addresses)]
     proxy_leaders = [
@@ -242,16 +290,23 @@ def make_multipaxos(
     if coalesced not in (False, True, "mixed"):
         raise ValueError(f"coalesced must be False, True or 'mixed', got "
                          f"{coalesced!r}")
+    client_opt_extra: dict = {}
+    if client_retry_budget:
+        client_opt_extra["retry_budget"] = client_retry_budget
+    if client_backoff is not None:
+        client_opt_extra["backoff"] = client_backoff
     clients = [
         Client(f"client-{i}", transport, logger, config,
                ClientOptions(coalesce_writes=(
                    coalesced is True
-                   or (coalesced == "mixed" and i % 2 == 0))),
+                   or (coalesced == "mixed" and i % 2 == 0)),
+                   **client_opt_extra),
                seed=seed + 30 + i)
         for i in range(num_clients)]
     return MultiPaxosSim(transport, config, batchers, leaders,
                          proxy_leaders, acceptors, replicas, proxy_replicas,
-                         clients, wal_storages=wal_storages,
+                         clients, ingest_batchers=ingest_batchers,
+                         wal_storages=wal_storages,
                          state_machine_factory=state_machine_factory,
                          seed=seed, wal_root=wal_root)
 

@@ -33,10 +33,15 @@ A new leader discovers epochs from the Phase1bs, runs Phase 1 with a
 read quorum in every epoch still covering undecided slots, and re-sends
 the epoch map to the proxy leaders.
 
-Not ported yet, and refused: admission control (the ``admission_*``
-options; ROADMAP.md, queue 1 item 8.1) and the ingest fabric (IngestRun
-and the client wire sinks, queue 1 item 8.2; no such message exists in
-the port).
+Admission control (the ``admission_*`` options, ``serve/admission.py``):
+an in-flight budget fed from ``next_slot - chosen_watermark`` plus the
+Phase-1 backlog, partial admission of a coalesced array or run, and
+explicit ``Rejected`` replies for the refused suffix. The ingest fabric
+(``ingest/``): client batch frames and un-batched arrays reach the
+leader's wire sinks as columns and are proposed as ONE ``Phase2aRun``
+whose value bytes are the clients' own; an ``IngestRun`` from a batcher
+is proposed the same way, and each batcher gets one ``IngestCredit`` a
+drain.
 """
 
 from __future__ import annotations
@@ -49,6 +54,18 @@ from typing import Optional
 from frankenpaxos_tpu_torch.election.basic import (
     ElectionOptions,
     ElectionParticipant,
+)
+from frankenpaxos_tpu_torch.ingest.columns import (
+    CLIENT_ARRAY_TAG,
+    parse_client_array,
+    parse_client_batch,
+    reject_value_suffix,
+    value_view,
+)
+from frankenpaxos_tpu_torch.ingest.messages import (
+    IngestCredit,
+    IngestRun,
+    NotLeaderIngest,
 )
 from frankenpaxos_tpu_torch.protocols.multipaxos.config import (
     DistributionScheme,
@@ -86,6 +103,7 @@ from frankenpaxos_tpu_torch.reconfig import (
 )
 from frankenpaxos_tpu_torch.roundsystem import ClassicRoundRobin
 from frankenpaxos_tpu_torch.runtime import Actor, Collectors, FakeCollectors, Logger
+from frankenpaxos_tpu_torch.runtime.paxwire import CLIENT_BATCH_TAG
 from frankenpaxos_tpu_torch.runtime.transport import Address, Transport
 
 
@@ -126,12 +144,10 @@ class LeaderOptions:
     admission_codel_interval_s: float = 0.1
     admission_retry_after_ms: int = 0
 
-    def admission_armed(self) -> bool:
-        return any((self.admission_token_rate, self.admission_token_burst,
-                    self.admission_inflight_limit,
-                    self.admission_inbox_capacity,
-                    self.admission_codel_target_s,
-                    self.admission_retry_after_ms))
+    def admission_options(self):
+        from frankenpaxos_tpu_torch.serve.admission import options_from_flat
+
+        return options_from_flat(self)
 
 
 class _Inactive:
@@ -194,10 +210,6 @@ class Leader(Actor):
             raise ValueError(
                 f"phase1_backend must be 'host' or 'cuda', got "
                 f"{options.phase1_backend!r}")
-        if options.admission_armed():
-            raise NotImplementedError(
-                "admission control is not ported yet (ROADMAP.md, queue "
-                "1 item 8.1: admission)")
         # K8's device: resolved now, so that "cuda" without a GPU (and
         # no device named) fails at construction, not at a failover.
         self.device = (resolve_device(device)
@@ -240,6 +252,41 @@ class Leader(Actor):
         self._current_proxy_leader = 0
         self._unflushed_phase2as = 0
         self._chunk_sent = 0
+        # Commands admitted while in _Phase1 (sitting in
+        # pending_batches with no slot yet): the in-flight resyncs
+        # must count them, or a long Phase1 admits without bound.
+        self._admitted_backlog = 0
+        # paxload admission (serve/): built only when an option arms
+        # it, so admission-off deployments keep the exact pre-paxload
+        # hot path (Actor.admission stays None for the transports too).
+        admission_options = options.admission_options()
+        if admission_options is not None:
+            from frankenpaxos_tpu_torch.serve.admission import (
+                AdmissionController,
+            )
+
+            self.admission = AdmissionController(
+                admission_options, role=f"leader_{self.index}",
+                metrics=transport.runtime_metrics)
+            transport.note_admission(address, self)
+        # paxingest (ingest/): client batch frames and un-batched
+        # coalesced arrays land as SoA columns and propose as ONE run --
+        # the wire-to-device fast path for direct client->leader
+        # deployments (batcher'd deployments arrive as IngestRun).
+        self.wire_sinks = {
+            CLIENT_BATCH_TAG: (parse_client_batch,
+                               self._handle_client_columns),
+            CLIENT_ARRAY_TAG: (parse_client_array,
+                               self._handle_client_columns),
+        }
+        # paxfan descriptor pipelining: per-batcher drained-seq
+        # high-water accumulated across one event-loop pass (the leader
+        # drains SEVERAL pipelined runs per pass) and flushed as ONE
+        # IngestCredit per batcher in on_drain.
+        self._ingest_credit_hw: dict = {}
+        #: Ingest deliveries by kind: IngestRuns from batchers and
+        #: client frames taken as columns by the wire sinks.
+        self.ingest_counts = {"IngestRun": 0, "client_columns": 0}
         #: The last K8 recovery: its shape and host seconds spent
         #: building the matrices, in the call (transfers included) and
         #: mapping ids back to values.
@@ -517,6 +564,8 @@ class Leader(Actor):
         timer = self.timer("resendPhase1as",
                            self.options.resend_phase1as_period_s, resend)
         timer.start()
+        # Fresh Phase1 = fresh (empty) pending backlog.
+        self._admitted_backlog = 0
         return _Phase1(
             phase1bs=[{} for _ in range(self.config.num_acceptor_groups)],
             phase1b_acceptors=set(),
@@ -600,6 +649,7 @@ class Leader(Actor):
              self._handle_client_request_array),
             (ClientRequestBatch, "ClientRequestBatch",
              self._handle_client_request_batch),
+            (IngestRun, "IngestRun", self._handle_ingest_run),
             (LeaderInfoRequestClient, "LeaderInfoRequestClient",
              self._handle_leader_info_request_client),
             (LeaderInfoRequestBatcher, "LeaderInfoRequestBatcher",
@@ -723,12 +773,71 @@ class Leader(Actor):
             self._ensure_epoch_durability(reporters)
         for batch in phase1.pending_batches:
             self._process_client_request_batch(batch)
+        # The backlog just moved into the span (next_slot advanced per
+        # batch); resync so it isn't double-counted.
+        self._admitted_backlog = 0
+        if self.admission is not None:
+            self._sync_inflight()
+
+    def _sync_inflight(self) -> None:
+        """Resync the controller to the LIVE in-flight measure:
+        proposed-minus-chosen span (the run pipeline's own count of
+        outstanding work) plus the Phase1 backlog of admitted-but-
+        unslotted commands. Called only where the measure actually
+        changes (watermark advances, Phase1 exit) -- between resyncs
+        ``admit()``'s own increments accumulate, so the budget binds
+        even while next_slot is frozen in Phase1."""
+        self.admission.set_inflight(
+            self.next_slot - self.chosen_watermark
+            + self._admitted_backlog)
+
+    def _admit(self, message, n: int) -> bool:
+        """paxload admission for ``n`` client commands (serve/): on
+        refusal, answer with explicit Rejected wire replies so clients
+        back off instead of re-sending into the congestion.
+        Control-plane messages never pass through here -- only the
+        three client-request shapes do."""
+        admission = self.admission
+        if admission is None:
+            return True
+        if admission.admit(n):
+            return True
+        from frankenpaxos_tpu_torch.serve.admission import reject_replies_for
+
+        for client, reply in reject_replies_for(
+                message, admission.retry_after_ms(),
+                admission.last_reason):
+            self.send(client, reply)
+        return False
+
+    def _admit_prefix(self, commands: tuple) -> tuple:
+        """Partial admission for a coalesced array: serve the prefix
+        the budget allows, explicitly reject the suffix (one Rejected
+        -- all commands in an array come from ONE client)."""
+        admission = self.admission
+        if admission is None:
+            return commands
+        k = admission.admit_up_to(len(commands))
+        if k < len(commands):
+            from frankenpaxos_tpu_torch.serve.admission import (
+                reject_replies_for,
+            )
+
+            for address, reply in reject_replies_for(
+                    ClientRequestArray(commands=commands[k:]),
+                    retry_after_ms=admission.retry_after_ms(),
+                    reason=admission.last_reason):
+                self.send(address, reply)
+        return commands[:k]
 
     def _handle_client_request(self, src: Address,
                                request: ClientRequest) -> None:
         if isinstance(self.state, _Inactive):
             self.send(src, NotLeaderClient())
+        elif not self._admit(request, 1):
+            pass
         elif isinstance(self.state, _Phase1):
+            self._admitted_backlog += 1
             self.state.pending_batches.append(
                 ClientRequestBatch(CommandBatch((request.command,))))
         else:
@@ -746,7 +855,13 @@ class Leader(Actor):
         if isinstance(self.state, _Inactive):
             self.send(src, NotLeaderClient())
             return
+        commands = self._admit_prefix(array.commands)
+        if not commands:
+            return
+        if len(commands) < len(array.commands):
+            array = ClientRequestArray(commands=commands)
         if isinstance(self.state, _Phase1):
+            self._admitted_backlog += len(array.commands)
             for command in array.commands:
                 self.state.pending_batches.append(
                     ClientRequestBatch(CommandBatch((command,))))
@@ -755,7 +870,10 @@ class Leader(Actor):
             tuple(CommandBatch((c,)) for c in array.commands))
 
     def _propose_value_run(self, values) -> None:
-        """Phase2 proposal of the one-value-per-slot tuple ``values``."""
+        """Post-admission Phase2 proposal of one-value-per-slot
+        ``values`` -- a tuple, or a LazyValueArray whose raw segment is
+        forwarded without a parse (the ingest fast path). The shared
+        tail of the array / wire-column / IngestRun paths."""
         if self.config.num_acceptor_groups > 1 and not self.config.flexible:
             # Slots stripe over acceptor groups (slot % G) in this mode,
             # so a contiguous run has no single acceptor audience; fall
@@ -788,13 +906,111 @@ class Leader(Actor):
         # rotation (runs never use the no-flush buffer).
         self._account_sent_slots(dst, k)
 
+    # --- paxingest (ingest/) ----------------------------------------------
+    def _note_ingest(self, cmds: int, nbytes: int) -> None:
+        metrics = self.transport.runtime_metrics
+        if metrics is not None:
+            metrics.ingest_batch(cmds, nbytes)
+
+    def on_drain(self) -> None:
+        """Flush accumulated pipelining credits: ONE watermark-granular
+        IngestCredit per batcher per drain, regardless of how many runs
+        this pass consumed. Control-lane (serve/lanes.py), so shedding
+        never wedges the batchers' windows."""
+        if self._ingest_credit_hw:
+            credits, self._ingest_credit_hw = self._ingest_credit_hw, {}
+            for src, hw in credits.items():
+                self.send(src, IngestCredit(group_index=0,
+                                            watermark_seq=hw))
+
+    def _handle_client_columns(self, src: Address, colrun) -> None:
+        """Wire-sink handler: a whole ClientFrameBatch as SoA columns.
+        The hot branch proposes the frame as ONE Phase2aRun whose value
+        bytes are the clients' own wire bytes (LazyValueArray over the
+        scanned segment -- re-encoding is a raw copy); inactive /
+        Phase1 / refused-suffix conditions keep per-message
+        semantics on the cold path."""
+        n = len(colrun)
+        if n == 0:
+            return
+        self.ingest_counts["client_columns"] += 1
+        if isinstance(self.state, _Inactive):
+            # One bounce per frame: every segment shares the sending
+            # connection, and redirect discovery is per-client anyway.
+            self.send(src, NotLeaderClient())
+            return
+        k = n
+        admission = self.admission
+        if admission is not None:
+            k = admission.admit_up_to(n)
+            if k < n:
+                for address, reply in colrun.reject_entries(
+                        k, admission.retry_after_ms(),
+                        admission.last_reason):
+                    self.send(address, reply)
+            if k == 0:
+                return
+        if isinstance(self.state, _Phase1):
+            self._admitted_backlog += k
+            for command in colrun.commands(k):  # cold: Phase1 only
+                self.state.pending_batches.append(
+                    ClientRequestBatch(CommandBatch((command,))))
+            return
+        values = colrun.lazy_values(k)
+        self._note_ingest(k, len(values.raw))
+        self._propose_value_run(values)
+
+    def _handle_ingest_run(self, src: Address, run: IngestRun) -> None:
+        """A disseminator's pre-batched run descriptor: assign a
+        contiguous slot block and forward the pre-encoded values as one
+        Phase2aRun -- the leader touches only run metadata (count, raw
+        bytes). ``src`` is the batcher, so the inactive bounce returns
+        the RUN for re-routing after leader discovery."""
+        values = run.values
+        n = len(values)
+        if n == 0:
+            return
+        self.ingest_counts["IngestRun"] += 1
+        if isinstance(self.state, _Inactive):
+            self.send(src, NotLeaderIngest(group_index=0, run=run))
+            return
+        # Credit the batcher's pipelining window: this run is consumed
+        # on every non-bounce path below (proposed, Phase1-buffered, or
+        # fully rejected back to clients). Accumulated per batcher,
+        # flushed once in on_drain.
+        hw = self._ingest_credit_hw.get(src)
+        if hw is None or run.seq > hw:
+            self._ingest_credit_hw[src] = run.seq
+        k = n
+        admission = self.admission
+        if admission is not None:
+            k = admission.admit_up_to(n)
+            if k < n:
+                reject_value_suffix(self.send, values, k, admission)
+                if k == 0:
+                    return
+                view = value_view(values)
+                values = (view.lazy_values(k) if view is not None
+                          else tuple(values)[:k])
+        if isinstance(self.state, _Phase1):
+            self._admitted_backlog += k
+            for value in tuple(values)[:k]:  # cold: Phase1 only
+                self.state.pending_batches.append(
+                    ClientRequestBatch(value))
+            return
+        self._note_ingest(k, len(getattr(values, "raw", b"")))
+        self._propose_value_run(values)
+
     def _handle_client_request_batch(self, src: Address,
                                      batch: ClientRequestBatch) -> None:
         if isinstance(self.state, _Inactive):
             # Bounce the batch back so the batcher can re-route it
             # (Leader.scala:606-634).
             self.send(src, NotLeaderBatcher(client_request_batch=batch))
+        elif not self._admit(batch, len(batch.batch.commands)):
+            pass
         elif isinstance(self.state, _Phase1):
+            self._admitted_backlog += len(batch.batch.commands)
             self.state.pending_batches.append(batch)
         else:
             self._process_client_request_batch(batch)
@@ -821,6 +1037,10 @@ class Leader(Actor):
     def _handle_chosen_watermark(self, src: Address,
                                  msg: ChosenWatermark) -> None:
         self.chosen_watermark = max(self.chosen_watermark, msg.slot)
+        if self.admission is not None:
+            # Drain-granular release: the watermark advance IS the
+            # signal that in-flight slots completed their quorums.
+            self._sync_inflight()
 
     def _handle_recover(self, src: Address, recover: Recover) -> None:
         # Re-running Phase1 recovers every unchosen slot below some chosen

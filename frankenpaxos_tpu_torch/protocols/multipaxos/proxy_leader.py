@@ -24,8 +24,12 @@ its votes are counted by voter address on an ``EpochQuorumTracker``
 votes in one staged call and K7 reshapes the board when an epoch is
 added; ``""`` follows ``quorum_backend``).
 
-Not ported yet: the ingest fabric's wire sink (ROADMAP.md queue 1 item
-8.2), so vote-ack batch frames are expanded per message.
+The ingest fabric's wire sink (``ingest/columns.py``): on the TCP
+transport a whole control batch frame of vote acks (Phase2b,
+Phase2bRange, coalesced Phase2bAckBatch segments) is parsed into
+``(start, end, round, group, acceptor)`` rows and fed to the tracker
+range by range, with no per-message object; a batch holding anything
+else falls back to per-message delivery.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 
 from frankenpaxos_tpu_torch import native
 from frankenpaxos_tpu_torch.device import resolve_device
+from frankenpaxos_tpu_torch.ingest.columns import parse_ack_batch
 from frankenpaxos_tpu_torch.protocols.multipaxos.config import MultiPaxosConfig
 from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
     Chosen,
@@ -150,7 +155,21 @@ class ProxyLeader(Actor):
         #: (Phase2b), as a contiguous range (Phase2bRange) or as a
         #: packed fragmented drain (Phase2bVotes).
         self.votes_by_shape = dict.fromkeys(
-            ("Phase2b", "Phase2bRange", "Phase2bVotes"), 0)
+            ("Phase2b", "Phase2bRange", "Phase2bVotes", "AckColumns"), 0)
+        #: Vote acks by how they arrived: rows of batch frames taken
+        #: whole by the wire sink, against ack messages delivered one
+        #: by one (Phase2b, Phase2bRange, Phase2bVotes).
+        self.ack_rows = {"sink": 0, "message": 0}
+        # paxingest (ingest/): control batch frames of vote acks land
+        # as SoA range rows -- no Phase2b/Phase2bRange object per
+        # segment (non-ack control batches parse to None and fall back
+        # to per-message delivery).
+        from frankenpaxos_tpu_torch.runtime.paxwire import CONTROL_BATCH_TAG
+
+        self.wire_sinks = {
+            CONTROL_BATCH_TAG: (parse_ack_batch,
+                                self._handle_ack_columns),
+        }
         self._unflushed_phase2as = 0
         if options.quorum_backend == "cuda":
             self.tracker: QuorumTracker = TpuQuorumTracker(
@@ -455,6 +474,7 @@ class ProxyLeader(Actor):
 
     def _handle_phase2b(self, src: Address, phase2b: Phase2b) -> None:
         self.votes_by_shape["Phase2b"] += 1
+        self.ack_rows["message"] += 1
         key = (phase2b.slot, phase2b.round)
         if key not in self.pending and self._run_for(*key) is None:
             # Either never proposed here (a fatal bug in the reference,
@@ -483,6 +503,7 @@ class ProxyLeader(Actor):
         already ``_done``; ``_emit_chosen`` dedups either way."""
         self.votes_by_shape["Phase2bRange"] += max(
             0, r.slot_end_exclusive - r.slot_start_inclusive)
+        self.ack_rows["message"] += 1
         if self._epoch_tracker is not None:
             self._epoch_tracker.record_range(
                 r.slot_start_inclusive, r.slot_end_exclusive, r.round,
@@ -492,6 +513,34 @@ class ProxyLeader(Actor):
                                   r.slot_end_exclusive, r.round,
                                   r.group_index, r.acceptor_index)
 
+    def _handle_ack_columns(self, src: Address, acks) -> None:
+        """Wire-sink handler (paxingest): a whole batch frame of vote
+        acks as (start, end, round, group, acceptor) rows, fed to the
+        quorum tracker range-at-a-time. Width-1 rows keep the
+        never-sent-a-Phase2a tripwire exactly like _handle_phase2b;
+        wider rows follow _handle_phase2b_range's
+        no-per-slot-pending-check rationale."""
+        self.metrics_requests.labels("AckColumns").inc()
+        self.ack_rows["sink"] += len(acks)
+        epoch_tracker = self._epoch_tracker
+        for start, end, rnd, group, acceptor in acks.rows.tolist():
+            self.votes_by_shape["AckColumns"] += max(0, end - start)
+            if end - start == 1:
+                key = (start, rnd)
+                if key not in self.pending \
+                        and self._run_for(start, rnd) is None:
+                    if key not in self._done \
+                            and not self._in_done_runs(start, rnd):
+                        self.logger.fatal(
+                            f"ProxyLeader got Phase2b for {key} but "
+                            f"never sent a Phase2a there")
+                    continue
+            if epoch_tracker is not None:
+                epoch_tracker.record_range(start, end, rnd, src)
+            else:
+                self.tracker.record_range(start, end, rnd, group,
+                                          acceptor)
+
     def _handle_phase2b_votes(self, src: Address, m) -> None:
         """A packed fragmented-drain ack (Phase2bVotes): unpack with the
         native codec straight into the tracker's arrays -- no per-vote
@@ -499,6 +548,7 @@ class ProxyLeader(Actor):
         ranges)."""
         slots, rounds = native.unpack_votes2(m.packed)
         self.votes_by_shape["Phase2bVotes"] += len(slots)
+        self.ack_rows["message"] += 1
         if self._epoch_tracker is not None:
             self._epoch_tracker.record_votes(slots, rounds, src)
             return

@@ -14,9 +14,12 @@ leave after the drain's group-commit fsync (``wal.DurableRole``), and a
 restart rebuilds the state machine from the latest snapshot plus the
 chosen runs logged after it.
 
-Not ported yet, and refused: read admission (the ``admission_*``
-options; ROADMAP.md queue 1 item 8.1) and the batched reads of read
-batchers (item 8.3).
+Read admission (the ``admission_*`` options, ``serve/admission.py``)
+sheds READ traffic only: the in-flight measure is the deferred-read
+backlog, and a refused read's client gets an explicit ``Rejected``.
+
+Not ported yet, and refused: the batched reads of read batchers
+(ROADMAP.md queue 1 item 8.3).
 """
 
 from __future__ import annotations
@@ -75,8 +78,11 @@ class ReplicaOptions:
     recover_log_entry_max_period_s: float = 20.0
     unsafe_dont_recover: bool = False
     measure_latencies: bool = True
-    # Read admission: not ported yet; anything but the all-zero default
-    # is refused.
+    # paxload read-path admission (serve/admission.py): a replica
+    # sheds READ traffic only -- Chosen/ChosenRun deliveries are the
+    # write pipeline's control plane and never pass the controller.
+    # The in-flight measure here is the deferred-read backlog. All
+    # zeros (default) builds no controller.
     admission_token_rate: float = 0.0
     admission_token_burst: float = 0.0
     admission_inflight_limit: int = 0
@@ -94,14 +100,6 @@ class Replica(Actor, DurableRole):
                  options: ReplicaOptions = ReplicaOptions(),
                  collectors: Collectors | None = None, seed: int = 0,
                  wal=None):
-        if any((options.admission_token_rate, options.admission_token_burst,
-                options.admission_inflight_limit,
-                options.admission_inbox_capacity,
-                options.admission_codel_target_s,
-                options.admission_retry_after_ms)):
-            raise NotImplementedError(
-                "read admission is not ported yet (ROADMAP.md queue 1 "
-                "item 8.1: admission)")
         super().__init__(address, transport, logger)
         config.check_valid()
         logger.check(address in config.replica_addresses)
@@ -134,7 +132,20 @@ class Replica(Actor, DurableRole):
         # watermark GC extended to disk). wal=None is the reference's
         # in-memory behavior.
         self._wal_init(wal)
+        # paxload read-path admission (serve/): built only when armed.
+        self._deferred_read_count = 0
         self._wm_dirty = False  # executed advanced since last drain
+        from frankenpaxos_tpu_torch.serve.admission import (
+            AdmissionController,
+            options_from_flat,
+        )
+
+        admission_options = options_from_flat(options)
+        if admission_options is not None:
+            self.admission = AdmissionController(
+                admission_options, role=f"replica_{self.index}",
+                metrics=transport.runtime_metrics)
+            transport.note_admission(address, self)
         self.recover_timer = None
         if wal is not None:
             self._recover_from_wal()
@@ -339,6 +350,9 @@ class Replica(Actor, DurableRole):
                 self.send(reply.command_id.client_address, reply)
 
     def _process_deferred_reads(self, reads: list[Command]) -> None:
+        self._deferred_read_count -= len(reads)
+        if self.admission is not None:
+            self.admission.set_inflight(self._deferred_read_count)
         self._send_read_replies([self._execute_read(c) for c in reads])
 
     def _defer_read(self, slot: int, command: Command) -> None:
@@ -347,6 +361,28 @@ class Replica(Actor, DurableRole):
             self.deferred_reads.put(slot, [command])
         else:
             reads.append(command)
+        self._deferred_read_count += 1
+
+    def _admit_read(self, command: Command) -> bool:
+        """paxload read admission: the in-flight measure is the
+        deferred-read backlog; refusal answers the CLIENT with an
+        explicit Rejected so its backoff engages instead of a resend
+        storm. (The reference's ``sync=False`` form serves the batched
+        reads of read batchers, which are not ported yet.)"""
+        admission = self.admission
+        if admission is None:
+            return True
+        admission.set_inflight(self._deferred_read_count)
+        if admission.admit(1):
+            return True
+        from frankenpaxos_tpu_torch.serve.messages import Rejected
+
+        cid = command.command_id
+        self.send(cid.client_address, Rejected(
+            entries=((cid.client_pseudonym, cid.client_id),),
+            retry_after_ms=admission.retry_after_ms(),
+            reason=admission.last_reason))
+        return False
 
     # --- handlers ---------------------------------------------------------
     def receive(self, src: Address, message) -> None:
@@ -446,6 +482,8 @@ class Replica(Actor, DurableRole):
                              request: ReadRequest) -> None:
         """Linearizable read at a slot; defer until executed
         (Replica.scala:455-530)."""
+        if not self._admit_read(request.command):
+            return
         if request.slot >= self.executed_watermark:
             self._defer_read(request.slot, request.command)
             return
@@ -461,4 +499,6 @@ class Replica(Actor, DurableRole):
 
     def _handle_eventual_read_request(self, src: Address,
                                       request: EventualReadRequest) -> None:
+        if not self._admit_read(request.command):
+            return
         self.send(src, self._execute_read(request.command))

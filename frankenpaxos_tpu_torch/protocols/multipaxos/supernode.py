@@ -5,10 +5,12 @@ The port's counterpart of ``frankenpaxos_tpu/cli.py``'s supernode role
 to the cluster layout ``frankenpaxos_tpu/deploy.py`` builds with
 ``cluster(f, port)``: f + 1 leaders (each with its election participant),
 f + 1 proxy leaders, one group of 2f + 1 acceptors, f + 1 replicas, no
-batchers and no proxy replicas. Every role address is a loopback
-``(host, port)`` on ONE ``TcpTransport``; as the reference does, every
-address is bound first and the roles are then built in declaration order
-(leader, proxy leader, acceptor, replica), each with its own seed
+batchers and no proxy replicas, plus ``ingest_batchers`` ingest batchers
+(the deployment's own ``"ingest_batchers"`` key, ``ingest/``; 0 by
+default). Every role address is a loopback ``(host, port)`` on ONE
+``TcpTransport``; as the reference does, every address is bound first
+and the roles are then built in declaration order (ingest batcher,
+leader, proxy leader, acceptor, replica), each with its own seed
 (``seed`` plus its position). They are built on the transport's event
 loop, so that no message reaches a half-built role. The clients run on a
 second ``TcpTransport`` of their own, as a client process would.
@@ -17,8 +19,13 @@ The roles' options are their defaults apart from those named here:
 ``quorum_backend`` and ``tpu_pipelined`` for the ProxyLeaders (with
 ``"cuda"`` and ``tpu_pipelined`` the collector thread collects the
 board's dispatches),
-``phase1_backend`` for the Leaders, and ``device`` for both (None means
+``phase1_backend`` and ``leader_admission`` (the ``admission_*``
+options, as a dict) for the Leaders, and ``device`` for both (None means
 ``cuda``; the tests pass ``"cpu"``, which runs the plain versions).
+With ingest batchers the clients write through them on the consistent
+ring; without, straight to the leader, whose wire sinks take the client
+frames as columns either way. The ProxyLeaders take batch frames of vote
+acks through their wire sink.
 ``wal_dir`` gives each acceptor and replica a FileStorage WAL under
 ``<wal_dir>/<role>_<index>``, as the reference's ``--wal_dir`` does: one
 group commit (one fsync) per role per event-loop pass, since the
@@ -38,6 +45,10 @@ import statistics
 import threading
 import time
 
+from frankenpaxos_tpu_torch.ingest import (
+    IngestBatcher,
+    MultiPaxosIngestRouter,
+)
 from frankenpaxos_tpu_torch.protocols.multipaxos.acceptor import Acceptor
 from frankenpaxos_tpu_torch.protocols.multipaxos.client import (
     Client,
@@ -99,10 +110,12 @@ def free_ports(n: int, host: str = "127.0.0.1") -> list:
             s.close()
 
 
-def cluster_config(f: int = 1, host: str = "127.0.0.1") -> MultiPaxosConfig:
+def cluster_config(f: int = 1, host: str = "127.0.0.1",
+                   ingest_batchers: int = 0) -> MultiPaxosConfig:
     """``deploy.py``'s ``cluster(f, port)`` layout on free loopback
-    ports."""
-    ports = iter(free_ports(4 * (f + 1) + 2 * f + 1, host))
+    ports, with ``ingest_batchers`` ingest batchers."""
+    ports = iter(free_ports(4 * (f + 1) + 2 * f + 1 + ingest_batchers,
+                            host))
 
     def port():
         return (host, next(ports))
@@ -110,6 +123,7 @@ def cluster_config(f: int = 1, host: str = "127.0.0.1") -> MultiPaxosConfig:
     config = MultiPaxosConfig(
         f=f,
         batcher_addresses=[],
+        ingest_batcher_addresses=[port() for _ in range(ingest_batchers)],
         read_batcher_addresses=[],
         leader_addresses=[port() for _ in range(f + 1)],
         leader_election_addresses=[port() for _ in range(f + 1)],
@@ -161,19 +175,22 @@ class Supernode:
     def __init__(self, f: int = 1, *, quorum_backend: str = "dict",
                  tpu_pipelined: bool = False, phase1_backend: str = "host",
                  device=None, seed: int = 0, host: str = "127.0.0.1",
-                 wal_dir: "str | None" = None):
+                 wal_dir: "str | None" = None, ingest_batchers: int = 0,
+                 leader_admission: "dict | None" = None):
         self.f = f
         self.wal_dir = wal_dir
         self.host = host
         self.seed = seed
         self.device = device
         self.logger = FakeLogger(LogLevel.WARN)
-        self.config = cluster_config(f, host)
-        self.leader_options = LeaderOptions(phase1_backend=phase1_backend)
+        self.config = cluster_config(f, host, ingest_batchers)
+        self.leader_options = LeaderOptions(phase1_backend=phase1_backend,
+                                            **(leader_admission or {}))
         self.proxy_leader_options = ProxyLeaderOptions(
             quorum_backend=quorum_backend, tpu_pipelined=tpu_pipelined)
         self.transport: TcpTransport | None = None
         self.client_transport: TcpTransport | None = None
+        self.ingest_batchers: list = []
         self.leaders: list = []
         self.proxy_leaders: list = []
         self.acceptors: list = []
@@ -189,7 +206,8 @@ class Supernode:
         self.client_transport.start()
         # Bind every role address FIRST, so that a role's construction-
         # time sends (a leader's Phase1a) find their targets listening.
-        for address in (*config.leader_addresses,
+        for address in (*config.ingest_batcher_addresses,
+                        *config.leader_addresses,
                         *config.leader_election_addresses,
                         *config.proxy_leader_addresses,
                         *(a for group in config.acceptor_addresses
@@ -213,6 +231,11 @@ class Supernode:
         """The roles in declaration order, each with its own seed."""
         config, t, log = self.config, self.transport, self.logger
         count = 0
+        for i, a in enumerate(config.ingest_batcher_addresses):
+            self.ingest_batchers.append(IngestBatcher(
+                a, t, log, MultiPaxosIngestRouter(config), index=i,
+                seed=self.seed + count))
+            count += 1
         for a in config.leader_addresses:
             self.leaders.append(Leader(a, t, log, config,
                                        self.leader_options,
@@ -268,6 +291,27 @@ class Supernode:
                  if level >= LogLevel.ERROR]
                 + [e for p in self.proxy_leaders
                    for e in p.collector_errors])
+
+    def serving(self) -> dict:
+        """The admission and ingest counts of :func:`run_arm`'s
+        ``serving`` figure (read on the transport's loop)."""
+        rejected: dict = {}
+        for role in (*self.leaders, *self.ingest_batchers):
+            if role.admission is not None:
+                for reason, n in role.admission.rejected.items():
+                    rejected[reason] = rejected.get(reason, 0) + n
+        ingest_counts: dict = {}
+        for leader in self.leaders:
+            for kind, n in leader.ingest_counts.items():
+                ingest_counts[kind] = ingest_counts.get(kind, 0) + n
+        ack_rows = {"sink": 0, "message": 0}
+        for proxy_leader in self.proxy_leaders:
+            for how, n in proxy_leader.ack_rows.items():
+                ack_rows[how] += n
+        return {"rejected": rejected, "ingest_counts": ingest_counts,
+                "ack_rows": ack_rows,
+                "sink_frames": self.transport.stat_sink_frames,
+                "sink_messages": self.transport.stat_sink_messages}
 
     def write_closed_loop(self, writes: int, pseudonyms: int,
                           timeout_s: float = 120.0) -> dict:
@@ -365,19 +409,27 @@ def run_arm(writes: int, pseudonyms: int, timeout_s: float = 120.0,
     collector error included). Raises ``GateFailure`` on a failed check;
     returns the figures, ``executed`` (the set of executed payloads), the
     ProxyLeaders' vote counts by message shape and their synchronous
-    trackers' drain-width histograms (empty for the other trackers)."""
+    trackers' drain-width histograms (empty for the other trackers), and
+    ``serving``: the commands the leaders and ingest batchers refused by
+    reason (``rejected``), the leaders' ingest deliveries
+    (``ingest_counts``), the ProxyLeaders' vote acks by how they arrived
+    (``ack_rows``: rows of batch frames through the wire sink against
+    ack messages delivered one by one), and the payloads the server
+    transport's wire sinks took whole (``sink_frames``, holding
+    ``sink_messages`` messages)."""
     with Supernode(**options) as node:
         figures = node.write_closed_loop(writes, pseudonyms, timeout_s)
         _require(node.wait_executed(writes),
                  "the replicas did not execute every write in time")
-        logs, executed, errors, shapes, widths = on_loop(
+        logs, executed, errors, shapes, widths, serving = on_loop(
             node.transport, lambda: (
                 [executed_prefix(r) for r in node.replicas],
                 [executed_commands(r) for r in node.replicas],
                 node.errors(),
                 [dict(p.votes_by_shape) for p in node.proxy_leaders],
                 [dict(getattr(p.tracker, "drain_widths", {}))
-                 for p in node.proxy_leaders]))
+                 for p in node.proxy_leaders],
+                node.serving()))
     replies = figures.pop("replies")
     twice = [p for p, got in replies.items() if len(got) != 1]
     _require(not twice, f"{len(twice)} writes answered more than once")
@@ -395,4 +447,5 @@ def run_arm(writes: int, pseudonyms: int, timeout_s: float = 120.0,
                         f"machine's index")
     _require(not errors, f"errors were logged: {errors[:3]}")
     return {**figures, "executed": set(commands),
-            "votes_by_shape": shapes, "drain_widths": widths}
+            "votes_by_shape": shapes, "drain_widths": widths,
+            "serving": serving}

@@ -12,8 +12,8 @@ Phase1.
 The leaders count votes on the card with ``quorum_backend="cuda"``
 (``geo.GeoQuorumTracker``: K6 per drain chunk, K5 on every watermark
 advance). Every message rides ``wire.py``'s codecs, and the acceptors
-log promises, votes and epochs to a WAL with ``wal=``. Not ported yet:
-admission control (ROADMAP.md queue 1 item 8.1).
+log promises, votes and epochs to a WAL with ``wal=``, and the leaders
+take the ``admission_*`` options (``serve/admission.py``).
 """
 
 from frankenpaxos_tpu_torch.protocols.wpaxos import wire  # noqa: F401  - registers codecs

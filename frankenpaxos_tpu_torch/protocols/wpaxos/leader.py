@@ -25,10 +25,11 @@ slot's quorum plane selected by its steal epoch; every advance of a
 group's chosen watermark releases the board's columns through K5.
 ``device`` reaches the trackers (``cuda`` when None).
 
-Not ported yet, and refused: admission control (the ``admission_*``
-options; ROADMAP.md queue 1 item 8.1). The reference's per-region
-goodput export to its ``RuntimeMetrics`` waits for that sink (item
-8.5).
+Admission control (the ``admission_*`` options, ``serve/admission.py``):
+a refused request's client gets an explicit ``Rejected``, and every
+drain resyncs the in-flight budget to the open proposals. The
+reference's per-region goodput export to its ``RuntimeMetrics`` waits
+for that sink (ROADMAP.md queue 1 item 8.5).
 """
 
 from __future__ import annotations
@@ -93,8 +94,9 @@ class WPaxosLeaderOptions:
     quorum_backend: str = "dict"     # "dict" oracle | "cuda" (K6, K5)
     tpu_window: int = 4096
     recover_reply_limit: int = 256
-    # Admission control (the reference's serve/admission.py): not
-    # ported yet; anything but the all-zero default is refused.
+    # paxload admission control (serve/admission.py): flat knobs.
+    # All-zero = no controller; the admission-off hot path is one None
+    # test.
     admission_token_rate: float = 0.0
     admission_token_burst: float = 0.0
     admission_inflight_limit: int = 0
@@ -104,12 +106,10 @@ class WPaxosLeaderOptions:
     admission_codel_interval_s: float = 0.1
     admission_retry_after_ms: int = 0
 
-    def admission_armed(self) -> bool:
-        return any((self.admission_token_rate, self.admission_token_burst,
-                    self.admission_inflight_limit,
-                    self.admission_inbox_capacity,
-                    self.admission_codel_target_s,
-                    self.admission_retry_after_ms))
+    def admission_options(self):
+        from frankenpaxos_tpu_torch.serve.admission import options_from_flat
+
+        return options_from_flat(self)
 
 
 @dataclasses.dataclass
@@ -140,10 +140,6 @@ class WPaxosLeader(Actor):
             raise ValueError(
                 f"quorum_backend must be 'dict' or 'cuda', got "
                 f"{options.quorum_backend!r}")
-        if options.admission_armed():
-            raise NotImplementedError(
-                "admission control is not ported yet (ROADMAP.md queue 1 "
-                "item 8.1)")
         super().__init__(address, transport, logger)
         config.check_valid()
         self.config = config
@@ -193,8 +189,8 @@ class WPaxosLeader(Actor):
         self.steal_events: list[dict] = []
         self._open_steal_events: dict[int, dict] = {}
         # Virtual clock when the transport has one, wall clock
-        # otherwise (steal telemetry needs a clock that actually
-        # advances).
+        # otherwise (steal telemetry AND the admission controller's
+        # token bucket both need a clock that actually advances).
         if hasattr(transport, "now"):
             self._clock = lambda: transport.now
         else:
@@ -226,6 +222,18 @@ class WPaxosLeader(Actor):
             timer.start()
         # group -> (timer, entry, set of acked acceptor ids)
         self._epoch_resends: dict[int, tuple] = {}
+        # paxload admission (serve/): built only when a knob arms it.
+        admission_options = options.admission_options()
+        if admission_options is not None:
+            from frankenpaxos_tpu_torch.serve.admission import (
+                AdmissionController,
+            )
+
+            self.admission = AdmissionController(
+                admission_options, role=f"wpaxos_leader_{self.zone}",
+                clock=self._clock,
+                metrics=transport.runtime_metrics)
+            transport.note_admission(address, self)
 
     # --- handlers -----------------------------------------------------------
     def receive(self, src: Address, message) -> None:
@@ -312,6 +320,14 @@ class WPaxosLeader(Actor):
                 value, _, _ = self.active[m.group].proposals[entry[2]]
                 self._send_phase2a(m.group, entry[2], value)
             return
+        if self.admission is not None and not self.admission.admit():
+            from frankenpaxos_tpu_torch.serve.messages import Rejected
+
+            self.send(src, Rejected(
+                entries=((cid.client_pseudonym, cid.client_id),),
+                retry_after_ms=self.admission.retry_after_ms(),
+                reason=self.admission.last_reason))
+            return
         self._propose(m.group, m.command, src)
 
     def _propose(self, group: int, command: Command,
@@ -375,6 +391,16 @@ class WPaxosLeader(Actor):
                 if "active_s" in event:
                     self._close_steal_event(group)
         self._flush_chosen()
+        # Resync the admission in-flight measure where it CHANGES --
+        # quorums landing this drain popped proposals (and
+        # steals/releases moved whole groups). Admit()'s increments
+        # accrue between drains; without this resync the slot budget
+        # saturates after inflight_limit admits and the leader
+        # rejects forever.
+        if self.admission is not None:
+            self.admission.set_inflight(
+                sum(len(st.proposals)
+                    for st in self.active.values()))
 
     def _record_chosen(self, group: int, slot: int, value) -> None:
         self.chosen[group][slot] = value

@@ -65,7 +65,14 @@ class RetryAdmissionMixin:
         saturated. Back off (jittered exponential, the server's
         retry_after_ms as a floor) and re-issue to the SAME destination
         class -- unlike a timeout, no failover. Each backoff consumes
-        the retry budget when one is set."""
+        the retry budget when one is set.
+
+        paxfan: ``_note_shed_source`` attributes the shed to the
+        SHARD that sent it -- clients with a fan router record a
+        per-shard shed deadline there and return it as an extra floor,
+        so one hot batcher's retry-after never delays keys pinned to
+        the other shards."""
+        shard_floor_s = self._note_shed_source(src, rejected)
         for pseudonym, client_id in rejected.entries:
             state = self.states.get(pseudonym)
             if state is None or client_id != getattr(state, "id", None):
@@ -85,7 +92,8 @@ class RetryAdmissionMixin:
             delay_s = self._retry_backoff.delay_s(
                 state.attempts - 1 if self._retry_budget > 0
                 else state.attempts, self.rng,
-                floor_s=rejected.retry_after_ms / 1000.0)
+                floor_s=max(rejected.retry_after_ms / 1000.0,
+                            shard_floor_s))
             if self._retry_budget <= 0:
                 # No budget: attempts still drive the backoff curve.
                 state.attempts += 1
@@ -114,6 +122,12 @@ class RetryAdmissionMixin:
 
     def _reissue(self, pseudonym: int, state) -> None:
         raise NotImplementedError
+
+    def _note_shed_source(self, src, rejected) -> float:
+        """Hook: attribute a Rejected to its sending shard and return
+        the extra per-shard backoff floor in seconds (0.0 = none).
+        Default keeps the tier-wide behavior."""
+        return 0.0
 
 
 class StagedWriteMixin:

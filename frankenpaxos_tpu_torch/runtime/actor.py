@@ -57,6 +57,29 @@ class Actor(abc.ABC):
     # subclass can still pin its own serializer.
     serializer: Serializer = DEFAULT_SERIALIZER
 
+    # paxload (serve/): an attached serve.AdmissionController makes the
+    # transports enforce this actor's bounded client-lane inbox and
+    # CoDel drain-delay shedding, and lets the role's own handlers
+    # admit/reject client commands. None (the default) keeps every
+    # hook to one attribute load + an ``is None`` test.
+    admission = None
+
+    # paxingest (ingest/): the zero-object wire-sink fast path. None
+    # (the default) keeps delivery untouched. An opted-in actor sets a
+    # ``{leading wire tag: (parser, handler)}`` mapping: when a frame's
+    # payload leads with a mapped tag, TcpTransport calls
+    # ``parser(payload)`` under its corrupt-frame guard (ValueError =
+    # torn/corrupt, log-and-drop; None = unsupported shape, fall back
+    # to ordinary per-message decode+deliver) and, on success, hands
+    # the parsed descriptor to ``handler(src, parsed)`` with normal
+    # handler semantics -- no per-message objects in between. The
+    # parsed object must expose ``count`` (messages represented) for
+    # drain bookkeeping. Sinks would be bypassed under a tracer (not
+    # ported yet, ROADMAP.md queue 1 item 8.5) -- and role-level
+    # admission is the SINK's job: the transport's client-lane inbox
+    # shed does not see sink frames.
+    wire_sinks = None
+
     def __init__(self, address: Address, transport: Transport,
                  logger: Logger):
         self.address = address

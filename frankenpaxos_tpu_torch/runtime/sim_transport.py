@@ -28,17 +28,20 @@ falling back to the per-message compat loop -- whenever delivery is
 intercepted (an instance-wrapped ``deliver_message``, or a subclass
 pinning another ``_deliver``).
 
-Not ported yet, and refused: the bounded client-lane inboxes of
-admission control (``serve/lanes.py``, ``serve/admission.py``;
-ROADMAP.md queue 1 item 8.1) and tracing spans (item 8.5). An actor
-carrying an admission controller, or a transport with a tracer, is
-refused.
+A destination whose actor carries an admission controller with an
+inbox capacity (``serve/admission.py``) gets a bounded client-lane
+inbox: client-lane frames (``serve/lanes.py``) count against the bound
+and are refused ("reject": the client gets a ``Rejected``) or shed
+oldest-first ("drop"); control-lane frames always buffer. Not ported
+yet, and refused: tracing spans (ROADMAP.md queue 1 item 8.5); a
+transport with a tracer is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+from collections import deque
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -132,6 +135,17 @@ class SimTransport(Transport):
         self.partitioned: set[Address] = set()
         self.history: list[SimCommand] = []
         self._ids = itertools.count()
+        # paxload (serve/): destinations with a bounded client-lane
+        # inbox -- address -> that actor's AdmissionController -- the
+        # per-destination count of buffered client-lane frames, and
+        # those frames themselves in arrival order (so drop-oldest is
+        # an O(capacity) deque pop, not a frame_lane scan of the whole
+        # buffer). All three dicts stay empty unless a registered actor
+        # carries an admission controller with an inbox capacity, so
+        # the admission-off hot path pays one falsy-dict test per send.
+        self._inbox_policies: dict[Address, object] = {}
+        self._inbox_depth: dict[Address, int] = {}
+        self._client_inbox: dict[Address, deque] = {}
         # ``_consumed`` tombstones message ids a wave loop has delivered
         # but not yet compacted out of ``messages`` (the public buffer
         # stays a plain list for the adversarial API). Non-empty ONLY
@@ -140,6 +154,11 @@ class SimTransport(Transport):
         # drop masks (ops/simwave.py).
         self._consumed: set[int] = set()
         self._addr_ids: dict[Address, int] = {}
+        # Frames shed by drop-oldest while they sat in an in-flight
+        # wave (already spliced from ``messages``): the wave engine
+        # must not deliver them. Only ever populated when an admission
+        # policy is armed.
+        self._wave_shed: set[int] = set()
         #: Record delivered/triggered events into ``history``. The
         #: default matches the reference; long runs (the cluster bench)
         #: disable it -- history is an append-only list of per-event
@@ -150,14 +169,116 @@ class SimTransport(Transport):
     def register(self, address: Address, actor: Actor) -> None:
         if address in self.actors:
             raise ValueError(f"an actor is already registered at {address}")
-        if getattr(actor, "admission", None) is not None:
-            raise NotImplementedError(
-                "admission control is not ported yet (ROADMAP.md queue 1 "
-                "item 8.1)")
         self.actors[address] = actor
+        if actor.admission is not None:
+            self.note_admission(address, actor)
+
+    def note_admission(self, address: Address, actor: Actor) -> None:
+        """Arm the bounded client-lane inbox for ``address``. Called
+        from register() when the controller predates registration, and
+        by roles that attach one AFTER ``Actor.__init__`` registered
+        them (the usual order: options are parsed in the subclass
+        constructor)."""
+        admission = actor.admission
+        if admission is not None and admission.options.inbox_capacity:
+            from frankenpaxos_tpu_torch.serve.lanes import (
+                LANE_CLIENT,
+                frame_lane,
+            )
+
+            if self._consumed:
+                self._compact_messages()
+            self._inbox_policies[address] = admission
+            # Recompute rather than trust stale state: a crash ->
+            # restart leaves the dead incarnation's frames buffered
+            # (the network does not know about the crash) and they
+            # deliver to whatever re-registers here.
+            self._client_inbox[address] = deque(
+                m for m in self.messages
+                if m.dst == address and frame_lane(m.data) == LANE_CLIENT)
+            self._inbox_depth[address] = len(self._client_inbox[address])
 
     def send(self, src: Address, dst: Address, data: bytes) -> None:
-        self.messages.append(SimMessage(next(self._ids), src, dst, data))
+        tracked = False
+        if self._inbox_policies:
+            verdict = self._admit_to_inbox(src, dst, data)
+            if not verdict:
+                return
+            tracked = verdict == "track"
+        message = SimMessage(next(self._ids), src, dst, data)
+        self.messages.append(message)
+        if tracked:
+            self._client_inbox.setdefault(dst, deque()).append(message)
+
+    def _admit_to_inbox(self, src: Address, dst: Address,
+                        data: bytes) -> Optional[str]:
+        """Bounded-inbox enforcement for ``dst`` (serve/admission.py).
+        Only CLIENT-lane frames count against (or are ever shed from)
+        the bound; control-plane frames always buffer. Returns None
+        when the frame must NOT be buffered (reject-newest) -- the
+        ONLY falsy verdict, chaos tests hook this to assert control
+        frames are never refused -- "buffer" for frames outside the
+        bound, or "track" for client-lane frames counted against it
+        (mirrored in ``_client_inbox``)."""
+        admission = self._inbox_policies.get(dst)
+        if admission is None:
+            return "buffer"
+        from frankenpaxos_tpu_torch.serve.lanes import LANE_CLIENT, frame_lane
+
+        if frame_lane(data) != LANE_CLIENT:
+            return "buffer"
+        depth = self._inbox_depth.get(dst, 0)
+        if admission.inbox_full(depth):
+            if admission.options.inbox_policy == "drop":
+                # Drop-oldest: shed the longest-waiting client frame
+                # (it has aged the most; the newest arrival has the
+                # best chance of completing inside its deadline).
+                # _client_inbox mirrors the buffered client-lane
+                # frames in arrival order, so this is O(capacity).
+                pending = self._client_inbox.get(dst)
+                while pending:
+                    oldest = pending.popleft()
+                    if self._remove_buffered(oldest):
+                        break
+                    # Not buffered: the frame sits in an in-flight
+                    # wave (spliced out ahead of delivery -- mark it
+                    # shed so the wave engine skips it, else a frame
+                    # the admission controller counted as dropped
+                    # would still reach its handler; ids are never
+                    # reused, so a stale mark is inert) or was removed
+                    # out-of-band (same marking, same inertness).
+                    self._wave_shed.add(oldest.id)
+                    break
+                admission.note_shed("drop-oldest")
+                depth -= 1
+            else:
+                # Reject-newest: never buffered, and the client hears
+                # about it NOW -- synthesize the Rejected wire replies
+                # (extended tag page) from the would-be receiver.
+                admission.note_shed("reject-newest")
+                self._send_reject_replies(dst, data)
+                return None
+        self._inbox_depth[dst] = depth + 1
+        admission.note_inbox_depth(depth + 1)
+        return "track"
+
+    def _send_reject_replies(self, dst: Address, data: bytes) -> None:
+        from frankenpaxos_tpu_torch.runtime.serializer import (
+            DEFAULT_SERIALIZER,
+        )
+        from frankenpaxos_tpu_torch.serve.admission import reject_replies_for
+        from frankenpaxos_tpu_torch.serve.messages import REASON_QUEUE
+
+        admission = self._inbox_policies[dst]
+        try:
+            message = DEFAULT_SERIALIZER.from_bytes(data)
+        except ValueError:
+            return  # corrupt frame: nothing to reject, just shed
+        for client, reply in reject_replies_for(
+                message, admission.retry_after_ms(), REASON_QUEUE):
+            self.messages.append(SimMessage(
+                next(self._ids), dst, client,
+                DEFAULT_SERIALIZER.to_bytes(reply)))
 
     def send_no_flush(self, src: Address, dst: Address, data: bytes) -> None:
         self.send(src, dst, data)
@@ -236,6 +357,8 @@ class SimTransport(Transport):
         if not self._remove_buffered(message):
             self.logger.warn(f"delivering unbuffered message {message}")
             return None
+        if self._inbox_policies and message.dst in self._inbox_policies:
+            self._note_inbox_delivery(message)
         if (message.dst in self.partitioned
                 or message.src in self.partitioned):
             # Dropped at the partition: not part of the delivered
@@ -421,10 +544,26 @@ class SimTransport(Transport):
         history = self.history
         touched: dict[int, Actor] = {}
         delivered = 0
+        inbox = bool(self._inbox_policies)
+        shed = self._wave_shed if inbox or self._wave_shed else None
         n = len(wave)
         i = 0
         while i < n:
             message = wave[i]
+            if shed and message.id in shed:
+                # Drop-oldest shed this frame out of the in-flight wave
+                # (a handler's send overflowed the bounded inbox
+                # mid-wave); per-message delivery would have found it
+                # unbuffered and skipped it -- before any inbox
+                # accounting.
+                shed.discard(message.id)
+                i += 1
+                continue
+            if inbox:
+                # BEFORE the drop mask: _deliver decrements the
+                # bounded-inbox depth even for frames a partition then
+                # drops (the frame left the buffer either way).
+                self._note_inbox_delivery(message)
             if (keep is not None and not keep[i]) or \
                     (check is not None and not check(message)):
                 # Dropped at a partition (or, in the geo subclass, a
@@ -444,11 +583,15 @@ class SimTransport(Transport):
                 j = i + 1
                 while (j < n and wave[j].dst == dst
                        and (keep[j] if keep is not None
-                            else check is None or check(wave[j]))):
+                            else check is None or check(wave[j]))
+                       and not (shed and wave[j].id in shed)):
                     j += 1
                 run = wave[i:j]
-                if record:
-                    history.extend(DeliverMessage(m) for m in run[1:])
+                for m in run[1:]:
+                    if inbox:
+                        self._note_inbox_delivery(m)
+                    if record:
+                        history.append(DeliverMessage(m))
                 actor.receive_batch([(m.src, m.data) for m in run])
                 delivered += j - i
                 i = j
@@ -467,6 +610,30 @@ class SimTransport(Transport):
                 self._drain(actor)
         return delivered
 
+    def _note_inbox_delivery(self, message: SimMessage) -> None:
+        """Bounded-inbox accounting for one frame that left the buffer
+        (per-message ``_deliver`` and the wave engine alike)."""
+        if message.dst not in self._inbox_policies:
+            return
+        from frankenpaxos_tpu_torch.serve.lanes import LANE_CLIENT, frame_lane
+
+        if frame_lane(message.data) != LANE_CLIENT:
+            return
+        self._inbox_depth[message.dst] = max(
+            0, self._inbox_depth.get(message.dst, 0) - 1)
+        pending = self._client_inbox.get(message.dst)
+        if pending:
+            # Usually the leftmost (FIFO delivery); adversarial sims
+            # deliver out of order, but the deque is capacity-bounded
+            # so remove() stays O(capacity).
+            if pending[0] is message:
+                pending.popleft()
+            else:
+                try:
+                    pending.remove(message)
+                except ValueError:
+                    pass
+
     def partition(self, address: Address) -> None:
         self.partitioned.add(address)
 
@@ -484,6 +651,12 @@ class SimTransport(Transport):
         drop as 'no actor registered' if nothing does. The restart is
         the harness's job."""
         self.actors.pop(address, None)
+        # The bounded-inbox policy dies with its controller; the
+        # restarted actor's register() re-attaches (and recomputes the
+        # buffered depth) if it carries admission again.
+        self._inbox_policies.pop(address, None)
+        self._inbox_depth.pop(address, None)
+        self._client_inbox.pop(address, None)
         for timer_id in [tid for tid, t in self.timers.items()
                          if t.address == address]:
             del self.timers[timer_id]

@@ -41,9 +41,11 @@ The frame format is the reference's, byte for byte, so a port process
 and a JAX process talk over one socket. A frame header may carry a
 trace context (``host:port|<ctx>``, from a traced JAX sender); it
 parses and the context is ignored, since the port has no tracer yet.
-Not ported yet, each refused where it would attach: an admission
-controller on an actor (``serve/admission.py``, ROADMAP.md queue 1 item
-8.1), an actor's ingest wire sinks (item 8.2), and a tracer (item 8.5).
+An actor's admission controller (``serve/admission.py``) gets inbound
+client-lane shedding at delivery (a bounded inbox per drain, CoDel's
+drain delay); an actor's ingest wire sinks (``Actor.wire_sinks``) take
+whole undecoded payloads by their leading tag. Not ported yet, and
+refused: a tracer (ROADMAP.md queue 1 item 8.5).
 The reference's link-fault seam (``link_faults``) comes with its chaos
 harness (item 11).
 The runtime-metrics sink gets the drain stages (``observe_stage``); the
@@ -209,6 +211,15 @@ class TcpTransport(Transport):
         self.stat_batch_bytes = 0
         self.stat_coalesced_acks = 0
         self.stat_outbound_dropped = 0
+        #: Payloads a wire sink took whole, and the messages they held.
+        self.stat_sink_frames = 0
+        self.stat_sink_messages = 0
+        # CLIENT-lane messages in the current drain batch -- the
+        # bounded-inbox measure (serve/lanes.py): only client frames
+        # may count against (or be shed by) admission_inbox_capacity;
+        # a Phase1b/watermark burst must never trip it.
+        self._client_batch_depth: dict = {}
+        self._batch_t0: dict = {}     # first delivery time (CoDel)
         self._thread: Optional[threading.Thread] = None
         self._started = threading.Event()
 
@@ -360,14 +371,37 @@ class TcpTransport(Transport):
             host, _, port = addr_part.rpartition(":")
             src: Address = (host, int(port))
             data = bytes(buf[start + 4 + hlen:end])
-            # The frame's actor, resolved ONCE for all its segments.
+            # The frame's actor, resolved ONCE (decode below reuses it,
+            # so the wire-sink check costs one attribute test net).
             actor = self._actor_for(local)
-            if paxwire.is_batch_payload(data):
+            metrics = self.runtime_metrics
+            # paxingest wire-sink fast path (Actor.wire_sinks): hand a
+            # whole undecoded payload to the actor's column parser --
+            # no per-message decode, no expansion. Only the PARSE runs
+            # under this corrupt-frame guard; the handler runs below
+            # with ordinary handler semantics. Bypassed under a tracer
+            # (per-message span semantics win).
+            fast = None
+            sinks = getattr(actor, "wire_sinks", None)
+            if sinks is not None and self.tracer is None:
+                sink = sinks.get(paxwire.leading_tag(data))
+                if sink is not None:
+                    if metrics is not None:
+                        p0 = time.perf_counter()
+                        parsed = sink[0](data)
+                        metrics.observe_stage(
+                            "decode", time.perf_counter() - p0)
+                    else:
+                        parsed = sink[0](data)
+                    if parsed is not None:
+                        fast = (actor, sink[1], parsed)
+            if fast is not None:
+                segments = ()
+            elif paxwire.is_batch_payload(data):
                 segments = paxwire.split_batch(data)
             else:
                 segments = (data,)
             deliveries = []
-            metrics = self.runtime_metrics
             for segment in segments:
                 if metrics is not None:
                     # The drain-stage histogram sees EVERY decode.
@@ -386,6 +420,17 @@ class TcpTransport(Transport):
             self.logger.error(
                 f"dropping connection on corrupt frame: {e!r}")
             return False
+        if fast is not None:
+            actor, handler, parsed = fast
+            # Handler semantics match receive(): exceptions on a VALID
+            # frame propagate (a FatalError stays fatal).
+            handler(src, parsed)
+            self.stat_sink_frames += 1
+            self.stat_sink_messages += parsed.count
+            # The client-lane bounded-inbox measure is NOT fed:
+            # admission at sink granularity is the sink handler's job.
+            self._schedule_drain(actor)
+            return True
         for delivery in deliveries:
             self._deliver(*delivery)
         return True
@@ -417,10 +462,14 @@ class TcpTransport(Transport):
         expand = getattr(message, "__wire_expand__", None)
         if expand is not None:
             # A coalesced wire envelope (paxwire): flatten back into
-            # the messages the sender queued -- the protocol handlers
-            # see per-message semantics.
+            # the messages the sender queued -- admission and the
+            # protocol handlers see per-message semantics.
             for inner in expand(actor.serializer):
                 self._deliver(actor, src, inner)
+            return
+        admission = actor.admission
+        if admission is not None and self._shed_inbound(actor, admission,
+                                                        message):
             return
         metrics = self.runtime_metrics
         if metrics is not None:
@@ -431,19 +480,84 @@ class TcpTransport(Transport):
             metrics.observe_stage("handler", time.perf_counter() - p0)
         else:
             actor.receive(src, message)
-        # Defer on_drain to the end of this event-loop pass so every
-        # frame already buffered (a burst of Phase2bs) lands in ONE
-        # drain -- the batching the device kernels amortize over
-        # (the reference's event loop drains similarly: all readable
-        # frames, then flush).
+        if admission is not None and admission.options.inbox_capacity:
+            from frankenpaxos_tpu_torch.serve.lanes import (
+                LANE_CLIENT,
+                message_lane,
+            )
+
+            if message_lane(message) == LANE_CLIENT:
+                self._client_batch_depth[actor] = \
+                    self._client_batch_depth.get(actor, 0) + 1
+        self._schedule_drain(actor)
+
+    def _schedule_drain(self, actor: Actor) -> None:
+        """Defer on_drain to the end of this event-loop pass so every
+        frame already buffered (a burst of Phase2bs) lands in ONE
+        drain -- the batching the device kernels amortize over (the
+        reference's event loop drains similarly: all readable frames,
+        then flush). CoDel's sojourn clock starts at the batch's FIRST
+        delivery; note_drain_delay closes it after on_drain."""
         if actor not in self._drain_scheduled:
             self._drain_scheduled.add(actor)
+            admission = actor.admission
+            if admission is not None \
+                    and admission.options.codel_target_s:
+                self._batch_t0[actor] = time.perf_counter()
             self.loop.call_soon(self._drain_actor, actor)
+
+    def _shed_inbound(self, actor: Actor, admission, message) -> bool:
+        """Bounded inbox + CoDel shedding at delivery (client lane
+        only; serve/lanes.py). True = the frame was shed -- the client
+        got an explicit Rejected instead of a handler call. TCP
+        enforces reject-newest for both policies: already-delivered
+        frames cannot be un-delivered, so drop-oldest only differs on
+        SimTransport's buffered queue."""
+        from frankenpaxos_tpu_torch.serve.lanes import (
+            LANE_CLIENT,
+            message_lane,
+        )
+
+        if message_lane(message) != LANE_CLIENT:
+            return False
+        if admission.shed_active():
+            reason_queue = False
+        elif admission.inbox_full(self._client_batch_depth.get(actor, 0)):
+            reason_queue = True
+        else:
+            return False
+        from frankenpaxos_tpu_torch.runtime.serializer import (
+            DEFAULT_SERIALIZER,
+        )
+        from frankenpaxos_tpu_torch.serve.admission import reject_replies_for
+        from frankenpaxos_tpu_torch.serve.messages import (
+            REASON_CODEL,
+            REASON_QUEUE,
+        )
+
+        admission.note_shed("reject-newest")
+        for client, reply in reject_replies_for(
+                message, admission.retry_after_ms(),
+                REASON_QUEUE if reason_queue else REASON_CODEL):
+            self._write(actor.address, client,
+                        DEFAULT_SERIALIZER.to_bytes(reply), flush=True)
+        return True
 
     def _drain_actor(self, actor: Actor) -> None:
         self._drain_scheduled.discard(actor)
+        client_depth = self._client_batch_depth.pop(actor, 0)
         self._check_untraced()
         actor.on_drain()
+        admission = actor.admission
+        if admission is not None:
+            t0 = self._batch_t0.pop(actor, None)
+            if t0 is not None:
+                admission.note_drain_delay(time.perf_counter() - t0)
+            # Client-lane depth only: the gauge is the BOUNDED-inbox
+            # depth (what inbox_full checks), not the all-lane drain
+            # batch -- a healthy Phase2b burst must not read as a
+            # client inbox spike (SimTransport reports the same).
+            admission.note_inbox_depth(client_depth)
 
     def _check_untraced(self) -> None:
         if self.tracer is not None:
@@ -472,14 +586,6 @@ class TcpTransport(Transport):
         """
         if address in self.actors:
             raise ValueError(f"an actor is already registered at {address}")
-        if getattr(actor, "admission", None) is not None:
-            raise NotImplementedError(
-                "admission control is not ported yet (ROADMAP.md queue 1 "
-                "item 8.1)")
-        if getattr(actor, "wire_sinks", None) is not None:
-            raise NotImplementedError(
-                "ingest wire sinks are not ported yet (ROADMAP.md queue 1 "
-                "item 8.2)")
         self.actors[address] = actor
         if self.loop is not None and address not in self._servers \
                 and isinstance(address, tuple):

@@ -106,3 +106,10 @@ class Transport(abc.ABC):
     def stage(self) -> Any:
         """Optional hook: transports that batch device work override this."""
         return None
+
+    def note_admission(self, address: Address, actor: "Actor") -> None:
+        """paxload (serve/): a role that attaches an
+        ``AdmissionController`` AFTER construction-time registration
+        calls this so the transport can arm per-destination state (the
+        sim's bounded inbox). Default: nothing -- TcpTransport reads
+        ``actor.admission`` at delivery time."""

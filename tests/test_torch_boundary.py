@@ -107,9 +107,11 @@ def test_imports_with_jax_and_reference_blocked():
 #: the telemetry plane and its benches, of WPaxos over the geo simulator,
 #: of the sharded drain (the mesh, the rank worker that spawned ranks
 #: import, its bench and the lane router), of the sharded vote board
-#: (its rank cases) and of the WAL and the reconfiguration wire codecs
-#: with the reconfigured cluster's bench; each must import with JAX and the JAX package
-#: blocked (test above) and name neither.
+#: (its rank cases), of the WAL and the reconfiguration wire codecs
+#: with the reconfigured cluster's bench, and of admission control and
+#: the ingest fabric (the serving tier, the ingest plane, the routing
+#: ladder, the TCP transport and the supernode); each must import with
+#: JAX and the JAX package blocked (test above) and name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
     "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
@@ -139,7 +141,11 @@ PATH_MODULES = (
     "bench.multichip_lt", "ingest", "ingest.shard", "bench.multichip_board",
     "wal", "wal.records", "wal.log", "wal.faults", "wal.role", "reconfig",
     "reconfig.messages", "reconfig.wire", "runs.records",
-    "bench.reconfig_sim",
+    "bench.reconfig_sim", "serve", "serve.admission", "serve.lanes",
+    "ingest.messages", "ingest.wire", "ingest.columns", "ingest.fan",
+    "ingest.batcher", "runs.routing", "runs.client",
+    "runtime.tcp_transport", "protocols.multipaxos.supernode",
+    "bench.transport_lt",
 )
 
 

@@ -4,19 +4,34 @@ The cases of ``tests/test_multichip_ingest.py`` again on the port's
 ``ingest/shard.py``: ``route_block`` equals the reference's (and the
 pipeline's gathered layout) on divisible and non-divisible splits, and
 ``place_block`` lands each slot shard's segment on its own rank with one
-copy, over a gloo world of spawned CPU ranks. The ids are made with
-numpy: ``command_ids`` reads a parsed paxwire batch, whose column scan
-is not ported yet (ROADMAP.md queue 1 item 8.2), so the reference's
-``test_command_ids_off_real_wire_batch`` waits for it.
+copy, over a gloo world of spawned CPU ranks; ``command_ids`` reads the
+ids straight off a parsed paxwire batch's columns, equal to the
+reference's.
 """
 
+from frankenpaxos_tpu_torch import native
 from frankenpaxos_tpu_torch.bench import multichip
 from frankenpaxos_tpu_torch.bench.pipeline import gathered_layout, local_block
-from frankenpaxos_tpu_torch.ingest import command_ids, route_block
+from frankenpaxos_tpu_torch.ingest import (
+    command_ids,
+    parse_client_batch,
+    route_block,
+)
+import frankenpaxos_tpu_torch.protocols.multipaxos  # noqa: F401 (codecs)
+from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
+    ClientRequest,
+    Command,
+    CommandId,
+)
+from frankenpaxos_tpu_torch.runtime.serializer import DEFAULT_SERIALIZER
 import numpy as np
 import pytest
 
-from frankenpaxos_tpu.ingest.shard import route_block as jax_route_block
+from frankenpaxos_tpu.ingest import parse_client_batch as jax_parse
+from frankenpaxos_tpu.ingest.shard import (
+    command_ids as jax_command_ids,
+    route_block as jax_route_block,
+)
 
 
 @pytest.fixture(scope="module")
@@ -60,9 +75,30 @@ def test_route_block_rejects_oversized_drain():
         route_block(np.arange(101, dtype=np.int32), 100, 3)
 
 
-def test_command_ids_waits_for_the_column_scan():
-    with pytest.raises(NotImplementedError, match="item 8.2"):
-        command_ids(None)
+def _client_batch(n: int, pseudonym: int = 0) -> bytes:
+    """A ClientFrameBatch payload of ``n`` ClientRequests."""
+    segs = [DEFAULT_SERIALIZER.to_bytes(ClientRequest(Command(
+        CommandId(("10.0.0.1", 9000), pseudonym, i), b"w%04d" % i)))
+        for i in range(n)]
+    return bytes(native.batch_header(151, [len(s) for s in segs])
+                 + b"".join(segs))
+
+
+def test_command_ids_off_real_wire_batch():
+    """ids come straight off the descriptor columns of a parsed
+    paxwire batch -- deterministic in (pseudonym, client-id), no value
+    decode -- and equal the reference's off the same bytes."""
+    colrun = parse_client_batch(_client_batch(6, pseudonym=3))
+    assert colrun is not None
+    ids = command_ids(colrun)
+    assert ids.dtype == np.int32 and ids.shape == (6,)
+    want = np.int32(np.int64(3) * 1_000_003 + np.arange(6))
+    np.testing.assert_array_equal(ids, want)
+    np.testing.assert_array_equal(
+        ids, jax_command_ids(jax_parse(_client_batch(6, pseudonym=3))))
+    # Distinct pseudonyms produce distinct id streams.
+    other = command_ids(parse_client_batch(_client_batch(6, pseudonym=4)))
+    assert not np.intersect1d(ids, other).size
 
 
 @pytest.mark.parametrize("group_dim,slot_dim,block",

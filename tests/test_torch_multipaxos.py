@@ -911,9 +911,9 @@ def test_cuda_backends_raise_without_a_gpu(monkeypatch):
 
 
 def test_unported_options_are_refused():
-    """Admission and the geo election stay refused; the WAL and the
-    reconfiguration options build (each role on a transport of its
-    own)."""
+    """The geo election stays refused; the WAL, the reconfiguration and
+    the admission options build (each role on a transport of its own),
+    and an armed admission option gives the role its controller."""
     from frankenpaxos_tpu_torch.runtime import SimTransport
     from frankenpaxos_tpu_torch.wal import MemStorage, Wal
 
@@ -925,12 +925,13 @@ def test_unported_options_are_refused():
     replica = Replica("replica-0", SimTransport(log), log, None, cfg,
                       wal=Wal(MemStorage()))
     assert replica.wal is not None
-    with pytest.raises(NotImplementedError, match="admission"):
-        Replica("replica-0", t, log, None, cfg,
-                ReplicaOptions(admission_inflight_limit=4))
-    with pytest.raises(NotImplementedError, match="admission"):
-        Leader("leader-0", t, log, cfg,
-               LeaderOptions(admission_token_rate=10.0))
+    replica = Replica("replica-0", SimTransport(log), log, None, cfg,
+                      ReplicaOptions(admission_inflight_limit=4))
+    assert replica.admission.options.inflight_limit == 4
+    admitted = Leader("leader-0", SimTransport(log), log, cfg,
+                      LeaderOptions(admission_token_rate=10.0))
+    assert admitted.admission.bucket.rate == 10.0
+    assert Leader("leader-0", SimTransport(log), log, cfg).admission is None
     leader = Leader("leader-0", SimTransport(log), log, cfg,
                     LeaderOptions(epoch_tag_runs=True))
     assert leader._epoch_tagging
@@ -998,10 +999,11 @@ def test_read_batcher_paths_are_refused():
         sim.config, read_batcher_addresses=["read-batcher-0"])
     with pytest.raises(NotImplementedError, match="read batchers"):
         sim.clients[0].read(0, b"r")
-    sim.clients[0].config = dataclasses.replace(
-        sim.config, ingest_batcher_addresses=["ingest-0"])
-    with pytest.raises(NotImplementedError, match="ingest"):
-        sim.clients[0].write(1, b"w")
+    # Writes through ingest batchers are ported: a client of a config
+    # that deploys them routes its write to one of them.
+    sim = make_multipaxos(f=1, num_ingest_batchers=2)
+    sim.clients[0].write(1, b"w")
+    assert sim.transport.messages[-1].dst in sim.config.ingest_batcher_addresses
 
 
 # --- the cluster bench --------------------------------------------------------

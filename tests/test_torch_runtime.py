@@ -2,7 +2,11 @@
 metrics (the SimTransport / actor / timer cases of
 ``tests/test_runtime.py`` repeated against the port), the wave engine's
 partition mask and batched delivery, and delivery order equal to the
-JAX package's SimTransport on the same traffic."""
+JAX package's SimTransport on the same traffic -- with bounded
+client-lane inboxes armed too (the two admission cases of
+``tests/test_sim_core.py``, the port against the JAX package's
+transport where the reference held its wave engine against the legacy
+core)."""
 
 import dataclasses
 import random
@@ -390,15 +394,76 @@ class TestUnported:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             server.trace_stage("handler")
 
-    def test_admission_controller_is_refused(self):
-        transport, server, client = make_echo()
-
-        class Guarded(EchoServer):
-            admission = object()
-
-        with pytest.raises(NotImplementedError, match="admission"):
-            Guarded("guarded", transport, FakeLogger())
-
     def test_pickle_serializer_round_trips(self):
         ser = PickleSerializer()
         assert ser.from_bytes(ser.to_bytes(EchoReply("x"))) == EchoReply("x")
+
+
+# --- bounded client-lane inboxes (tests/test_sim_core.py's two cases) ------
+
+
+def _projection(transport) -> list:
+    """The delivered history as comparable rows (ids are allocated in
+    construction order, so equal rows mean equal schedules)."""
+    rows = []
+    for command in transport.history:
+        m = command.message
+        rows.append(("deliver", m.id, str(m.src), str(m.dst),
+                     bytes(m.data)))
+    return rows
+
+
+def _armed_harnesses():
+    from frankenpaxos_tpu_torch.protocols.multipaxos import harness as th
+    from tests.protocols import multipaxos_harness as jh
+
+    return th, jh
+
+
+def test_partition_drops_still_decrement_armed_inbox():
+    """_deliver decrements the bounded-inbox depth BEFORE the partition
+    check (the frame left the buffer either way); the wave engine keeps
+    that order, or a partitioned leader's inbox depth ratchets up and
+    sheds spuriously after heal. The port's transport against the JAX
+    package's on the same traffic."""
+    results = []
+    for harness in _armed_harnesses():
+        sim = harness.make_multipaxos(
+            f=1, coalesced=False,
+            leader_admission=dict(admission_inbox_capacity=40,
+                                  admission_inbox_policy="drop"))
+        leader = sim.leaders[0]
+        t = sim.transport
+        for i in range(36):  # > WAVE_VECTOR_MIN so the mask path runs
+            sim.clients[0].write(i, b"w%d" % i, lambda r: None)
+        t.partition(leader.address)
+        t.deliver_all_coalesced()
+        t.heal(leader.address)
+        for i in range(36, 44):
+            sim.clients[0].write(i, b"w%d" % i, lambda r: None)
+        t.deliver_all_coalesced()
+        results.append((t._inbox_depth.get(leader.address, 0),
+                        dict(leader.admission.rejected),
+                        _projection(t)))
+    assert results[0] == results[1]
+    assert results[0][2]
+
+
+def test_drop_oldest_mid_wave_shed_is_not_delivered():
+    """A frame shed by drop-oldest while it sat in an in-flight wave
+    must not reach its handler: flood an armed leader from inside a
+    wave handler and compare with the JAX package's transport."""
+    results = []
+    for harness in _armed_harnesses():
+        sim = harness.make_multipaxos(
+            f=1, coalesced=False,
+            leader_admission=dict(admission_inbox_capacity=2,
+                                  admission_inbox_policy="drop"))
+        leader = sim.leaders[0]
+        for i in range(8):
+            sim.clients[0].write(i, b"w%d" % i, lambda r: None)
+        sim.transport.deliver_all_coalesced()
+        results.append((leader.admission.rejected.get(
+            "shed_drop-oldest", 0), _projection(sim.transport)))
+    assert results[0] == results[1]
+    assert results[0][0] > 0

@@ -1,8 +1,8 @@
 """The port's TcpTransport and paxwire over real loopback sockets: the
 cases of ``tests/test_tcp_transport.py`` and ``tests/test_paxwire.py``
 repeated against the port (with test-local echo and append-log actors,
-as ``tests/test_torch_runtime.py`` has them), the tracer and admission
-cases as refusals, and interop with the JAX package's TcpTransport in
+as ``tests/test_torch_runtime.py`` has them), the tracer as a refusal,
+an actor's wire sinks and its bounded client-lane inbox, and interop with the JAX package's TcpTransport in
 both directions: MultiPaxos messages and batch frames arrive equal, and
 Phase2b ack streams coalesce into the same ranges.
 
@@ -334,20 +334,97 @@ def test_a_tracer_is_refused():
         t.stop()
 
 
-def test_admission_and_wire_sinks_are_refused(transports):
-    t = transports(("127.0.0.1", free_port()))
+def test_wire_sink_takes_a_batch_frame_whole(transports):
+    """An actor's wire sink gets a whole client batch frame as columns
+    (one handler call a frame, no per-message decode); a frame whose
+    parser declines it (None) falls back to per-message delivery."""
+    from frankenpaxos_tpu_torch.ingest.columns import parse_client_batch
+
+    class Columns(Sink):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.frames: list = []
+            self.wire_sinks = {
+                paxwire.CLIENT_BATCH_TAG: (parse_client_batch,
+                                           self.take),
+                paxwire.CONTROL_BATCH_TAG: (lambda data: None,
+                                            self.take),
+            }
+
+        def take(self, src, colrun):
+            self.frames.append(colrun)
+            self.got.extend([None] * len(colrun))
+            if len(self.got) >= self.want:
+                self.done.set()
+
+    a_addr = ("127.0.0.1", free_port())
+    b_addr = ("127.0.0.1", free_port())
+    ta, tb = transports(a_addr), transports(b_addr)
     logger = FakeLogger()
+    n = 12
+    sink = Columns(b_addr, tb, logger, want=n + 3)
+    src = Src(a_addr, ta, logger)
+    requests = [ClientRequest(Command(CommandId(a_addr, i, i), b"c%d" % i))
+                for i in range(n)]
+    acks = [Phase2b(group_index=0, acceptor_index=1, slot=5, round=0),
+            Chosen(slot=1, value=NOOP), Chosen(slot=2, value=NOOP)]
 
-    class Admitted(Src):
-        admission = object()
+    def send():
+        for m in requests + acks:
+            src.send_no_flush(b_addr, m)
+        src.flush(b_addr)
 
-    class WithSinks(Src):
-        wire_sinks = {}
+    ta.loop.call_soon_threadsafe(send)
+    assert sink.done.wait(10), f"only {len(sink.got)} delivered"
+    assert sum(len(f) for f in sink.frames) == n
+    assert tb.stat_sink_messages == n
+    assert tb.stat_sink_frames == len(sink.frames) >= 1
+    rows = [int(c) for f in sink.frames for c in f.cols[:, 2]]
+    assert rows == list(range(n))
+    # The declined control frame arrived message by message.
+    assert [type(m).__name__ for m in sink.got if m is not None] == \
+        ["Phase2b", "Chosen", "Chosen"]
+    assert not logger.records
 
-    with pytest.raises(NotImplementedError, match="item 8.1"):
-        Admitted(("127.0.0.1", free_port()), t, logger)
-    with pytest.raises(NotImplementedError, match="item 8.2"):
-        WithSinks(("127.0.0.1", free_port()), t, logger)
+
+def test_inbound_inbox_sheds_client_lane_only(transports):
+    """An actor's bounded client-lane inbox over TCP: past the capacity
+    within one drain, a client request is answered with an explicit
+    Rejected (reason queue) and never reaches the handler; control
+    frames of the same drain are never shed."""
+    from frankenpaxos_tpu_torch.serve.admission import (
+        AdmissionController,
+        AdmissionOptions,
+    )
+    from frankenpaxos_tpu_torch.serve.messages import REASON_QUEUE, Rejected
+
+    a_addr = ("127.0.0.1", free_port())
+    b_addr = ("127.0.0.1", free_port())
+    ta, tb = transports(a_addr), transports(b_addr)
+    logger = FakeLogger()
+    server = Sink(b_addr, tb, logger)
+    server.admission = AdmissionController(
+        AdmissionOptions(inbox_capacity=2, retry_after_ms=30))
+    client = Sink(a_addr, ta, logger, want=4)
+    n = 6
+
+    def send():
+        for i in range(n):
+            client.send_no_flush(b_addr, ClientRequest(Command(
+                CommandId(a_addr, i, i), b"c%d" % i)))
+            client.send_no_flush(b_addr, Chosen(slot=i, value=NOOP))
+        client.flush(b_addr)
+
+    ta.loop.call_soon_threadsafe(send)
+    assert client.done.wait(10), f"{len(client.got)} replies"
+    assert wait_for(lambda: len(server.got) == n + 2)
+    names = [type(m).__name__ for m in server.got]
+    assert names.count("Chosen") == n and names.count("ClientRequest") == 2
+    assert all(isinstance(m, Rejected) and m.reason == REASON_QUEUE
+               and m.retry_after_ms == 30 for m in client.got)
+    assert sorted(e for m in client.got for e in m.entries) == \
+        [(i, i) for i in range(2, n)]
+    assert server.admission.rejected == {"shed_reject-newest": 4}
 
 
 # --- tests/test_paxwire.py, repeated -----------------------------------------

@@ -75,6 +75,7 @@ def _ns(pkg: str) -> types.SimpleNamespace:
         rc=mod("reconfig"),
         fp=mod("protocols.fastpaxos"),
         fmp=mod("protocols.fastmultipaxos"),
+        ingest=mod("ingest.messages"),
     )
 
 
@@ -243,6 +244,16 @@ def codec_samples(ns, cross: bool = True) -> list:
         wp.WEpochCommit(entry=wentry),
         wp.WEpochAck(group=2, epoch=3),
         wp.WRecover(group=2, slot=4),
+    ]
+    ig = ns.ingest
+    run = ig.IngestRun(batcher_index=1, values=(batch,), seq=5)
+    samples += [
+        run,
+        ig.IngestRun(batcher_index=2, seq=9,
+                     values=ns.mpwire.decode_value_array(
+                         ns.mpwire.encode_value_array((batch, batch)))),
+        ig.NotLeaderIngest(group_index=0, run=run),
+        ig.IngestCredit(group_index=0, watermark_seq=5),
     ]
     if not cross:
         samples += [

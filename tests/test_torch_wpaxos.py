@@ -461,6 +461,50 @@ def test_retry_budget_exhausts_on_the_reference_schedule():
     assert out[1][1] == 1 and out[1][0] == [repr(RETRY_EXHAUSTED)]
 
 
+@pytest.mark.parametrize("backend_name", sorted(BACKENDS))
+def test_admission_rejects_on_the_reference_schedule(backend_name):
+    """A leader whose in-flight budget is below the offered load answers
+    the excess with explicit Rejected replies, and the clients' backoff
+    gets every write through, as the reference's does: the same replies,
+    the same Rejected entries in the same order, on the geo clock."""
+    from frankenpaxos_tpu.protocols.wpaxos import (
+        WPaxosLeaderOptions as JWPaxosLeaderOptions,
+    )
+
+    out = []
+    for h, topo_module, opts in (
+            (jharness, jgeo, JWPaxosLeaderOptions(
+                admission_inflight_limit=2)),
+            (_port_harness(), None, WPaxosLeaderOptions(
+                admission_inflight_limit=2,
+                **{k: v for k, v in BACKENDS[backend_name].items()
+                   if k == "quorum_backend"}))):
+        topo = geo3(module=topo_module)
+        kwargs = ({"device": "cpu"}
+                  if h is not jharness and backend_name == "cuda" else {})
+        sim = h.make_wpaxos(num_clients=2, topology=topo,
+                            leader_options=opts, **kwargs)
+        seen: list = []
+        for client in sim.clients:
+            handle = client._handle_rejected
+
+            def spy(src, m, handle=handle):
+                seen.append((src, m.entries, m.reason))
+                handle(src, m)
+
+            client._handle_rejected = spy
+        got: list = []
+        for c, client in enumerate(sim.clients):
+            for p in range(6):
+                client.write(p, b"a%d.%d" % (c, p), got.append,
+                             key=b"k%d" % p)
+        sim.transport.run_for(30.0)
+        out.append((sorted(got), seen,
+                    [dict(ld.admission.rejected) for ld in sim.leaders]))
+    assert out[0] == out[1]
+    assert len(out[1][0]) == 12 and out[1][1]
+
+
 # --- (c) the chaos property --------------------------------------------------
 
 
@@ -798,8 +842,8 @@ def test_simulation_geo_wal_chaos_no_divergence(kwargs):
 
 
 def test_refusals(monkeypatch):
-    """Admission and the reference's backend names stay refused; the WAL
-    options and the helpers that restart from it now run."""
+    """The reference's backend names stay refused; the WAL options, the
+    helpers that restart from it and the admission options now run."""
     sim = make_wpaxos(wal=True)
     assert all(a.wal is not None for a in sim.acceptors)
     crash_restart_acceptor(sim, 0)
@@ -810,10 +854,12 @@ def test_refusals(monkeypatch):
     assert "leader-0" in sim.transport.actors
     with pytest.raises(ValueError, match="quorum_backend"):
         make_wpaxos(quorum_backend="tpu")
-    with pytest.raises(NotImplementedError, match="item 8.1"):
-        WPaxosLeader("leader-0", sim.transport, sim.transport.logger,
-                     sim.config, WPaxosLeaderOptions(
-                         admission_inflight_limit=4))
+    from frankenpaxos_tpu_torch.runtime import SimTransport as _Sim
+
+    admitted = WPaxosLeader("leader-0", _Sim(sim.transport.logger),
+                            sim.transport.logger, sim.config,
+                            WPaxosLeaderOptions(admission_inflight_limit=4))
+    assert admitted.admission.options.inflight_limit == 4
     from frankenpaxos_tpu_torch.protocols.wpaxos.acceptor import (
         WPaxosAcceptor,
     )
