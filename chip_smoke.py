@@ -434,7 +434,37 @@ Phases, in order (any failure exits nonzero and prints no result):
      writes/s, p50 / p99, the Rejected count, the ack rows by sink
      against per message, and K1 / K2 launches a write beside phase
      29's; its launches join the kernels line's rows (path
-     ``ingest_tcp``).
+     ``ingest_tcp``);
+  35. MultiPaxos with read batchers on the card
+     (``bench/read_batch_sim.py``), with every count set to 0 first: the
+     harness's f = 1 over SimTransport with 2 read batchers, 2 clients x
+     32 pseudonyms, a KeyValueStore over 8 keys, 2^10 operations an arm
+     in waves (writes and linearizable reads, and under ``size`` and
+     ``time`` also sequential and eventual reads), under the ``size``
+     (batch size 10), ``time`` and ``adaptive`` schemes, each on the
+     ProxyLeaders' ``"dict"`` tracker and the ``"cuda"`` tracker
+     synchronous and pipelined: every operation answered once, every
+     linearizable read at least as new as the writes acknowledged before
+     it was issued, the replicas' logs equal, the cuda arms' logs and
+     read replies equal the dict arm's, K1 launched on the synchronous
+     arms and K2 on the pipelined ones; reads/s, writes/s and reads per
+     BatchMaxSlotRequest batch per arm; its launches join the kernels
+     line's rows (path ``read_batch_cluster``);
+  36. MultiPaxos over TCP traced (``bench/traced_tcp.py``), with every
+     count set to 0 first: phase 29's supernode and arms at 2^10 writes
+     an arm, both transports with a ``Tracer`` at sample rate 1.0, a
+     flight-recorder ring and a ``.trace.jsonl`` sink each in a
+     temporary directory: phase 29's checks, spans recorded, one
+     ``stage:quorum-kernel`` span under every ProxyLeader drain span and
+     at least one per tracker drain that called the card, a write's
+     causal chain from its client through a ProxyLeader's quorum-kernel
+     stage to the reply back at the client, ``to_chrome_trace`` JSON that
+     loads,
+     every flight ring read back, each cuda arm's executed set equal to
+     the dict arm's and K1 / K2 launched on its traffic; writes/s
+     against phase 29's and the per-stage latency breakdown (p50 / p99)
+     per arm; its launches join the kernels line's rows (path
+     ``traced_tcp``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -468,9 +498,11 @@ from frankenpaxos_tpu_torch.bench import (
     multipaxos_sim,
     pipeline as tp,
     pipeline_baseline as tpin,
+    read_batch_sim,
     reconfig_sim,
     sim_core_ab,
     telemetry_overhead,
+    traced_tcp,
     tracker_lt,
     transport_lt,
 )
@@ -527,7 +559,7 @@ def log(msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     """Phase ``n``'s line, with the seconds since the smoke started."""
-    log(f"[{n}/34] {msg} (at {time.perf_counter() - T0:.1f} s)")
+    log(f"[{n}/36] {msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2011,12 +2043,13 @@ MAIN_PATH = ("quorum_hit", "record_block", "steady_state_step",
 
 
 #: The runs whose launches the kernels line counts: phases 11, 12, 14,
-#: 16, 18, 21, 23-24, 25, 26, 29, 31, 32, 33 and 34 (``*_traffic``
-#: entries of ``launches_by_path`` are subsets of these).
+#: 16, 18, 21, 23-24, 25, 26, 29, 31, 32, 33, 34, 35 and 36
+#: (``*_traffic`` entries of ``launches_by_path`` are subsets of these).
 MAIN_PATHS = ("headline_and_tracker", "cluster", "epaxos", "bpaxos",
               "telemetry", "libbench", "geo", "sharded", "sharded_board",
               "tcp_cluster", "reconfig_cluster", "fast_cluster",
-              "mmp_cluster", "ingest_tcp")
+              "mmp_cluster", "ingest_tcp", "read_batch_cluster",
+              "traced_tcp")
 #: The kernels of the telemetry path (phase 18) and of the libbench path
 #: (phase 21).
 TELEMETRY_PATH = ("steady_state_step", "steady_state_step_telemetry",
@@ -3935,6 +3968,52 @@ def phase_ingest(dev, tcp: dict) -> tuple[dict, dict]:
             "admission_inflight_limit": INGEST_INFLIGHT_LIMIT}, launches
 
 
+def phase_read_batch(dev) -> tuple[dict, dict]:
+    """Phase 35: MultiPaxos with read batchers on the card
+    (``bench/read_batch_sim.py``); its gates raise inside ``run``. The
+    launch counts are set to 0 first and read after every arm."""
+    reset_launches()
+    try:
+        result = read_batch_sim.run(dev)
+    except read_batch_sim.GateFailure as exc:
+        raise SmokeFailure(f"read batchers: {exc}") from exc
+    return result, {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def phase_traced(dev, tcp: dict) -> tuple[dict, dict]:
+    """Phase 36: MultiPaxos over TCP with every transport traced
+    (``bench/traced_tcp.py``); its gates raise inside ``run``. Each cuda
+    arm must also launch its kernel; ``tcp`` is phase 29's result, for
+    the untraced writes/s beside the traced. The launch counts are set
+    to 0 first and read after the three arms."""
+    reset_launches()
+    arms: dict = {}
+    for arm in traced_tcp.ARMS:
+        before = {name: w.launches for name, w in WRAPPERS.items()}
+        try:
+            result = traced_tcp.run(dev, arms=(arm,))["arms"][arm]
+        except traced_tcp.GateFailure as exc:
+            raise SmokeFailure(f"traced tcp: {exc}") from exc
+        result["launches"] = {name: w.launches - before[name]
+                              for name, w in WRAPPERS.items()
+                              if w.launches - before[name]}
+        result["untraced_writes_per_sec"] = \
+            tcp["arms"][arm]["writes_per_sec"]
+        arms[arm] = result
+    for arm, kernel in TCP_ARM_KERNEL.items():
+        require(arms[arm]["executed"] == arms["dict"]["executed"],
+                f"traced tcp {arm}: the executed commands differ from the "
+                f"dict arm's")
+        require(arms[arm]["launches"].get(kernel, 0) > 0,
+                f"traced tcp {arm}: {kernel} never launched on the arm's "
+                f"traffic: {arms[arm]['launches']}")
+    for result in arms.values():
+        result["executed"] = len(result["executed"])
+    return ({"arms": arms, "writes": traced_tcp.WRITES,
+             "sample_rate": supernode.TRACE_SAMPLE_RATE},
+            {name: w.launches for name, w in WRAPPERS.items()})
+
+
 def phase_transport(dev) -> dict:
     """The transport_lt twin, short: widths 16, 256 and 1024, one rep;
     a lost reply, a wrong reply or a logged error fails it inside
@@ -4802,6 +4881,62 @@ def main() -> int:
             + f"; phase 34 {time.perf_counter() - t34:.1f} s; "
             f"{time.perf_counter() - T0:.1f} s in all")
         log(json.dumps({"ingest_tcp": ingest}))
+        t35 = time.perf_counter()
+        reads, reads_launches = phase_read_batch(dev)
+        add_path_launches(kernels, "read_batch_cluster", reads_launches)
+        phase(35, f"MultiPaxos with read batchers on {name} ({smi}): "
+            f"{reads['operations']} operations an arm, "
+            f"{reads['read_batchers']} read batchers; "
+            + "; ".join(
+                f"{scheme} {backend} {fig['writes_per_sec']:.0f} writes/s "
+                f"{fig['reads_per_sec']:.0f} reads/s, "
+                f"{fig['batch_max_slot_requests']} BatchMaxSlotRequests, "
+                + (f"{fig['reads_per_batch']:.2f} reads a batch"
+                   if fig["reads_per_batch"] is not None else "no batch")
+                + f", device drains {fig['device_drains']}, launches "
+                f"{fig['launches']}"
+                for scheme, arms in reads["schemes"].items()
+                for backend, fig in arms.items())
+            + f"; the cuda logs and replies == the dict arms'; launches "
+            + str({k: v for k, v in reads_launches.items() if v})
+            + f"; phase 35 {time.perf_counter() - t35:.1f} s; "
+            f"{time.perf_counter() - T0:.1f} s in all")
+        log(json.dumps({"read_batch_cluster": reads}))
+        t36 = time.perf_counter()
+        traced, traced_launches = phase_traced(dev, tcp)
+        add_path_launches(kernels, "traced_tcp", traced_launches)
+        for arm, fig in traced["arms"].items():
+            log(f"      traced {arm} latency breakdown (stage: count, p50 / "
+                f"p99 us): " + "; ".join(
+                    f"{stage}: {row['count']}, {row['p50_us']} / "
+                    f"{row['p99_us']}"
+                    for stage, row in fig["breakdown"].items())
+                + f"; the longest spans (us): {fig['slowest_spans']}")
+        phase(36, f"MultiPaxos over TCP traced on {name} ({smi}): "
+            f"{traced['writes']} writes an arm, sample rate "
+            f"{traced['sample_rate']}; "
+            + "; ".join(
+                f"{arm} {fig['writes_per_sec']:.0f} writes/s (untraced, "
+                f"phase 29: {fig['untraced_writes_per_sec']:.0f}), p50 "
+                f"{fig['latency_p50_ms']:.3f} ms, p99 "
+                f"{fig['latency_p99_ms']:.3f} ms (after the first round "
+                f"{fig['latency_p50_ms_steady']:.3f} / "
+                f"{fig['latency_p99_ms_steady']:.3f}; phase 29's "
+                f"{tcp['arms'][arm]['latency_p50_ms_steady']:.3f} / "
+                f"{tcp['arms'][arm]['latency_p99_ms_steady']:.3f}), loops "
+                f"busy {fig['loop_busy_share']}, {fig['spans']} spans, "
+                f"quorum-kernel spans {sum(fig['quorum_kernel_spans'].values())}"
+                f" / device drains {sum(fig['device_drains'].values())}, "
+                f"flight records {fig['flight_records']}, launches "
+                f"{fig['launches']}"
+                for arm, fig in traced["arms"].items())
+            + f"; a write's chain from its client through a "
+            f"ProxyLeader's quorum-kernel stage to the reply in every arm; "
+            f"launches "
+            + str({k: v for k, v in traced_launches.items() if v})
+            + f"; phase 36 {time.perf_counter() - t36:.1f} s; "
+            f"{time.perf_counter() - T0:.1f} s in all")
+        log(json.dumps({"traced_tcp": traced}, default=str))
         print(json.dumps({"kernels": kernels}), flush=True)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -17,7 +17,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 import random
-from typing import Callable, Sequence
+import time
+from typing import Callable, Optional, Sequence
 
 from frankenpaxos_tpu_torch.runtime import Actor, Logger
 from frankenpaxos_tpu_torch.runtime.transport import Address, Transport
@@ -40,9 +41,22 @@ class ElectionOptions:
     ping_period_s: float = 30.0
     no_ping_timeout_min_s: float = 60.0
     no_ping_timeout_max_s: float = 120.0
-    # The reference's RTT-adaptive no-ping deadline (on the port's
-    # geo.RttEstimator) is not ported yet; True is refused.
+    # Jitter tolerance (geo.RttEstimator): with ``adaptive=True`` a
+    # follower derives its no-ping deadline from the OBSERVED
+    # inter-ping gap distribution -- ``(srtt + 4 * dev) *
+    # adaptive_multiplier`` plus its own randomized spread -- instead
+    # of the fixed [min, max] window, which false-positives (a
+    # spurious leadership seizure) as soon as per-link latency jitter
+    # stretches a gap past the constant (tests/test_geo.py). The
+    # multiplier is the lost-ping budget (3 = tolerate two lost
+    # pings).
     adaptive: bool = False
+    adaptive_multiplier: float = 3.0
+    min_no_ping_timeout_s: float = 0.01
+    # Before two pings there is no gap sample: start conservative
+    # (TCP initial-RTO discipline) rather than trusting a fixed
+    # window that may sit below one jittered ping gap.
+    initial_no_ping_timeout_s: float = 1.0
 
 
 class ElectionState(enum.Enum):
@@ -55,12 +69,8 @@ class ElectionParticipant(Actor):
                  logger: Logger, addresses: Sequence[Address],
                  initial_leader_index: int = 0,
                  options: ElectionOptions = ElectionOptions(),
-                 seed: int = 0):
-        if options.adaptive:
-            raise NotImplementedError(
-                "adaptive no-ping deadlines (on geo.RttEstimator, which "
-                "geo/rtt.py has) are not ported yet (ROADMAP.md queue 1 "
-                "item 8.4)")
+                 seed: int = 0,
+                 clock: Optional[Callable[[], float]] = None):
         super().__init__(address, transport, logger)
         logger.check(address in addresses)
         logger.check_le(options.no_ping_timeout_min_s,
@@ -71,6 +81,16 @@ class ElectionParticipant(Actor):
         self.index = self.addresses.index(address)
         self.options = options
         self._rng = random.Random(seed)
+        # Adaptive no-ping deadlines observe inter-ping gaps against
+        # this clock; sims inject virtual time (GeoSimTransport.now).
+        self.clock = clock or time.monotonic
+        if options.adaptive:
+            from frankenpaxos_tpu_torch.geo.rtt import RttEstimator
+
+            self._gap_estimator: Optional[RttEstimator] = RttEstimator()
+        else:
+            self._gap_estimator = None
+        self._last_ping_at: Optional[float] = None
         self.callbacks: list[Callable[[int], None]] = []
         self.round = 0
         self.leader_index = initial_leader_index
@@ -79,6 +99,9 @@ class ElectionParticipant(Actor):
                                      self._on_ping_timer)
         no_ping_s = self._rng.uniform(options.no_ping_timeout_min_s,
                                       options.no_ping_timeout_max_s)
+        if options.adaptive:
+            no_ping_s = max(no_ping_s,
+                            options.initial_no_ping_timeout_s)
         self.no_ping_timer = self.timer("noPing", no_ping_s,
                                         self._on_no_ping_timeout)
 
@@ -112,6 +135,11 @@ class ElectionParticipant(Actor):
     def _change_state(self, new_state: ElectionState) -> None:
         if self.state == new_state:
             return
+        # A gap spanning a non-follower period (or a whole election
+        # outage) is not an RTT sample: one would inflate the
+        # deviation enough to push the adaptive deadline out for
+        # minutes. Restart observation from the next ping.
+        self._last_ping_at = None
         if new_state == ElectionState.LEADER:
             self.no_ping_timer.stop()
             self.ping_timer.start()
@@ -133,6 +161,26 @@ class ElectionParticipant(Actor):
         else:
             self.logger.fatal(f"unexpected election message {message!r}")
 
+    def _observe_ping_gap(self) -> None:
+        """Feed the adaptive deadline: the gap between successive
+        pings from the current leader is ping_period plus one-way
+        delay jitter, and ``(srtt + 4 dev) * multiplier`` bounds how
+        long a silence is still ordinary."""
+        if self._gap_estimator is None:
+            return
+        now = self.clock()
+        if self._last_ping_at is not None:
+            self._gap_estimator.observe(now - self._last_ping_at)
+            base = self._gap_estimator.timeout(
+                self.options.no_ping_timeout_min_s)
+            delay = base * self.options.adaptive_multiplier
+            # Keep the randomized spread (split-election avoidance)
+            # proportional to the adaptive deadline.
+            delay *= 1 + self._rng.uniform(0, 0.5)
+            self.no_ping_timer.set_delay(
+                max(self.options.min_no_ping_timeout_s, delay))
+        self._last_ping_at = now
+
     def _handle_ping(self, ping: ElectionPing) -> None:
         ping_ballot = (ping.round, ping.leader_index)
         ballot = (self.round, self.leader_index)
@@ -140,9 +188,15 @@ class ElectionParticipant(Actor):
             if ping_ballot < ballot:
                 self.logger.debug(f"stale ping {ping}")
             elif ping_ballot == ballot:
+                self._observe_ping_gap()
                 self.no_ping_timer.reset()
             else:
+                # A NEW leader's first ping: the gap since the old
+                # leader's last ping spans the failover, not the
+                # network -- stamp without observing.
                 self.round, self.leader_index = ping_ballot
+                self._last_ping_at = None
+                self._observe_ping_gap()
                 self.no_ping_timer.reset()
         else:
             if ping_ballot <= ballot:

@@ -1,6 +1,5 @@
 """Raft-style leader election with candidate voting (the port's copy of
-``frankenpaxos_tpu/election/raft.py``; the adaptive deadline is not
-ported).
+``frankenpaxos_tpu/election/raft.py``).
 
 Reference behavior: election/raft/Participant.scala:56-430. Rounds with
 at most one leader per round: followers that miss pings become
@@ -15,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import random
+import time
 from typing import Callable, Optional, Sequence
 
 from frankenpaxos_tpu_torch.runtime import Actor, Logger
@@ -43,8 +43,9 @@ class RaftElectionOptions:
     no_ping_timeout_max_s: float = 12.0
     not_enough_votes_timeout_min_s: float = 10.0
     not_enough_votes_timeout_max_s: float = 12.0
-    # The reference's no-ping deadline from observed inter-ping gaps (on
-    # geo.RttEstimator) is not ported yet; True is refused.
+    # Jitter tolerance: derive the no-ping deadline from observed
+    # inter-ping gaps (EWMA + deviation, geo.RttEstimator) instead of
+    # the fixed window -- see election/basic.py's twin knobs.
     adaptive: bool = False
     adaptive_multiplier: float = 3.0
     min_no_ping_timeout_s: float = 0.01
@@ -58,16 +59,21 @@ class RaftElectionParticipant(Actor):
                  logger: Logger, addresses: Sequence[Address],
                  leader: Optional[Address] = None,
                  options: RaftElectionOptions = RaftElectionOptions(),
-                 seed: int = 0):
-        if options.adaptive:
-            raise NotImplementedError(
-                "adaptive no-ping deadlines (on geo.RttEstimator) are not "
-                "ported yet (ROADMAP.md queue 1 item 8.4)")
+                 seed: int = 0,
+                 clock: Optional[Callable[[], float]] = None):
         super().__init__(address, transport, logger)
         self.addresses = list(addresses)
         logger.check(address in self.addresses)
         self.options = options
         self._rng = random.Random(seed)
+        self.clock = clock or time.monotonic
+        if options.adaptive:
+            from frankenpaxos_tpu_torch.geo.rtt import RttEstimator
+
+            self._gap_estimator: Optional[RttEstimator] = RttEstimator()
+        else:
+            self._gap_estimator = None
+        self._last_ping_at: Optional[float] = None
         self.callbacks: list[Callable[[Address], None]] = []
         self.round = 0
         self.votes: set[Address] = set()
@@ -103,8 +109,24 @@ class RaftElectionParticipant(Actor):
         self._timer = timer
 
     def _no_ping_delay(self) -> float:
-        return self._rng.uniform(self.options.no_ping_timeout_min_s,
-                                 self.options.no_ping_timeout_max_s)
+        fixed = self._rng.uniform(self.options.no_ping_timeout_min_s,
+                                  self.options.no_ping_timeout_max_s)
+        est = self._gap_estimator
+        if est is None:
+            return fixed
+        if est.srtt is None:
+            return max(fixed, self.options.initial_no_ping_timeout_s)
+        delay = est.timeout(fixed) * self.options.adaptive_multiplier
+        delay *= 1 + self._rng.uniform(0, 0.5)
+        return max(self.options.min_no_ping_timeout_s, delay)
+
+    def _observe_ping_gap(self) -> None:
+        if self._gap_estimator is None:
+            return
+        now = self.clock()
+        if self._last_ping_at is not None:
+            self._gap_estimator.observe(now - self._last_ping_at)
+        self._last_ping_at = now
 
     def _start_no_ping_timer(self) -> None:
         timer = self.timer("noPing", self._no_ping_delay(),
@@ -128,6 +150,9 @@ class RaftElectionParticipant(Actor):
     def _transition_to_follower(self, new_round: int,
                                 leader: Address) -> None:
         self._stop_timer()
+        # Gaps spanning an election outage / leader change are not
+        # RTT samples; restart observation from the next ping.
+        self._last_ping_at = None
         self.round = new_round
         self.state = "follower"
         self.leader_address = leader
@@ -137,6 +162,7 @@ class RaftElectionParticipant(Actor):
 
     def _transition_to_candidate(self) -> None:
         self._stop_timer()
+        self._last_ping_at = None
         self.round += 1
         self.state = "candidate"
         self.votes = set()
@@ -164,6 +190,9 @@ class RaftElectionParticipant(Actor):
         if self.state == "leaderless_follower":
             self._transition_to_follower(ping.round, src)
         elif self.state == "follower":
+            self._observe_ping_gap()
+            if self._gap_estimator is not None:
+                self._timer.set_delay(self._no_ping_delay())
             self._timer.reset()
         elif self.state == "candidate":
             self._transition_to_follower(ping.round, src)

@@ -1,5 +1,5 @@
 """Heartbeat failure detector (the port's copy of
-``frankenpaxos_tpu/heartbeat.py``; the adaptive deadline is not ported).
+``frankenpaxos_tpu/heartbeat.py``).
 
 Reference behavior: heartbeat/Participant.scala:72-209. Every participant
 pings the others; a pong resets that peer's retry count, updates an EWMA
@@ -36,9 +36,15 @@ class HeartbeatOptions:
     """Mimics TCP keepalive's interval/time/retry knobs
     (Participant.scala:38-60).
 
-    The reference's ``adaptive=True`` (each peer's fail deadline from
-    observed round-trip times, on geo.RttEstimator) is not ported yet and
-    is refused; its knobs are kept so that options carry across."""
+    ``adaptive=True`` derives each peer's fail deadline from OBSERVED
+    round-trip times instead of the fixed ``fail_period_s``: a
+    Jacobson/Karels estimator (geo.RttEstimator, EWMA + mean
+    deviation) per peer, with the deadline at ``srtt + 4 * dev``
+    clamped to ``[min_fail_period_s, max_fail_period_s]``. Fixed
+    deadlines false-positive the moment links have real latency and
+    jitter (a WAN brownout under GeoTopology blows straight through
+    any constant chosen for the fast path -- tests/test_geo.py);
+    ``fail_period_s`` remains the deadline until the first pong."""
 
     fail_period_s: float = 5.0
     success_period_s: float = 10.0
@@ -58,10 +64,6 @@ class HeartbeatParticipant(Actor):
                  logger: Logger, addresses: Sequence[Address],
                  options: HeartbeatOptions = HeartbeatOptions(),
                  clock: Callable[[], int] = time.monotonic_ns):
-        if options.adaptive:
-            raise NotImplementedError(
-                "adaptive heartbeat deadlines (on geo.RttEstimator) are not "
-                "ported yet (ROADMAP.md queue 1 item 8.4)")
         super().__init__(address, transport, logger)
         logger.check_le(0, options.network_delay_alpha)
         logger.check_le(options.network_delay_alpha, 1)
@@ -70,9 +72,19 @@ class HeartbeatParticipant(Actor):
         self.clock = clock
         self.num_retries = [0] * len(self.addresses)
         self.network_delay_nanos: dict[int, float] = {}
+        if options.adaptive:
+            from frankenpaxos_tpu_torch.geo.rtt import RttEstimator
+
+            self.rtt_estimators = [RttEstimator()
+                                   for _ in self.addresses]
+        else:
+            self.rtt_estimators = None
         self.alive: set[Address] = set(self.addresses)
+        initial_fail_s = (max(options.fail_period_s,
+                              options.initial_fail_period_s)
+                          if options.adaptive else options.fail_period_s)
         self.fail_timers = [
-            self.timer(f"fail-{a}", options.fail_period_s,
+            self.timer(f"fail-{a}", initial_fail_s,
                        lambda i=i: self._fail(i))
             for i, a in enumerate(self.addresses)]
         self.success_timers = [
@@ -99,6 +111,16 @@ class HeartbeatParticipant(Actor):
         old = self.network_delay_nanos.get(pong.index)
         self.network_delay_nanos[pong.index] = (
             delay if old is None else alpha * delay + (1 - alpha) * old)
+        if self.rtt_estimators is not None:
+            # Jitter-tolerant deadlines (geo.RttEstimator): retune the
+            # peer's fail timer to srtt + 4*dev before its next start,
+            # so one WAN jitter spike no longer burns a retry.
+            estimator = self.rtt_estimators[pong.index]
+            estimator.observe(rtt_nanos / 1e9)
+            self.fail_timers[pong.index].set_delay(min(
+                self.options.max_fail_period_s,
+                max(self.options.min_fail_period_s,
+                    estimator.timeout(self.options.fail_period_s))))
         self.alive.add(self.addresses[pong.index])
         self.num_retries[pong.index] = 0
         self.fail_timers[pong.index].stop()

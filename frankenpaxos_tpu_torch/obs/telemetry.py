@@ -7,24 +7,28 @@ the host. :func:`collect` makes exactly one device-to-host copy of that
 buffer, through :func:`fetch` -- one sync per reporting interval, never
 per drain.
 
-From a snapshot the host derives the interval deltas, the per-shard
-skew and the proposal batch fill. :func:`publish` feeds them to any
-sink with a ``pipeline_interval(...)`` method (the reference's
-``RuntimeMetrics``, which the port does not have yet: ROADMAP.md queue 1
-item 8.5), and :func:`counter_events` turns timed samples into
-Chrome-trace COUNTER events (``ph: "C"``); merging them into a Perfetto
-export waits for ``obs/perfetto.py`` (the same item).
+From a snapshot the host derives:
+
+  * ``fpx_pipeline_*`` RuntimeMetrics (obs/trace.py): committed /
+    proposed / drains / pad-lane counters, per-shard committed gauges
+    and the shard-skew ratio, the quorum-occupancy and watermark-lag
+    histograms as labeled counters, and the proposal batch fill
+    (:func:`publish`).
+  * Perfetto COUNTER tracks (``ph: "C"``, :func:`counter_events`) merged
+    into the trace export next to the span tracks
+    (``obs.perfetto.to_chrome_trace(records, counters)``).
 
 :class:`TelemetryReporter` packages the interval loop: hold the previous
-snapshot, publish deltas, remember timed samples, and dump/load
-``*.counters.jsonl``.
+snapshot, publish deltas to RuntimeMetrics, remember timed samples for
+the counter tracks, and dump/load ``*.counters.jsonl`` next to the role
+trace dumps.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Optional, Sequence
+from typing import Optional, Sequence, TYPE_CHECKING
 
 from frankenpaxos_tpu_torch.ops.telemetry import (
     FIELDS,
@@ -33,6 +37,9 @@ from frankenpaxos_tpu_torch.ops.telemetry import (
 )
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from frankenpaxos_tpu_torch.obs.trace import RuntimeMetrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,12 +133,12 @@ def collect(state) -> Optional[TelemetrySnapshot]:
         pad_lanes=int(values["pad_lanes"][0]))
 
 
-def publish(metrics, snap: TelemetrySnapshot,
+def publish(metrics: "RuntimeMetrics", snap: TelemetrySnapshot,
             prev: Optional[TelemetrySnapshot] = None,
             block_size: Optional[int] = None) -> None:
-    """Feed one interval into a metrics sink: counters get the delta
-    against ``prev``, gauges (per-shard committed, skew, fill) the
-    cumulative state."""
+    """Feed one interval into a ``RuntimeMetrics`` (obs/trace.py):
+    counters get the delta against ``prev``, gauges (per-shard
+    committed, skew, fill) the cumulative state."""
     d = snap.delta(prev)
     metrics.pipeline_interval(
         drains=d.drains, committed=d.committed, proposed=d.proposed,
@@ -145,7 +152,9 @@ def publish(metrics, snap: TelemetrySnapshot,
 def counter_events(samples: Sequence[tuple], role: str) -> list:
     """Chrome-trace COUNTER events (``ph: "C"``) from ``(t_seconds,
     snapshot)`` interval samples: per-interval committed/proposed/pad
-    deltas plus the cumulative skew ratio, one track set per role."""
+    deltas plus the cumulative skew ratio, one track set per role.
+    Merge them into the span export via ``to_chrome_trace(records,
+    counters=...)``."""
     events = []
     prev = None
     for t, snap in samples:
@@ -167,8 +176,9 @@ def counter_events(samples: Sequence[tuple], role: str) -> list:
 class TelemetryReporter:
     """The reporting-interval loop for one role or bench: call
     :meth:`collect` once per interval with the live pipeline state and
-    the host-side timestamp; deltas go to the metrics sink (when
-    attached) and timed samples accumulate for the counter tracks."""
+    the host-side timestamp; deltas go to RuntimeMetrics (when
+    attached) and timed samples accumulate for the Perfetto counter
+    tracks."""
 
     def __init__(self, role: str, metrics=None,
                  block_size: Optional[int] = None):

@@ -1,9 +1,9 @@
 """Binary codecs of the small protocols (the port's part of
-``frankenpaxos_tpu/protocols/baseline_wire.py``): Fast Paxos's (tags
-90-95) and Matchmaker Paxos's (tags 103-112), with the reference's bytes.
-The reference's other five protocols (echo, unreplicated,
-batchedunreplicated, paxos, caspaxos) bring theirs with their ports
-(``ROADMAP.md`` queue 1 item 9).
+``frankenpaxos_tpu/protocols/baseline_wire.py``): echo's (tags 76-77),
+Fast Paxos's (tags 90-95) and Matchmaker Paxos's (tags 103-112), with
+the reference's bytes. The reference's other four protocols
+(unreplicated, batchedunreplicated, paxos, caspaxos) bring theirs with
+their ports (``ROADMAP.md`` queue 1 item 9).
 
 Layouts follow the house style (multipaxos/wire.py): little-endian
 fixed-width ints, length-prefixed bytes, kind-byte tagged unions for
@@ -15,6 +15,7 @@ from __future__ import annotations
 import struct
 
 from frankenpaxos_tpu_torch.protocols import (
+    echo as ec,
     fastpaxos as fp,
     matchmakerpaxos as mp,
 )
@@ -39,6 +40,33 @@ def _put_str(out: bytearray, s: str) -> None:
 def _take_str(buf: bytes, at: int):
     raw, at = _take_bytes(buf, at)
     return raw.decode(), at
+
+
+# --- echo -------------------------------------------------------------------
+
+
+class EchoRequestCodec(MessageCodec):
+    message_type = ec.EchoRequest
+    tag = 76
+
+    def encode(self, out, message):
+        _put_str(out, message.msg)
+
+    def decode(self, buf, at):
+        msg, at = _take_str(buf, at)
+        return ec.EchoRequest(msg), at
+
+
+class EchoReplyCodec(MessageCodec):
+    message_type = ec.EchoReply
+    tag = 77
+
+    def encode(self, out, message):
+        _put_str(out, message.msg)
+
+    def decode(self, buf, at):
+        msg, at = _take_str(buf, at)
+        return ec.EchoReply(msg), at
 
 
 # --- fastpaxos ----------------------------------------------------------------
@@ -356,7 +384,7 @@ class MpxAcceptorNackCodec(MessageCodec):
         return mp.AcceptorNack(round), at + 8
 
 
-for _codec_cls in _FASTPAXOS_CODECS + [
+for _codec_cls in [EchoRequestCodec, EchoReplyCodec] + _FASTPAXOS_CODECS + [
         MpxClientRequestCodec, MpxClientReplyCodec, MpxMatchRequestCodec,
         MpxMatchReplyCodec, MpxPhase1aCodec, MpxPhase1bCodec,
         MpxPhase2aCodec, MpxPhase2bCodec, MpxMatchmakerNackCodec,

@@ -50,6 +50,10 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.proxy_replica import (
     ProxyReplica,
     ProxyReplicaOptions,
 )
+from frankenpaxos_tpu_torch.protocols.multipaxos.read_batcher import (
+    ReadBatcher,
+    ReadBatchingScheme,
+)
 from frankenpaxos_tpu_torch.protocols.multipaxos.replica import (
     Replica,
     ReplicaOptions,
@@ -70,6 +74,8 @@ __all__ = [
     "ProxyLeaderOptions",
     "ProxyReplica",
     "ProxyReplicaOptions",
+    "ReadBatcher",
+    "ReadBatchingScheme",
     "Replica",
     "ReplicaOptions",
 ]

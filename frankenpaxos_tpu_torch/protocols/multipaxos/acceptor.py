@@ -11,9 +11,6 @@ logged and every ack that depends on one leaves after the drain's
 group-commit fsync (``wal.DurableRole``); a restart recovers them. The
 acceptor is the matchmaker of reconfiguration: it logs each EpochCommit
 before it acks it and reports the epochs it holds in every Phase1b.
-
-Not ported yet, and refused: the read batchers' BatchMaxSlotRequest
-(ROADMAP.md queue 1 item 8.3).
 """
 
 from __future__ import annotations
@@ -27,6 +24,7 @@ except ImportError:  # stripped environments: pure-Python fallback
 from frankenpaxos_tpu_torch import native
 from frankenpaxos_tpu_torch.protocols.multipaxos.config import MultiPaxosConfig
 from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
+    BatchMaxSlotReply,
     BatchMaxSlotRequest,
     CommandBatchOrNoop,
     MaxSlotReply,
@@ -209,9 +207,8 @@ class Acceptor(Actor, DurableRole):
             self.metrics_requests.labels("MaxSlotRequest").inc()
             self._handle_max_slot_request(src, message)
         elif isinstance(message, BatchMaxSlotRequest):
-            raise NotImplementedError(
-                "BatchMaxSlotRequest: read batchers are not ported yet "
-                "(ROADMAP.md queue 1 item 8.3: read batchers)")
+            self.metrics_requests.labels("BatchMaxSlotRequest").inc()
+            self._handle_batch_max_slot_request(src, message)
         elif isinstance(message, EpochCommit):
             self.metrics_requests.labels("EpochCommit").inc()
             self._handle_epoch_commit(src, message)
@@ -436,3 +433,12 @@ class Acceptor(Actor, DurableRole):
                                     group_index=self.group_index,
                                     acceptor_index=self.index,
                                     slot=self.max_voted_slot))
+
+    def _handle_batch_max_slot_request(self, src: Address,
+                                       request: BatchMaxSlotRequest) -> None:
+        self.send(src, BatchMaxSlotReply(
+            read_batcher_index=request.read_batcher_index,
+            read_batcher_id=request.read_batcher_id,
+            group_index=self.group_index,
+            acceptor_index=self.index,
+            slot=self.max_voted_slot))

@@ -19,10 +19,8 @@ pending-operation state machines with resend timers:
 With ingest batchers deployed, writes go through them on a consistent
 ring (``ingest/fan.py``): a session pins to one batcher, a timeout
 suspects that batcher only, and a ``Rejected`` from one batcher floors
-the backoff against that batcher only.
-
-Not ported yet, and refused: reads through read batchers (ROADMAP.md
-queue 1 item 8.3).
+the backoff against that batcher only. With read batchers deployed, a
+linearizable read goes to a random one, which amortizes the quorum round.
 """
 
 from __future__ import annotations
@@ -224,9 +222,35 @@ class Client(RetryAdmissionMixin, StagedWriteMixin, Actor):
         callback = callback or (lambda _: None)
         id = self.ids.get(pseudonym, 0)
         if self.config.num_read_batchers > 0:
-            raise NotImplementedError(
-                "reads through read batchers are not ported yet "
-                "(ROADMAP.md queue 1 item 8.3: read batchers)")
+            # Let a read batcher amortize the quorum round
+            # (Client.scala:665-690).
+            read_request = ReadRequest(
+                slot=-1,
+                command=Command(CommandId(self.address, pseudonym, id),
+                                command))
+            batcher = self.config.read_batcher_addresses[
+                self.rng.randrange(self.config.num_read_batchers)]
+            self.send(batcher, read_request)
+
+            def resend_batched():
+                state = self.states.get(pseudonym)
+                if not isinstance(state, _PendingRead) \
+                        or not self._consume_retry(pseudonym, state,
+                                                   "failover"):
+                    return
+                self.send(batcher, read_request)
+                timer.start()
+
+            timer = self.timer(
+                f"resendRead{pseudonym}",
+                self.options.resend_read_request_period_s, resend_batched)
+            timer.start()
+            self.states[pseudonym] = _PendingRead(id, command, callback,
+                                                  timer,
+                                                  request=read_request,
+                                                  replica=batcher)
+            self.ids[pseudonym] = id + 1
+            return
         request = MaxSlotRequest(CommandId(self.address, pseudonym, id))
         if not self.config.flexible:
             group_index = self.rng.randrange(self.config.num_acceptor_groups)

@@ -14,9 +14,8 @@ FileStorage WALs with real fsyncs under a directory),
 reference's too: ``num_ingest_batchers`` (WAL-free ``IngestBatcher``s,
 ``crash_restart_ingest_batcher``), ``ingest_pipeline_window``,
 ``leader_admission`` (the Leaders' ``admission_*`` options) and the
-clients' ``client_retry_budget`` / ``client_backoff``. The reference
-harness's read batchers are not offered: they are not ported yet
-(ROADMAP.md queue 1 item 8.3).
+clients' ``client_retry_budget`` / ``client_backoff``, and
+``num_read_batchers`` with their ``read_batching_scheme``.
 
 ``device`` reaches the roles that hold one (the ProxyLeaders' trackers
 with ``quorum_backend="cuda"``, the Leaders with
@@ -57,6 +56,10 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.proxy_leader import (
 from frankenpaxos_tpu_torch.protocols.multipaxos.proxy_replica import (
     ProxyReplica,
 )
+from frankenpaxos_tpu_torch.protocols.multipaxos.read_batcher import (
+    ReadBatcher,
+    ReadBatchingScheme,
+)
 from frankenpaxos_tpu_torch.protocols.multipaxos.replica import (
     Replica,
     ReplicaOptions,
@@ -89,6 +92,7 @@ class MultiPaxosSim:
     wal_root: "str | None" = None
     #: Replacement acceptors' own configs (address -> config).
     acceptor_configs: dict = dataclasses.field(default_factory=dict)
+    read_batchers: list = dataclasses.field(default_factory=list)
 
 
 #: Small segment/compaction thresholds so sim runs exercise rotation
@@ -174,6 +178,9 @@ def make_multipaxos(
     num_acceptor_groups: int = 1,
     num_batchers: int = 0,
     num_ingest_batchers: int = 0,
+    num_read_batchers: int = 0,
+    read_batching_scheme: ReadBatchingScheme = ReadBatchingScheme(
+        kind="size", batch_size=1),
     num_proxy_replicas: int = 0,
     flexible: bool = False,
     grid_shape: "tuple[int, int] | None" = None,
@@ -232,7 +239,8 @@ def make_multipaxos(
         batcher_addresses=[f"batcher-{i}" for i in range(num_batchers)],
         ingest_batcher_addresses=[f"ingest-batcher-{i}"
                                   for i in range(num_ingest_batchers)],
-        read_batcher_addresses=[],
+        read_batcher_addresses=[f"read-batcher-{i}"
+                                for i in range(num_read_batchers)],
         leader_addresses=[f"leader-{i}" for i in range(f + 1)],
         leader_election_addresses=[f"election-{i}" for i in range(f + 1)],
         proxy_leader_addresses=[f"proxy-leader-{i}" for i in range(f + 1)],
@@ -260,6 +268,10 @@ def make_multipaxos(
                       MultiPaxosIngestRouter(config), index=i,
                       options=ingest_options, seed=seed + 50 + i)
         for i, a in enumerate(config.ingest_batcher_addresses)]
+    read_batchers = [
+        ReadBatcher(a, transport, logger, config, read_batching_scheme,
+                    seed=seed + 40 + i)
+        for i, a in enumerate(config.read_batcher_addresses)]
     leaders = [
         Leader(a, transport, logger, config,
                LeaderOptions(resend_phase1as_period_s=5.0,
@@ -308,7 +320,8 @@ def make_multipaxos(
                          clients, ingest_batchers=ingest_batchers,
                          wal_storages=wal_storages,
                          state_machine_factory=state_machine_factory,
-                         seed=seed, wal_root=wal_root)
+                         seed=seed, wal_root=wal_root,
+                         read_batchers=read_batchers)
 
 
 def executed_prefix(replica: Replica) -> list:

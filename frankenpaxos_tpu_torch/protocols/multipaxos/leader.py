@@ -133,8 +133,8 @@ class LeaderOptions:
     # reconfiguration commits, tagging engages regardless.
     epoch_tag_runs: bool = False
     resend_epoch_commit_period_s: float = 1.0
-    # Admission control: not ported yet; anything but the all-zero
-    # default is refused.
+    # Admission control (serve/admission.py): the all-zero default
+    # leaves it off.
     admission_token_rate: float = 0.0
     admission_token_burst: float = 0.0
     admission_inflight_limit: int = 0

@@ -247,6 +247,8 @@ class TpuQuorumTracker(QuorumTracker):
         # single-round drains count under their slot span rounded up
         # to a power of two, against ``min_device_slots``.
         self.drain_widths: collections.Counter = collections.Counter()
+        #: Drains that called the device (either mode).
+        self.device_drains = 0
         # Host spill tally for the synchronous mode (narrow drains +
         # below-quorum residue of stateless checks): the dict oracle
         # itself, so cross-drain accumulation has one authority with
@@ -422,6 +424,7 @@ class TpuQuorumTracker(QuorumTracker):
             self._spill_votes(slots, cols, rounds)
             self._note_frontier(hi)
             return self._host_results()
+        self.device_drains += 1
 
         # Wide single-round drain: one stateless check per max_dense
         # segment of the span (usually exactly one). Only segments
@@ -590,6 +593,7 @@ class TpuQuorumTracker(QuorumTracker):
         preemption clears it. The drain's parts, in that order, are the
         segments of ONE board run (``TpuQuorumChecker.board_run``: on a
         card one staged call)."""
+        self.device_drains += 1
         segs: list = []
         slots = np.asarray(self._slots, dtype=np.int64)
         cols = np.asarray(self._cols, dtype=np.int32)

@@ -16,10 +16,9 @@ chosen runs logged after it.
 
 Read admission (the ``admission_*`` options, ``serve/admission.py``)
 sheds READ traffic only: the in-flight measure is the deferred-read
-backlog, and a refused read's client gets an explicit ``Rejected``.
-
-Not ported yet, and refused: the batched reads of read batchers
-(ROADMAP.md queue 1 item 8.3).
+backlog, and a refused read's client gets an explicit ``Rejected``;
+the batched reads of read batchers admit command by command against one
+sync a batch.
 """
 
 from __future__ import annotations
@@ -363,16 +362,20 @@ class Replica(Actor, DurableRole):
             reads.append(command)
         self._deferred_read_count += 1
 
-    def _admit_read(self, command: Command) -> bool:
+    def _admit_read(self, command: Command, sync: bool = True) -> bool:
         """paxload read admission: the in-flight measure is the
-        deferred-read backlog; refusal answers the CLIENT with an
-        explicit Rejected so its backoff engages instead of a resend
-        storm. (The reference's ``sync=False`` form serves the batched
-        reads of read batchers, which are not ported yet.)"""
+        deferred-read backlog; refusal answers the CLIENT (not the
+        read batcher) with an explicit Rejected so its backoff engages
+        instead of a resend storm. ``sync=False`` skips the backlog
+        resync so batch callers can sync ONCE and let ``admit()``'s
+        increments accumulate across the batch -- resyncing per
+        command would erase them and the limit would never bind
+        within one batch."""
         admission = self.admission
         if admission is None:
             return True
-        admission.set_inflight(self._deferred_read_count)
+        if sync:
+            admission.set_inflight(self._deferred_read_count)
         if admission.admit(1):
             return True
         from frankenpaxos_tpu_torch.serve.messages import Rejected
@@ -384,7 +387,6 @@ class Replica(Actor, DurableRole):
             reason=admission.last_reason))
         return False
 
-    # --- handlers ---------------------------------------------------------
     def receive(self, src: Address, message) -> None:
         # timed(label) handler latency summaries (Leader.scala:281-293).
         if self.options.measure_latencies:
@@ -405,12 +407,13 @@ class Replica(Actor, DurableRole):
             self._handle_sequential_read_request(src, message)
         elif isinstance(message, EventualReadRequest):
             self._handle_eventual_read_request(src, message)
-        elif isinstance(message, (ReadRequestBatch,
-                                  SequentialReadRequestBatch,
-                                  EventualReadRequestBatch)):
-            raise NotImplementedError(
-                f"{type(message).__name__}: read batchers are not ported "
-                f"yet (ROADMAP.md queue 1 item 8.3: read batchers)")
+        elif isinstance(message, ReadRequestBatch):
+            self._handle_read_request_batch(src, message)
+        elif isinstance(message, SequentialReadRequestBatch):
+            self._handle_read_request_batch(src, ReadRequestBatch(
+                slot=message.slot, commands=message.commands))
+        elif isinstance(message, EventualReadRequestBatch):
+            self._handle_eventual_read_batch(message)
         else:
             self.logger.fatal(f"unexpected replica message {message!r}")
 
@@ -502,3 +505,53 @@ class Replica(Actor, DurableRole):
         if not self._admit_read(request.command):
             return
         self.send(src, self._execute_read(request.command))
+
+    def _handle_eventual_read_batch(self, batch) -> None:
+        """Batched eventual reads execute immediately (no defer), but
+        still pass read admission: each refused command's client gets
+        a Rejected, like the single-message path. Sync once per batch
+        so the limit binds within it, then settle back to the
+        deferred-read backlog."""
+        admission = self.admission
+        if admission is None:
+            commands = batch.commands
+        else:
+            admission.set_inflight(self._deferred_read_count)
+            commands = [c for c in batch.commands
+                        if self._admit_read(c, sync=False)]
+        try:
+            if commands:
+                self._send_read_replies(
+                    [self._execute_read(c) for c in commands])
+        finally:
+            if admission is not None:
+                admission.set_inflight(self._deferred_read_count)
+
+    def _handle_read_request_batch(self, src: Address,
+                                   batch: ReadRequestBatch) -> None:
+        """Batched deferrable reads (Replica.scala:478-530
+        handleDeferrableReads)."""
+        admission = self.admission
+        if admission is None:
+            # Admission-off fast path: no per-command filter call (the
+            # disabled-path budget is one attribute load + is-None per
+            # frame, see runtime/actor.py).
+            commands = batch.commands
+        else:
+            admission.set_inflight(self._deferred_read_count)
+            commands = [c for c in batch.commands
+                        if self._admit_read(c, sync=False)]
+        try:
+            if not commands:
+                return
+            if batch.slot >= self.executed_watermark:
+                for command in commands:
+                    self._defer_read(batch.slot, command)
+                return
+            self._send_read_replies(
+                [self._execute_read(c) for c in commands])
+        finally:
+            # Settle to the true backlog: deferred reads are in
+            # _deferred_read_count; immediately-executed ones release.
+            if admission is not None:
+                admission.set_inflight(self._deferred_read_count)

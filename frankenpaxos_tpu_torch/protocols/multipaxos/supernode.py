@@ -5,12 +5,13 @@ The port's counterpart of ``frankenpaxos_tpu/cli.py``'s supernode role
 to the cluster layout ``frankenpaxos_tpu/deploy.py`` builds with
 ``cluster(f, port)``: f + 1 leaders (each with its election participant),
 f + 1 proxy leaders, one group of 2f + 1 acceptors, f + 1 replicas, no
-batchers and no proxy replicas, plus ``ingest_batchers`` ingest batchers
-(the deployment's own ``"ingest_batchers"`` key, ``ingest/``; 0 by
-default). Every role address is a loopback ``(host, port)`` on ONE
+batchers and no proxy replicas, plus ``read_batchers`` read batchers
+and ``ingest_batchers`` ingest batchers (the deployment's own
+``"read_batchers"`` and ``"ingest_batchers"`` keys; 0 by default).
+Every role address is a loopback ``(host, port)`` on ONE
 ``TcpTransport``; as the reference does, every address is bound first
-and the roles are then built in declaration order (ingest batcher,
-leader, proxy leader, acceptor, replica), each with its own seed
+and the roles are then built in declaration order (read batcher, ingest
+batcher, leader, proxy leader, acceptor, replica), each with its own seed
 (``seed`` plus its position). They are built on the transport's event
 loop, so that no message reaches a half-built role. The clients run on a
 second ``TcpTransport`` of their own, as a client process would.
@@ -25,7 +26,17 @@ options, as a dict) for the Leaders, and ``device`` for both (None means
 With ingest batchers the clients write through them on the consistent
 ring; without, straight to the leader, whose wire sinks take the client
 frames as columns either way. The ProxyLeaders take batch frames of vote
-acks through their wire sink.
+acks through their wire sink. The read batchers batch the clients'
+linearizable reads on ``read_batching_scheme``.
+``trace_dir`` traces the run as the reference's ``--trace`` does: each
+of the two transports gets a ``Tracer`` (at ``TRACE_SAMPLE_RATE``, the
+reference CLI's default ``--trace_sample``) labelled
+``supernode_0`` (the roles) or ``client_0`` (the clients), with its
+flight-recorder ring in ``<trace_dir>/<label>.flight`` and its spans in
+``<trace_dir>/<label>.trace.jsonl``; ``python -m
+frankenpaxos_tpu_torch.obs <trace_dir> --breakdown`` reads them. A
+closed loop of writes starts from a timer on each client, so that the
+first writes' traces are rooted at their client.
 ``wal_dir`` gives each acceptor and replica a FileStorage WAL under
 ``<wal_dir>/<role>_<index>``, as the reference's ``--wal_dir`` does: one
 group commit (one fsync) per role per event-loop pass, since the
@@ -49,6 +60,7 @@ from frankenpaxos_tpu_torch.ingest import (
     IngestBatcher,
     MultiPaxosIngestRouter,
 )
+from frankenpaxos_tpu_torch.obs import FlightRecorder, Tracer
 from frankenpaxos_tpu_torch.protocols.multipaxos.acceptor import Acceptor
 from frankenpaxos_tpu_torch.protocols.multipaxos.client import (
     Client,
@@ -70,6 +82,10 @@ from frankenpaxos_tpu_torch.protocols.multipaxos.proxy_leader import (
     ProxyLeader,
     ProxyLeaderOptions,
 )
+from frankenpaxos_tpu_torch.protocols.multipaxos.read_batcher import (
+    ReadBatcher,
+    ReadBatchingScheme,
+)
 from frankenpaxos_tpu_torch.protocols.multipaxos.replica import Replica
 from frankenpaxos_tpu_torch.runtime import FakeLogger, LogLevel
 from frankenpaxos_tpu_torch.runtime.tcp_transport import TcpTransport
@@ -84,6 +100,8 @@ CLIENTS = 4
 #: How often a closed loop of writes looks for a collector error while
 #: it waits for its replies.
 POLL_S = 0.05
+#: The share of trace roots a traced supernode samples.
+TRACE_SAMPLE_RATE = 1.0
 
 
 class GateFailure(RuntimeError):
@@ -111,11 +129,13 @@ def free_ports(n: int, host: str = "127.0.0.1") -> list:
 
 
 def cluster_config(f: int = 1, host: str = "127.0.0.1",
-                   ingest_batchers: int = 0) -> MultiPaxosConfig:
+                   ingest_batchers: int = 0,
+                   read_batchers: int = 0) -> MultiPaxosConfig:
     """``deploy.py``'s ``cluster(f, port)`` layout on free loopback
-    ports, with ``ingest_batchers`` ingest batchers."""
-    ports = iter(free_ports(4 * (f + 1) + 2 * f + 1 + ingest_batchers,
-                            host))
+    ports, with ``ingest_batchers`` ingest batchers and
+    ``read_batchers`` read batchers."""
+    ports = iter(free_ports(4 * (f + 1) + 2 * f + 1 + ingest_batchers
+                            + read_batchers, host))
 
     def port():
         return (host, next(ports))
@@ -124,7 +144,7 @@ def cluster_config(f: int = 1, host: str = "127.0.0.1",
         f=f,
         batcher_addresses=[],
         ingest_batcher_addresses=[port() for _ in range(ingest_batchers)],
-        read_batcher_addresses=[],
+        read_batcher_addresses=[port() for _ in range(read_batchers)],
         leader_addresses=[port() for _ in range(f + 1)],
         leader_election_addresses=[port() for _ in range(f + 1)],
         proxy_leader_addresses=[port() for _ in range(f + 1)],
@@ -176,20 +196,30 @@ class Supernode:
                  tpu_pipelined: bool = False, phase1_backend: str = "host",
                  device=None, seed: int = 0, host: str = "127.0.0.1",
                  wal_dir: "str | None" = None, ingest_batchers: int = 0,
-                 leader_admission: "dict | None" = None):
+                 leader_admission: "dict | None" = None,
+                 read_batchers: int = 0,
+                 read_batching_scheme: ReadBatchingScheme = (
+                     ReadBatchingScheme()),
+                 trace_dir: "str | None" = None):
         self.f = f
         self.wal_dir = wal_dir
+        self.trace_dir = trace_dir
+        self.read_batching_scheme = read_batching_scheme
         self.host = host
         self.seed = seed
         self.device = device
         self.logger = FakeLogger(LogLevel.WARN)
-        self.config = cluster_config(f, host, ingest_batchers)
+        self.config = cluster_config(f, host, ingest_batchers,
+                                     read_batchers)
         self.leader_options = LeaderOptions(phase1_backend=phase1_backend,
                                             **(leader_admission or {}))
         self.proxy_leader_options = ProxyLeaderOptions(
             quorum_backend=quorum_backend, tpu_pipelined=tpu_pipelined)
         self.transport: TcpTransport | None = None
         self.client_transport: TcpTransport | None = None
+        #: label -> Tracer, with ``trace_dir``.
+        self.tracers: dict = {}
+        self.read_batchers: list = []
         self.ingest_batchers: list = []
         self.leaders: list = []
         self.proxy_leaders: list = []
@@ -201,12 +231,16 @@ class Supernode:
     def start(self) -> "Supernode":
         config = self.config
         self.transport = TcpTransport(logger=self.logger)
-        self.transport.start()
         self.client_transport = TcpTransport(logger=self.logger)
+        if self.trace_dir is not None:
+            self._trace(self.transport, "supernode_0")
+            self._trace(self.client_transport, "client_0")
+        self.transport.start()
         self.client_transport.start()
         # Bind every role address FIRST, so that a role's construction-
         # time sends (a leader's Phase1a) find their targets listening.
-        for address in (*config.ingest_batcher_addresses,
+        for address in (*config.read_batcher_addresses,
+                        *config.ingest_batcher_addresses,
                         *config.leader_addresses,
                         *config.leader_election_addresses,
                         *config.proxy_leader_addresses,
@@ -227,10 +261,29 @@ class Supernode:
         self.clients = on_loop(self.client_transport, build_clients)
         return self
 
+    def _trace(self, transport: TcpTransport, label: str) -> None:
+        """``transport`` traced as the reference's ``--trace`` traces a
+        role process."""
+        os.makedirs(self.trace_dir, exist_ok=True)
+        tracer = Tracer(
+            role=label, sample_rate=TRACE_SAMPLE_RATE,
+            flight=FlightRecorder(
+                os.path.join(self.trace_dir, f"{label}.flight")),
+            runtime_metrics=transport.runtime_metrics,
+            sink_path=os.path.join(self.trace_dir, f"{label}.trace.jsonl"),
+            instance=os.getpid())
+        transport.tracer = tracer
+        self.tracers[label] = tracer
+
     def _build_roles(self) -> None:
         """The roles in declaration order, each with its own seed."""
         config, t, log = self.config, self.transport, self.logger
         count = 0
+        for a in config.read_batcher_addresses:
+            self.read_batchers.append(ReadBatcher(
+                a, t, log, config, self.read_batching_scheme,
+                seed=self.seed + count))
+            count += 1
         for i, a in enumerate(config.ingest_batcher_addresses):
             self.ingest_batchers.append(IngestBatcher(
                 a, t, log, MultiPaxosIngestRouter(config), index=i,
@@ -271,6 +324,8 @@ class Supernode:
         for transport in (self.client_transport, self.transport):
             if transport is not None:
                 transport.stop()
+        for tracer in self.tracers.values():
+            tracer.close()
 
     def __enter__(self) -> "Supernode":
         try:
@@ -318,7 +373,9 @@ class Supernode:
         """``writes`` writes, split evenly over the clients, each client
         keeping ``pseudonyms`` writes in flight (a pseudonym issues its
         next write when its reply arrives). Returns the host seconds,
-        writes/s, p50 / p99 write latency in ms, and ``replies``:
+        writes/s, p50 / p99 write latency in ms (and the same over the
+        writes answered after the first round of ``in_flight``, which
+        waited for the cluster's start), and ``replies``:
         payload -> [result, ...] (one entry a reply). A collector error
         fails it at once, since the writes of that dispatch never get
         their replies."""
@@ -361,7 +418,9 @@ class Supernode:
         def start_all() -> None:
             t["start"] = time.perf_counter()
             for c, client in enumerate(self.clients):
-                kick(c, client)
+                client.timer("closedLoopStart", 0.0,
+                             lambda c=c, client=client: kick(c, client)
+                             ).start()
 
         self.client_transport.loop.call_soon_threadsafe(start_all)
         deadline = time.monotonic() + timeout_s
@@ -375,16 +434,18 @@ class Supernode:
                      f"{state['answered']} of {writes} writes answered "
                      f"within {timeout_s} s")
         seconds = t["end"] - t["start"]
-        ordered = sorted(latencies)
+        in_flight = len(self.clients) * min(pseudonyms, per_client)
+        steady = latencies[in_flight:]
         return {
             "writes": writes,
             "clients": len(self.clients),
-            "in_flight": len(self.clients) * min(pseudonyms, per_client),
+            "in_flight": in_flight,
             "seconds": seconds,
             "writes_per_sec": writes / seconds,
-            "latency_p50_ms": 1e3 * statistics.median(ordered),
-            "latency_p99_ms": 1e3 * ordered[min(len(ordered) - 1,
-                                                int(0.99 * len(ordered)))],
+            "latency_p50_ms": _percentile_ms(latencies, 0.5),
+            "latency_p99_ms": _percentile_ms(latencies, 0.99),
+            "latency_p50_ms_steady": _percentile_ms(steady, 0.5),
+            "latency_p99_ms_steady": _percentile_ms(steady, 0.99),
             "replies": replies,
         }
 
@@ -400,6 +461,17 @@ class Supernode:
         return False
 
 
+def _percentile_ms(seconds: list, q: float) -> "float | None":
+    """The ``q`` quantile of ``seconds`` in ms (the median at 0.5), or
+    None for no sample."""
+    if not seconds:
+        return None
+    ordered = sorted(seconds)
+    if q == 0.5:
+        return 1e3 * statistics.median(ordered)
+    return 1e3 * ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
 def run_arm(writes: int, pseudonyms: int, timeout_s: float = 120.0,
             **options) -> dict:
     """One supernode on ``options`` (see :class:`Supernode`) driven with
@@ -408,8 +480,9 @@ def run_arm(writes: int, pseudonyms: int, timeout_s: float = 120.0,
     equal and holding every write once, and no error logged (a
     collector error included). Raises ``GateFailure`` on a failed check;
     returns the figures, ``executed`` (the set of executed payloads), the
-    ProxyLeaders' vote counts by message shape and their synchronous
-    trackers' drain-width histograms (empty for the other trackers), and
+    ProxyLeaders' addresses, their vote counts by message shape, their
+    synchronous trackers' drain-width histograms (empty for the other
+    trackers) and their trackers' drains that called the device, and
     ``serving``: the commands the leaders and ingest batchers refused by
     reason (``rejected``), the leaders' ingest deliveries
     (``ingest_counts``), the ProxyLeaders' vote acks by how they arrived
@@ -421,7 +494,7 @@ def run_arm(writes: int, pseudonyms: int, timeout_s: float = 120.0,
         figures = node.write_closed_loop(writes, pseudonyms, timeout_s)
         _require(node.wait_executed(writes),
                  "the replicas did not execute every write in time")
-        logs, executed, errors, shapes, widths, serving = on_loop(
+        logs, executed, errors, shapes, widths, device, serving = on_loop(
             node.transport, lambda: (
                 [executed_prefix(r) for r in node.replicas],
                 [executed_commands(r) for r in node.replicas],
@@ -429,7 +502,10 @@ def run_arm(writes: int, pseudonyms: int, timeout_s: float = 120.0,
                 [dict(p.votes_by_shape) for p in node.proxy_leaders],
                 [dict(getattr(p.tracker, "drain_widths", {}))
                  for p in node.proxy_leaders],
+                [getattr(p.tracker, "device_drains", 0)
+                 for p in node.proxy_leaders],
                 node.serving()))
+        proxy_leaders = [p.address for p in node.proxy_leaders]
     replies = figures.pop("replies")
     twice = [p for p, got in replies.items() if len(got) != 1]
     _require(not twice, f"{len(twice)} writes answered more than once")
@@ -447,5 +523,6 @@ def run_arm(writes: int, pseudonyms: int, timeout_s: float = 120.0,
                         f"machine's index")
     _require(not errors, f"errors were logged: {errors[:3]}")
     return {**figures, "executed": set(commands),
+            "proxy_leaders": proxy_leaders,
             "votes_by_shape": shapes, "drain_widths": widths,
-            "serving": serving}
+            "device_drains": device, "serving": serving}

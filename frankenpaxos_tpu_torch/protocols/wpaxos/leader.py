@@ -27,9 +27,10 @@ group's chosen watermark releases the board's columns through K5.
 
 Admission control (the ``admission_*`` options, ``serve/admission.py``):
 a refused request's client gets an explicit ``Rejected``, and every
-drain resyncs the in-flight budget to the open proposals. The
-reference's per-region goodput export to its ``RuntimeMetrics`` waits
-for that sink (ROADMAP.md queue 1 item 8.5).
+drain resyncs the in-flight budget to the open proposals. With a
+``RuntimeMetrics`` on the transport every drain exports this leader's
+commits and its running rejected delta, labeled with its zone's region
+(``region_goodput`` / ``region_shed``).
 """
 
 from __future__ import annotations
@@ -223,6 +224,7 @@ class WPaxosLeader(Actor):
         # group -> (timer, entry, set of acked acceptor ids)
         self._epoch_resends: dict[int, tuple] = {}
         # paxload admission (serve/): built only when a knob arms it.
+        self._rejected_exported = 0
         admission_options = options.admission_options()
         if admission_options is not None:
             from frankenpaxos_tpu_torch.serve.admission import (
@@ -359,6 +361,7 @@ class WPaxosLeader(Actor):
         self._dirty.add(m.group)
 
     def on_drain(self) -> None:
+        commits = 0
         for group in sorted(self._dirty):
             self._dirty.discard(group)
             newly = self.trackers[group].drain()
@@ -372,6 +375,7 @@ class WPaxosLeader(Actor):
                 if proposal is None:
                     continue
                 value, client, cid = proposal
+                commits += 1
                 self._record_chosen(group, slot, value)
                 if client is not None:
                     result = value.commands[0].command \
@@ -401,6 +405,19 @@ class WPaxosLeader(Actor):
             self.admission.set_inflight(
                 sum(len(st.proposals)
                     for st in self.active.values()))
+        # Per-region serving health: commits this drain and the
+        # running rejected/shed delta, labeled with this leader's zone.
+        metrics = self.transport.runtime_metrics
+        if metrics is not None:
+            region = self.config.zones[self.zone]
+            if commits:
+                metrics.region_goodput(region, commits)
+            if self.admission is not None:
+                total = sum(self.admission.rejected.values())
+                delta = total - self._rejected_exported
+                if delta:
+                    metrics.region_shed(region, delta)
+                    self._rejected_exported = total
 
     def _record_chosen(self, group: int, slot: int, value) -> None:
         self.chosen[group][slot] = value

@@ -74,8 +74,8 @@ class Actor(abc.ABC):
     # the parsed descriptor to ``handler(src, parsed)`` with normal
     # handler semantics -- no per-message objects in between. The
     # parsed object must expose ``count`` (messages represented) for
-    # drain bookkeeping. Sinks would be bypassed under a tracer (not
-    # ported yet, ROADMAP.md queue 1 item 8.5) -- and role-level
+    # drain bookkeeping. Sinks are bypassed whenever a tracer is
+    # attached (per-message span semantics win) -- and role-level
     # admission is the SINK's job: the transport's client-lane inbox
     # shed does not see sink frames.
     wire_sinks = None
@@ -151,9 +151,11 @@ class Actor(abc.ABC):
         self.transport.flush(self.address, dst)
 
     def trace_stage(self, name: str):
-        """A drain-stage scope (obs/trace.py): times ``name`` into the
-        transport's runtime drain-stage histogram when one is attached;
-        a shared no-op otherwise."""
+        """A drain-stage scope (obs/trace.py): times ``name`` as a
+        sub-span of the current trace and/or an observation into the
+        runtime drain-stage histogram, whichever sinks are attached to
+        the transport; a shared no-op otherwise. The canonical stages
+        are decode, handler, quorum-kernel, wal-fsync, send-release."""
         transport = self.transport
         return stage_scope(transport.tracer, transport.runtime_metrics,
                            name)

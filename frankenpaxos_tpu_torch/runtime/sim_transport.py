@@ -32,9 +32,13 @@ A destination whose actor carries an admission controller with an
 inbox capacity (``serve/admission.py``) gets a bounded client-lane
 inbox: client-lane frames (``serve/lanes.py``) count against the bound
 and are refused ("reject": the client gets a ``Rejected``) or shed
-oldest-first ("drop"); control-lane frames always buffer. Not ported
-yet, and refused: tracing spans (ROADMAP.md queue 1 item 8.5); a
-transport with a tracer is refused.
+oldest-first ("drop"); control-lane frames always buffer.
+
+With a tracer attached (``obs.Tracer``) every delivery is a receive span
+(decode and handler stages inside it) parented by the context the frame
+carried from its send (``SimMessage.trace``), every timer fire a timer
+span and every ``on_drain`` a drain span; the wave engine then delivers
+message by message, so the span structure is the per-message path's.
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ class SimMessage:
     src: Address
     dst: Address
     data: bytes
+    # paxtrace: the frame-layer trace context (obs.TraceContext) --
+    # the sim analog of the TCP frame header's ``|ctx`` suffix. None
+    # whenever no tracer is attached or no context was active at send.
+    trace: object = None
 
 
 class SimTimer(Timer):
@@ -205,7 +213,9 @@ class SimTransport(Transport):
             if not verdict:
                 return
             tracked = verdict == "track"
-        message = SimMessage(next(self._ids), src, dst, data)
+        tracer = self.tracer
+        trace = tracer.current if tracer is not None else None
+        message = SimMessage(next(self._ids), src, dst, data, trace)
         self.messages.append(message)
         if tracked:
             self._client_inbox.setdefault(dst, deque()).append(message)
@@ -278,7 +288,7 @@ class SimTransport(Transport):
                 message, admission.retry_after_ms(), REASON_QUEUE):
             self.messages.append(SimMessage(
                 next(self._ids), dst, client,
-                DEFAULT_SERIALIZER.to_bytes(reply)))
+                DEFAULT_SERIALIZER.to_bytes(reply), None))
 
     def send_no_flush(self, src: Address, dst: Address, data: bytes) -> None:
         self.send(src, dst, data)
@@ -304,14 +314,12 @@ class SimTransport(Transport):
             self._drain(actor)
 
     def _drain(self, actor: Actor) -> None:
-        self._check_untraced()
-        actor.on_drain()
-
-    def _check_untraced(self) -> None:
-        if self.tracer is not None:
-            raise NotImplementedError(
-                "tracing spans are not ported yet (ROADMAP.md queue 1 "
-                "item 8.5, obs/trace.py Tracer)")
+        tracer = self.tracer
+        if tracer is None:
+            actor.on_drain()
+            return
+        with tracer.drain_span(str(actor.address)):
+            actor.on_drain()
 
     # --- the buffer bookkeeping ------------------------------------------
     def _remove_buffered(self, message: SimMessage) -> bool:
@@ -370,8 +378,16 @@ class SimTransport(Transport):
         if actor is None:
             self.logger.warn(f"no actor registered at {message.dst}")
             return None
-        self._check_untraced()
-        actor.receive(message.src, actor.serializer.from_bytes(message.data))
+        tracer = self.tracer
+        if tracer is None:
+            actor.receive(message.src,
+                          actor.serializer.from_bytes(message.data))
+            return actor
+        # Traced delivery: decode and handler run as drain-stage
+        # sub-spans of the per-message receive span, which is parented
+        # by the frame's propagated context (message.trace).
+        self._traced_receive(actor, message)
+        return actor
         return actor
 
     def trigger_timer(self, timer_id: int) -> None:
@@ -384,8 +400,12 @@ class SimTransport(Transport):
         if self.record_history:
             self.history.append(
                 TriggerTimer(timer.address, timer.name, timer_id))
-        self._check_untraced()
-        timer.run()
+        tracer = self.tracer
+        if tracer is None:
+            timer.run()
+            return
+        with tracer.timer_span(str(timer.address), timer.name):
+            timer.run()
 
     def run_command(self, command: SimCommand) -> None:
         if isinstance(command, DeliverMessage):
@@ -538,10 +558,10 @@ class SimTransport(Transport):
         construction."""
         keep = self._wave_keep_mask(wave)
         check = self._per_message_check() if keep is None else None
-        self._check_untraced()
         actors = self.actors
         record = self.record_history
         history = self.history
+        tracer = self.tracer
         touched: dict[int, Actor] = {}
         delivered = 0
         inbox = bool(self._inbox_policies)
@@ -578,7 +598,11 @@ class SimTransport(Transport):
                 self.logger.warn(f"no actor registered at {dst}")
                 i += 1
                 continue
-            if (coalesce and type(actor).receive_batch
+            if tracer is not None:
+                self._traced_receive(actor, message)
+                delivered += 1
+                i += 1
+            elif (coalesce and type(actor).receive_batch
                     is not Actor.receive_batch):
                 j = i + 1
                 while (j < n and wave[j].dst == dst
@@ -609,6 +633,20 @@ class SimTransport(Transport):
             for actor in touched.values():
                 self._drain(actor)
         return delivered
+
+    def _traced_receive(self, actor: Actor, message: SimMessage) -> None:
+        """Per-message traced delivery: the wave engine never groups
+        under a tracer, so span structure matches the per-message path
+        byte for byte."""
+        tracer = self.tracer
+        span = tracer.receive_span(str(message.dst), "?", message.trace)
+        with span:
+            with tracer.stage("decode"):
+                decoded = actor.serializer.from_bytes(message.data)
+            span.name = (f"receive:{type(decoded).__name__}"
+                         f"@{message.dst}")
+            with tracer.stage("handler"):
+                actor.receive(message.src, decoded)
 
     def _note_inbox_delivery(self, message: SimMessage) -> None:
         """Bounded-inbox accounting for one frame that left the buffer
@@ -650,6 +688,8 @@ class SimTransport(Transport):
         restarted actor, whose durable state must make that safe -- or
         drop as 'no actor registered' if nothing does. The restart is
         the harness's job."""
+        if self.tracer is not None:
+            self.tracer.event(f"crash {address}")
         self.actors.pop(address, None)
         # The bounded-inbox policy dies with its controller; the
         # restarted actor's register() re-attaches (and recomputes the

@@ -38,18 +38,23 @@ batch frames back into their original messages before delivery, so
 actors see per-message semantics unchanged.
 
 The frame format is the reference's, byte for byte, so a port process
-and a JAX process talk over one socket. A frame header may carry a
-trace context (``host:port|<ctx>``, from a traced JAX sender); it
-parses and the context is ignored, since the port has no tracer yet.
-An actor's admission controller (``serve/admission.py``) gets inbound
-client-lane shedding at delivery (a bounded inbox per drain, CoDel's
-drain delay); an actor's ingest wire sinks (``Actor.wire_sinks``) take
-whole undecoded payloads by their leading tag. Not ported yet, and
-refused: a tracer (ROADMAP.md queue 1 item 8.5).
+and a JAX process talk over one socket. With a tracer attached
+(``obs.Tracer``) a frame header carries the sender's trace context
+(``host:port|<ctx>``; on a batch frame the one header covers every
+segment), and the receiver opens a receive span parented by it (a
+decode stage recorded after the fact, a handler stage inside), a span
+per timer fire and per ``on_drain``. An actor's admission controller
+(``serve/admission.py``) gets inbound client-lane shedding at delivery
+(a bounded inbox per drain, CoDel's drain delay); an actor's ingest wire
+sinks (``Actor.wire_sinks``) take whole undecoded payloads by their
+leading tag, except under a tracer, where every message is delivered
+(and spanned) on its own.
 The reference's link-fault seam (``link_faults``) comes with its chaos
-harness (item 11).
-The runtime-metrics sink gets the drain stages (``observe_stage``); the
-transport's own counters are the ``stat_*`` attributes.
+harness (ROADMAP.md queue 1 item 11).
+An attached ``obs.RuntimeMetrics`` gets the drain stages, the drain
+batch depth, the outbound buffer's high-water mark and stalls, and the
+batched flushes; the transport's own counters are the ``stat_*``
+attributes.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from frankenpaxos_tpu_torch.obs.trace import TraceContext
 from frankenpaxos_tpu_torch.runtime import paxwire
 from frankenpaxos_tpu_torch.runtime.actor import Actor
 from frankenpaxos_tpu_torch.runtime.logger import Logger, PrintLogger
@@ -83,14 +89,23 @@ def _get_frame_lane():
     return _frame_lane_fn
 
 
-def _encode_frame(src: Address, data: bytes) -> bytes:
+def _encode_frame(src: Address, data: bytes,
+                  ctx: "Optional[TraceContext]" = None) -> bytes:
     # The framing hot path runs through the native C++ codec when built
     # (frankenpaxos_tpu_torch/native/codec.cpp), with an identical
     # pure-Python fallback inside `native.encode_frame`.
     from frankenpaxos_tpu_torch import native
 
     host, port = src
-    return native.encode_frame(f"{host}:{port}".encode(), data)
+    # paxtrace: the trace context rides the FRAME HEADER
+    # (``host:port|<ctx>``), never the message codecs -- the wire tag
+    # space 1..127 is fully allocated, and the header reaches every
+    # protocol uniformly. Receivers without a "|" parse unchanged.
+    if ctx is None:
+        header = f"{host}:{port}".encode()
+    else:
+        header = f"{host}:{port}|{ctx.encode()}".encode()
+    return native.encode_frame(header, data)
 
 
 class TcpTimer(Timer):
@@ -130,9 +145,13 @@ class TcpTimer(Timer):
 
     def _fire(self) -> None:
         self._handle = None
-        if self._transport is not None:
-            self._transport._check_untraced()
-        self._f()
+        tracer = (self._transport.tracer
+                  if self._transport is not None else None)
+        if tracer is None:
+            self._f()
+            return
+        with tracer.timer_span(str(self._address), self._name):
+            self._f()
 
 
 class _Conn:
@@ -150,17 +169,25 @@ class _Conn:
     per-frame arm (``batching=False``) stores the fully encoded frame
     in ``payload`` with ``header=None``."""
 
-    __slots__ = ("writer", "pending", "pending_bytes", "connecting",
-                 "header0")
+    __slots__ = ("writer", "pending", "pending_bytes", "hwm_reported",
+                 "connecting", "header0", "headers")
 
     def __init__(self):
         self.writer: Optional[asyncio.StreamWriter] = None
         self.pending: list = []
         self.pending_bytes = 0
+        # Largest pending_bytes already pushed to the HWM gauge: the
+        # gauge is only touched when this connection sets a NEW
+        # high-water mark, keeping the per-frame cost to one int
+        # compare.
+        self.hwm_reported = 0
         self.connecting = False
-        # The encoded frame header, cached per connection: the per-send
-        # f-string format + encode was measurable at batched rates.
+        # Encoded frame headers, cached per connection: the no-context
+        # header (the common case) directly, traced headers by context
+        # -- the per-send f-string format + encode was measurable at
+        # batched rates.
         self.header0: Optional[bytes] = None
+        self.headers: dict = {}
 
 
 class TcpTransport(Transport):
@@ -214,6 +241,7 @@ class TcpTransport(Transport):
         #: Payloads a wire sink took whole, and the messages they held.
         self.stat_sink_frames = 0
         self.stat_sink_messages = 0
+        self._batch_depth: dict = {}  # messages in the current drain
         # CLIENT-lane messages in the current drain batch -- the
         # bounded-inbox measure (serve/lanes.py): only client frames
         # may count against (or be shed by) admission_inbox_capacity;
@@ -226,7 +254,6 @@ class TcpTransport(Transport):
     # --- lifecycle --------------------------------------------------------
     async def serve(self) -> None:
         """Bind (if a listen address was given) and run until cancelled."""
-        self._check_untraced()
         self.loop = asyncio.get_running_loop()
         if self.listen_address is not None:
             await self._bind(self.listen_address)
@@ -251,7 +278,6 @@ class TcpTransport(Transport):
 
     def start(self) -> None:
         """Spawn the event loop on a daemon thread and wait until bound."""
-        self._check_untraced()
         def runner():
             try:
                 asyncio.run(self.serve())
@@ -364,12 +390,15 @@ class TcpTransport(Transport):
                     f"payload {end - start - 4}")
             header = bytes(
                 buf[start + 4:start + 4 + hlen]).decode()
-            # ``host:port|<ctx>`` -- the address part first, then an
-            # optional trace context from a traced sender, which this
-            # untraced receiver ignores.
-            addr_part = header.partition("|")[0]
+            # paxtrace: ``host:port|<ctx>`` -- the address part first,
+            # then the optional frame-layer trace context. On a batch
+            # frame this ONE header (context included) covers every
+            # expanded segment.
+            addr_part, _, trace_part = header.partition("|")
             host, _, port = addr_part.rpartition(":")
             src: Address = (host, int(port))
+            ctx = (TraceContext.decode(trace_part)
+                   if trace_part else None)
             data = bytes(buf[start + 4 + hlen:end])
             # The frame's actor, resolved ONCE (decode below reuses it,
             # so the wire-sink check costs one attribute test net).
@@ -402,9 +431,19 @@ class TcpTransport(Transport):
             else:
                 segments = (data,)
             deliveries = []
+            tracer = self.tracer
             for segment in segments:
-                if metrics is not None:
-                    # The drain-stage histogram sees EVERY decode.
+                if tracer is not None and ctx is not None \
+                        and ctx.sampled:
+                    m0 = tracer.mono()
+                    delivery = self._decode(local, src, segment,
+                                            actor)
+                    if delivery is not None:
+                        tracer.record_stage("decode", m0, ctx)
+                elif metrics is not None:
+                    # Unsampled (or context-less) frame with /metrics
+                    # on: the drain-stage histogram still sees EVERY
+                    # decode -- sampling must not starve it.
                     p0 = time.perf_counter()
                     delivery = self._decode(local, src, segment,
                                             actor)
@@ -429,10 +468,11 @@ class TcpTransport(Transport):
             self.stat_sink_messages += parsed.count
             # The client-lane bounded-inbox measure is NOT fed:
             # admission at sink granularity is the sink handler's job.
+            self._note_batch(actor, parsed.count)
             self._schedule_drain(actor)
             return True
         for delivery in deliveries:
-            self._deliver(*delivery)
+            self._deliver(*delivery, ctx)
         return True
 
     def _actor_for(self, local: Address):
@@ -458,21 +498,35 @@ class TcpTransport(Transport):
             return None
         return actor, src, actor.serializer.from_bytes(data)
 
-    def _deliver(self, actor: Actor, src: Address, message) -> None:
+    def _note_batch(self, actor: Actor, n: int) -> None:
+        """Drain batch-depth accounting (the runtime metrics' inbound
+        queue depth) for ``n`` delivered messages' worth of work."""
+        if self.runtime_metrics is not None:
+            self._batch_depth[actor] = self._batch_depth.get(actor, 0) + n
+
+    def _deliver(self, actor: Actor, src: Address, message,
+                 ctx: "Optional[TraceContext]" = None) -> None:
         expand = getattr(message, "__wire_expand__", None)
         if expand is not None:
             # A coalesced wire envelope (paxwire): flatten back into
-            # the messages the sender queued -- admission and the
-            # protocol handlers see per-message semantics.
+            # the messages the sender queued -- admission, tracing and
+            # the protocol handlers see per-message semantics.
             for inner in expand(actor.serializer):
-                self._deliver(actor, src, inner)
+                self._deliver(actor, src, inner, ctx)
             return
         admission = actor.admission
         if admission is not None and self._shed_inbound(actor, admission,
                                                         message):
             return
+        tracer = self.tracer
         metrics = self.runtime_metrics
-        if metrics is not None:
+        if tracer is not None:
+            span = tracer.receive_span(
+                str(actor.address), type(message).__name__, ctx)
+            with span:
+                with tracer.stage("handler"):
+                    actor.receive(src, message)
+        elif metrics is not None:
             # The handler stage (usually the largest) reaches the
             # drain-stage histogram like every other stage.
             p0 = time.perf_counter()
@@ -480,6 +534,7 @@ class TcpTransport(Transport):
             metrics.observe_stage("handler", time.perf_counter() - p0)
         else:
             actor.receive(src, message)
+        self._note_batch(actor, 1)
         if admission is not None and admission.options.inbox_capacity:
             from frankenpaxos_tpu_torch.serve.lanes import (
                 LANE_CLIENT,
@@ -546,8 +601,15 @@ class TcpTransport(Transport):
     def _drain_actor(self, actor: Actor) -> None:
         self._drain_scheduled.discard(actor)
         client_depth = self._client_batch_depth.pop(actor, 0)
-        self._check_untraced()
-        actor.on_drain()
+        depth = self._batch_depth.pop(actor, 0)
+        if self.runtime_metrics is not None:
+            self.runtime_metrics.observe_batch(depth)
+        tracer = self.tracer
+        if tracer is None:
+            actor.on_drain()
+        else:
+            with tracer.drain_span(str(actor.address)):
+                actor.on_drain()
         admission = actor.admission
         if admission is not None:
             t0 = self._batch_t0.pop(actor, None)
@@ -558,12 +620,6 @@ class TcpTransport(Transport):
             # batch -- a healthy Phase2b burst must not read as a
             # client inbox spike (SimTransport reports the same).
             admission.note_inbox_depth(client_depth)
-
-    def _check_untraced(self) -> None:
-        if self.tracer is not None:
-            raise NotImplementedError(
-                "tracing spans are not ported yet (ROADMAP.md queue 1 "
-                "item 8.5, obs/trace.py Tracer)")
 
     def listen_on(self, address: Address) -> None:
         """Bind a listener for ``address`` ahead of actor registration
@@ -608,18 +664,30 @@ class TcpTransport(Transport):
             self._conns[key] = conn
         return conn
 
-    def _header_for(self, conn: _Conn, src: Address) -> bytes:
-        """The frame header bytes (``host:port``), cached per
-        connection -- the per-send f-string format + encode was
-        measurable at batched rates."""
-        header = conn.header0
+    def _header_for(self, conn: _Conn, src: Address,
+                    ctx: "Optional[TraceContext]") -> bytes:
+        """The frame header bytes (``host:port`` or
+        ``host:port|<ctx>``), cached per connection -- the per-send
+        f-string format + encode was measurable at batched rates."""
+        if ctx is None:
+            header = conn.header0
+            if header is None:
+                host, port = src
+                header = conn.header0 = f"{host}:{port}".encode()
+            return header
+        key = (ctx.trace_id, ctx.span_id, ctx.sampled)
+        header = conn.headers.get(key)
         if header is None:
             host, port = src
-            header = conn.header0 = f"{host}:{port}".encode()
+            header = f"{host}:{port}|{ctx.encode()}".encode()
+            if len(conn.headers) > 256:  # sampled-trace churn bound
+                conn.headers.clear()
+            conn.headers[key] = header
         return header
 
     def _write(self, src: Address, dst: Address, data: bytes,
-               flush: bool) -> None:
+               flush: bool,
+               ctx: "Optional[TraceContext]" = None) -> None:
         assert self.loop is not None, "transport not started"
         conn = self._conn_for(src, dst)
         if conn.writer is not None and conn.writer.is_closing():
@@ -635,7 +703,7 @@ class TcpTransport(Transport):
             conn.writer = None
         lane = _get_frame_lane()(data)
         if self.batching:
-            header = self._header_for(conn, src)
+            header = self._header_for(conn, src, ctx)
             if 4 + len(header) + len(data) > MAX_FRAME:
                 # Same cap the receiver enforces -- but _write runs as
                 # a loop callback (or inline inside a handler's send),
@@ -644,6 +712,9 @@ class TcpTransport(Transport):
                 # with a count is the documented at-most-once behavior
                 # for an unsendable frame.
                 self.stat_outbound_dropped += 1
+                metrics = self.runtime_metrics
+                if metrics is not None:
+                    metrics.outbound_stall(1)
                 self.logger.error(
                     f"dropping {len(data)}-byte message to {dst}: "
                     f"frame exceeds the 10 MiB cap")
@@ -651,13 +722,21 @@ class TcpTransport(Transport):
             size = 12 + len(header) + len(data)
             conn.pending.append((header, data, lane, size))
         else:
-            frame = _encode_frame(src, data)
+            frame = _encode_frame(src, data, ctx)
             size = len(frame)
             conn.pending.append((None, frame, lane, size))
         conn.pending_bytes += size
+        if conn.pending_bytes > conn.hwm_reported:
+            conn.hwm_reported = conn.pending_bytes
+            metrics = self.runtime_metrics
+            if metrics is not None:
+                metrics.outbound_buffer_hwm(conn.pending_bytes)
         if conn.pending_bytes > self.outbound_buffer_cap:
             dropped = self._shed_outbound(conn)
             self.stat_outbound_dropped += dropped
+            metrics = self.runtime_metrics
+            if metrics is not None:
+                metrics.outbound_stall(dropped)
             self.logger.warn(
                 f"outbound buffer to {dst} over "
                 f"{self.outbound_buffer_cap} bytes; dropped {dropped} "
@@ -763,6 +842,11 @@ class TcpTransport(Transport):
         self.stat_frames += plan.frames
         self.stat_batch_bytes += plan.nbytes
         self.stat_coalesced_acks += plan.coalesced_acks
+        metrics = self.runtime_metrics
+        if metrics is not None:
+            metrics.transport_flush(plan.frames, plan.nbytes)
+            if plan.coalesced_acks:
+                metrics.transport_coalesced_acks(plan.coalesced_acks)
         try:
             if not self._writev(writer, plan.segments):
                 writer.write(b"".join(plan.segments))
@@ -825,13 +909,22 @@ class TcpTransport(Transport):
             return True
         return True
 
+    def _send_ctx(self) -> "Optional[TraceContext]":
+        """The trace context to stamp on an outbound frame: captured at
+        the SEND CALL (the caller's active span), not when the deferred
+        write runs on the loop."""
+        tracer = self.tracer
+        return tracer.current if tracer is not None else None
+
     def send(self, src: Address, dst: Address, data: bytes) -> None:
+        ctx = self._send_ctx()
         self._call_on_loop(
-            lambda: self._write(src, dst, data, flush=True))
+            lambda: self._write(src, dst, data, flush=True, ctx=ctx))
 
     def send_no_flush(self, src: Address, dst: Address, data: bytes) -> None:
+        ctx = self._send_ctx()
         self._call_on_loop(
-            lambda: self._write(src, dst, data, flush=False))
+            lambda: self._write(src, dst, data, flush=False, ctx=ctx))
 
     def flush(self, src: Address, dst: Address) -> None:
         if self.batching:

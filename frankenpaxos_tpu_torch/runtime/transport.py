@@ -63,10 +63,12 @@ class Transport(abc.ABC):
     # everything must stay synchronous.
     threaded: bool = False
 
-    # An attached runtime-metrics sink (any object with
-    # ``observe_stage(name, seconds)``) times the actors' drain stages
-    # (``Actor.trace_stage``). A tracer is not ported yet: it must stay
-    # None (obs/trace.py refuses one).
+    # paxtrace (obs/): an attached obs.Tracer makes the transport emit
+    # receive/timer/drain spans and propagate trace contexts at the
+    # frame layer; an attached obs.RuntimeMetrics feeds the
+    # drain-granular runtime metrics (stage histograms, queue depth).
+    # None (the default) keeps every hook to one attribute load + an
+    # ``is None`` test.
     tracer = None
     runtime_metrics = None
 

@@ -108,10 +108,12 @@ def test_imports_with_jax_and_reference_blocked():
 #: of the sharded drain (the mesh, the rank worker that spawned ranks
 #: import, its bench and the lane router), of the sharded vote board
 #: (its rank cases), of the WAL and the reconfiguration wire codecs
-#: with the reconfigured cluster's bench, and of admission control and
-#: the ingest fabric (the serving tier, the ingest plane, the routing
-#: ladder, the TCP transport and the supernode); each must import with
-#: JAX and the JAX package blocked (test above) and name neither.
+#: with the reconfigured cluster's bench, of admission control and the
+#: ingest fabric (the serving tier, the ingest plane, the routing ladder,
+#: the TCP transport and the supernode), and of the read batchers, the
+#: adaptive deadlines and the tracer (with their benches and the echo
+#: protocol); each must import with JAX and the JAX package blocked
+#: (test above) and name neither.
 PATH_MODULES = (
     "ops.quorum", "runtime.transport", "protocols.multipaxos.config",
     "protocols.multipaxos.quorum_tracker", "reconfig.epoch",
@@ -145,7 +147,10 @@ PATH_MODULES = (
     "ingest.messages", "ingest.wire", "ingest.columns", "ingest.fan",
     "ingest.batcher", "runs.routing", "runs.client",
     "runtime.tcp_transport", "protocols.multipaxos.supernode",
-    "bench.transport_lt",
+    "bench.transport_lt", "protocols.multipaxos.read_batcher",
+    "bench.read_batch_sim", "election.basic", "election.raft", "heartbeat",
+    "obs", "obs.trace", "obs.flight", "obs.perfetto", "obs.__main__",
+    "protocols.echo", "bench.traced_tcp",
 )
 
 

@@ -299,20 +299,21 @@ def test_simulation_round_churn_no_divergence(backend, device):
     assert failure is None, str(failure)
 
 
-def test_adaptive_deadlines_are_refused():
-    """The reference's adaptive heartbeat and election deadlines are not
-    ported: asking for them raises, naming the roadmap item."""
+def test_adaptive_deadlines_are_built():
+    """The adaptive Raft election deadline and heartbeat deadlines run:
+    a leader built with an adaptive election keeps a gap estimator, and
+    an adaptive heartbeat participant one RTT estimator a peer."""
     logger = FakeLogger(LogLevel.FATAL)
     transport = SimTransport(logger)
     config = _config(RoundZeroFast(2))
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        pfmp.FastMultiPaxosLeader(
-            "leader-0", transport, logger, config, AppendLog(),
-            election_options=RaftElectionOptions(adaptive=True))
+    leader = pfmp.FastMultiPaxosLeader(
+        "leader-0", transport, logger, config, AppendLog(),
+        election_options=RaftElectionOptions(adaptive=True))
+    assert leader.election._gap_estimator is not None
     from frankenpaxos_tpu_torch.heartbeat import HeartbeatParticipant
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        HeartbeatParticipant("hb", transport, logger, ["hb"],
-                             HeartbeatOptions(adaptive=True))
+    participant = HeartbeatParticipant("hb", transport, logger, ["hb", "p"],
+                                       HeartbeatOptions(adaptive=True))
+    assert len(participant.rtt_estimators) == 2
 
 
 # --- (b) the JAX cluster and the port's ------------------------------------------

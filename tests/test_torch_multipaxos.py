@@ -1,7 +1,7 @@
 """The port's MultiPaxos cluster vs the JAX package's.
 
 (a) The cases of ``tests/protocols/test_multipaxos.py`` that use no WAL,
-admission, ingest fabric, read batchers or property simulator, repeated
+admission, ingest fabric or property simulator, repeated
 against the port's harness, with ``quorum_backend="cuda"`` and
 ``phase1_backend="cuda"`` on ``device="cpu"`` (the plain versions of
 K1, K2, K4, K5 and K8) where the reference used ``"tpu"``.
@@ -13,8 +13,8 @@ lists in both packages, ties included, on both backends.
 (d) The reference's ``MultiPaxosSimulated`` property on the port's
 ``Simulator``, at its eight parametrisations and sizes, and its tpu case
 on the cuda backend with ``device="cpu"``.
-Plus the refusals of what is not ported, and the cluster bench end to
-end at a small size.
+Plus the read batchers' messages at their roles, and the cluster bench
+end to end at a small size.
 """
 
 import random
@@ -47,6 +47,9 @@ from frankenpaxos_tpu_torch.reconfig import (
     Reconfigure,
 )
 from frankenpaxos_tpu_torch.runtime import FakeLogger, PickleSerializer
+from frankenpaxos_tpu_torch.runtime.serializer import (
+    DEFAULT_SERIALIZER as SER_WIRE,
+)
 from frankenpaxos_tpu_torch.sim import SimulatedSystem, Simulator
 from frankenpaxos_tpu_torch.statemachine import (
     GetRequest,
@@ -911,9 +914,9 @@ def test_cuda_backends_raise_without_a_gpu(monkeypatch):
 
 
 def test_unported_options_are_refused():
-    """The geo election stays refused; the WAL, the reconfiguration and
-    the admission options build (each role on a transport of its own),
-    and an armed admission option gives the role its controller."""
+    """The WAL, the reconfiguration, the admission and the adaptive
+    election options build (each role on a transport of its own), and an
+    armed admission option gives the role its controller."""
     from frankenpaxos_tpu_torch.runtime import SimTransport
     from frankenpaxos_tpu_torch.wal import MemStorage, Wal
 
@@ -943,9 +946,9 @@ def test_unported_options_are_refused():
     with pytest.raises(ValueError, match="epoch_backend"):
         ProxyLeader("proxy-leader-0", t, log, cfg,
                     ProxyLeaderOptions(epoch_backend="tpu"))
-    with pytest.raises(NotImplementedError, match="geo"):
-        ElectionParticipant("election-x", t, log, ["election-x"],
-                            options=ElectionOptions(adaptive=True))
+    adaptive = ElectionParticipant("election-x", t, log, ["election-x"],
+                                   options=ElectionOptions(adaptive=True))
+    assert adaptive._gap_estimator is not None
 
 
 def _outcome(role, message):
@@ -987,20 +990,29 @@ def test_reconfiguration_messages_are_handled_as_the_reference(message):
     assert any(o[0] == "ok" for o in outcomes[0])
 
 
-def test_read_batcher_paths_are_refused():
-    sim = make_multipaxos(f=1)
-    with pytest.raises(NotImplementedError, match="read batchers"):
-        sim.acceptors[0].receive("rb", tm.BatchMaxSlotRequest(0, 0))
-    with pytest.raises(NotImplementedError, match="read batchers"):
-        sim.replicas[0].receive("rb", tm.ReadRequestBatch(0, ()))
-    import dataclasses
-
-    sim.clients[0].config = dataclasses.replace(
-        sim.config, read_batcher_addresses=["read-batcher-0"])
-    with pytest.raises(NotImplementedError, match="read batchers"):
-        sim.clients[0].read(0, b"r")
-    # Writes through ingest batchers are ported: a client of a config
-    # that deploys them routes its write to one of them.
+def test_read_batcher_paths_run():
+    """The read batchers' messages reach their roles: an acceptor
+    answers a BatchMaxSlotRequest with its max voted slot, a replica
+    answers a ReadRequestBatch, and a client of a deployment with read
+    batchers sends its linearizable read to one of them. Writes through
+    ingest batchers go to one of those."""
+    sim = make_multipaxos(f=1, num_read_batchers=2)
+    acceptor = sim.acceptors[0]
+    sim.transport.messages.clear()
+    acceptor.receive("read-batcher-1", tm.BatchMaxSlotRequest(1, 7))
+    reply = SER_WIRE.from_bytes(sim.transport.messages[-1].data)
+    assert reply == tm.BatchMaxSlotReply(
+        read_batcher_index=1, read_batcher_id=7,
+        group_index=acceptor.group_index, acceptor_index=acceptor.index,
+        slot=acceptor.max_voted_slot)
+    replica = sim.replicas[0]
+    command = tm.Command(tm.CommandId(sim.clients[0].address, 0, 0), b"r")
+    sim.transport.messages.clear()
+    replica.receive("read-batcher-0", tm.ReadRequestBatch(-1, (command,)))
+    assert sim.transport.messages
+    sim.clients[0].read(1, b"r")
+    assert sim.transport.messages[-1].dst in \
+        sim.config.read_batcher_addresses
     sim = make_multipaxos(f=1, num_ingest_batchers=2)
     sim.clients[0].write(1, b"w")
     assert sim.transport.messages[-1].dst in sim.config.ingest_batcher_addresses

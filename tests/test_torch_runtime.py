@@ -385,14 +385,32 @@ class TestUnported:
             pass
         assert seen == ["quorum-kernel"]
 
-    def test_tracer_is_refused(self):
+    def test_traced_echo_records_spans(self):
+        """A tracer on the SimTransport: each delivery is a receive span
+        with decode and handler stages, the reply's frame carries the
+        server handler's context, and ``trace_stage`` opens a sub-span
+        of the current span."""
+        from frankenpaxos_tpu_torch.obs import Tracer, VirtualClock
+
         transport, server, client = make_echo()
-        transport.tracer = object()
+        tracer = Tracer(role="sim", clock=VirtualClock())
+        transport.tracer = tracer
         client.echo("x")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transport.deliver_all()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            server.trace_stage("handler")
+        transport.deliver_all()
+        receives = [s for s in tracer.spans if s.cat == "receive"]
+        assert [s.name for s in receives] == [
+            "receive:EchoRequest@server", "receive:EchoReply@client"]
+        assert receives[0].parent_id == 0
+        handler = next(s for s in tracer.spans if s.name == "stage:handler"
+                       and s.parent_id == receives[0].span_id)
+        assert receives[1].parent_id == handler.span_id
+        assert receives[1].trace_id == receives[0].trace_id
+        with tracer.receive_span("server", "M", None) as span:
+            with server.trace_stage("quorum-kernel"):
+                pass
+        stage = tracer.spans[-2]
+        assert stage.name == "stage:quorum-kernel"
+        assert stage.parent_id == span.ctx.span_id
 
     def test_pickle_serializer_round_trips(self):
         ser = PickleSerializer()

@@ -3,13 +3,12 @@ admission control, priority lanes, backoff, bounded inboxes and the
 client retry discipline -- unit tests plus sim round-trips over the
 port's MultiPaxos pipeline -- and their parity with the JAX package.
 
-Left out, each with its item: the Mencius leader's admission
-(ROADMAP.md queue 1 item 9) and the two read-batch cases (item 8.3);
-a refusal test per item stands in for them. Added: parity with the
-JAX package on the same inputs -- the ``Rejected`` codec bytes for
-every reason, ``reject_replies_for`` on every request shape, and the
-``AdmissionController``'s decisions under one seeded clock script --
-and the sim round-trips again with the cuda backends on the CPU.
+Left out: the Mencius leader's admission (ROADMAP.md queue 1 item 9).
+Added: parity with the JAX package on the same inputs -- the
+``Rejected`` codec bytes for every reason, ``reject_replies_for`` on
+every request shape, and the ``AdmissionController``'s decisions under
+one seeded clock script -- and the sim round-trips again with the cuda
+backends on the CPU.
 """
 
 from __future__ import annotations
@@ -583,11 +582,17 @@ def test_sim_timer_registry_holds_running_timers_only():
 # --- what stays refused ---------------------------------------------------
 
 
-def test_batched_reads_stay_refused_naming_their_item():
+def test_batched_reads_are_answered():
+    """The three batch kinds of a read batcher reach the replica and are
+    answered, through its read admission: a ReadRequestBatch and a
+    SequentialReadRequestBatch at an executed slot and an
+    EventualReadRequestBatch, each command of each one replied to."""
     from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
         Command,
         CommandId,
         EventualReadRequestBatch,
+        ReadReply,
+        ReadReplyBatch,
         ReadRequestBatch,
         SequentialReadRequestBatch,
     )
@@ -597,12 +602,83 @@ def test_batched_reads_stay_refused_naming_their_item():
     replica = sim.replicas[0]
     replica.admission = AdmissionController(
         AdmissionOptions(inflight_limit=4), role="replica_test")
-    commands = (Command(CommandId(sim.clients[0].address, 0, 0), b"r"),)
-    for batch in (ReadRequestBatch(slot=0, commands=commands),
-                  SequentialReadRequestBatch(slot=0, commands=commands),
-                  EventualReadRequestBatch(commands=commands)):
-        with pytest.raises(NotImplementedError, match="item 8.3"):
-            replica.receive(sim.clients[0].address, batch)
+    client = sim.clients[0].address
+    for batch in (ReadRequestBatch(slot=-1, commands=(
+                      Command(CommandId(client, 0, 0), b"r"),)),
+                  SequentialReadRequestBatch(slot=-1, commands=(
+                      Command(CommandId(client, 1, 0), b"r"),)),
+                  EventualReadRequestBatch(commands=(
+                      Command(CommandId(client, 2, 0), b"r"),))):
+        sim.transport.messages.clear()
+        replica.receive(client, batch)
+        replies = [DEFAULT_SERIALIZER.from_bytes(m.data)
+                   for m in sim.transport.messages]
+        answered = [r.command_id.client_pseudonym for m in replies
+                    for r in (m.batch if isinstance(m, ReadReplyBatch)
+                              else (m,))
+                    if isinstance(r, ReadReply)]
+        assert answered == [batch.commands[0].command_id.client_pseudonym]
+    assert replica.admission.inflight == 0
+
+
+def test_read_batch_inflight_budget_binds_within_one_batch():
+    """Per-command resyncs from the (unchanged) deferred-read count
+    would erase admit()'s increments, so a single ReadRequestBatch would
+    admit every read no matter the limit."""
+    from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
+        Command,
+        CommandId,
+        ReadRequestBatch,
+    )
+
+    sim = make_multipaxos(f=1, coalesced=False)
+    sim.transport.deliver_all()
+    replica = sim.replicas[0]
+    replica.admission = AdmissionController(
+        AdmissionOptions(inflight_limit=4), role="replica_test")
+    commands = tuple(
+        Command(CommandId(sim.clients[0].address, i, 0), b"r")
+        for i in range(10))
+    # A future slot makes every admitted read DEFERRABLE.
+    replica._handle_read_request_batch(
+        sim.clients[0].address,
+        ReadRequestBatch(slot=replica.executed_watermark + 5,
+                         commands=commands))
+    assert replica._deferred_read_count == 4
+    assert replica.admission.rejected.get("inflight", 0) == 6
+    replica.admission.set_inflight(replica._deferred_read_count)
+    assert replica.admission.inflight == 4
+
+
+def test_eventual_read_batch_passes_read_admission():
+    """The batcher's EventualReadRequestBatch passes role admission and
+    the client lane like the single-message path: the refused suffix
+    gets explicit Rejected replies, and the batch settles back to a
+    zero backlog."""
+    assert "EventualReadRequestBatch" in lanes.CLIENT_LANE_TYPE_NAMES
+    assert "SequentialReadRequestBatch" in lanes.CLIENT_LANE_TYPE_NAMES
+    from frankenpaxos_tpu_torch.protocols.multipaxos.messages import (
+        Command,
+        CommandId,
+        EventualReadRequestBatch,
+    )
+
+    sim = make_multipaxos(f=1, coalesced=False)
+    sim.transport.deliver_all()
+    replica = sim.replicas[0]
+    replica.admission = AdmissionController(
+        AdmissionOptions(inflight_limit=4), role="replica_test")
+    commands = tuple(
+        Command(CommandId(sim.clients[0].address, i, 0), b"r")
+        for i in range(10))
+    replica.receive(sim.clients[0].address,
+                    EventualReadRequestBatch(commands=commands))
+    assert replica.admission.rejected.get("inflight", 0) == 6
+    rejects = [m for m in sim.transport.messages
+               if DEFAULT_SERIALIZER.from_bytes(m.data).__class__
+               is Rejected]
+    assert len(rejects) == 6
+    assert replica.admission.inflight == 0
 
 
 def test_unbatched_read_admission_rejects_past_the_deferred_budget():

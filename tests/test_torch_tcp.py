@@ -1,7 +1,7 @@
 """The port's TcpTransport and paxwire over real loopback sockets: the
 cases of ``tests/test_tcp_transport.py`` and ``tests/test_paxwire.py``
 repeated against the port (with test-local echo and append-log actors,
-as ``tests/test_torch_runtime.py`` has them), the tracer as a refusal,
+as ``tests/test_torch_runtime.py`` has them), a traced round trip,
 an actor's wire sinks and its bounded client-lane inbox, and interop with the JAX package's TcpTransport in
 both directions: MultiPaxos messages and batch frames arrive equal, and
 Phase2b ack streams coalesce into the same ranges.
@@ -315,23 +315,34 @@ def test_corrupt_frame_drops_connection_not_server(transports):
 # --- the refusals ------------------------------------------------------------
 
 
-def test_a_tracer_is_refused():
-    """The port has no tracer (ROADMAP.md queue 1 item 8.5): a transport
-    with one attached refuses to start, and refuses every drain and
-    timer it would run."""
-    t = TcpTransport(("127.0.0.1", free_port()), FakeLogger())
-    t.tracer = object()
-    with pytest.raises(NotImplementedError, match="item 8.5"):
-        t.start()
-    t.stop()
-    t = TcpTransport(("127.0.0.1", free_port()), FakeLogger())
-    t.start()
-    try:
-        t.tracer = object()
-        with pytest.raises(NotImplementedError, match="item 8.5"):
-            t._check_untraced()
-    finally:
-        t.stop()
+def test_a_traced_round_trip(transports):
+    """With a tracer on each transport, the echo's request roots a trace
+    at the server (its frame carried no context) and the reply's receive
+    at the client carries the same trace id in its frame header."""
+    from frankenpaxos_tpu_torch.obs import Tracer
+    from frankenpaxos_tpu_torch.protocols import echo
+
+    server_addr = ("127.0.0.1", free_port())
+    client_addr = ("127.0.0.1", free_port())
+    server_t = transports(server_addr)
+    client_t = transports(client_addr)
+    server_t.tracer = Tracer(role="server")
+    client_t.tracer = Tracer(role="client")
+    logger = FakeLogger()
+    echo.EchoServer(server_addr, server_t, logger)
+    client = echo.EchoClient(client_addr, client_t, logger, server_addr)
+    got = []
+    client_t.loop.call_soon_threadsafe(client.echo, "traced", got.append)
+    assert wait_for(lambda: got == ["traced"] and any(
+        s.cat == "drain" for s in client_t.tracer.spans))
+    server_recv = [s for s in server_t.tracer.spans if s.cat == "receive"]
+    client_recv = [s for s in client_t.tracer.spans if s.cat == "receive"]
+    assert server_recv and client_recv
+    assert server_recv[0].parent_id == 0
+    assert client_recv[0].trace_id == server_recv[0].trace_id
+    assert client_recv[0].parent_id != 0
+    assert {s.name for s in server_t.tracer.spans} >= {
+        "stage:handler", f"receive:EchoRequest@{server_addr}"}
 
 
 def test_wire_sink_takes_a_batch_frame_whole(transports):

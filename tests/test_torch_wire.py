@@ -76,6 +76,7 @@ def _ns(pkg: str) -> types.SimpleNamespace:
         fp=mod("protocols.fastpaxos"),
         fmp=mod("protocols.fastmultipaxos"),
         ingest=mod("ingest.messages"),
+        ec=mod("protocols.echo"),
     )
 
 
@@ -613,12 +614,26 @@ def fast_codec_samples(ns) -> list:
     ]
 
 
+def echo_codec_samples(ns) -> list:
+    """One message of each echo codec (tags 76-77)."""
+    return [ns.ec.EchoRequest("ping"), ns.ec.EchoReply("h\u00e9llo, echo")]
+
+
+def test_echo_codecs_are_the_references():
+    for port, ref in zip(echo_codec_samples(PORT), echo_codec_samples(REF)):
+        data = DEFAULT_SERIALIZER.to_bytes(port)
+        assert data == REF.ser.DEFAULT_SERIALIZER.to_bytes(ref)
+        assert data[0] in (76, 77)
+        assert DEFAULT_SERIALIZER.from_bytes(data) == port
+
+
 def _by_tag() -> dict:
     from tests import test_torch_matchmaker_wire as mw
 
     by_tag: dict = {}
     for message in codec_samples(PORT, cross=False) + \
-            fast_codec_samples(PORT) + mw.samples(mw.PORT):
+            fast_codec_samples(PORT) + mw.samples(mw.PORT) + \
+            echo_codec_samples(PORT):
         data = DEFAULT_SERIALIZER.to_bytes(message)
         tag = data[0] if data[0] else 128 + data[1]
         by_tag.setdefault(tag, message)
